@@ -1,0 +1,118 @@
+"""Carry the reference's state across into the port.
+
+The functions here take the JAX package's ``SimState``, ``PackedSimState``,
+``World`` and ``Topology`` as NamedTuples (or nested dicts) of **numpy
+arrays** — ``jax.tree.map(np.asarray, x)`` gives that — and return the
+port's tensors on a chosen device. This is the port's "weights carried
+across": a test makes the state once with the reference, converts it,
+and steps both. No JAX is imported here; bfloat16 and float8 arrays are
+read through their raw bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from consul_tpu_torch.models import layout, state as sim_state
+from consul_tpu_torch.ops import topology, vivaldi
+
+# numpy dtypes torch cannot read directly, by dtype name -> (raw-bit
+# numpy view, torch dtype to reinterpret the bits as).
+_BIT_VIEWS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+}
+
+
+def _get(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def tensor(arr, device="cpu", dtype=None) -> torch.Tensor:
+    """numpy array (any reference dtype) -> tensor; ``dtype`` widens it."""
+    arr = np.asarray(arr)
+    view = _BIT_VIEWS.get(arr.dtype.name)
+    if view is not None:
+        t = torch.from_numpy(np.array(arr, copy=True).view(view[0])).view(view[1])
+    else:
+        t = torch.from_numpy(np.array(arr, copy=True))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def bits(t: torch.Tensor) -> np.ndarray:
+    """Tensor -> numpy, with bfloat16/float8 as their raw bits (for
+    bit-for-bit comparison with the reference's arrays)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy()
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+def ref_bits(arr) -> np.ndarray:
+    """Reference numpy array -> numpy, bfloat16/float8 as raw bits."""
+    arr = np.asarray(arr)
+    view = _BIT_VIEWS.get(arr.dtype.name)
+    return arr.view(view[0]) if view is not None else arr
+
+
+def sim_state_from(src, device="cpu") -> sim_state.SimState:
+    """Reference dense SimState -> port SimState (ints widened to int64)."""
+    i64 = torch.int64
+    viv = _get(src, "viv")
+    ints = {f: tensor(_get(src, f), device, i64) for f in (
+        "t", "own_inc", "own_tx", "awareness", "probe_perm", "probe_ptr",
+        "next_probe_tick", "pending_col", "pending_fail_tick",
+        "pending_nack_miss", "view_key", "susp_start", "susp_seen", "tx_left",
+        "lat_cnt")}
+    bools = {f: tensor(_get(src, f), device, torch.bool) for f in (
+        "alive_truth", "left", "leaving", "external")}
+    return sim_state.SimState(
+        **ints, **bools,
+        lat_buf=tensor(_get(src, "lat_buf"), device, torch.float32),
+        viv=vivaldi.VivaldiState(
+            vec=tensor(_get(viv, "vec"), device, torch.float32),
+            height=tensor(_get(viv, "height"), device, torch.float32),
+            error=tensor(_get(viv, "error"), device, torch.float32),
+            adjustment=tensor(_get(viv, "adjustment"), device, torch.float32),
+            adj_samples=tensor(_get(viv, "adj_samples"), device, torch.float32),
+            adj_idx=tensor(_get(viv, "adj_idx"), device, i64),
+            resets=tensor(_get(viv, "resets"), device, i64),
+        ),
+    )
+
+
+def packed_state_from(src, device="cpu") -> layout.PackedSimState:
+    """Reference PackedSimState -> port PackedSimState, dtype for dtype."""
+    viv = _get(src, "viv")
+    return layout.PackedSimState(
+        *[tensor(_get(src, f), device) for f in layout.PackedSimState._fields[:-1]],
+        layout.PackedVivaldi(*[tensor(_get(viv, f), device)
+                               for f in layout.PackedVivaldi._fields]))
+
+
+def world_from(src, device="cpu") -> topology.World:
+    return topology.World(pos=tensor(_get(src, "pos"), device, torch.float32),
+                          height=tensor(_get(src, "height"), device, torch.float32))
+
+
+def topology_from(src, device="cpu") -> topology.Topology:
+    """Reference Topology -> port Topology (sparse tables rebuilt from the
+    offsets and checked against the reference's)."""
+    n, dense = int(_get(src, "n")), bool(_get(src, "dense"))
+    off = np.asarray(_get(src, "off"), dtype=np.int64)
+    if dense:
+        return topology.Topology(
+            n=n, dense=True, off=torch.as_tensor(off, device=device),
+            rcol=None, inv=None, off_host=tuple(int(x) for x in off))
+    topo = topology.topology_from_offsets(n, off, device)
+    for name in ("rcol", "inv"):
+        if not np.array_equal(np.asarray(_get(src, name)),
+                              getattr(topo, name).cpu().numpy()):
+            raise ValueError(f"reference topology {name} disagrees with the "
+                             "tables rebuilt from its offsets")
+    return topo

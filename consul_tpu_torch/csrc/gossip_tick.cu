@@ -1,0 +1,885 @@
+// One packed SWIM gossip tick for Hopper (sm_90a), in three launches.
+//
+// Replaces the TPU kernel consul_tpu/ops/pallas_gossip.py:make_tick_kernel
+// (pallas_call at :145) with step_fn=swim.step_counted, no chaos schedule,
+// no sentinel, sparse circulant view (K <= 255), packed layout: it computes
+// unpack -> swim.step_counted -> pack plus the stacked int32 counters.
+//
+// What bounds it: bytes. The tick is branchy integer work with a few dozen
+// float operations per node; the packed contract is 1088 B/node/tick at
+// K = 32 (state read + write + world), far below the card's operations rate.
+//
+// The Pallas kernel keeps the whole population in one VMEM block. Here the
+// tick is split at its grid-wide read-after-write barriers into three
+// launches over row blocks, one thread per row:
+//   (A) probe_send: suspicion expiry, probe resolution and launch, the
+//       median filter and Vivaldi update, and the gossip sender side. Reads
+//       of other rows (probe target, relays) come from the INPUT state.
+//       Writes the post-probe view keys to the view_mid scratch, a per-
+//       sender payload and a poke word, and every output field that no
+//       later phase changes.
+//   (B) receive: each receiver reads its senders' payloads, merges facts,
+//       applies Lifeguard confirmations against the post-merge view,
+//       collects refute claims and scans the K in-columns for pokes. It
+//       updates only its own view_mid row.
+//   (C) pushpull: pull and push against view_mid rows of the partner and
+//       the initiator (recomputing the initiator's init_ok from its row),
+//       refutation, suspicion reconciliation, budget re-arm and pack.
+// Every per-row read at a displacement is a plain indexed load (i +- off[c])
+// mod n. Counters are reduced per block in shared memory and added with
+// integer atomics (exact in any order). Built without fast math and with
+// -fmad=false, so the float operations keep the reference's order.
+//
+// Host interface: a plain C function per launch taking one TickArgs by
+// pointer (pointer, int and float tables indexed by the enums below, which
+// consul_tpu_torch/ops/cuda_gossip.py mirrors) and a stream; each returns
+// cudaGetLastError() after its launch.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_fp16.h>
+
+// Packed-state leaves, in PackedSimState flatten order.
+enum Leaf {
+  L_T, L_FLAGS, L_OWN_INC, L_OWN_TX, L_AWARE, L_PTR, L_NEXT, L_PCOL, L_PFAIL,
+  L_NACK, L_VINC, L_META, L_SDELTA, L_SSEEN, L_LCNT, L_LBUF, L_VEC, L_VH,
+  L_VERR, L_VADJ, L_VSAMP, L_VIDX, L_VRES, N_LEAVES
+};
+
+enum Ptr {
+  P_IN = 0,                     // + Leaf: input packed state
+  P_OUT = N_LEAVES,             // + Leaf: output packed state
+  P_POS = 2 * N_LEAVES, P_HEIGHT,
+  P_JITTER, P_U2, P_RELAY, P_UA, P_UB, P_UC, P_PERMU, P_VIVFB, P_GRAVFB,
+  P_UDROP, P_PPJ,
+  P_OFF, P_RCOL, P_INV,
+  P_VMID, P_PFLAGS, P_PSCOL, P_PSKEY, P_PSBITS, P_POWNK, P_POKE, P_REFUTE,
+  P_CNT, N_PTR
+};
+
+enum Int {
+  I_N, I_K, I_S, I_D, I_W, I_WD, I_IC, I_FAN, I_P, I_TX_LIMIT, I_SUSP_K,
+  I_PP_PERIOD, I_OWN_LIMIT, I_PROBE_PERIOD, I_AWARE_MAX, N_INT
+};
+
+enum Flt {
+  F_SUSP_MIN, F_SUSP_MAX, F_SUSP_DIFF, F_PLOSS, F_TIMEOUT, F_JITTER_FRAC,
+  F_CE, F_CC, F_ERR_MAX, F_HMIN, F_RHO, N_FLT
+};
+
+struct TickArgs {
+  void* p[N_PTR];
+  int32_t i[N_INT];
+  float f[N_FLT];
+};
+
+enum Counter {
+  C_PROBES, C_ACKS, C_NACKS, C_TIMEOUTS, C_SUSP, C_REFUT, C_DEATHS, C_GTX,
+  C_GRX, C_GMSGS, C_PP, N_CNT = 26
+};
+
+#define MAXD 16
+#define MAXW 64
+#define MAXS 8
+
+constexpr uint32_t ALIVE = 0, SUSPECT = 1, DEAD = 2, LEFT = 3;
+constexpr uint32_t UNKNOWN = 2;  // (0, DEAD)
+constexpr int SELF_COL = -2;
+constexpr float ZERO_T = 1.0e-6f;
+constexpr float F8_SCALE = 256.0f;
+constexpr float F8_CLIP = 448.0f / 256.0f;
+
+template <typename T>
+__device__ __forceinline__ T* ptr(const TickArgs& a, int k) {
+  return reinterpret_cast<T*>(a.p[k]);
+}
+
+__device__ __forceinline__ uint32_t mk(uint32_t inc, uint32_t st) {
+  return (inc << 2) | st;
+}
+__device__ __forceinline__ uint32_t kst(uint32_t k) { return k & 3u; }
+__device__ __forceinline__ uint32_t kinc(uint32_t k) { return k >> 2; }
+__device__ __forceinline__ bool contactable(uint32_t k) {
+  uint32_t s = kst(k);
+  return s == ALIVE || s == SUSPECT || k == UNKNOWN;
+}
+__device__ __forceinline__ uint32_t demote(uint32_t k) {
+  return (kst(k) == DEAD && k != UNKNOWN) ? ((k & ~3u) | SUSPECT) : k;
+}
+__device__ __forceinline__ bool refutes(uint32_t k, uint32_t own_inc) {
+  uint32_t s = kst(k);
+  return (s == SUSPECT || s == DEAD) && kinc(k) >= own_inc;
+}
+
+__device__ __forceinline__ float bf2f(uint16_t b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+__device__ __forceinline__ uint16_t f2bf(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float f8tof(uint8_t b) {
+  __half_raw h = __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(b),
+                                         __NV_E4M3);
+  return __half2float(__half(h)) / F8_SCALE;
+}
+__device__ __forceinline__ uint8_t ftof8(float x) {
+  x = fminf(fmaxf(x, -F8_CLIP), F8_CLIP) * F8_SCALE;
+  return static_cast<uint8_t>(__nv_cvt_float_to_fp8(x, __NV_SATFINITE,
+                                                    __NV_E4M3));
+}
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+__device__ __forceinline__ int floor_mod(int x, int m) {
+  int r = x % m;
+  return r < 0 ? r + m : r;
+}
+
+// Block-level counter reduction: shared-memory atomics, then one global
+// atomic per counter per block.
+struct BlockCounters {
+  int* s;
+  __device__ void init(int* smem) {
+    s = smem;
+    for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) s[k] = 0;
+    __syncthreads();
+  }
+  __device__ void add(int k, int v) {
+    if (v) atomicAdd(&s[k], v);
+  }
+  __device__ void flush(int* global) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < N_CNT; k += blockDim.x)
+      if (s[k]) atomicAdd(&global[k], s[k]);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Vivaldi (ops/vivaldi.py update, one element).
+// ---------------------------------------------------------------------------
+
+struct Viv {
+  float vec[MAXD];
+  float h, err, adj;
+  float samp[MAXW];
+  int idx, resets;
+};
+
+__device__ float vnorm(const float* x, int d) {
+  float acc = 0.0f;
+  for (int k = 0; k < d; ++k) acc += x[k] * x[k];
+  return sqrtf(acc);
+}
+
+__device__ float vdistance(const float* va, float ha, float aa,
+                           const float* vb, float hb, float ab, int d) {
+  float diff[MAXD];
+  for (int k = 0; k < d; ++k) diff[k] = va[k] - vb[k];
+  float dist = vnorm(diff, d) + ha + hb;
+  float adjusted = dist + aa + ab;
+  return adjusted > 0.0f ? adjusted : dist;
+}
+
+// apply_force: moves vec (in place) and returns the new height.
+__device__ float apply_force(float* vec, float h, float force,
+                             const float* ovec, float oh, const float* rnd,
+                             int d, float hmin) {
+  float diff[MAXD], unit[MAXD];
+  for (int k = 0; k < d; ++k) diff[k] = vec[k] - ovec[k];
+  float mag = vnorm(diff, d);
+  float rmag = vnorm(rnd, d);
+  bool use_real = mag > ZERO_T, use_rnd = rmag > ZERO_T;
+  for (int k = 0; k < d; ++k) {
+    if (use_real) unit[k] = diff[k] / mag;
+    else if (use_rnd) unit[k] = rnd[k] / rmag;
+    else unit[k] = (k == 0) ? 1.0f : 0.0f;
+  }
+  float m = use_real ? mag : 0.0f;
+  for (int k = 0; k < d; ++k) vec[k] = vec[k] + unit[k] * force;
+  bool moved = m > ZERO_T;
+  float nh = (h + oh) * force / (moved ? m : 1.0f) + h;
+  nh = fmaxf(nh, hmin);
+  return moved ? nh : h;
+}
+
+// Returns false (state untouched) when the observation is rejected.
+__device__ bool viv_update(const TickArgs& a, Viv& v, const float* ovec,
+                           float oh, float oerr, float oadj, float rtt_in,
+                           const float* rnd_viv, const float* rnd_grav) {
+  const int d = a.i[I_D], w = a.i[I_W];
+  const float ce = a.f[F_CE], cc = a.f[F_CC], emax = a.f[F_ERR_MAX];
+  const float hmin = a.f[F_HMIN], rho = a.f[F_RHO];
+  bool ok = isfinite(oh) && isfinite(oerr) && isfinite(oadj) &&
+            isfinite(rtt_in) && rtt_in >= 0.0f && rtt_in <= 10.0f;
+  for (int k = 0; k < d; ++k) ok = ok && isfinite(ovec[k]);
+  if (!ok) return false;
+
+  float dist = vdistance(v.vec, v.h, v.adj, ovec, oh, oadj, d);
+  float rtt = fmaxf(rtt_in, ZERO_T);
+  float wrongness = fabsf(dist - rtt) / rtt;
+  float total = fmaxf(v.err + oerr, ZERO_T);
+  float weight = v.err / total;
+  float cw = ce * weight;
+  float error = cw * wrongness + v.err * (1.0f - cw);
+  error = fminf(error, emax);
+  float force = cc * weight * (rtt - dist);
+  float vec[MAXD];
+  for (int k = 0; k < d; ++k) vec[k] = v.vec[k];
+  float h = apply_force(vec, v.h, force, ovec, oh, rnd_viv, d, hmin);
+
+  float samp[MAXW];
+  int idx = v.idx;
+  float adjustment = v.adj;
+  for (int k = 0; k < w; ++k) samp[k] = v.samp[k];
+  if (w) {
+    float diff[MAXD];
+    for (int k = 0; k < d; ++k) diff[k] = vec[k] - ovec[k];
+    float raw = vnorm(diff, d) + h + oh;
+    samp[v.idx] = rtt - raw;
+    idx = (v.idx + 1) % w;
+    float sum = 0.0f;
+    for (int k = 0; k < w; ++k) sum += samp[k];
+    adjustment = sum / (2.0f * static_cast<float>(w));
+  }
+
+  float origin[MAXD];
+  for (int k = 0; k < d; ++k) origin[k] = 0.0f;
+  float dist_o = vdistance(vec, h, adjustment, origin, hmin, 0.0f, d);
+  float x = dist_o / rho;
+  float g_force = -1.0f * (x * x);
+  h = apply_force(vec, h, g_force, origin, hmin, rnd_grav, d, hmin);
+
+  bool finite = isfinite(h) && isfinite(error) && isfinite(adjustment);
+  for (int k = 0; k < d; ++k) finite = finite && isfinite(vec[k]);
+  if (finite) {
+    for (int k = 0; k < d; ++k) v.vec[k] = vec[k];
+    v.h = h;
+    v.err = error;
+    v.adj = adjustment;
+    for (int k = 0; k < w; ++k) v.samp[k] = samp[k];
+    v.idx = idx;
+  } else {
+    for (int k = 0; k < d; ++k) v.vec[k] = 0.0f;
+    v.h = hmin;
+    v.err = emax;
+    v.adj = 0.0f;
+    for (int k = 0; k < w; ++k) v.samp[k] = 0.0f;
+    v.idx = 0;
+    v.resets += 1;
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// (A) probe_send
+// ---------------------------------------------------------------------------
+
+__global__ void k_probe_send(TickArgs a) {
+  __shared__ int smem[N_CNT];
+  BlockCounters bc;
+  bc.init(smem);
+  const int n = a.i[I_N];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const int K = a.i[I_K], S = a.i[I_S], D = a.i[I_D], W = a.i[I_W];
+    const int WD = a.i[I_WD], IC = a.i[I_IC], FAN = a.i[I_FAN], P = a.i[I_P];
+    const int amax = a.i[I_AWARE_MAX], pperiod = a.i[I_PROBE_PERIOD];
+    const int susp_k = a.i[I_SUSP_K];
+    const float pl = a.f[F_PLOSS];
+    const int t = *ptr<const int32_t>(a, P_IN + L_T);
+    const int32_t* off = ptr<const int32_t>(a, P_OFF);
+    const size_t rb = static_cast<size_t>(i) * K;
+
+    const uint8_t* in_flags = ptr<const uint8_t>(a, P_IN + L_FLAGS);
+    const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
+    const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
+    const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
+    const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
+    const uint16_t* in_own_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC);
+    uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
+    uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+    uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
+
+    const uint8_t fl = in_flags[i];
+    const bool alive = fl & 1, left = fl & 2, leaving = fl & 4, external = fl & 8;
+    const bool active = alive && !left && !external;
+    const uint32_t own_inc = in_own_inc[i];
+    int own_tx = ptr<const uint8_t>(a, P_IN + L_OWN_TX)[i];
+    int aw = ptr<const uint8_t>(a, P_IN + L_AWARE)[i];
+    const int ptr0 = ptr<const uint8_t>(a, P_IN + L_PTR)[i];
+    int next_probe = t + ptr<const int16_t>(a, P_IN + L_NEXT)[i];
+    const uint8_t pc8 = ptr<const uint8_t>(a, P_IN + L_PCOL)[i];
+    int pcol = pc8 == 255 ? -1 : static_cast<int>(pc8);
+    int pfail = t + ptr<const int16_t>(a, P_IN + L_PFAIL)[i];
+    int nack = ptr<const uint8_t>(a, P_IN + L_NACK)[i];
+
+    // 1. Suspicion expiry.
+    const float logk1 = logf(static_cast<float>(susp_k) + 1.0f);
+    int n_deaths = 0;
+    for (int c = 0; c < K; ++c) {
+      const uint32_t vi = in_vinc[rb + c];
+      const uint32_t st = in_meta[rb + c] & 3u;
+      uint32_t key = mk(vi, st);
+      const uint32_t seen = in_sseen[rb + c];
+      const uint16_t sd = in_sdelta[rb + c];
+      const int sstart = sd == 65535 ? -1 : t - static_cast<int>(sd);
+      if (active && st == SUSPECT && sstart >= 0) {
+        int conf = __popc(seen) - 1;
+        conf = conf < 0 ? 0 : conf;
+        float elapsed = static_cast<float>(t - sstart);
+        float frac = susp_k > 0
+            ? logf(static_cast<float>(conf) + 1.0f) / logk1 : 1.0f;
+        float raw = a.f[F_SUSP_MAX] - frac * a.f[F_SUSP_DIFF];
+        float rem = fmaxf(raw, a.f[F_SUSP_MIN]) - elapsed;
+        if (rem <= 0.0f) {
+          key = mk(vi, DEAD);
+          ++n_deaths;
+        }
+      }
+      vmid[rb + c] = key;
+      o_sseen[rb + c] = seen;
+    }
+    bc.add(C_DEATHS, n_deaths);
+
+    // 2. Probe windows closing with no ack.
+    const bool failing = pcol >= 0 && t >= pfail && active;
+    int add = 0;
+    if (failing) {
+      bc.add(C_TIMEOUTS, 1);
+      uint32_t fkey = vmid[rb + pcol];
+      vmid[rb + pcol] = max(fkey, mk(kinc(fkey), SUSPECT));
+      o_sseen[rb + pcol] |= 1u << (static_cast<uint32_t>(i) % 32u);
+      add = 1 + nack;
+      pcol = -1;
+      nack = 0;
+    }
+    aw = clampi(aw + add, 0, amax - 1);
+
+    // 3. Probe launch.
+    const bool probing = active && t >= next_probe;
+    int cand[3];
+    bool cok[3];
+    for (int k = 0; k < 3; ++k) {
+      cand[k] = in_meta[rb + (ptr0 + k) % K] >> 8;
+      cok[k] = contactable(vmid[rb + cand[k]]);
+    }
+    const bool has_target = (cok[0] || cok[1] || cok[2]) && probing;
+    const int first_ok = cok[0] ? 0 : (cok[1] ? 1 : (cok[2] ? 2 : 0));
+    const int target_col = cand[first_ok];
+    const int advance = probing ? (has_target ? first_ok + 1 : 3) : 0;
+
+    const int tcol = has_target ? target_col : 0;
+    const int tgt = (i + off[tcol]) % n;
+    const uint8_t tfl = in_flags[tgt];
+    const bool target_up = (tfl & 1) && !(tfl & 2) && has_target;
+    const float* pos = ptr<const float>(a, P_POS);
+    const float* hgt = ptr<const float>(a, P_HEIGHT);
+    float acc = 0.0f;
+    for (int k = 0; k < WD; ++k) {
+      float df = pos[static_cast<size_t>(i) * WD + k] -
+                 pos[static_cast<size_t>(tgt) * WD + k];
+      acc += df * df;
+    }
+    const float true_rtt = sqrtf(acc) + hgt[i] + hgt[tgt];
+    const float jf = a.f[F_JITTER_FRAC];
+    const float rtt_obs = jf > 0.0f
+        ? true_rtt * expf(ptr<const float>(a, P_JITTER)[i] * jf) : true_rtt;
+
+    const float* u2 = ptr<const float>(a, P_U2);
+    const bool ok_direct = u2[2 * i] >= pl;
+    const bool ok_tcp = u2[2 * i + 1] >= pl;
+    const bool direct_ok = has_target && target_up &&
+                           rtt_obs <= a.f[F_TIMEOUT] && ok_direct;
+    const int64_t* relay = ptr<const int64_t>(a, P_RELAY);
+    const float* ua = ptr<const float>(a, P_UA);
+    const float* ub = ptr<const float>(a, P_UB);
+    const float* uc = ptr<const float>(a, P_UC);
+    bool any_relay_ok = false;
+    int nack_rcvd = 0;
+    for (int r = 0; r < IC; ++r) {
+      const int rrow = (i + off[relay[r]]) % n;
+      const uint8_t rf = in_flags[rrow];
+      const bool ravail = (rf & 1) && !(rf & 2) && !(rf & 8);
+      const size_t u = static_cast<size_t>(i) * IC + r;
+      const bool oka = ua[u] >= pl, okb = ub[u] >= pl, okc = uc[u] >= pl;
+      const bool reached = ravail && oka;
+      if (reached && target_up && okb) any_relay_ok = true;
+      if (reached && !(target_up && okb) && okc) ++nack_rcvd;
+    }
+    const bool indirect_ok = has_target && any_relay_ok && !direct_ok;
+    const bool tcp_ok = has_target && target_up && ok_tcp;
+    const bool acked = direct_ok || indirect_ok || tcp_ok;
+    bc.add(C_PROBES, has_target);
+    bc.add(C_ACKS, acked);
+    if (has_target && !direct_ok) bc.add(C_NACKS, nack_rcvd);
+
+    // Compound ping+suspect poke (delivered in B).
+    const uint32_t tentry = vmid[rb + tcol];
+    const uint32_t tstatus = has_target ? kst(tentry) : 0u;
+    const bool poke_flag = has_target && tstatus == SUSPECT && ok_direct;
+    ptr<uint32_t>(a, P_POKE)[i] = poke_flag
+        ? (0x80000000u | (static_cast<uint32_t>(target_col) << 16) |
+           (kinc(tentry) & 0xFFFFu))
+        : 0u;
+
+    if (has_target && !acked) {
+      pcol = target_col;
+      pfail = t + pperiod;
+      nack = IC - nack_rcvd;
+    }
+    if (probing) next_probe = t + pperiod * (aw + 1);
+    aw = clampi(aw - (acked ? 1 : 0), 0, amax - 1);
+    int ptr1 = ptr0 + advance;
+    const bool wrapped = ptr1 >= K;
+    if (wrapped) ptr1 = 0;
+    // Probe order: a stable ascending argsort of this tick's uniforms for
+    // wrapped rows (argmin peel), the old order otherwise.
+    if (wrapped) {
+      const float* pu = ptr<const float>(a, P_PERMU) + rb;
+      uint32_t taken[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int q = 0; q < K; ++q) {
+        int best = -1;
+        float bv = 0.0f;
+        for (int c = 0; c < K; ++c) {
+          if (taken[c >> 5] & (1u << (c & 31))) continue;
+          if (best < 0 || pu[c] < bv) {
+            best = c;
+            bv = pu[c];
+          }
+        }
+        taken[best >> 5] |= 1u << (best & 31);
+        o_meta[rb + q] = static_cast<uint16_t>(best << 8);
+      }
+    } else {
+      for (int c = 0; c < K; ++c) o_meta[rb + c] = in_meta[rb + c] & 0xFF00u;
+    }
+    if (acked) {
+      const uint32_t ak = mk(in_own_inc[tgt], ALIVE);
+      vmid[rb + target_col] = max(vmid[rb + target_col], ak);
+    }
+
+    // Vivaldi observation: median filter, then the update.
+    {
+      const uint16_t* in_lcnt = ptr<const uint16_t>(a, P_IN + L_LCNT);
+      const uint8_t* in_lbuf = ptr<const uint8_t>(a, P_IN + L_LBUF);
+      uint16_t* o_lcnt = ptr<uint16_t>(a, P_OUT + L_LCNT);
+      uint8_t* o_lbuf = ptr<uint8_t>(a, P_OUT + L_LBUF);
+      const int col_c = direct_ok ? target_col : 0;
+      for (int c = 0; c < K; ++c) o_lcnt[rb + c] = in_lcnt[rb + c];
+      for (int c = 0; c < K * S; ++c) o_lbuf[rb * S + c] = in_lbuf[rb * S + c];
+      const int cnt = in_lcnt[rb + col_c];
+      const int slot = cnt % S;
+      const size_t lb = (rb + col_c) * S;
+      float med = -1.0f;
+      if (direct_ok) {
+        o_lbuf[lb + slot] = ftof8(rtt_obs);
+        o_lcnt[rb + col_c] = static_cast<uint16_t>(min(cnt + 1, 65535));
+        const int filled = min(cnt + 1, S);
+        float v[MAXS];
+        for (int s = 0; s < S; ++s)
+          v[s] = s >= filled ? __int_as_float(0x7f800000)
+                             : (s == slot ? rtt_obs : f8tof(in_lbuf[lb + s]));
+        for (int x = 1; x < S; ++x) {  // insertion sort, ascending
+          float key = v[x];
+          int y = x - 1;
+          while (y >= 0 && v[y] > key) {
+            v[y + 1] = v[y];
+            --y;
+          }
+          v[y + 1] = key;
+        }
+        med = v[filled / 2];
+      }
+
+      const uint16_t* in_vec = ptr<const uint16_t>(a, P_IN + L_VEC);
+      const uint16_t* in_vh = ptr<const uint16_t>(a, P_IN + L_VH);
+      const uint16_t* in_verr = ptr<const uint16_t>(a, P_IN + L_VERR);
+      const uint16_t* in_vadj = ptr<const uint16_t>(a, P_IN + L_VADJ);
+      const uint8_t* in_vsamp = ptr<const uint8_t>(a, P_IN + L_VSAMP);
+      const uint8_t* in_vidx = ptr<const uint8_t>(a, P_IN + L_VIDX);
+      const uint8_t* in_vres = ptr<const uint8_t>(a, P_IN + L_VRES);
+      uint16_t* o_vec = ptr<uint16_t>(a, P_OUT + L_VEC);
+      uint16_t* o_vh = ptr<uint16_t>(a, P_OUT + L_VH);
+      uint16_t* o_verr = ptr<uint16_t>(a, P_OUT + L_VERR);
+      uint16_t* o_vadj = ptr<uint16_t>(a, P_OUT + L_VADJ);
+      uint8_t* o_vsamp = ptr<uint8_t>(a, P_OUT + L_VSAMP);
+      uint8_t* o_vidx = ptr<uint8_t>(a, P_OUT + L_VIDX);
+      uint8_t* o_vres = ptr<uint8_t>(a, P_OUT + L_VRES);
+      const size_t vb = static_cast<size_t>(i) * D;
+      const size_t sb = static_cast<size_t>(i) * W;
+      bool updated = false;
+      Viv v;
+      if (direct_ok) {
+        for (int k = 0; k < D; ++k) v.vec[k] = bf2f(in_vec[vb + k]);
+        v.h = bf2f(in_vh[i]);
+        v.err = bf2f(in_verr[i]);
+        v.adj = bf2f(in_vadj[i]);
+        for (int k = 0; k < W; ++k) v.samp[k] = f8tof(in_vsamp[sb + k]);
+        v.idx = in_vidx[i];
+        v.resets = in_vres[i];
+        float ovec[MAXD], rv[MAXD], rg[MAXD];
+        const size_t tb = static_cast<size_t>(tgt) * D;
+        for (int k = 0; k < D; ++k) {
+          ovec[k] = bf2f(in_vec[tb + k]);
+          rv[k] = ptr<const float>(a, P_VIVFB)[vb + k];
+          rg[k] = ptr<const float>(a, P_GRAVFB)[vb + k];
+        }
+        updated = viv_update(a, v, ovec, bf2f(in_vh[tgt]), bf2f(in_verr[tgt]),
+                             bf2f(in_vadj[tgt]), med, rv, rg);
+      }
+      if (updated) {
+        for (int k = 0; k < D; ++k) o_vec[vb + k] = f2bf(v.vec[k]);
+        o_vh[i] = f2bf(v.h);
+        o_verr[i] = f2bf(v.err);
+        o_vadj[i] = f2bf(v.adj);
+        for (int k = 0; k < W; ++k) o_vsamp[sb + k] = ftof8(v.samp[k]);
+        o_vidx[i] = static_cast<uint8_t>(v.idx & 0xFF);
+        o_vres[i] = static_cast<uint8_t>(v.resets & 0xFF);
+      } else {
+        for (int k = 0; k < D; ++k) o_vec[vb + k] = in_vec[vb + k];
+        o_vh[i] = in_vh[i];
+        o_verr[i] = in_verr[i];
+        o_vadj[i] = in_vadj[i];
+        for (int k = 0; k < W; ++k) o_vsamp[sb + k] = in_vsamp[sb + k];
+        o_vidx[i] = in_vidx[i];
+        o_vres[i] = in_vres[i];
+      }
+    }
+
+    // 4. Gossip sender side: top-P by remaining budget (max value, lowest
+    //    index on ties), budget decrements, the own-fact.
+    const int sweep_len = (K + FAN - 1) / FAN;
+    const int jpos = (t % sweep_len) * FAN;
+    int scol[8];
+    int nvalid = 0;
+    uint32_t vbits = 0;
+    {
+      uint32_t taken[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int q = 0; q < P; ++q) {
+        int best = -1, bv = 0;
+        for (int c = 0; c < K; ++c) {
+          if (taken[c >> 5] & (1u << (c & 31))) continue;
+          const int b = active ? ((in_meta[rb + c] >> 2) & 63) : 0;
+          if (best < 0 || b > bv) {
+            best = c;
+            bv = b;
+          }
+        }
+        taken[best >> 5] |= 1u << (best & 31);
+        scol[q] = best;
+        if (bv > 0) {
+          vbits |= 1u << q;
+          ++nvalid;
+        }
+      }
+    }
+    int n_sends = 0;
+    uint32_t sbits_f = 0;
+    for (int f = 0; f < FAN; ++f) {
+      const int jc = (jpos + f) % K;
+      if (active && contactable(vmid[rb + jc])) {
+        sbits_f |= 1u << f;
+        ++n_sends;
+      }
+    }
+    const bool own_sendable = own_tx > 0 && active;
+    bc.add(C_GTX, n_sends);
+    bc.add(C_GMSGS, n_sends * (nvalid + (own_sendable ? 1 : 0)));
+    uint8_t* pscol = ptr<uint8_t>(a, P_PSCOL);
+    uint32_t* pskey = ptr<uint32_t>(a, P_PSKEY);
+    uint32_t* psbits = ptr<uint32_t>(a, P_PSBITS);
+    for (int q = 0; q < P; ++q) {
+      const size_t pq = static_cast<size_t>(i) * P + q;
+      pscol[pq] = static_cast<uint8_t>(scol[q]);
+      pskey[pq] = vmid[rb + scol[q]];
+      psbits[pq] = o_sseen[rb + scol[q]];
+    }
+    ptr<uint16_t>(a, P_PFLAGS)[i] = static_cast<uint16_t>(
+        sbits_f | (vbits << 8) | (own_sendable ? 0x8000u : 0u));
+    ptr<uint32_t>(a, P_POWNK)[i] = mk(own_inc, (leaving || left) ? LEFT : ALIVE);
+    for (int c = 0; c < K; ++c) {
+      int tx = (in_meta[rb + c] >> 2) & 63;
+      bool sel = false;
+      for (int q = 0; q < P; ++q) sel = sel || (scol[q] == c && ((vbits >> q) & 1));
+      if (sel) tx = max(tx - n_sends, 0);
+      o_meta[rb + c] = static_cast<uint16_t>(o_meta[rb + c] | (tx << 2));
+    }
+    if (own_sendable) own_tx = max(own_tx - n_sends, 0);
+
+    // Fields no later phase changes, packed against t + 1. The probe
+    // deadline is canonicalized to t while no probe is outstanding.
+    if (pcol < 0) pfail = t;
+    ptr<uint8_t>(a, P_OUT + L_FLAGS)[i] = fl;
+    ptr<uint8_t>(a, P_OUT + L_OWN_TX)[i] = static_cast<uint8_t>(own_tx);
+    ptr<uint8_t>(a, P_OUT + L_AWARE)[i] = static_cast<uint8_t>(aw);
+    ptr<uint8_t>(a, P_OUT + L_PTR)[i] = static_cast<uint8_t>(ptr1);
+    ptr<int16_t>(a, P_OUT + L_NEXT)[i] =
+        static_cast<int16_t>(clampi(next_probe - (t + 1), -32768, 32767));
+    ptr<uint8_t>(a, P_OUT + L_PCOL)[i] =
+        static_cast<uint8_t>(pcol < 0 ? 255 : pcol);
+    ptr<int16_t>(a, P_OUT + L_PFAIL)[i] =
+        static_cast<int16_t>(clampi(pfail - (t + 1), -32768, 32767));
+    ptr<uint8_t>(a, P_OUT + L_NACK)[i] =
+        static_cast<uint8_t>(clampi(nack, 0, 255));
+  }
+  bc.flush(ptr<int>(a, P_CNT));
+}
+
+// ---------------------------------------------------------------------------
+// (B) receive
+// ---------------------------------------------------------------------------
+
+__global__ void k_receive(TickArgs a) {
+  __shared__ int smem[N_CNT];
+  BlockCounters bc;
+  bc.init(smem);
+  const int n = a.i[I_N];
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < n) {
+    const int K = a.i[I_K], FAN = a.i[I_FAN], P = a.i[I_P];
+    const float pl = a.f[F_PLOSS];
+    const int t = *ptr<const int32_t>(a, P_IN + L_T);
+    const int32_t* off = ptr<const int32_t>(a, P_OFF);
+    const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
+    const int32_t* inv = ptr<const int32_t>(a, P_INV);
+    const uint16_t* pflags = ptr<const uint16_t>(a, P_PFLAGS);
+    const uint8_t* pscol = ptr<const uint8_t>(a, P_PSCOL);
+    const uint32_t* pskey = ptr<const uint32_t>(a, P_PSKEY);
+    const uint32_t* psbits = ptr<const uint32_t>(a, P_PSBITS);
+    const uint32_t* pownk = ptr<const uint32_t>(a, P_POWNK);
+    const float* udrop = ptr<const float>(a, P_UDROP);
+    uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
+    uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+    const size_t rb = static_cast<size_t>(r) * K;
+    const uint8_t fl = ptr<const uint8_t>(a, P_IN + L_FLAGS)[r];
+    const bool recv_up = (fl & 1) && !(fl & 2);
+    const uint32_t own_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC)[r];
+    const int sweep_len = (K + FAN - 1) / FAN;
+    const int jpos = (t % sweep_len) * FAN;
+
+    uint32_t refute = 0;
+    int n_rx = 0;
+    uint32_t arrived_bits = 0;
+    for (int f = 0; f < FAN; ++f) {
+      const int jc = (jpos + f) % K;
+      const int s = (r - off[jc] + n) % n;
+      const uint16_t pf = pflags[s];
+      const bool arrived = ((pf >> f) & 1) &&
+                           udrop[static_cast<size_t>(r) * FAN + f] >= pl &&
+                           recv_up;
+      if (!arrived) continue;
+      arrived_bits |= 1u << f;
+      ++n_rx;
+      for (int q = 0; q < P; ++q) {
+        if (!((pf >> (8 + q)) & 1)) continue;
+        const size_t sq = static_cast<size_t>(s) * P + q;
+        const uint32_t key = pskey[sq];
+        const int mycol = rcol[jc * K + pscol[sq]];
+        if (mycol == SELF_COL) {
+          if (refutes(key, own_inc)) refute = max(refute, kinc(key));
+        } else if (mycol >= 0) {
+          vmid[rb + mycol] = max(vmid[rb + mycol], key);
+        }
+      }
+      if (pf & 0x8000u) {
+        const int icol = inv[jc];
+        vmid[rb + icol] = max(vmid[rb + icol], pownk[s]);
+      }
+    }
+    // Lifeguard confirmations against the post-merge view.
+    for (int f = 0; f < FAN; ++f) {
+      if (!((arrived_bits >> f) & 1)) continue;
+      const int jc = (jpos + f) % K;
+      const int s = (r - off[jc] + n) % n;
+      const uint16_t pf = pflags[s];
+      for (int q = 0; q < P; ++q) {
+        if (!((pf >> (8 + q)) & 1)) continue;
+        const size_t sq = static_cast<size_t>(s) * P + q;
+        const int mycol = rcol[jc * K + pscol[sq]];
+        if (mycol < 0) continue;
+        const uint32_t key = pskey[sq];
+        const uint32_t post = vmid[rb + mycol];
+        if (kst(key) == SUSPECT && kst(post) == SUSPECT &&
+            kinc(key) >= kinc(post))
+          o_sseen[rb + mycol] |= psbits[sq];
+      }
+    }
+    bc.add(C_GRX, n_rx);
+
+    // Pokes: was I probed by an in-neighbor that believes me suspect?
+    const uint32_t* poke = ptr<const uint32_t>(a, P_POKE);
+    uint32_t claim = 0;
+    for (int j = 0; j < K; ++j) {
+      const uint32_t w = poke[(r - off[j] + n) % n];
+      if ((w >> 31) && static_cast<int>((w >> 16) & 0xFFu) == j)
+        claim = max(claim, w & 0xFFFFu);
+    }
+    const uint32_t refute_poke =
+        (claim >= own_inc && recv_up && claim > 0) ? claim : 0u;
+    ptr<uint32_t>(a, P_REFUTE)[r] = max(refute, refute_poke);
+  }
+  bc.flush(ptr<int>(a, P_CNT));
+}
+
+// ---------------------------------------------------------------------------
+// (C) pushpull: push-pull, refutation, reconciliation, budget re-arm, pack.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool is_up(uint8_t fl) { return (fl & 1) && !(fl & 2); }
+__device__ __forceinline__ bool is_active(uint8_t fl) {
+  return (fl & 1) && !(fl & 2) && !(fl & 8);
+}
+__device__ __forceinline__ bool pp_due(int x, uint8_t fl, int t, int pp) {
+  const int stagger = floor_mod(
+      static_cast<int32_t>(static_cast<uint32_t>(x) * 0x9E3779B9u), pp);
+  return is_active(fl) && floor_mod(t + stagger, pp) == 0;
+}
+
+__global__ void k_pushpull(TickArgs a) {
+  __shared__ int smem[N_CNT];
+  BlockCounters bc;
+  bc.init(smem);
+  const int n = a.i[I_N];
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < n) {
+    const int K = a.i[I_K], pp = a.i[I_PP_PERIOD];
+    const int amax = a.i[I_AWARE_MAX];
+    const int t = *ptr<const int32_t>(a, P_IN + L_T);
+    const int32_t* off = ptr<const int32_t>(a, P_OFF);
+    const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
+    const int32_t* inv = ptr<const int32_t>(a, P_INV);
+    const uint8_t* in_flags = ptr<const uint8_t>(a, P_IN + L_FLAGS);
+    const uint16_t* in_own_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC);
+    const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
+    const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
+    const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
+    const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
+    const uint32_t* vmid = ptr<const uint32_t>(a, P_VMID);
+    uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
+    uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+    uint16_t* o_vinc = ptr<uint16_t>(a, P_OUT + L_VINC);
+    uint16_t* o_sdelta = ptr<uint16_t>(a, P_OUT + L_SDELTA);
+    const size_t rb = static_cast<size_t>(r) * K;
+
+    const int j = static_cast<int>(*ptr<const int64_t>(a, P_PPJ));
+    const int shift = off[j];
+    const int icol = inv[j];
+    const uint8_t fl = in_flags[r];
+    const uint32_t own_inc = in_own_inc[r];
+    auto ownk = [&](int x) {
+      const uint8_t f = in_flags[x];
+      return mk(in_own_inc[x], (f & 6) ? LEFT : ALIVE);
+    };
+
+    const int p = (r + shift) % n;          // pull partner
+    const int s = (r - shift + n) % n;      // push initiator
+    const size_t pb = static_cast<size_t>(p) * K;
+    const size_t sb = static_cast<size_t>(s) * K;
+    const bool init_ok = pp_due(r, fl, t, pp) && is_up(in_flags[p]) &&
+                         contactable(vmid[rb + j]);
+    const bool s_ok = pp_due(s, in_flags[s], t, pp) && is_up(fl) &&
+                      contactable(vmid[sb + j]);
+    const uint32_t ownk_p = ownk(p), ownk_s = ownk(s);
+    uint32_t refute_pp = 0;
+    if (init_ok) {
+      const uint32_t their = vmid[pb + icol];
+      if (refutes(their, own_inc)) refute_pp = kinc(their);
+    }
+    if (s_ok) {
+      const uint32_t their2 = vmid[sb + j];
+      if (refutes(their2, own_inc)) refute_pp = max(refute_pp, kinc(their2));
+    }
+    bc.add(C_PP, (init_ok ? 1 : 0) + (s_ok ? 1 : 0));
+
+    // Refutation.
+    const uint32_t claim = max(ptr<const uint32_t>(a, P_REFUTE)[r], refute_pp);
+    const bool active = is_active(fl);
+    const bool refuting = claim > 0 && active && !(fl & 4);
+    bc.add(C_REFUT, refuting);
+    const uint32_t new_inc = refuting ? claim + 1 : own_inc;
+    uint8_t* o_own_tx = ptr<uint8_t>(a, P_OUT + L_OWN_TX);
+    uint8_t* o_aw = ptr<uint8_t>(a, P_OUT + L_AWARE);
+    if (refuting) {
+      o_own_tx[r] = static_cast<uint8_t>(clampi(a.i[I_OWN_LIMIT], 0, 255));
+      o_aw[r] = static_cast<uint8_t>(clampi(o_aw[r] + 1, 0, amax - 1));
+    }
+    ptr<uint16_t>(a, P_OUT + L_OWN_INC)[r] =
+        static_cast<uint16_t>(min(new_inc, 65535u));
+
+    // Merge, reconcile, re-arm, pack.
+    int n_susp = 0;
+    for (int c = 0; c < K; ++c) {
+      uint32_t v = vmid[rb + c];
+      if (init_ok) {
+        const int rc = rcol[j * K + c];
+        const uint32_t ent = c == j ? ownk_p : (rc >= 0 ? vmid[pb + rc] : 0u);
+        v = max(v, demote(ent));
+      }
+      if (s_ok) {
+        const int rc2 = rcol[icol * K + c];
+        const uint32_t ent2 = c == icol ? ownk_s
+                                        : (rc2 >= 0 ? vmid[sb + rc2] : 0u);
+        v = max(v, demote(ent2));
+      }
+      const uint32_t k0 = mk(in_vinc[rb + c], in_meta[rb + c] & 3u);
+      const uint32_t st0 = kst(k0), st1 = kst(v);
+      const bool now_s = st1 == SUSPECT;
+      const bool fresh = now_s && st0 != SUSPECT;
+      const bool re_inc = now_s && st0 == SUSPECT && kinc(v) > kinc(k0);
+      const bool restarted = fresh || re_inc;
+      n_susp += restarted;
+      const uint16_t sd0 = in_sdelta[rb + c];
+      const int sstart0 = sd0 == 65535 ? -1 : t - static_cast<int>(sd0);
+      const int sstart = restarted ? t : (now_s ? sstart0 : -1);
+      uint32_t seen = now_s ? o_sseen[rb + c] : 0u;
+      if (re_inc) seen = 1u;
+      if (fresh && seen == 0u) seen = 1u;
+      const bool changed = v != k0 || (seen & ~in_sseen[rb + c]) != 0u;
+      const uint16_t m = o_meta[rb + c];
+      int tx = (m >> 2) & 63;
+      if (changed && active) tx = a.i[I_TX_LIMIT];
+      o_vinc[rb + c] = static_cast<uint16_t>(min(kinc(v), 65535u));
+      o_meta[rb + c] = static_cast<uint16_t>(
+          (m & 0xFF00u) | (clampi(tx, 0, 63) << 2) | st1);
+      o_sdelta[rb + c] = static_cast<uint16_t>(
+          sstart < 0 ? 65535 : clampi(t + 1 - sstart, 0, 65534));
+      o_sseen[rb + c] = seen;
+    }
+    bc.add(C_SUSP, n_susp);
+    if (r == 0) *ptr<int32_t>(a, P_OUT + L_T) = t + 1;
+  }
+  bc.flush(ptr<int>(a, P_CNT));
+}
+
+// ---------------------------------------------------------------------------
+// Host entry points: one per launch, each returns cudaGetLastError().
+// ---------------------------------------------------------------------------
+
+static dim3 grid_for(const TickArgs* a, int threads) {
+  return dim3((a->i[I_N] + threads - 1) / threads);
+}
+
+extern "C" int gossip_probe_send(const TickArgs* a, void* stream) {
+  k_probe_send<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_receive(const TickArgs* a, void* stream) {
+  k_receive<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
+  k_pushpull<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_layout(int* out) {
+  out[0] = N_PTR;
+  out[1] = N_INT;
+  out[2] = N_FLT;
+  out[3] = static_cast<int>(sizeof(TickArgs));
+  return 0;
+}

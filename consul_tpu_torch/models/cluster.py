@@ -1,0 +1,211 @@
+"""Cluster simulation driver (PyTorch port of the single-device part of
+``consul_tpu/models/cluster.py``): chunked runs, per-chunk counters, a
+per-tick metrics trace and convergence detection.
+
+``Simulation(cfg, seed)`` builds the world, topology and state on the
+card and steps the packed state through the CUDA tick kernel. Pass
+``device="cpu", kernel="torch"`` for the plain PyTorch path on the CPU.
+Nothing falls back: ``kernel="cuda"`` without a CUDA device, or with the
+dense layout, raises.
+
+Tests can hand in an initial world, topology and state (``convert.py``
+carries the reference's across) and a draw source, a callable from the
+tick number to its :class:`swim.TickDraws`; by default the simulation
+draws from its own ``torch.Generator``, seeded from ``seed``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from consul_tpu_torch.config import SimConfig
+from consul_tpu_torch.models import counters as counters_mod
+from consul_tpu_torch.models import layout as layout_mod
+from consul_tpu_torch.models import state as sim_state
+from consul_tpu_torch.models import swim
+from consul_tpu_torch.ops import cuda_gossip, topology
+from consul_tpu_torch.utils import metrics
+
+
+# Node pairs sampled for the per-tick RMSE (the reference's chunk body
+# samples 2048).
+RMSE_SAMPLES = 2048
+
+
+class TickTrace(NamedTuple):
+    """Per-tick metrics of one chunk, [C] float32 each."""
+
+    agreement: torch.Tensor
+    false_positive: torch.Tensor
+    undetected: torch.Tensor
+    rmse: torch.Tensor
+
+
+@dataclasses.dataclass
+class Simulation:
+    """Owns the world, topology and device state for one simulated DC."""
+
+    cfg: SimConfig
+    seed: int = 0
+    layout: str = layout_mod.PACKED
+    kernel: str = cuda_gossip.CUDA
+    device: str = "cuda"
+    world: Optional[topology.World] = None
+    topo: Optional[topology.Topology] = None
+    state: object = None
+    draws: Optional[Callable[[int], swim.TickDraws]] = None
+
+    def __post_init__(self):
+        layout_mod.validate(self.cfg, self.layout)
+        self.device = torch.device(self.device)
+        cuda_gossip.validate_kernel(self.kernel, self.layout, self.device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(self.seed)
+        if self.world is None:
+            self.world = topology.make_world(self.cfg, self.gen, self.device)
+        if self.topo is None:
+            self.topo = topology.make_topology(self.cfg, self.gen, self.device)
+        if self.state is None:
+            self.state = sim_state.init(self.cfg, self.gen, self.device)
+        self.state = (layout_mod.pack_state(self.state)
+                      if self.layout == layout_mod.PACKED
+                      else layout_mod.unpack_state(self.state))
+        if self.draws is None:
+            self.draws = lambda t: swim.draw_tick(self.cfg, self.gen, self.device)
+        if self.kernel == cuda_gossip.CUDA:
+            self._tick_fn = cuda_gossip.make_tick_kernel(self.cfg, self.topo)
+        elif self.layout == layout_mod.PACKED:
+            self._tick_fn = lambda w, s, d: cuda_gossip.plain_tick(
+                self.cfg, self.topo, w, s, d)
+        else:
+            def dense_tick(w, s, d):
+                s, c = swim.step_counted(self.cfg, self.topo, w, s, d)
+                return s, counters_mod.stack(c)
+            self._tick_fn = dense_tick
+        # Host copy of the tick: one device read here, none per tick.
+        self._t = int(self.state.t)
+        self._counters = {f: 0 for f in counters_mod.FIELDS}
+        self.chunk_counters = []
+
+    # -- state access ----------------------------------------------------
+    @property
+    def swim_state(self) -> sim_state.SimState:
+        return layout_mod.unpack_state(self.state)
+
+    def _from_dense(self, st):
+        self.state = (layout_mod.pack(st) if self.layout == layout_mod.PACKED
+                      else st)
+
+    def _mask(self, mask) -> torch.Tensor:
+        return torch.as_tensor(mask, dtype=torch.bool).to(self.device)
+
+    # -- fault injection -------------------------------------------------
+    def kill(self, mask):
+        self._from_dense(sim_state.kill(self.swim_state, self._mask(mask)))
+
+    def revive(self, mask, cold: bool = False):
+        self._from_dense(sim_state.revive(self.cfg, self.swim_state,
+                                          self._mask(mask), cold=cold))
+
+    # -- execution -------------------------------------------------------
+    def _metrics(self, i, j):
+        sw = self.swim_state
+        h = metrics.health(self.cfg, self.topo, sw)
+        rmse = metrics.vivaldi_rmse(self.cfg, self.world, sw, i, j)
+        return (h.agreement, h.false_positive, h.undetected, rmse)
+
+    def _exec_chunk(self, c: int, with_metrics: bool):
+        """Run ``c`` ticks; returns (counters[26] int32, TickTrace|None)."""
+        cnt = torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
+                          device=self.device)
+        rows = []
+        for _ in range(c):
+            d = self.draws(self._t)
+            self.state, cv = self._tick_fn(self.world, self.state, d)
+            cnt = cnt + cv
+            self._t += 1
+            if with_metrics:
+                ij = metrics.rmse_samples(self.cfg, self.gen, RMSE_SAMPLES,
+                                          self.device)
+                rows.append(self._metrics(*ij))
+        if not with_metrics:
+            return cnt, None
+        return cnt, TickTrace(*(torch.stack(x).to(torch.float32)
+                                for x in zip(*rows)))
+
+    def _fold(self, cnt: torch.Tensor):
+        deltas = dict(zip(counters_mod.FIELDS, cnt.tolist()))
+        for f, v in deltas.items():
+            self._counters[f] += v
+        self.chunk_counters.append(deltas)
+
+    def run(self, ticks: int, chunk: int = 64, with_metrics: bool = True):
+        """Advance ``ticks`` ticks; returns the concatenated TickTrace (None
+        when metrics are off)."""
+        traces = []
+        remaining = ticks
+        while remaining > 0:
+            c = min(chunk, remaining)
+            cnt, trace = self._exec_chunk(c, with_metrics)
+            self._fold(cnt)
+            if with_metrics:
+                traces.append(trace)
+            remaining -= c
+        if not with_metrics:
+            return None
+        return TickTrace(*(torch.cat(x) for x in zip(*traces)))
+
+    def run_until_converged(self, max_ticks: int, chunk: int = 64,
+                            rmse_target_s: Optional[float] = None,
+                            require_agreement: float = 1.0,
+                            stable_chunks: int = 1):
+        """Run until membership agreement (and optionally Vivaldi RMSE)
+        hold for ``stable_chunks`` consecutive chunks. Returns
+        (converged, ticks_used, last_trace)."""
+        used = 0
+        streak = 0
+        trace = None
+        while used < max_ticks:
+            c = min(chunk, max_ticks - used)
+            cnt, trace = self._exec_chunk(c, True)
+            self._fold(cnt)
+            used += c
+            ok = float(trace.agreement[-1]) >= require_agreement
+            if ok and rmse_target_s is not None:
+                ok = float(trace.rmse[-1]) <= rmse_target_s
+            streak = streak + 1 if ok else 0
+            if streak >= stable_chunks:
+                return True, used, trace
+        return False, used, trace
+
+    def throughput(self, ticks: int = 256) -> float:
+        """Ticks per wall-clock second without metrics, after one warm
+        chunk of the same length."""
+        for timed in (False, True):
+            if timed:
+                t0 = time.perf_counter()
+            cnt, _ = self._exec_chunk(ticks, False)
+            self._fold(cnt)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return ticks / (time.perf_counter() - t0)
+
+    # -- inspection ------------------------------------------------------
+    @property
+    def counters(self):
+        """Cumulative protocol-event totals (Python ints by field name)."""
+        return self._counters
+
+    def health(self) -> metrics.HealthMetrics:
+        return metrics.health(self.cfg, self.topo, self.swim_state)
+
+    def rmse(self, seed: int = 99) -> float:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        i, j = metrics.rmse_samples(self.cfg, gen, 4096, self.device)
+        return float(metrics.vivaldi_rmse(self.cfg, self.world,
+                                          self.swim_state, i, j))
