@@ -5,13 +5,14 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA tick kernel from ``consul_tpu_torch/csrc``, holds it
-against its plain PyTorch version at the bench's default shape and at a
-ragged size, drives the port's main path (a 1,048,576-node, K = 32 view
-converging after a 5 % mass kill) through ``Simulation``, and prints one
-JSON line per phase, the kernel table, the card's name and power limit,
-and a last line ``{"ok": true, "device": {...}}``. Any failed phase
-exits non-zero. It needs a CUDA card and the rest of the repository;
-without either it fails before printing a result.
+against its plain PyTorch version at the bench's default shape, at a
+ragged size and at the main path's own shape, drives the port's main
+path (a 1,048,576-node, K = 32 view converging after a 5 % mass kill)
+through ``Simulation``, and prints one JSON line per phase, the kernel
+table, the card's name and power limit, and a last line
+``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It
+needs a CUDA H100 and the rest of the repository; without either it
+fails before printing a result.
 """
 
 from __future__ import annotations
@@ -24,24 +25,30 @@ import time
 
 import torch
 
-# Device-memory rate (bytes/s) by card, from NVIDIA's data sheets.
-_MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
-_MEM_RATE_DEFAULT = 3.35e12  # H100 SXM
+# HBM rate of the card the bound is stated for: NVIDIA's data sheet for
+# the H100 SXM (80 GB HBM3, 3.35 TB/s at its full 700 W).
+H100_SXM_BYTES_PER_S = 3.35e12
 
-# The packed layout's float plane rounds through bf16/f8 every tick; the
-# kernel and the plain version may sum Vivaldi's reductions in another
-# order, so a one-ulp difference can flip a bf16 rounding. The bounds are
-# those of the reference's layout-parity suite
-# (tests/test_layout_parity.py).
-VIV_RTOL, VIV_ATOL, LAT_ATOL = 3e-2, 2e-3, 2e-2
+# The packed layout's float leaves round to bfloat16 (Vivaldi) or to the
+# x256 float8 codec (RTT and adjustment windows) every tick. The kernel
+# and the plain version do the same f32 operations, but may sum Vivaldi's
+# short reductions in another order, so a last-bit difference can flip a
+# rounding, and 32 ticks can carry it on. An element passes if it is at
+# most MAX_STEPS storage steps (ulps) from the plain version's, or if the
+# decoded values differ by at most FLOOR_S seconds: height_min, the
+# smallest height Vivaldi keeps, the floor for values that cross zero.
+# The step limit is one above the largest seen (PERF.md).
+MAX_STEPS = 3
+FLOOR_S = 1e-5
+FLOAT_LEAVES = ("vec", "height", "error", "adjustment", "adj_samples", "lat_buf")
 
-# The bench's default shape and a ragged size no block size divides;
-# ticks of warm-up before the compared window (see parity()).
-PARITY_SIZES = (65536, 50000)
-PARITY_WARM = 616
-PARITY_TICKS = 32
 # The main path: the reference bench's north star (bench.py:152-154, 1044).
 MAIN_N = 1_048_576
+# Parity runs: the bench's default shape and a ragged size no block size
+# divides (with 1 % packet loss), and the main path's own configuration.
+PARITY = ((65536, 0.01), (50000, 0.01), (MAIN_N, 0.0))
+PARITY_TICKS = 32
+PARITY_MAX_WARM = 4096
 
 
 def emit(obj):
@@ -56,10 +63,10 @@ def nvidia_smi() -> str:
 
 
 def mem_rate(name: str) -> float:
-    for key, rate in _MEM_RATE.items():
-        if key in name:
-            return rate
-    return _MEM_RATE_DEFAULT
+    if "H100" in name and ("HBM3" in name or "SXM" in name):
+        return H100_SXM_BYTES_PER_S
+    raise RuntimeError(f"no memory rate on record for {name!r}: the bound is "
+                       "stated for the H100 SXM")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -95,81 +102,96 @@ def launch_breakdown(fn, reps: int):
     return out or "not measured"
 
 
-def parity(n: int, warm: int, ticks: int, seed: int):
+def parity(n: int, packet_loss: float, ticks: int, seed: int):
     """Kernel vs plain version from one state with one draw bundle per
-    tick: discrete packed leaves and counters equal on every tick, the
-    float plane within the layout-parity bounds."""
+    tick: discrete packed leaves and counters equal on every tick, float
+    leaves within MAX_STEPS / FLOOR_S. The window opens just after the
+    first deaths of a 5 % kill, with another 2.5 % just back from a stall,
+    so that suspicion, death and refutation all fire in it."""
     from consul_tpu_torch.config import SimConfig
     from consul_tpu_torch.models import layout, state as sim_state, swim
     from consul_tpu_torch.models.counters import FIELDS
     from consul_tpu_torch.ops import cuda_gossip, topology
 
     dev = torch.device("cuda")
-    cfg = SimConfig(n=n, view_degree=32, packet_loss=0.01)
+    cfg = SimConfig(n=n, view_degree=32, packet_loss=packet_loss)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     world = topology.make_world(cfg, gen, dev)
     topo = topology.make_topology(cfg, gen, dev)
     st = layout.pack(sim_state.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo)
+    deaths = FIELDS.index("deaths_declared")
+
+    def step(st):
+        return tick(world, st, swim.draw_tick(cfg, gen, dev))
+
+    # Warm up through the kernel (the window compares from whatever state
+    # it reaches): 32 ticks, kill 5 %, run on until the suspicions of the
+    # dead reach their Lifeguard timeout and deaths fire as a wave (n/1000
+    # in one tick, not a stray false positive of the packet loss). Then
+    # stall another 2.5 % for 8 ticks (down, then up at the same
+    # incarnation, as after a long pause): they are suspected and refute
+    # inside the window.
+    for _ in range(32):
+        st, _ = step(st)
     kill = torch.zeros(n, dtype=torch.bool, device=dev)
     kill[: n // 20] = True
+    st = layout.pack(sim_state.kill(layout.unpack(st), kill))
+    warm = 32
+    while True:
+        st, c = step(st)
+        warm += 1
+        if int(c[deaths]) >= max(1, n // 1000) or warm >= PARITY_MAX_WARM:
+            break
     pause = torch.zeros_like(kill)
     pause[n // 2: n // 2 + n // 40] = True
-    # Warm up on the plain path: kill 5 % after 32 ticks and run on until
-    # the suspicions of the dead reach their Lifeguard timeout (about 580
-    # ticks at this size), so deaths fire inside the compared window.
-    # Another 2.5 % stall for 8 ticks just before it (down, then up at
-    # the same incarnation, as after a long pause): they are suspected
-    # and refute inside the window.
-    for t in range(warm):
-        if t == 32:
-            st = layout.pack(sim_state.kill(layout.unpack(st), kill))
-        if t == warm - 10:
-            st = layout.pack(sim_state.kill(layout.unpack(st), pause))
-        if t == warm - 2:
-            sw = layout.unpack(st)
-            st = layout.pack(sw._replace(alive_truth=sw.alive_truth | pause))
-        st, _ = cuda_gossip.plain_tick(cfg, topo, world, st,
-                                       swim.draw_tick(cfg, gen, dev))
-    tick = cuda_gossip.make_tick_kernel(cfg, topo)
+    st = layout.pack(sim_state.kill(layout.unpack(st), pause))
+    for _ in range(8):
+        st, _ = step(st)
+    sw = layout.unpack(st)
+    st = layout.pack(sw._replace(alive_truth=sw.alive_truth | pause))
+    for _ in range(2):
+        st, _ = step(st)
+    warm += 10
+
     kp, pp = st, st
     totals = torch.zeros(len(FIELDS), dtype=torch.int64)
-    disc_bad, viv_err, lat_err = [], 0.0, 0.0
-    floats = {"vec", "height", "error", "adjustment", "adj_samples", "lat_buf"}
+    bad = []
+    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
     for t in range(ticks):
         d = swim.draw_tick(cfg, gen, dev)
         kp, kc = tick(world, kp, d)
         pp, pc = cuda_gossip.plain_tick(cfg, topo, world, pp, d)
         torch.cuda.synchronize()
         if not torch.equal(kc, pc):
-            disc_bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
+            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
         totals += pc.cpu().to(torch.int64)
         pairs = list(zip(kp._fields[:-1], kp[:-1], pp[:-1])) + [
             ("viv." + f, a, b) for f, a, b in zip(kp.viv._fields, kp.viv, pp.viv)]
         for name, a, b in pairs:
             base = name.split(".")[-1]
-            if base in floats:
-                x, y = a.to(torch.float32), b.to(torch.float32)
-                diff = (x - y).abs()
-                if base in ("adj_samples", "lat_buf"):
-                    lat_err = max(lat_err, float(diff.max()))
-                    ok = bool((diff <= LAT_ATOL).all())
-                else:
-                    viv_err = max(viv_err, float(diff.max()))
-                    ok = bool((diff <= VIV_ATOL + VIV_RTOL * y.abs()).all())
-                if not ok:
-                    disc_bad.append(f"tick {t} {name} beyond tolerance "
-                                    f"(max abs {float(diff.max())})")
+            if base in FLOAT_LEAVES:
+                steps, diff = layout.float_gap(a, b)
+                g = gaps[base]
+                # Steps are reported where the floor does not cover them.
+                g["steps"] = max(g["steps"], int(torch.where(
+                    diff > FLOOR_S, steps, torch.zeros_like(steps)).max()))
+                g["abs"] = max(g["abs"], float(diff.max()))
+                nbad = int(((steps > MAX_STEPS) & (diff > FLOOR_S)).sum())
+                if nbad:
+                    bad.append(f"tick {t} {name}: {nbad} elements beyond "
+                               f"{MAX_STEPS} steps and {FLOOR_S} s")
             elif not torch.equal(a, b):
                 nbad = int((a != b).sum()) if a.dim() else 1
-                disc_bad.append(f"tick {t} {name}: {nbad} elements differ")
-        if disc_bad:
+                bad.append(f"tick {t} {name}: {nbad} elements differ")
+        if bad:
             break
     fired = {f: int(totals[FIELDS.index(f)]) for f in (
         "suspicions_started", "deaths_declared", "refutations",
         "probe_timeouts", "pushpull_merges")}
-    return dict(n=n, k=32, ticks=ticks, warm=warm, mismatches=disc_bad[:5],
-                max_abs_viv=viv_err, max_abs_rtt_window=lat_err,
+    return dict(n=n, k=cfg.degree, packet_loss=packet_loss, ticks=ticks,
+                warm=warm, mismatches=bad[:5], float_gaps=gaps,
                 counters_in_window=fired)
 
 
@@ -184,9 +206,10 @@ def main() -> int:
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
+    rate = mem_rate(name)
     emit({"phase": "device", "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": name, "nvidia_smi": smi,
-          "count": torch.cuda.device_count()})
+          "count": torch.cuda.device_count(), "mem_rate_bytes_per_s": rate})
 
     info = cuda_gossip.build()
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
@@ -195,14 +218,15 @@ def main() -> int:
 
     failed = []
     max_abs = 0.0
-    for n in PARITY_SIZES:
+    for n, loss in PARITY:
         t0 = time.perf_counter()
-        res = parity(n, PARITY_WARM, PARITY_TICKS, seed=7)
+        res = parity(n, loss, PARITY_TICKS, seed=7)
+        torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = not res["mismatches"] and all(
             res["counters_in_window"][f] > 0
             for f in ("suspicions_started", "deaths_declared", "refutations"))
-        max_abs = max(max_abs, res["max_abs_viv"], res["max_abs_rtt_window"])
+        max_abs = max([max_abs] + [g["abs"] for g in res["float_gaps"].values()])
         emit({"phase": "kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"kernel_parity n={n}")
@@ -249,12 +273,14 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: cuda_gossip.plain_tick(cfg, sim.topo, sim.world,
                                                       st, d), 3)
     stages = launch_breakdown(lambda: tick(sim.world, st, d), 5)
-    contract = cuda_gossip.tick_hbm_bytes_per_node(st, sim.world, d)
-    bound_ms = contract * cfg.n / mem_rate(name) * 1e3
+    contract = cuda_gossip.tick_hbm_bytes_per_node(st, sim.world)
+    bound_ms = contract * cfg.n / rate * 1e3
+    buffers = tick.buffer_bytes_per_node(sim.world, st, d)
     emit({"phase": "timing", "ms_per_tick": ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "contract_bytes_per_node": contract,
-          "design_bytes_per_node": cuda_gossip.design_bytes_per_node(cfg),
-          "mem_rate_bytes_per_s": mem_rate(name), "ms_by_launch": stages})
+          "buffer_bytes_per_node": buffers,
+          "buffer_bytes_per_s": buffers * cfg.n / (ms * 1e-3),
+          "ms_by_launch": stages})
 
     print(json.dumps({"kernels": [{
         "name": "gossip_tick", "route": "cuda",

@@ -223,6 +223,25 @@ def unpack_state(state):
     return unpack(state) if isinstance(state, PackedSimState) else state
 
 
+def float_gap(a: torch.Tensor, b: torch.Tensor):
+    """Element-wise gap between two packed float leaves of one dtype
+    (bfloat16, or float8 under the x256 codec): (steps apart in the
+    storage format, |difference| of the decoded f32 values)."""
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, _F8):
+        raise TypeError(f"float_gap takes two bfloat16 or two float8 leaves, "
+                        f"got {a.dtype} and {b.dtype}")
+    if a.dtype == torch.bfloat16:
+        ints, mag, decode = torch.int16, 0x7FFF, lambda x: x.to(torch.float32)
+    else:
+        ints, mag, decode = torch.int8, 0x7F, _from_f8
+
+    def order(x):  # sign-magnitude bits -> an integer order of the values
+        bits = x.view(ints).to(torch.int32)
+        return torch.where(bits < 0, -(bits & mag), bits)
+
+    return (order(a) - order(b)).abs(), (decode(a) - decode(b)).abs()
+
+
 def leaves(tree):
     """The tensor leaves of a (nested) NamedTuple state."""
     out = []

@@ -92,47 +92,16 @@ def validate_kernel(kernel: str, layout: str, device=None) -> None:
                          "pass kernel='torch' to run the plain version")
 
 
-def tick_hbm_bytes_per_node(state, world=None, draws=None,
-                            n: Optional[int] = None) -> float:
+def tick_hbm_bytes_per_node(state, world=None) -> float:
     """The tick's memory-traffic contract in bytes/tick/node: one read of
-    the packed state, world and draws, one write of the state (the
-    counterpart of pallas_gossip.tick_hbm_bytes_per_node, with the draw
-    bundle in the place of the chaos schedule)."""
-    trees = [state, state] + [x for x in (world, draws) if x is not None]
+    the packed state and world, one write of the state (the counterpart
+    of pallas_gossip.tick_hbm_bytes_per_node). The draw bundle is not in
+    it: the reference kernel draws its random numbers in-kernel from one
+    key, so reading them from memory is a cost of this port's design."""
+    trees = [state, state] + ([world] if world is not None else [])
     leaves = [x for tr in trees for x in layout_mod.leaves(tr)]
-    if n is None:
-        n = max(int(x.shape[0]) for x in leaves if x.dim() >= 1)
+    n = max(int(x.shape[0]) for x in leaves if x.dim() >= 1)
     return sum(layout_mod.np_size_bytes(x) for x in leaves) / float(n)
-
-
-def design_bytes_per_node(cfg: SimConfig) -> int:
-    """Bytes per node that the three launches move, by accounting of what
-    each reads and writes (scratch included, every row read counted as
-    moved from device memory once per read; the probe target's row as
-    whole 32-byte sectors)."""
-    k, s = cfg.degree, cfg.vivaldi.latency_filter_size
-    d, w = cfg.vivaldi.dimensionality, cfg.vivaldi.adjustment_window_size
-    g = cfg.gossip
-    ic, fan, p, wd = g.indirect_checks, g.gossip_nodes, g.piggyback_msgs, cfg.world_dims
-    row_scalars = 12                                  # per-node u8/u16/i16 leaves
-    k_plane = k * (2 + 2 + 2 + 4 + 2)                 # view_inc meta sdelta sseen lcnt
-    viv = 2 * d + 6 + w + 2
-    draws = 4 * (1 + 2 + 3 * ic + k + 2 * d + fan) + 8 * (ic + 1)
-    payload = 2 + p * (1 + 4 + 4) + 4 + 4            # flags scol skey sbits ownk poke
-    world = 4 * (wd + 1)
-    # (A): own row in, target row (6 sectors) and relay flags, draws,
-    # world; out: view_mid, payload, every field but view_inc/sdelta.
-    a_in = row_scalars + k_plane + k * s + viv + draws + world + 6 * 32 + ic
-    a_out = 4 * k + payload + 11 + 2 * k + 4 * k + 2 * k + k * s + viv
-    # (B): fan payloads, K poke words, u_drop, the refute word, and for
-    # each fact a leg can carry (P + the own-fact) one view_mid and one
-    # susp_seen word read and written.
-    b_io = fan * payload + 4 * k + 4 * fan + 4 + fan * (p + 1) * 16
-    # (C): view_mid of self, partner and initiator; pre-tick view_inc,
-    # meta, sdelta, sseen; own meta/sseen read-modify-write; writes.
-    c_io = 3 * 4 * k + k * (2 + 2 + 2 + 4) + 2 * (2 * k + 4 * k) \
-        + k * (2 + 2 + 2 + 4) + 3 * 8 + 4
-    return a_in + a_out + b_io + c_io
 
 
 class BuildInfo(NamedTuple):
@@ -165,13 +134,14 @@ def build() -> BuildInfo:
             return _LIB_INFO
         src = open(SOURCE, "rb").read()
         tag = hashlib.sha256(src).hexdigest()[:12]
-        os.makedirs(BUILD_DIR, exist_ok=True)
         out = os.path.join(BUILD_DIR, f"libgossip_tick_{tag}.so")
         t0 = time.perf_counter()
         log = ""
         if not os.path.exists(out):
+            nvcc = _nvcc()
+            os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
                    "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
             res = subprocess.run(cmd, capture_output=True, text=True)
@@ -300,13 +270,9 @@ class TickKernel:
         for name, dt, shape in dspec:
             _check(getattr(draws, name), "draws." + name, dt, shape, device)
 
-    def __call__(self, world, packed, draws):
-        device = packed.t.device
-        if device.type != "cuda":
-            raise ValueError(f"the CUDA tick kernel takes CUDA tensors, got "
-                             f"{device}; use plain_tick for the plain version")
-        self._check_inputs(world, packed, draws, device)
-        build()
+    def _buffers(self, world, packed, draws, device):
+        """The output state, the scratch buffers and the flat operand list
+        (in TickArgs order) of one tick."""
         cfg = self.cfg
         n, k, p = cfg.n, cfg.degree, cfg.gossip.piggyback_msgs
         out = layout_mod.PackedSimState(
@@ -333,6 +299,29 @@ class TickKernel:
                       draws.pp_j, off, rcol, inv]
                    + list(scratch.values()))
         assert len(tensors) == len(_PTRS)
+        return out, scratch, tensors
+
+    def buffer_bytes_per_node(self, world, packed, draws) -> float:
+        """Bytes per node of every buffer the three launches touch, from
+        the tensors of one tick: each input (state, world, draws, topology
+        tables) read once, the output state written once, each scratch
+        buffer written once and read once. A row read again at a
+        displacement is counted once, so this is the least traffic of the
+        three-launch design, not a measurement."""
+        self._check_inputs(world, packed, draws, packed.t.device)
+        _, scratch, tensors = self._buffers(world, packed, draws, packed.t.device)
+        total = sum(layout_mod.np_size_bytes(x) for x in tensors)
+        total += sum(layout_mod.np_size_bytes(x) for x in scratch.values())
+        return total / float(self.cfg.n)
+
+    def __call__(self, world, packed, draws):
+        device = packed.t.device
+        if device.type != "cuda":
+            raise ValueError(f"the CUDA tick kernel takes CUDA tensors, got "
+                             f"{device}; use plain_tick for the plain version")
+        self._check_inputs(world, packed, draws, device)
+        build()
+        out, scratch, tensors = self._buffers(world, packed, draws, device)
         args = _TickArgs()
         for idx, x in enumerate(tensors):
             args.p[idx] = x.data_ptr()

@@ -94,10 +94,6 @@ def pytest_configure(config):
         "markers",
         "slow: long-running scenario tests excluded from the tier-1 "
         "run (ROADMAP.md runs -m 'not slow')")
-    config.addinivalue_line(
-        "markers",
-        "cuda: needs a CUDA card (the PyTorch port's kernels); skips "
-        "with a reason where there is none")
 
 
 def pumped_cluster_stack(n=3, seed=11, node="test-agent",

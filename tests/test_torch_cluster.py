@@ -1,12 +1,13 @@
 """PyTorch port vs the JAX reference: the driver end to end, and the
 port's package rules.
 
-- ``Simulation`` at n = 1024, K = 16, packed layout, plain PyTorch tick
+- ``Simulation`` at n = 512, K = 16, packed layout, plain PyTorch tick
   on the CPU, started from the reference simulation's world, topology and
   state and fed the reference's per-tick key ladder: after a 5 % kill it
   converges on the same tick as the reference's packed ``Simulation``,
   with equal per-chunk counters and equal per-tick agreement (exact: the
-  discrete plane).
+  discrete plane). The suspicion timeouts are cut (``suspicion_mult=2``,
+  ``suspicion_max_timeout_mult=2``) so the run converges in ~200 ticks.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
 - No module of ``consul_tpu_torch`` and no line of ``chip_smoke.py``
@@ -29,10 +30,12 @@ import torch_parity as tp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 16
+N = 512
+GOSSIP = dict(suspicion_mult=2, suspicion_max_timeout_mult=2)
 
 
 def test_simulation_converges_on_the_reference_tick():
-    jcfg, tcfg = tp.configs(n=1024, view_degree=16)
+    jcfg, tcfg = tp.configs(n=N, view_degree=16, gossip=GOSSIP)
     jsim = JSimulation(jcfg, seed=5, layout="packed")
     draws = tp.make_draws_fn(jcfg)
     base = jsim.base_key
@@ -47,8 +50,8 @@ def test_simulation_converges_on_the_reference_tick():
     ttr = tsim.run(CHUNK, chunk=CHUNK)
     np.testing.assert_array_equal(ttr.agreement.numpy(), np.asarray(jtr.agreement))
     assert tsim.counters == {f: jsim.counters[f] for f in tsim.counters}
-    mask = np.zeros(1024, bool)
-    mask[:51] = True
+    mask = np.zeros(N, bool)
+    mask[:N // 20] = True
     jsim.kill(mask)
     tsim.kill(mask)
 

@@ -2,17 +2,15 @@
 
 - The plain version (unpack -> step -> pack) against the reference's
   Pallas tick in interpret mode, 4 ticks at n = 256, K = 16: discrete
-  packed leaves and counters bit-equal; bfloat16/float8 leaves within the
-  reference's layout-parity bounds (rtol 3e-2, atol 2e-3; RTT windows
-  atol 2e-2), since a one-ulp f32 difference can flip a rounding.
+  packed leaves and counters bit-equal; each bfloat16/float8 leaf within
+  MAX_STEPS storage steps (ulps) of the reference's, or within FLOOR_S
+  seconds (height_min) where values cross zero, since a last-bit f32
+  difference in a reduction can flip a rounding.
 - The CUDA wrapper raises on CPU tensors and on what it does not take;
-  the module imports and selects engines without nvcc.
-- On a card (marker ``cuda``): the kernel against the plain version.
+  the module imports and selects engines without nvcc. The kernel itself
+  runs only on a card and is held against the plain version there by
+  chip_smoke.py.
 """
-
-import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -30,9 +28,8 @@ from consul_tpu_torch.ops import cuda_gossip, topology as ttopo
 
 import torch_parity as tp
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLOATS = {"vec", "height", "error", "adjustment", "adj_samples", "lat_buf"}
-VIV_RTOL, VIV_ATOL, LAT_ATOL = 3e-2, 2e-3, 2e-2
+MAX_STEPS, FLOOR_S = 3, 1e-5
 
 
 def _compare_packed(ref, got, context):
@@ -41,11 +38,12 @@ def _compare_packed(ref, got, context):
         if f == "viv":
             _compare_packed(r, g, context + ".viv")
         elif f in FLOATS:
-            atol, rtol = (LAT_ATOL, 0.0) if f in ("adj_samples", "lat_buf") \
-                else (VIV_ATOL, VIV_RTOL)
-            np.testing.assert_allclose(
-                g.to(torch.float32).numpy(), np.asarray(r).astype(np.float32),
-                rtol=rtol, atol=atol, err_msg=f"{context}.{f}")
+            steps, diff = tlayout.float_gap(g, convert.tensor(r))
+            bad = (steps > MAX_STEPS) & (diff > FLOOR_S)
+            assert not bool(bad.any()), (
+                f"{context}.{f}: {int(bad.sum())} elements beyond {MAX_STEPS} "
+                f"steps and {FLOOR_S} s (max {int(steps.max())} steps, "
+                f"{float(diff.max())} s)")
         else:
             np.testing.assert_array_equal(convert.bits(g), convert.ref_bits(r),
                                           err_msg=f"{context}.{f}")
@@ -114,22 +112,13 @@ def test_validate_kernel():
         cuda_gossip.validate_kernel("pallas", "packed", "cuda")
 
 
-def test_module_imports_and_builds_nothing_without_nvcc(tmp_path):
-    code = (
-        "import consul_tpu_torch.ops.cuda_gossip as m\n"
-        "assert m._LIB is None and m._LIB_INFO is None\n"
-        "try:\n"
-        "    m.build()\n"
-        "except RuntimeError as e:\n"
-        "    assert 'nvcc' in str(e), e\n"
-        "else:\n"
-        "    raise SystemExit('built without nvcc')\n"
-        "print('ok')\n")
-    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
-               PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+def test_module_imports_and_builds_nothing_without_nvcc(monkeypatch, tmp_path):
+    assert cuda_gossip._LIB is None and cuda_gossip._LIB_INFO is None
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_gossip.build()
+    assert cuda_gossip._LIB is None and cuda_gossip._LIB_INFO is None
 
 
 def test_hbm_contract_matches_reference():
@@ -144,26 +133,10 @@ def test_hbm_contract_matches_reference():
         tlayout.pack(tstate.init(tcfg, gen)), ttopo.make_world(tcfg, gen))
     assert got == want
     assert round(got) == 1088
-    assert cuda_gossip.design_bytes_per_node(tcfg) > got
+    # The kernel's own buffers (draws, topology tables, scratch) on top.
+    st = tlayout.pack(tstate.init(tcfg, gen))
+    kernel = cuda_gossip.make_tick_kernel(tcfg, ttopo.make_topology(tcfg, gen))
+    moved = kernel.buffer_bytes_per_node(ttopo.make_world(tcfg, gen), st,
+                                         tswim.draw_tick(tcfg, gen, "cpu"))
+    assert moved > got
 
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the tick kernel has no CPU mode")
-    dev = torch.device("cuda")
-    cfg = TSimConfig(n=4096, view_degree=32, packet_loss=0.02)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    world = ttopo.make_world(cfg, gen, dev)
-    topo = ttopo.make_topology(cfg, gen, dev)
-    st = tlayout.pack(tstate.init(cfg, gen, dev))
-    kernel = cuda_gossip.make_tick_kernel(cfg, topo)
-    kp = pp = st
-    for _ in range(16):
-        d = tswim.draw_tick(cfg, gen, dev)
-        kp, kc = kernel(world, kp, d)
-        pp, pc = cuda_gossip.plain_tick(cfg, topo, world, pp, d)
-        assert torch.equal(kc, pc)
-        for name in ("flags", "own_inc", "view_inc", "meta", "susp_delta",
-                     "susp_seen", "lat_cnt", "pending_col", "next_probe_delta"):
-            assert torch.equal(getattr(kp, name), getattr(pp, name)), name

@@ -2,7 +2,7 @@
 
 Both sides start from the reference's state and take the same random
 numbers (the port's TickDraws rebuilt from the reference's key ladder).
-Over 64 ticks, with 5 % of the nodes killed at tick 16 and 2 % packet
+Over 32 ticks, with 5 % of the nodes killed at tick 8 and 2 % packet
 loss: every int/bool SimState field and all 26 counters equal on every
 tick; the Vivaldi and RTT-window floats within rtol 1e-5 (atol 1e-7) —
 the same f32 operations in the same order, with reductions that XLA and
@@ -22,8 +22,8 @@ from consul_tpu_torch.models import swim as tswim
 
 import torch_parity as tp
 
-TICKS = 64
-KILL_AT = 16
+TICKS = 32
+KILL_AT = 8
 
 
 @pytest.mark.parametrize("n,view_degree", [(256, 0), (1024, 16)],

@@ -12,10 +12,12 @@ import jax
 import numpy as np
 import torch
 
+from consul_tpu.config import GossipConfig as JGossipConfig
 from consul_tpu.config import SimConfig as JSimConfig
 from consul_tpu.models import state as j_state
 from consul_tpu.ops import topology as j_topology
 from consul_tpu_torch import convert
+from consul_tpu_torch.config import GossipConfig as TGossipConfig
 from consul_tpu_torch.config import SimConfig as TSimConfig
 from consul_tpu_torch.models import swim as t_swim
 
@@ -39,8 +41,12 @@ DISCRETE = (
 )
 
 
-def configs(**kw):
-    return JSimConfig(**kw), TSimConfig(**kw)
+def configs(gossip=None, **kw):
+    """The reference's and the port's SimConfig from the same kwargs;
+    ``gossip`` is a dict of GossipConfig kwargs for both."""
+    g = gossip or {}
+    return (JSimConfig(gossip=JGossipConfig(**g), **kw),
+            TSimConfig(gossip=TGossipConfig(**g), **kw))
 
 
 def np_tree(tree):
