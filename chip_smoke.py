@@ -4,15 +4,21 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA tick kernel from ``consul_tpu_torch/csrc``, holds it
-against its plain PyTorch version at the bench's default shape, at a
-ragged size and at the main path's own shape, drives the port's main
-path (a 1,048,576-node, K = 32 view converging after a 5 % mass kill)
-through ``Simulation``, and prints one JSON line per phase, the kernel
-table, the card's name and power limit, and a last line
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It
-needs a CUDA H100 and the rest of the repository; without either it
-fails before printing a result.
+It builds the CUDA tick kernel from ``consul_tpu_torch/csrc`` and holds
+both of its variants against their plain PyTorch versions: the bare SWIM
+tick at the bench's default shape, at a ragged size and at the main
+path's own shape, and the serf variant at 65,536 nodes, at 20,000 nodes
+with query relays (int16 origins), at the main path's shape and at
+2,097,153 nodes (the murmur dedup signature), each window carrying an
+event storm, an open query and a leave. It drives the
+port's two main paths through their entry points: ``Simulation`` (a
+1,048,576-node, K = 32 view converging after a 5 % mass kill) and
+``SerfSimulation`` (the same, plus a live event storm and an open query,
+with fresh events every 512 ticks). It times each variant at 1M, and
+prints one JSON line per phase, the kernel table, the card's name and
+power limit, and a last line ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero. It needs a CUDA H100 and the rest of the
+repository; without either it fails before printing a result.
 """
 
 from __future__ import annotations
@@ -49,6 +55,18 @@ MAIN_N = 1_048_576
 PARITY = ((65536, 0.01), (50000, 0.01), (MAIN_N, 0.0))
 PARITY_TICKS = 32
 PARITY_MAX_WARM = 4096
+# Serf variant parity: (n, packet loss, query_relay_factor, ticks).
+# 20,000 nodes is ragged, keeps int16 origins and runs the relay path;
+# 2,097,153 is the smallest n whose dedup signature is the murmur hash
+# (serf._EXACT_SIG_MAX_N), over a 16-tick window (a leave still goes
+# quiet inside it) to bound the run's time at twice the main path's size.
+SERF_PARITY = ((65536, 0.01, 0, PARITY_TICKS), (20000, 0.01, 2, PARITY_TICKS),
+               (MAIN_N, 0.0, 0, PARITY_TICKS), ((1 << 21) + 1, 0.0, 0, 16))
+# The serf main path: events fired at the kill from 4 live rows (4 is
+# seen_width: more same-ltime origins per bucket drop by design), and
+# fresh ones every 512 ticks (bench.py:1133-1135).
+SERF_EVENTS = 4
+SERF_SLICE = 512
 
 
 def emit(obj):
@@ -102,6 +120,51 @@ def launch_breakdown(fn, reps: int):
     return out or "not measured"
 
 
+def warm_to_deaths(n, step, st, kill_rows, unpack, pack, kill):
+    """Warm up through the kernel: 32 ticks, kill ``kill_rows``, run on
+    until the suspicions of the dead reach their Lifeguard timeout and
+    deaths fire as a wave (n/1000 in one tick, not a stray false positive
+    of the packet loss). Returns (state, ticks)."""
+    from consul_tpu_torch.models.counters import FIELDS
+
+    deaths = FIELDS.index("deaths_declared")
+    for _ in range(32):
+        st, _ = step(st)
+    st = pack(kill(unpack(st), kill_rows))
+    warm = 32
+    while True:
+        st, c = step(st)
+        warm += 1
+        if int(c[deaths]) >= max(1, n // 1000) or warm >= PARITY_MAX_WARM:
+            return st, warm
+
+
+def compare_packed(kp, pp, t, gaps, bad):
+    """Kernel vs plain packed SWIM plane of one tick: discrete leaves
+    equal, float leaves within MAX_STEPS / FLOOR_S (gaps record the
+    largest seen)."""
+    from consul_tpu_torch.models import layout
+
+    pairs = list(zip(kp._fields[:-1], kp[:-1], pp[:-1])) + [
+        ("viv." + f, a, b) for f, a, b in zip(kp.viv._fields, kp.viv, pp.viv)]
+    for name, a, b in pairs:
+        base = name.split(".")[-1]
+        if base in FLOAT_LEAVES:
+            steps, diff = layout.float_gap(a, b)
+            g = gaps[base]
+            # Steps are reported where the floor does not cover them.
+            g["steps"] = max(g["steps"], int(torch.where(
+                diff > FLOOR_S, steps, torch.zeros_like(steps)).max()))
+            g["abs"] = max(g["abs"], float(diff.max()))
+            nbad = int(((steps > MAX_STEPS) & (diff > FLOOR_S)).sum())
+            if nbad:
+                bad.append(f"tick {t} {name}: {nbad} elements beyond "
+                           f"{MAX_STEPS} steps and {FLOOR_S} s")
+        elif not torch.equal(a, b):
+            nbad = int((a != b).sum()) if a.dim() else 1
+            bad.append(f"tick {t} {name}: {nbad} elements differ")
+
+
 def parity(n: int, packet_loss: float, ticks: int, seed: int):
     """Kernel vs plain version from one state with one draw bundle per
     tick: discrete packed leaves and counters equal on every tick, float
@@ -121,29 +184,17 @@ def parity(n: int, packet_loss: float, ticks: int, seed: int):
     topo = topology.make_topology(cfg, gen, dev)
     st = layout.pack(sim_state.init(cfg, gen, dev))
     tick = cuda_gossip.make_tick_kernel(cfg, topo)
-    deaths = FIELDS.index("deaths_declared")
 
     def step(st):
         return tick(world, st, swim.draw_tick(cfg, gen, dev))
 
-    # Warm up through the kernel (the window compares from whatever state
-    # it reaches): 32 ticks, kill 5 %, run on until the suspicions of the
-    # dead reach their Lifeguard timeout and deaths fire as a wave (n/1000
-    # in one tick, not a stray false positive of the packet loss). Then
-    # stall another 2.5 % for 8 ticks (down, then up at the same
+    # Then stall another 2.5 % for 8 ticks (down, then up at the same
     # incarnation, as after a long pause): they are suspected and refute
     # inside the window.
-    for _ in range(32):
-        st, _ = step(st)
     kill = torch.zeros(n, dtype=torch.bool, device=dev)
     kill[: n // 20] = True
-    st = layout.pack(sim_state.kill(layout.unpack(st), kill))
-    warm = 32
-    while True:
-        st, c = step(st)
-        warm += 1
-        if int(c[deaths]) >= max(1, n // 1000) or warm >= PARITY_MAX_WARM:
-            break
+    st, warm = warm_to_deaths(n, step, st, kill, layout.unpack, layout.pack,
+                              sim_state.kill)
     pause = torch.zeros_like(kill)
     pause[n // 2: n // 2 + n // 40] = True
     st = layout.pack(sim_state.kill(layout.unpack(st), pause))
@@ -167,24 +218,7 @@ def parity(n: int, packet_loss: float, ticks: int, seed: int):
         if not torch.equal(kc, pc):
             bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
         totals += pc.cpu().to(torch.int64)
-        pairs = list(zip(kp._fields[:-1], kp[:-1], pp[:-1])) + [
-            ("viv." + f, a, b) for f, a, b in zip(kp.viv._fields, kp.viv, pp.viv)]
-        for name, a, b in pairs:
-            base = name.split(".")[-1]
-            if base in FLOAT_LEAVES:
-                steps, diff = layout.float_gap(a, b)
-                g = gaps[base]
-                # Steps are reported where the floor does not cover them.
-                g["steps"] = max(g["steps"], int(torch.where(
-                    diff > FLOOR_S, steps, torch.zeros_like(steps)).max()))
-                g["abs"] = max(g["abs"], float(diff.max()))
-                nbad = int(((steps > MAX_STEPS) & (diff > FLOOR_S)).sum())
-                if nbad:
-                    bad.append(f"tick {t} {name}: {nbad} elements beyond "
-                               f"{MAX_STEPS} steps and {FLOOR_S} s")
-            elif not torch.equal(a, b):
-                nbad = int((a != b).sum()) if a.dim() else 1
-                bad.append(f"tick {t} {name}: {nbad} elements differ")
+        compare_packed(kp, pp, t, gaps, bad)
         if bad:
             break
     fired = {f: int(totals[FIELDS.index(f)]) for f in (
@@ -195,13 +229,185 @@ def parity(n: int, packet_loss: float, ticks: int, seed: int):
                 counters_in_window=fired)
 
 
+def serf_parity(n: int, packet_loss: float, relay: int, ticks: int, seed: int):
+    """The serf variant against plain_serf_tick from one state with one
+    SerfDraws per tick: every discrete packed leaf, every serf leaf and
+    all 26 counters equal on every tick, float leaves within MAX_STEPS /
+    FLOOR_S. The window opens after the deaths wave of a 5 % kill, with an
+    event storm (8 rounds of events from 4 live rows: 32 events over 8
+    ltimes, more than a queue holds), an open query and a leave issued at
+    its start, so deliveries, query acks, the quiet leave (15 ticks in)
+    and all three serf intent counters fall inside it."""
+    from consul_tpu_torch.config import SerfConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf, state as sim_state
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    cfg = SimConfig(n=n, view_degree=32, packet_loss=packet_loss,
+                    serf=SerfConfig(query_relay_factor=relay))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    st = layout.pack_state(serf.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True)
+
+    def step(st):
+        return tick(world, st, serf.draw_serf_tick(cfg, gen, dev))
+
+    def kill(s, rows):
+        return s._replace(swim=sim_state.kill(s.swim, rows))
+
+    dead = torch.zeros(n, dtype=torch.bool, device=dev)
+    dead[: n // 20] = True
+    st, warm = warm_to_deaths(n, step, st, dead, layout.unpack_state,
+                              layout.pack_state, kill)
+    dense = layout.unpack_state(st)
+    origins = [n // 3 + 7 * j for j in range(4)]
+    for r in range(8):
+        dense = serf.user_event(cfg, dense, _rows(n, origins, dev), 16 + r)
+    q_row, leaver = n // 3 + 101, n // 3 + 211
+    dense = serf.query(cfg, dense, _rows(n, [q_row], dev), 3)
+    q_slot = serf.newest_query_slot(dense, q_row)
+    dense = serf.leave(cfg, dense, _rows(n, [leaver], dev))
+    st = layout.pack_state(dense)
+
+    kp, pp = st, st
+    totals = torch.zeros(len(FIELDS), dtype=torch.int64)
+    bad = []
+    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+    for t in range(ticks):
+        d = serf.draw_serf_tick(cfg, gen, dev)
+        kp, kc = tick(world, kp, d)
+        pp, pc = cuda_gossip.plain_serf_tick(cfg, topo, world, pp, d)
+        torch.cuda.synchronize()
+        if not torch.equal(kc, pc):
+            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
+        totals += pc.cpu().to(torch.int64)
+        compare_packed(kp.swim, pp.swim, t, gaps, bad)
+        for name in serf.SerfState._fields[1:]:
+            a, b = getattr(kp, name), getattr(pp, name)
+            if not torch.equal(a, b):
+                bad.append(f"tick {t} {name}: {int((a != b).sum())} elements differ")
+        if bad:
+            break
+    window = {f: int(totals[FIELDS.index(f)]) for f in (
+        "serf_intents_queued", "serf_intents_retx", "serf_intents_dropped",
+        "deaths_declared")}
+    window.update(
+        delivered=int(pp.ev_delivered.to(torch.int64).sum()
+                      - st.ev_delivered.to(torch.int64).sum()),
+        query_acks=int(pp.q_acks[q_row, q_slot]) - int(st.q_acks[q_row, q_slot]),
+        query_resps=int(pp.q_resps[q_row, q_slot]),
+        leave_quiet=int(bool(pp.swim.flags[leaver] & 2)
+                        and int(pp.leave_at[leaver]) == -1))
+    return dict(n=n, k=cfg.degree, packet_loss=packet_loss, relay_factor=relay,
+                ticks=ticks, warm=warm, mismatches=bad[:5], float_gaps=gaps,
+                in_window=window)
+
+
+def _rows(n, rows, dev):
+    m = torch.zeros(n, dtype=torch.bool, device=dev)
+    m[rows] = True
+    return m
+
+
+def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate):
+    """Device ms per tick of the kernel and of its plain version (CUDA
+    events), ms by launch (profiler), and the bytes bound."""
+    ms = cuda_ms(lambda: tick(world, st, d), 20)
+    plain_ms = cuda_ms(lambda: plain(world, st, d), 3)
+    stages = launch_breakdown(lambda: tick(world, st, d), 5)
+    bound_ms = bytes_per_node * n / rate * 1e3
+    buffers = tick.buffer_bytes_per_node(world, st, d)
+    return dict(ms_per_tick=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                contract_bytes_per_node=bytes_per_node,
+                buffer_bytes_per_node=buffers,
+                buffer_bytes_per_s=buffers * n / (ms * 1e-3),
+                ms_by_launch=stages)
+
+
+def serf_main_path(cfg):
+    """The serf north star through SerfSimulation: 64 warm ticks, a 5 %
+    kill, 4 user events from live rows and a query from a live row, then
+    convergence in 512-tick slices with fresh events at each new slice."""
+    from consul_tpu_torch.models import cluster, layout, serf
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n = cfg.n
+    t0 = time.perf_counter()
+    sim = cluster.SerfSimulation(cfg, seed=0)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    sim.run(64, chunk=64)
+    dead = torch.zeros(n, dtype=torch.bool)
+    dead[: n // 20] = True
+    sim.kill(dead)
+    # Origins are live rows (the bench fires from rows it just killed,
+    # bench.py:1111-1116, so its events never leave them).
+    origins = [n // 20 + 1 + (n // 8) * j for j in range(SERF_EVENTS)]
+    fired = []
+
+    def fire(name):
+        clocks = sim.state.event_clock
+        for r in origins:
+            fired.append((int(clocks[r]), name, r))
+        sim.user_event(_rows(n, origins, "cpu"), name)
+
+    fire(1)
+    q_row = n // 2 + 3
+    sim.query(_rows(n, [q_row], "cpu"), 3)
+    q_slot = serf.newest_query_slot(sim.state, q_row)
+    used, converged, trace, slice_idx = 0, False, None, 0
+    while used < 4096 and not converged:
+        if slice_idx:
+            fire(2 + slice_idx)
+        slice_idx += 1
+        converged, u, trace = sim.run_until_converged(
+            max_ticks=min(SERF_SLICE, 4096 - used), chunk=128)
+        used += u
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_gossip.LAUNCHES)
+    state = sim.serf_state
+    coverage = [dict(ltime=lt, name=name, origin=r,
+                     coverage=float(serf.event_coverage(
+                         cfg, state, serf.make_event_key(lt, name), r)))
+                for lt, name, r in fired]
+    agreement = float(trace.agreement[-1])
+    finite = bool(torch.isfinite(trace.rmse).all()) and bool(
+        torch.isfinite(state.swim.viv.vec).all())
+    res = dict(n=n, k=cfg.degree, converged=converged, ticks_after_kill=used,
+               ticks_total=sim._t, agreement=agreement,
+               rmse_ms=float(trace.rmse[-1]) * 1000.0, wall_s=round(wall, 3),
+               setup_s=round(setup_s, 3), launches=launches,
+               counters=sim.counters, coverage=coverage,
+               query={"origin": q_row, "slot": q_slot,
+                      "acks": int(state.q_acks[q_row, q_slot]),
+                      "resps": int(state.q_resps[q_row, q_slot]),
+                      "live_nodes": int((state.swim.alive_truth
+                                         & ~state.swim.left).sum())},
+               bytes_per_node=layout.bytes_per_node(sim.state, n))
+    ok = converged and agreement == 1.0 and sum(launches.values()) > 0 and finite
+    return sim, res, ok
+
+
+def reset_launches():
+    from consul_tpu_torch.ops import cuda_gossip
+
+    for k in cuda_gossip.LAUNCHES:
+        cuda_gossip.LAUNCHES[k] = 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from consul_tpu_torch.config import SimConfig
-    from consul_tpu_torch.models import cluster, layout, swim
+    from consul_tpu_torch.models import cluster, layout, serf, swim
     from consul_tpu_torch.ops import cuda_gossip
 
     smi = nvidia_smi()
@@ -217,7 +423,7 @@ def main() -> int:
           "library": os.path.relpath(info.path), "ptxas": regs})
 
     failed = []
-    max_abs = 0.0
+    max_abs = {"gossip_tick": 0.0, "gossip_tick_serf": 0.0}
     for n, loss in PARITY:
         t0 = time.perf_counter()
         res = parity(n, loss, PARITY_TICKS, seed=7)
@@ -226,10 +432,26 @@ def main() -> int:
         res["ok"] = not res["mismatches"] and all(
             res["counters_in_window"][f] > 0
             for f in ("suspicions_started", "deaths_declared", "refutations"))
-        max_abs = max([max_abs] + [g["abs"] for g in res["float_gaps"].values()])
+        max_abs["gossip_tick"] = max([max_abs["gossip_tick"]] + [
+            g["abs"] for g in res["float_gaps"].values()])
         emit({"phase": "kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"kernel_parity n={n}")
+    for n, loss, relay, ticks in SERF_PARITY:
+        t0 = time.perf_counter()
+        res = serf_parity(n, loss, relay, ticks, seed=11)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        res["ok"] = not res["mismatches"] and all(
+            res["in_window"][f] > 0 for f in (
+                "serf_intents_queued", "serf_intents_retx",
+                "serf_intents_dropped", "delivered", "query_acks",
+                "leave_quiet"))
+        max_abs["gossip_tick_serf"] = max([max_abs["gossip_tick_serf"]] + [
+            g["abs"] for g in res["float_gaps"].values()])
+        emit({"phase": "serf_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"serf_kernel_parity n={n}")
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1
@@ -239,8 +461,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sim = cluster.Simulation(cfg, seed=0, layout="packed", kernel="cuda")
     setup_s = time.perf_counter() - t0
-    for k in cuda_gossip.LAUNCHES:
-        cuda_gossip.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     sim.run(64, chunk=64)
     mask = torch.zeros(cfg.n, dtype=torch.bool)
@@ -250,7 +471,6 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_gossip.LAUNCHES)
-    total_launches = sum(launches.values())
     agreement = float(trace.agreement[-1])
     rmse_ms = float(trace.rmse[-1]) * 1000.0
     finite = bool(torch.isfinite(trace.rmse).all()) and bool(
@@ -261,34 +481,54 @@ def main() -> int:
           "wall_s": round(wall, 3), "setup_s": round(setup_s, 3),
           "launches": launches, "counters": sim.counters,
           "bytes_per_node": layout.bytes_per_node(sim.state, cfg.n)})
-    if not (converged and agreement == 1.0 and total_launches > 0 and finite):
+    if not (converged and agreement == 1.0 and sum(launches.values()) > 0
+            and finite):
         emit({"phase": "failed", "failed": ["main_path"]})
         return 1
+    swim_launches = sum(launches.values())
 
     # Kernel timing at the main path's shapes, on its final state.
     tick = cuda_gossip.make_tick_kernel(cfg, sim.topo)
     d = swim.draw_tick(cfg, sim.gen, sim.device)
-    st = sim.state
-    ms = cuda_ms(lambda: tick(sim.world, st, d), 20)
-    plain_ms = cuda_ms(lambda: cuda_gossip.plain_tick(cfg, sim.topo, sim.world,
-                                                      st, d), 3)
-    stages = launch_breakdown(lambda: tick(sim.world, st, d), 5)
-    contract = cuda_gossip.tick_hbm_bytes_per_node(st, sim.world)
-    bound_ms = contract * cfg.n / rate * 1e3
-    buffers = tick.buffer_bytes_per_node(sim.world, st, d)
-    emit({"phase": "timing", "ms_per_tick": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "contract_bytes_per_node": contract,
-          "buffer_bytes_per_node": buffers,
-          "buffer_bytes_per_s": buffers * cfg.n / (ms * 1e-3),
-          "ms_by_launch": stages})
+    swim_t = time_kernel(
+        tick, lambda w, s, dd: cuda_gossip.plain_tick(cfg, sim.topo, w, s, dd),
+        sim.world, sim.state, d,
+        cuda_gossip.tick_hbm_bytes_per_node(sim.state, sim.world), cfg.n, rate)
+    emit({"phase": "timing", **swim_t})
+    del sim, tick, d
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "gossip_tick", "route": "cuda",
-        "source": "consul_tpu_torch/csrc/gossip_tick.cu",
-        "replaces": "consul_tpu/ops/pallas_gossip.py:145",
-        "launches": total_launches, "max_abs_err": max_abs, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": None}]}), flush=True)
+    # The serf main path and the serf variant's timing on its final state.
+    ssim, res, ok = serf_main_path(cfg)
+    emit({"phase": "serf_main_path", **res})
+    if not ok:
+        emit({"phase": "failed", "failed": ["serf_main_path"]})
+        return 1
+    serf_launches = sum(res["launches"].values())
+    stick = cuda_gossip.make_tick_kernel(cfg, ssim.topo, serf_plane=True)
+    d = serf.draw_serf_tick(cfg, ssim.gen, ssim.device)
+    serf_t = time_kernel(
+        stick,
+        lambda w, s, dd: cuda_gossip.plain_serf_tick(cfg, ssim.topo, w, s, dd),
+        ssim.world, ssim.state, d,
+        cuda_gossip.tick_hbm_bytes_per_node(ssim.state, ssim.world), cfg.n, rate)
+    emit({"phase": "serf_timing", **serf_t})
+
+    def row(name, config, launches, t):
+        return {"name": name, "route": "cuda",
+                "source": "consul_tpu_torch/csrc/gossip_tick.cu",
+                "replaces": "consul_tpu/ops/pallas_gossip.py:145",
+                "config": config, "launches": launches,
+                "max_abs_err": max_abs[name], "ms": t["ms_per_tick"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes", "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
+            "sentinel=False, sparse, packed", swim_launches, swim_t),
+        row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
+            "sched=None, sentinel=False, sparse, packed", serf_launches,
+            serf_t)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -116,3 +116,16 @@ def topology_from(src, device="cpu") -> topology.Topology:
             raise ValueError(f"reference topology {name} disagrees with the "
                              "tables rebuilt from its offsets")
     return topo
+
+
+def serf_state_from(src, device="cpu"):
+    """Reference SerfState (dense or packed SWIM plane) -> port SerfState:
+    the SWIM plane through :func:`sim_state_from` or
+    :func:`packed_state_from`, the serf leaves dtype for dtype."""
+    from consul_tpu_torch.models import serf
+
+    sw = _get(src, "swim")
+    packed = ("flags" in sw) if isinstance(sw, dict) else hasattr(sw, "flags")
+    swim = packed_state_from(sw, device) if packed else sim_state_from(sw, device)
+    return serf.SerfState(swim, *[tensor(_get(src, f), device)
+                                  for f in serf.SerfState._fields[1:]])

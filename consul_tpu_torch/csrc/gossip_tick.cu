@@ -34,6 +34,33 @@
 // pointer (pointer, int and float tables indexed by the enums below, which
 // consul_tpu_torch/ops/cuda_gossip.py mirrors) and a stream; each returns
 // cudaGetLastError() after its launch.
+//
+// The serf variant (I_SERF = 1) replaces the same pallas_call with
+// step_fn=serf.step_counted: unpack -> serf.step_counted -> pack over a
+// SerfState whose SWIM plane is packed and whose serf leaves keep the
+// reference's dtypes (1477 B/node at K = 32, E = 8, R = 16, O = 4, Q = 4;
+// the contract is 2970 B/node/tick). It adds to A and runs a fourth launch:
+//   (A) also peels the top piggyback_events queue entries of the PRE-tick
+//       queue by remaining budget (serf.py:512-531) and writes them, with
+//       the per-leg liveness-only send gate ex_sendable, to the x_* payload
+//       scratch beside pay_*; and copies q_resps/q_acks to the output, so
+//       the tally's cross-row adds in D land on the input values.
+//   (D) serf_post, after C has written the final view: the row's quiet
+//       leave (left |= quiet in its own packed flags), delivery of the
+//       oldest staged entry against the dedup buckets, the Lamport
+//       witness, the query tally, budget decrement and retirement, intake
+//       of up to 2 fresh arrivals, query expiry and down_since from the
+//       final view status. D re-reads the senders' x_* payloads at the
+//       tick's gossip displacements (no [N, fan*PE] candidate scratch);
+//       the arrival of each leg uses the membership leg's drop draw and
+//       the receiver's pre-quiet liveness, as in swim._gossip_phase. The
+//       tally is its one cross-row write: each responder adds 1 into the
+//       origin row's q_acks (and q_resps) slot with an int32 atomicAdd,
+//       exact in any order. The slot match reads q_open_key from the INPUT
+//       (pre-expiry, serf.py:723 then :558); the origin's and each relay
+//       row's liveness is recomputed post-quiet from their input flags and
+//       leave_at. D copies its row's dedup buckets to the output and
+//       updates them there, in the order the reference rejects in.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,12 +83,26 @@ enum Ptr {
   P_UDROP, P_PPJ,
   P_OFF, P_RCOL, P_INV,
   P_VMID, P_PFLAGS, P_PSCOL, P_PSKEY, P_PSBITS, P_POWNK, P_POKE, P_REFUTE,
-  P_CNT, N_PTR
+  P_CNT,
+  // Serf variant only (null for the bare tick).
+  P_SIN,                        // + SLeaf: input serf leaves
+  P_SOUT = P_SIN + 21,          // + SLeaf: output serf leaves
+  P_URESP = P_SOUT + 21, P_RU1, P_RU2, P_RCOLS,
+  P_XFLAGS, P_XKEY, P_XORIG, N_PTR
 };
+
+// Serf leaves, in SerfState field order after the SWIM plane.
+enum SLeaf {
+  S_CLOCK, S_ECLOCK, S_QCLOCK, S_EKEY, S_EORIG, S_ETX, S_EPEND, S_EBLT,
+  S_EBSIG, S_QBLT, S_QBSIG, S_EDELIV, S_EFLOOR, S_QFLOOR, S_QOPEN, S_QDEAD,
+  S_QRESP, S_QACK, S_QRESPONDER, S_LEAVE, S_DOWN, N_SLEAVES
+};
+static_assert(N_SLEAVES == 21, "serf leaf table");
 
 enum Int {
   I_N, I_K, I_S, I_D, I_W, I_WD, I_IC, I_FAN, I_P, I_TX_LIMIT, I_SUSP_K,
-  I_PP_PERIOD, I_OWN_LIMIT, I_PROBE_PERIOD, I_AWARE_MAX, N_INT
+  I_PP_PERIOD, I_OWN_LIMIT, I_PROBE_PERIOD, I_AWARE_MAX,
+  I_SERF, I_E, I_R, I_O, I_Q, I_PE, I_RF, I_ORIG16, I_EXACT_SIG, N_INT
 };
 
 enum Flt {
@@ -77,12 +118,15 @@ struct TickArgs {
 
 enum Counter {
   C_PROBES, C_ACKS, C_NACKS, C_TIMEOUTS, C_SUSP, C_REFUT, C_DEATHS, C_GTX,
-  C_GRX, C_GMSGS, C_PP, N_CNT = 26
+  C_GRX, C_GMSGS, C_PP, C_SQUEUED, C_SRETX, C_SDROPPED, N_CNT = 26
 };
 
 #define MAXD 16
 #define MAXW 64
 #define MAXS 8
+#define MAXE 16    // event queue slots
+#define MAXPE 8    // piggybacked events per send
+#define MAXC 32    // intake candidates, gossip_nodes * piggyback_events
 
 constexpr uint32_t ALIVE = 0, SUSPECT = 1, DEAD = 2, LEFT = 3;
 constexpr uint32_t UNKNOWN = 2;  // (0, DEAD)
@@ -271,6 +315,95 @@ __device__ bool viv_update(const TickArgs& a, Viv& v, const float* ovec,
   }
   return true;
 }
+
+// ---------------------------------------------------------------------------
+// Serf helpers (models/serf.py), one row per thread.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int load_origin(const TickArgs& a, int k, size_t idx) {
+  return a.i[I_ORIG16] ? static_cast<int>(ptr<const int16_t>(a, k)[idx])
+                       : static_cast<int>(ptr<const int32_t>(a, k)[idx]);
+}
+__device__ __forceinline__ void store_origin(const TickArgs& a, int k, size_t idx,
+                                             int v) {
+  if (a.i[I_ORIG16]) ptr<int16_t>(a, k)[idx] = static_cast<int16_t>(v);
+  else ptr<int32_t>(a, k)[idx] = v;
+}
+
+// Top-PE queue slots of row block eb by remaining budget (max value, lowest
+// index on ties), read from the input queue.
+__device__ void serf_peel(const TickArgs& a, size_t eb, int E, int PE,
+                          int* order, int* mtx) {
+  const int8_t* etx = ptr<const int8_t>(a, P_SIN + S_ETX) + eb;
+  uint32_t taken = 0;
+  for (int q = 0; q < PE; ++q) {
+    int best = -1, bv = 0;
+    for (int e = 0; e < E; ++e) {
+      if ((taken >> e) & 1u) continue;
+      const int v = etx[e];
+      if (best < 0 || v > bv) {
+        best = e;
+        bv = v;
+      }
+    }
+    taken |= 1u << best;
+    order[q] = best;
+    mtx[q] = bv;
+  }
+}
+
+// Dedup identity of (key, origin): the exact pack below 2^21 nodes, the
+// murmur3 finalizer above (serf._sig).
+__device__ __forceinline__ uint32_t serf_sig(bool exact, uint32_t key, int origin) {
+  if (exact)
+    return 0x80000000u | (static_cast<uint32_t>(origin + 1) << 9) | (key & 0x1FFu);
+  uint32_t h = key ^ (static_cast<uint32_t>(origin) * 0x9E3779B9u);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h | 1u;
+}
+
+// One ltime-bucketed dedup buffer of one row (serf._buf_lookup/_buf_apply).
+struct Bucket {
+  uint32_t* lt;    // [R]
+  uint32_t* sig;   // [R * O]
+  uint32_t floor;
+  int R, O;
+  bool exact;
+
+  __device__ bool rejects(uint32_t key, int origin) const {
+    const uint32_t l = key >> 9;
+    const int b = static_cast<int>(l % static_cast<uint32_t>(R));
+    const uint32_t blt = lt[b];
+    const uint32_t sg = serf_sig(exact, key, origin);
+    bool full = true, hit = false;
+    for (int o = 0; o < O; ++o) {
+      const uint32_t v = sig[b * O + o];
+      full = full && v != 0u;
+      hit = hit || v == sg;
+    }
+    return (hit && blt == l) || (full && blt == l) || blt > l || l < floor;
+  }
+
+  __device__ void apply(uint32_t key, int origin) {
+    const uint32_t l = key >> 9;
+    const int b = static_cast<int>(l % static_cast<uint32_t>(R));
+    const uint32_t blt = lt[b];
+    const bool takeover = blt != l;
+    if (takeover && blt > 0u) floor = max(floor, blt + 1u);
+    lt[b] = l;
+    int free_slot = 0;
+    for (int o = O - 1; o >= 0; --o)
+      if (sig[b * O + o] == 0u) free_slot = o;
+    const int slot = takeover ? 0 : free_slot;
+    const uint32_t sg = serf_sig(exact, key, origin);
+    for (int o = 0; o < O; ++o)
+      sig[b * O + o] = o == slot ? sg : (takeover ? 0u : sig[b * O + o]);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // (A) probe_send
@@ -608,6 +741,37 @@ __global__ void k_probe_send(TickArgs a) {
     }
     if (own_sendable) own_tx = max(own_tx - n_sends, 0);
 
+    // Serf sender side: the fused event plane's payload for D.
+    if (a.i[I_SERF]) {
+      uint32_t xbits = 0;
+      for (int f = 0; f < FAN; ++f) {
+        const int jc = (jpos + f) % K;
+        if (alive && !left && contactable(vmid[rb + jc])) xbits |= 1u << f;
+      }
+      const int E = a.i[I_E], PE = a.i[I_PE], Q = a.i[I_Q];
+      const size_t eb = static_cast<size_t>(i) * E;
+      int order[MAXPE], mtx[MAXPE];
+      serf_peel(a, eb, E, PE, order, mtx);
+      uint32_t* xkey = ptr<uint32_t>(a, P_XKEY);
+      int32_t* xorig = ptr<int32_t>(a, P_XORIG);
+      const uint32_t* ekey = ptr<const uint32_t>(a, P_SIN + S_EKEY);
+      for (int q = 0; q < PE; ++q) {
+        const uint32_t key = ekey[eb + order[q]];
+        xkey[static_cast<size_t>(i) * PE + q] = key;
+        xorig[static_cast<size_t>(i) * PE + q] =
+            load_origin(a, P_SIN + S_EORIG, eb + order[q]);
+        if (key > 0u && mtx[q] > 0) xbits |= 1u << (8 + q);
+      }
+      ptr<uint16_t>(a, P_XFLAGS)[i] = static_cast<uint16_t>(xbits);
+      const size_t qb = static_cast<size_t>(i) * Q;
+      for (int q = 0; q < Q; ++q) {
+        ptr<int32_t>(a, P_SOUT + S_QRESP)[qb + q] =
+            ptr<const int32_t>(a, P_SIN + S_QRESP)[qb + q];
+        ptr<int32_t>(a, P_SOUT + S_QACK)[qb + q] =
+            ptr<const int32_t>(a, P_SIN + S_QACK)[qb + q];
+      }
+    }
+
     // Fields no later phase changes, packed against t + 1. The probe
     // deadline is canonicalized to t while no probe is outstanding.
     if (pcol < 0) pfail = t;
@@ -854,6 +1018,260 @@ __global__ void k_pushpull(TickArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// (D) serf_post: the post-gossip half of the fused serf tick
+//     (serf.py:539-568 and _fused_event_post_body :802-895).
+// ---------------------------------------------------------------------------
+
+// Post-quiet liveness of row x (alive_truth & ~left after the tick's quiet
+// leaves), from its input flags and leave_at.
+__device__ __forceinline__ bool serf_up(const TickArgs& a, int x, int t1) {
+  const uint8_t f = ptr<const uint8_t>(a, P_IN + L_FLAGS)[x];
+  const int la = ptr<const int32_t>(a, P_SIN + S_LEAVE)[x];
+  return (f & 1) && !(f & 2) && !(la >= 0 && t1 >= la);
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_row(const TickArgs& a, int leaf, size_t b,
+                                         int len) {
+  const T* src = ptr<const T>(a, P_SIN + leaf) + b;
+  T* dst = ptr<T>(a, P_SOUT + leaf) + b;
+  for (int k = 0; k < len; ++k) dst[k] = src[k];
+}
+
+__global__ void k_serf_post(TickArgs a) {
+  __shared__ int smem[N_CNT];
+  BlockCounters bc;
+  bc.init(smem);
+  const int n = a.i[I_N];
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < n) {
+    const int K = a.i[I_K], FAN = a.i[I_FAN];
+    const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O], Q = a.i[I_Q];
+    const int PE = a.i[I_PE], RF = a.i[I_RF];
+    const bool exact = a.i[I_EXACT_SIG] != 0;
+    const float pl = a.f[F_PLOSS];
+    const int t = *ptr<const int32_t>(a, P_IN + L_T);
+    const int t1 = t + 1;
+    const int32_t* off = ptr<const int32_t>(a, P_OFF);
+    const size_t eb = static_cast<size_t>(r) * E;
+    const size_t qb = static_cast<size_t>(r) * Q;
+    const size_t rb = static_cast<size_t>(r) * K;
+
+    // Quiet leaves: left |= quiet, in the row's own packed flags.
+    const uint8_t fl = ptr<const uint8_t>(a, P_IN + L_FLAGS)[r];
+    const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
+    const bool quiet = leave_in >= 0 && t1 >= leave_in;
+    const bool alive = fl & 1, left = fl & 2, external = fl & 8;
+    const bool active = alive && !left && !quiet;
+    ptr<uint8_t>(a, P_OUT + L_FLAGS)[r] = static_cast<uint8_t>(fl | (quiet ? 2 : 0));
+    ptr<int32_t>(a, P_SOUT + S_LEAVE)[r] = quiet ? -1 : leave_in;
+
+    // The row's queue, in registers.
+    uint32_t key[MAXE];
+    int org[MAXE], tx[MAXE];
+    bool pend[MAXE];
+    const uint32_t* in_key = ptr<const uint32_t>(a, P_SIN + S_EKEY) + eb;
+    const int8_t* in_tx = ptr<const int8_t>(a, P_SIN + S_ETX) + eb;
+    const uint8_t* in_pend = ptr<const uint8_t>(a, P_SIN + S_EPEND) + eb;
+    for (int e = 0; e < E; ++e) {
+      key[e] = in_key[e];
+      org[e] = load_origin(a, P_SIN + S_EORIG, eb + e);
+      tx[e] = in_tx[e];
+      pend[e] = in_pend[e] != 0;
+    }
+    // The row's dedup buckets, updated in place in the output.
+    const size_t bb = static_cast<size_t>(r) * R;
+    const size_t sb = bb * O;
+    copy_row<uint32_t>(a, S_EBLT, bb, R);
+    copy_row<uint32_t>(a, S_QBLT, bb, R);
+    copy_row<uint32_t>(a, S_EBSIG, sb, R * O);
+    copy_row<uint32_t>(a, S_QBSIG, sb, R * O);
+    Bucket evb{ptr<uint32_t>(a, P_SOUT + S_EBLT) + bb,
+               ptr<uint32_t>(a, P_SOUT + S_EBSIG) + sb,
+               ptr<const uint32_t>(a, P_SIN + S_EFLOOR)[r], R, O, exact};
+    Bucket qub{ptr<uint32_t>(a, P_SOUT + S_QBLT) + bb,
+               ptr<uint32_t>(a, P_SOUT + S_QBSIG) + sb,
+               ptr<const uint32_t>(a, P_SIN + S_QFLOOR)[r], R, O, exact};
+    uint32_t eclock = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
+    uint32_t qclock = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
+    int delivered = ptr<const int32_t>(a, P_SIN + S_EDELIV)[r];
+
+    // 1. Deliver the oldest staged-undelivered entry.
+    uint32_t del_key = 0xFFFFFFFFu;
+    for (int e = 0; e < E; ++e)
+      if (pend[e] && key[e] > 0u && active && key[e] < del_key) del_key = key[e];
+    const bool has = del_key != 0xFFFFFFFFu;
+    int del_slot = 0;
+    for (int e = E - 1; e >= 0; --e)
+      if (pend[e] && key[e] > 0u && active && key[e] == del_key) del_slot = e;
+    const uint32_t wkey = has ? del_key : 0u;
+    const int worig = has ? org[del_slot] : 0;
+    const bool is_q = wkey & 1u;
+    const bool stale = is_q ? qub.rejects(wkey, worig) : evb.rejects(wkey, worig);
+    const bool deliver = has && !stale;
+    const uint32_t lt = wkey >> 9;
+    if (deliver && !is_q) {
+      evb.apply(wkey, worig);
+      delivered += 1;
+      eclock = max(eclock, lt + 1u);
+    }
+    if (deliver && is_q) {
+      qub.apply(wkey, worig);
+      qclock = max(qclock, lt + 1u);
+      // The query tally: ack (and answer) the origin's open slot.
+      bool arrived = ptr<const float>(a, P_URESP)[r] >= pl;
+      if (RF > 0 && pl > 0.0f) {
+        const int64_t* rcols = ptr<const int64_t>(a, P_RCOLS);
+        const float* u1 = ptr<const float>(a, P_RU1);
+        const float* u2 = ptr<const float>(a, P_RU2);
+        for (int k = 0; k < RF; ++k) {
+          const int rrow = (r + off[rcols[k]]) % n;
+          const size_t u = static_cast<size_t>(r) * RF + k;
+          if (serf_up(a, rrow, t1) && u1[u] >= pl && u2[u] >= pl) arrived = true;
+        }
+      }
+      if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
+        const uint32_t* qopen = ptr<const uint32_t>(a, P_SIN + S_QOPEN);
+        const bool responder = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r] != 0;
+        int32_t* qacks = ptr<int32_t>(a, P_SOUT + S_QACK);
+        int32_t* qresps = ptr<int32_t>(a, P_SOUT + S_QRESP);
+        const size_t ob = static_cast<size_t>(worig) * Q;
+        for (int q = 0; q < Q; ++q) {
+          if (qopen[ob + q] != wkey) continue;
+          atomicAdd(&qacks[ob + q], 1);
+          if (responder) atomicAdd(&qresps[ob + q], 1);
+        }
+      }
+    }
+    if (has) pend[del_slot] = false;
+
+    // 2. Budget decrement by the legs sent, from the pre-tick selection;
+    //    retire spent delivered entries.
+    const uint32_t xbits = ptr<const uint16_t>(a, P_XFLAGS)[r];
+    const int ex_sends = __popc(xbits & 0xFFu);
+    int order[MAXPE], mtx[MAXPE];
+    serf_peel(a, eb, E, PE, order, mtx);
+    int n_retx = 0;
+    for (int q = 0; q < PE; ++q) {
+      const int sends = ((xbits >> (8 + q)) & 1u) ? ex_sends : 0;
+      n_retx += sends;
+      tx[order[q]] = max(mtx[q] - sends, 0);
+    }
+    for (int e = 0; e < E; ++e)
+      if (tx[e] <= 0 && !pend[e]) key[e] = 0u;
+
+    // 3. Intake: up to 2 fresh arrivals off the legs, re-read from the
+    //    senders' payloads at this tick's displacements.
+    const bool recv_up = alive && !left;
+    const int sweep_len = (K + FAN - 1) / FAN;
+    const int jpos = (t % sweep_len) * FAN;
+    const uint16_t* xflags = ptr<const uint16_t>(a, P_XFLAGS);
+    const uint32_t* xkey = ptr<const uint32_t>(a, P_XKEY);
+    const int32_t* xorig = ptr<const int32_t>(a, P_XORIG);
+    const float* udrop = ptr<const float>(a, P_UDROP);
+    uint32_t ck[MAXC];
+    int co[MAXC];
+    uint32_t fresh = 0;
+    for (int f = 0; f < FAN; ++f) {
+      const int jc = (jpos + f) % K;
+      const int s = (r - off[jc] + n) % n;
+      const uint32_t xs = xflags[s];
+      const bool leg = ((xs >> f) & 1u) &&
+                       udrop[static_cast<size_t>(r) * FAN + f] >= pl && recv_up;
+      for (int q = 0; q < PE; ++q) {
+        const int c = f * PE + q;
+        const bool ok = leg && ((xs >> (8 + q)) & 1u);
+        const size_t sq = static_cast<size_t>(s) * PE + q;
+        ck[c] = ok ? xkey[sq] : 0u;
+        co[c] = ok ? xorig[sq] : -1;
+        const bool rej = (ck[c] & 1u) ? qub.rejects(ck[c], co[c])
+                                      : evb.rejects(ck[c], co[c]);
+        if (ck[c] > 0u && !rej) fresh |= 1u << c;
+      }
+    }
+    const int nc = FAN * PE;
+    const int tx_limit = a.i[I_TX_LIMIT];
+    int queued = 0, dropped = 0;
+    for (int round = 0; round < 2; ++round) {
+      uint32_t win = 0xFFFFFFFFu;
+      for (int c = 0; c < nc; ++c)
+        if (((fresh >> c) & 1u) && ck[c] < win) win = ck[c];
+      if (win == 0xFFFFFFFFu) break;
+      int slot_i = 0;
+      for (int c = nc - 1; c >= 0; --c)
+        if (((fresh >> c) & 1u) && ck[c] == win) slot_i = c;
+      const int worg = co[slot_i];
+      // _equeue_push: same subject, else empty, else most transmitted.
+      int slot = 0, best = 0;
+      bool slot_same = false, slot_empty = false;
+      for (int e = 0; e < E; ++e) {
+        const bool same = key[e] == win && org[e] == worg;
+        const bool empty = key[e] == 0u;
+        const int score = (same ? 3000000 : 0) + (empty ? 2000000 : 0) +
+                          (1000000 - min(tx[e], 999999));
+        if (e == 0 || score > best) {
+          best = score;
+          slot = e;
+          slot_same = same;
+          slot_empty = empty;
+        }
+      }
+      dropped += (!slot_same && !slot_empty) ? 1 : 0;
+      ++queued;
+      key[slot] = win;
+      org[slot] = worg;
+      tx[slot] = tx_limit;
+      pend[slot] = true;
+      for (int c = 0; c < nc; ++c)
+        if (ck[c] == win && co[c] == worg) fresh &= ~(1u << c);
+    }
+    bc.add(C_SQUEUED, queued);
+    bc.add(C_SRETX, n_retx);
+    bc.add(C_SDROPPED, dropped);
+
+    // Write the queue, clocks and buffers' scalars.
+    uint32_t* o_key = ptr<uint32_t>(a, P_SOUT + S_EKEY) + eb;
+    int8_t* o_tx = ptr<int8_t>(a, P_SOUT + S_ETX) + eb;
+    uint8_t* o_pend = ptr<uint8_t>(a, P_SOUT + S_EPEND) + eb;
+    for (int e = 0; e < E; ++e) {
+      o_key[e] = key[e];
+      store_origin(a, P_SOUT + S_EORIG, eb + e, org[e]);
+      o_tx[e] = static_cast<int8_t>(tx[e]);
+      o_pend[e] = pend[e] ? 1 : 0;
+    }
+    ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
+    ptr<uint32_t>(a, P_SOUT + S_ECLOCK)[r] = eclock;
+    ptr<uint32_t>(a, P_SOUT + S_QCLOCK)[r] = qclock;
+    ptr<uint32_t>(a, P_SOUT + S_EFLOOR)[r] = evb.floor;
+    ptr<uint32_t>(a, P_SOUT + S_QFLOOR)[r] = qub.floor;
+    ptr<int32_t>(a, P_SOUT + S_EDELIV)[r] = delivered;
+    ptr<uint8_t>(a, P_SOUT + S_QRESPONDER)[r] =
+        ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r];
+
+    // Query expiry (pre-expiry keys were what the tally matched).
+    const uint32_t* qopen_in = ptr<const uint32_t>(a, P_SIN + S_QOPEN) + qb;
+    const int32_t* qdead_in = ptr<const int32_t>(a, P_SIN + S_QDEAD) + qb;
+    for (int q = 0; q < Q; ++q) {
+      const uint32_t qk = qopen_in[q];
+      ptr<uint32_t>(a, P_SOUT + S_QOPEN)[qb + q] = (qk > 0u && t1 >= qdead_in[q]) ? 0u : qk;
+      ptr<int32_t>(a, P_SOUT + S_QDEAD)[qb + q] = qdead_in[q];
+    }
+
+    // Reap bookkeeping from the final view status (C's output row).
+    const uint16_t* o_meta = ptr<const uint16_t>(a, P_OUT + L_META);
+    const int32_t* ds_in = ptr<const int32_t>(a, P_SIN + S_DOWN);
+    int32_t* ds_out = ptr<int32_t>(a, P_SOUT + S_DOWN);
+    for (int c = 0; c < K; ++c) {
+      const uint32_t st = o_meta[rb + c] & 3u;
+      const bool down = st == DEAD || st == LEFT;
+      const int ds = ds_in[rb + c];
+      ds_out[rb + c] = down ? (ds < 0 ? t : ds) : -1;
+    }
+  }
+  bc.flush(ptr<int>(a, P_CNT));
+}
+
+// ---------------------------------------------------------------------------
 // Host entry points: one per launch, each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
@@ -873,6 +1291,11 @@ extern "C" int gossip_receive(const TickArgs* a, void* stream) {
 
 extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
   k_pushpull<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
+  k_serf_post<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

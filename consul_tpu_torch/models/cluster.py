@@ -1,6 +1,7 @@
-"""Cluster simulation driver (PyTorch port of the single-device part of
+"""Cluster simulation drivers (PyTorch port of the single-device part of
 ``consul_tpu/models/cluster.py``): chunked runs, per-chunk counters, a
-per-tick metrics trace and convergence detection.
+per-tick metrics trace and convergence detection, for the bare SWIM tick
+(``Simulation``) and the fused serf tick (``SerfSimulation``).
 
 ``Simulation(cfg, seed)`` builds the world, topology and state on the
 card and steps the packed state through the CUDA tick kernel. Pass
@@ -26,7 +27,7 @@ from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import state as sim_state
-from consul_tpu_torch.models import swim
+from consul_tpu_torch.models import serf, swim
 from consul_tpu_torch.ops import cuda_gossip, topology
 from consul_tpu_torch.utils import metrics
 
@@ -70,35 +71,47 @@ class Simulation:
         if self.topo is None:
             self.topo = topology.make_topology(self.cfg, self.gen, self.device)
         if self.state is None:
-            self.state = sim_state.init(self.cfg, self.gen, self.device)
+            self.state = self._init_state()
         self.state = (layout_mod.pack_state(self.state)
                       if self.layout == layout_mod.PACKED
                       else layout_mod.unpack_state(self.state))
         if self.draws is None:
-            self.draws = lambda t: swim.draw_tick(self.cfg, self.gen, self.device)
-        if self.kernel == cuda_gossip.CUDA:
-            self._tick_fn = cuda_gossip.make_tick_kernel(self.cfg, self.topo)
-        elif self.layout == layout_mod.PACKED:
-            self._tick_fn = lambda w, s, d: cuda_gossip.plain_tick(
-                self.cfg, self.topo, w, s, d)
-        else:
-            def dense_tick(w, s, d):
-                s, c = swim.step_counted(self.cfg, self.topo, w, s, d)
-                return s, counters_mod.stack(c)
-            self._tick_fn = dense_tick
+            self.draws = lambda t: self._draw(self.cfg, self.gen, self.device)
+        self._tick_fn = self._make_tick_fn()
         # Host copy of the tick: one device read here, none per tick.
-        self._t = int(self.state.t)
+        self._t = int(layout_mod.tick_of(self.state))
         self._counters = {f: 0 for f in counters_mod.FIELDS}
         self.chunk_counters = []
+
+    # -- what the driver steps (SerfSimulation overrides these) ----------
+    _draw = staticmethod(swim.draw_tick)
+
+    def _init_state(self):
+        return sim_state.init(self.cfg, self.gen, self.device)
+
+    def _make_tick_fn(self):
+        cfg, topo = self.cfg, self.topo
+        if self.kernel == cuda_gossip.CUDA:
+            return cuda_gossip.make_tick_kernel(cfg, topo)
+        if self.layout == layout_mod.PACKED:
+            return lambda w, s, d: cuda_gossip.plain_tick(cfg, topo, w, s, d)
+
+        def dense_tick(w, s, d):
+            s, c = swim.step_counted(cfg, topo, w, s, d)
+            return s, counters_mod.stack(c)
+        return dense_tick
 
     # -- state access ----------------------------------------------------
     @property
     def swim_state(self) -> sim_state.SimState:
+        return layout_mod.swim_plane(self.state)
+
+    def _to_dense(self):
         return layout_mod.unpack_state(self.state)
 
     def _from_dense(self, st):
-        self.state = (layout_mod.pack(st) if self.layout == layout_mod.PACKED
-                      else st)
+        self.state = (layout_mod.pack_state(st)
+                      if self.layout == layout_mod.PACKED else st)
 
     def _mask(self, mask) -> torch.Tensor:
         return torch.as_tensor(mask, dtype=torch.bool).to(self.device)
@@ -209,3 +222,60 @@ class Simulation:
         i, j = metrics.rmse_samples(self.cfg, gen, 4096, self.device)
         return float(metrics.vivaldi_rmse(self.cfg, self.world,
                                           self.swim_state, i, j))
+
+
+@dataclasses.dataclass
+class SerfSimulation(Simulation):
+    """The full-stack driver: ``serf.step_counted`` (SWIM + events +
+    queries + reap) instead of the bare SWIM tick, with the serf verbs.
+    Metrics and convergence read the SWIM plane. ``draws`` maps the tick
+    number to a :class:`serf.SerfDraws`; by default the simulation draws
+    from its own generator. ``kernel="cuda"`` runs the serf variant of the
+    CUDA tick kernel."""
+
+    _draw = staticmethod(serf.draw_serf_tick)
+
+    def _init_state(self):
+        return serf.init(self.cfg, self.gen, self.device)
+
+    def _make_tick_fn(self):
+        cfg, topo = self.cfg, self.topo
+        if self.kernel == cuda_gossip.CUDA:
+            return cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True)
+        if self.layout == layout_mod.PACKED:
+            return lambda w, s, d: cuda_gossip.plain_serf_tick(cfg, topo, w, s, d)
+
+        def dense_tick(w, s, d):
+            s, c = serf.step_counted(cfg, topo, w, s, d)
+            return s, counters_mod.stack(c)
+        return dense_tick
+
+    # -- serf verbs (on the dense SWIM plane; _from_dense re-packs) ------
+    def user_event(self, mask, name: int):
+        self._from_dense(serf.user_event(self.cfg, self._to_dense(),
+                                         self._mask(mask), name))
+
+    def query(self, mask, name: int):
+        self._from_dense(serf.query(self.cfg, self._to_dense(),
+                                    self._mask(mask), name))
+
+    def leave(self, mask):
+        self._from_dense(serf.leave(self.cfg, self._to_dense(),
+                                    self._mask(mask)))
+
+    def kill(self, mask):
+        st = self._to_dense()
+        self._from_dense(st._replace(
+            swim=sim_state.kill(st.swim, self._mask(mask))))
+
+    def revive(self, mask, cold: bool = False):
+        st = self._to_dense()
+        self._from_dense(st._replace(
+            swim=sim_state.revive(self.cfg, st.swim, self._mask(mask),
+                                  cold=cold)))
+
+    @property
+    def serf_state(self) -> serf.SerfState:
+        """The whole state with a dense SWIM plane (the read-outs of
+        models/serf.py take this)."""
+        return self._to_dense()

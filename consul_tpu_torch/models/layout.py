@@ -12,7 +12,9 @@ so a packed state carries across bit for bit:
   by 256, clipped before the cast (the cast alone must not be trusted to
   saturate).
 
-536 B/node at K = 32 (``bytes_per_node``).
+536 B/node at K = 32 (``bytes_per_node``); a packed ``SerfState`` adds
+its serf plane as it is, 1,477 B/node at K = 32 with the default serf
+config.
 """
 
 from __future__ import annotations
@@ -213,14 +215,45 @@ def unpack(packed: PackedSimState) -> sim_state.SimState:
     )
 
 
+# Whole-driver-state dispatch: a SerfState keeps its event/query plane in
+# the reference's at-rest dtypes and swaps only the SWIM plane.
+
 def pack_state(state):
-    """Pack a driver state (idempotent on packed input)."""
+    """Pack a driver state (SimState or SerfState). Idempotent: an
+    already-packed SWIM plane passes through."""
+    if hasattr(state, "swim"):
+        if isinstance(state.swim, PackedSimState):
+            return state
+        return state._replace(swim=pack(state.swim))
     return state if isinstance(state, PackedSimState) else pack(state)
 
 
 def unpack_state(state):
     """Inverse of :func:`pack_state` (idempotent on dense input)."""
+    if hasattr(state, "swim"):
+        if isinstance(state.swim, PackedSimState):
+            return state._replace(swim=unpack(state.swim))
+        return state
     return unpack(state) if isinstance(state, PackedSimState) else state
+
+
+def is_packed(state) -> bool:
+    sw = state.swim if hasattr(state, "swim") else state
+    return isinstance(sw, PackedSimState)
+
+
+def swim_plane(state):
+    """The SWIM plane of any driver state, dense, without touching the
+    rest."""
+    sw = state.swim if hasattr(state, "swim") else state
+    return unpack(sw) if isinstance(sw, PackedSimState) else sw
+
+
+def tick_of(state):
+    """Current tick of any (possibly packed) driver state, read off the
+    ``t`` leaf without unpacking."""
+    sw = state.swim if hasattr(state, "swim") else state
+    return sw.t
 
 
 def float_gap(a: torch.Tensor, b: torch.Tensor):

@@ -4,8 +4,9 @@
 One call to :func:`step_counted` advances every simulated node by one
 tick and returns the tick's :class:`counters.GossipCounters`. This is the
 plain PyTorch formulation of the reference's ``step_counted`` with no
-chaos schedule, no sentinel and no fused serf plane: the same phases, in
-the same order, over the same struct-of-tensors state.
+chaos schedule and no sentinel: the same phases, in the same order, over
+the same struct-of-tensors state, with the reference's ``extra_tx`` hook
+that carries the fused serf plane (models/serf.py) on the gossip legs.
 
   1. suspicion expiry (reference suspicion.go:86-97, state.go:1141-1156);
   2. probe windows closing with no ack (state.go:437-456);
@@ -163,8 +164,16 @@ def _top_k_peel(x: torch.Tensor, p: int):
 
 
 def step_counted(cfg: SimConfig, topo: Topology, world: World,
-                 state: SimState, draws: TickDraws):
-    """One tick plus its GossipCounters."""
+                 state: SimState, draws: TickDraws, extra_tx=None):
+    """One tick plus its GossipCounters.
+
+    ``extra_tx`` is the serf fusion hook (models/serf.py): a list of
+    per-node payload tensors ([N] or [N, P]) that ride the same gossip
+    legs as the membership packets. When given, the return grows a third
+    element ``(ex_legs, ex_n_sends)``: per leg, the payload as each
+    receiver sees it and the leg's arrival mask, and each sender's count
+    of legs sent. The extra plane's sender gate is liveness only
+    (``alive_truth & ~left``): external seats do send serf traffic."""
     n, k_deg = cfg.n, cfg.degree
     g = cfg.gossip
     dev = state.view_key.device
@@ -313,8 +322,10 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
                              t_vec, t_vh, t_verr, t_vadj, draws)
 
     # 4. Gossip fan-out and delivery.
+    gossip_out = _gossip_phase(cfg, topo, state, active, draws, sc.tx_limit,
+                               extra_tx)
     state, refute_gossip, n_gossip_tx, n_gossip_rx, n_gossip_msgs = \
-        _gossip_phase(cfg, topo, state, active, draws, sc.tx_limit)
+        gossip_out[:5]
     refute_poke = _poke_refutes(cfg, topo, state, poke_flag, poke_col,
                                 target_inc)
 
@@ -357,6 +368,8 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
         gossip_msgs_tx=n_gossip_msgs,
         pushpull_merges=n_pp_merges,
     )
+    if extra_tx is not None:
+        return state._replace(t=t + 1), cnt, gossip_out[5]
     return state._replace(t=t + 1), cnt
 
 
@@ -403,11 +416,12 @@ def _gossip_jcols(cfg: SimConfig, topo: Topology, t, draws: TickDraws):
 
 
 def _gossip_phase(cfg, topo: Topology, state: SimState, active,
-                  draws: TickDraws, tx_limit):
+                  draws: TickDraws, tx_limit, extra_tx=None):
     """Sender-side top-P selection and budget decrements, then
     receiver-side delivery, lattice merge, Lifeguard confirmations and
     refute-claim collection. Returns (state, refute_inc[N], packets_tx,
-    packets_rx, msgs_tx)."""
+    packets_rx, msgs_tx), plus ``(ex_legs, ex_n_sends)`` when
+    ``extra_tx`` is given (see :func:`step_counted`)."""
     g = cfg.gossip
     n, k_deg = cfg.n, cfg.degree
     p, fan = g.piggyback_msgs, g.gossip_nodes
@@ -428,6 +442,11 @@ def _gossip_phase(cfg, topo: Topology, state: SimState, active,
     n_sends = torch.sum(sendable, dim=1)
     n_msgs = torch.sum(n_sends * (torch.sum(svalid, dim=1)
                                   + own_sendable.to(torch.int64))).to(torch.int32)
+    if extra_tx is not None:
+        ex_sendable = (merge.is_contactable(state.view_key[:, jcols])
+                       & (state.alive_truth & ~state.left)[:, None])
+        ex_n_sends = torch.sum(ex_sendable, dim=1)
+        ex_legs = []
     sel_oh = torch.any((scol[:, None, :] == col_ids[None, :, None])
                        & svalid[:, None, :], dim=2)
     tx_left = torch.clamp(state.tx_left - torch.where(
@@ -446,10 +465,16 @@ def _gossip_phase(cfg, topo: Topology, state: SimState, active,
     cands = []
     for f in range(fan):
         j = jcols[f]
-        s_send, s_scol, s_skey, s_sbits, s_svalid, s_own_ok, s_ownk = \
-            coll.roll_many([sendable[:, f], scol, skey, sbits, svalid,
-                            own_sendable, ownk], topo.off[j])
-        arrived = s_send & (draws.u_drop[:, f] >= pl) & recv_up
+        payload = [sendable[:, f], scol, skey, sbits, svalid, own_sendable,
+                   ownk]
+        if extra_tx is not None:
+            payload = payload + [ex_sendable[:, f]] + list(extra_tx)
+        rolled = coll.roll_many(payload, topo.off[j])
+        s_send, s_scol, s_skey, s_sbits, s_svalid, s_own_ok, s_ownk = rolled[:7]
+        ok_leg = draws.u_drop[:, f] >= pl
+        arrived = s_send & ok_leg & recv_up
+        if extra_tx is not None:
+            ex_legs.append((rolled[8:], rolled[7] & ok_leg & recv_up))
         n_rx = n_rx + counters_mod.count(arrived)
         fact_ok = arrived[:, None] & s_svalid
         mycol = topology.remap_row(topo, j)[s_scol]          # [N, P]
@@ -486,7 +511,10 @@ def _gossip_phase(cfg, topo: Topology, state: SimState, active,
                 oh, bits[:, pi:pi + 1], torch.zeros_like(seen_delta))
 
     state = state._replace(view_key=view, susp_seen=state.susp_seen | seen_delta)
-    return (state, refute_inc, counters_mod.count(sendable), n_rx, n_msgs)
+    out = (state, refute_inc, counters_mod.count(sendable), n_rx, n_msgs)
+    if extra_tx is not None:
+        return out + ((ex_legs, ex_n_sends),)
+    return out
 
 
 def _poke_refutes(cfg, topo: Topology, state: SimState, poke_flag, poke_col,

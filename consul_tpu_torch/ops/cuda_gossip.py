@@ -1,17 +1,20 @@
-"""The packed SWIM gossip tick as a hand-written CUDA kernel for Hopper.
+"""The packed gossip tick as a hand-written CUDA kernel for Hopper.
 
 Counterpart of ``consul_tpu/ops/pallas_gossip.py``: its one ``pallas_call``
-(``make_tick_kernel``, pallas_call at :145) fuses unpack -> SWIM tick ->
-pack over the packed state. The port's kernel is
-``consul_tpu_torch/csrc/gossip_tick.cu``, three launches over row blocks
-split at the tick's grid-wide read-after-write barriers (probe/sender,
-receive, push-pull/pack); see the note at the top of that file for what
-bounds it (bytes) and what the split does about it.
+(``make_tick_kernel``, pallas_call at :145) fuses unpack -> tick -> pack
+over the packed state, for ``step_fn=swim.step_counted`` (the bare SWIM
+tick) or ``step_fn=serf.step_counted`` (the fused serf plane). The port's
+kernel is ``consul_tpu_torch/csrc/gossip_tick.cu``: three launches over
+row blocks split at the tick's grid-wide read-after-write barriers
+(probe/sender, receive, push-pull/pack), and in the serf variant a fourth
+(serf_post); see the note at the top of that file for what bounds it
+(bytes) and what the split does about it.
 
-Beside the kernel sits its plain PyTorch version, :func:`plain_tick`
-(``unpack -> swim.step_counted -> pack``), which the CPU tests hold
-against the reference and which ``chip_smoke.py`` holds the kernel
-against on the card. The plain version is chosen only by an explicit
+Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
+(``unpack -> swim.step_counted -> pack``) and :func:`plain_serf_tick`
+(``unpack_state -> serf.step_counted -> pack_state``), which the CPU tests
+hold against the reference and which ``chip_smoke.py`` holds the kernel
+against on the card. A plain version is chosen only by an explicit
 ``kernel="torch"``; the kernel wrapper raises on anything it does not
 take (a CPU tensor, a dense view, a wrong dtype or shape) and never
 falls back.
@@ -38,17 +41,18 @@ import torch
 from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
-from consul_tpu_torch.models import swim
+from consul_tpu_torch.models import serf, swim
 from consul_tpu_torch.ops.topology import Topology
 
 TORCH = "torch"
 CUDA = "cuda"
 KERNELS = (TORCH, CUDA)
 
-# Kernel launches on the card since the last reset, by launch stage.
-# Incremented only where a stage is launched; chip_smoke.py zeroes it
-# before it drives the main path and reads it after.
-LAUNCHES = {"probe_send": 0, "receive": 0, "pushpull": 0}
+# Kernel launches on the card since the last reset, by launch stage
+# (serf_post runs in the serf variant only). Incremented only where a
+# stage is launched; chip_smoke.py zeroes it before it drives a main path
+# and reads it after.
+LAUNCHES = {"probe_send": 0, "receive": 0, "pushpull": 0, "serf_post": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gossip_tick.cu")
@@ -56,9 +60,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "consul_tpu_torch")
 
 # Limits of the kernel's per-thread arrays (gossip_tick.cu).
 _MAXD, _MAXW, _MAXS, _MAXFAN, _MAXP = 16, 64, 8, 8, 7
+_MAXE, _MAXPE, _MAXC = 16, 8, 32
+# The largest query_relay_factor the serf variant takes.
+MAX_RELAY_FACTOR = 8
 
 # TickArgs tables, in the order of the enums in gossip_tick.cu.
 _LEAVES = 23
+_SERF_LEAVES = len(serf.SerfState._fields) - 1
 _PTRS = (
     ["in_" + str(k) for k in range(_LEAVES)]
     + ["out_" + str(k) for k in range(_LEAVES)]
@@ -66,9 +74,14 @@ _PTRS = (
        "perm_u", "viv_fb", "grav_fb", "u_drop", "pp_j", "off", "rcol", "inv",
        "view_mid", "pay_flags", "pay_scol", "pay_skey", "pay_sbits",
        "pay_ownk", "poke", "refute", "counters"]
+    + ["sin_" + str(k) for k in range(_SERF_LEAVES)]
+    + ["sout_" + str(k) for k in range(_SERF_LEAVES)]
+    + ["u_resp", "relay_u1", "relay_u2", "relay_cols", "x_flags", "x_key",
+       "x_orig"]
 )
 _INTS = ("n", "k", "s", "d", "w", "wd", "ic", "fan", "p", "tx_limit",
-         "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max")
+         "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max",
+         "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig")
 _FLTS = ("susp_min", "susp_max", "susp_diff", "packet_loss", "timeout_s",
          "jitter_frac", "ce", "cc", "err_max", "height_min", "gravity_rho")
 
@@ -151,7 +164,8 @@ def build() -> BuildInfo:
             os.replace(tmp, out)
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(out)
-        for name in ("gossip_probe_send", "gossip_receive", "gossip_pushpull"):
+        for name in ("gossip_probe_send", "gossip_receive", "gossip_pushpull",
+                     "gossip_serf_post"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_TickArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -177,6 +191,15 @@ def plain_tick(cfg: SimConfig, topo: Topology, world, packed, draws):
     return layout_mod.pack(state), counters_mod.stack(cnt)
 
 
+def plain_serf_tick(cfg: SimConfig, topo: Topology, world, packed, draws):
+    """The plain PyTorch version of the serf variant:
+    ``unpack_state -> serf.step_counted -> pack_state`` and the stacked
+    [26] int32 counters."""
+    state, cnt = serf.step_counted(cfg, topo, world,
+                                   layout_mod.unpack_state(packed), draws)
+    return layout_mod.pack_state(state), counters_mod.stack(cnt)
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -192,9 +215,11 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 class TickKernel:
     """The CUDA tick for one (config, topology): ``tick(world, packed,
-    draws) -> (packed, counters[26] int32)``, all on one CUDA device."""
+    draws) -> (packed, counters[26] int32)``, all on one CUDA device. With
+    ``serf=True`` it is the serf variant: ``packed`` is a ``SerfState``
+    whose SWIM plane is packed and ``draws`` a ``serf.SerfDraws``."""
 
-    def __init__(self, cfg: SimConfig, topo: Topology):
+    def __init__(self, cfg: SimConfig, topo: Topology, serf_plane: bool = False):
         g = cfg.gossip
         if topo.dense or cfg.degree > 255:
             raise ValueError("the CUDA tick kernel covers the sparse "
@@ -202,24 +227,40 @@ class TickKernel:
                              "with kernel='torch'")
         layout_mod.validate(cfg, layout_mod.PACKED)
         v = cfg.vivaldi
-        limits = ((v.dimensionality, _MAXD, "vivaldi dimensionality"),
+        limits = [(v.dimensionality, _MAXD, "vivaldi dimensionality"),
                   (v.adjustment_window_size, _MAXW, "adjustment window"),
                   (v.latency_filter_size, _MAXS, "latency filter"),
                   (g.gossip_nodes, _MAXFAN, "gossip_nodes"),
                   (g.piggyback_msgs, _MAXP, "piggyback_msgs"),
                   (g.indirect_checks, 8, "indirect_checks"),
-                  (cfg.world_dims, 8, "world_dims"))
+                  (cfg.world_dims, 8, "world_dims")]
+        sf = cfg.serf
+        if serf_plane:
+            limits += [(sf.event_queue_slots, _MAXE, "event_queue_slots"),
+                       (sf.piggyback_events, min(_MAXPE, sf.event_queue_slots),
+                        "piggyback_events"),
+                       (g.gossip_nodes * sf.piggyback_events, _MAXC,
+                        "gossip_nodes * piggyback_events")]
+            if not 0 <= sf.query_relay_factor <= MAX_RELAY_FACTOR:
+                raise ValueError("the serf variant takes query_relay_factor "
+                                 f"in [0, {MAX_RELAY_FACTOR}], got "
+                                 f"{sf.query_relay_factor}")
         for val, hi, what in limits:
             if not 1 <= val <= hi:
                 raise ValueError(f"the CUDA tick kernel takes {what} in "
                                  f"[1, {hi}], got {val}")
-        self.cfg, self.topo = cfg, topo
+        self.cfg, self.topo, self.serf = cfg, topo, serf_plane
         sc = swim.protocol_scalars(cfg, topo)
         self._ints = (cfg.n, cfg.degree, v.latency_filter_size,
                       v.dimensionality, v.adjustment_window_size,
                       cfg.world_dims, g.indirect_checks, g.gossip_nodes,
                       g.piggyback_msgs, sc.tx_limit, sc.susp_k, sc.pp_period,
-                      sc.own_limit, g.probe_period_ticks, g.awareness_max)
+                      sc.own_limit, g.probe_period_ticks, g.awareness_max,
+                      int(serf_plane), sf.event_queue_slots, sf.seen_ring,
+                      sf.seen_width, sf.query_slots, sf.piggyback_events,
+                      sf.query_relay_factor if serf.relay_draws_used(cfg) else 0,
+                      int(serf.origin_dtype(cfg.n) == torch.int16),
+                      int(cfg.n <= serf._EXACT_SIG_MAX_N))
         self._flts = (sc.susp_min, sc.susp_max, sc.susp_max - sc.susp_min,
                       cfg.packet_loss, g.probe_timeout_ms / 1000.0,
                       cfg.rtt_jitter_frac, v.vivaldi_ce, v.vivaldi_cc,
@@ -241,6 +282,33 @@ class TickKernel:
         s, d, w = v.latency_filter_size, v.dimensionality, v.adjustment_window_size
         u8, u16, i16 = torch.uint8, torch.uint16, torch.int16
         f8, bf = torch.float8_e4m3fn, torch.bfloat16
+        f32, i64 = torch.float32, torch.int64
+        if self.serf:
+            if not isinstance(packed, serf.SerfState):
+                raise TypeError("the serf variant takes a SerfState")
+            if not isinstance(draws, serf.SerfDraws):
+                raise TypeError("the serf variant takes serf.SerfDraws")
+            sf = cfg.serf
+            dts = serf.rest_dtypes(cfg)
+            e, r, o, q = (sf.event_queue_slots, sf.seen_ring, sf.seen_width,
+                          sf.query_slots)
+            shapes = dict(clock=(n,), event_clock=(n,), query_clock=(n,),
+                          ev_key=(n, e), ev_origin=(n, e), ev_tx=(n, e),
+                          ev_pending=(n, e), ev_bkt_lt=(n, r),
+                          ev_bkt_sig=(n, r, o), q_bkt_lt=(n, r),
+                          q_bkt_sig=(n, r, o), ev_delivered=(n,),
+                          ev_floor=(n,), q_floor=(n,), q_open_key=(n, q),
+                          q_deadline=(n, q), q_resps=(n, q), q_acks=(n, q),
+                          q_responder=(n,), leave_at=(n,), down_since=(n, k))
+            for name in serf.SerfState._fields[1:]:
+                _check(getattr(packed, name), name, dts[name], shapes[name], device)
+            rf = self._ints[_INTS.index("rf")]
+            for name, dt, shape in (("u_resp", f32, (n,)),
+                                    ("relay_u1", f32, (n, rf)),
+                                    ("relay_u2", f32, (n, rf)),
+                                    ("relay_cols", i64, (rf,))):
+                _check(getattr(draws, name), "draws." + name, dt, shape, device)
+            packed, draws = packed.swim, draws.swim
         spec = (
             ("t", torch.int32, ()), ("flags", u8, (n,)), ("own_inc", u16, (n,)),
             ("own_tx", u8, (n,)), ("awareness", u8, (n,)),
@@ -257,7 +325,6 @@ class TickKernel:
                  ("adj_idx", u8, (n,)), ("resets", u8, (n,)))
         for name, dt, shape in vspec:
             _check(getattr(packed.viv, name), "viv." + name, dt, shape, device)
-        f32, i64 = torch.float32, torch.int64
         _check(world.pos, "world.pos", f32, (n, cfg.world_dims), device)
         _check(world.height, "world.height", f32, (n,), device)
         ic, fan = g.indirect_checks, g.gossip_nodes
@@ -272,12 +339,14 @@ class TickKernel:
 
     def _buffers(self, world, packed, draws, device):
         """The output state, the scratch buffers and the flat operand list
-        (in TickArgs order) of one tick."""
+        (in TickArgs order, None for a null pointer) of one tick."""
         cfg = self.cfg
         n, k, p = cfg.n, cfg.degree, cfg.gossip.piggyback_msgs
-        out = layout_mod.PackedSimState(
-            *[torch.empty_like(x) for x in packed[:-1]],
-            layout_mod.PackedVivaldi(*[torch.empty_like(x) for x in packed.viv]))
+        sw_in, sw_draws = ((packed.swim, draws.swim) if self.serf
+                           else (packed, draws))
+        sw_out = layout_mod.PackedSimState(
+            *[torch.empty_like(x) for x in sw_in[:-1]],
+            layout_mod.PackedVivaldi(*[torch.empty_like(x) for x in sw_in.viv]))
         u32 = torch.uint32
         scratch = dict(
             view_mid=torch.empty((n, k), dtype=u32, device=device),
@@ -292,48 +361,69 @@ class TickKernel:
                                  device=device),
         )
         off, rcol, inv = self._topo_tables(device)
-        tensors = (layout_mod.leaves(packed) + layout_mod.leaves(out)
-                   + [world.pos, world.height, draws.jitter, draws.u2,
-                      draws.relay_jcols, draws.u_a, draws.u_b, draws.u_c,
-                      draws.perm_u, draws.viv_fb, draws.grav_fb, draws.u_drop,
-                      draws.pp_j, off, rcol, inv]
+        tensors = (layout_mod.leaves(sw_in) + layout_mod.leaves(sw_out)
+                   + [world.pos, world.height, sw_draws.jitter, sw_draws.u2,
+                      sw_draws.relay_jcols, sw_draws.u_a, sw_draws.u_b,
+                      sw_draws.u_c, sw_draws.perm_u, sw_draws.viv_fb,
+                      sw_draws.grav_fb, sw_draws.u_drop, sw_draws.pp_j, off,
+                      rcol, inv]
                    + list(scratch.values()))
+        if not self.serf:
+            out = sw_out
+            tensors += [None] * (2 * _SERF_LEAVES + 7)
+        else:
+            pe = cfg.serf.piggyback_events
+            s_in = list(packed[1:])
+            out = serf.SerfState(sw_out, *[torch.empty_like(x) for x in s_in])
+            xs = dict(
+                x_flags=torch.empty((n,), dtype=torch.uint16, device=device),
+                x_key=torch.empty((n, pe), dtype=u32, device=device),
+                x_orig=torch.empty((n, pe), dtype=torch.int32, device=device))
+            scratch.update(xs)
+            tensors += (s_in + list(out[1:])
+                        + [draws.u_resp, draws.relay_u1, draws.relay_u2,
+                           draws.relay_cols] + list(xs.values()))
         assert len(tensors) == len(_PTRS)
         return out, scratch, tensors
 
     def buffer_bytes_per_node(self, world, packed, draws) -> float:
-        """Bytes per node of every buffer the three launches touch, from
-        the tensors of one tick: each input (state, world, draws, topology
+        """Bytes per node of every buffer the launches touch, from the
+        tensors of one tick: each input (state, world, draws, topology
         tables) read once, the output state written once, each scratch
         buffer written once and read once. A row read again at a
         displacement is counted once, so this is the least traffic of the
-        three-launch design, not a measurement."""
-        self._check_inputs(world, packed, draws, packed.t.device)
-        _, scratch, tensors = self._buffers(world, packed, draws, packed.t.device)
-        total = sum(layout_mod.np_size_bytes(x) for x in tensors)
+        launch design, not a measurement."""
+        device = layout_mod.tick_of(packed).device
+        self._check_inputs(world, packed, draws, device)
+        _, scratch, tensors = self._buffers(world, packed, draws, device)
+        total = sum(layout_mod.np_size_bytes(x) for x in tensors if x is not None)
         total += sum(layout_mod.np_size_bytes(x) for x in scratch.values())
         return total / float(self.cfg.n)
 
     def __call__(self, world, packed, draws):
-        device = packed.t.device
+        device = layout_mod.tick_of(packed).device
         if device.type != "cuda":
             raise ValueError(f"the CUDA tick kernel takes CUDA tensors, got "
-                             f"{device}; use plain_tick for the plain version")
+                             f"{device}; use plain_tick or plain_serf_tick "
+                             "for the plain version")
         self._check_inputs(world, packed, draws, device)
         build()
         out, scratch, tensors = self._buffers(world, packed, draws, device)
         args = _TickArgs()
         for idx, x in enumerate(tensors):
-            args.p[idx] = x.data_ptr()
+            args.p[idx] = None if x is None else x.data_ptr()
         for idx, x in enumerate(self._ints):
             args.i[idx] = int(x)
         for idx, x in enumerate(self._flts):
             args.f[idx] = float(x)
+        stages = [("probe_send", _LIB.gossip_probe_send),
+                  ("receive", _LIB.gossip_receive),
+                  ("pushpull", _LIB.gossip_pushpull)]
+        if self.serf:
+            stages.append(("serf_post", _LIB.gossip_serf_post))
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for stage, fn in (("probe_send", _LIB.gossip_probe_send),
-                              ("receive", _LIB.gossip_receive),
-                              ("pushpull", _LIB.gossip_pushpull)):
+            for stage, fn in stages:
                 rc = fn(ctypes.byref(args), ctypes.c_void_p(stream))
                 if rc != 0:
                     raise RuntimeError(f"gossip_tick {stage} launch failed: "
@@ -342,6 +432,9 @@ class TickKernel:
         return out, scratch["counters"]
 
 
-def make_tick_kernel(cfg: SimConfig, topo: Topology) -> TickKernel:
-    """The counterpart of pallas_gossip.make_tick_kernel."""
-    return TickKernel(cfg, topo)
+def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
+                     serf_plane: bool = False) -> TickKernel:
+    """The counterpart of pallas_gossip.make_tick_kernel: the bare SWIM
+    tick, or with ``serf_plane=True`` its ``step_fn=serf.step_counted``
+    variant."""
+    return TickKernel(cfg, topo, serf_plane)

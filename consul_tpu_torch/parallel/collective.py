@@ -41,3 +41,18 @@ def take_rows(x: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
 def any_rows(x: torch.Tensor) -> torch.Tensor:
     """``any`` over the node axis."""
     return torch.any(x)
+
+
+def all_rows(x: torch.Tensor) -> torch.Tensor:
+    """The full per-row array, for gathers by arbitrary row id (a query's
+    origin). Identity on one device."""
+    return x
+
+
+def sum_scatter_rows(idx: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """Scatter-add ``vals`` at row ids ``idx`` and return each row's total
+    (the query-response tallies). ``vals`` may carry trailing axes. Integer
+    adds, so the result is exact in any order."""
+    full = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                       device=vals.device)
+    return full.index_add_(0, idx, vals)

@@ -19,6 +19,7 @@ from consul_tpu.ops import topology as j_topology
 from consul_tpu_torch import convert
 from consul_tpu_torch.config import GossipConfig as TGossipConfig
 from consul_tpu_torch.config import SimConfig as TSimConfig
+from consul_tpu_torch.models import serf as t_serf
 from consul_tpu_torch.models import swim as t_swim
 
 # The port's tests run at small sizes beside other test workers: one
@@ -94,6 +95,47 @@ def make_draws_fn(jcfg):
     return draws
 
 
+def make_serf_draws_fn(jcfg):
+    """A jitted function: tick key -> the serf tick's draws as numpy
+    arrays: ``k_swim, k_ev = split(key)``, the SWIM ladder on ``k_swim``,
+    then ``u_resp`` on ``k_ev`` and the relay draws on
+    ``split(fold_in(k_ev, 1), 3)`` (serf.py:498, :683-700). The relay
+    draws are empty unless the reference draws them."""
+    n, k_deg = jcfg.n, jcfg.degree
+    rf = jcfg.serf.query_relay_factor
+    relay = rf > 0 and jcfg.packet_loss > 0.0
+    swim_draws = make_draws_fn(jcfg)
+
+    @jax.jit
+    def draws(tick_key):
+        k_swim, k_ev = jax.random.split(tick_key)
+        out = dict(swim=swim_draws(k_swim),
+                   u_resp=jax.random.uniform(k_ev, (n,)))
+        if relay:
+            k_rl1, k_rl2, k_rcol = jax.random.split(jax.random.fold_in(k_ev, 1), 3)
+            out.update(relay_u1=jax.random.uniform(k_rl1, (n, rf)),
+                       relay_u2=jax.random.uniform(k_rl2, (n, rf)),
+                       relay_cols=jax.random.randint(k_rcol, (rf,), 0, k_deg))
+        else:
+            out.update(relay_u1=np.zeros((n, 0), np.float32),
+                       relay_u2=np.zeros((n, 0), np.float32),
+                       relay_cols=np.zeros((0,), np.int64))
+        return out
+
+    return draws
+
+
+def to_serf_draws(d, device="cpu") -> t_serf.SerfDraws:
+    f32 = torch.float32
+    return t_serf.SerfDraws(
+        swim=to_tick_draws(d["swim"], device),
+        u_resp=convert.tensor(np.asarray(d["u_resp"]), device, f32),
+        relay_u1=convert.tensor(np.asarray(d["relay_u1"]), device, f32),
+        relay_u2=convert.tensor(np.asarray(d["relay_u2"]), device, f32),
+        relay_cols=convert.tensor(np.asarray(d["relay_cols"]), device,
+                                  torch.int64))
+
+
 def to_tick_draws(d, device="cpu") -> t_swim.TickDraws:
     ints = ("relay_jcols", "gossip_jcols", "pp_j")
     return t_swim.TickDraws(**{
@@ -121,6 +163,18 @@ def assert_state_matches(ref, got, context):
     np.testing.assert_allclose(got.lat_buf.cpu().numpy(), np.asarray(ref.lat_buf),
                                rtol=VIV_RTOL, atol=VIV_ATOL,
                                err_msg=f"{context}: lat_buf")
+
+
+SERF_LEAVES = t_serf.SerfState._fields[1:]
+
+
+def assert_serf_equal(ref, got, context):
+    """Reference SerfState serf leaves (numpy) vs the port's, exactly and
+    dtype for dtype."""
+    for f in SERF_LEAVES:
+        r, g = np.asarray(getattr(ref, f)), getattr(got, f).cpu().numpy()
+        assert g.dtype == r.dtype, f"{context}: {f} dtype {g.dtype} != {r.dtype}"
+        np.testing.assert_array_equal(g, r, err_msg=f"{context}: {f}")
 
 
 def assert_packed_equal(ref, got, context):
