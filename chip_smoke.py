@@ -5,16 +5,21 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA tick kernel from ``consul_tpu_torch/csrc`` and holds
-both of its variants against their plain PyTorch versions: the bare SWIM
+its three variants against their plain PyTorch versions: the bare SWIM
 tick at the bench's default shape, at a ragged size and at the main
-path's own shape, and the serf variant at 65,536 nodes, at 20,000 nodes
+path's own shape; the serf variant at 65,536 nodes, at 20,000 nodes
 with query relays (int16 origins), at the main path's shape and at
 2,097,153 nodes (the murmur dedup signature), each window carrying an
-event storm, an open query and a leave. It drives the
-port's two main paths through their entry points: ``Simulation`` (a
-1,048,576-node, K = 32 view converging after a 5 % mass kill) and
-``SerfSimulation`` (the same, plus a live event storm and an open query,
-with fresh events every 512 ticks). It times each variant at 1M, and
+event storm, an open query and a leave; and the chaos + sentinel variant
+at 65,536 nodes and at the main path's shape, each window under a
+schedule with every fault family overlapping and with corruption for the
+sentinel to find. It drives the port's three main paths through their
+entry points: ``Simulation`` (a 1,048,576-node, K = 32 view converging
+after a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event
+storm and an open query, with fresh events every 512 ticks) and
+``Simulation`` with the sentinel on through ``run_scenario`` (the game
+day's composed partition + churn timeline with a lossy link and a
+degraded block) and on to convergence. It times each variant at 1M, and
 prints one JSON line per phase, the kernel table, the card's name and
 power limit, and a last line ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero. It needs a CUDA H100 and the rest of the
@@ -67,6 +72,19 @@ SERF_PARITY = ((65536, 0.01, 0, PARITY_TICKS), (20000, 0.01, 2, PARITY_TICKS),
 # fresh ones every 512 ticks (bench.py:1133-1135).
 SERF_EVENTS = 4
 SERF_SLICE = 512
+# Chaos + sentinel variant parity: (n, packet loss), 32-tick windows under
+# every fault family; then each family alone, and none (the sentinel
+# alone), in 8-tick windows at 65,536 nodes.
+CHAOS_PARITY = ((65536, 0.01), (MAIN_N, 0.0))
+CHAOS_FAMILIES = ("none", "partition", "link", "churn", "degrade")
+# The chaos main path's composed timeline over a 192-tick window: the game
+# day's partition and churn wave (consul_tpu/gameday/harness.py:673-690 at
+# window 192, partition_frac 0.25, churn_frac 0.05; its raft kill left out,
+# the raft tier is not ported), plus a lossy link and a degraded block
+# shaped like tests/test_chaos.py:63-70, so every term of pair_ok bites.
+CHAOS_WINDOW = 192
+# The tick of the window whose state chaos_timing times: every entry open.
+CHAOS_TIMED_TICK = 50
 
 
 def emit(obj):
@@ -307,20 +325,214 @@ def serf_parity(n: int, packet_loss: float, relay: int, ticks: int, seed: int):
                 in_window=window)
 
 
+def chaos_events(chaos, n, window, family="all"):
+    """The chaos parity window's schedule: two overlapping Partitions, two
+    overlapping LinkLosses (the first as tests/test_chaos.py:65-66), a
+    ChurnWave over 5 % of rows whose kill and revive edges both fall in
+    the window, and two overlapping Degrades on the last n/8 rows; or one
+    family of them alone, or none."""
+    events = [
+        chaos.Partition(0, window, slice(0, n // 4)),
+        chaos.Partition(0, window, slice(n // 8, 3 * n // 8)),
+        chaos.LinkLoss(0, window, slice(0, n // 8), slice(n // 8, n // 4),
+                       fwd=0.8, rev=0.2),
+        chaos.LinkLoss(0, window, slice(0, n // 4), slice(n // 8, n // 2),
+                       fwd=0.3, rev=0.6),
+        chaos.ChurnWave(2, window, slice(n // 2, n // 2 + n // 20), period=8,
+                        down_ticks=4),
+        chaos.Degrade(0, window, slice(n - n // 8, n), tx_loss=0.4),
+        chaos.Degrade(0, window, slice(n - n // 4, n), tx_loss=0.1,
+                      rx_loss=0.2),
+    ]
+    pick = {"all": slice(0, 7), "none": slice(0, 0), "partition": slice(0, 2),
+            "link": slice(2, 4), "churn": slice(4, 5), "degrade": slice(5, 7)}
+    return events[pick[family]]
+
+
+def corrupt(packed, n, k):
+    """Corruption for the sentinel: NaN coordinates on three live rows, a
+    pending probe column past K on a live row (its next missed probe
+    overwrites it) and on row 10, which the window's 5 % kill holds down
+    (the packed layout saturates own_inc at 65535, so an incarnation past
+    MAX_INCARNATION cannot be stored), and a SUSPECT cell whose timer is
+    armed but whose accuser mask is zero on a live row."""
+    base, dev = n // 3, packed.meta.device
+    # Edited on host copies: CUDA has no bitwise ops on uint16.
+    vec = packed.viv.vec.cpu()
+    vec[base: base + 3] = float("nan")
+    pcol, pfail = packed.pending_col.cpu(), packed.pending_fail_delta.cpu()
+    for row in (base + 10, 10):
+        pcol[row] = k + 3
+        pfail[row] = 30000
+    meta, sdelta = packed.meta.cpu(), packed.susp_delta.cpu()
+    seen = packed.susp_seen.cpu()
+    meta[base + 20, 0] = (int(meta[base + 20, 0]) & 0xFFFC) | 1
+    sdelta[base + 20, 0] = 0
+    seen[base + 20, 0] = 0
+    return packed._replace(
+        viv=packed.viv._replace(vec=vec.to(dev)), pending_col=pcol.to(dev),
+        pending_fail_delta=pfail.to(dev), meta=meta.to(dev),
+        susp_delta=sdelta.to(dev), susp_seen=seen.to(dev))
+
+
+def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
+                 family: str = "all"):
+    """The chaos + sentinel variant against plain_tick(sched,
+    sentinel=True) from one state with one draw bundle per tick: discrete
+    packed leaves and all 26 counters equal on every tick, float leaves
+    within MAX_STEPS / FLOOR_S and NaN in the same places. The window
+    opens after the deaths wave of a 5 % kill, under chaos_events open
+    across it (or one ``family`` of it), with corrupt() applied at its
+    start."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models import layout, state as sim_state, swim
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    cfg = SimConfig(n=n, view_degree=32, packet_loss=packet_loss)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    st = layout.pack(sim_state.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, sentinel=True)
+
+    def step(st):
+        return tick(world, st, swim.draw_tick(cfg, gen, dev))
+
+    kill = torch.zeros(n, dtype=torch.bool, device=dev)
+    kill[: n // 20] = True
+    st, warm = warm_to_deaths(n, step, st, kill, layout.unpack, layout.pack,
+                              sim_state.kill)
+    sched = chaos.shift_schedule(chaos.compile_schedule(
+        n, chaos_events(chaos, n, ticks + 8, family), dev), int(st.t))
+    st = corrupt(st, n, cfg.degree)
+    kp, pp = st, st
+    totals = torch.zeros(len(FIELDS), dtype=torch.int64)
+    bad = []
+    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+    for t in range(ticks):
+        d = swim.draw_tick(cfg, gen, dev, chaos=True)
+        kp, kc = tick(world, kp, d, sched)
+        pp, pc = cuda_gossip.plain_tick(cfg, topo, world, pp, d, sched,
+                                        sentinel=True)
+        torch.cuda.synchronize()
+        if not torch.equal(kc, pc):
+            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
+        totals += pc.cpu().to(torch.int64)
+        compare_packed(kp, pp, t, gaps, bad)
+        if bad:
+            break
+    window = {f: int(totals[FIELDS.index(f)]) for f in FIELDS
+              if f.startswith(("chaos_", "sentinel_")) or f in (
+                  "deaths_declared", "refutations", "suspicions_started")}
+    return dict(n=n, k=cfg.degree, packet_loss=packet_loss, ticks=ticks,
+                family=family, warm=warm, mismatches=bad[:5], float_gaps=gaps,
+                in_window=window)
+
+
+def chaos_ok(res) -> bool:
+    """No mismatch, the corruption found, and, under every family, the
+    faults really bit."""
+    w = res["in_window"]
+    ok = (not res["mismatches"] and w["sentinel_range"] > 0
+          and w["sentinel_suspicion"] > 0 and w["sentinel_nonfinite_coord"] > 0)
+    if res["family"] == "all":
+        ok = (ok and w["chaos_msgs_dropped"] > 0 and w["chaos_fault_ticks"] > 0
+              and (w["chaos_false_deaths"] > 0 or w["deaths_declared"] > 0))
+    return ok
+
+
+def chaos_main_path(cfg):
+    """The chaos north star through Simulation: the sentinel on, 64 ticks
+    to form, run_scenario over the composed timeline (CHAOS_WINDOW ticks
+    plus 64 to settle), then run_until_converged. A sentinel trip is a
+    failure. Also keeps the state at window tick CHAOS_TIMED_TICK for
+    chaos_timing."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster, counters, layout
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n = cfg.n
+    t0 = time.perf_counter()
+    sim = cluster.Simulation(cfg, seed=0, layout="packed", kernel="cuda")
+    sim.set_sentinel(True)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    sim.run(64, chunk=64, with_metrics=False)
+    torch.cuda.synchronize()
+    stages["form"] = {"ticks": 64, "wall_s": round(time.perf_counter() - t0, 3)}
+    events = [
+        chaos.Partition(2, 96, side_a=slice(0, n // 4)),
+        chaos.ChurnWave(48, 144, nodes=slice(0, int(n * 0.05)), period=8,
+                        down_ticks=4),
+        chaos.LinkLoss(2, CHAOS_WINDOW, a=slice(n // 4, 3 * n // 8),
+                       b=slice(3 * n // 8, n // 2), fwd=0.8, rev=0.2),
+        chaos.Degrade(2, CHAOS_WINDOW, nodes=slice(n - n // 8, n), tx_loss=0.4),
+    ]
+    t_window = sim._t
+    snap = {}
+    own_draws = sim.draws
+
+    def draws(t):
+        if t == t_window + CHAOS_TIMED_TICK:
+            snap["state"] = type(sim.state)(*[
+                x.clone() if isinstance(x, torch.Tensor)
+                else type(x)(*[y.clone() for y in x]) for x in sim.state])
+        return own_draws(t)
+
+    sim.draws = draws
+    t0 = time.perf_counter()
+    res = sim.run_scenario(events, chunk=64, settle=64)
+    torch.cuda.synchronize()
+    stages["scenario"] = {"ticks": res.ticks,
+                          "wall_s": round(time.perf_counter() - t0, 3)}
+    sim.draws = own_draws
+    scenario_launches = dict(cuda_gossip.LAUNCHES)
+    t0 = time.perf_counter()
+    converged, used, trace = sim.run_until_converged(max_ticks=4096, chunk=128)
+    torch.cuda.synchronize()
+    stages["converge"] = {"ticks": used,
+                          "wall_s": round(time.perf_counter() - t0, 3)}
+    launches = dict(cuda_gossip.LAUNCHES)
+    agreement = float(trace.agreement[-1])
+    finite = bool(torch.isfinite(trace.rmse).all()) and bool(
+        torch.isfinite(layout.unpack(sim.state).viv.vec).all())
+    mask = counters.violation_mask(sim.counters)
+    out = dict(n=n, k=cfg.degree, slo=res.slo, scenario_counters=res.counters,
+               stages=stages, converged=converged, ticks_after_scenario=used,
+               ticks_total=sim._t, agreement=agreement,
+               rmse_ms=float(trace.rmse[-1]) * 1000.0,
+               wall_s=round(sum(v["wall_s"] for v in stages.values()), 3),
+               setup_s=round(setup_s, 3), sentinel_mask=mask,
+               launches=launches, scenario_launches=scenario_launches,
+               bytes_per_node=layout.bytes_per_node(sim.state, n))
+    ok = (converged and agreement == 1.0 and finite and mask == 0
+          and all(v > 0 for k, v in scenario_launches.items() if k != "serf_post")
+          and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
+    sched = chaos.shift_schedule(
+        chaos.compile_schedule(n, events, sim.device), t_window)
+    return sim, snap["state"], sched, out, ok
+
+
 def _rows(n, rows, dev):
     m = torch.zeros(n, dtype=torch.bool, device=dev)
     m[rows] = True
     return m
 
 
-def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate):
+def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate, sched=None):
     """Device ms per tick of the kernel and of its plain version (CUDA
     events), ms by launch (profiler), and the bytes bound."""
-    ms = cuda_ms(lambda: tick(world, st, d), 20)
+    ms = cuda_ms(lambda: tick(world, st, d, sched), 20)
     plain_ms = cuda_ms(lambda: plain(world, st, d), 3)
-    stages = launch_breakdown(lambda: tick(world, st, d), 5)
+    stages = launch_breakdown(lambda: tick(world, st, d, sched), 5)
     bound_ms = bytes_per_node * n / rate * 1e3
-    buffers = tick.buffer_bytes_per_node(world, st, d)
+    buffers = tick.buffer_bytes_per_node(world, st, d, sched)
     return dict(ms_per_tick=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 contract_bytes_per_node=bytes_per_node,
                 buffer_bytes_per_node=buffers,
@@ -423,7 +635,8 @@ def main() -> int:
           "library": os.path.relpath(info.path), "ptxas": regs})
 
     failed = []
-    max_abs = {"gossip_tick": 0.0, "gossip_tick_serf": 0.0}
+    max_abs = {"gossip_tick": 0.0, "gossip_tick_serf": 0.0,
+               "gossip_tick_chaos": 0.0}
     for n, loss in PARITY:
         t0 = time.perf_counter()
         res = parity(n, loss, PARITY_TICKS, seed=7)
@@ -452,6 +665,25 @@ def main() -> int:
         emit({"phase": "serf_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"serf_kernel_parity n={n}")
+    for n, loss in CHAOS_PARITY:
+        t0 = time.perf_counter()
+        res = chaos_parity(n, loss, PARITY_TICKS, seed=13)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        res["ok"] = chaos_ok(res)
+        max_abs["gossip_tick_chaos"] = max([max_abs["gossip_tick_chaos"]] + [
+            g["abs"] for g in res["float_gaps"].values()])
+        emit({"phase": "chaos_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"chaos_kernel_parity n={n}")
+    for family in CHAOS_FAMILIES:
+        res = chaos_parity(65536, 0.01, 8, seed=17, family=family)
+        res["ok"] = chaos_ok(res)
+        max_abs["gossip_tick_chaos"] = max([max_abs["gossip_tick_chaos"]] + [
+            g["abs"] for g in res["float_gaps"].values()])
+        emit({"phase": "chaos_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"chaos_kernel_parity family={family}")
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1
@@ -498,6 +730,28 @@ def main() -> int:
     del sim, tick, d
     torch.cuda.empty_cache()
 
+    # The chaos main path, and the chaos + sentinel variant's timing on its
+    # state at window tick CHAOS_TIMED_TICK under the same schedule.
+    csim, cstate, csched, res, ok = chaos_main_path(cfg)
+    emit({"phase": "chaos_main_path", **res})
+    if not ok:
+        emit({"phase": "failed", "failed": ["chaos_main_path"]})
+        return 1
+    chaos_launches = sum(res["launches"].values())
+    ctick = cuda_gossip.make_tick_kernel(cfg, csim.topo, sentinel=True)
+    d = swim.draw_tick(cfg, csim.gen, csim.device, chaos=True)
+    chaos_t = time_kernel(
+        ctick,
+        lambda w, s, dd: cuda_gossip.plain_tick(cfg, csim.topo, w, s, dd,
+                                                csched, sentinel=True),
+        csim.world, cstate, d,
+        cuda_gossip.tick_hbm_bytes_per_node(cstate, csim.world, csched),
+        cfg.n, rate, sched=csched)
+    emit({"phase": "chaos_timing", "window_tick": CHAOS_TIMED_TICK,
+          "t": int(cstate.t), **chaos_t})
+    del csim, ctick, cstate, csched, d
+    torch.cuda.empty_cache()
+
     # The serf main path and the serf variant's timing on its final state.
     ssim, res, ok = serf_main_path(cfg)
     emit({"phase": "serf_main_path", **res})
@@ -528,7 +782,10 @@ def main() -> int:
             "sentinel=False, sparse, packed", swim_launches, swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed", serf_launches,
-            serf_t)]}), flush=True)
+            serf_t),
+        row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
+            "sentinel=True, sparse, packed", chaos_launches, chaos_t)]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -129,3 +129,13 @@ def serf_state_from(src, device="cpu"):
     swim = packed_state_from(sw, device) if packed else sim_state_from(sw, device)
     return serf.SerfState(swim, *[tensor(_get(src, f), device)
                                   for f in serf.SerfState._fields[1:]])
+
+
+def schedule_from(src, device="cpu"):
+    """Reference ChaosSchedule (numpy leaves) -> the port's ChaosSchedule
+    on ``device``, dtype for dtype (int32 ticks, float32 rates, bool
+    masks)."""
+    from consul_tpu_torch.chaos import schedule as chaos
+
+    return chaos.ChaosSchedule(*[tensor(_get(src, f), device)
+                                 for f in chaos.ChaosSchedule._fields])

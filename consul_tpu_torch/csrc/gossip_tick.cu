@@ -61,6 +61,36 @@
 //       row's liveness is recomputed post-quiet from their input flags and
 //       leave_at. D copies its row's dedup buckets to the output and
 //       updates them there, in the order the reference rejects in.
+//
+// The chaos + sentinel variant replaces the same pallas_call with a
+// non-empty ChaosSchedule (I_CHAOS = 1) and/or sentinel=True
+// (I_SENTINEL = 1), for the bare SWIM tick. All schedule evaluation of the
+// Pallas body runs here, from the schedule's tensors and the draws:
+//   (P) chaos_pre, a launch before A: each row's churn edges at tick t
+//       (kill rows whose wave went down this tick, warm-revive rows whose
+//       wave came back: incarnation + 1, alive, not left or leaving, own
+//       budget re-armed) and its node terms (partition color, LinkLoss
+//       side bits, Degrade survival products in slot order), into c_*
+//       scratch that no later launch writes. A, B and C read every row's
+//       flags, incarnation and terms, their own and other rows', from that
+//       scratch, so each read sees the post-churn value and the input
+//       state stays untouched.
+//   A gates the direct/TCP round trips and the three relay legs on
+//       pair_ok, counts false deaths (expiries whose subject is up and on
+//       the prober's side) and, with the sentinel, the non-finite Vivaldi
+//       coordinates and written RTT slots on the f32 values before packing.
+//   B gates each gossip leg on pair_ok(sender, receiver) and counts the
+//       legs the schedule dropped.
+//   C gates the push-pull session on its round trip against u_pp (both
+//       directions: the initiator's own session is recomputed from its
+//       row), and over the final view folds the four grid-wide SLO
+//       indicators (fault, not yet suspected, not yet confirmed, stale
+//       after the fault) into a per-block word, atomicOr'd into slo[0];
+//       the last block to finish (a ticket in slo[1]) turns them into the
+//       tick's counters on the device. With the sentinel it also counts
+//       range, monotonicity and suspicion violations on the final values.
+// Survival products multiply in the reference's order (chaos.pair_ok):
+// a one-ulp difference in a threshold would flip a draw.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,7 +118,14 @@ enum Ptr {
   P_SIN,                        // + SLeaf: input serf leaves
   P_SOUT = P_SIN + 21,          // + SLeaf: output serf leaves
   P_URESP = P_SOUT + 21, P_RU1, P_RU2, P_RCOLS,
-  P_XFLAGS, P_XKEY, P_XORIG, N_PTR
+  P_XFLAGS, P_XKEY, P_XORIG,
+  // Chaos variant only: the schedule (ChaosSchedule field order, raft lane
+  // excluded), the push-pull draw, the per-row scratch of chaos_pre, and
+  // the SLO word and ticket.
+  P_PSTART, P_PSTOP, P_PSIDE, P_LSTART, P_LSTOP, P_LFWD, P_LREV, P_LA, P_LB,
+  P_CSTART, P_CSTOP, P_CPERIOD, P_CDOWN, P_CMASK, P_DSTART, P_DSTOP, P_DTX,
+  P_DRX, P_DMASK, P_UPP, P_CFLAGS, P_CINC, P_CCOLOR, P_CABITS, P_CBBITS,
+  P_CQTX, P_CQRX, P_SLO, N_PTR
 };
 
 // Serf leaves, in SerfState field order after the SWIM plane.
@@ -102,12 +139,15 @@ static_assert(N_SLEAVES == 21, "serf leaf table");
 enum Int {
   I_N, I_K, I_S, I_D, I_W, I_WD, I_IC, I_FAN, I_P, I_TX_LIMIT, I_SUSP_K,
   I_PP_PERIOD, I_OWN_LIMIT, I_PROBE_PERIOD, I_AWARE_MAX,
-  I_SERF, I_E, I_R, I_O, I_Q, I_PE, I_RF, I_ORIG16, I_EXACT_SIG, N_INT
+  I_SERF, I_E, I_R, I_O, I_Q, I_PE, I_RF, I_ORIG16, I_EXACT_SIG,
+  I_CHAOS, I_SENTINEL, I_NP, I_NL, I_NC, I_ND, N_INT
 };
 
 enum Flt {
   F_SUSP_MIN, F_SUSP_MAX, F_SUSP_DIFF, F_PLOSS, F_TIMEOUT, F_JITTER_FRAC,
-  F_CE, F_CC, F_ERR_MAX, F_HMIN, F_RHO, N_FLT
+  F_CE, F_CC, F_ERR_MAX, F_HMIN, F_RHO,
+  F_KEEP,  // 1 - packet_loss, rounded once from double (chaos.pair_ok)
+  N_FLT
 };
 
 struct TickArgs {
@@ -118,8 +158,11 @@ struct TickArgs {
 
 enum Counter {
   C_PROBES, C_ACKS, C_NACKS, C_TIMEOUTS, C_SUSP, C_REFUT, C_DEATHS, C_GTX,
-  C_GRX, C_GMSGS, C_PP, C_SQUEUED, C_SRETX, C_SDROPPED, N_CNT = 26
+  C_GRX, C_GMSGS, C_PP, C_SQUEUED, C_SRETX, C_SDROPPED, C_FAULT, C_FIRST,
+  C_CONFIRM, C_HEAL, C_FALSE_DEATHS, C_CDROPPED, C_SRANGE, C_SMONO, C_SSUSP,
+  C_SCOORD, C_SRTT, C_WRITES, N_CNT
 };
+static_assert(N_CNT == 26, "counter wire order");
 
 #define MAXD 16
 #define MAXW 64
@@ -134,6 +177,8 @@ constexpr int SELF_COL = -2;
 constexpr float ZERO_T = 1.0e-6f;
 constexpr float F8_SCALE = 256.0f;
 constexpr float F8_CLIP = 448.0f / 256.0f;
+constexpr uint32_t MAX_INCARNATION = (1u << 30) - 1u;
+constexpr uint8_t REVIVED = 0x80;  // chaos_pre's mark in c_flags, never stored
 
 template <typename T>
 __device__ __forceinline__ T* ptr(const TickArgs& a, int k) {
@@ -199,6 +244,63 @@ struct BlockCounters {
       if (s[k]) atomicAdd(&global[k], s[k]);
   }
 };
+
+// ---------------------------------------------------------------------------
+// Chaos schedule (chaos/schedule.py), per row.
+// ---------------------------------------------------------------------------
+
+// A row's flags and incarnation as the tick sees them: after chaos_pre's
+// churn edges when a schedule is installed, else the input's.
+__device__ __forceinline__ uint8_t flags_at(const TickArgs& a, int x) {
+  return a.i[I_CHAOS] ? ptr<const uint8_t>(a, P_CFLAGS)[x]
+                      : ptr<const uint8_t>(a, P_IN + L_FLAGS)[x];
+}
+__device__ __forceinline__ uint32_t inc_at(const TickArgs& a, int x) {
+  return a.i[I_CHAOS] ? ptr<const uint32_t>(a, P_CINC)[x]
+                      : static_cast<uint32_t>(ptr<const uint16_t>(a, P_IN + L_OWN_INC)[x]);
+}
+
+struct Terms {
+  int color, abits, bbits;
+  float qtx, qrx;
+};
+
+__device__ __forceinline__ Terms terms_at(const TickArgs& a, int x) {
+  return Terms{ptr<const int32_t>(a, P_CCOLOR)[x], ptr<const int32_t>(a, P_CABITS)[x],
+               ptr<const int32_t>(a, P_CBBITS)[x], ptr<const float>(a, P_CQTX)[x],
+               ptr<const float>(a, P_CQRX)[x]};
+}
+
+// chaos._link_survival: slot by slot, forward then reverse.
+__device__ float link_survival(const TickArgs& a, const Terms& s, const Terms& d) {
+  const float* fwd = ptr<const float>(a, P_LFWD);
+  const float* rev = ptr<const float>(a, P_LREV);
+  const int fh = s.abits & d.bbits, rh = s.bbits & d.abits;
+  float q = 1.0f;
+  for (int l = 0; l < a.i[I_NL]; ++l) {
+    if ((fh >> l) & 1) q = q * (1.0f - fwd[l]);
+    if ((rh >> l) & 1) q = q * (1.0f - rev[l]);
+  }
+  return q;
+}
+
+__device__ __forceinline__ float survival(const TickArgs& a, const Terms& s,
+                                          const Terms& d) {
+  return s.qtx * d.qrx * link_survival(a, s, d);
+}
+
+// chaos.pair_ok: one leg src -> dst on its draw u; keep = 1 - base loss.
+__device__ bool pair_ok(const TickArgs& a, const Terms& s, const Terms& d, float u,
+                        float keep, bool round_trip) {
+  float q = survival(a, s, d);
+  if (round_trip) q = q * survival(a, d, s);
+  const float p = 1.0f - keep * q;
+  return s.color == d.color && u >= p;
+}
+
+__device__ __forceinline__ bool in_window(int t, int start, int stop) {
+  return t >= start && t < stop;
+}
 
 // ---------------------------------------------------------------------------
 // Vivaldi (ops/vivaldi.py update, one element).
@@ -406,6 +508,75 @@ struct Bucket {
 };
 
 // ---------------------------------------------------------------------------
+// (P) chaos_pre: churn edges and node terms at tick t, one row per thread
+//     (swim.py:240-251, chaos.node_terms / down_at).
+// ---------------------------------------------------------------------------
+
+__device__ bool churn_down(const TickArgs& a, int i, int t) {
+  const int NC = a.i[I_NC];
+  const int32_t* cs = ptr<const int32_t>(a, P_CSTART);
+  const int32_t* ce = ptr<const int32_t>(a, P_CSTOP);
+  const int32_t* cp = ptr<const int32_t>(a, P_CPERIOD);
+  const int32_t* cd = ptr<const int32_t>(a, P_CDOWN);
+  const bool* cm = ptr<const bool>(a, P_CMASK) + static_cast<size_t>(i) * NC;
+  bool down = false;
+  for (int c = 0; c < NC; ++c)
+    down = down || (cm[c] && in_window(t, cs[c], ce[c]) &&
+                    floor_mod(t - cs[c], max(cp[c], 1)) < cd[c]);
+  return down;
+}
+
+__global__ void k_chaos_pre(TickArgs a) {
+  const int n = a.i[I_N];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  const int NP = a.i[I_NP], NL = a.i[I_NL], ND = a.i[I_ND];
+  const size_t row = static_cast<size_t>(i);
+
+  uint8_t fl = ptr<const uint8_t>(a, P_IN + L_FLAGS)[i];
+  uint32_t inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC)[i];
+  const bool down_now = churn_down(a, i, t), down_prev = churn_down(a, i, t - 1);
+  if (down_now && !down_prev) fl &= ~1u;           // kill
+  if (down_prev && !down_now) {                    // warm revive
+    fl = static_cast<uint8_t>(((fl | 1u) & ~6u) | REVIVED);
+    inc += 1u;
+  }
+  ptr<uint8_t>(a, P_CFLAGS)[i] = fl;
+  ptr<uint32_t>(a, P_CINC)[i] = inc;
+
+  int color = 0, abits = 0, bbits = 0;
+  const bool* side = ptr<const bool>(a, P_PSIDE) + row * NP;
+  for (int p = 0; p < NP; ++p)
+    if (side[p] && in_window(t, ptr<const int32_t>(a, P_PSTART)[p],
+                             ptr<const int32_t>(a, P_PSTOP)[p]))
+      color |= 1 << p;
+  const bool* la = ptr<const bool>(a, P_LA) + row * NL;
+  const bool* lb = ptr<const bool>(a, P_LB) + row * NL;
+  for (int l = 0; l < NL; ++l) {
+    if (!in_window(t, ptr<const int32_t>(a, P_LSTART)[l],
+                   ptr<const int32_t>(a, P_LSTOP)[l]))
+      continue;
+    if (la[l]) abits |= 1 << l;
+    if (lb[l]) bbits |= 1 << l;
+  }
+  float qtx = 1.0f, qrx = 1.0f;
+  const bool* dm = ptr<const bool>(a, P_DMASK) + row * ND;
+  for (int d = 0; d < ND; ++d) {
+    if (!(dm[d] && in_window(t, ptr<const int32_t>(a, P_DSTART)[d],
+                             ptr<const int32_t>(a, P_DSTOP)[d])))
+      continue;
+    qtx = qtx * (1.0f - ptr<const float>(a, P_DTX)[d]);
+    qrx = qrx * (1.0f - ptr<const float>(a, P_DRX)[d]);
+  }
+  ptr<int32_t>(a, P_CCOLOR)[i] = color;
+  ptr<int32_t>(a, P_CABITS)[i] = abits;
+  ptr<int32_t>(a, P_CBBITS)[i] = bbits;
+  ptr<float>(a, P_CQTX)[i] = qtx;
+  ptr<float>(a, P_CQRX)[i] = qrx;
+}
+
+// ---------------------------------------------------------------------------
 // (A) probe_send
 // ---------------------------------------------------------------------------
 
@@ -425,21 +596,23 @@ __global__ void k_probe_send(TickArgs a) {
     const int32_t* off = ptr<const int32_t>(a, P_OFF);
     const size_t rb = static_cast<size_t>(i) * K;
 
-    const uint8_t* in_flags = ptr<const uint8_t>(a, P_IN + L_FLAGS);
     const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
     const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
     const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
     const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
-    const uint16_t* in_own_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC);
     uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
     uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
     uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
 
-    const uint8_t fl = in_flags[i];
+    const bool chaos = a.i[I_CHAOS] != 0, sentinel = a.i[I_SENTINEL] != 0;
+    const float keep = a.f[F_KEEP];
+    const uint8_t fl = flags_at(a, i);
     const bool alive = fl & 1, left = fl & 2, leaving = fl & 4, external = fl & 8;
     const bool active = alive && !left && !external;
-    const uint32_t own_inc = in_own_inc[i];
-    int own_tx = ptr<const uint8_t>(a, P_IN + L_OWN_TX)[i];
+    const uint32_t own_inc = inc_at(a, i);
+    int own_tx = (chaos && (fl & REVIVED)) ? a.i[I_OWN_LIMIT]
+                                           : ptr<const uint8_t>(a, P_IN + L_OWN_TX)[i];
+    const Terms me = chaos ? terms_at(a, i) : Terms{0, 0, 0, 1.0f, 1.0f};
     int aw = ptr<const uint8_t>(a, P_IN + L_AWARE)[i];
     const int ptr0 = ptr<const uint8_t>(a, P_IN + L_PTR)[i];
     int next_probe = t + ptr<const int16_t>(a, P_IN + L_NEXT)[i];
@@ -450,7 +623,7 @@ __global__ void k_probe_send(TickArgs a) {
 
     // 1. Suspicion expiry.
     const float logk1 = logf(static_cast<float>(susp_k) + 1.0f);
-    int n_deaths = 0;
+    int n_deaths = 0, n_false = 0;
     for (int c = 0; c < K; ++c) {
       const uint32_t vi = in_vinc[rb + c];
       const uint32_t st = in_meta[rb + c] & 3u;
@@ -469,21 +642,30 @@ __global__ void k_probe_send(TickArgs a) {
         if (rem <= 0.0f) {
           key = mk(vi, DEAD);
           ++n_deaths;
+          if (chaos) {  // a false death: the subject is up and reachable
+            const int sr = (i + off[c]) % n;
+            const uint8_t sf = flags_at(a, sr);
+            n_false += (sf & 1) && !(sf & 2) &&
+                       ptr<const int32_t>(a, P_CCOLOR)[sr] == me.color;
+          }
         }
       }
       vmid[rb + c] = key;
       o_sseen[rb + c] = seen;
     }
     bc.add(C_DEATHS, n_deaths);
+    bc.add(C_FALSE_DEATHS, n_false);
 
     // 2. Probe windows closing with no ack.
     const bool failing = pcol >= 0 && t >= pfail && active;
     int add = 0;
     if (failing) {
       bc.add(C_TIMEOUTS, 1);
-      uint32_t fkey = vmid[rb + pcol];
-      vmid[rb + pcol] = max(fkey, mk(kinc(fkey), SUSPECT));
-      o_sseen[rb + pcol] |= 1u << (static_cast<uint32_t>(i) % 32u);
+      if (pcol < K) {  // a column past K (corrupt input) suspects nothing
+        uint32_t fkey = vmid[rb + pcol];
+        vmid[rb + pcol] = max(fkey, mk(kinc(fkey), SUSPECT));
+        o_sseen[rb + pcol] |= 1u << (static_cast<uint32_t>(i) % 32u);
+      }
       add = 1 + nack;
       pcol = -1;
       nack = 0;
@@ -505,8 +687,9 @@ __global__ void k_probe_send(TickArgs a) {
 
     const int tcol = has_target ? target_col : 0;
     const int tgt = (i + off[tcol]) % n;
-    const uint8_t tfl = in_flags[tgt];
+    const uint8_t tfl = flags_at(a, tgt);
     const bool target_up = (tfl & 1) && !(tfl & 2) && has_target;
+    const Terms tt = chaos ? terms_at(a, tgt) : me;
     const float* pos = ptr<const float>(a, P_POS);
     const float* hgt = ptr<const float>(a, P_HEIGHT);
     float acc = 0.0f;
@@ -521,8 +704,12 @@ __global__ void k_probe_send(TickArgs a) {
         ? true_rtt * expf(ptr<const float>(a, P_JITTER)[i] * jf) : true_rtt;
 
     const float* u2 = ptr<const float>(a, P_U2);
-    const bool ok_direct = u2[2 * i] >= pl;
-    const bool ok_tcp = u2[2 * i + 1] >= pl;
+    // Under a schedule each round trip composes both directions' terms
+    // onto its one draw.
+    const bool ok_direct = chaos ? pair_ok(a, me, tt, u2[2 * i], keep, true)
+                                 : u2[2 * i] >= pl;
+    const bool ok_tcp = chaos ? pair_ok(a, me, tt, u2[2 * i + 1], keep, true)
+                              : u2[2 * i + 1] >= pl;
     const bool direct_ok = has_target && target_up &&
                            rtt_obs <= a.f[F_TIMEOUT] && ok_direct;
     const int64_t* relay = ptr<const int64_t>(a, P_RELAY);
@@ -533,10 +720,16 @@ __global__ void k_probe_send(TickArgs a) {
     int nack_rcvd = 0;
     for (int r = 0; r < IC; ++r) {
       const int rrow = (i + off[relay[r]]) % n;
-      const uint8_t rf = in_flags[rrow];
+      const uint8_t rf = flags_at(a, rrow);
       const bool ravail = (rf & 1) && !(rf & 2) && !(rf & 8);
       const size_t u = static_cast<size_t>(i) * IC + r;
-      const bool oka = ua[u] >= pl, okb = ub[u] >= pl, okc = uc[u] >= pl;
+      bool oka = ua[u] >= pl, okb = ub[u] >= pl, okc = uc[u] >= pl;
+      if (chaos) {
+        const Terms rt = terms_at(a, rrow);
+        oka = pair_ok(a, me, rt, ua[u], keep, false);
+        okb = pair_ok(a, rt, tt, ub[u], keep, true);
+        okc = pair_ok(a, rt, me, uc[u], keep, false);
+      }
       const bool reached = ravail && oka;
       if (reached && target_up && okb) any_relay_ok = true;
       if (reached && !(target_up && okb) && okc) ++nack_rcvd;
@@ -589,7 +782,7 @@ __global__ void k_probe_send(TickArgs a) {
       for (int c = 0; c < K; ++c) o_meta[rb + c] = in_meta[rb + c] & 0xFF00u;
     }
     if (acked) {
-      const uint32_t ak = mk(in_own_inc[tgt], ALIVE);
+      const uint32_t ak = mk(inc_at(a, tgt), ALIVE);
       vmid[rb + target_col] = max(vmid[rb + target_col], ak);
     }
 
@@ -678,6 +871,27 @@ __global__ void k_probe_send(TickArgs a) {
         for (int k = 0; k < W; ++k) o_vsamp[sb + k] = in_vsamp[sb + k];
         o_vidx[i] = in_vidx[i];
         o_vres[i] = in_vres[i];
+      }
+      // Sentinel: non-finite coordinates and written RTT slots, on the
+      // tick's f32 values before packing.
+      if (sentinel) {
+        bool bad = false;
+        for (int k = 0; k < D; ++k)
+          bad = bad || !isfinite(updated ? v.vec[k] : bf2f(in_vec[vb + k]));
+        bad = bad || !isfinite(updated ? v.h : bf2f(in_vh[i])) ||
+              !isfinite(updated ? v.err : bf2f(in_verr[i])) ||
+              !isfinite(updated ? v.adj : bf2f(in_vadj[i]));
+        bc.add(C_SCOORD, bad);
+        int bad_rtt = 0;
+        for (int c = 0; c < K; ++c) {
+          const int written = min(static_cast<int>(o_lcnt[rb + c]), S);
+          for (int s = 0; s < written; ++s) {
+            const float x = (direct_ok && c == col_c && s == slot)
+                ? rtt_obs : f8tof(in_lbuf[(rb + c) * S + s]);
+            bad_rtt += !isfinite(x);
+          }
+        }
+        bc.add(C_SRTT, bad_rtt);
       }
     }
 
@@ -775,7 +989,7 @@ __global__ void k_probe_send(TickArgs a) {
     // Fields no later phase changes, packed against t + 1. The probe
     // deadline is canonicalized to t while no probe is outstanding.
     if (pcol < 0) pfail = t;
-    ptr<uint8_t>(a, P_OUT + L_FLAGS)[i] = fl;
+    ptr<uint8_t>(a, P_OUT + L_FLAGS)[i] = static_cast<uint8_t>(fl & ~REVIVED);
     ptr<uint8_t>(a, P_OUT + L_OWN_TX)[i] = static_cast<uint8_t>(own_tx);
     ptr<uint8_t>(a, P_OUT + L_AWARE)[i] = static_cast<uint8_t>(aw);
     ptr<uint8_t>(a, P_OUT + L_PTR)[i] = static_cast<uint8_t>(ptr1);
@@ -817,22 +1031,29 @@ __global__ void k_receive(TickArgs a) {
     uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
     uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
     const size_t rb = static_cast<size_t>(r) * K;
-    const uint8_t fl = ptr<const uint8_t>(a, P_IN + L_FLAGS)[r];
+    const uint8_t fl = flags_at(a, r);
     const bool recv_up = (fl & 1) && !(fl & 2);
-    const uint32_t own_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC)[r];
+    const uint32_t own_inc = inc_at(a, r);
     const int sweep_len = (K + FAN - 1) / FAN;
     const int jpos = (t % sweep_len) * FAN;
+    const bool chaos = a.i[I_CHAOS] != 0;
+    const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
 
     uint32_t refute = 0;
-    int n_rx = 0;
+    int n_rx = 0, n_cdrop = 0;
     uint32_t arrived_bits = 0;
     for (int f = 0; f < FAN; ++f) {
       const int jc = (jpos + f) % K;
       const int s = (r - off[jc] + n) % n;
       const uint16_t pf = pflags[s];
-      const bool arrived = ((pf >> f) & 1) &&
-                           udrop[static_cast<size_t>(r) * FAN + f] >= pl &&
-                           recv_up;
+      const float u = udrop[static_cast<size_t>(r) * FAN + f];
+      const bool sent = (pf >> f) & 1;
+      bool ok_leg = u >= pl;
+      if (chaos) {  // one-way sender -> receiver on the leg's drop draw
+        ok_leg = pair_ok(a, terms_at(a, s), me, u, a.f[F_KEEP], false);
+        n_cdrop += sent && recv_up && u >= pl && !ok_leg;
+      }
+      const bool arrived = sent && ok_leg && recv_up;
       if (!arrived) continue;
       arrived_bits |= 1u << f;
       ++n_rx;
@@ -871,6 +1092,7 @@ __global__ void k_receive(TickArgs a) {
       }
     }
     bc.add(C_GRX, n_rx);
+    bc.add(C_CDROPPED, n_cdrop);
 
     // Pokes: was I probed by an in-neighbor that believes me suspect?
     const uint32_t* poke = ptr<const uint32_t>(a, P_POKE);
@@ -903,8 +1125,11 @@ __device__ __forceinline__ bool pp_due(int x, uint8_t fl, int t, int pp) {
 
 __global__ void k_pushpull(TickArgs a) {
   __shared__ int smem[N_CNT];
+  __shared__ int slo_bits;  // the block's OR of the rows' SLO indicators
+  if (threadIdx.x == 0) slo_bits = 0;
   BlockCounters bc;
   bc.init(smem);
+  const bool chaos = a.i[I_CHAOS] != 0, sentinel = a.i[I_SENTINEL] != 0;
   const int n = a.i[I_N];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r < n) {
@@ -914,8 +1139,6 @@ __global__ void k_pushpull(TickArgs a) {
     const int32_t* off = ptr<const int32_t>(a, P_OFF);
     const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
     const int32_t* inv = ptr<const int32_t>(a, P_INV);
-    const uint8_t* in_flags = ptr<const uint8_t>(a, P_IN + L_FLAGS);
-    const uint16_t* in_own_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC);
     const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
     const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
     const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
@@ -930,21 +1153,29 @@ __global__ void k_pushpull(TickArgs a) {
     const int j = static_cast<int>(*ptr<const int64_t>(a, P_PPJ));
     const int shift = off[j];
     const int icol = inv[j];
-    const uint8_t fl = in_flags[r];
-    const uint32_t own_inc = in_own_inc[r];
+    const uint8_t fl = flags_at(a, r);
+    const uint32_t own_inc = inc_at(a, r);
     auto ownk = [&](int x) {
-      const uint8_t f = in_flags[x];
-      return mk(in_own_inc[x], (f & 6) ? LEFT : ALIVE);
+      return mk(inc_at(a, x), (flags_at(a, x) & 6) ? LEFT : ALIVE);
     };
 
     const int p = (r + shift) % n;          // pull partner
     const int s = (r - shift + n) % n;      // push initiator
     const size_t pb = static_cast<size_t>(p) * K;
     const size_t sb = static_cast<size_t>(s) * K;
-    const bool init_ok = pp_due(r, fl, t, pp) && is_up(in_flags[p]) &&
-                         contactable(vmid[rb + j]);
-    const bool s_ok = pp_due(s, in_flags[s], t, pp) && is_up(fl) &&
-                      contactable(vmid[sb + j]);
+    bool init_ok = pp_due(r, fl, t, pp) && is_up(flags_at(a, p)) &&
+                   contactable(vmid[rb + j]);
+    bool s_ok = pp_due(s, flags_at(a, s), t, pp) && is_up(fl) &&
+                contactable(vmid[sb + j]);
+    const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
+    if (chaos) {
+      // One TCP session per initiator, kept iff its round trip clears the
+      // initiator's u_pp (no base loss); the initiator s's own session
+      // toward r is recomputed from its row.
+      const float* upp = ptr<const float>(a, P_UPP);
+      init_ok = init_ok && pair_ok(a, me, terms_at(a, p), upp[r], 1.0f, true);
+      s_ok = s_ok && pair_ok(a, terms_at(a, s), me, upp[s], 1.0f, true);
+    }
     const uint32_t ownk_p = ownk(p), ownk_s = ownk(s);
     uint32_t refute_pp = 0;
     if (init_ok) {
@@ -972,8 +1203,10 @@ __global__ void k_pushpull(TickArgs a) {
     ptr<uint16_t>(a, P_OUT + L_OWN_INC)[r] =
         static_cast<uint16_t>(min(new_inc, 65535u));
 
-    // Merge, reconcile, re-arm, pack.
-    int n_susp = 0;
+    // Merge, reconcile, re-arm, pack; the SLO indicators and the sentinel
+    // read the final cells.
+    int n_susp = 0, n_mono = 0, n_bad_susp = 0, row_bits = 0;
+    bool bad_range = false;
     for (int c = 0; c < K; ++c) {
       uint32_t v = vmid[rb + c];
       if (init_ok) {
@@ -1010,11 +1243,66 @@ __global__ void k_pushpull(TickArgs a) {
       o_sdelta[rb + c] = static_cast<uint16_t>(
           sstart < 0 ? 65535 : clampi(t + 1 - sstart, 0, 65534));
       o_sseen[rb + c] = seen;
+      if (chaos) {
+        // Subject truth at r + off[c]: unreachable when cut off by a
+        // partition or held down; suspected/confirmed from the final view.
+        const int sr = (r + off[c]) % n;
+        const uint8_t sf = flags_at(a, sr);
+        const bool s_alive = sf & 1, s_left = sf & 2;
+        const bool cross = ptr<const int32_t>(a, P_CCOLOR)[sr] != me.color;
+        const bool suspected = st1 == SUSPECT || st1 == DEAD;
+        const bool unreach = active && (cross || (!s_alive && !s_left));
+        if (unreach) row_bits |= 1;
+        if (unreach && suspected) row_bits |= 2;
+        if (unreach && st1 == DEAD) row_bits |= 4;
+        if (active && suspected && s_alive && !s_left && !cross) row_bits |= 8;
+      }
+      if (sentinel) {
+        n_mono += v < k0;
+        const bool armed = sstart >= 0;
+        n_bad_susp += (now_s != armed) || (now_s != (seen != 0u));
+        bad_range = bad_range || sstart > t;
+      }
     }
     bc.add(C_SUSP, n_susp);
+    if (sentinel) {
+      const int aw = o_aw[r];
+      const int ptr1 = ptr<const uint8_t>(a, P_OUT + L_PTR)[r];
+      const uint8_t pc = ptr<const uint8_t>(a, P_OUT + L_PCOL)[r];
+      const int pcol = pc == 255 ? -1 : static_cast<int>(pc);
+      bad_range = bad_range || new_inc > MAX_INCARNATION || aw < 0 ||
+                  aw >= amax || ptr1 < 0 || ptr1 >= K || pcol < -1 || pcol >= K;
+      bc.add(C_SRANGE, bad_range);
+      bc.add(C_SMONO, n_mono + (new_inc < own_inc ? 1 : 0));
+      bc.add(C_SSUSP, n_bad_susp);
+    }
+    if (row_bits) atomicOr(&slo_bits, row_bits);
     if (r == 0) *ptr<int32_t>(a, P_OUT + L_T) = t + 1;
   }
   bc.flush(ptr<int>(a, P_CNT));
+  if (chaos && threadIdx.x == 0) {
+    // Grid-wide SLO indicators: OR the block's word in, then the last
+    // block to take a ticket turns the final word into the counters.
+    int* slo = ptr<int>(a, P_SLO);
+    if (slo_bits) atomicOr(&slo[0], slo_bits);
+    __threadfence();
+    if (atomicAdd(&slo[1], 1) == static_cast<int>(gridDim.x) - 1) {
+      const int bits = atomicOr(&slo[0], 0);
+      const bool fault = bits & 1, detected = bits & 2, confirmed = bits & 4;
+      const bool wrong = bits & 8;
+      const int t = *ptr<const int32_t>(a, P_IN + L_T);
+      bool started = false;  // chaos.fault_started
+      for (int q = 0; q < a.i[I_NP]; ++q)
+        started = started || ptr<const int32_t>(a, P_PSTART)[q] <= t;
+      for (int q = 0; q < a.i[I_NC]; ++q)
+        started = started || ptr<const int32_t>(a, P_CSTART)[q] <= t;
+      int* cnt = ptr<int>(a, P_CNT);
+      if (fault) atomicAdd(&cnt[C_FAULT], 1);
+      if (fault && !detected) atomicAdd(&cnt[C_FIRST], 1);
+      if (fault && !confirmed) atomicAdd(&cnt[C_CONFIRM], 1);
+      if (started && !fault && wrong) atomicAdd(&cnt[C_HEAL], 1);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1277,6 +1565,11 @@ __global__ void k_serf_post(TickArgs a) {
 
 static dim3 grid_for(const TickArgs* a, int threads) {
   return dim3((a->i[I_N] + threads - 1) / threads);
+}
+
+extern "C" int gossip_chaos_pre(const TickArgs* a, void* stream) {
+  k_chaos_pre<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gossip_probe_send(const TickArgs* a, void* stream) {

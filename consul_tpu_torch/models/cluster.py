@@ -1,7 +1,8 @@
 """Cluster simulation drivers (PyTorch port of the single-device part of
 ``consul_tpu/models/cluster.py``): chunked runs, per-chunk counters, a
 per-tick metrics trace and convergence detection, for the bare SWIM tick
-(``Simulation``) and the fused serf tick (``SerfSimulation``).
+(``Simulation``, with fault schedules and the invariant sentinel) and the
+fused serf tick (``SerfSimulation``).
 
 ``Simulation(cfg, seed)`` builds the world, topology and state on the
 card and steps the packed state through the CUDA tick kernel. Pass
@@ -12,7 +13,8 @@ dense layout, raises.
 Tests can hand in an initial world, topology and state (``convert.py``
 carries the reference's across) and a draw source, a callable from the
 tick number to its :class:`swim.TickDraws`; by default the simulation
-draws from its own ``torch.Generator``, seeded from ``seed``.
+draws from its own ``torch.Generator``, seeded from ``seed``. A tick with
+a fault schedule installed needs ``TickDraws.u_pp``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from consul_tpu_torch.chaos import schedule as chaos_mod
 from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
@@ -46,6 +49,43 @@ class TickTrace(NamedTuple):
     rmse: torch.Tensor
 
 
+# Stable names of the chaos SLO counters (the reference's bench keys).
+SLO_KEYS = {
+    "chaos_fault_ticks": "fault_ticks",
+    "chaos_first_suspect_wait": "time_to_first_suspect",
+    "chaos_confirm_wait": "time_to_confirm",
+    "chaos_heal_wait": "time_to_heal",
+    "chaos_false_deaths": "false_positive_deaths",
+    "chaos_msgs_dropped": "messages_dropped",
+}
+
+
+class ScenarioResult(NamedTuple):
+    """One run_scenario replay: ``slo`` the chaos counters under SLO_KEYS,
+    ``counters`` every protocol-event delta over the window, ``trace``
+    the TickTrace when metrics were on."""
+
+    slo: dict
+    counters: dict
+    ticks: int
+    trace: object
+
+
+class SentinelViolation(RuntimeError):
+    """The invariant sentinel tripped: ``mask`` has bit i set for each
+    counters.SENTINEL_FIELDS[i] with a nonzero tally, ``deltas`` holds
+    those tallies over the chunk. (The reference's diagnostic checkpoint
+    is not ported: checkpoints are ROADMAP A12.)"""
+
+    def __init__(self, mask: int, deltas: dict):
+        self.mask = mask
+        self.deltas = {f: deltas.get(f, 0) for f in counters_mod.SENTINEL_FIELDS}
+        tripped = [f for f in counters_mod.SENTINEL_FIELDS if deltas.get(f, 0)]
+        super().__init__(
+            f"invariant sentinel tripped (mask {mask:#x}): "
+            + ", ".join(f"{f}={deltas.get(f, 0)}" for f in tripped))
+
+
 @dataclasses.dataclass
 class Simulation:
     """Owns the world, topology and device state for one simulated DC."""
@@ -59,6 +99,8 @@ class Simulation:
     topo: Optional[topology.Topology] = None
     state: object = None
     draws: Optional[Callable[[int], swim.TickDraws]] = None
+    # The invariant sentinel, toggled with set_sentinel.
+    sentinel: bool = dataclasses.field(default=False, init=False)
 
     def __post_init__(self):
         layout_mod.validate(self.cfg, self.layout)
@@ -76,7 +118,9 @@ class Simulation:
                       if self.layout == layout_mod.PACKED
                       else layout_mod.unpack_state(self.state))
         if self.draws is None:
-            self.draws = lambda t: self._draw(self.cfg, self.gen, self.device)
+            self.draws = self._own_draws
+        # Installed fault schedule (None: none), on the simulation's device.
+        self.chaos = None
         self._tick_fn = self._make_tick_fn()
         # Host copy of the tick: one device read here, none per tick.
         self._t = int(layout_mod.tick_of(self.state))
@@ -84,20 +128,25 @@ class Simulation:
         self.chunk_counters = []
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
-    _draw = staticmethod(swim.draw_tick)
+    def _own_draws(self, t):
+        return swim.draw_tick(self.cfg, self.gen, self.device,
+                              chaos=self.chaos is not None)
 
     def _init_state(self):
         return sim_state.init(self.cfg, self.gen, self.device)
 
     def _make_tick_fn(self):
-        cfg, topo = self.cfg, self.topo
+        """``tick(world, state, draws, sched) -> (state, counters[26])``."""
+        cfg, topo, sentinel = self.cfg, self.topo, self.sentinel
         if self.kernel == cuda_gossip.CUDA:
-            return cuda_gossip.make_tick_kernel(cfg, topo)
+            return cuda_gossip.make_tick_kernel(cfg, topo, sentinel=sentinel)
         if self.layout == layout_mod.PACKED:
-            return lambda w, s, d: cuda_gossip.plain_tick(cfg, topo, w, s, d)
+            return lambda w, s, d, sched: cuda_gossip.plain_tick(
+                cfg, topo, w, s, d, sched, sentinel)
 
-        def dense_tick(w, s, d):
-            s, c = swim.step_counted(cfg, topo, w, s, d)
+        def dense_tick(w, s, d, sched):
+            s, c = swim.step_counted(cfg, topo, w, s, d, sched=sched,
+                                     sentinel=sentinel)
             return s, counters_mod.stack(c)
         return dense_tick
 
@@ -113,6 +162,10 @@ class Simulation:
         self.state = (layout_mod.pack_state(st)
                       if self.layout == layout_mod.PACKED else st)
 
+    def set_swim_state(self, st: sim_state.SimState):
+        """Replace the SWIM plane with a dense SimState."""
+        self._from_dense(st)
+
     def _mask(self, mask) -> torch.Tensor:
         return torch.as_tensor(mask, dtype=torch.bool).to(self.device)
 
@@ -123,6 +176,62 @@ class Simulation:
     def revive(self, mask, cold: bool = False):
         self._from_dense(sim_state.revive(self.cfg, self.swim_state,
                                           self._mask(mask), cold=cold))
+
+    def set_chaos(self, sched):
+        """Install (or clear, with None) a fault schedule for the ticks
+        that follow: a compiled ChaosSchedule or a sequence of entries
+        (compiled here). An empty schedule is none. Raft entries raise:
+        the raft tier that reads them is not ported (ROADMAP A16)."""
+        if sched is not None and not isinstance(sched, chaos_mod.ChaosSchedule):
+            sched = chaos_mod.compile_schedule(self.cfg.n, sched)
+        if sched is not None and chaos_mod.has_raft_events(sched):
+            raise NotImplementedError(
+                "the schedule holds raft events; the raft tier is not "
+                "ported (ROADMAP A16)")
+        if sched is not None and chaos_mod.is_empty(sched):
+            sched = None
+        self.chaos = (None if sched is None
+                      else chaos_mod.to_device(sched, self.device))
+
+    def set_sentinel(self, on: bool, dump_dir: Optional[str] = None):
+        """Toggle the invariant sentinel for the ticks that follow: each
+        chunk's sentinel tallies are read when the chunk is folded, and a
+        nonzero one raises SentinelViolation. A diagnostic ``dump_dir``
+        needs checkpoints (ROADMAP A12) and raises."""
+        if dump_dir is not None:
+            raise NotImplementedError("the sentinel's diagnostic checkpoint "
+                                      "needs checkpoints (ROADMAP A12)")
+        if bool(on) != self.sentinel:
+            self.sentinel = bool(on)
+            self._tick_fn = self._make_tick_fn()
+
+    def _check_sentinel(self, deltas):
+        if not self.sentinel:
+            return
+        mask = counters_mod.violation_mask(deltas)
+        if mask:
+            raise SentinelViolation(mask, deltas)
+
+    def run_scenario(self, events, ticks=None, chunk: int = 64,
+                     with_metrics: bool = False, settle: int = 64):
+        """Replay a relative fault schedule from the current tick: compile
+        ``events``, rebase them onto the live tick, run ``ticks`` ticks
+        (default: the last stop plus ``settle``), uninstall, and return a
+        ScenarioResult with the chaos counters under SLO_KEYS."""
+        sched = chaos_mod.compile_schedule(self.cfg.n, events)
+        if ticks is None:
+            stops = [int(e.stop) for e in events]
+            ticks = (max(stops) if stops else 0) + settle
+        prev = self.chaos
+        self.set_chaos(chaos_mod.shift_schedule(sched, self._t))
+        before = dict(self.counters)
+        try:
+            trace = self.run(ticks, chunk=chunk, with_metrics=with_metrics)
+        finally:
+            self.chaos = prev
+        deltas = {f: self.counters[f] - before[f] for f in counters_mod.FIELDS}
+        return ScenarioResult(slo={SLO_KEYS[f]: deltas[f] for f in SLO_KEYS},
+                              counters=deltas, ticks=ticks, trace=trace)
 
     # -- execution -------------------------------------------------------
     def _metrics(self, i, j):
@@ -138,7 +247,7 @@ class Simulation:
         rows = []
         for _ in range(c):
             d = self.draws(self._t)
-            self.state, cv = self._tick_fn(self.world, self.state, d)
+            self.state, cv = self._tick_fn(self.world, self.state, d, self.chaos)
             cnt = cnt + cv
             self._t += 1
             if with_metrics:
@@ -155,6 +264,7 @@ class Simulation:
         for f, v in deltas.items():
             self._counters[f] += v
         self.chunk_counters.append(deltas)
+        self._check_sentinel(deltas)
 
     def run(self, ticks: int, chunk: int = 64, with_metrics: bool = True):
         """Advance ``ticks`` ticks; returns the concatenated TickTrace (None
@@ -231,9 +341,11 @@ class SerfSimulation(Simulation):
     Metrics and convergence read the SWIM plane. ``draws`` maps the tick
     number to a :class:`serf.SerfDraws`; by default the simulation draws
     from its own generator. ``kernel="cuda"`` runs the serf variant of the
-    CUDA tick kernel."""
+    CUDA tick kernel. Fault schedules and the sentinel are not ported
+    for the serf tick yet (ROADMAP B6)."""
 
-    _draw = staticmethod(serf.draw_serf_tick)
+    def _own_draws(self, t):
+        return serf.draw_serf_tick(self.cfg, self.gen, self.device)
 
     def _init_state(self):
         return serf.init(self.cfg, self.gen, self.device)
@@ -243,12 +355,27 @@ class SerfSimulation(Simulation):
         if self.kernel == cuda_gossip.CUDA:
             return cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True)
         if self.layout == layout_mod.PACKED:
-            return lambda w, s, d: cuda_gossip.plain_serf_tick(cfg, topo, w, s, d)
+            return lambda w, s, d, sched: cuda_gossip.plain_serf_tick(
+                cfg, topo, w, s, d)
 
-        def dense_tick(w, s, d):
+        def dense_tick(w, s, d, sched):
             s, c = serf.step_counted(cfg, topo, w, s, d)
             return s, counters_mod.stack(c)
         return dense_tick
+
+    def set_chaos(self, sched):
+        if sched is not None:
+            raise NotImplementedError("fault schedules on the serf tick are "
+                                      "not ported yet (ROADMAP B6)")
+        self.chaos = None
+
+    def set_sentinel(self, on: bool, dump_dir: Optional[str] = None):
+        if on or dump_dir is not None:
+            raise NotImplementedError("the sentinel on the serf tick is not "
+                                      "ported yet (ROADMAP B6)")
+
+    def set_swim_state(self, st: sim_state.SimState):
+        self._from_dense(self._to_dense()._replace(swim=st))
 
     # -- serf verbs (on the dense SWIM plane; _from_dense re-packs) ------
     def user_event(self, mask, name: int):

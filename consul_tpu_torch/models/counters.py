@@ -2,9 +2,9 @@
 ``consul_tpu/models/counters.py``).
 
 The same 26 fields in the same wire order as the reference, each a []
-int32 tensor per tick (and per chunk once summed). This slice fills the
-SWIM fields; the serf, chaos, sentinel and serving fields stay zero until
-their slices land. The host folds chunk totals into Python ints, so
+int32 tensor per tick (and per chunk once summed). The SWIM, serf, chaos
+and sentinel fields are filled; ``writes_applied`` (the serving plane)
+stays zero. The host folds chunk totals into Python ints, so
 cumulative totals never wrap.
 """
 
@@ -48,6 +48,20 @@ class GossipCounters(NamedTuple):
 
 
 FIELDS = GossipCounters._fields
+
+# The invariant-sentinel fields, in bitmask order: bit i of the violation
+# mask (violation_mask) is SENTINEL_FIELDS[i].
+SENTINEL_FIELDS = tuple(f for f in FIELDS if f.startswith("sentinel_"))
+
+
+def violation_mask(deltas: dict) -> int:
+    """Fold a counter-delta dict into the sentinel violation bitmask: bit
+    i set iff SENTINEL_FIELDS[i] saw a nonzero tally."""
+    mask = 0
+    for i, f in enumerate(SENTINEL_FIELDS):
+        if deltas.get(f, 0):
+            mask |= 1 << i
+    return mask
 
 
 def zeros(device="cpu") -> GossipCounters:

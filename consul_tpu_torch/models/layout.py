@@ -259,7 +259,8 @@ def tick_of(state):
 def float_gap(a: torch.Tensor, b: torch.Tensor):
     """Element-wise gap between two packed float leaves of one dtype
     (bfloat16, or float8 under the x256 codec): (steps apart in the
-    storage format, |difference| of the decoded f32 values)."""
+    storage format, |difference| of the decoded f32 values). A NaN on both
+    sides is no gap; a NaN on one side only is an infinite one."""
     if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, _F8):
         raise TypeError(f"float_gap takes two bfloat16 or two float8 leaves, "
                         f"got {a.dtype} and {b.dtype}")
@@ -272,7 +273,13 @@ def float_gap(a: torch.Tensor, b: torch.Tensor):
         bits = x.view(ints).to(torch.int32)
         return torch.where(bits < 0, -(bits & mag), bits)
 
-    return (order(a) - order(b)).abs(), (decode(a) - decode(b)).abs()
+    fa, fb = decode(a), decode(b)
+    na, nb = torch.isnan(fa), torch.isnan(fb)
+    steps = (order(a) - order(b)).abs()
+    diff = (fa - fb).abs()
+    steps = torch.where(na | nb, torch.where(na == nb, 0, 1 << 16), steps)
+    diff = torch.where(na | nb, torch.where(na == nb, 0.0, float("inf")), diff)
+    return steps, diff
 
 
 def leaves(tree):

@@ -3,10 +3,12 @@
 
 One call to :func:`step_counted` advances every simulated node by one
 tick and returns the tick's :class:`counters.GossipCounters`. This is the
-plain PyTorch formulation of the reference's ``step_counted`` with no
-chaos schedule and no sentinel: the same phases, in the same order, over
-the same struct-of-tensors state, with the reference's ``extra_tx`` hook
-that carries the fused serf plane (models/serf.py) on the gossip legs.
+plain PyTorch formulation of the reference's ``step_counted``: the same
+phases, in the same order, over the same struct-of-tensors state, with
+the reference's ``extra_tx`` hook that carries the fused serf plane
+(models/serf.py) on the gossip legs, its optional fault schedule
+(``sched``, chaos/schedule.py) and its invariant sentinel
+(``sentinel``).
 
   1. suspicion expiry (reference suspicion.go:86-97, state.go:1141-1156);
   2. probe windows closing with no ack (state.go:437-456);
@@ -34,8 +36,10 @@ from typing import NamedTuple
 
 import torch
 
+from consul_tpu_torch.chaos import schedule as chaos_mod
 from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
+from consul_tpu_torch.models import state as state_mod
 from consul_tpu_torch.models.state import SimState, own_key as _own_key
 from consul_tpu_torch.ops import merge, scaling, topology, vivaldi
 from consul_tpu_torch.ops.topology import Topology, World
@@ -49,7 +53,9 @@ _I32_MIN = -(2 ** 31)
 
 class TickDraws(NamedTuple):
     """Every random number one tick consumes, one field per draw site of
-    the reference's key ladder (swim.py:238, keys[0..9])."""
+    the reference's key ladder (swim.py:238, keys[0..9]). ``u_pp`` is
+    drawn only for a tick with a fault schedule (the push-pull session's
+    chaos draw, swim.py:1155); otherwise it is empty."""
 
     jitter: torch.Tensor        # [N] f32 standard normal      keys[0]
     u2: torch.Tensor            # [N, 2] f32 uniform           keys[1]
@@ -63,10 +69,13 @@ class TickDraws(NamedTuple):
     gossip_jcols: torch.Tensor  # [fan] int64 (dense view only) split(keys[8])[0]
     u_drop: torch.Tensor        # [N, fan] f32 uniform         split(keys[8])[1]
     pp_j: torch.Tensor          # [] int64 in [0, K)           keys[9]
+    u_pp: torch.Tensor          # [N] f32 uniform, or [0]      fold_in(keys[9], 1)
 
 
-def draw_tick(cfg: SimConfig, gen: torch.Generator, device) -> TickDraws:
-    """Draw one tick's bundle from ``gen`` on ``device``."""
+def draw_tick(cfg: SimConfig, gen: torch.Generator, device,
+              chaos: bool = False) -> TickDraws:
+    """Draw one tick's bundle from ``gen`` on ``device``; ``chaos`` adds
+    the schedule's push-pull draw, last, so the others do not move."""
     n, k_deg = cfg.n, cfg.degree
     g = cfg.gossip
     ic, fan, d = g.indirect_checks, g.gossip_nodes, cfg.vivaldi.dimensionality
@@ -88,6 +97,7 @@ def draw_tick(cfg: SimConfig, gen: torch.Generator, device) -> TickDraws:
         gossip_jcols=torch.randint(0, k_deg, (fan,), **kw),
         u_drop=uni(n, fan),
         pp_j=torch.randint(0, k_deg, (), **kw),
+        u_pp=uni(n) if chaos else torch.empty((0,), device=device),
     )
 
 
@@ -164,7 +174,8 @@ def _top_k_peel(x: torch.Tensor, p: int):
 
 
 def step_counted(cfg: SimConfig, topo: Topology, world: World,
-                 state: SimState, draws: TickDraws, extra_tx=None):
+                 state: SimState, draws: TickDraws, extra_tx=None, *,
+                 sched=None, sentinel: bool = False):
     """One tick plus its GossipCounters.
 
     ``extra_tx`` is the serf fusion hook (models/serf.py): a list of
@@ -173,7 +184,15 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     element ``(ex_legs, ex_n_sends)``: per leg, the payload as each
     receiver sees it and the leg's arrival mask, and each sender's count
     of legs sent. The extra plane's sender gate is liveness only
-    (``alive_truth & ~left``): external seats do send serf traffic."""
+    (``alive_truth & ~left``): external seats do send serf traffic.
+
+    ``sched`` is an optional :class:`chaos.ChaosSchedule`; None or an
+    empty one is the schedule-free tick. With faults installed, churn
+    edges kill and warm-revive rows before anything reads them, every
+    delivery leg keeps its draw and gates on ``chaos.pair_ok``, the
+    push-pull session draws ``draws.u_pp``, and :func:`_chaos_slo` fills
+    the chaos counters. ``sentinel`` adds :func:`_sentinel_check`'s
+    invariant tallies over the end-of-tick state."""
     n, k_deg = cfg.n, cfg.degree
     g = cfg.gossip
     dev = state.view_key.device
@@ -182,9 +201,23 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     col_ids = torch.arange(k_deg, dtype=torch.int64, device=dev)
     roll_mode = (not topo.dense) and k_deg <= _ROLL_DEGREE_MAX
     sc = protocol_scalars(cfg, topo)
+    chaos_on = sched is not None and not chaos_mod.is_empty(sched)
+    terms = tgt_terms = None
+    if chaos_on:
+        if tuple(draws.u_pp.shape) != (n,):
+            raise ValueError("a tick with a fault schedule needs draws.u_pp "
+                             "[N]: draw_tick(..., chaos=True)")
+        # Churn edges first: a wave starting this tick kills its rows, one
+        # ending revives them warm with a bumped incarnation.
+        down_now = chaos_mod.down_at(sched, t)
+        down_prev = chaos_mod.down_at(sched, t - 1)
+        state = state_mod.kill(state, down_now & ~down_prev)
+        state = state_mod.revive(cfg, state, down_prev & ~down_now)
+        terms = chaos_mod.node_terms(sched, t)
 
     view0 = state.view_key
     seen0 = state.susp_seen
+    own0 = state.own_inc
     active = state.alive_truth & ~state.left & ~state.external
     zero_i = torch.zeros_like(state.own_inc)
 
@@ -249,6 +282,8 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     t_pos, t_h = world.pos[target], world.height[target]
     t_vec, t_vh = viv.vec[target], viv.height[target]
     t_verr, t_vadj = viv.error[target], viv.adjustment[target]
+    if chaos_on:
+        tgt_terms = chaos_mod.NodeTerms(*(x[target] for x in terms))
     true_rtt = vivaldi.norm(world.pos - t_pos) + world.height + t_h
     jitter = draws.jitter * cfg.rtt_jitter_frac
     rtt_obs = true_rtt * torch.exp(jitter) if cfg.rtt_jitter_frac > 0 \
@@ -256,16 +291,34 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
 
     timeout_s = g.probe_timeout_ms / 1000.0
     pl = cfg.packet_loss
-    ok_direct_leg = draws.u2[:, 0] >= pl
-    ok_tcp_leg = draws.u2[:, 1] >= pl
+    if chaos_on:
+        # The direct probe and the TCP fallback each model a round trip
+        # on one draw: both directions' terms compose onto it.
+        ok_direct_leg = chaos_mod.pair_ok(sched, terms, tgt_terms,
+                                          draws.u2[:, 0], pl, round_trip=True)
+        ok_tcp_leg = chaos_mod.pair_ok(sched, terms, tgt_terms,
+                                       draws.u2[:, 1], pl, round_trip=True)
+    else:
+        ok_direct_leg = draws.u2[:, 0] >= pl
+        ok_tcp_leg = draws.u2[:, 1] >= pl
     direct_ok = has_target & target_up & (rtt_obs <= timeout_s) & ok_direct_leg
     ic = g.indirect_checks
     relay_avail = torch.stack(
         [coll.roll(active, -topo.off[draws.relay_jcols[i]]) for i in range(ic)],
         dim=1)
-    ok_a = draws.u_a >= pl
-    ok_b = draws.u_b >= pl
-    ok_c = draws.u_c >= pl
+    if chaos_on:
+        oka, okb, okc = [], [], []
+        for i in range(ic):
+            rt = chaos_mod.roll_terms(terms, -topo.off[draws.relay_jcols[i]])
+            oka.append(chaos_mod.pair_ok(sched, terms, rt, draws.u_a[:, i], pl))
+            okb.append(chaos_mod.pair_ok(sched, rt, tgt_terms, draws.u_b[:, i],
+                                         pl, round_trip=True))
+            okc.append(chaos_mod.pair_ok(sched, rt, terms, draws.u_c[:, i], pl))
+        ok_a, ok_b, ok_c = (torch.stack(x, dim=1) for x in (oka, okb, okc))
+    else:
+        ok_a = draws.u_a >= pl
+        ok_b = draws.u_b >= pl
+        ok_c = draws.u_c >= pl
     relay_reached = relay_avail & ok_a
     relay_ok = relay_reached & target_up[:, None] & ok_b
     indirect_ok = has_target & torch.any(relay_ok, dim=1) & ~direct_ok
@@ -323,15 +376,16 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
 
     # 4. Gossip fan-out and delivery.
     gossip_out = _gossip_phase(cfg, topo, state, active, draws, sc.tx_limit,
-                               extra_tx)
-    state, refute_gossip, n_gossip_tx, n_gossip_rx, n_gossip_msgs = \
-        gossip_out[:5]
+                               extra_tx, sched if chaos_on else None, terms)
+    (state, refute_gossip, n_gossip_tx, n_gossip_rx, n_gossip_msgs,
+     n_chaos_drop) = gossip_out[:6]
     refute_poke = _poke_refutes(cfg, topo, state, poke_flag, poke_col,
                                 target_inc)
 
     # 5. Push-pull anti-entropy.
     state, refute_pp, n_pp_merges = _push_pull_phase(
-        cfg, topo, state, active, sc.pp_period, draws)
+        cfg, topo, state, active, sc.pp_period, draws,
+        sched if chaos_on else None, terms)
 
     # Refutation: bump own incarnation past any accusation.
     claim = torch.maximum(torch.maximum(refute_gossip, refute_poke), refute_pp)
@@ -368,9 +422,97 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
         gossip_msgs_tx=n_gossip_msgs,
         pushpull_merges=n_pp_merges,
     )
+    if chaos_on:
+        cnt = _chaos_slo(cfg, topo, state, sched, terms, t, expired, active,
+                         n_chaos_drop, cnt)
+    if sentinel:
+        cnt = _sentinel_check(cfg, state, view0, own0, t, cnt)
     if extra_tx is not None:
-        return state._replace(t=t + 1), cnt, gossip_out[5]
+        return state._replace(t=t + 1), cnt, gossip_out[6]
     return state._replace(t=t + 1), cnt
+
+
+def _sentinel_check(cfg, state: SimState, view0, own0, t, cnt):
+    """The invariant sentinel over the end-of-tick state (before any
+    packing): range (incarnation headroom, awareness, probe cursor,
+    pending column, no timer started in the future), monotonicity (view
+    keys and own incarnations never move down within a tick), suspicion
+    (SUSPECT iff timer armed iff accusers), and non-finite Vivaldi
+    coordinates and written RTT samples."""
+    g = cfg.gossip
+    k_deg = cfg.degree
+    viv = state.viv
+    bad_range = (
+        (state.own_inc > merge.MAX_INCARNATION)
+        | (state.awareness < 0) | (state.awareness >= g.awareness_max)
+        | (state.probe_ptr < 0) | (state.probe_ptr >= k_deg)
+        | (state.pending_col < -1) | (state.pending_col >= k_deg)
+        | torch.any(state.susp_start > t, dim=1))
+    n_mono = (counters_mod.count(state.view_key < view0)
+              + counters_mod.count(state.own_inc < own0))
+    now_suspect = merge.key_status(state.view_key) == merge.SUSPECT
+    timer_armed = state.susp_start >= 0
+    seen_nonzero = state.susp_seen != 0
+    bad_susp = (now_suspect != timer_armed) | (now_suspect != seen_nonzero)
+    bad_coord = (torch.any(~torch.isfinite(viv.vec), dim=1)
+                 | ~torch.isfinite(viv.height) | ~torch.isfinite(viv.error)
+                 | ~torch.isfinite(viv.adjustment))
+    s = cfg.vivaldi.latency_filter_size
+    written = (torch.arange(s, device=state.lat_cnt.device)[None, None, :]
+               < torch.clamp(state.lat_cnt, max=s)[:, :, None])
+    bad_rtt = written & ~torch.isfinite(state.lat_buf)
+    return cnt._replace(
+        sentinel_range=counters_mod.count(bad_range),
+        sentinel_monotonic=n_mono,
+        sentinel_suspicion=counters_mod.count(bad_susp),
+        sentinel_nonfinite_coord=counters_mod.count(bad_coord),
+        sentinel_nonfinite_rtt=counters_mod.count(bad_rtt),
+    )
+
+
+def _chaos_slo(cfg, topo: Topology, state: SimState, sched, terms, t,
+               expired, active, n_chaos_drop, cnt):
+    """The convergence SLO probes: every tracker's end-of-tick belief
+    against the ground truth the schedule defines (partition colors and
+    liveness). Four grid-wide indicators per tick (a fault exists; no
+    tracker suspects yet; none confirms yet; a lifted fault still leaves
+    a reachable live subject suspected), this tick's false deaths, and
+    the legs the schedule dropped."""
+    n = cfg.n
+    rows = coll.rows(n, state.view_key.device)
+    # Subject truth packed as (color << 2) | (alive << 1) | left, read at
+    # each view column's subject row r + off[c].
+    pk = ((terms.color.to(torch.int64) << 2)
+          | (state.alive_truth.to(torch.int64) << 1)
+          | state.left.to(torch.int64))
+    subj = pk[(rows[:, None] + topo.off[None, :]) % n]
+    subj_color = subj >> 2
+    subj_alive = (subj & 2) != 0
+    subj_left = (subj & 1) != 0
+    st_now = merge.key_status(state.view_key)
+    suspected = (st_now == merge.SUSPECT) | (st_now == merge.DEAD)
+    confirmed = st_now == merge.DEAD
+    cross = subj_color != terms.color.to(torch.int64)[:, None]
+    subj_down = ~subj_alive & ~subj_left
+    unreach = active[:, None] & (cross | subj_down)
+    fault_now = coll.any_rows(torch.any(unreach, dim=1))
+    detected = coll.any_rows(torch.any(unreach & suspected, dim=1))
+    confirm = coll.any_rows(torch.any(unreach & confirmed, dim=1))
+    wrong = active[:, None] & suspected & subj_alive & ~subj_left & ~cross
+    healing = (chaos_mod.fault_started(sched, t) & ~fault_now
+               & coll.any_rows(torch.any(wrong, dim=1)))
+    ind = chaos_mod.shard_once(torch.stack([
+        fault_now, fault_now & ~detected, fault_now & ~confirm, healing,
+    ]).to(torch.int32))
+    false_deaths = counters_mod.count(expired & subj_alive & ~subj_left & ~cross)
+    return cnt._replace(
+        chaos_fault_ticks=ind[0],
+        chaos_first_suspect_wait=ind[1],
+        chaos_confirm_wait=ind[2],
+        chaos_heal_wait=ind[3],
+        chaos_false_deaths=false_deaths,
+        chaos_msgs_dropped=n_chaos_drop,
+    )
 
 
 def _vivaldi_observe(cfg, state: SimState, ok, peer_col, rtt,
@@ -416,12 +558,14 @@ def _gossip_jcols(cfg: SimConfig, topo: Topology, t, draws: TickDraws):
 
 
 def _gossip_phase(cfg, topo: Topology, state: SimState, active,
-                  draws: TickDraws, tx_limit, extra_tx=None):
+                  draws: TickDraws, tx_limit, extra_tx=None, sched=None,
+                  terms=None):
     """Sender-side top-P selection and budget decrements, then
     receiver-side delivery, lattice merge, Lifeguard confirmations and
     refute-claim collection. Returns (state, refute_inc[N], packets_tx,
-    packets_rx, msgs_tx), plus ``(ex_legs, ex_n_sends)`` when
-    ``extra_tx`` is given (see :func:`step_counted`)."""
+    packets_rx, msgs_tx, chaos_drops), plus ``(ex_legs, ex_n_sends)``
+    when ``extra_tx`` is given (see :func:`step_counted`). With a
+    schedule, each leg is one-way sender -> receiver on its drop draw."""
     g = cfg.gossip
     n, k_deg = cfg.n, cfg.degree
     p, fan = g.piggyback_msgs, g.gossip_nodes
@@ -462,6 +606,7 @@ def _gossip_phase(cfg, topo: Topology, state: SimState, active,
     refute_inc = torch.zeros_like(state.own_inc)
     seen_delta = torch.zeros_like(state.susp_seen)
     n_rx = torch.zeros((), dtype=torch.int32, device=dev)
+    n_chaos_drop = torch.zeros((), dtype=torch.int32, device=dev)
     cands = []
     for f in range(fan):
         j = jcols[f]
@@ -471,7 +616,14 @@ def _gossip_phase(cfg, topo: Topology, state: SimState, active,
             payload = payload + [ex_sendable[:, f]] + list(extra_tx)
         rolled = coll.roll_many(payload, topo.off[j])
         s_send, s_scol, s_skey, s_sbits, s_svalid, s_own_ok, s_ownk = rolled[:7]
-        ok_leg = draws.u_drop[:, f] >= pl
+        if sched is not None:
+            s_terms = chaos_mod.roll_terms(terms, topo.off[j])
+            ok_leg = chaos_mod.pair_ok(sched, s_terms, terms,
+                                       draws.u_drop[:, f], pl)
+            n_chaos_drop = n_chaos_drop + counters_mod.count(
+                s_send & recv_up & (draws.u_drop[:, f] >= pl) & ~ok_leg)
+        else:
+            ok_leg = draws.u_drop[:, f] >= pl
         arrived = s_send & ok_leg & recv_up
         if extra_tx is not None:
             ex_legs.append((rolled[8:], rolled[7] & ok_leg & recv_up))
@@ -511,7 +663,8 @@ def _gossip_phase(cfg, topo: Topology, state: SimState, active,
                 oh, bits[:, pi:pi + 1], torch.zeros_like(seen_delta))
 
     state = state._replace(view_key=view, susp_seen=state.susp_seen | seen_delta)
-    out = (state, refute_inc, counters_mod.count(sendable), n_rx, n_msgs)
+    out = (state, refute_inc, counters_mod.count(sendable), n_rx, n_msgs,
+           n_chaos_drop)
     if extra_tx is not None:
         return out + ((ex_legs, ex_n_sends),)
     return out
@@ -552,10 +705,12 @@ def pushpull_stagger(rows: torch.Tensor, pp_period: int) -> torch.Tensor:
 
 
 def _push_pull_phase(cfg, topo: Topology, state: SimState, active, pp_period,
-                     draws: TickDraws):
+                     draws: TickDraws, sched=None, terms=None):
     """Full-state exchange with one displacement-shared partner per due
     node, both directions, remote dead claims demoted to suspicion.
-    Returns (state, refute_inc[N], merges_applied)."""
+    Under a schedule the session survives iff its round trip clears
+    ``draws.u_pp`` (no base loss: push-pull rides TCP). Returns (state,
+    refute_inc[N], merges_applied)."""
     n, k_deg = cfg.n, cfg.degree
     dev = state.view_key.device
     rows = coll.rows(n, dev)
@@ -575,6 +730,10 @@ def _push_pull_phase(cfg, topo: Topology, state: SimState, active, pp_period,
     zero_k = torch.zeros_like(view0)
     pv, fwd_ownk, partner_up = coll.roll_many([view0, ownk, up], -shift)
     init_ok = due & partner_up & merge.is_contactable(view0[:, j])
+    if sched is not None:
+        p_terms = chaos_mod.roll_terms(terms, -shift)
+        init_ok = init_ok & chaos_mod.pair_ok(sched, terms, p_terms,
+                                              draws.u_pp, 0.0, round_trip=True)
 
     # PULL: the initiator merges its partner's full state.
     ent = torch.where(rr[None, :] >= 0, pv[:, rr_c], zero_k)

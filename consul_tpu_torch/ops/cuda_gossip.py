@@ -3,12 +3,14 @@
 Counterpart of ``consul_tpu/ops/pallas_gossip.py``: its one ``pallas_call``
 (``make_tick_kernel``, pallas_call at :145) fuses unpack -> tick -> pack
 over the packed state, for ``step_fn=swim.step_counted`` (the bare SWIM
-tick) or ``step_fn=serf.step_counted`` (the fused serf plane). The port's
-kernel is ``consul_tpu_torch/csrc/gossip_tick.cu``: three launches over
-row blocks split at the tick's grid-wide read-after-write barriers
-(probe/sender, receive, push-pull/pack), and in the serf variant a fourth
-(serf_post); see the note at the top of that file for what bounds it
-(bytes) and what the split does about it.
+tick, with or without a fault schedule and the invariant sentinel) or
+``step_fn=serf.step_counted`` (the fused serf plane). The port's kernel is
+``consul_tpu_torch/csrc/gossip_tick.cu``: three launches over row blocks
+split at the tick's grid-wide read-after-write barriers (probe/sender,
+receive, push-pull/pack), in the serf variant a fourth (serf_post), and
+with a schedule a first one (chaos_pre) that applies the churn edges and
+evaluates the schedule per row; see the note at the top of that file for
+what bounds it (bytes) and what the split does about it.
 
 Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
 (``unpack -> swim.step_counted -> pack``) and :func:`plain_serf_tick`
@@ -38,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from consul_tpu_torch.chaos import schedule as chaos_mod
 from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
@@ -49,10 +52,11 @@ CUDA = "cuda"
 KERNELS = (TORCH, CUDA)
 
 # Kernel launches on the card since the last reset, by launch stage
-# (serf_post runs in the serf variant only). Incremented only where a
-# stage is launched; chip_smoke.py zeroes it before it drives a main path
-# and reads it after.
-LAUNCHES = {"probe_send": 0, "receive": 0, "pushpull": 0, "serf_post": 0}
+# (serf_post runs in the serf variant only, chaos_pre in ticks with a
+# fault schedule). Incremented only where a stage is launched;
+# chip_smoke.py zeroes it before it drives a main path and reads it after.
+LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0, "pushpull": 0,
+            "serf_post": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gossip_tick.cu")
@@ -67,6 +71,10 @@ MAX_RELAY_FACTOR = 8
 # TickArgs tables, in the order of the enums in gossip_tick.cu.
 _LEAVES = 23
 _SERF_LEAVES = len(serf.SerfState._fields) - 1
+# The schedule leaves the kernel reads: every family but the raft lane,
+# which the SWIM tick does not read.
+_SCHED_LEAVES = chaos_mod.ChaosSchedule._fields[:19]
+assert _SCHED_LEAVES[-1] == "dg_mask"
 _PTRS = (
     ["in_" + str(k) for k in range(_LEAVES)]
     + ["out_" + str(k) for k in range(_LEAVES)]
@@ -78,12 +86,17 @@ _PTRS = (
     + ["sout_" + str(k) for k in range(_SERF_LEAVES)]
     + ["u_resp", "relay_u1", "relay_u2", "relay_cols", "x_flags", "x_key",
        "x_orig"]
+    + list(_SCHED_LEAVES)
+    + ["u_pp", "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx",
+       "c_qrx", "slo"]
 )
 _INTS = ("n", "k", "s", "d", "w", "wd", "ic", "fan", "p", "tx_limit",
          "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max",
-         "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig")
+         "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig",
+         "chaos", "sentinel", "np", "nl", "nc", "nd")
 _FLTS = ("susp_min", "susp_max", "susp_diff", "packet_loss", "timeout_s",
-         "jitter_frac", "ce", "cc", "err_max", "height_min", "gravity_rho")
+         "jitter_frac", "ce", "cc", "err_max", "height_min", "gravity_rho",
+         "keep")
 
 
 class _TickArgs(ctypes.Structure):
@@ -105,13 +118,14 @@ def validate_kernel(kernel: str, layout: str, device=None) -> None:
                          "pass kernel='torch' to run the plain version")
 
 
-def tick_hbm_bytes_per_node(state, world=None) -> float:
+def tick_hbm_bytes_per_node(state, world=None, sched=None) -> float:
     """The tick's memory-traffic contract in bytes/tick/node: one read of
-    the packed state and world, one write of the state (the counterpart
-    of pallas_gossip.tick_hbm_bytes_per_node). The draw bundle is not in
-    it: the reference kernel draws its random numbers in-kernel from one
-    key, so reading them from memory is a cost of this port's design."""
-    trees = [state, state] + ([world] if world is not None else [])
+    the packed state, the world and the fault schedule (every leaf, the
+    raft lane too), one write of the state (the counterpart of
+    pallas_gossip.tick_hbm_bytes_per_node). The draw bundle is not in it:
+    the reference kernel draws its random numbers in-kernel from one key,
+    so reading them from memory is a cost of this port's design."""
+    trees = [state, state] + [x for x in (world, sched) if x is not None]
     leaves = [x for tr in trees for x in layout_mod.leaves(tr)]
     n = max(int(x.shape[0]) for x in leaves if x.dim() >= 1)
     return sum(layout_mod.np_size_bytes(x) for x in leaves) / float(n)
@@ -164,8 +178,8 @@ def build() -> BuildInfo:
             os.replace(tmp, out)
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(out)
-        for name in ("gossip_probe_send", "gossip_receive", "gossip_pushpull",
-                     "gossip_serf_post"):
+        for name in ("gossip_chaos_pre", "gossip_probe_send", "gossip_receive",
+                     "gossip_pushpull", "gossip_serf_post"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_TickArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -182,12 +196,14 @@ def build() -> BuildInfo:
         return _LIB_INFO
 
 
-def plain_tick(cfg: SimConfig, topo: Topology, world, packed, draws):
+def plain_tick(cfg: SimConfig, topo: Topology, world, packed, draws,
+               sched=None, sentinel: bool = False):
     """The plain PyTorch version of the kernel's function:
-    ``unpack -> swim.step_counted -> pack`` and the stacked [26] int32
-    counters."""
+    ``unpack -> swim.step_counted(sched, sentinel) -> pack`` and the
+    stacked [26] int32 counters."""
     state, cnt = swim.step_counted(cfg, topo, world,
-                                   layout_mod.unpack(packed), draws)
+                                   layout_mod.unpack(packed), draws,
+                                   sched=sched, sentinel=sentinel)
     return layout_mod.pack(state), counters_mod.stack(cnt)
 
 
@@ -215,12 +231,19 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
 
 class TickKernel:
     """The CUDA tick for one (config, topology): ``tick(world, packed,
-    draws) -> (packed, counters[26] int32)``, all on one CUDA device. With
-    ``serf=True`` it is the serf variant: ``packed`` is a ``SerfState``
-    whose SWIM plane is packed and ``draws`` a ``serf.SerfDraws``."""
+    draws, sched=None) -> (packed, counters[26] int32)``, all on one CUDA
+    device. ``sched`` is a fault schedule (None or empty: none), whose
+    ticks need ``draws.u_pp``; ``sentinel=True`` adds the invariant
+    tallies. With ``serf=True`` it is the serf variant: ``packed`` is a
+    ``SerfState`` whose SWIM plane is packed and ``draws`` a
+    ``serf.SerfDraws``; it takes neither a schedule nor the sentinel."""
 
-    def __init__(self, cfg: SimConfig, topo: Topology, serf_plane: bool = False):
+    def __init__(self, cfg: SimConfig, topo: Topology, serf_plane: bool = False,
+                 sentinel: bool = False):
         g = cfg.gossip
+        if serf_plane and sentinel:
+            raise ValueError("the serf variant does not take the sentinel "
+                             "yet (ROADMAP B6)")
         if topo.dense or cfg.degree > 255:
             raise ValueError("the CUDA tick kernel covers the sparse "
                              "circulant view (K <= 255); dense views run "
@@ -250,6 +273,7 @@ class TickKernel:
                 raise ValueError(f"the CUDA tick kernel takes {what} in "
                                  f"[1, {hi}], got {val}")
         self.cfg, self.topo, self.serf = cfg, topo, serf_plane
+        self.sentinel = sentinel
         sc = swim.protocol_scalars(cfg, topo)
         self._ints = (cfg.n, cfg.degree, v.latency_filter_size,
                       v.dimensionality, v.adjustment_window_size,
@@ -261,10 +285,13 @@ class TickKernel:
                       sf.query_relay_factor if serf.relay_draws_used(cfg) else 0,
                       int(serf.origin_dtype(cfg.n) == torch.int16),
                       int(cfg.n <= serf._EXACT_SIG_MAX_N))
+        # 1 - packet_loss rounded once from double, as the reference's
+        # (1.0 - base_loss) * q takes it (chaos.pair_ok).
         self._flts = (sc.susp_min, sc.susp_max, sc.susp_max - sc.susp_min,
                       cfg.packet_loss, g.probe_timeout_ms / 1000.0,
                       cfg.rtt_jitter_frac, v.vivaldi_ce, v.vivaldi_cc,
-                      v.vivaldi_error_max, v.height_min, v.gravity_rho)
+                      v.vivaldi_error_max, v.height_min, v.gravity_rho,
+                      1.0 - cfg.packet_loss)
         self._tables = {}
 
     def _topo_tables(self, device):
@@ -275,7 +302,46 @@ class TickKernel:
                           self.topo.inv))
         return self._tables[device]
 
-    def _check_inputs(self, world, packed, draws, device):
+    def _schedule(self, sched):
+        """The schedule a tick runs under: None for none or an empty one;
+        the serf variant takes none."""
+        if sched is None or chaos_mod.is_empty(sched):
+            return None
+        if self.serf:
+            raise ValueError("the serf variant does not take a fault "
+                             "schedule yet (ROADMAP B6)")
+        return sched
+
+    def _check_schedule(self, sched, draws, device):
+        n = self.cfg.n
+        i32, f32, b = torch.int32, torch.float32, torch.bool
+        fams = (("part", sched.part_start.shape[0], ("start", "stop"), (),
+                 ("side",)),
+                ("ll", sched.ll_start.shape[0], ("start", "stop"),
+                 ("fwd", "rev"), ("a", "b")),
+                ("cw", sched.cw_start.shape[0],
+                 ("start", "stop", "period", "down"), (), ("mask",)),
+                ("dg", sched.dg_start.shape[0], ("start", "stop"),
+                 ("tx", "rx"), ("mask",)))
+        for fam, m, ints, flts, masks in fams:
+            # Partition colors and link sides are int32 bitfields.
+            if fam in ("part", "ll") and m > chaos_mod.MAX_PARTITIONS:
+                raise ValueError(f"the CUDA tick kernel takes at most "
+                                 f"{chaos_mod.MAX_PARTITIONS} {fam} slots, "
+                                 f"got {m}")
+            for leaf in ints:
+                _check(getattr(sched, f"{fam}_{leaf}"), f"sched.{fam}_{leaf}",
+                       i32, (m,), device)
+            for leaf in flts:
+                _check(getattr(sched, f"{fam}_{leaf}"), f"sched.{fam}_{leaf}",
+                       f32, (m,), device)
+            for leaf in masks:
+                _check(getattr(sched, f"{fam}_{leaf}"), f"sched.{fam}_{leaf}",
+                       b, (n, m), device)
+        # A tick with a schedule needs swim.draw_tick(..., chaos=True).
+        _check(draws.u_pp, "draws.u_pp", f32, (n,), device)
+
+    def _check_inputs(self, world, packed, draws, device, sched=None):
         cfg = self.cfg
         n, k = cfg.n, cfg.degree
         g, v = cfg.gossip, cfg.vivaldi
@@ -336,8 +402,10 @@ class TickKernel:
                  ("pp_j", i64, ()))
         for name, dt, shape in dspec:
             _check(getattr(draws, name), "draws." + name, dt, shape, device)
+        if sched is not None:
+            self._check_schedule(sched, draws, device)
 
-    def _buffers(self, world, packed, draws, device):
+    def _buffers(self, world, packed, draws, device, sched=None):
         """The output state, the scratch buffers and the flat operand list
         (in TickArgs order, None for a null pointer) of one tick."""
         cfg = self.cfg
@@ -383,10 +451,26 @@ class TickKernel:
             tensors += (s_in + list(out[1:])
                         + [draws.u_resp, draws.relay_u1, draws.relay_u2,
                            draws.relay_cols] + list(xs.values()))
+        if sched is None:
+            tensors += [None] * (len(_SCHED_LEAVES) + 9)
+        else:
+            i32, f32 = torch.int32, torch.float32
+            cs = dict(
+                c_flags=torch.empty((n,), dtype=torch.uint8, device=device),
+                c_inc=torch.empty((n,), dtype=u32, device=device),
+                c_color=torch.empty((n,), dtype=i32, device=device),
+                c_abits=torch.empty((n,), dtype=i32, device=device),
+                c_bbits=torch.empty((n,), dtype=i32, device=device),
+                c_qtx=torch.empty((n,), dtype=f32, device=device),
+                c_qrx=torch.empty((n,), dtype=f32, device=device),
+                slo=torch.zeros((2,), dtype=i32, device=device))
+            scratch.update(cs)
+            tensors += ([getattr(sched, f) for f in _SCHED_LEAVES]
+                        + [sw_draws.u_pp] + list(cs.values()))
         assert len(tensors) == len(_PTRS)
         return out, scratch, tensors
 
-    def buffer_bytes_per_node(self, world, packed, draws) -> float:
+    def buffer_bytes_per_node(self, world, packed, draws, sched=None) -> float:
         """Bytes per node of every buffer the launches touch, from the
         tensors of one tick: each input (state, world, draws, topology
         tables) read once, the output state written once, each scratch
@@ -394,29 +478,38 @@ class TickKernel:
         displacement is counted once, so this is the least traffic of the
         launch design, not a measurement."""
         device = layout_mod.tick_of(packed).device
-        self._check_inputs(world, packed, draws, device)
-        _, scratch, tensors = self._buffers(world, packed, draws, device)
+        sched = self._schedule(sched)
+        self._check_inputs(world, packed, draws, device, sched)
+        _, scratch, tensors = self._buffers(world, packed, draws, device, sched)
         total = sum(layout_mod.np_size_bytes(x) for x in tensors if x is not None)
         total += sum(layout_mod.np_size_bytes(x) for x in scratch.values())
         return total / float(self.cfg.n)
 
-    def __call__(self, world, packed, draws):
+    def __call__(self, world, packed, draws, sched=None):
         device = layout_mod.tick_of(packed).device
+        sched = self._schedule(sched)
         if device.type != "cuda":
             raise ValueError(f"the CUDA tick kernel takes CUDA tensors, got "
                              f"{device}; use plain_tick or plain_serf_tick "
                              "for the plain version")
-        self._check_inputs(world, packed, draws, device)
+        self._check_inputs(world, packed, draws, device, sched)
         build()
-        out, scratch, tensors = self._buffers(world, packed, draws, device)
+        out, scratch, tensors = self._buffers(world, packed, draws, device,
+                                              sched)
         args = _TickArgs()
         for idx, x in enumerate(tensors):
             args.p[idx] = None if x is None else x.data_ptr()
-        for idx, x in enumerate(self._ints):
+        ints = self._ints + (
+            int(sched is not None), int(self.sentinel),
+            *((0, 0, 0, 0) if sched is None else (
+                sched.part_start.shape[0], sched.ll_start.shape[0],
+                sched.cw_start.shape[0], sched.dg_start.shape[0])))
+        for idx, x in enumerate(ints):
             args.i[idx] = int(x)
         for idx, x in enumerate(self._flts):
             args.f[idx] = float(x)
-        stages = [("probe_send", _LIB.gossip_probe_send),
+        stages = [("chaos_pre", _LIB.gossip_chaos_pre)] if sched is not None else []
+        stages += [("probe_send", _LIB.gossip_probe_send),
                   ("receive", _LIB.gossip_receive),
                   ("pushpull", _LIB.gossip_pushpull)]
         if self.serf:
@@ -433,8 +526,9 @@ class TickKernel:
 
 
 def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
-                     serf_plane: bool = False) -> TickKernel:
-    """The counterpart of pallas_gossip.make_tick_kernel: the bare SWIM
-    tick, or with ``serf_plane=True`` its ``step_fn=serf.step_counted``
-    variant."""
-    return TickKernel(cfg, topo, serf_plane)
+                     serf_plane: bool = False,
+                     sentinel: bool = False) -> TickKernel:
+    """The counterpart of pallas_gossip.make_tick_kernel: the SWIM tick
+    (a fault schedule per call, the sentinel with ``sentinel=True``), or
+    with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant."""
+    return TickKernel(cfg, topo, serf_plane, sentinel)

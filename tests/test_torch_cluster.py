@@ -10,8 +10,8 @@ port's package rules.
   ``suspicion_max_timeout_mult=2``) so the run converges in ~200 ticks.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
-- No module of ``consul_tpu_torch`` and no line of ``chip_smoke.py``
-  imports ``jax`` or ``consul_tpu``.
+- No module of ``consul_tpu_torch`` (its ``chaos`` subpackage included)
+  and no line of ``chip_smoke.py`` imports ``jax`` or ``consul_tpu``.
 """
 
 import ast
@@ -102,6 +102,9 @@ def test_port_imports_no_jax_and_no_reference():
     for root, _, names in os.walk(os.path.join(REPO, "consul_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 15
+    assert {"__init__.py", "schedule.py"} <= {
+        os.path.basename(f) for f in files
+        if os.path.basename(os.path.dirname(f)) == "chaos"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -28,26 +28,6 @@ from consul_tpu_torch.ops import cuda_gossip, topology as ttopo
 
 import torch_parity as tp
 
-FLOATS = {"vec", "height", "error", "adjustment", "adj_samples", "lat_buf"}
-MAX_STEPS, FLOOR_S = 3, 1e-5
-
-
-def _compare_packed(ref, got, context):
-    for f in ref._fields:
-        r, g = getattr(ref, f), getattr(got, f)
-        if f == "viv":
-            _compare_packed(r, g, context + ".viv")
-        elif f in FLOATS:
-            steps, diff = tlayout.float_gap(g, convert.tensor(r))
-            bad = (steps > MAX_STEPS) & (diff > FLOOR_S)
-            assert not bool(bad.any()), (
-                f"{context}.{f}: {int(bad.sum())} elements beyond {MAX_STEPS} "
-                f"steps and {FLOOR_S} s (max {int(steps.max())} steps, "
-                f"{float(diff.max())} s)")
-        else:
-            np.testing.assert_array_equal(convert.bits(g), convert.ref_bits(r),
-                                          err_msg=f"{context}.{f}")
-
 
 def test_plain_tick_matches_interpret_tick():
     jcfg, tcfg, world, topo, st = tp.setup(256, 16, packet_loss=0.02)
@@ -66,7 +46,7 @@ def test_plain_tick_matches_interpret_tick():
         kp, kc = tick(world, None, kp, key)
         pp, pc = cuda_gossip.plain_tick(tcfg, tt, tw, pp,
                                         tp.to_tick_draws(draws(key)))
-        _compare_packed(tp.np_tree(kp), pp, f"tick {t}")
+        tp.assert_packed_close(tp.np_tree(kp), pp, f"tick {t}")
         assert pc.tolist() == [int(x) for x in kc], f"tick {t} counters"
 
 

@@ -48,8 +48,6 @@ import torch_parity as tp
 
 N, K, LOSS = 256, 16, 0.01
 TICKS = 10
-MAX_STEPS, FLOOR_S = 3, 1e-5
-FLOATS = {"vec", "height", "error", "adjustment", "adj_samples", "lat_buf"}
 _JIT = {}
 
 
@@ -223,19 +221,6 @@ def test_verbs_match_reference():
 # The tick
 # ----------------------------------------------------------------------
 
-def _compare_packed(ref, got, context):
-    for f in ref._fields:
-        r, g = getattr(ref, f), getattr(got, f)
-        if f == "viv":
-            _compare_packed(r, g, context + ".viv")
-        elif f in FLOATS:
-            steps, diff = tlayout.float_gap(g, convert.tensor(r))
-            bad = (steps > MAX_STEPS) & (diff > FLOOR_S)
-            assert not bool(bad.any()), f"{context}.{f}: {int(bad.sum())} elements"
-        else:
-            np.testing.assert_array_equal(convert.bits(g), convert.ref_bits(r),
-                                          err_msg=f"{context}.{f}")
-
 
 @pytest.mark.parametrize("rf", [0, 2], ids=["relay0", "relay2"])
 def test_step_counted_matches_reference(rf):
@@ -263,7 +248,7 @@ def test_step_counted_matches_reference(rf):
         tp.assert_state_matches(ref.swim, dense.swim, f"tick {t}")
         ref_p = tp.np_tree(jlayout.pack_state(st))
         tp.assert_serf_equal(ref_p, packed, f"tick {t} packed")
-        _compare_packed(ref_p.swim, packed.swim, f"tick {t} packed")
+        tp.assert_packed_close(ref_p.swim, packed.swim, f"tick {t} packed")
         totals += want
     fields = tserf.counters_mod.FIELDS
     for f in ("serf_intents_queued", "serf_intents_retx", "serf_intents_dropped"):
@@ -301,7 +286,7 @@ def test_plain_serf_tick_matches_interpret_tick():
                                              tp.to_serf_draws(draws(key)))
         ref = tp.np_tree(kp)
         tp.assert_serf_equal(ref, pp, f"tick {t}")
-        _compare_packed(ref.swim, pp.swim, f"tick {t}")
+        tp.assert_packed_close(ref.swim, pp.swim, f"tick {t}")
         assert pc.tolist() == [int(x) for x in kc], f"tick {t} counters"
 
 

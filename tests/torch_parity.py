@@ -19,6 +19,7 @@ from consul_tpu.ops import topology as j_topology
 from consul_tpu_torch import convert
 from consul_tpu_torch.config import GossipConfig as TGossipConfig
 from consul_tpu_torch.config import SimConfig as TSimConfig
+from consul_tpu_torch.models import layout as t_layout
 from consul_tpu_torch.models import serf as t_serf
 from consul_tpu_torch.models import swim as t_swim
 
@@ -33,6 +34,14 @@ torch.set_num_threads(1)
 # tick), so relative 1e-5 with an absolute floor far below one bf16 step.
 VIV_RTOL = 1e-5
 VIV_ATOL = 1e-7
+
+# Packed float leaves (bfloat16, or float8 under the x256 codec) of the
+# plain version against the reference: each element within MAX_STEPS
+# storage steps (ulps), or within FLOOR_S seconds (height_min) where values
+# cross zero, since a last-bit f32 difference in a reduction can flip a
+# rounding; NaN only where both hold it.
+PACKED_FLOATS = {"vec", "height", "error", "adjustment", "adj_samples", "lat_buf"}
+MAX_STEPS, FLOOR_S = 3, 1e-5
 
 DISCRETE = (
     "t", "alive_truth", "left", "leaving", "external", "own_inc",
@@ -64,9 +73,11 @@ def setup(n, view_degree, seed=3, **kw):
     return jcfg, tcfg, world, topo, j_state.init(jcfg, ks)
 
 
-def make_draws_fn(jcfg):
+def make_draws_fn(jcfg, chaos=False):
     """A jitted function: tick key -> the tick's draws as numpy arrays,
-    split exactly as swim.step_counted and its helpers split the key."""
+    split exactly as swim.step_counted and its helpers split the key.
+    ``chaos`` adds ``u_pp``, the push-pull draw the reference takes only
+    when a fault schedule is installed (swim.py:1155)."""
     n, k_deg = jcfg.n, jcfg.degree
     g = jcfg.gossip
     ic, fan, d = g.indirect_checks, g.gossip_nodes, jcfg.vivaldi.dimensionality
@@ -77,7 +88,7 @@ def make_draws_fn(jcfg):
         k_viv, k_grav = jax.random.split(keys[7])
         k_cols, k_drop = jax.random.split(keys[8])
         uni = jax.random.uniform
-        return dict(
+        out = dict(
             jitter=jax.random.normal(keys[0], (n,)),
             u2=uni(keys[1], (n, 2)),
             relay_jcols=jax.random.randint(keys[2], (ic,), 0, k_deg),
@@ -91,6 +102,9 @@ def make_draws_fn(jcfg):
             u_drop=uni(k_drop, (n, fan)),
             pp_j=jax.random.randint(keys[9], (), 0, k_deg),
         )
+        if chaos:
+            out["u_pp"] = uni(jax.random.fold_in(keys[9], 1), (n,))
+        return out
 
     return draws
 
@@ -136,8 +150,13 @@ def to_serf_draws(d, device="cpu") -> t_serf.SerfDraws:
                                   torch.int64))
 
 
-def to_tick_draws(d, device="cpu") -> t_swim.TickDraws:
+def to_tick_draws(d, device="cpu", chaos=True) -> t_swim.TickDraws:
+    """Reference draws -> TickDraws; ``u_pp`` stays empty unless the
+    draws hold it and ``chaos`` is set (a tick with a schedule)."""
     ints = ("relay_jcols", "gossip_jcols", "pp_j")
+    d = dict(d)
+    if not chaos or "u_pp" not in d:
+        d["u_pp"] = np.zeros((0,), np.float32)
     return t_swim.TickDraws(**{
         k: convert.tensor(np.asarray(v), device,
                           torch.int64 if k in ints else torch.float32)
@@ -187,3 +206,22 @@ def assert_packed_equal(ref, got, context):
             continue
         np.testing.assert_array_equal(convert.bits(g), convert.ref_bits(r),
                                       err_msg=f"{context}: {f}")
+
+
+def assert_packed_close(ref, got, context):
+    """Reference PackedSimState (numpy) vs port PackedSimState: discrete
+    leaves bit for bit, float leaves within MAX_STEPS / FLOOR_S."""
+    for f in ref._fields:
+        r, g = getattr(ref, f), getattr(got, f)
+        if f == "viv":
+            assert_packed_close(r, g, context + ".viv")
+        elif f in PACKED_FLOATS:
+            steps, diff = t_layout.float_gap(g, convert.tensor(r))
+            bad = (steps > MAX_STEPS) & (diff > FLOOR_S)
+            assert not bool(bad.any()), (
+                f"{context}.{f}: {int(bad.sum())} elements beyond {MAX_STEPS} "
+                f"steps and {FLOOR_S} s (max {int(steps.max())} steps, "
+                f"{float(diff.max())} s)")
+        else:
+            np.testing.assert_array_equal(convert.bits(g), convert.ref_bits(r),
+                                          err_msg=f"{context}.{f}")
