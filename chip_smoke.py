@@ -13,10 +13,13 @@ with query relays (int16 origins), at the main path's shape and at
 event storm, an open query and a leave; and the chaos + sentinel variant
 at 65,536 nodes and at the main path's shape, each window under a
 schedule with every fault family overlapping and with corruption for the
-sentinel to find. It drives the port's three main paths through their
-entry points: ``Simulation`` (a 1,048,576-node, K = 32 view converging
-after a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event
-storm and an open query, with fresh events every 512 ticks) and
+sentinel to find, then the sentinel alone at both sizes, and an SLO
+window at the main path's shape in which the game day's composed
+timeline starts on a whole cluster and lifts, so every SLO counter
+moves. It drives the port's three main paths through their entry
+points: ``Simulation`` (a 1,048,576-node, K = 32 view converging after
+a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event storm
+and an open query, with fresh events every 512 ticks) and
 ``Simulation`` with the sentinel on through ``run_scenario`` (the game
 day's composed partition + churn timeline with a lossy link and a
 degraded block) and on to convergence. It times each variant at 1M, and
@@ -41,14 +44,17 @@ import torch
 H100_SXM_BYTES_PER_S = 3.35e12
 
 # The packed layout's float leaves round to bfloat16 (Vivaldi) or to the
-# x256 float8 codec (RTT and adjustment windows) every tick. The kernel
-# and the plain version do the same f32 operations, but may sum Vivaldi's
-# short reductions in another order, so a last-bit difference can flip a
-# rounding, and 32 ticks can carry it on. An element passes if it is at
-# most MAX_STEPS storage steps (ulps) from the plain version's, or if the
+# x256 float8 codec (RTT and adjustment windows) every tick, so a
+# last-bit difference in f32 can flip a rounding, and a window can carry
+# it on. The kernel and the plain version do the same f32 operations in
+# the same order (the plain version adds Vivaldi's sums as a left fold,
+# vivaldi.fold_sum, as the kernel does), and on the H100 every float leaf
+# has come out bit-equal (PERF.md). An element passes if it is at most
+# MAX_STEPS storage steps (ulps) from the plain version's, or if the
 # decoded values differ by at most FLOOR_S seconds: height_min, the
 # smallest height Vivaldi keeps, the floor for values that cross zero.
-# The step limit is one above the largest seen (PERF.md).
+# The step limit was set one above the largest gap seen while the plain
+# version still summed in the library's order.
 MAX_STEPS = 3
 FLOOR_S = 1e-5
 FLOAT_LEAVES = ("vec", "height", "error", "adjustment", "adj_samples", "lat_buf")
@@ -73,10 +79,21 @@ SERF_PARITY = ((65536, 0.01, 0, PARITY_TICKS), (20000, 0.01, 2, PARITY_TICKS),
 SERF_EVENTS = 4
 SERF_SLICE = 512
 # Chaos + sentinel variant parity: (n, packet loss), 32-tick windows under
-# every fault family; then each family alone, and none (the sentinel
-# alone), in 8-tick windows at 65,536 nodes.
+# every fault family open across them; then each family alone at 65,536
+# nodes, and none (the sentinel alone) at 65,536 and at the main path's
+# shape, in 8-tick windows.
 CHAOS_PARITY = ((65536, 0.01), (MAIN_N, 0.0))
-CHAOS_FAMILIES = ("none", "partition", "link", "churn", "degrade")
+CHAOS_FAMILIES = (("none", 65536), ("partition", 65536), ("link", 65536),
+                  ("churn", 65536), ("degrade", 65536), ("none", MAIN_N))
+# The SLO window at the main path's shape: no mass kill, so the cluster is
+# whole when the composed timeline (slo_events) starts at window tick
+# SLO_START and lifts SLO_FAULT ticks later, well inside the window. The
+# suspicion timeouts are cut to 30..60 ticks at 1M (suspicion_mult 1, max
+# 2x), so a fault is suspected, then confirmed while it lasts, leaves
+# deaths of reachable rows behind as it lifts, and then heals.
+SLO_TICKS = 128
+SLO_START = 4
+SLO_FAULT = 48
 # The chaos main path's composed timeline over a 192-tick window: the game
 # day's partition and churn wave (consul_tpu/gameday/harness.py:673-690 at
 # window 192, partition_frac 0.25, churn_frac 0.05; its raft kill left out,
@@ -349,13 +366,32 @@ def chaos_events(chaos, n, window, family="all"):
     return events[pick[family]]
 
 
+def slo_events(chaos, n):
+    """The SLO window's schedule: the game day's composed partition +
+    churn timeline (as chaos_main_path's, on a SLO_FAULT-tick fault that
+    the churn leaves 8 ticks early), with the lossy link and the degraded
+    block, all from window tick SLO_START."""
+    a, b = SLO_START, SLO_START + SLO_FAULT
+    return [
+        chaos.Partition(a, b, side_a=slice(0, n // 4)),
+        chaos.ChurnWave(a, b - 8, nodes=slice(n // 2, n // 2 + n // 20),
+                        period=8, down_ticks=4),
+        chaos.LinkLoss(a, b, a=slice(n // 4, 3 * n // 8),
+                       b=slice(3 * n // 8, n // 2), fwd=0.8, rev=0.2),
+        chaos.Degrade(a, b, nodes=slice(n - n // 8, n), tx_loss=0.4),
+    ]
+
+
 def corrupt(packed, n, k):
     """Corruption for the sentinel: NaN coordinates on three live rows, a
     pending probe column past K on a live row (its next missed probe
-    overwrites it) and on row 10, which the window's 5 % kill holds down
-    (the packed layout saturates own_inc at 65535, so an incarnation past
-    MAX_INCARNATION cannot be stored), and a SUSPECT cell whose timer is
-    armed but whose accuser mask is zero on a live row."""
+    overwrites it) and on row 10 (the packed layout saturates own_inc at
+    65535, so an incarnation past MAX_INCARNATION cannot be stored), a
+    SUSPECT cell whose timer is armed but whose accuser mask is zero on a
+    live row, and a NaN in the first written RTT slot of a live row, which
+    the median filter sorts above every sample. Nothing reachable lowers a
+    view key or an incarnation within a tick (every write is a join or a
+    promotion), so sentinel_monotonic stays 0."""
     base, dev = n // 3, packed.meta.device
     # Edited on host copies: CUDA has no bitwise ops on uint16.
     vec = packed.viv.vec.cpu()
@@ -369,10 +405,18 @@ def corrupt(packed, n, k):
     meta[base + 20, 0] = (int(meta[base + 20, 0]) & 0xFFFC) | 1
     sdelta[base + 20, 0] = 0
     seen[base + 20, 0] = 0
+    # 0x7F is float8_e4m3fn's NaN.
+    lbuf = packed.lat_buf.cpu().view(torch.uint8)
+    cnt = packed.lat_cnt[base + 30].cpu().to(torch.int32)
+    cols = torch.nonzero(cnt).flatten()
+    if not len(cols):
+        raise RuntimeError(f"row {base + 30} has no RTT sample to corrupt")
+    lbuf[base + 30, int(cols[0]), 0] = 0x7F
     return packed._replace(
         viv=packed.viv._replace(vec=vec.to(dev)), pending_col=pcol.to(dev),
         pending_fail_delta=pfail.to(dev), meta=meta.to(dev),
-        susp_delta=sdelta.to(dev), susp_seen=seen.to(dev))
+        susp_delta=sdelta.to(dev), susp_seen=seen.to(dev),
+        lat_buf=lbuf.view(torch.float8_e4m3fn).to(dev))
 
 
 def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
@@ -380,18 +424,24 @@ def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
     """The chaos + sentinel variant against plain_tick(sched,
     sentinel=True) from one state with one draw bundle per tick: discrete
     packed leaves and all 26 counters equal on every tick, float leaves
-    within MAX_STEPS / FLOOR_S and NaN in the same places. The window
-    opens after the deaths wave of a 5 % kill, under chaos_events open
-    across it (or one ``family`` of it), with corrupt() applied at its
-    start."""
+    within MAX_STEPS / FLOOR_S and NaN in the same places, with corrupt()
+    applied at the window's start. The window opens after
+    the deaths wave of a 5 % kill, under chaos_events open across it (or
+    one ``family`` of it); with ``family="slo"`` it opens on a whole
+    cluster 32 ticks old, under slo_events, with suspicion timeouts cut
+    to suspicion_mult 1."""
     from consul_tpu_torch import chaos
-    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.config import GossipConfig, SimConfig
     from consul_tpu_torch.models import layout, state as sim_state, swim
     from consul_tpu_torch.models.counters import FIELDS
     from consul_tpu_torch.ops import cuda_gossip, topology
 
     dev = torch.device("cuda")
-    cfg = SimConfig(n=n, view_degree=32, packet_loss=packet_loss)
+    slo = family == "slo"
+    gossip = (GossipConfig(suspicion_mult=1, suspicion_max_timeout_mult=2)
+              if slo else GossipConfig())
+    cfg = SimConfig(n=n, view_degree=32, packet_loss=packet_loss,
+                    gossip=gossip)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     world = topology.make_world(cfg, gen, dev)
@@ -402,12 +452,18 @@ def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
     def step(st):
         return tick(world, st, swim.draw_tick(cfg, gen, dev))
 
-    kill = torch.zeros(n, dtype=torch.bool, device=dev)
-    kill[: n // 20] = True
-    st, warm = warm_to_deaths(n, step, st, kill, layout.unpack, layout.pack,
-                              sim_state.kill)
-    sched = chaos.shift_schedule(chaos.compile_schedule(
-        n, chaos_events(chaos, n, ticks + 8, family), dev), int(st.t))
+    if slo:
+        for _ in range(32):
+            st, _ = step(st)
+        warm, events = 32, slo_events(chaos, n)
+    else:
+        kill = torch.zeros(n, dtype=torch.bool, device=dev)
+        kill[: n // 20] = True
+        st, warm = warm_to_deaths(n, step, st, kill, layout.unpack,
+                                  layout.pack, sim_state.kill)
+        events = chaos_events(chaos, n, ticks + 8, family)
+    sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
+                                 int(st.t))
     st = corrupt(st, n, cfg.degree)
     kp, pp = st, st
     totals = torch.zeros(len(FIELDS), dtype=torch.int64)
@@ -435,13 +491,18 @@ def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
 
 def chaos_ok(res) -> bool:
     """No mismatch, the corruption found, and, under every family, the
-    faults really bit."""
+    faults really bit; in the SLO window every SLO counter moved."""
     w = res["in_window"]
-    ok = (not res["mismatches"] and w["sentinel_range"] > 0
-          and w["sentinel_suspicion"] > 0 and w["sentinel_nonfinite_coord"] > 0)
+    need = ["sentinel_range", "sentinel_suspicion", "sentinel_nonfinite_coord",
+            "sentinel_nonfinite_rtt"]
+    if res["family"] in ("all", "slo"):
+        need += ["chaos_msgs_dropped", "chaos_fault_ticks"]
+    if res["family"] == "slo":
+        need += ["chaos_first_suspect_wait", "chaos_confirm_wait",
+                 "chaos_heal_wait", "chaos_false_deaths"]
+    ok = not res["mismatches"] and all(w[f] > 0 for f in need)
     if res["family"] == "all":
-        ok = (ok and w["chaos_msgs_dropped"] > 0 and w["chaos_fault_ticks"] > 0
-              and (w["chaos_false_deaths"] > 0 or w["deaths_declared"] > 0))
+        ok = ok and (w["chaos_false_deaths"] > 0 or w["deaths_declared"] > 0)
     return ok
 
 
@@ -676,14 +737,20 @@ def main() -> int:
         emit({"phase": "chaos_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"chaos_kernel_parity n={n}")
-    for family in CHAOS_FAMILIES:
-        res = chaos_parity(65536, 0.01, 8, seed=17, family=family)
+    windows = ([(MAIN_N, 0.0, SLO_TICKS, 19, "slo")]
+               + [(n, 0.01 if n < MAIN_N else 0.0, 8, 17, family)
+                  for family, n in CHAOS_FAMILIES])
+    for n, loss, ticks, seed, family in windows:
+        t0 = time.perf_counter()
+        res = chaos_parity(n, loss, ticks, seed=seed, family=family)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = chaos_ok(res)
         max_abs["gossip_tick_chaos"] = max([max_abs["gossip_tick_chaos"]] + [
             g["abs"] for g in res["float_gaps"].values()])
         emit({"phase": "chaos_kernel_parity", **res})
         if not res["ok"]:
-            failed.append(f"chaos_kernel_parity family={family}")
+            failed.append(f"chaos_kernel_parity n={n} family={family}")
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1

@@ -24,6 +24,7 @@ from consul_tpu_torch.chaos.schedule import (  # noqa: F401
     has_raft_events,
     is_empty,
     node_terms,
+    or_none,
     pack_terms,
     pair_ok,
     roll_terms,

@@ -299,6 +299,11 @@ def is_empty(sched: ChaosSchedule) -> bool:
         sched.rk_kind))
 
 
+def or_none(sched: Optional[ChaosSchedule]) -> Optional[ChaosSchedule]:
+    """The schedule a tick runs under: None for None or an empty one."""
+    return None if sched is None or is_empty(sched) else sched
+
+
 def has_raft_events(sched: Optional[ChaosSchedule]) -> bool:
     return sched is not None and sched.rk_kind.shape[0] > 0
 
@@ -311,7 +316,7 @@ def digest_of(sched: Optional[ChaosSchedule]) -> str:
     """Hex SHA-256 over every leaf's dtype, shape and bytes in field
     order, as the reference digests its numpy leaves; ``"none"`` for
     None or an empty schedule."""
-    if sched is None or is_empty(sched):
+    if or_none(sched) is None:
         return "none"
     h = hashlib.sha256()
     for leaf in sched:

@@ -807,10 +807,12 @@ __global__ void k_probe_send(TickArgs a) {
         for (int s = 0; s < S; ++s)
           v[s] = s >= filled ? __int_as_float(0x7f800000)
                              : (s == slot ? rtt_obs : f8tof(in_lbuf[lb + s]));
-        for (int x = 1; x < S; ++x) {  // insertion sort, ascending
+        // Insertion sort, ascending, NaN above every number (as
+        // torch.sort orders them: a NaN sample is corrupt state).
+        for (int x = 1; x < S; ++x) {
           float key = v[x];
           int y = x - 1;
-          while (y >= 0 && v[y] > key) {
+          while (y >= 0 && (v[y] > key || (isnan(v[y]) && !isnan(key)))) {
             v[y + 1] = v[y];
             --y;
           }

@@ -188,8 +188,7 @@ class Simulation:
             raise NotImplementedError(
                 "the schedule holds raft events; the raft tier is not "
                 "ported (ROADMAP A16)")
-        if sched is not None and chaos_mod.is_empty(sched):
-            sched = None
+        sched = chaos_mod.or_none(sched)
         self.chaos = (None if sched is None
                       else chaos_mod.to_device(sched, self.device))
 

@@ -201,7 +201,8 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     col_ids = torch.arange(k_deg, dtype=torch.int64, device=dev)
     roll_mode = (not topo.dense) and k_deg <= _ROLL_DEGREE_MAX
     sc = protocol_scalars(cfg, topo)
-    chaos_on = sched is not None and not chaos_mod.is_empty(sched)
+    sched = chaos_mod.or_none(sched)
+    chaos_on = sched is not None
     terms = tgt_terms = None
     if chaos_on:
         if tuple(draws.u_pp.shape) != (n,):

@@ -303,43 +303,37 @@ class TickKernel:
         return self._tables[device]
 
     def _schedule(self, sched):
-        """The schedule a tick runs under: None for none or an empty one;
-        the serf variant takes none."""
-        if sched is None or chaos_mod.is_empty(sched):
-            return None
-        if self.serf:
+        """The schedule a tick runs under (None for none); the serf
+        variant takes none."""
+        sched = chaos_mod.or_none(sched)
+        if sched is not None and self.serf:
             raise ValueError("the serf variant does not take a fault "
                              "schedule yet (ROADMAP B6)")
         return sched
 
     def _check_schedule(self, sched, draws, device):
+        """Every leaf the kernel reads, by its name's suffix: slot ticks
+        int32 [m], loss rates float32 [m], node masks bool [n, m]."""
         n = self.cfg.n
-        i32, f32, b = torch.int32, torch.float32, torch.bool
-        fams = (("part", sched.part_start.shape[0], ("start", "stop"), (),
-                 ("side",)),
-                ("ll", sched.ll_start.shape[0], ("start", "stop"),
-                 ("fwd", "rev"), ("a", "b")),
-                ("cw", sched.cw_start.shape[0],
-                 ("start", "stop", "period", "down"), (), ("mask",)),
-                ("dg", sched.dg_start.shape[0], ("start", "stop"),
-                 ("tx", "rx"), ("mask",)))
-        for fam, m, ints, flts, masks in fams:
+        for fam in ("part", "ll"):
+            m = getattr(sched, fam + "_start").shape[0]
             # Partition colors and link sides are int32 bitfields.
-            if fam in ("part", "ll") and m > chaos_mod.MAX_PARTITIONS:
+            if m > chaos_mod.MAX_PARTITIONS:
                 raise ValueError(f"the CUDA tick kernel takes at most "
                                  f"{chaos_mod.MAX_PARTITIONS} {fam} slots, "
                                  f"got {m}")
-            for leaf in ints:
-                _check(getattr(sched, f"{fam}_{leaf}"), f"sched.{fam}_{leaf}",
-                       i32, (m,), device)
-            for leaf in flts:
-                _check(getattr(sched, f"{fam}_{leaf}"), f"sched.{fam}_{leaf}",
-                       f32, (m,), device)
-            for leaf in masks:
-                _check(getattr(sched, f"{fam}_{leaf}"), f"sched.{fam}_{leaf}",
-                       b, (n, m), device)
+        for name in _SCHED_LEAVES:
+            fam, leaf = name.split("_", 1)
+            m = getattr(sched, fam + "_start").shape[0]
+            if leaf in ("side", "a", "b", "mask"):
+                dt, shape = torch.bool, (n, m)
+            elif leaf in ("fwd", "rev", "tx", "rx"):
+                dt, shape = torch.float32, (m,)
+            else:
+                dt, shape = torch.int32, (m,)
+            _check(getattr(sched, name), "sched." + name, dt, shape, device)
         # A tick with a schedule needs swim.draw_tick(..., chaos=True).
-        _check(draws.u_pp, "draws.u_pp", f32, (n,), device)
+        _check(draws.u_pp, "draws.u_pp", torch.float32, (n,), device)
 
     def _check_inputs(self, world, packed, draws, device, sched=None):
         cfg = self.cfg

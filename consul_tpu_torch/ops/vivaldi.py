@@ -49,10 +49,21 @@ def new(cfg: VivaldiConfig, batch_shape=(), device="cpu") -> VivaldiState:
     )
 
 
+def fold_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Sum over the last axis as a left fold from 0, ``((0 + x0) + x1) +
+    ...``: the order the CUDA tick kernel adds in. A library reduction
+    picks its own order, and a last-bit difference can flip a packed
+    rounding."""
+    acc = torch.zeros_like(x[..., 0])
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc[..., None] if keepdim else acc
+
+
 def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis as ``sqrt(sum(x * x))``, the
     reference's formulation of ``jnp.linalg.norm``."""
-    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim))
+    return torch.sqrt(fold_sum(x * x, keepdim=keepdim))
 
 
 def raw_distance(vec_a, height_a, vec_b, height_b):
@@ -142,7 +153,7 @@ def update(cfg: VivaldiConfig, state: VivaldiState, other_vec, other_height,
                   == state.adj_idx[..., None])
         adj_samples = torch.where(onehot, sample[..., None], state.adj_samples)
         adj_idx = (state.adj_idx + 1) % w
-        adjustment = torch.sum(adj_samples, dim=-1) / (2.0 * w)
+        adjustment = fold_sum(adj_samples) / (2.0 * w)
     else:
         adj_samples, adj_idx, adjustment = (
             state.adj_samples, state.adj_idx, state.adjustment)

@@ -17,15 +17,16 @@ reference's own key ladder with the chaos-only push-pull draw
 - 12 ticks of ``step_counted(sched, sentinel=True)`` against the
   reference's jitted step, sparse (n = 1024, K = 16) and dense (n = 128),
   at loss 0 and 0.01, with corruption injected (a NaN coordinate, an
-  incarnation past MAX_INCARNATION): discrete plane and all 26 counters
-  equal every tick, floats within ``torch_parity``'s tolerance (NaN only
+  incarnation past MAX_INCARNATION, a NaN RTT sample): discrete plane and
+  all 26 counters equal every tick, floats within ``torch_parity``'s tolerance (NaN only
   where both hold it), schedule drops and sentinel tallies nonzero.
 - 4 ticks of ``plain_tick(sched, sentinel=True)`` against the reference's
-  interpret-mode Pallas tick.
+  interpret-mode Pallas tick, with a NaN coordinate and NaN RTT samples.
 - ``Simulation(device="cpu", kernel="torch")`` raises SentinelViolation
   with the reference's mask and deltas; ``run_scenario`` on the bench's
   partition-heal shape returns the reference's ``slo`` dict.
-- The paths that are not ported raise.
+- The paths that are not ported raise; the kernel wrapper rejects a
+  schedule leaf of the wrong dtype or shape.
 """
 
 import jax
@@ -159,13 +160,26 @@ def test_terms_and_pair_ok_bit_equal(t):
 # The tick
 # ----------------------------------------------------------------------
 
+def _nan_rtt(st, row):
+    """A NaN in the first RTT slot of ``row``'s first two columns, marked
+    written (tests/test_runtime.py:683-695 puts an inf there)."""
+    buf = np.asarray(st.lat_buf).copy()
+    cnt = np.asarray(st.lat_cnt).copy()
+    buf[row, :2, 0] = np.nan
+    cnt[row, :2] = np.maximum(cnt[row, :2], 2)
+    return st._replace(lat_buf=jnp.asarray(buf),
+                       lat_cnt=jnp.asarray(cnt, dtype=st.lat_cnt.dtype))
+
+
 def _corrupt(st):
-    """A NaN coordinate on row 3 and an incarnation past the packed-key
-    headroom on row 5 (tests/test_runtime.py:641-680)."""
+    """A NaN coordinate on row 3, an incarnation past the packed-key
+    headroom on row 5 (tests/test_runtime.py:641-680) and a NaN RTT
+    sample on a live row in the middle."""
     vec = np.asarray(st.viv.vec).copy()
     vec[3, :] = np.nan
     oi = np.asarray(st.own_inc).copy()
     oi[5] = merge.MAX_INCARNATION + 5
+    st = _nan_rtt(st, vec.shape[0] // 2)
     return st._replace(viv=st.viv._replace(vec=jnp.asarray(vec)),
                        own_inc=jnp.asarray(oi, dtype=jnp.uint32))
 
@@ -199,7 +213,8 @@ def test_step_counted_matches_reference(n, view_degree, loss):
         assert [int(x) for x in pc] == want, f"tick {t} counters"
         totals += want
     for f in ("chaos_msgs_dropped", "chaos_fault_ticks", "sentinel_range",
-              "sentinel_nonfinite_coord", "probe_timeouts"):
+              "sentinel_nonfinite_coord", "sentinel_nonfinite_rtt",
+              "probe_timeouts"):
         assert totals[FIELDS.index(f)] > 0, f
 
 
@@ -208,7 +223,7 @@ def test_plain_tick_matches_interpret_tick():
     jcfg, tcfg, world, topo, st = tp.setup(n, 16, packet_loss=0.01)
     vec = np.asarray(st.viv.vec).copy()
     vec[7, :] = np.nan
-    st = st._replace(viv=st.viv._replace(vec=jnp.asarray(vec)))
+    st = _nan_rtt(st._replace(viv=st.viv._replace(vec=jnp.asarray(vec))), 9)
     js = jchaos.compile_schedule(n, _events(jchaos, n))
     ts = convert.schedule_from(tp.np_tree(js))
     tick = jax.jit(pallas_gossip.interpret_tick(jcfg, topo, sentinel=True))
@@ -218,7 +233,7 @@ def test_plain_tick_matches_interpret_tick():
     tt = convert.topology_from(tp.np_tree(topo))
     pp = convert.packed_state_from(tp.np_tree(kp))
     base = jax.random.PRNGKey(17)
-    dropped = 0
+    dropped = bad_rtt = 0
     for t in range(4):
         key = jax.random.fold_in(base, t)
         kp, kc = tick(world, js, kp, key)
@@ -228,7 +243,8 @@ def test_plain_tick_matches_interpret_tick():
         tp.assert_packed_close(tp.np_tree(kp), pp, f"tick {t}")
         assert pc.tolist() == [int(x) for x in kc], f"tick {t} counters"
         dropped += int(pc[FIELDS.index("chaos_msgs_dropped")])
-    assert dropped > 0
+        bad_rtt += int(pc[FIELDS.index("sentinel_nonfinite_rtt")])
+    assert dropped > 0 and bad_rtt > 0
 
 
 # ----------------------------------------------------------------------
@@ -257,7 +273,8 @@ def _port_sim(jsim, tcfg, layout, chaos_draws):
     return sim
 
 
-@pytest.mark.parametrize("field", ["sentinel_nonfinite_coord", "sentinel_range"])
+@pytest.mark.parametrize("field", ["sentinel_nonfinite_coord", "sentinel_range",
+                                   "sentinel_nonfinite_rtt"])
 def test_sentinel_violation_matches_reference(field):
     jcfg, tcfg = tp.configs(n=128, view_degree=16)
     jsim = jcluster.Simulation(jcfg, seed=11)
@@ -269,10 +286,12 @@ def test_sentinel_violation_matches_reference(field):
         vec = np.asarray(sw.viv.vec).copy()
         vec[3, :] = np.nan
         sw = sw._replace(viv=sw.viv._replace(vec=jnp.asarray(vec)))
-    else:
+    elif field == "sentinel_range":
         oi = np.asarray(sw.own_inc).copy()
         oi[5] = merge.MAX_INCARNATION + 5
         sw = sw._replace(own_inc=jnp.asarray(oi, dtype=jnp.uint32))
+    else:
+        sw = _nan_rtt(sw, 9)
     jsim.set_swim_state(sw)
     tsim.set_swim_state(convert.sim_state_from(tp.np_tree(sw)))
     with pytest.raises(jcluster.SentinelViolation) as want:
@@ -359,6 +378,29 @@ def test_unported_paths_raise():
         ssim.set_sentinel(True)
     sim.set_chaos([])
     assert sim.chaos is None
+
+
+@pytest.mark.parametrize("leaf", cuda_gossip._SCHED_LEAVES)
+def test_kernel_checks_every_schedule_leaf(leaf):
+    """The wrapper holds each schedule leaf the kernel reads to the dtype
+    and shape compile_schedule gives it, and names what it rejects."""
+    cfg, gen, world, topo = _small()
+    sched = tchaos.compile_schedule(cfg.n, _events(tchaos, cfg.n))
+    st = tlayout.pack(tstate.init(cfg, gen))
+    d = tswim.draw_tick(cfg, gen, "cpu", chaos=True)
+    kernel = cuda_gossip.make_tick_kernel(cfg, topo, sentinel=True)
+    dev = torch.device("cpu")
+    kernel._check_inputs(world, st, d, dev, sched)
+    x = getattr(sched, leaf)
+    other = torch.int64 if x.dtype != torch.int64 else torch.int32
+    with pytest.raises(TypeError, match=leaf):
+        kernel._check_inputs(world, st, d, dev,
+                             sched._replace(**{leaf: x.to(other)}))
+    # A family's slot count is its start leaf's length, so a short start
+    # leaf shows as a mismatch of a sibling.
+    with pytest.raises(ValueError, match="sched." + leaf.split("_")[0]):
+        kernel._check_inputs(world, st, d, dev,
+                             sched._replace(**{leaf: x[:-1]}))
 
 
 def test_simulation_chaos_draws_and_clear():
