@@ -5,28 +5,33 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA tick kernel from ``consul_tpu_torch/csrc`` and holds
-its three variants against their plain PyTorch versions: the bare SWIM
-tick at the bench's default shape, at a ragged size and at the main
-path's own shape; the serf variant at 65,536 nodes, at 20,000 nodes
-with query relays (int16 origins), at the main path's shape and at
-2,097,153 nodes (the murmur dedup signature), each window carrying an
-event storm, an open query and a leave; and the chaos + sentinel variant
-at 65,536 nodes and at the main path's shape, each window under a
-schedule with every fault family overlapping and with corruption for the
-sentinel to find, then the sentinel alone at both sizes, and an SLO
-window at the main path's shape in which the game day's composed
-timeline starts on a whole cluster and lifts, so every SLO counter
-moves. It drives the port's three main paths through their entry
+its variants against their plain PyTorch versions: the bare SWIM tick at
+the bench's default shape, at a ragged size and at the main path's own
+shape; the serf variant at 65,536 nodes, at 20,000 nodes with query
+relays (int16 origins), at the main path's shape and at 2,097,153 nodes
+(the murmur dedup signature), each window carrying an event storm, an
+open query and a leave; the chaos + sentinel variant at 65,536 nodes and
+at the main path's shape, each window under a schedule with every fault
+family overlapping and with corruption for the sentinel to find, then
+the sentinel alone at both sizes, and an SLO window at the main path's
+shape in which the game day's composed timeline starts on a whole
+cluster and lifts, so every SLO counter moves; the serf + chaos +
+sentinel variant in such windows at 65,536, 20,000 (relays without loss)
+and 1,048,576 nodes, with events, a query across the partition and a
+leave in flight; and every variant on the dense view (the complete
+graph, n = 256). It drives the port's main paths through their entry
 points: ``Simulation`` (a 1,048,576-node, K = 32 view converging after
 a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event storm
-and an open query, with fresh events every 512 ticks) and
-``Simulation`` with the sentinel on through ``run_scenario`` (the game
-day's composed partition + churn timeline with a lossy link and a
-degraded block) and on to convergence. It times each variant at 1M, and
-prints one JSON line per phase, the kernel table, the card's name and
-power limit, and a last line ``{"ok": true, "device": {...}}``. Any
-failed phase exits non-zero. It needs a CUDA H100 and the rest of the
-repository; without either it fails before printing a result.
+and an open query, with fresh events every 512 ticks), ``Simulation``
+and ``SerfSimulation`` with the sentinel on through ``run_scenario``
+(the game day's composed partition + churn timeline with a lossy link
+and a degraded block) and on to convergence, and each variant on the
+dense view at n = 256. It times each variant at 1M (and the dense ones
+at 256), and prints one JSON line per phase, the kernel table, the
+card's name and power limit, and a last line ``{"ok": true, "device":
+{...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
+rest of the repository; without either it fails before printing a
+result.
 """
 
 from __future__ import annotations
@@ -102,6 +107,22 @@ SLO_FAULT = 48
 CHAOS_WINDOW = 192
 # The tick of the window whose state chaos_timing times: every entry open.
 CHAOS_TIMED_TICK = 50
+# Serf + chaos + sentinel variant parity: (n, packet loss,
+# query_relay_factor, ticks, fault ticks). Each window opens on a whole
+# cluster with events, a query and a leave in flight under slo_events
+# from window tick SLO_START for the fault ticks, suspicion cut as in the
+# SLO window (its timeout is then 24, 22 and 30 ticks at these sizes). A
+# window is long enough for a suspicion to time out while the fault lasts
+# and for the lifted fault to leave stale suspicions to heal. 20,000 nodes
+# runs the relayed responses without loss: a schedule runs them.
+SERF_CHAOS_PARITY = ((65536, 0.01, 2, 64, 36), (20000, 0.0, 2, 64, 36),
+                     (MAIN_N, 0.0, 0, SLO_TICKS, SLO_FAULT))
+# The dense view (view_degree 0: the complete graph, K = N - 1 = 255) under
+# each variant: (name, serf plane, schedule and sentinel).
+DENSE_N = 256
+DENSE_TICKS = 32
+DENSE_VARIANTS = (("dense", False, False), ("dense_chaos", False, True),
+                  ("dense_serf", True, False), ("dense_serf_chaos", True, True))
 
 
 def emit(obj):
@@ -200,6 +221,42 @@ def compare_packed(kp, pp, t, gaps, bad):
             bad.append(f"tick {t} {name}: {nbad} elements differ")
 
 
+def compare_window(tick, plain, world, st, draw, ticks, sched=None):
+    """Kernel vs plain version from one state with one draw bundle per
+    tick (``draw()``): all 26 counters and every discrete packed leaf (and
+    every serf leaf of a SerfState) equal on every tick, float leaves
+    within MAX_STEPS / FLOOR_S. Returns (the plain side's last state,
+    counter totals, mismatches, float gaps)."""
+    from consul_tpu_torch.models import serf
+    from consul_tpu_torch.models.counters import FIELDS
+
+    serf_plane = isinstance(st, serf.SerfState)
+    kp, pp = st, st
+    totals = torch.zeros(len(FIELDS), dtype=torch.int64)
+    bad = []
+    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+    for t in range(ticks):
+        d = draw()
+        kp, kc = tick(world, kp, d, sched)
+        pp, pc = plain(world, pp, d, sched)
+        torch.cuda.synchronize()
+        if not torch.equal(kc, pc):
+            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
+        totals += pc.cpu().to(torch.int64)
+        if serf_plane:
+            compare_packed(kp.swim, pp.swim, t, gaps, bad)
+            for name in serf.SerfState._fields[1:]:
+                a, b = getattr(kp, name), getattr(pp, name)
+                if not torch.equal(a, b):
+                    bad.append(f"tick {t} {name}: {int((a != b).sum())} "
+                               "elements differ")
+        else:
+            compare_packed(kp, pp, t, gaps, bad)
+        if bad:
+            break
+    return pp, totals, bad, gaps
+
+
 def parity(n: int, packet_loss: float, ticks: int, seed: int):
     """Kernel vs plain version from one state with one draw bundle per
     tick: discrete packed leaves and counters equal on every tick, float
@@ -241,21 +298,9 @@ def parity(n: int, packet_loss: float, ticks: int, seed: int):
         st, _ = step(st)
     warm += 10
 
-    kp, pp = st, st
-    totals = torch.zeros(len(FIELDS), dtype=torch.int64)
-    bad = []
-    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
-    for t in range(ticks):
-        d = swim.draw_tick(cfg, gen, dev)
-        kp, kc = tick(world, kp, d)
-        pp, pc = cuda_gossip.plain_tick(cfg, topo, world, pp, d)
-        torch.cuda.synchronize()
-        if not torch.equal(kc, pc):
-            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
-        totals += pc.cpu().to(torch.int64)
-        compare_packed(kp, pp, t, gaps, bad)
-        if bad:
-            break
+    _, totals, bad, gaps = compare_window(
+        tick, lambda w, s, d, _: cuda_gossip.plain_tick(cfg, topo, w, s, d),
+        world, st, lambda: swim.draw_tick(cfg, gen, dev), ticks)
     fired = {f: int(totals[FIELDS.index(f)]) for f in (
         "suspicions_started", "deaths_declared", "refutations",
         "probe_timeouts", "pushpull_merges")}
@@ -298,48 +343,51 @@ def serf_parity(n: int, packet_loss: float, relay: int, ticks: int, seed: int):
     dead[: n // 20] = True
     st, warm = warm_to_deaths(n, step, st, dead, layout.unpack_state,
                               layout.pack_state, kill)
-    dense = layout.unpack_state(st)
-    origins = [n // 3 + 7 * j for j in range(4)]
-    for r in range(8):
-        dense = serf.user_event(cfg, dense, _rows(n, origins, dev), 16 + r)
     q_row, leaver = n // 3 + 101, n // 3 + 211
-    dense = serf.query(cfg, dense, _rows(n, [q_row], dev), 3)
-    q_slot = serf.newest_query_slot(dense, q_row)
-    dense = serf.leave(cfg, dense, _rows(n, [leaver], dev))
-    st = layout.pack_state(dense)
+    st, q_slot = fire_in_flight(cfg, st, [n // 3 + 7 * j for j in range(4)],
+                                q_row, leaver)
 
-    kp, pp = st, st
-    totals = torch.zeros(len(FIELDS), dtype=torch.int64)
-    bad = []
-    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
-    for t in range(ticks):
-        d = serf.draw_serf_tick(cfg, gen, dev)
-        kp, kc = tick(world, kp, d)
-        pp, pc = cuda_gossip.plain_serf_tick(cfg, topo, world, pp, d)
-        torch.cuda.synchronize()
-        if not torch.equal(kc, pc):
-            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
-        totals += pc.cpu().to(torch.int64)
-        compare_packed(kp.swim, pp.swim, t, gaps, bad)
-        for name in serf.SerfState._fields[1:]:
-            a, b = getattr(kp, name), getattr(pp, name)
-            if not torch.equal(a, b):
-                bad.append(f"tick {t} {name}: {int((a != b).sum())} elements differ")
-        if bad:
-            break
+    pp, totals, bad, gaps = compare_window(
+        tick, lambda w, s, d, _: cuda_gossip.plain_serf_tick(cfg, topo, w, s, d),
+        world, st, lambda: serf.draw_serf_tick(cfg, gen, dev), ticks)
     window = {f: int(totals[FIELDS.index(f)]) for f in (
         "serf_intents_queued", "serf_intents_retx", "serf_intents_dropped",
         "deaths_declared")}
-    window.update(
-        delivered=int(pp.ev_delivered.to(torch.int64).sum()
-                      - st.ev_delivered.to(torch.int64).sum()),
-        query_acks=int(pp.q_acks[q_row, q_slot]) - int(st.q_acks[q_row, q_slot]),
-        query_resps=int(pp.q_resps[q_row, q_slot]),
-        leave_quiet=int(bool(pp.swim.flags[leaver] & 2)
-                        and int(pp.leave_at[leaver]) == -1))
+    window.update(serf_in_window(st, pp, q_row, q_slot, leaver))
     return dict(n=n, k=cfg.degree, packet_loss=packet_loss, relay_factor=relay,
                 ticks=ticks, warm=warm, mismatches=bad[:5], float_gaps=gaps,
                 in_window=window)
+
+
+def fire_in_flight(cfg, packed, origins, q_row, leaver):
+    """On a packed SerfState: 8 rounds of user events from ``origins`` (8
+    ltimes, more than a queue holds), a query from ``q_row`` and a leave
+    of ``leaver``. Returns (packed state, the query's slot)."""
+    from consul_tpu_torch.models import layout, serf
+
+    n, dev = cfg.n, packed.clock.device
+    dense = layout.unpack_state(packed)
+    for r in range(8):
+        dense = serf.user_event(cfg, dense, _rows(n, origins, dev), 16 + r)
+    dense = serf.query(cfg, dense, _rows(n, [q_row], dev), 3)
+    q_slot = serf.newest_query_slot(dense, q_row)
+    dense = serf.leave(cfg, dense, _rows(n, [leaver], dev))
+    return layout.pack_state(dense), q_slot
+
+
+def serf_in_window(st, pp, q_row, q_slot, leaver):
+    """What the serf plane did over a window from ``st`` to ``pp``: events
+    delivered, the query's acks (and responses) against the live nodes
+    that could answer it, and whether the leave went quiet."""
+    live = int(((pp.swim.flags & 3) == 1).sum())
+    acks = int(pp.q_acks[q_row, q_slot]) - int(st.q_acks[q_row, q_slot])
+    return dict(
+        delivered=int(pp.ev_delivered.to(torch.int64).sum()
+                      - st.ev_delivered.to(torch.int64).sum()),
+        query_acks=acks, query_resps=int(pp.q_resps[q_row, q_slot]),
+        live_responders=live - 1, acks_missing=live - 1 - acks,
+        leave_quiet=int(bool(pp.swim.flags[leaver] & 2)
+                        and int(pp.leave_at[leaver]) == -1))
 
 
 def chaos_events(chaos, n, window, family="all"):
@@ -366,12 +414,12 @@ def chaos_events(chaos, n, window, family="all"):
     return events[pick[family]]
 
 
-def slo_events(chaos, n):
+def slo_events(chaos, n, fault=SLO_FAULT):
     """The SLO window's schedule: the game day's composed partition +
-    churn timeline (as chaos_main_path's, on a SLO_FAULT-tick fault that
+    churn timeline (as chaos_main_path's, on a ``fault``-tick fault that
     the churn leaves 8 ticks early), with the lossy link and the degraded
     block, all from window tick SLO_START."""
-    a, b = SLO_START, SLO_START + SLO_FAULT
+    a, b = SLO_START, SLO_START + fault
     return [
         chaos.Partition(a, b, side_a=slice(0, n // 4)),
         chaos.ChurnWave(a, b - 8, nodes=slice(n // 2, n // 2 + n // 20),
@@ -465,22 +513,11 @@ def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
     sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
                                  int(st.t))
     st = corrupt(st, n, cfg.degree)
-    kp, pp = st, st
-    totals = torch.zeros(len(FIELDS), dtype=torch.int64)
-    bad = []
-    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
-    for t in range(ticks):
-        d = swim.draw_tick(cfg, gen, dev, chaos=True)
-        kp, kc = tick(world, kp, d, sched)
-        pp, pc = cuda_gossip.plain_tick(cfg, topo, world, pp, d, sched,
-                                        sentinel=True)
-        torch.cuda.synchronize()
-        if not torch.equal(kc, pc):
-            bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
-        totals += pc.cpu().to(torch.int64)
-        compare_packed(kp, pp, t, gaps, bad)
-        if bad:
-            break
+    _, totals, bad, gaps = compare_window(
+        tick, lambda w, s, d, sc: cuda_gossip.plain_tick(cfg, topo, w, s, d, sc,
+                                                         sentinel=True),
+        world, st, lambda: swim.draw_tick(cfg, gen, dev, chaos=True), ticks,
+        sched)
     window = {f: int(totals[FIELDS.index(f)]) for f in FIELDS
               if f.startswith(("chaos_", "sentinel_")) or f in (
                   "deaths_declared", "refutations", "suspicions_started")}
@@ -506,6 +543,38 @@ def chaos_ok(res) -> bool:
     return ok
 
 
+def chaos_main_events(chaos, n):
+    """The chaos main path's composed timeline over CHAOS_WINDOW ticks."""
+    return [
+        chaos.Partition(2, 96, side_a=slice(0, n // 4)),
+        chaos.ChurnWave(48, 144, nodes=slice(0, int(n * 0.05)), period=8,
+                        down_ticks=4),
+        chaos.LinkLoss(2, CHAOS_WINDOW, a=slice(n // 4, 3 * n // 8),
+                       b=slice(3 * n // 8, n // 2), fwd=0.8, rev=0.2),
+        chaos.Degrade(2, CHAOS_WINDOW, nodes=slice(n - n // 8, n), tx_loss=0.4),
+    ]
+
+
+def snapshot_at(sim, tick, snap):
+    """Wrap ``sim.draws`` to keep a copy of the state as it stands when
+    tick ``tick`` is drawn (in ``snap["state"]``); returns the own draws
+    to restore."""
+    own = sim.draws
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        return type(x)(*[clone(y) for y in x])
+
+    def draws(t):
+        if t == tick:
+            snap["state"] = clone(sim.state)
+        return own(t)
+
+    sim.draws = draws
+    return own
+
+
 def chaos_main_path(cfg):
     """The chaos north star through Simulation: the sentinel on, 64 ticks
     to form, run_scenario over the composed timeline (CHAOS_WINDOW ticks
@@ -527,26 +596,11 @@ def chaos_main_path(cfg):
     sim.run(64, chunk=64, with_metrics=False)
     torch.cuda.synchronize()
     stages["form"] = {"ticks": 64, "wall_s": round(time.perf_counter() - t0, 3)}
-    events = [
-        chaos.Partition(2, 96, side_a=slice(0, n // 4)),
-        chaos.ChurnWave(48, 144, nodes=slice(0, int(n * 0.05)), period=8,
-                        down_ticks=4),
-        chaos.LinkLoss(2, CHAOS_WINDOW, a=slice(n // 4, 3 * n // 8),
-                       b=slice(3 * n // 8, n // 2), fwd=0.8, rev=0.2),
-        chaos.Degrade(2, CHAOS_WINDOW, nodes=slice(n - n // 8, n), tx_loss=0.4),
-    ]
+    form_launches = dict(cuda_gossip.LAUNCHES)
+    events = chaos_main_events(chaos, n)
     t_window = sim._t
     snap = {}
-    own_draws = sim.draws
-
-    def draws(t):
-        if t == t_window + CHAOS_TIMED_TICK:
-            snap["state"] = type(sim.state)(*[
-                x.clone() if isinstance(x, torch.Tensor)
-                else type(x)(*[y.clone() for y in x]) for x in sim.state])
-        return own_draws(t)
-
-    sim.draws = draws
+    own_draws = snapshot_at(sim, t_window + CHAOS_TIMED_TICK, snap)
     t0 = time.perf_counter()
     res = sim.run_scenario(events, chunk=64, settle=64)
     torch.cuda.synchronize()
@@ -571,6 +625,7 @@ def chaos_main_path(cfg):
                wall_s=round(sum(v["wall_s"] for v in stages.values()), 3),
                setup_s=round(setup_s, 3), sentinel_mask=mask,
                launches=launches, scenario_launches=scenario_launches,
+               form_launches=form_launches,
                bytes_per_node=layout.bytes_per_node(sim.state, n))
     ok = (converged and agreement == 1.0 and finite and mask == 0
           and all(v > 0 for k, v in scenario_launches.items() if k != "serf_post")
@@ -578,6 +633,236 @@ def chaos_main_path(cfg):
     sched = chaos.shift_schedule(
         chaos.compile_schedule(n, events, sim.device), t_window)
     return sim, snap["state"], sched, out, ok
+
+
+def serf_chaos_parity(n: int, packet_loss: float, relay: int, ticks: int,
+                      fault: int, seed: int):
+    """The serf + chaos + sentinel variant against plain_serf_tick(sched,
+    sentinel=True), compared as compare_window does. The window opens on a
+    whole cluster 32 ticks old (no mass kill: with dead rows every SLO
+    indicator reads settled), with an event storm from both sides of the
+    partition, a query from its side A (some responders sit across it), a
+    leave and corrupt() in flight, under slo_events over ``fault`` ticks
+    from window tick SLO_START, suspicion cut to suspicion_mult 1."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import GossipConfig, SerfConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    cfg = SimConfig(n=n, view_degree=32, packet_loss=packet_loss,
+                    gossip=GossipConfig(suspicion_mult=1,
+                                        suspicion_max_timeout_mult=2),
+                    serf=SerfConfig(query_relay_factor=relay))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    st = layout.pack_state(serf.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True,
+                                        sentinel=True)
+    for _ in range(32):
+        st, _ = tick(world, st, serf.draw_serf_tick(cfg, gen, dev))
+    # Origins on both sides of the partition (rows 0..n/4), clear of the
+    # churned, lossy and degraded blocks; the query from side A.
+    q_row, leaver = n // 8 + 101, 3 * n // 4 + 11
+    origins = [n // 8 + 7 * j for j in range(2)] + [
+        5 * n // 8 + 7 * j for j in range(2)]
+    st, q_slot = fire_in_flight(cfg, st, origins, q_row, leaver)
+    st = st._replace(swim=corrupt(st.swim, n, cfg.degree))
+    sched = chaos.shift_schedule(chaos.compile_schedule(
+        n, slo_events(chaos, n, fault), dev), int(st.swim.t))
+    pp, totals, bad, gaps = compare_window(
+        tick, lambda w, s, d, sc: cuda_gossip.plain_serf_tick(
+            cfg, topo, w, s, d, sc, sentinel=True),
+        world, st, lambda: serf.draw_serf_tick(cfg, gen, dev, chaos=True),
+        ticks, sched)
+    window = {f: int(totals[FIELDS.index(f)]) for f in FIELDS
+              if f.startswith(("chaos_", "sentinel_", "serf_")) or f in (
+                  "deaths_declared", "refutations", "suspicions_started")}
+    window.update(serf_in_window(st, pp, q_row, q_slot, leaver))
+    return dict(n=n, k=cfg.degree, packet_loss=packet_loss, relay_factor=relay,
+                ticks=ticks, fault_ticks=fault, mismatches=bad[:5],
+                float_gaps=gaps, in_window=window)
+
+
+def serf_chaos_ok(res) -> bool:
+    """No mismatch; the schedule dropped legs and every SLO counter moved;
+    events were queued, retransmitted and delivered; the query was acked,
+    but not by every live node (the partition kept some acks from its
+    origin); the leave went quiet; the corruption was found, and no clock
+    went back (none can: a clock moves only through the witness max)."""
+    w = res["in_window"]
+    need = ("chaos_msgs_dropped", "chaos_first_suspect_wait",
+            "chaos_confirm_wait", "chaos_heal_wait", "chaos_false_deaths",
+            "serf_intents_queued", "serf_intents_retx", "delivered",
+            "query_acks", "acks_missing", "leave_quiet", "sentinel_range",
+            "sentinel_suspicion", "sentinel_nonfinite_coord",
+            "sentinel_nonfinite_rtt")
+    return (not res["mismatches"] and all(w[f] > 0 for f in need)
+            and w["sentinel_monotonic"] == 0)
+
+
+def dense_events(chaos, n):
+    """The dense windows' schedule, from tick 2 to 14: a partition of
+    rows 0..n/4, a lossy link, a degraded block and one churn pulse that
+    holds 5 % of the rows down for the 12 ticks."""
+    return [chaos.Partition(2, 14, side_a=slice(0, n // 4)),
+            chaos.ChurnWave(2, 14, nodes=slice(n // 2, n // 2 + n // 20),
+                            period=32, down_ticks=12),
+            chaos.LinkLoss(2, 14, a=slice(n // 4, 3 * n // 8),
+                           b=slice(3 * n // 8, n // 2), fwd=0.8, rev=0.2),
+            chaos.Degrade(2, 14, nodes=slice(n - n // 8, n), tx_loss=0.4)]
+
+
+def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate):
+    """One variant on the dense view (n = DENSE_N, K = n - 1) against its
+    plain version over DENSE_TICKS ticks, compared as compare_window
+    does. Without a schedule the window opens after the deaths wave of a
+    5 % kill with another 2.5 % just back from a stall (as parity's); with
+    one (and the sentinel) on a whole cluster 32 ticks old under
+    dense_events, whose churn pulse is the 5 % kill, suspicion cut to
+    suspicion_mult 1. The serf variants carry events, a query and a leave.
+    Also times the variant on the window's last state."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import GossipConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf, state as sim_state, swim
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    n, dev = DENSE_N, torch.device("cuda")
+    gossip = (GossipConfig(suspicion_mult=1, suspicion_max_timeout_mult=2)
+              if chaos_on else GossipConfig())
+    cfg = SimConfig(n=n, view_degree=0, packet_loss=0.01, gossip=gossip)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    assert topo.dense and topo.degree == n - 1
+    init = serf.init if serf_plane else sim_state.init
+    st = layout.pack_state(init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=serf_plane,
+                                        sentinel=chaos_on)
+    plain_fn = cuda_gossip.plain_serf_tick if serf_plane else cuda_gossip.plain_tick
+
+    def draw(sched_on):
+        if serf_plane:
+            return serf.draw_serf_tick(cfg, gen, dev, chaos=sched_on)
+        return swim.draw_tick(cfg, gen, dev, chaos=sched_on)
+
+    def step(s):
+        return tick(world, s, draw(False))
+
+    def edit_swim(s, fn):
+        sw = layout.unpack_state(s)
+        if serf_plane:
+            return layout.pack_state(sw._replace(swim=fn(sw.swim)))
+        return layout.pack_state(fn(sw))
+
+    rows = torch.arange(n, device=dev)
+    if chaos_on:
+        for _ in range(32):
+            st, _ = step(st)
+        warm = 32
+        sched = chaos.shift_schedule(chaos.compile_schedule(
+            n, dense_events(chaos, n), dev), int(layout.tick_of(st)))
+    else:
+        dead = rows < n // 20
+        st, warm = warm_to_deaths(
+            n, step, st, dead, lambda s: s, lambda s: s,
+            lambda s, m: edit_swim(s, lambda sw: sim_state.kill(sw, m)))
+        pause = (rows >= n // 2) & (rows < n // 2 + n // 40)
+        st = edit_swim(st, lambda sw: sim_state.kill(sw, pause))
+        for _ in range(8):
+            st, _ = step(st)
+        st = edit_swim(st, lambda sw: sw._replace(
+            alive_truth=sw.alive_truth | pause))
+        warm += 8
+        sched = None
+    if serf_plane:
+        q_row, leaver = n // 8 + 5, 3 * n // 4 + 1
+        st, q_slot = fire_in_flight(cfg, st, [n // 8, 5 * n // 8 + 3], q_row,
+                                    leaver)
+
+    def plain(w, s, d, sc):
+        return plain_fn(cfg, topo, w, s, d, sc, sentinel=chaos_on)
+
+    pp, totals, bad, gaps = compare_window(
+        tick, plain, world, st, lambda: draw(sched is not None), DENSE_TICKS,
+        sched)
+    window = {f: int(totals[FIELDS.index(f)]) for f in (
+        "suspicions_started", "deaths_declared", "refutations",
+        "chaos_msgs_dropped", "chaos_first_suspect_wait", "chaos_confirm_wait",
+        "chaos_heal_wait", "chaos_false_deaths", "serf_intents_queued")}
+    need = ["suspicions_started", "deaths_declared", "refutations"]
+    if chaos_on:
+        need += ["chaos_first_suspect_wait", "chaos_confirm_wait",
+                 "chaos_heal_wait"]
+    if serf_plane:
+        window.update(serf_in_window(st, pp, q_row, q_slot, leaver))
+        need += ["delivered", "query_acks"]
+    ok = not bad and all(window[f] > 0 for f in need)
+    timing = time_kernel(
+        tick, lambda w, s, d: plain(w, s, d, sched), world, pp, draw(chaos_on),
+        cuda_gossip.tick_hbm_bytes_per_node(pp, world, sched), n, rate,
+        sched=sched)
+    return dict(variant=name, n=n, k=cfg.degree, ticks=DENSE_TICKS, warm=warm,
+                mismatches=bad[:5], float_gaps=gaps, in_window=window,
+                ok=ok), timing
+
+
+def dense_main_path():
+    """The dense view through the entry points, each variant: Simulation
+    or SerfSimulation(SimConfig(n=DENSE_N), kernel="cuda") (view_degree 0,
+    the default: the complete graph), 64 ticks to form, then a 5 % kill,
+    or with the sentinel on run_scenario over dense_events, then
+    run_until_converged. The serf variants fire an event from a live row
+    after the fault; its coverage is read at the end."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models import cluster, counters, serf
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n = DENSE_N
+    out = {}
+    for name, serf_plane, chaos_on in DENSE_VARIANTS:
+        cls = cluster.SerfSimulation if serf_plane else cluster.Simulation
+        t0 = time.perf_counter()
+        sim = cls(SimConfig(n=n), seed=3)
+        sim.set_sentinel(chaos_on)
+        reset_launches()
+        sim.run(64, chunk=64, with_metrics=False)
+        slo = None
+        if chaos_on:
+            slo = sim.run_scenario(dense_events(chaos, n), chunk=32,
+                                   settle=32).slo
+        else:
+            sim.kill(torch.arange(n) < n // 20)
+        origin = n // 8 + 3
+        if serf_plane:
+            lt = int(sim.state.event_clock[origin])
+            sim.user_event(_rows(n, [origin], "cpu"), 9)
+        converged, used, trace = sim.run_until_converged(max_ticks=4096,
+                                                         chunk=64)
+        torch.cuda.synchronize()
+        res = dict(n=n, k=sim.cfg.degree, dense=sim.topo.dense,
+                   converged=converged, ticks_total=sim._t,
+                   agreement=float(trace.agreement[-1]),
+                   wall_s=round(time.perf_counter() - t0, 3),
+                   launches=dict(cuda_gossip.LAUNCHES), slo=slo,
+                   sentinel_mask=counters.violation_mask(sim.counters))
+        if serf_plane:
+            res["coverage"] = float(serf.event_coverage(
+                sim.cfg, sim.serf_state, serf.make_event_key(lt, 9), origin))
+        res["ok"] = (converged and res["agreement"] == 1.0 and sim.topo.dense
+                     and res["sentinel_mask"] == 0
+                     and res["launches"]["probe_send"] > 0
+                     and (res["launches"]["chaos_pre"] > 0) == chaos_on
+                     and (res["launches"]["serf_post"] > 0) == serf_plane
+                     and res.get("coverage", 1.0) == 1.0)
+        out[name] = res
+    return out
 
 
 def _rows(n, rows, dev):
@@ -599,6 +884,96 @@ def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate, sched=None):
                 buffer_bytes_per_node=buffers,
                 buffer_bytes_per_s=buffers * n / (ms * 1e-3),
                 ms_by_launch=stages)
+
+
+def serf_chaos_main_path(cfg):
+    """The new path of this slice through SerfSimulation: the sentinel on,
+    64 ticks to form, 4 user events from live rows and a query from a
+    live row, all on the partition's side A (an event must cross before
+    the partition starts at window tick 2 to reach both sides, and one
+    from side A, a quarter of the ring, all but surely does), then
+    run_scenario over the chaos main path's timeline (CHAOS_WINDOW ticks
+    plus 64 to settle), then 4 fresh events from live rows and
+    run_until_converged. Passes when it converges with agreement 1.0, the
+    fresh events' coverage is 1.0 and the sentinel mask is 0. The events
+    fired into the fault are reported, not held to 1.0: a partition that
+    starts while an event spreads leaves a residual of members that never
+    hear it (their holders spend the retransmit budget on legs the
+    partition drops, and nothing re-sends a spent event), in the
+    reference as here (PERF.md). Also keeps the state at window
+    tick CHAOS_TIMED_TICK."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster, counters, layout, serf
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n = cfg.n
+    t0 = time.perf_counter()
+    sim = cluster.SerfSimulation(cfg, seed=0, layout="packed", kernel="cuda")
+    sim.set_sentinel(True)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    sim.run(64, chunk=64, with_metrics=False)
+    torch.cuda.synchronize()
+    stages["form"] = {"ticks": 64, "wall_s": round(time.perf_counter() - t0, 3)}
+    # Clear of the churned rows 0..n/20.
+    origins = [n // 20 + 1 + (n // 16) * j for j in range(SERF_EVENTS)]
+    fired = [(int(sim.state.event_clock[r]), 1, r) for r in origins]
+    sim.user_event(_rows(n, origins, "cpu"), 1)
+    q_row = n // 8 + 3
+    sim.query(_rows(n, [q_row], "cpu"), 3)
+    q_slot = serf.newest_query_slot(sim.state, q_row)
+    snap = {}
+    own_draws = snapshot_at(sim, sim._t + CHAOS_TIMED_TICK, snap)
+    t_window = sim._t
+    t0 = time.perf_counter()
+    res = sim.run_scenario(chaos_main_events(chaos, n), chunk=64, settle=64)
+    torch.cuda.synchronize()
+    stages["scenario"] = {"ticks": res.ticks,
+                          "wall_s": round(time.perf_counter() - t0, 3)}
+    sim.draws = own_draws
+    fresh = [r + n // 2 for r in origins]
+    fired += [(int(sim.state.event_clock[r]), 2, r) for r in fresh]
+    sim.user_event(_rows(n, fresh, "cpu"), 2)
+    t0 = time.perf_counter()
+    converged, used, trace = sim.run_until_converged(max_ticks=4096, chunk=128)
+    torch.cuda.synchronize()
+    stages["converge"] = {"ticks": used,
+                          "wall_s": round(time.perf_counter() - t0, 3)}
+    launches = dict(cuda_gossip.LAUNCHES)
+    state = sim.serf_state
+    coverage = [dict(ltime=lt, name=name, origin=r,
+                     fired="into the fault" if name == 1 else "after it",
+                     coverage=float(serf.event_coverage(
+                         cfg, state, serf.make_event_key(lt, name), r)))
+                for lt, name, r in fired]
+    agreement = float(trace.agreement[-1])
+    finite = bool(torch.isfinite(trace.rmse).all()) and bool(
+        torch.isfinite(state.swim.viv.vec).all())
+    mask = counters.violation_mask(sim.counters)
+    out = dict(n=n, k=cfg.degree, slo=res.slo, scenario_counters=res.counters,
+               stages=stages, converged=converged, ticks_after_scenario=used,
+               ticks_total=sim._t, agreement=agreement,
+               rmse_ms=float(trace.rmse[-1]) * 1000.0,
+               wall_s=round(sum(v["wall_s"] for v in stages.values()), 3),
+               setup_s=round(setup_s, 3), sentinel_mask=mask,
+               coverage=coverage,
+               query={"origin": q_row, "slot": q_slot,
+                      "acks": int(state.q_acks[q_row, q_slot]),
+                      "resps": int(state.q_resps[q_row, q_slot]),
+                      "live_nodes": int((state.swim.alive_truth
+                                         & ~state.swim.left).sum())},
+               launches=launches,
+               bytes_per_node=layout.bytes_per_node(sim.state, n))
+    ok = (converged and agreement == 1.0 and finite and mask == 0
+          and all(c["coverage"] == 1.0 for c in coverage if c["name"] == 2)
+          and all(v > 0 for v in launches.values())
+          and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
+    sched = chaos.shift_schedule(
+        chaos.compile_schedule(n, chaos_main_events(chaos, n), sim.device),
+        t_window)
+    return sim, snap["state"], sched, out, ok
 
 
 def serf_main_path(cfg):
@@ -696,8 +1071,14 @@ def main() -> int:
           "library": os.path.relpath(info.path), "ptxas": regs})
 
     failed = []
-    max_abs = {"gossip_tick": 0.0, "gossip_tick_serf": 0.0,
-               "gossip_tick_chaos": 0.0}
+    max_abs = {k: 0.0 for k in (
+        "gossip_tick", "gossip_tick_serf", "gossip_tick_chaos",
+        "gossip_tick_sentinel", "gossip_tick_serf_chaos")}
+    max_abs.update({"gossip_tick_" + v[0]: 0.0 for v in DENSE_VARIANTS})
+
+    def fold_abs(name, res):
+        max_abs[name] = max([max_abs[name]] + [
+            g["abs"] for g in res["float_gaps"].values()])
     for n, loss in PARITY:
         t0 = time.perf_counter()
         res = parity(n, loss, PARITY_TICKS, seed=7)
@@ -706,8 +1087,7 @@ def main() -> int:
         res["ok"] = not res["mismatches"] and all(
             res["counters_in_window"][f] > 0
             for f in ("suspicions_started", "deaths_declared", "refutations"))
-        max_abs["gossip_tick"] = max([max_abs["gossip_tick"]] + [
-            g["abs"] for g in res["float_gaps"].values()])
+        fold_abs("gossip_tick", res)
         emit({"phase": "kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"kernel_parity n={n}")
@@ -721,8 +1101,7 @@ def main() -> int:
                 "serf_intents_queued", "serf_intents_retx",
                 "serf_intents_dropped", "delivered", "query_acks",
                 "leave_quiet"))
-        max_abs["gossip_tick_serf"] = max([max_abs["gossip_tick_serf"]] + [
-            g["abs"] for g in res["float_gaps"].values()])
+        fold_abs("gossip_tick_serf", res)
         emit({"phase": "serf_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"serf_kernel_parity n={n}")
@@ -732,8 +1111,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = chaos_ok(res)
-        max_abs["gossip_tick_chaos"] = max([max_abs["gossip_tick_chaos"]] + [
-            g["abs"] for g in res["float_gaps"].values()])
+        fold_abs("gossip_tick_chaos", res)
         emit({"phase": "chaos_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"chaos_kernel_parity n={n}")
@@ -746,11 +1124,32 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = chaos_ok(res)
-        max_abs["gossip_tick_chaos"] = max([max_abs["gossip_tick_chaos"]] + [
-            g["abs"] for g in res["float_gaps"].values()])
+        fold_abs("gossip_tick_sentinel" if family == "none"
+                 else "gossip_tick_chaos", res)
         emit({"phase": "chaos_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"chaos_kernel_parity n={n} family={family}")
+    for n, loss, relay, ticks, fault in SERF_CHAOS_PARITY:
+        t0 = time.perf_counter()
+        res = serf_chaos_parity(n, loss, relay, ticks, fault, seed=23)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        res["ok"] = serf_chaos_ok(res)
+        fold_abs("gossip_tick_serf_chaos", res)
+        emit({"phase": "serf_chaos_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"serf_chaos_kernel_parity n={n}")
+    dense_t = {}
+    for variant, serf_plane, chaos_on in DENSE_VARIANTS:
+        t0 = time.perf_counter()
+        res, dense_t[variant] = dense_parity(variant, serf_plane, chaos_on,
+                                             seed=29, rate=rate)
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        fold_abs("gossip_tick_" + variant, res)
+        emit({"phase": "dense_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"dense_kernel_parity {variant}")
+    emit({"phase": "dense_timing", "n": DENSE_N, **dense_t})
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1
@@ -804,7 +1203,11 @@ def main() -> int:
     if not ok:
         emit({"phase": "failed", "failed": ["chaos_main_path"]})
         return 1
-    chaos_launches = sum(res["launches"].values())
+    # The scenario's ticks ran the chaos + sentinel variant; forming and
+    # converging ran the sentinel variant without a schedule.
+    form, scen, final = (sum(res[k].values()) for k in (
+        "form_launches", "scenario_launches", "launches"))
+    chaos_launches, sentinel_launches = scen - form, form + final - scen
     ctick = cuda_gossip.make_tick_kernel(cfg, csim.topo, sentinel=True)
     d = swim.draw_tick(cfg, csim.gen, csim.device, chaos=True)
     chaos_t = time_kernel(
@@ -816,6 +1219,16 @@ def main() -> int:
         cfg.n, rate, sched=csched)
     emit({"phase": "chaos_timing", "window_tick": CHAOS_TIMED_TICK,
           "t": int(cstate.t), **chaos_t})
+    # The sentinel variant without a schedule, on the converged state.
+    d = swim.draw_tick(cfg, csim.gen, csim.device)
+    sentinel_t = time_kernel(
+        ctick,
+        lambda w, s, dd: cuda_gossip.plain_tick(cfg, csim.topo, w, s, dd,
+                                                sentinel=True),
+        csim.world, csim.state, d,
+        cuda_gossip.tick_hbm_bytes_per_node(csim.state, csim.world), cfg.n,
+        rate)
+    emit({"phase": "sentinel_timing", "t": int(csim.state.t), **sentinel_t})
     del csim, ctick, cstate, csched, d
     torch.cuda.empty_cache()
 
@@ -834,6 +1247,38 @@ def main() -> int:
         ssim.world, ssim.state, d,
         cuda_gossip.tick_hbm_bytes_per_node(ssim.state, ssim.world), cfg.n, rate)
     emit({"phase": "serf_timing", **serf_t})
+    del ssim, stick, d
+    torch.cuda.empty_cache()
+
+    # This slice's path: serf with the composed timeline and the sentinel,
+    # and its variant's timing inside the fault window under the schedule.
+    xsim, xstate, xsched, res, ok = serf_chaos_main_path(cfg)
+    emit({"phase": "serf_chaos_main_path", **res})
+    if not ok:
+        emit({"phase": "failed", "failed": ["serf_chaos_main_path"]})
+        return 1
+    serf_chaos_launches = sum(res["launches"].values())
+    xtick = cuda_gossip.make_tick_kernel(cfg, xsim.topo, serf_plane=True,
+                                         sentinel=True)
+    d = serf.draw_serf_tick(cfg, xsim.gen, xsim.device, chaos=True)
+    serf_chaos_t = time_kernel(
+        xtick,
+        lambda w, s, dd: cuda_gossip.plain_serf_tick(cfg, xsim.topo, w, s, dd,
+                                                     xsched, sentinel=True),
+        xsim.world, xstate, d,
+        cuda_gossip.tick_hbm_bytes_per_node(xstate, xsim.world, xsched), cfg.n,
+        rate, sched=xsched)
+    emit({"phase": "serf_chaos_timing", "window_tick": CHAOS_TIMED_TICK,
+          "t": int(xstate.swim.t), **serf_chaos_t})
+    del xsim, xtick, xstate, xsched, d
+    torch.cuda.empty_cache()
+
+    # The dense view through the entry points, each variant.
+    dense_runs = dense_main_path()
+    emit({"phase": "dense_main_path", **dense_runs})
+    if not all(r["ok"] for r in dense_runs.values()):
+        emit({"phase": "failed", "failed": ["dense_main_path"]})
+        return 1
 
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
@@ -844,6 +1289,14 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": "bytes", "library_ms": None}
 
+    steps = {False: "swim.step_counted", True: "serf.step_counted (extra_tx)"}
+    dense_rows = [
+        row("gossip_tick_" + v, f"step_fn={steps[sp]}, "
+            + ("sched=<dense_events>, sentinel=True" if ch
+               else "sched=None, sentinel=False")
+            + f", dense (K = {DENSE_N - 1}), packed",
+            sum(dense_runs[v]["launches"].values()), dense_t[v])
+        for v, sp, ch in DENSE_VARIANTS]
     print(json.dumps({"kernels": [
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
             "sentinel=False, sparse, packed", swim_launches, swim_t),
@@ -851,7 +1304,12 @@ def main() -> int:
             "sched=None, sentinel=False, sparse, packed", serf_launches,
             serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
-            "sentinel=True, sparse, packed", chaos_launches, chaos_t)]}),
+            "sentinel=True, sparse, packed", chaos_launches, chaos_t),
+        row("gossip_tick_sentinel", "step_fn=swim.step_counted, sched=None, "
+            "sentinel=True, sparse, packed", sentinel_launches, sentinel_t),
+        row("gossip_tick_serf_chaos", "step_fn=serf.step_counted (extra_tx), "
+            "sched=<composed> or None, sentinel=True, sparse, packed",
+            serf_chaos_launches, serf_chaos_t)] + dense_rows}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

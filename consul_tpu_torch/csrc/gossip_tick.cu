@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel consul_tpu/ops/pallas_gossip.py:make_tick_kernel
 // (pallas_call at :145) with step_fn=swim.step_counted, no chaos schedule,
-// no sentinel, sparse circulant view (K <= 255), packed layout: it computes
+// no sentinel, circulant view of K <= 255 columns, packed layout: it computes
 // unpack -> swim.step_counted -> pack plus the stacked int32 counters.
 //
 // What bounds it: bytes. The tick is branchy integer work with a few dozen
@@ -58,9 +58,10 @@
 //       origin row's q_acks (and q_resps) slot with an int32 atomicAdd,
 //       exact in any order. The slot match reads q_open_key from the INPUT
 //       (pre-expiry, serf.py:723 then :558); the origin's and each relay
-//       row's liveness is recomputed post-quiet from their input flags and
-//       leave_at. D copies its row's dedup buckets to the output and
-//       updates them there, in the order the reference rejects in.
+//       row's liveness is recomputed post-quiet from their flags (after
+//       P's churn edges, under a schedule) and leave_at. D copies its
+//       row's dedup buckets to the output and updates them there, in the
+//       order the reference rejects in.
 //
 // The chaos + sentinel variant replaces the same pallas_call with a
 // non-empty ChaosSchedule (I_CHAOS = 1) and/or sentinel=True
@@ -91,6 +92,25 @@
 //       range, monotonicity and suspicion violations on the final values.
 // Survival products multiply in the reference's order (chaos.pair_ok):
 // a one-ulp difference in a threshold would flip a draw.
+//
+// The serf + chaos + sentinel variant (I_SERF = 1 with I_CHAOS and/or
+// I_SENTINEL) replaces the same pallas_call with step_fn=serf.step_counted
+// under a schedule and/or the sentinel. P runs first, A, B and C are the
+// chaos variant's, and D reads every liveness after the churn edges
+// (flags_at): its own flags, which it writes back with the quiet bit, the
+// origin's and each relay row's. The tally's direct response and both
+// legs of each relayed copy are pair_ok legs on P's terms (the origin's at
+// worig, a relay's at r + off[rcols[k]]), and the relays run under a
+// schedule even without loss. Each intake leg arrives on the one-way
+// pair_ok that gates the membership leg in B. With the sentinel D adds its
+// rows' Lamport regressions to sentinel_monotonic; the SWIM-plane checks,
+// the SLO indicators and false deaths stay in A and C, where the reference
+// takes them (inside swim.step_counted, before serf's quiet leave).
+//
+// Every variant also takes the dense view (I_DENSE = 1: the complete graph,
+// K = N - 1 <= 255): the wrapper builds rcol and inv from the closed forms
+// of topology.remap_row / inv_col, and the gossip displacements are the
+// draws' i.i.d. gossip_jcols instead of the sweep (gossip_col).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,7 +130,7 @@ enum Ptr {
   P_OUT = N_LEAVES,             // + Leaf: output packed state
   P_POS = 2 * N_LEAVES, P_HEIGHT,
   P_JITTER, P_U2, P_RELAY, P_UA, P_UB, P_UC, P_PERMU, P_VIVFB, P_GRAVFB,
-  P_UDROP, P_PPJ,
+  P_UDROP, P_PPJ, P_GJCOLS,
   P_OFF, P_RCOL, P_INV,
   P_VMID, P_PFLAGS, P_PSCOL, P_PSKEY, P_PSBITS, P_POWNK, P_POKE, P_REFUTE,
   P_CNT,
@@ -140,7 +160,7 @@ enum Int {
   I_N, I_K, I_S, I_D, I_W, I_WD, I_IC, I_FAN, I_P, I_TX_LIMIT, I_SUSP_K,
   I_PP_PERIOD, I_OWN_LIMIT, I_PROBE_PERIOD, I_AWARE_MAX,
   I_SERF, I_E, I_R, I_O, I_Q, I_PE, I_RF, I_ORIG16, I_EXACT_SIG,
-  I_CHAOS, I_SENTINEL, I_NP, I_NL, I_NC, I_ND, N_INT
+  I_CHAOS, I_SENTINEL, I_NP, I_NL, I_NC, I_ND, I_DENSE, N_INT
 };
 
 enum Flt {
@@ -300,6 +320,15 @@ __device__ bool pair_ok(const TickArgs& a, const Terms& s, const Terms& d, float
 
 __device__ __forceinline__ bool in_window(int t, int start, int stop) {
   return t >= start && t < stop;
+}
+
+// The tick's f-th gossip displacement column (swim._gossip_jcols): the
+// draws' i.i.d. columns on the dense view, the phase-free sweep (any
+// ceil(K / fan) consecutive ticks serve every column) on the sparse one.
+__device__ __forceinline__ int gossip_col(const TickArgs& a, int t, int f) {
+  if (a.i[I_DENSE]) return static_cast<int>(ptr<const int64_t>(a, P_GJCOLS)[f]);
+  const int K = a.i[I_K], FAN = a.i[I_FAN];
+  return ((t % ((K + FAN - 1) / FAN)) * FAN + f) % K;
 }
 
 // ---------------------------------------------------------------------------
@@ -899,8 +928,6 @@ __global__ void k_probe_send(TickArgs a) {
 
     // 4. Gossip sender side: top-P by remaining budget (max value, lowest
     //    index on ties), budget decrements, the own-fact.
-    const int sweep_len = (K + FAN - 1) / FAN;
-    const int jpos = (t % sweep_len) * FAN;
     int scol[8];
     int nvalid = 0;
     uint32_t vbits = 0;
@@ -927,7 +954,7 @@ __global__ void k_probe_send(TickArgs a) {
     int n_sends = 0;
     uint32_t sbits_f = 0;
     for (int f = 0; f < FAN; ++f) {
-      const int jc = (jpos + f) % K;
+      const int jc = gossip_col(a, t, f);
       if (active && contactable(vmid[rb + jc])) {
         sbits_f |= 1u << f;
         ++n_sends;
@@ -961,7 +988,7 @@ __global__ void k_probe_send(TickArgs a) {
     if (a.i[I_SERF]) {
       uint32_t xbits = 0;
       for (int f = 0; f < FAN; ++f) {
-        const int jc = (jpos + f) % K;
+        const int jc = gossip_col(a, t, f);
         if (alive && !left && contactable(vmid[rb + jc])) xbits |= 1u << f;
       }
       const int E = a.i[I_E], PE = a.i[I_PE], Q = a.i[I_Q];
@@ -1036,8 +1063,6 @@ __global__ void k_receive(TickArgs a) {
     const uint8_t fl = flags_at(a, r);
     const bool recv_up = (fl & 1) && !(fl & 2);
     const uint32_t own_inc = inc_at(a, r);
-    const int sweep_len = (K + FAN - 1) / FAN;
-    const int jpos = (t % sweep_len) * FAN;
     const bool chaos = a.i[I_CHAOS] != 0;
     const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
 
@@ -1045,7 +1070,7 @@ __global__ void k_receive(TickArgs a) {
     int n_rx = 0, n_cdrop = 0;
     uint32_t arrived_bits = 0;
     for (int f = 0; f < FAN; ++f) {
-      const int jc = (jpos + f) % K;
+      const int jc = gossip_col(a, t, f);
       const int s = (r - off[jc] + n) % n;
       const uint16_t pf = pflags[s];
       const float u = udrop[static_cast<size_t>(r) * FAN + f];
@@ -1078,7 +1103,7 @@ __global__ void k_receive(TickArgs a) {
     // Lifeguard confirmations against the post-merge view.
     for (int f = 0; f < FAN; ++f) {
       if (!((arrived_bits >> f) & 1)) continue;
-      const int jc = (jpos + f) % K;
+      const int jc = gossip_col(a, t, f);
       const int s = (r - off[jc] + n) % n;
       const uint16_t pf = pflags[s];
       for (int q = 0; q < P; ++q) {
@@ -1312,10 +1337,10 @@ __global__ void k_pushpull(TickArgs a) {
 //     (serf.py:539-568 and _fused_event_post_body :802-895).
 // ---------------------------------------------------------------------------
 
-// Post-quiet liveness of row x (alive_truth & ~left after the tick's quiet
-// leaves), from its input flags and leave_at.
+// Post-quiet liveness of row x (alive_truth & ~left after the tick's churn
+// edges and quiet leaves), from its post-churn flags and leave_at.
 __device__ __forceinline__ bool serf_up(const TickArgs& a, int x, int t1) {
-  const uint8_t f = ptr<const uint8_t>(a, P_IN + L_FLAGS)[x];
+  const uint8_t f = flags_at(a, x);
   const int la = ptr<const int32_t>(a, P_SIN + S_LEAVE)[x];
   return (f & 1) && !(f & 2) && !(la >= 0 && t1 >= la);
 }
@@ -1339,7 +1364,8 @@ __global__ void k_serf_post(TickArgs a) {
     const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O], Q = a.i[I_Q];
     const int PE = a.i[I_PE], RF = a.i[I_RF];
     const bool exact = a.i[I_EXACT_SIG] != 0;
-    const float pl = a.f[F_PLOSS];
+    const bool chaos = a.i[I_CHAOS] != 0;
+    const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
     const int t = *ptr<const int32_t>(a, P_IN + L_T);
     const int t1 = t + 1;
     const int32_t* off = ptr<const int32_t>(a, P_OFF);
@@ -1347,8 +1373,10 @@ __global__ void k_serf_post(TickArgs a) {
     const size_t qb = static_cast<size_t>(r) * Q;
     const size_t rb = static_cast<size_t>(r) * K;
 
-    // Quiet leaves: left |= quiet, in the row's own packed flags.
-    const uint8_t fl = ptr<const uint8_t>(a, P_IN + L_FLAGS)[r];
+    // Quiet leaves: left |= quiet, in the row's own packed flags, on top of
+    // the tick's churn edges (what A wrote there).
+    const uint8_t fl = static_cast<uint8_t>(flags_at(a, r) & ~REVIVED);
+    const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
     const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
     const bool quiet = leave_in >= 0 && t1 >= leave_in;
     const bool alive = fl & 1, left = fl & 2, external = fl & 8;
@@ -1382,8 +1410,10 @@ __global__ void k_serf_post(TickArgs a) {
     Bucket qub{ptr<uint32_t>(a, P_SOUT + S_QBLT) + bb,
                ptr<uint32_t>(a, P_SOUT + S_QBSIG) + sb,
                ptr<const uint32_t>(a, P_SIN + S_QFLOOR)[r], R, O, exact};
-    uint32_t eclock = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
-    uint32_t qclock = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
+    const uint32_t clock0 = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
+    const uint32_t eclock0 = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
+    const uint32_t qclock0 = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
+    uint32_t eclock = eclock0, qclock = qclock0;
     int delivered = ptr<const int32_t>(a, P_SIN + S_EDELIV)[r];
 
     // 1. Deliver the oldest staged-undelivered entry.
@@ -1408,16 +1438,26 @@ __global__ void k_serf_post(TickArgs a) {
     if (deliver && is_q) {
       qub.apply(wkey, worig);
       qclock = max(qclock, lt + 1u);
-      // The query tally: ack (and answer) the origin's open slot.
-      bool arrived = ptr<const float>(a, P_URESP)[r] >= pl;
-      if (RF > 0 && pl > 0.0f) {
+      // The query tally: ack (and answer) the origin's open slot. Under a
+      // schedule the direct response and both legs of each relayed copy
+      // are pair_ok legs, with the origin's terms read at its row.
+      const float ur = ptr<const float>(a, P_URESP)[r];
+      const Terms og = chaos ? terms_at(a, worig) : me;
+      bool arrived = chaos ? pair_ok(a, me, og, ur, keep, false) : ur >= pl;
+      if (RF > 0 && (chaos || pl > 0.0f)) {
         const int64_t* rcols = ptr<const int64_t>(a, P_RCOLS);
         const float* u1 = ptr<const float>(a, P_RU1);
         const float* u2 = ptr<const float>(a, P_RU2);
         for (int k = 0; k < RF; ++k) {
           const int rrow = (r + off[rcols[k]]) % n;
           const size_t u = static_cast<size_t>(r) * RF + k;
-          if (serf_up(a, rrow, t1) && u1[u] >= pl && u2[u] >= pl) arrived = true;
+          bool legs = u1[u] >= pl && u2[u] >= pl;
+          if (chaos) {
+            const Terms rt = terms_at(a, rrow);
+            legs = pair_ok(a, me, rt, u1[u], keep, false) &&
+                   pair_ok(a, rt, og, u2[u], keep, false);
+          }
+          if (serf_up(a, rrow, t1) && legs) arrived = true;
         }
       }
       if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
@@ -1451,10 +1491,10 @@ __global__ void k_serf_post(TickArgs a) {
       if (tx[e] <= 0 && !pend[e]) key[e] = 0u;
 
     // 3. Intake: up to 2 fresh arrivals off the legs, re-read from the
-    //    senders' payloads at this tick's displacements.
+    //    senders' payloads at this tick's displacements. A leg arrives as
+    //    the membership leg does in B: its drop draw (a one-way pair_ok
+    //    under a schedule) and the receiver's pre-quiet liveness.
     const bool recv_up = alive && !left;
-    const int sweep_len = (K + FAN - 1) / FAN;
-    const int jpos = (t % sweep_len) * FAN;
     const uint16_t* xflags = ptr<const uint16_t>(a, P_XFLAGS);
     const uint32_t* xkey = ptr<const uint32_t>(a, P_XKEY);
     const int32_t* xorig = ptr<const int32_t>(a, P_XORIG);
@@ -1463,11 +1503,13 @@ __global__ void k_serf_post(TickArgs a) {
     int co[MAXC];
     uint32_t fresh = 0;
     for (int f = 0; f < FAN; ++f) {
-      const int jc = (jpos + f) % K;
+      const int jc = gossip_col(a, t, f);
       const int s = (r - off[jc] + n) % n;
       const uint32_t xs = xflags[s];
-      const bool leg = ((xs >> f) & 1u) &&
-                       udrop[static_cast<size_t>(r) * FAN + f] >= pl && recv_up;
+      const float u = udrop[static_cast<size_t>(r) * FAN + f];
+      const bool ok_leg = chaos ? pair_ok(a, terms_at(a, s), me, u, keep, false)
+                                : u >= pl;
+      const bool leg = ((xs >> f) & 1u) && ok_leg && recv_up;
       for (int q = 0; q < PE; ++q) {
         const int c = f * PE + q;
         const bool ok = leg && ((xs >> (8 + q)) & 1u);
@@ -1518,6 +1560,10 @@ __global__ void k_serf_post(TickArgs a) {
     bc.add(C_SQUEUED, queued);
     bc.add(C_SRETX, n_retx);
     bc.add(C_SDROPPED, dropped);
+    // Sentinel: Lamport regressions within the tick (the clocks move only
+    // through the witness max, so any is corruption).
+    if (a.i[I_SENTINEL])
+      bc.add(C_SMONO, (eclock < eclock0) + (qclock < qclock0));
 
     // Write the queue, clocks and buffers' scalars.
     uint32_t* o_key = ptr<uint32_t>(a, P_SOUT + S_EKEY) + eb;
@@ -1529,7 +1575,7 @@ __global__ void k_serf_post(TickArgs a) {
       o_tx[e] = static_cast<int8_t>(tx[e]);
       o_pend[e] = pend[e] ? 1 : 0;
     }
-    ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
+    ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = clock0;
     ptr<uint32_t>(a, P_SOUT + S_ECLOCK)[r] = eclock;
     ptr<uint32_t>(a, P_SOUT + S_QCLOCK)[r] = qclock;
     ptr<uint32_t>(a, P_SOUT + S_EFLOOR)[r] = evb.floor;

@@ -5,7 +5,8 @@ per-tick metrics trace and convergence detection, for the bare SWIM tick
 fused serf tick (``SerfSimulation``).
 
 ``Simulation(cfg, seed)`` builds the world, topology and state on the
-card and steps the packed state through the CUDA tick kernel. Pass
+card and steps the packed state through the CUDA tick kernel, on the
+sparse view or the dense one (``view_degree=0``, n <= 256). Pass
 ``device="cpu", kernel="torch"`` for the plain PyTorch path on the CPU.
 Nothing falls back: ``kernel="cuda"`` without a CUDA device, or with the
 dense layout, raises.
@@ -128,6 +129,10 @@ class Simulation:
         self.chunk_counters = []
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
+    _serf_plane = False
+    _step = staticmethod(swim.step_counted)
+    _plain_tick = staticmethod(cuda_gossip.plain_tick)
+
     def _own_draws(self, t):
         return swim.draw_tick(self.cfg, self.gen, self.device,
                               chaos=self.chaos is not None)
@@ -139,14 +144,15 @@ class Simulation:
         """``tick(world, state, draws, sched) -> (state, counters[26])``."""
         cfg, topo, sentinel = self.cfg, self.topo, self.sentinel
         if self.kernel == cuda_gossip.CUDA:
-            return cuda_gossip.make_tick_kernel(cfg, topo, sentinel=sentinel)
+            return cuda_gossip.make_tick_kernel(
+                cfg, topo, serf_plane=self._serf_plane, sentinel=sentinel)
+        plain, step = self._plain_tick, self._step
         if self.layout == layout_mod.PACKED:
-            return lambda w, s, d, sched: cuda_gossip.plain_tick(
-                cfg, topo, w, s, d, sched, sentinel)
+            return lambda w, s, d, sched: plain(cfg, topo, w, s, d, sched,
+                                                sentinel)
 
         def dense_tick(w, s, d, sched):
-            s, c = swim.step_counted(cfg, topo, w, s, d, sched=sched,
-                                     sentinel=sentinel)
+            s, c = step(cfg, topo, w, s, d, sched=sched, sentinel=sentinel)
             return s, counters_mod.stack(c)
         return dense_tick
 
@@ -338,40 +344,22 @@ class SerfSimulation(Simulation):
     """The full-stack driver: ``serf.step_counted`` (SWIM + events +
     queries + reap) instead of the bare SWIM tick, with the serf verbs.
     Metrics and convergence read the SWIM plane. ``draws`` maps the tick
-    number to a :class:`serf.SerfDraws`; by default the simulation draws
-    from its own generator. ``kernel="cuda"`` runs the serf variant of the
-    CUDA tick kernel. Fault schedules and the sentinel are not ported
-    for the serf tick yet (ROADMAP B6)."""
+    number to a :class:`serf.SerfDraws` (``draw_serf_tick(..., chaos=True)``
+    while a schedule is installed); by default the simulation draws from
+    its own generator. ``kernel="cuda"`` runs the serf variant of the CUDA
+    tick kernel; ``set_chaos``, ``run_scenario`` and ``set_sentinel`` are
+    Simulation's, over the serf tick."""
+
+    _serf_plane = True
+    _step = staticmethod(serf.step_counted)
+    _plain_tick = staticmethod(cuda_gossip.plain_serf_tick)
 
     def _own_draws(self, t):
-        return serf.draw_serf_tick(self.cfg, self.gen, self.device)
+        return serf.draw_serf_tick(self.cfg, self.gen, self.device,
+                                   chaos=self.chaos is not None)
 
     def _init_state(self):
         return serf.init(self.cfg, self.gen, self.device)
-
-    def _make_tick_fn(self):
-        cfg, topo = self.cfg, self.topo
-        if self.kernel == cuda_gossip.CUDA:
-            return cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True)
-        if self.layout == layout_mod.PACKED:
-            return lambda w, s, d, sched: cuda_gossip.plain_serf_tick(
-                cfg, topo, w, s, d)
-
-        def dense_tick(w, s, d, sched):
-            s, c = serf.step_counted(cfg, topo, w, s, d)
-            return s, counters_mod.stack(c)
-        return dense_tick
-
-    def set_chaos(self, sched):
-        if sched is not None:
-            raise NotImplementedError("fault schedules on the serf tick are "
-                                      "not ported yet (ROADMAP B6)")
-        self.chaos = None
-
-    def set_sentinel(self, on: bool, dump_dir: Optional[str] = None):
-        if on or dump_dir is not None:
-            raise NotImplementedError("the sentinel on the serf tick is not "
-                                      "ported yet (ROADMAP B6)")
 
     def set_swim_state(self, st: sim_state.SimState):
         self._from_dense(self._to_dense()._replace(swim=st))

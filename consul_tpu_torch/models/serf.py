@@ -28,7 +28,13 @@ The reference's ``step_counted`` gates the post-gossip half on "any
 queued event or open query" (``lax.cond``) and runs it unconditionally
 inside its kernel; with nothing queued every mask of the body is false
 and it passes the state through, so the port runs it unconditionally,
-as the kernel does. No chaos schedule and no sentinel in this slice.
+as the kernel does.
+
+**Faults and the sentinel.** ``step_counted(..., sched=, sentinel=)``
+hands a fault schedule (chaos/schedule.py) and the invariant sentinel to
+the SWIM tick, gates the query tally's direct response and both legs of
+each relayed copy on ``chaos.pair_ok``, and with the sentinel adds the
+Lamport-clock regressions of the tick to ``sentinel_monotonic``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from consul_tpu_torch.chaos import schedule as chaos_mod
 from consul_tpu_torch.config import SimConfig, to_ticks
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import state as sim_state
@@ -389,8 +396,7 @@ def leave(cfg: SimConfig, s: SerfState, mask) -> SerfState:
 class SerfDraws(NamedTuple):
     """Every random number one serf tick consumes: the SWIM tick's bundle
     (``k_swim``) and the query-response draws of ``k_ev`` (serf.py:498,
-    :683-700). The relay draws are empty unless ``query_relay_factor > 0``
-    and ``packet_loss > 0``."""
+    :683-700). The relay draws are empty unless :func:`relay_draws_used`."""
 
     swim: swim.TickDraws
     u_resp: torch.Tensor      # [N] f32 uniform              k_ev
@@ -399,16 +405,21 @@ class SerfDraws(NamedTuple):
     relay_cols: torch.Tensor  # [rf] int64 in [0, K)         ...[2]
 
 
-def relay_draws_used(cfg: SimConfig) -> bool:
-    return cfg.serf.query_relay_factor > 0 and cfg.packet_loss > 0.0
+def relay_draws_used(cfg: SimConfig, chaos: bool = False) -> bool:
+    """Does a tick draw and run the relayed responses? With relays
+    configured, under a fault schedule or with packet loss (serf.py:695)."""
+    return cfg.serf.query_relay_factor > 0 and (chaos or cfg.packet_loss > 0.0)
 
 
-def draw_serf_tick(cfg: SimConfig, gen: torch.Generator, device) -> SerfDraws:
-    """Draw one serf tick's bundle from ``gen`` on ``device``."""
+def draw_serf_tick(cfg: SimConfig, gen: torch.Generator, device,
+                   chaos: bool = False) -> SerfDraws:
+    """Draw one serf tick's bundle from ``gen`` on ``device``; ``chaos``
+    for a tick with a fault schedule (``TickDraws.u_pp`` and the relay
+    draws)."""
     n = cfg.n
-    rf = cfg.serf.query_relay_factor if relay_draws_used(cfg) else 0
+    rf = cfg.serf.query_relay_factor if relay_draws_used(cfg, chaos) else 0
     kw = dict(generator=gen, device=device)
-    sw = swim.draw_tick(cfg, gen, device)
+    sw = swim.draw_tick(cfg, gen, device, chaos=chaos)
     return SerfDraws(
         swim=sw,
         u_resp=torch.rand((n,), **kw),
@@ -418,14 +429,23 @@ def draw_serf_tick(cfg: SimConfig, gen: torch.Generator, device) -> SerfDraws:
     )
 
 
-def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws):
+def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws,
+                 *, sched=None, sentinel: bool = False):
     """One fused serf tick over a dense SWIM plane; returns (SerfState,
     GossipCounters). The top ``piggyback_events`` queue entries by
     remaining budget are chosen from the pre-tick queue and ride the
     membership gossip; delivery, the query tally, budget decrement and
-    intake run after it, then query expiry and reap bookkeeping."""
+    intake run after it, then query expiry and reap bookkeeping.
+    ``sched`` (None or empty: none) and ``sentinel`` are the SWIM tick's;
+    under a schedule the query tally gates its legs on ``chaos.pair_ok``
+    (``draws.swim.u_pp`` and the relay draws of
+    ``draw_serf_tick(..., chaos=True)``), and the sentinel also counts
+    Lamport-clock regressions (serf.py:569-580)."""
     w = _widen(s)
     t = w.swim.t
+    sched = chaos_mod.or_none(sched)
+    terms = None if sched is None else chaos_mod.node_terms(sched, t)
+    clocks0 = (w.clock, w.event_clock, w.query_clock)
 
     m_tx, order = swim._top_k_peel(w.ev_tx, cfg.serf.piggyback_events)
     m_key = swim._take_cols(w.ev_key, order)
@@ -434,7 +454,7 @@ def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws):
 
     sw, cnt, (ex_legs, ex_n_sends) = swim.step_counted(
         cfg, topo, world, w.swim, draws.swim,
-        extra_tx=[m_key, m_origin, m_valid])
+        extra_tx=[m_key, m_origin, m_valid], sched=sched, sentinel=sentinel)
     # Pending graceful leaves whose propagate window closed go quiet.
     quiet = (w.leave_at >= 0) & (sw.t >= w.leave_at)
     sw = sw._replace(left=sw.left | quiet)
@@ -443,7 +463,8 @@ def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws):
     active = sw.alive_truth & ~sw.left
 
     w, (n_queued, n_retx, n_dropped) = _fused_event_post(
-        cfg, topo, w, active, draws, ex_legs, ex_n_sends, m_tx, order, m_valid)
+        cfg, topo, w, active, draws, ex_legs, ex_n_sends, m_tx, order, m_valid,
+        sched, terms)
     cnt = cnt._replace(serf_intents_queued=n_queued,
                        serf_intents_retx=n_retx,
                        serf_intents_dropped=n_dropped)
@@ -459,6 +480,12 @@ def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws):
     ds = w.down_since
     down_since = torch.where(is_down & (ds < 0), t.expand_as(ds),
                              torch.where(is_down, ds, torch.full_like(ds, -1)))
+    if sentinel:
+        # Every clock moves only through lamport.witness (a max), so a
+        # regression within the tick is corruption.
+        regress = sum(counters_mod.count(after < before) for before, after in
+                      zip(clocks0, (w.clock, w.event_clock, w.query_clock)))
+        cnt = cnt._replace(sentinel_monotonic=cnt.sentinel_monotonic + regress)
     return _narrow(cfg, w._replace(down_since=down_since)), cnt
 
 
@@ -472,21 +499,36 @@ def _lookup_any(cfg: SimConfig, s: SerfState, key_, origin):
 
 
 def _query_response_tally(cfg: SimConfig, topo, s: SerfState, active, worig,
-                          wkey, isq, grows, draws: SerfDraws) -> SerfState:
+                          wkey, isq, grows, draws: SerfDraws, sched=None,
+                          terms=None) -> SerfState:
     """Each deliverer of a query acks its origin, and a responder answers
     (serf/query.go): the packet lands if the origin is up, it survives
     loss (directly, or through one of ``query_relay_factor`` relays with
-    both legs surviving), and the query's slot is still open. The tally
-    is the one cross-row write of the serf plane (a scatter-add)."""
+    both legs surviving), and the query's slot is still open. Under a
+    schedule each leg is ``chaos.pair_ok`` on its draw, with the origin's
+    terms read at its row (serf.py:685-711). The tally is the one
+    cross-row write of the serf plane (a scatter-add)."""
     n = cfg.n
     pl = cfg.packet_loss
-    arrived = draws.u_resp >= pl
+    if sched is not None:
+        og = chaos_mod.NodeTerms(*(coll.all_rows(x)[worig] for x in terms))
+        arrived = chaos_mod.pair_ok(sched, terms, og, draws.u_resp, pl)
+    else:
+        arrived = draws.u_resp >= pl
     rf = cfg.serf.query_relay_factor
-    if rf > 0 and pl > 0.0:
-        relay_up = torch.stack(
-            [coll.roll(active, -topo.off[draws.relay_cols[i]])
-             for i in range(rf)], dim=1)
-        relayed = (draws.relay_u1 >= pl) & (draws.relay_u2 >= pl)
+    if relay_draws_used(cfg, sched is not None):
+        shifts = [-topo.off[draws.relay_cols[i]] for i in range(rf)]
+        relay_up = torch.stack([coll.roll(active, x) for x in shifts], dim=1)
+        if sched is not None:
+            legs = []
+            for i, x in enumerate(shifts):
+                rt = chaos_mod.roll_terms(terms, x)
+                legs.append(
+                    chaos_mod.pair_ok(sched, terms, rt, draws.relay_u1[:, i], pl)
+                    & chaos_mod.pair_ok(sched, rt, og, draws.relay_u2[:, i], pl))
+            relayed = torch.stack(legs, dim=1)
+        else:
+            relayed = (draws.relay_u1 >= pl) & (draws.relay_u2 >= pl)
         arrived = arrived | torch.any(relay_up & relayed, dim=1)
     q_open_g = coll.all_rows(s.q_open_key)                     # [N, Q]
     up_g = coll.all_rows(s.swim.alive_truth & ~s.swim.left)
@@ -502,18 +544,21 @@ def _query_response_tally(cfg: SimConfig, topo, s: SerfState, active, worig,
 
 
 def _fused_event_post(cfg: SimConfig, topo, s: SerfState, active, draws,
-                      ex_legs, ex_n_sends, m_tx, order, m_valid):
+                      ex_legs, ex_n_sends, m_tx, order, m_valid, sched=None,
+                      terms=None):
     """Post-gossip half of the fused event plane. The reference runs its
     body under a ``lax.cond`` on "any queued event or open query"; the
     body is the pass-through when idle, so it runs unconditionally here
     (as it does inside the reference's kernel). Returns (state, (queued,
     retransmits, drops))."""
     return _fused_event_post_body(cfg, topo, s, active, draws, ex_legs,
-                                  ex_n_sends, m_tx, order, m_valid)
+                                  ex_n_sends, m_tx, order, m_valid, sched,
+                                  terms)
 
 
 def _fused_event_post_body(cfg: SimConfig, topo, s: SerfState, active,
-                           draws, ex_legs, ex_n_sends, m_tx, order, m_valid):
+                           draws, ex_legs, ex_n_sends, m_tx, order, m_valid,
+                           sched=None, terms=None):
     """Deliver, decrement and retire, take in. The oldest staged entry of
     each active node delivers (unless the buffer now rejects it as
     duplicate or stale), witnessing its ltime and answering a query;
@@ -545,7 +590,7 @@ def _fused_event_post_body(cfg: SimConfig, topo, s: SerfState, active,
     s = s._replace(event_clock=lamport.witness(s.event_clock, lt, isev),
                    query_clock=lamport.witness(s.query_clock, lt, isq))
     s = _query_response_tally(cfg, topo, s, active, worig, wkey, isq, grows,
-                              draws)
+                              draws, sched, terms)
     cleared = (slots_i[None, :] == del_slot[:, None]) & has[:, None]
     ev_pending = s.ev_pending & ~cleared
 

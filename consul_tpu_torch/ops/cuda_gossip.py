@@ -3,8 +3,9 @@
 Counterpart of ``consul_tpu/ops/pallas_gossip.py``: its one ``pallas_call``
 (``make_tick_kernel``, pallas_call at :145) fuses unpack -> tick -> pack
 over the packed state, for ``step_fn=swim.step_counted`` (the bare SWIM
-tick, with or without a fault schedule and the invariant sentinel) or
-``step_fn=serf.step_counted`` (the fused serf plane). The port's kernel is
+tick) or ``step_fn=serf.step_counted`` (the fused serf plane), each with
+or without a fault schedule and the invariant sentinel, on the sparse
+circulant view or the dense one (K = N - 1 <= 255). The port's kernel is
 ``consul_tpu_torch/csrc/gossip_tick.cu``: three launches over row blocks
 split at the tick's grid-wide read-after-write barriers (probe/sender,
 receive, push-pull/pack), in the serf variant a fourth (serf_post), and
@@ -18,8 +19,8 @@ Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
 hold against the reference and which ``chip_smoke.py`` holds the kernel
 against on the card. A plain version is chosen only by an explicit
 ``kernel="torch"``; the kernel wrapper raises on anything it does not
-take (a CPU tensor, a dense view, a wrong dtype or shape) and never
-falls back.
+take (a CPU tensor, K > 255, a wrong dtype or shape) and never falls
+back.
 
 Build: ``nvcc`` into a shared library with a plain C interface, loaded
 with ``ctypes``, compiled at first use into ``build/consul_tpu_torch/``
@@ -45,6 +46,7 @@ from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.ops import topology
 from consul_tpu_torch.ops.topology import Topology
 
 TORCH = "torch"
@@ -79,7 +81,8 @@ _PTRS = (
     ["in_" + str(k) for k in range(_LEAVES)]
     + ["out_" + str(k) for k in range(_LEAVES)]
     + ["pos", "height", "jitter", "u2", "relay_jcols", "u_a", "u_b", "u_c",
-       "perm_u", "viv_fb", "grav_fb", "u_drop", "pp_j", "off", "rcol", "inv",
+       "perm_u", "viv_fb", "grav_fb", "u_drop", "pp_j", "gossip_jcols", "off",
+       "rcol", "inv",
        "view_mid", "pay_flags", "pay_scol", "pay_skey", "pay_sbits",
        "pay_ownk", "poke", "refute", "counters"]
     + ["sin_" + str(k) for k in range(_SERF_LEAVES)]
@@ -93,7 +96,7 @@ _PTRS = (
 _INTS = ("n", "k", "s", "d", "w", "wd", "ic", "fan", "p", "tx_limit",
          "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max",
          "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig",
-         "chaos", "sentinel", "np", "nl", "nc", "nd")
+         "chaos", "sentinel", "np", "nl", "nc", "nd", "dense")
 _FLTS = ("susp_min", "susp_max", "susp_diff", "packet_loss", "timeout_s",
          "jitter_frac", "ce", "cc", "err_max", "height_min", "gravity_rho",
          "keep")
@@ -207,12 +210,14 @@ def plain_tick(cfg: SimConfig, topo: Topology, world, packed, draws,
     return layout_mod.pack(state), counters_mod.stack(cnt)
 
 
-def plain_serf_tick(cfg: SimConfig, topo: Topology, world, packed, draws):
+def plain_serf_tick(cfg: SimConfig, topo: Topology, world, packed, draws,
+                    sched=None, sentinel: bool = False):
     """The plain PyTorch version of the serf variant:
-    ``unpack_state -> serf.step_counted -> pack_state`` and the stacked
-    [26] int32 counters."""
+    ``unpack_state -> serf.step_counted(sched, sentinel) -> pack_state``
+    and the stacked [26] int32 counters."""
     state, cnt = serf.step_counted(cfg, topo, world,
-                                   layout_mod.unpack_state(packed), draws)
+                                   layout_mod.unpack_state(packed), draws,
+                                   sched=sched, sentinel=sentinel)
     return layout_mod.pack_state(state), counters_mod.stack(cnt)
 
 
@@ -234,20 +239,18 @@ class TickKernel:
     draws, sched=None) -> (packed, counters[26] int32)``, all on one CUDA
     device. ``sched`` is a fault schedule (None or empty: none), whose
     ticks need ``draws.u_pp``; ``sentinel=True`` adds the invariant
-    tallies. With ``serf=True`` it is the serf variant: ``packed`` is a
-    ``SerfState`` whose SWIM plane is packed and ``draws`` a
-    ``serf.SerfDraws``; it takes neither a schedule nor the sentinel."""
+    tallies. With ``serf_plane=True`` it is the serf variant: ``packed``
+    is a ``SerfState`` whose SWIM plane is packed and ``draws`` a
+    ``serf.SerfDraws`` (``draw_serf_tick(..., chaos=True)`` under a
+    schedule). The view is sparse or dense, K <= 255 either way."""
 
     def __init__(self, cfg: SimConfig, topo: Topology, serf_plane: bool = False,
                  sentinel: bool = False):
         g = cfg.gossip
-        if serf_plane and sentinel:
-            raise ValueError("the serf variant does not take the sentinel "
-                             "yet (ROADMAP B6)")
-        if topo.dense or cfg.degree > 255:
-            raise ValueError("the CUDA tick kernel covers the sparse "
-                             "circulant view (K <= 255); dense views run "
-                             "with kernel='torch'")
+        if cfg.degree > 255:
+            raise ValueError("the CUDA tick kernel covers views of K <= 255 "
+                             f"columns, got K = {cfg.degree}; larger views "
+                             "run with kernel='torch' and the dense layout")
         layout_mod.validate(cfg, layout_mod.PACKED)
         v = cfg.vivaldi
         limits = [(v.dimensionality, _MAXD, "vivaldi dimensionality"),
@@ -282,7 +285,7 @@ class TickKernel:
                       sc.own_limit, g.probe_period_ticks, g.awareness_max,
                       int(serf_plane), sf.event_queue_slots, sf.seen_ring,
                       sf.seen_width, sf.query_slots, sf.piggyback_events,
-                      sf.query_relay_factor if serf.relay_draws_used(cfg) else 0,
+                      sf.query_relay_factor,
                       int(serf.origin_dtype(cfg.n) == torch.int16),
                       int(cfg.n <= serf._EXACT_SIG_MAX_N))
         # 1 - packet_loss rounded once from double, as the reference's
@@ -295,21 +298,28 @@ class TickKernel:
         self._tables = {}
 
     def _topo_tables(self, device):
+        """``off``, ``rcol`` (flat [K*K]) and ``inv`` as int32 on
+        ``device``; the dense view's from the closed forms
+        (topology.remap_row / inv_col)."""
         if device not in self._tables:
+            topo = self.topo
+            if topo.dense:
+                cols = range(topo.degree)
+                rcol = torch.stack([topology.remap_row(topo, j) for j in cols])
+                inv = torch.tensor([topology.inv_col(topo, j) for j in cols])
+            else:
+                rcol, inv = topo.rcol, topo.inv
             self._tables[device] = tuple(
                 x.to(device=device, dtype=torch.int32).contiguous()
-                for x in (self.topo.off, self.topo.rcol.reshape(-1),
-                          self.topo.inv))
+                for x in (topo.off, rcol.reshape(-1), inv))
         return self._tables[device]
 
-    def _schedule(self, sched):
-        """The schedule a tick runs under (None for none); the serf
-        variant takes none."""
-        sched = chaos_mod.or_none(sched)
-        if sched is not None and self.serf:
-            raise ValueError("the serf variant does not take a fault "
-                             "schedule yet (ROADMAP B6)")
-        return sched
+    def _relay_factor(self, sched) -> int:
+        """The relayed responses the serf variant runs this tick: the
+        configured factor under a schedule or with loss, else none."""
+        if not serf.relay_draws_used(self.cfg, sched is not None):
+            return 0
+        return self.cfg.serf.query_relay_factor
 
     def _check_schedule(self, sched, draws, device):
         """Every leaf the kernel reads, by its name's suffix: slot ticks
@@ -362,7 +372,7 @@ class TickKernel:
                           q_responder=(n,), leave_at=(n,), down_since=(n, k))
             for name in serf.SerfState._fields[1:]:
                 _check(getattr(packed, name), name, dts[name], shapes[name], device)
-            rf = self._ints[_INTS.index("rf")]
+            rf = self._relay_factor(sched)
             for name, dt, shape in (("u_resp", f32, (n,)),
                                     ("relay_u1", f32, (n, rf)),
                                     ("relay_u2", f32, (n, rf)),
@@ -393,7 +403,7 @@ class TickKernel:
                  ("u_b", f32, (n, ic)), ("u_c", f32, (n, ic)),
                  ("perm_u", f32, (n, k)), ("viv_fb", f32, (n, d)),
                  ("grav_fb", f32, (n, d)), ("u_drop", f32, (n, fan)),
-                 ("pp_j", i64, ()))
+                 ("pp_j", i64, ()), ("gossip_jcols", i64, (fan,)))
         for name, dt, shape in dspec:
             _check(getattr(draws, name), "draws." + name, dt, shape, device)
         if sched is not None:
@@ -427,8 +437,8 @@ class TickKernel:
                    + [world.pos, world.height, sw_draws.jitter, sw_draws.u2,
                       sw_draws.relay_jcols, sw_draws.u_a, sw_draws.u_b,
                       sw_draws.u_c, sw_draws.perm_u, sw_draws.viv_fb,
-                      sw_draws.grav_fb, sw_draws.u_drop, sw_draws.pp_j, off,
-                      rcol, inv]
+                      sw_draws.grav_fb, sw_draws.u_drop, sw_draws.pp_j,
+                      sw_draws.gossip_jcols, off, rcol, inv]
                    + list(scratch.values()))
         if not self.serf:
             out = sw_out
@@ -472,7 +482,7 @@ class TickKernel:
         displacement is counted once, so this is the least traffic of the
         launch design, not a measurement."""
         device = layout_mod.tick_of(packed).device
-        sched = self._schedule(sched)
+        sched = chaos_mod.or_none(sched)
         self._check_inputs(world, packed, draws, device, sched)
         _, scratch, tensors = self._buffers(world, packed, draws, device, sched)
         total = sum(layout_mod.np_size_bytes(x) for x in tensors if x is not None)
@@ -481,7 +491,7 @@ class TickKernel:
 
     def __call__(self, world, packed, draws, sched=None):
         device = layout_mod.tick_of(packed).device
-        sched = self._schedule(sched)
+        sched = chaos_mod.or_none(sched)
         if device.type != "cuda":
             raise ValueError(f"the CUDA tick kernel takes CUDA tensors, got "
                              f"{device}; use plain_tick or plain_serf_tick "
@@ -493,11 +503,13 @@ class TickKernel:
         args = _TickArgs()
         for idx, x in enumerate(tensors):
             args.p[idx] = None if x is None else x.data_ptr()
-        ints = self._ints + (
+        ints = list(self._ints) + [
             int(sched is not None), int(self.sentinel),
             *((0, 0, 0, 0) if sched is None else (
                 sched.part_start.shape[0], sched.ll_start.shape[0],
-                sched.cw_start.shape[0], sched.dg_start.shape[0])))
+                sched.cw_start.shape[0], sched.dg_start.shape[0])),
+            int(self.topo.dense)]
+        ints[_INTS.index("rf")] = self._relay_factor(sched)
         for idx, x in enumerate(ints):
             args.i[idx] = int(x)
         for idx, x in enumerate(self._flts):
@@ -522,7 +534,7 @@ class TickKernel:
 def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
                      serf_plane: bool = False,
                      sentinel: bool = False) -> TickKernel:
-    """The counterpart of pallas_gossip.make_tick_kernel: the SWIM tick
-    (a fault schedule per call, the sentinel with ``sentinel=True``), or
-    with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant."""
+    """The counterpart of pallas_gossip.make_tick_kernel: the SWIM tick,
+    or with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant;
+    a fault schedule per call, the sentinel with ``sentinel=True``."""
     return TickKernel(cfg, topo, serf_plane, sentinel)

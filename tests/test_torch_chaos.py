@@ -25,7 +25,9 @@ reference's own key ladder with the chaos-only push-pull draw
 - ``Simulation(device="cpu", kernel="torch")`` raises SentinelViolation
   with the reference's mask and deltas; ``run_scenario`` on the bench's
   partition-heal shape returns the reference's ``slo`` dict.
-- The paths that are not ported raise; the kernel wrapper rejects a
+- The paths that are not ported (the raft lane, the sentinel's
+  checkpoint) raise, on ``Simulation`` and ``SerfSimulation``; the serf
+  kernel takes a schedule and the sentinel; the kernel wrapper rejects a
   schedule leaf of the wrong dtype or shape.
 """
 
@@ -356,26 +358,34 @@ def test_unported_paths_raise():
     with pytest.raises(TypeError, match="ll_fwd"):
         kernel._check_inputs(world, st, d, dev,
                              sched._replace(ll_fwd=sched.ll_fwd.double()))
-    with pytest.raises(ValueError, match="sentinel"):
-        cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True, sentinel=True)
-    skernel = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True)
-    with pytest.raises(ValueError, match="fault schedule"):
-        skernel(world, tlayout.pack_state(tserf.init(cfg, gen)),
-                tserf.draw_serf_tick(cfg, gen, "cpu"), sched)
-    dense = TSimConfig(n=64, view_degree=0)
-    with pytest.raises(ValueError, match="sparse"):
-        cuda_gossip.make_tick_kernel(dense, ttopo.make_topology(dense, gen),
-                                     sentinel=True)
+    # The serf + chaos + sentinel variant takes a schedule and checks its
+    # chaos draws, and still launches nothing on CPU tensors.
+    skernel = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True,
+                                           sentinel=True)
+    sst = tlayout.pack_state(tserf.init(cfg, gen))
+    sd = tserf.draw_serf_tick(cfg, gen, "cpu", chaos=True)
+    skernel._check_inputs(world, sst, sd, dev, sched)
+    with pytest.raises(ValueError, match="u_pp"):
+        skernel._check_inputs(world, sst, tserf.draw_serf_tick(cfg, gen, "cpu"),
+                              dev, sched)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        skernel(world, sst, sd, sched)
+    assert cuda_gossip.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        tcluster.SerfSimulation(cfg, device="cpu", kernel="cuda")
+    # What is still not ported: the raft lane (A16) and the sentinel's
+    # diagnostic checkpoint (A12), on both simulations.
     sim = tcluster.Simulation(cfg, device="cpu", kernel="torch")
-    with pytest.raises(NotImplementedError, match="A16"):
-        sim.set_chaos([tchaos.RaftKill(2, 8)])
-    with pytest.raises(NotImplementedError, match="A12"):
-        sim.set_sentinel(True, dump_dir="diag")
     ssim = tcluster.SerfSimulation(cfg, device="cpu", kernel="torch")
-    with pytest.raises(NotImplementedError, match="B6"):
-        ssim.set_chaos([tchaos.Partition(1, 4, [0])])
-    with pytest.raises(NotImplementedError, match="B6"):
-        ssim.set_sentinel(True)
+    for s in (sim, ssim):
+        with pytest.raises(NotImplementedError, match="A16"):
+            s.set_chaos([tchaos.RaftKill(2, 8)])
+        with pytest.raises(NotImplementedError, match="A12"):
+            s.set_sentinel(True, dump_dir="diag")
+    ssim.set_chaos([tchaos.Partition(1, 4, [0])])
+    ssim.set_sentinel(True)
+    assert ssim.chaos is not None and ssim.sentinel
+    assert tuple(ssim.draws(ssim._t).swim.u_pp.shape) == (cfg.n,)
     sim.set_chaos([])
     assert sim.chaos is None
 

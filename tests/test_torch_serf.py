@@ -20,8 +20,9 @@ K = 16, 1 % packet loss:
   Pallas tick with ``step_fn=serf.step_counted``;
 - ``SerfSimulation(device="cpu", kernel="torch")`` follows the reference's
   trajectory to ``event_coverage == 1.0``;
-- the CUDA serf wrapper raises on CPU tensors, a dense view, a relay
-  factor beyond its limit and ev_tx wider than int8.
+- the CUDA serf wrapper raises on CPU tensors, a view wider than 255
+  columns, a relay factor beyond its limit and ev_tx wider than int8, and
+  takes the dense view.
 """
 
 import jax
@@ -336,8 +337,14 @@ def test_cuda_serf_wrapper_raises():
         kernel(world, st, tserf.draw_serf_tick(cfg, gen, "cpu"))
     assert cuda_gossip.LAUNCHES == before
     dense = TSimConfig(n=64, view_degree=0)
-    with pytest.raises(ValueError, match="sparse"):
-        cuda_gossip.make_tick_kernel(dense, ttopo.make_topology(dense, gen),
+    dk = cuda_gossip.make_tick_kernel(dense, ttopo.make_topology(dense, gen),
+                                      serf_plane=True)
+    dk._check_inputs(ttopo.make_world(dense, gen),
+                     tlayout.pack_state(tserf.init(dense, gen)),
+                     tserf.draw_serf_tick(dense, gen, "cpu"), torch.device("cpu"))
+    wide = TSimConfig(n=300, view_degree=0)
+    with pytest.raises(ValueError, match="K <= 255"):
+        cuda_gossip.make_tick_kernel(wide, ttopo.make_topology(wide, gen),
                                      serf_plane=True)
     far = TSimConfig(n=128, view_degree=16, packet_loss=0.01, serf=TSerfConfig(
         query_relay_factor=cuda_gossip.MAX_RELAY_FACTOR + 1))

@@ -109,16 +109,18 @@ def make_draws_fn(jcfg, chaos=False):
     return draws
 
 
-def make_serf_draws_fn(jcfg):
+def make_serf_draws_fn(jcfg, chaos=False):
     """A jitted function: tick key -> the serf tick's draws as numpy
     arrays: ``k_swim, k_ev = split(key)``, the SWIM ladder on ``k_swim``,
     then ``u_resp`` on ``k_ev`` and the relay draws on
     ``split(fold_in(k_ev, 1), 3)`` (serf.py:498, :683-700). The relay
-    draws are empty unless the reference draws them."""
+    draws are empty unless the reference draws them: with relays
+    configured, under a schedule (``chaos``, which also adds ``u_pp``) or
+    with packet loss."""
     n, k_deg = jcfg.n, jcfg.degree
     rf = jcfg.serf.query_relay_factor
-    relay = rf > 0 and jcfg.packet_loss > 0.0
-    swim_draws = make_draws_fn(jcfg)
+    relay = rf > 0 and (chaos or jcfg.packet_loss > 0.0)
+    swim_draws = make_draws_fn(jcfg, chaos=chaos)
 
     @jax.jit
     def draws(tick_key):
