@@ -19,7 +19,10 @@ cluster and lifts, so every SLO counter moves; the serf + chaos +
 sentinel variant in such windows at 65,536, 20,000 (relays without loss)
 and 1,048,576 nodes, with events, a query across the partition and a
 leave in flight; and every variant on the dense view (the complete
-graph, n = 256). It drives the port's main paths through their entry
+graph, n = 256); and tie-and-wrap windows (every probing row wrapping,
+tied budgets and tied reshuffle draws) for the bare and the serf + chaos
++ sentinel variants at 1,048,576 nodes and the bare and serf variants on
+the dense view. It drives the port's main paths through their entry
 points: ``Simulation`` (a 1,048,576-node, K = 32 view converging after
 a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event storm
 and an open query, with fresh events every 512 ticks), ``Simulation``
@@ -123,6 +126,18 @@ DENSE_N = 256
 DENSE_TICKS = 32
 DENSE_VARIANTS = (("dense", False, False), ("dense_chaos", False, True),
                   ("dense_serf", True, False), ("dense_serf_chaos", True, True))
+# The tie-and-wrap windows: (name, n, serf plane, schedule and sentinel),
+# TIE_TICKS ticks each from a formed state in which every active row's
+# probe is due with its cursor at the last column (every probing row
+# wraps and reshuffles), the view's remaining budgets take three values
+# (the top-P peel ties) and each bundle's perm_u is cut to sixteenths (the
+# reshuffle ties): the shapes where a warp's tie-breaks could part from
+# the plain version's. The schedule's fault opens at the window's start.
+TIE_TICKS = 4
+TIE_WINDOWS = (("bare", MAIN_N, False, False),
+               ("serf_chaos", MAIN_N, True, True),
+               ("dense", DENSE_N, False, False),
+               ("dense_serf", DENSE_N, True, False))
 
 
 def emit(obj):
@@ -812,6 +827,89 @@ def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate):
                 ok=ok), timing
 
 
+def tie_and_wrap(sw, k):
+    """A packed SWIM plane with every probe due (next_probe_delta 0) at
+    the last column and each view cell's remaining budget set to 0, 2 or
+    5 by position; meta is edited on a host copy (CUDA has no bitwise ops
+    on uint16)."""
+    n = sw.meta.shape[0]
+    meta = sw.meta.cpu().to(torch.int32)
+    cell = torch.arange(n)[:, None] * 7 + torch.arange(k)[None, :] * 3
+    budget = torch.tensor([0, 2, 5], dtype=torch.int32)[cell % 3]
+    meta = (meta & ~(63 << 2)) | (budget << 2)
+    return sw._replace(next_probe_delta=torch.zeros_like(sw.next_probe_delta),
+                       probe_ptr=torch.full_like(sw.probe_ptr, k - 1),
+                       meta=meta.to(torch.uint16).to(sw.meta.device))
+
+
+def tie_wrap_parity(name: str, n: int, serf_plane: bool, chaos_on: bool,
+                    seed: int):
+    """A variant against its plain version over TIE_TICKS ticks from a
+    state 32 ticks old put through tie_and_wrap, with perm_u cut to
+    multiples of 1/16 in every bundle; under a schedule (and the sentinel)
+    slo_events from the window's first tick, suspicion cut as in the SLO
+    window. Passes only if every packed and serf leaf and all 26 counters
+    are equal on every tick, every float leaf bit for bit, and some rows
+    wrapped."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import GossipConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf, state as sim_state, swim
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    gossip = (GossipConfig(suspicion_mult=1, suspicion_max_timeout_mult=2)
+              if chaos_on else GossipConfig())
+    dense = n == DENSE_N
+    cfg = SimConfig(n=n, view_degree=0 if dense else 32,
+                    packet_loss=0.01 if dense else 0.0, gossip=gossip)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    init = serf.init if serf_plane else sim_state.init
+    st = layout.pack_state(init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=serf_plane,
+                                        sentinel=chaos_on)
+    plain_fn = cuda_gossip.plain_serf_tick if serf_plane else cuda_gossip.plain_tick
+
+    def draw(sched_on):
+        if serf_plane:
+            d = serf.draw_serf_tick(cfg, gen, dev, chaos=sched_on)
+            return d._replace(swim=d.swim._replace(
+                perm_u=torch.floor(d.swim.perm_u * 16.0) / 16.0))
+        d = swim.draw_tick(cfg, gen, dev, chaos=sched_on)
+        return d._replace(perm_u=torch.floor(d.perm_u * 16.0) / 16.0)
+
+    for _ in range(32):
+        st, _ = tick(world, st, draw(False))
+    t0 = int(layout.tick_of(st))
+    sched = (chaos.shift_schedule(chaos.compile_schedule(
+        n, slo_events(chaos, n), dev), t0 - SLO_START) if chaos_on else None)
+    if serf_plane:
+        st = st._replace(swim=tie_and_wrap(st.swim, cfg.degree))
+    else:
+        st = tie_and_wrap(st, cfg.degree)
+    wrapped = [0]
+
+    def plain(w, s, d, sc):
+        out, cnt = plain_fn(cfg, topo, w, s, d, sc, sentinel=chaos_on)
+        si, so = (s.swim, out.swim) if serf_plane else (s, out)
+        wrapped[0] += int(((so.probe_ptr == 0) & (si.probe_ptr > 0)).sum())
+        return out, cnt
+
+    _, totals, bad, gaps = compare_window(
+        tick, plain, world, st, lambda: draw(sched is not None), TIE_TICKS,
+        sched)
+    from consul_tpu_torch.models.counters import FIELDS
+    window = {f: int(totals[FIELDS.index(f)]) for f in (
+        "probes_sent", "gossip_msgs_tx", "chaos_msgs_dropped")}
+    bit_equal = all(g["abs"] == 0.0 and g["steps"] == 0 for g in gaps.values())
+    return dict(variant=name, n=n, k=cfg.degree, ticks=TIE_TICKS,
+                wrapped_rows=wrapped[0], mismatches=bad[:5], float_gaps=gaps,
+                in_window=window,
+                ok=not bad and bit_equal and wrapped[0] > 0)
+
+
 def dense_main_path():
     """The dense view through the entry points, each variant: Simulation
     or SerfSimulation(SimConfig(n=DENSE_N), kernel="cuda") (view_degree 0,
@@ -873,17 +971,30 @@ def _rows(n, rows, dev):
 
 def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate, sched=None):
     """Device ms per tick of the kernel and of its plain version (CUDA
-    events), ms by launch (profiler), and the bytes bound."""
+    events), ms by launch (profiler), the tick's bytes bound and each
+    launch's (cuda_gossip.launch_hbm_bytes_per_node on this tick's
+    inputs and output)."""
+    from consul_tpu_torch.ops import cuda_gossip
+
     ms = cuda_ms(lambda: tick(world, st, d, sched), 20)
     plain_ms = cuda_ms(lambda: plain(world, st, d), 3)
     stages = launch_breakdown(lambda: tick(world, st, d, sched), 5)
     bound_ms = bytes_per_node * n / rate * 1e3
     buffers = tick.buffer_bytes_per_node(world, st, d, sched)
+    out, _ = tick(world, st, d, sched)
+    ran = [k for k in cuda_gossip.STAGES
+           if (k != "chaos_pre" or sched is not None)
+           and (k != "serf_post" or tick.serf)]
+    launch_bytes = {"k_" + k: cuda_gossip.launch_hbm_bytes_per_node(
+        k, st, world, d, sched, cfg=tick.cfg, out=out) for k in ran}
     return dict(ms_per_tick=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 contract_bytes_per_node=bytes_per_node,
                 buffer_bytes_per_node=buffers,
                 buffer_bytes_per_s=buffers * n / (ms * 1e-3),
-                ms_by_launch=stages)
+                ms_by_launch=stages,
+                launch_bytes_per_node=launch_bytes,
+                bound_ms_by_launch={k: v * n / rate * 1e3
+                                    for k, v in launch_bytes.items()})
 
 
 def serf_chaos_main_path(cfg):
@@ -1150,6 +1261,17 @@ def main() -> int:
         if not res["ok"]:
             failed.append(f"dense_kernel_parity {variant}")
     emit({"phase": "dense_timing", "n": DENSE_N, **dense_t})
+    rows_of = {"bare": "gossip_tick", "serf_chaos": "gossip_tick_serf_chaos",
+               "dense": "gossip_tick_dense", "dense_serf": "gossip_tick_dense_serf"}
+    for variant, n, serf_plane, chaos_on in TIE_WINDOWS:
+        t0 = time.perf_counter()
+        res = tie_wrap_parity(variant, n, serf_plane, chaos_on, seed=31)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        fold_abs(rows_of[variant], res)
+        emit({"phase": "tie_wrap_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"tie_wrap_kernel_parity {variant}")
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1
@@ -1287,7 +1409,9 @@ def main() -> int:
                 "config": config, "launches": launches,
                 "max_abs_err": max_abs[name], "ms": t["ms_per_tick"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": None,
+                "ms_by_launch": t["ms_by_launch"],
+                "bound_ms_by_launch": t["bound_ms_by_launch"]}
 
     steps = {False: "swim.step_counted", True: "serf.step_counted (extra_tx)"}
     dense_rows = [

@@ -1,17 +1,17 @@
-// One packed SWIM gossip tick for Hopper (sm_90a), in three launches.
+// One packed SWIM gossip tick for Hopper (sm_90a), in three to five launches.
 //
 // Replaces the TPU kernel consul_tpu/ops/pallas_gossip.py:make_tick_kernel
-// (pallas_call at :145) with step_fn=swim.step_counted, no chaos schedule,
-// no sentinel, circulant view of K <= 255 columns, packed layout: it computes
-// unpack -> swim.step_counted -> pack plus the stacked int32 counters.
+// (pallas_call at :145): unpack -> swim.step_counted (or serf.step_counted)
+// -> pack over the packed state, plus the stacked int32 counters, with or
+// without a fault schedule and the invariant sentinel, on a circulant view
+// of K <= 255 columns or the dense one (K = N - 1).
 //
 // What bounds it: bytes. The tick is branchy integer work with a few dozen
 // float operations per node; the packed contract is 1088 B/node/tick at
 // K = 32 (state read + write + world), far below the card's operations rate.
 //
 // The Pallas kernel keeps the whole population in one VMEM block. Here the
-// tick is split at its grid-wide read-after-write barriers into three
-// launches over row blocks, one thread per row:
+// tick is split at its grid-wide read-after-write barriers into launches:
 //   (A) probe_send: suspicion expiry, probe resolution and launch, the
 //       median filter and Vivaldi update, and the gossip sender side. Reads
 //       of other rows (probe target, relays) come from the INPUT state.
@@ -21,14 +21,54 @@
 //   (B) receive: each receiver reads its senders' payloads, merges facts,
 //       applies Lifeguard confirmations against the post-merge view,
 //       collects refute claims and scans the K in-columns for pokes. It
-//       updates only its own view_mid row.
+//       updates only its own view_mid row. One thread per row.
 //   (C) pushpull: pull and push against view_mid rows of the partner and
 //       the initiator (recomputing the initiator's init_ok from its row),
 //       refutation, suspicion reconciliation, budget re-arm and pack.
 // Every per-row read at a displacement is a plain indexed load (i +- off[c])
-// mod n. Counters are reduced per block in shared memory and added with
-// integer atomics (exact in any order). Built without fast math and with
-// -fmad=false, so the float operations keep the reference's order.
+// mod n. Counters are integer sums, exact in any order. Built without fast
+// math and with -fmad=false, so the float operations keep the reference's
+// order.
+//
+// A and C, warp tiles. Most of their bytes are the [N, K] view leaves
+// (view_inc, meta, susp_delta, susp_seen, view_mid, lat_cnt, lat_buf), one
+// row-major row of 64-128 B per node at K = 32. A thread walking its own
+// row puts a warp's 32 loads on 32 rows, 32 sectors for 2-4 useful bytes
+// each, and the lines are gone from L1 before the next column. So a warp
+// owns a tile of up to 32 consecutive rows, whose cells are contiguous in
+// every view leaf, and the work is cut in two kinds of phase:
+//   cell phases: consecutive lanes take consecutive cells of the tile, 2-4
+//     of them in flight per lane, so every warp load or store of a view
+//     leaf is one or two full lines (A's expiry, C's merge, reconciliation
+//     and pack; C's partner and initiator reads are permutations within one
+//     row of view_mid, a line or two per warp load);
+//   row phases: one lane takes one row, as the [N] arrays are laid out (the
+//     probe and its round trips, the relays, the median, Vivaldi, the send
+//     gates and payload; refutation and the push-pull decisions), and a
+//     row's results reach the cell phases by __shfl_sync.
+// A stages its tile's meta in shared memory (rows padded to an odd number
+// of words, so 32 lanes reading 32 rows at one column hit 32 banks): the
+// probe candidates, the top-P peel by remaining budget (max value, lowest
+// column on ties) and the budget decrement read and write it there, and a
+// cell phase writes meta out. A wrapped row's probe-order reshuffle ranks
+// each column against the row's uniforms with the lanes over its columns:
+// O(K) per lane, where one thread's argmin peel was O(K^2). Vivaldi updates
+// of direct acks, a fifth of the rows, wait in a per-warp queue and run 32
+// at a time, one per lane, in registers (vectors in unrolled [MAXD] arrays,
+// the adjustment window streamed), after the tile copies have put every
+// row's input Vivaldi leaves in the output. Blocks are persistent, as many
+// as stay resident, each warp striding over tiles; counters are summed per
+// lane, per warp (__reduce_add_sync) and per block, one global atomic per
+// counter per block. Only integer work moves between lanes; each float
+// operation of a row stays on one lane in the reference's order, and no
+// float sum is split.
+// What still bounds them: C moves its bytes near the card's rate. A's row
+// phases chase dependent scattered reads (probe target, relays, the
+// target's coordinates) one row per lane, so A runs a few times over its
+// bytes bound. Hopper's tensor cores have no work here (integer compare,
+// max and count). TMA and cp.async are not used: a tile's row of a view
+// leaf is a line or two that a warp loads itself, with several cells per
+// lane in flight.
 //
 // Host interface: a plain C function per launch taking one TickArgs by
 // pointer (pointer, int and float tables indexed by the enums below, which
@@ -45,12 +85,12 @@
 //       the per-leg liveness-only send gate ex_sendable, to the x_* payload
 //       scratch beside pay_*; and copies q_resps/q_acks to the output, so
 //       the tally's cross-row adds in D land on the input values.
-//   (D) serf_post, after C has written the final view: the row's quiet
-//       leave (left |= quiet in its own packed flags), delivery of the
-//       oldest staged entry against the dedup buckets, the Lamport
-//       witness, the query tally, budget decrement and retirement, intake
-//       of up to 2 fresh arrivals, query expiry and down_since from the
-//       final view status. D re-reads the senders' x_* payloads at the
+//   (D) serf_post, after C has written the final view, one thread per row:
+//       the row's quiet leave (left |= quiet in its own packed flags),
+//       delivery of the oldest staged entry against the dedup buckets, the
+//       Lamport witness, the query tally, budget decrement and retirement,
+//       intake of up to 2 fresh arrivals, query expiry and down_since from
+//       the final view status. D re-reads the senders' x_* payloads at the
 //       tick's gossip displacements (no [N, fan*PE] candidate scratch);
 //       the arrival of each leg uses the membership leg's drop draw and
 //       the receiver's pre-quiet liveness, as in swim._gossip_phase. The
@@ -67,15 +107,15 @@
 // non-empty ChaosSchedule (I_CHAOS = 1) and/or sentinel=True
 // (I_SENTINEL = 1), for the bare SWIM tick. All schedule evaluation of the
 // Pallas body runs here, from the schedule's tensors and the draws:
-//   (P) chaos_pre, a launch before A: each row's churn edges at tick t
-//       (kill rows whose wave went down this tick, warm-revive rows whose
-//       wave came back: incarnation + 1, alive, not left or leaving, own
-//       budget re-armed) and its node terms (partition color, LinkLoss
-//       side bits, Degrade survival products in slot order), into c_*
-//       scratch that no later launch writes. A, B and C read every row's
-//       flags, incarnation and terms, their own and other rows', from that
-//       scratch, so each read sees the post-churn value and the input
-//       state stays untouched.
+//   (P) chaos_pre, a launch before A, one thread per row: each row's churn
+//       edges at tick t (kill rows whose wave went down this tick,
+//       warm-revive rows whose wave came back: incarnation + 1, alive, not
+//       left or leaving, own budget re-armed) and its node terms (partition
+//       color, LinkLoss side bits, Degrade survival products in slot
+//       order), into c_* scratch that no later launch writes. A, B and C
+//       read every row's flags, incarnation and terms, their own and other
+//       rows', from that scratch, so each read sees the post-churn value
+//       and the input state stays untouched.
 //   A gates the direct/TCP round trips and the three relay legs on
 //       pair_ok, counts false deaths (expiries whose subject is up and on
 //       the prober's side) and, with the sentinel, the non-finite Vivaldi
@@ -90,6 +130,9 @@
 //       the last block to finish (a ticket in slo[1]) turns them into the
 //       tick's counters on the device. With the sentinel it also counts
 //       range, monotonicity and suspicion violations on the final values.
+//       Its per-cell subject reads (flags and colour at r + off[c]) are
+//       the one read that cell phases scatter: 32 rows per warp load, from
+//       [N] arrays that stay in L2.
 // Survival products multiply in the reference's order (chaos.pair_ok):
 // a one-ulp difference in a threshold would flip a draw.
 //
@@ -110,8 +153,10 @@
 // Every variant also takes the dense view (I_DENSE = 1: the complete graph,
 // K = N - 1 <= 255): the wrapper builds rcol and inv from the closed forms
 // of topology.remap_row / inv_col, and the gossip displacements are the
-// draws' i.i.d. gossip_jcols instead of the sweep (gossip_col).
+// draws' i.i.d. gossip_jcols instead of the sweep (gossip_col). A warp then
+// takes fewer rows (down to one, so n = 256 spreads over 256 warps).
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -188,6 +233,7 @@ static_assert(N_CNT == 26, "counter wire order");
 #define MAXW 64
 #define MAXS 8
 #define MAXE 16    // event queue slots
+#define MAXP 7     // piggybacked facts per send
 #define MAXPE 8    // piggybacked events per send
 #define MAXC 32    // intake candidates, gossip_nodes * piggyback_events
 
@@ -332,119 +378,172 @@ __device__ __forceinline__ int gossip_col(const TickArgs& a, int t, int f) {
 }
 
 // ---------------------------------------------------------------------------
-// Vivaldi (ops/vivaldi.py update, one element).
+// Vivaldi (ops/vivaldi.py update, one element), held in registers: vectors
+// are [MAXD] arrays walked by unrolled loops guarded by k < d, and the
+// adjustment window streams from the row's stored samples, so nothing
+// goes to local memory. Every sum is a left fold in the reference's order.
 // ---------------------------------------------------------------------------
 
-struct Viv {
-  float vec[MAXD];
-  float h, err, adj;
-  float samp[MAXW];
-  int idx, resets;
-};
-
-__device__ float vnorm(const float* x, int d) {
+__device__ __forceinline__ float vnorm(const float (&x)[MAXD], int d) {
   float acc = 0.0f;
-  for (int k = 0; k < d; ++k) acc += x[k] * x[k];
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k)
+    if (k < d) acc += x[k] * x[k];
   return sqrtf(acc);
 }
 
-__device__ float vdistance(const float* va, float ha, float aa,
-                           const float* vb, float hb, float ab, int d) {
+__device__ __forceinline__ float vdistance(const float (&va)[MAXD], float ha, float aa,
+                                           const float (&vb)[MAXD], float hb, float ab,
+                                           int d) {
   float diff[MAXD];
-  for (int k = 0; k < d; ++k) diff[k] = va[k] - vb[k];
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) diff[k] = k < d ? va[k] - vb[k] : 0.0f;
   float dist = vnorm(diff, d) + ha + hb;
   float adjusted = dist + aa + ab;
   return adjusted > 0.0f ? adjusted : dist;
 }
 
-// apply_force: moves vec (in place) and returns the new height.
-__device__ float apply_force(float* vec, float h, float force,
-                             const float* ovec, float oh, const float* rnd,
-                             int d, float hmin) {
-  float diff[MAXD], unit[MAXD];
-  for (int k = 0; k < d; ++k) diff[k] = vec[k] - ovec[k];
+// apply_force: moves vec (in place) and returns the new height; rnd is the
+// row's random direction in the draws.
+__device__ __forceinline__ float apply_force(float (&vec)[MAXD], float h, float force,
+                                             const float (&ovec)[MAXD], float oh,
+                                             const float* rnd, int d, float hmin) {
+  float diff[MAXD], r[MAXD];
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) {
+    diff[k] = k < d ? vec[k] - ovec[k] : 0.0f;
+    r[k] = k < d ? rnd[k] : 0.0f;
+  }
   float mag = vnorm(diff, d);
-  float rmag = vnorm(rnd, d);
+  float rmag = vnorm(r, d);
   bool use_real = mag > ZERO_T, use_rnd = rmag > ZERO_T;
-  for (int k = 0; k < d; ++k) {
-    if (use_real) unit[k] = diff[k] / mag;
-    else if (use_rnd) unit[k] = rnd[k] / rmag;
-    else unit[k] = (k == 0) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) {
+    if (k >= d) continue;
+    float unit;
+    if (use_real) unit = diff[k] / mag;
+    else if (use_rnd) unit = r[k] / rmag;
+    else unit = (k == 0) ? 1.0f : 0.0f;
+    vec[k] = vec[k] + unit * force;
   }
   float m = use_real ? mag : 0.0f;
-  for (int k = 0; k < d; ++k) vec[k] = vec[k] + unit[k] * force;
   bool moved = m > ZERO_T;
   float nh = (h + oh) * force / (moved ? m : 1.0f) + h;
   nh = fmaxf(nh, hmin);
   return moved ? nh : h;
 }
 
-// Returns false (state untouched) when the observation is rejected.
-__device__ bool viv_update(const TickArgs& a, Viv& v, const float* ovec,
-                           float oh, float oerr, float oadj, float rtt_in,
-                           const float* rnd_viv, const float* rnd_grav) {
+// Row i's Vivaldi observation of target tgt at the median RTT med (when
+// direct_ok): an accepted update, or a reset when it comes out non-finite,
+// written over the output leaves (which hold the input row until then).
+// Returns whether the row's f32 coordinates after the tick are non-finite
+// (the sentinel's check, asked for with check; an accepted update always
+// leaves them finite).
+__device__ bool viv_observe(const TickArgs& a, int i, int tgt, bool direct_ok, float med,
+                            bool check) {
+  if (!direct_ok && !check) return false;
   const int d = a.i[I_D], w = a.i[I_W];
   const float ce = a.f[F_CE], cc = a.f[F_CC], emax = a.f[F_ERR_MAX];
   const float hmin = a.f[F_HMIN], rho = a.f[F_RHO];
-  bool ok = isfinite(oh) && isfinite(oerr) && isfinite(oadj) &&
-            isfinite(rtt_in) && rtt_in >= 0.0f && rtt_in <= 10.0f;
-  for (int k = 0; k < d; ++k) ok = ok && isfinite(ovec[k]);
-  if (!ok) return false;
+  const uint16_t* in_vec = ptr<const uint16_t>(a, P_IN + L_VEC);
+  const uint16_t* in_vh = ptr<const uint16_t>(a, P_IN + L_VH);
+  const uint16_t* in_verr = ptr<const uint16_t>(a, P_IN + L_VERR);
+  const uint16_t* in_vadj = ptr<const uint16_t>(a, P_IN + L_VADJ);
+  const uint8_t* in_vsamp = ptr<const uint8_t>(a, P_IN + L_VSAMP);
+  const uint8_t* in_vidx = ptr<const uint8_t>(a, P_IN + L_VIDX);
+  const uint8_t* in_vres = ptr<const uint8_t>(a, P_IN + L_VRES);
+  uint16_t* o_vec = ptr<uint16_t>(a, P_OUT + L_VEC);
+  uint16_t* o_vh = ptr<uint16_t>(a, P_OUT + L_VH);
+  uint16_t* o_verr = ptr<uint16_t>(a, P_OUT + L_VERR);
+  uint16_t* o_vadj = ptr<uint16_t>(a, P_OUT + L_VADJ);
+  uint8_t* o_vsamp = ptr<uint8_t>(a, P_OUT + L_VSAMP);
+  uint8_t* o_vidx = ptr<uint8_t>(a, P_OUT + L_VIDX);
+  uint8_t* o_vres = ptr<uint8_t>(a, P_OUT + L_VRES);
+  const size_t vb = static_cast<size_t>(i) * d;
+  const size_t sb = static_cast<size_t>(i) * w;
+  const int idx = in_vidx[i];
 
-  float dist = vdistance(v.vec, v.h, v.adj, ovec, oh, oadj, d);
-  float rtt = fmaxf(rtt_in, ZERO_T);
-  float wrongness = fabsf(dist - rtt) / rtt;
-  float total = fmaxf(v.err + oerr, ZERO_T);
-  float weight = v.err / total;
-  float cw = ce * weight;
-  float error = cw * wrongness + v.err * (1.0f - cw);
-  error = fminf(error, emax);
-  float force = cc * weight * (rtt - dist);
   float vec[MAXD];
-  for (int k = 0; k < d; ++k) vec[k] = v.vec[k];
-  float h = apply_force(vec, v.h, force, ovec, oh, rnd_viv, d, hmin);
-
-  float samp[MAXW];
-  int idx = v.idx;
-  float adjustment = v.adj;
-  for (int k = 0; k < w; ++k) samp[k] = v.samp[k];
-  if (w) {
-    float diff[MAXD];
-    for (int k = 0; k < d; ++k) diff[k] = vec[k] - ovec[k];
-    float raw = vnorm(diff, d) + h + oh;
-    samp[v.idx] = rtt - raw;
-    idx = (v.idx + 1) % w;
-    float sum = 0.0f;
-    for (int k = 0; k < w; ++k) sum += samp[k];
-    adjustment = sum / (2.0f * static_cast<float>(w));
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) vec[k] = k < d ? bf2f(in_vec[vb + k]) : 0.0f;
+  const float h = bf2f(in_vh[i]), err = bf2f(in_verr[i]), adj = bf2f(in_vadj[i]);
+  bool accepted = false;
+  if (direct_ok) {
+    const size_t tb = static_cast<size_t>(tgt) * d;
+    float ovec[MAXD];
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) ovec[k] = k < d ? bf2f(in_vec[tb + k]) : 0.0f;
+    const float oh = bf2f(in_vh[tgt]), oerr = bf2f(in_verr[tgt]);
+    const float oadj = bf2f(in_vadj[tgt]);
+    bool ok = isfinite(oh) && isfinite(oerr) && isfinite(oadj) && isfinite(med) &&
+              med >= 0.0f && med <= 10.0f;
+#pragma unroll
+    for (int k = 0; k < MAXD; ++k) ok = ok && (k >= d || isfinite(ovec[k]));
+    if (ok) {
+      accepted = true;
+      float dist = vdistance(vec, h, adj, ovec, oh, oadj, d);
+      float rtt = fmaxf(med, ZERO_T);
+      float wrongness = fabsf(dist - rtt) / rtt;
+      float total = fmaxf(err + oerr, ZERO_T);
+      float weight = err / total;
+      float cw = ce * weight;
+      float error = cw * wrongness + err * (1.0f - cw);
+      error = fminf(error, emax);
+      float force = cc * weight * (rtt - dist);
+      float nvec[MAXD];
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) nvec[k] = vec[k];
+      float nh = apply_force(nvec, h, force, ovec, oh,
+                             ptr<const float>(a, P_VIVFB) + vb, d, hmin);
+      float sample = 0.0f, nadj = adj;
+      int nidx = idx;
+      if (w) {
+        float diff[MAXD];
+#pragma unroll
+        for (int k = 0; k < MAXD; ++k) diff[k] = k < d ? nvec[k] - ovec[k] : 0.0f;
+        float raw = vnorm(diff, d) + nh + oh;
+        sample = rtt - raw;
+        nidx = (idx + 1) % w;
+        float sum = 0.0f;
+        for (int k = 0; k < w; ++k) sum += k == idx ? sample : f8tof(in_vsamp[sb + k]);
+        nadj = sum / (2.0f * static_cast<float>(w));
+      }
+      float origin[MAXD];
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) origin[k] = 0.0f;
+      float dist_o = vdistance(nvec, nh, nadj, origin, hmin, 0.0f, d);
+      float x = dist_o / rho;
+      float g_force = -1.0f * (x * x);
+      nh = apply_force(nvec, nh, g_force, origin, hmin,
+                       ptr<const float>(a, P_GRAVFB) + vb, d, hmin);
+      bool finite = isfinite(nh) && isfinite(error) && isfinite(nadj);
+#pragma unroll
+      for (int k = 0; k < MAXD; ++k) finite = finite && (k >= d || isfinite(nvec[k]));
+      if (finite) {
+        for (int k = 0; k < d; ++k) o_vec[vb + k] = f2bf(nvec[k]);
+        o_vh[i] = f2bf(nh);
+        o_verr[i] = f2bf(error);
+        o_vadj[i] = f2bf(nadj);
+        for (int k = 0; k < w; ++k)
+          o_vsamp[sb + k] = ftof8(k == idx ? sample : f8tof(in_vsamp[sb + k]));
+        o_vidx[i] = static_cast<uint8_t>(nidx & 0xFF);
+        o_vres[i] = in_vres[i];
+      } else {
+        for (int k = 0; k < d; ++k) o_vec[vb + k] = f2bf(0.0f);
+        o_vh[i] = f2bf(hmin);
+        o_verr[i] = f2bf(emax);
+        o_vadj[i] = f2bf(0.0f);
+        for (int k = 0; k < w; ++k) o_vsamp[sb + k] = ftof8(0.0f);
+        o_vidx[i] = 0;
+        o_vres[i] = static_cast<uint8_t>((in_vres[i] + 1) & 0xFF);
+      }
+    }
   }
-
-  float origin[MAXD];
-  for (int k = 0; k < d; ++k) origin[k] = 0.0f;
-  float dist_o = vdistance(vec, h, adjustment, origin, hmin, 0.0f, d);
-  float x = dist_o / rho;
-  float g_force = -1.0f * (x * x);
-  h = apply_force(vec, h, g_force, origin, hmin, rnd_grav, d, hmin);
-
-  bool finite = isfinite(h) && isfinite(error) && isfinite(adjustment);
-  for (int k = 0; k < d; ++k) finite = finite && isfinite(vec[k]);
-  if (finite) {
-    for (int k = 0; k < d; ++k) v.vec[k] = vec[k];
-    v.h = h;
-    v.err = error;
-    v.adj = adjustment;
-    for (int k = 0; k < w; ++k) v.samp[k] = samp[k];
-    v.idx = idx;
-  } else {
-    for (int k = 0; k < d; ++k) v.vec[k] = 0.0f;
-    v.h = hmin;
-    v.err = emax;
-    v.adj = 0.0f;
-    for (int k = 0; k < w; ++k) v.samp[k] = 0.0f;
-    v.idx = 0;
-    v.resets += 1;
-  }
-  return true;
+  if (accepted) return false;
+  bool bad = !isfinite(h) || !isfinite(err) || !isfinite(adj);
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) bad = bad || (k < d && !isfinite(vec[k]));
+  return bad;
 }
 
 // ---------------------------------------------------------------------------
@@ -606,228 +705,371 @@ __global__ void k_chaos_pre(TickArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// (A) probe_send
+// Warp tiles: A and C
+//
+// Each warp owns a tile of up to 32 consecutive rows and strides over the
+// tiles of a persistent grid. Cell phases run with the lanes over the
+// tile's [rows, K] cells (consecutive lanes on consecutive cells, so every
+// warp load or store of a view leaf is a full coalesced line); row phases
+// run with one row per lane, as the [N] arrays are laid out. A row's
+// values pass from its lane to the cell phases by __shfl_sync.
 // ---------------------------------------------------------------------------
 
-__global__ void k_probe_send(TickArgs a) {
+#define WARPS 8    // warps per block of A and C
+#define MAXK 256   // widest view row a warp stages in shared memory
+#define UNROLL 2   // cells per lane per step of a cell phase
+constexpr uint32_t FULL = 0xFFFFFFFFu;
+
+// Per-lane counter tallies (compile-time indices, so they stay in
+// registers), summed over the warp with __reduce_add_sync and over the
+// block in shared memory: one global atomic per nonzero counter per block.
+struct Tally {
+  int v[N_CNT];
+  __device__ Tally() {
+#pragma unroll
+    for (int k = 0; k < N_CNT; ++k) v[k] = 0;
+  }
+  __device__ __forceinline__ void add(int k, int x) { v[k] += x; }
+  __device__ void flush(int* smem, int lane) {
+#pragma unroll
+    for (int k = 0; k < N_CNT; ++k) {
+      const int s = __reduce_add_sync(FULL, v[k]);
+      if (lane == 0 && s) atomicAdd(&smem[k], s);
+    }
+  }
+};
+
+__device__ void block_flush(const int* smem, int* global) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x)
+    if (smem[k]) atomicAdd(&global[k], smem[k]);
+}
+
+// The row of flat cell e of a tile: e / K as a multiply-high (exact for
+// e < 2^24; kdiv = floor((2^32 - 1) / K) + 1).
+__device__ __forceinline__ int row_of(int e, int K, uint32_t kdiv) {
+  return K == 1 ? e : static_cast<int>(__umulhi(static_cast<uint32_t>(e), kdiv));
+}
+
+// Copies nbytes from src to dst with the lanes of one warp, 16 bytes a lane
+// where both ends allow it.
+__device__ void warp_copy(uint8_t* dst, const uint8_t* src, size_t nbytes, int lane) {
+  size_t done = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const size_t nv = nbytes / 16;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (size_t x = lane; x < nv; x += 32) d4[x] = s4[x];
+    done = nv * 16;
+  }
+  for (size_t x = done + lane; x < nbytes; x += 32) dst[x] = src[x];
+}
+
+// ---------------------------------------------------------------------------
+// (A) probe_send
+//
+// Per tile: (A1) lanes over cells: suspicion expiry into view_mid and
+// o_sseen, the tile's meta staged in shared memory, the tile's latency
+// window copied to the output; (A2) one row per lane: the probe window,
+// probe launch (candidates from the staged meta), round trips and relays,
+// the ack merge, the median filter and Vivaldi, the gossip send gates, the
+// top-P peel by remaining budget over the staged row and the budget
+// decrement there, the payload, the serf sender side and the row's
+// scalars; (A3) the probe-order reshuffle of each wrapped row (a rank per
+// column, lanes over its columns), then lanes over cells: meta from the
+// staged tile, and the sentinel's RTT scan. __syncwarp() separates the
+// phases: each reads cells another lane wrote.
+// ---------------------------------------------------------------------------
+
+// The staged meta of a tile (order and budget; the status bits are free
+// for A2's pick marks): rows of meta_stride(K) uint16, an odd number of
+// 32-bit words, so that 32 lanes each reading its own row at one column
+// hit 32 banks; at most META_CELLS per warp.
+#define META_CELLS 2176
+__host__ __device__ __forceinline__ int meta_stride(int K) {
+  const int words = (K + 1) / 2;
+  return 2 * (words | 1);
+}
+__host__ __device__ __forceinline__ int probe_tile_rows(int K) {
+  const int rows = META_CELLS / meta_stride(K);
+  return rows < 32 ? rows : 32;
+}
+
+// A warp's queue of direct acks waiting for their Vivaldi update: row,
+// target and median RTT sample. Queued rows of a warp are distinct, and
+// nothing else in A reads or writes their Vivaldi leaves after A1.
+struct VivQueue {
+  int row[32], tgt[32];
+  float med[32];
+};
+
+// Runs the queued updates, one row per lane; returns this lane's count of
+// rows whose coordinates are non-finite after it (with the sentinel).
+__device__ int viv_drain(const TickArgs& a, const VivQueue* q, int len, int lane,
+                         bool sentinel) {
+  __syncwarp();
+  int bad = 0;
+  if (lane < len) bad = viv_observe(a, q->row[lane], q->tgt[lane], true, q->med[lane],
+                                    sentinel);
+  __syncwarp();
+  return sentinel ? bad : 0;
+}
+
+__global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int tile_rows) {
   __shared__ int smem[N_CNT];
-  BlockCounters bc;
-  bc.init(smem);
+  __shared__ uint16_t s_meta[WARPS][META_CELLS];
+  __shared__ float s_pu[WARPS][MAXK];
+  __shared__ VivQueue s_viv[WARPS];
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) smem[k] = 0;
+  __syncthreads();
+  Tally tl;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int n = a.i[I_N];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int K = a.i[I_K], S = a.i[I_S], D = a.i[I_D], W = a.i[I_W];
-    const int WD = a.i[I_WD], IC = a.i[I_IC], FAN = a.i[I_FAN], P = a.i[I_P];
-    const int amax = a.i[I_AWARE_MAX], pperiod = a.i[I_PROBE_PERIOD];
-    const int susp_k = a.i[I_SUSP_K];
-    const float pl = a.f[F_PLOSS];
-    const int t = *ptr<const int32_t>(a, P_IN + L_T);
-    const int32_t* off = ptr<const int32_t>(a, P_OFF);
+  const int K = a.i[I_K], S = a.i[I_S], WD = a.i[I_WD], IC = a.i[I_IC];
+  const int D = a.i[I_D], W = a.i[I_W];
+  const int FAN = a.i[I_FAN], P = a.i[I_P];
+  const int amax = a.i[I_AWARE_MAX], pperiod = a.i[I_PROBE_PERIOD];
+  const int susp_k = a.i[I_SUSP_K];
+  const int RS = meta_stride(K);
+  const uint32_t kdiv = 0xFFFFFFFFu / static_cast<uint32_t>(K) + 1u;
+  const float pl = a.f[F_PLOSS];
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  const int32_t* off = ptr<const int32_t>(a, P_OFF);
+  const bool chaos = a.i[I_CHAOS] != 0, sentinel = a.i[I_SENTINEL] != 0;
+  const float keep = a.f[F_KEEP];
+  const float logk1 = logf(static_cast<float>(susp_k) + 1.0f);
+
+  const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
+  const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
+  const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
+  const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
+  const uint16_t* in_lcnt = ptr<const uint16_t>(a, P_IN + L_LCNT);
+  const uint8_t* in_lbuf = ptr<const uint8_t>(a, P_IN + L_LBUF);
+  uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
+  uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+  uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
+  uint16_t* o_lcnt = ptr<uint16_t>(a, P_OUT + L_LCNT);
+  uint8_t* o_lbuf = ptr<uint8_t>(a, P_OUT + L_LBUF);
+  uint16_t* tmeta = s_meta[wib];
+  VivQueue* wq = &s_viv[wib];
+  int q_len = 0;
+
+  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x * WARPS + wib; tile < ntiles; tile += gridDim.x * WARPS) {
+    const int base = tile * tile_rows;
+    const int rows = min(tile_rows, n - base);
+    const bool valid = lane < rows;
+    const int i = base + (valid ? lane : 0);
     const size_t rb = static_cast<size_t>(i) * K;
+    const size_t eb = static_cast<size_t>(base) * K;
+    const int tot = rows * K;
 
-    const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
-    const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
-    const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
-    const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
-    uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
-    uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
-    uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
-
-    const bool chaos = a.i[I_CHAOS] != 0, sentinel = a.i[I_SENTINEL] != 0;
-    const float keep = a.f[F_KEEP];
+    // The row scalars the cell phases need.
     const uint8_t fl = flags_at(a, i);
     const bool alive = fl & 1, left = fl & 2, leaving = fl & 4, external = fl & 8;
-    const bool active = alive && !left && !external;
-    const uint32_t own_inc = inc_at(a, i);
-    int own_tx = (chaos && (fl & REVIVED)) ? a.i[I_OWN_LIMIT]
-                                           : ptr<const uint8_t>(a, P_IN + L_OWN_TX)[i];
+    const bool active = valid && alive && !left && !external;
     const Terms me = chaos ? terms_at(a, i) : Terms{0, 0, 0, 1.0f, 1.0f};
-    int aw = ptr<const uint8_t>(a, P_IN + L_AWARE)[i];
-    const int ptr0 = ptr<const uint8_t>(a, P_IN + L_PTR)[i];
-    int next_probe = t + ptr<const int16_t>(a, P_IN + L_NEXT)[i];
-    const uint8_t pc8 = ptr<const uint8_t>(a, P_IN + L_PCOL)[i];
-    int pcol = pc8 == 255 ? -1 : static_cast<int>(pc8);
-    int pfail = t + ptr<const int16_t>(a, P_IN + L_PFAIL)[i];
-    int nack = ptr<const uint8_t>(a, P_IN + L_NACK)[i];
 
-    // 1. Suspicion expiry.
-    const float logk1 = logf(static_cast<float>(susp_k) + 1.0f);
-    int n_deaths = 0, n_false = 0;
-    for (int c = 0; c < K; ++c) {
-      const uint32_t vi = in_vinc[rb + c];
-      const uint32_t st = in_meta[rb + c] & 3u;
-      uint32_t key = mk(vi, st);
-      const uint32_t seen = in_sseen[rb + c];
-      const uint16_t sd = in_sdelta[rb + c];
-      const int sstart = sd == 65535 ? -1 : t - static_cast<int>(sd);
-      if (active && st == SUSPECT && sstart >= 0) {
-        int conf = __popc(seen) - 1;
-        conf = conf < 0 ? 0 : conf;
-        float elapsed = static_cast<float>(t - sstart);
-        float frac = susp_k > 0
-            ? logf(static_cast<float>(conf) + 1.0f) / logk1 : 1.0f;
-        float raw = a.f[F_SUSP_MAX] - frac * a.f[F_SUSP_DIFF];
-        float rem = fmaxf(raw, a.f[F_SUSP_MIN]) - elapsed;
-        if (rem <= 0.0f) {
-          key = mk(vi, DEAD);
-          ++n_deaths;
-          if (chaos) {  // a false death: the subject is up and reachable
-            const int sr = (i + off[c]) % n;
-            const uint8_t sf = flags_at(a, sr);
-            n_false += (sf & 1) && !(sf & 2) &&
-                       ptr<const int32_t>(a, P_CCOLOR)[sr] == me.color;
-          }
+    // A1. Suspicion expiry, lanes over the tile's cells; meta staged.
+    for (int e00 = 0; e00 < tot; e00 += 32 * UNROLL) {
+      uint32_t vi[UNROLL], seen[UNROLL];
+      uint16_t mt[UNROLL], sd[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int e = e00 + 32 * u + lane;
+        if (e < tot) {
+          vi[u] = in_vinc[eb + e];
+          mt[u] = in_meta[eb + e];
+          seen[u] = in_sseen[eb + e];
+          sd[u] = in_sdelta[eb + e];
         }
       }
-      vmid[rb + c] = key;
-      o_sseen[rb + c] = seen;
-    }
-    bc.add(C_DEATHS, n_deaths);
-    bc.add(C_FALSE_DEATHS, n_false);
-
-    // 2. Probe windows closing with no ack.
-    const bool failing = pcol >= 0 && t >= pfail && active;
-    int add = 0;
-    if (failing) {
-      bc.add(C_TIMEOUTS, 1);
-      if (pcol < K) {  // a column past K (corrupt input) suspects nothing
-        uint32_t fkey = vmid[rb + pcol];
-        vmid[rb + pcol] = max(fkey, mk(kinc(fkey), SUSPECT));
-        o_sseen[rb + pcol] |= 1u << (static_cast<uint32_t>(i) % 32u);
-      }
-      add = 1 + nack;
-      pcol = -1;
-      nack = 0;
-    }
-    aw = clampi(aw + add, 0, amax - 1);
-
-    // 3. Probe launch.
-    const bool probing = active && t >= next_probe;
-    int cand[3];
-    bool cok[3];
-    for (int k = 0; k < 3; ++k) {
-      cand[k] = in_meta[rb + (ptr0 + k) % K] >> 8;
-      cok[k] = contactable(vmid[rb + cand[k]]);
-    }
-    const bool has_target = (cok[0] || cok[1] || cok[2]) && probing;
-    const int first_ok = cok[0] ? 0 : (cok[1] ? 1 : (cok[2] ? 2 : 0));
-    const int target_col = cand[first_ok];
-    const int advance = probing ? (has_target ? first_ok + 1 : 3) : 0;
-
-    const int tcol = has_target ? target_col : 0;
-    const int tgt = (i + off[tcol]) % n;
-    const uint8_t tfl = flags_at(a, tgt);
-    const bool target_up = (tfl & 1) && !(tfl & 2) && has_target;
-    const Terms tt = chaos ? terms_at(a, tgt) : me;
-    const float* pos = ptr<const float>(a, P_POS);
-    const float* hgt = ptr<const float>(a, P_HEIGHT);
-    float acc = 0.0f;
-    for (int k = 0; k < WD; ++k) {
-      float df = pos[static_cast<size_t>(i) * WD + k] -
-                 pos[static_cast<size_t>(tgt) * WD + k];
-      acc += df * df;
-    }
-    const float true_rtt = sqrtf(acc) + hgt[i] + hgt[tgt];
-    const float jf = a.f[F_JITTER_FRAC];
-    const float rtt_obs = jf > 0.0f
-        ? true_rtt * expf(ptr<const float>(a, P_JITTER)[i] * jf) : true_rtt;
-
-    const float* u2 = ptr<const float>(a, P_U2);
-    // Under a schedule each round trip composes both directions' terms
-    // onto its one draw.
-    const bool ok_direct = chaos ? pair_ok(a, me, tt, u2[2 * i], keep, true)
-                                 : u2[2 * i] >= pl;
-    const bool ok_tcp = chaos ? pair_ok(a, me, tt, u2[2 * i + 1], keep, true)
-                              : u2[2 * i + 1] >= pl;
-    const bool direct_ok = has_target && target_up &&
-                           rtt_obs <= a.f[F_TIMEOUT] && ok_direct;
-    const int64_t* relay = ptr<const int64_t>(a, P_RELAY);
-    const float* ua = ptr<const float>(a, P_UA);
-    const float* ub = ptr<const float>(a, P_UB);
-    const float* uc = ptr<const float>(a, P_UC);
-    bool any_relay_ok = false;
-    int nack_rcvd = 0;
-    for (int r = 0; r < IC; ++r) {
-      const int rrow = (i + off[relay[r]]) % n;
-      const uint8_t rf = flags_at(a, rrow);
-      const bool ravail = (rf & 1) && !(rf & 2) && !(rf & 8);
-      const size_t u = static_cast<size_t>(i) * IC + r;
-      bool oka = ua[u] >= pl, okb = ub[u] >= pl, okc = uc[u] >= pl;
-      if (chaos) {
-        const Terms rt = terms_at(a, rrow);
-        oka = pair_ok(a, me, rt, ua[u], keep, false);
-        okb = pair_ok(a, rt, tt, ub[u], keep, true);
-        okc = pair_ok(a, rt, me, uc[u], keep, false);
-      }
-      const bool reached = ravail && oka;
-      if (reached && target_up && okb) any_relay_ok = true;
-      if (reached && !(target_up && okb) && okc) ++nack_rcvd;
-    }
-    const bool indirect_ok = has_target && any_relay_ok && !direct_ok;
-    const bool tcp_ok = has_target && target_up && ok_tcp;
-    const bool acked = direct_ok || indirect_ok || tcp_ok;
-    bc.add(C_PROBES, has_target);
-    bc.add(C_ACKS, acked);
-    if (has_target && !direct_ok) bc.add(C_NACKS, nack_rcvd);
-
-    // Compound ping+suspect poke (delivered in B).
-    const uint32_t tentry = vmid[rb + tcol];
-    const uint32_t tstatus = has_target ? kst(tentry) : 0u;
-    const bool poke_flag = has_target && tstatus == SUSPECT && ok_direct;
-    ptr<uint32_t>(a, P_POKE)[i] = poke_flag
-        ? (0x80000000u | (static_cast<uint32_t>(target_col) << 16) |
-           (kinc(tentry) & 0xFFFFu))
-        : 0u;
-
-    if (has_target && !acked) {
-      pcol = target_col;
-      pfail = t + pperiod;
-      nack = IC - nack_rcvd;
-    }
-    if (probing) next_probe = t + pperiod * (aw + 1);
-    aw = clampi(aw - (acked ? 1 : 0), 0, amax - 1);
-    int ptr1 = ptr0 + advance;
-    const bool wrapped = ptr1 >= K;
-    if (wrapped) ptr1 = 0;
-    // Probe order: a stable ascending argsort of this tick's uniforms for
-    // wrapped rows (argmin peel), the old order otherwise.
-    if (wrapped) {
-      const float* pu = ptr<const float>(a, P_PERMU) + rb;
-      uint32_t taken[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      for (int q = 0; q < K; ++q) {
-        int best = -1;
-        float bv = 0.0f;
-        for (int c = 0; c < K; ++c) {
-          if (taken[c >> 5] & (1u << (c & 31))) continue;
-          if (best < 0 || pu[c] < bv) {
-            best = c;
-            bv = pu[c];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int e = e00 + 32 * u + lane;
+        const int j = row_of(e, K, kdiv);
+        const bool act = __shfl_sync(FULL, active, j & 31);
+        const int color = chaos ? __shfl_sync(FULL, me.color, j & 31) : 0;
+        if (e >= tot) continue;
+        const int c = e - j * K;
+        tmeta[j * RS + c] = static_cast<uint16_t>(mt[u] & 0xFFFCu);
+        const uint32_t st = mt[u] & 3u;
+        uint32_t key = mk(vi[u], st);
+        const int sstart = sd[u] == 65535 ? -1 : t - static_cast<int>(sd[u]);
+        if (act && st == SUSPECT && sstart >= 0) {
+          int conf = __popc(seen[u]) - 1;
+          conf = conf < 0 ? 0 : conf;
+          float elapsed = static_cast<float>(t - sstart);
+          float frac = susp_k > 0
+              ? logf(static_cast<float>(conf) + 1.0f) / logk1 : 1.0f;
+          float raw = a.f[F_SUSP_MAX] - frac * a.f[F_SUSP_DIFF];
+          float rem = fmaxf(raw, a.f[F_SUSP_MIN]) - elapsed;
+          if (rem <= 0.0f) {
+            key = mk(vi[u], DEAD);
+            tl.add(C_DEATHS, 1);
+            if (chaos) {  // a false death: the subject is up and reachable
+              const int sr = (base + j + off[c]) % n;
+              const uint8_t sf = flags_at(a, sr);
+              tl.add(C_FALSE_DEATHS, (sf & 1) && !(sf & 2) &&
+                                         ptr<const int32_t>(a, P_CCOLOR)[sr] == color);
+            }
           }
         }
-        taken[best >> 5] |= 1u << (best & 31);
-        o_meta[rb + q] = static_cast<uint16_t>(best << 8);
+        vmid[eb + e] = key;
+        o_sseen[eb + e] = seen[u];
       }
-    } else {
-      for (int c = 0; c < K; ++c) o_meta[rb + c] = in_meta[rb + c] & 0xFF00u;
     }
-    if (acked) {
-      const uint32_t ak = mk(inc_at(a, tgt), ALIVE);
-      vmid[rb + target_col] = max(vmid[rb + target_col], ak);
+    // The latency window goes to the output as it is; A2 then writes the
+    // one sample and count a direct ack adds.
+    warp_copy(reinterpret_cast<uint8_t*>(o_lcnt + eb),
+              reinterpret_cast<const uint8_t*>(in_lcnt + eb),
+              static_cast<size_t>(tot) * 2, lane);
+    warp_copy(o_lbuf + eb * S, in_lbuf + eb * S, static_cast<size_t>(tot) * S, lane);
+    // So do the Vivaldi leaves; an accepted observation overwrites its row.
+    for (int leaf = L_VEC; leaf <= L_VRES; ++leaf) {
+      const size_t width = leaf == L_VEC ? 2 * D : leaf == L_VSAMP ? W
+                           : (leaf == L_VIDX || leaf == L_VRES) ? 1 : 2;
+      warp_copy(ptr<uint8_t>(a, P_OUT + leaf) + base * width,
+                ptr<const uint8_t>(a, P_IN + leaf) + base * width,
+                static_cast<size_t>(rows) * width, lane);
     }
+    __syncwarp();
 
-    // Vivaldi observation: median filter, then the update.
-    {
-      const uint16_t* in_lcnt = ptr<const uint16_t>(a, P_IN + L_LCNT);
-      const uint8_t* in_lbuf = ptr<const uint8_t>(a, P_IN + L_LBUF);
-      uint16_t* o_lcnt = ptr<uint16_t>(a, P_OUT + L_LCNT);
-      uint8_t* o_lbuf = ptr<uint8_t>(a, P_OUT + L_LBUF);
-      const int col_c = direct_ok ? target_col : 0;
-      for (int c = 0; c < K; ++c) o_lcnt[rb + c] = in_lcnt[rb + c];
-      for (int c = 0; c < K * S; ++c) o_lbuf[rb * S + c] = in_lbuf[rb * S + c];
+    // A2. One row per lane, over its staged meta row. Results A3 reads:
+    // wrapped, and for the sentinel direct_ok, col_c, slot, rtt_obs.
+    bool wrapped = false, direct_ok = false;
+    int col_c = 0, slot = 0, tgt = 0;
+    float rtt_obs = 0.0f, med = -1.0f;
+    if (valid) {
+      uint16_t* mrow = tmeta + lane * RS;
+      const uint32_t own_inc = inc_at(a, i);
+      int own_tx = (chaos && (fl & REVIVED)) ? a.i[I_OWN_LIMIT]
+                                             : ptr<const uint8_t>(a, P_IN + L_OWN_TX)[i];
+      int aw = ptr<const uint8_t>(a, P_IN + L_AWARE)[i];
+      const int ptr0 = ptr<const uint8_t>(a, P_IN + L_PTR)[i];
+      int next_probe = t + ptr<const int16_t>(a, P_IN + L_NEXT)[i];
+      const uint8_t pc8 = ptr<const uint8_t>(a, P_IN + L_PCOL)[i];
+      int pcol = pc8 == 255 ? -1 : static_cast<int>(pc8);
+      int pfail = t + ptr<const int16_t>(a, P_IN + L_PFAIL)[i];
+      int nack = ptr<const uint8_t>(a, P_IN + L_NACK)[i];
+
+      // Probe windows closing with no ack.
+      const bool failing = pcol >= 0 && t >= pfail && active;
+      int add = 0;
+      if (failing) {
+        tl.add(C_TIMEOUTS, 1);
+        if (pcol < K) {  // a column past K (corrupt input) suspects nothing
+          uint32_t fkey = vmid[rb + pcol];
+          vmid[rb + pcol] = max(fkey, mk(kinc(fkey), SUSPECT));
+          o_sseen[rb + pcol] |= 1u << (static_cast<uint32_t>(i) % 32u);
+        }
+        add = 1 + nack;
+        pcol = -1;
+        nack = 0;
+      }
+      aw = clampi(aw + add, 0, amax - 1);
+
+      // Probe launch.
+      const bool probing = active && t >= next_probe;
+      int cand[3];
+      bool cok[3];
+      for (int k = 0; k < 3; ++k) {
+        cand[k] = mrow[(ptr0 + k) % K] >> 8;
+        cok[k] = contactable(vmid[rb + cand[k]]);
+      }
+      const bool has_target = (cok[0] || cok[1] || cok[2]) && probing;
+      const int first_ok = cok[0] ? 0 : (cok[1] ? 1 : (cok[2] ? 2 : 0));
+      const int target_col = cand[first_ok];
+      const int advance = probing ? (has_target ? first_ok + 1 : 3) : 0;
+
+      const int tcol = has_target ? target_col : 0;
+      tgt = (i + off[tcol]) % n;
+      bool target_up = false, ok_direct = false, any_relay_ok = false;
+      bool ok_tcp = false;
+      int nack_rcvd = 0;
+      // The round trips, relays and their draws only for a row with a
+      // target.
+      if (has_target) {
+        const uint8_t tfl = flags_at(a, tgt);
+        target_up = (tfl & 1) && !(tfl & 2);
+        const Terms tt = chaos ? terms_at(a, tgt) : me;
+        const float* pos = ptr<const float>(a, P_POS);
+        const float* hgt = ptr<const float>(a, P_HEIGHT);
+        float acc = 0.0f;
+        for (int k = 0; k < WD; ++k) {
+          float df = pos[static_cast<size_t>(i) * WD + k] -
+                     pos[static_cast<size_t>(tgt) * WD + k];
+          acc += df * df;
+        }
+        const float true_rtt = sqrtf(acc) + hgt[i] + hgt[tgt];
+        const float jf = a.f[F_JITTER_FRAC];
+        rtt_obs = jf > 0.0f
+            ? true_rtt * expf(ptr<const float>(a, P_JITTER)[i] * jf) : true_rtt;
+        const float* u2 = ptr<const float>(a, P_U2);
+        // Under a schedule each round trip composes both directions' terms
+        // onto its one draw.
+        ok_direct = chaos ? pair_ok(a, me, tt, u2[2 * i], keep, true)
+                          : u2[2 * i] >= pl;
+        ok_tcp = chaos ? pair_ok(a, me, tt, u2[2 * i + 1], keep, true)
+                       : u2[2 * i + 1] >= pl;
+        const int64_t* relay = ptr<const int64_t>(a, P_RELAY);
+        const float* ua = ptr<const float>(a, P_UA);
+        const float* ub = ptr<const float>(a, P_UB);
+        const float* uc = ptr<const float>(a, P_UC);
+        for (int r = 0; r < IC; ++r) {
+          const int rrow = (i + off[relay[r]]) % n;
+          const uint8_t rf = flags_at(a, rrow);
+          const bool ravail = (rf & 1) && !(rf & 2) && !(rf & 8);
+          const size_t u = static_cast<size_t>(i) * IC + r;
+          bool oka = ua[u] >= pl, okb = ub[u] >= pl, okc = uc[u] >= pl;
+          if (chaos) {
+            const Terms rt = terms_at(a, rrow);
+            oka = pair_ok(a, me, rt, ua[u], keep, false);
+            okb = pair_ok(a, rt, tt, ub[u], keep, true);
+            okc = pair_ok(a, rt, me, uc[u], keep, false);
+          }
+          const bool reached = ravail && oka;
+          if (reached && target_up && okb) any_relay_ok = true;
+          if (reached && !(target_up && okb) && okc) ++nack_rcvd;
+        }
+      }
+      direct_ok = has_target && target_up && rtt_obs <= a.f[F_TIMEOUT] && ok_direct;
+      const bool indirect_ok = has_target && any_relay_ok && !direct_ok;
+      const bool tcp_ok = has_target && target_up && ok_tcp;
+      const bool acked = direct_ok || indirect_ok || tcp_ok;
+      tl.add(C_PROBES, has_target);
+      tl.add(C_ACKS, acked);
+      if (has_target && !direct_ok) tl.add(C_NACKS, nack_rcvd);
+
+      // Compound ping+suspect poke (delivered in B).
+      const uint32_t tentry = vmid[rb + tcol];
+      const uint32_t tstatus = has_target ? kst(tentry) : 0u;
+      const bool poke_flag = has_target && tstatus == SUSPECT && ok_direct;
+      ptr<uint32_t>(a, P_POKE)[i] = poke_flag
+          ? (0x80000000u | (static_cast<uint32_t>(target_col) << 16) |
+             (kinc(tentry) & 0xFFFFu))
+          : 0u;
+
+      if (has_target && !acked) {
+        pcol = target_col;
+        pfail = t + pperiod;
+        nack = IC - nack_rcvd;
+      }
+      if (probing) next_probe = t + pperiod * (aw + 1);
+      aw = clampi(aw - (acked ? 1 : 0), 0, amax - 1);
+      int ptr1 = ptr0 + advance;
+      wrapped = ptr1 >= K;
+      if (wrapped) ptr1 = 0;
+      if (acked) {
+        const uint32_t ak = mk(inc_at(a, tgt), ALIVE);
+        vmid[rb + target_col] = max(vmid[rb + target_col], ak);
+      }
+
+      // Vivaldi observation: median filter, then the update.
+      col_c = direct_ok ? target_col : 0;
       const int cnt = in_lcnt[rb + col_c];
-      const int slot = cnt % S;
+      slot = cnt % S;
       const size_t lb = (rb + col_c) * S;
-      float med = -1.0f;
       if (direct_ok) {
         o_lbuf[lb + slot] = ftof8(rtt_obs);
         o_lcnt[rb + col_c] = static_cast<uint16_t>(min(cnt + 1, 65535));
@@ -849,189 +1091,194 @@ __global__ void k_probe_send(TickArgs a) {
         }
         med = v[filled / 2];
       }
+      // A direct ack's Vivaldi update waits in the warp's queue (below);
+      // the sentinel checks every other row's coordinates here (and the
+      // written RTT slots in A3).
+      if (sentinel && !direct_ok)
+        tl.add(C_SCOORD, viv_observe(a, i, tgt, false, med, true));
 
-      const uint16_t* in_vec = ptr<const uint16_t>(a, P_IN + L_VEC);
-      const uint16_t* in_vh = ptr<const uint16_t>(a, P_IN + L_VH);
-      const uint16_t* in_verr = ptr<const uint16_t>(a, P_IN + L_VERR);
-      const uint16_t* in_vadj = ptr<const uint16_t>(a, P_IN + L_VADJ);
-      const uint8_t* in_vsamp = ptr<const uint8_t>(a, P_IN + L_VSAMP);
-      const uint8_t* in_vidx = ptr<const uint8_t>(a, P_IN + L_VIDX);
-      const uint8_t* in_vres = ptr<const uint8_t>(a, P_IN + L_VRES);
-      uint16_t* o_vec = ptr<uint16_t>(a, P_OUT + L_VEC);
-      uint16_t* o_vh = ptr<uint16_t>(a, P_OUT + L_VH);
-      uint16_t* o_verr = ptr<uint16_t>(a, P_OUT + L_VERR);
-      uint16_t* o_vadj = ptr<uint16_t>(a, P_OUT + L_VADJ);
-      uint8_t* o_vsamp = ptr<uint8_t>(a, P_OUT + L_VSAMP);
-      uint8_t* o_vidx = ptr<uint8_t>(a, P_OUT + L_VIDX);
-      uint8_t* o_vres = ptr<uint8_t>(a, P_OUT + L_VRES);
-      const size_t vb = static_cast<size_t>(i) * D;
-      const size_t sb = static_cast<size_t>(i) * W;
-      bool updated = false;
-      Viv v;
-      if (direct_ok) {
-        for (int k = 0; k < D; ++k) v.vec[k] = bf2f(in_vec[vb + k]);
-        v.h = bf2f(in_vh[i]);
-        v.err = bf2f(in_verr[i]);
-        v.adj = bf2f(in_vadj[i]);
-        for (int k = 0; k < W; ++k) v.samp[k] = f8tof(in_vsamp[sb + k]);
-        v.idx = in_vidx[i];
-        v.resets = in_vres[i];
-        float ovec[MAXD], rv[MAXD], rg[MAXD];
-        const size_t tb = static_cast<size_t>(tgt) * D;
-        for (int k = 0; k < D; ++k) {
-          ovec[k] = bf2f(in_vec[tb + k]);
-          rv[k] = ptr<const float>(a, P_VIVFB)[vb + k];
-          rg[k] = ptr<const float>(a, P_GRAVFB)[vb + k];
+      // Gossip sender side, on the view after the ack merge: the send
+      // gates, then top-P by remaining budget (max value, lowest column on
+      // ties) over the staged row, marking picks in its status bits (A3
+      // clears them), the payload and the picked budgets' decrement.
+      uint32_t sbits_f = 0;
+      int n_sends = 0;
+      for (int f = 0; f < FAN; ++f) {
+        const int jc = gossip_col(a, t, f);
+        if (active && contactable(vmid[rb + jc])) {
+          sbits_f |= 1u << f;
+          ++n_sends;
         }
-        updated = viv_update(a, v, ovec, bf2f(in_vh[tgt]), bf2f(in_verr[tgt]),
-                             bf2f(in_vadj[tgt]), med, rv, rg);
       }
-      if (updated) {
-        for (int k = 0; k < D; ++k) o_vec[vb + k] = f2bf(v.vec[k]);
-        o_vh[i] = f2bf(v.h);
-        o_verr[i] = f2bf(v.err);
-        o_vadj[i] = f2bf(v.adj);
-        for (int k = 0; k < W; ++k) o_vsamp[sb + k] = ftof8(v.samp[k]);
-        o_vidx[i] = static_cast<uint8_t>(v.idx & 0xFF);
-        o_vres[i] = static_cast<uint8_t>(v.resets & 0xFF);
-      } else {
-        for (int k = 0; k < D; ++k) o_vec[vb + k] = in_vec[vb + k];
-        o_vh[i] = in_vh[i];
-        o_verr[i] = in_verr[i];
-        o_vadj[i] = in_vadj[i];
-        for (int k = 0; k < W; ++k) o_vsamp[sb + k] = in_vsamp[sb + k];
-        o_vidx[i] = in_vidx[i];
-        o_vres[i] = in_vres[i];
-      }
-      // Sentinel: non-finite coordinates and written RTT slots, on the
-      // tick's f32 values before packing.
-      if (sentinel) {
-        bool bad = false;
-        for (int k = 0; k < D; ++k)
-          bad = bad || !isfinite(updated ? v.vec[k] : bf2f(in_vec[vb + k]));
-        bad = bad || !isfinite(updated ? v.h : bf2f(in_vh[i])) ||
-              !isfinite(updated ? v.err : bf2f(in_verr[i])) ||
-              !isfinite(updated ? v.adj : bf2f(in_vadj[i]));
-        bc.add(C_SCOORD, bad);
-        int bad_rtt = 0;
-        for (int c = 0; c < K; ++c) {
-          const int written = min(static_cast<int>(o_lcnt[rb + c]), S);
-          for (int s = 0; s < written; ++s) {
-            const float x = (direct_ok && c == col_c && s == slot)
-                ? rtt_obs : f8tof(in_lbuf[(rb + c) * S + s]);
-            bad_rtt += !isfinite(x);
-          }
-        }
-        bc.add(C_SRTT, bad_rtt);
-      }
-    }
-
-    // 4. Gossip sender side: top-P by remaining budget (max value, lowest
-    //    index on ties), budget decrements, the own-fact.
-    int scol[8];
-    int nvalid = 0;
-    uint32_t vbits = 0;
-    {
-      uint32_t taken[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      for (int q = 0; q < P; ++q) {
+      int scol[MAXP];
+      uint32_t vbits = 0;
+      int nvalid = 0;
+#pragma unroll
+      for (int q = 0; q < MAXP; ++q) {
+        scol[q] = 0;
+        if (q >= P) continue;
         int best = -1, bv = 0;
         for (int c = 0; c < K; ++c) {
-          if (taken[c >> 5] & (1u << (c & 31))) continue;
-          const int b = active ? ((in_meta[rb + c] >> 2) & 63) : 0;
+          const uint16_t m = mrow[c];
+          if (m & 1u) continue;
+          const int b = active ? ((m >> 2) & 63) : 0;
           if (best < 0 || b > bv) {
             best = c;
             bv = b;
           }
         }
-        taken[best >> 5] |= 1u << (best & 31);
+        best = best < 0 ? 0 : best;
+        mrow[best] |= 1u;
         scol[q] = best;
         if (bv > 0) {
           vbits |= 1u << q;
           ++nvalid;
         }
       }
-    }
-    int n_sends = 0;
-    uint32_t sbits_f = 0;
-    for (int f = 0; f < FAN; ++f) {
-      const int jc = gossip_col(a, t, f);
-      if (active && contactable(vmid[rb + jc])) {
-        sbits_f |= 1u << f;
-        ++n_sends;
+      const bool own_sendable = own_tx > 0 && active;
+      tl.add(C_GTX, n_sends);
+      tl.add(C_GMSGS, n_sends * (nvalid + (own_sendable ? 1 : 0)));
+      uint8_t* pscol = ptr<uint8_t>(a, P_PSCOL);
+      uint32_t* pskey = ptr<uint32_t>(a, P_PSKEY);
+      uint32_t* psbits = ptr<uint32_t>(a, P_PSBITS);
+#pragma unroll
+      for (int q = 0; q < MAXP; ++q) {
+        if (q >= P) continue;
+        const size_t pq = static_cast<size_t>(i) * P + q;
+        pscol[pq] = static_cast<uint8_t>(scol[q]);
+        pskey[pq] = vmid[rb + scol[q]];
+        psbits[pq] = o_sseen[rb + scol[q]];
+        if ((vbits >> q) & 1u) {
+          const uint16_t m = mrow[scol[q]];
+          const int tx = max(((m >> 2) & 63) - n_sends, 0);
+          mrow[scol[q]] = static_cast<uint16_t>((m & ~(63u << 2)) | (tx << 2));
+        }
       }
-    }
-    const bool own_sendable = own_tx > 0 && active;
-    bc.add(C_GTX, n_sends);
-    bc.add(C_GMSGS, n_sends * (nvalid + (own_sendable ? 1 : 0)));
-    uint8_t* pscol = ptr<uint8_t>(a, P_PSCOL);
-    uint32_t* pskey = ptr<uint32_t>(a, P_PSKEY);
-    uint32_t* psbits = ptr<uint32_t>(a, P_PSBITS);
-    for (int q = 0; q < P; ++q) {
-      const size_t pq = static_cast<size_t>(i) * P + q;
-      pscol[pq] = static_cast<uint8_t>(scol[q]);
-      pskey[pq] = vmid[rb + scol[q]];
-      psbits[pq] = o_sseen[rb + scol[q]];
-    }
-    ptr<uint16_t>(a, P_PFLAGS)[i] = static_cast<uint16_t>(
-        sbits_f | (vbits << 8) | (own_sendable ? 0x8000u : 0u));
-    ptr<uint32_t>(a, P_POWNK)[i] = mk(own_inc, (leaving || left) ? LEFT : ALIVE);
-    for (int c = 0; c < K; ++c) {
-      int tx = (in_meta[rb + c] >> 2) & 63;
-      bool sel = false;
-      for (int q = 0; q < P; ++q) sel = sel || (scol[q] == c && ((vbits >> q) & 1));
-      if (sel) tx = max(tx - n_sends, 0);
-      o_meta[rb + c] = static_cast<uint16_t>(o_meta[rb + c] | (tx << 2));
-    }
-    if (own_sendable) own_tx = max(own_tx - n_sends, 0);
+      ptr<uint16_t>(a, P_PFLAGS)[i] = static_cast<uint16_t>(
+          sbits_f | (vbits << 8) | (own_sendable ? 0x8000u : 0u));
+      ptr<uint32_t>(a, P_POWNK)[i] = mk(own_inc, (leaving || left) ? LEFT : ALIVE);
+      if (own_sendable) own_tx = max(own_tx - n_sends, 0);
 
-    // Serf sender side: the fused event plane's payload for D.
-    if (a.i[I_SERF]) {
-      uint32_t xbits = 0;
-      for (int f = 0; f < FAN; ++f) {
-        const int jc = gossip_col(a, t, f);
-        if (alive && !left && contactable(vmid[rb + jc])) xbits |= 1u << f;
+      // Serf sender side: the fused event plane's payload for D.
+      if (a.i[I_SERF]) {
+        uint32_t xbits = 0;
+        for (int f = 0; f < FAN; ++f) {
+          const int jc = gossip_col(a, t, f);
+          if (alive && !left && contactable(vmid[rb + jc])) xbits |= 1u << f;
+        }
+        const int E = a.i[I_E], PE = a.i[I_PE], Q = a.i[I_Q];
+        const size_t eq = static_cast<size_t>(i) * E;
+        int order[MAXPE], mtx[MAXPE];
+        serf_peel(a, eq, E, PE, order, mtx);
+        uint32_t* xkey = ptr<uint32_t>(a, P_XKEY);
+        int32_t* xorig = ptr<int32_t>(a, P_XORIG);
+        const uint32_t* ekey = ptr<const uint32_t>(a, P_SIN + S_EKEY);
+        for (int q = 0; q < PE; ++q) {
+          const uint32_t key = ekey[eq + order[q]];
+          xkey[static_cast<size_t>(i) * PE + q] = key;
+          xorig[static_cast<size_t>(i) * PE + q] =
+              load_origin(a, P_SIN + S_EORIG, eq + order[q]);
+          if (key > 0u && mtx[q] > 0) xbits |= 1u << (8 + q);
+        }
+        ptr<uint16_t>(a, P_XFLAGS)[i] = static_cast<uint16_t>(xbits);
+        const size_t qb = static_cast<size_t>(i) * Q;
+        for (int q = 0; q < Q; ++q) {
+          ptr<int32_t>(a, P_SOUT + S_QRESP)[qb + q] =
+              ptr<const int32_t>(a, P_SIN + S_QRESP)[qb + q];
+          ptr<int32_t>(a, P_SOUT + S_QACK)[qb + q] =
+              ptr<const int32_t>(a, P_SIN + S_QACK)[qb + q];
+        }
       }
-      const int E = a.i[I_E], PE = a.i[I_PE], Q = a.i[I_Q];
-      const size_t eb = static_cast<size_t>(i) * E;
-      int order[MAXPE], mtx[MAXPE];
-      serf_peel(a, eb, E, PE, order, mtx);
-      uint32_t* xkey = ptr<uint32_t>(a, P_XKEY);
-      int32_t* xorig = ptr<int32_t>(a, P_XORIG);
-      const uint32_t* ekey = ptr<const uint32_t>(a, P_SIN + S_EKEY);
-      for (int q = 0; q < PE; ++q) {
-        const uint32_t key = ekey[eb + order[q]];
-        xkey[static_cast<size_t>(i) * PE + q] = key;
-        xorig[static_cast<size_t>(i) * PE + q] =
-            load_origin(a, P_SIN + S_EORIG, eb + order[q]);
-        if (key > 0u && mtx[q] > 0) xbits |= 1u << (8 + q);
+
+      // Fields no later phase changes, packed against t + 1. The probe
+      // deadline is canonicalized to t while no probe is outstanding.
+      if (pcol < 0) pfail = t;
+      ptr<uint8_t>(a, P_OUT + L_FLAGS)[i] = static_cast<uint8_t>(fl & ~REVIVED);
+      ptr<uint8_t>(a, P_OUT + L_OWN_TX)[i] = static_cast<uint8_t>(own_tx);
+      ptr<uint8_t>(a, P_OUT + L_AWARE)[i] = static_cast<uint8_t>(aw);
+      ptr<uint8_t>(a, P_OUT + L_PTR)[i] = static_cast<uint8_t>(ptr1);
+      ptr<int16_t>(a, P_OUT + L_NEXT)[i] =
+          static_cast<int16_t>(clampi(next_probe - (t + 1), -32768, 32767));
+      ptr<uint8_t>(a, P_OUT + L_PCOL)[i] =
+          static_cast<uint8_t>(pcol < 0 ? 255 : pcol);
+      ptr<int16_t>(a, P_OUT + L_PFAIL)[i] =
+          static_cast<int16_t>(clampi(pfail - (t + 1), -32768, 32767));
+      ptr<uint8_t>(a, P_OUT + L_NACK)[i] =
+          static_cast<uint8_t>(clampi(nack, 0, 255));
+    }
+    __syncwarp();
+
+    // Direct acks join the warp's Vivaldi queue, which runs (one queued
+    // row per lane) whenever the next tile's acks would overflow it.
+    const uint32_t dm = __ballot_sync(FULL, direct_ok);
+    if (q_len + __popc(dm) > 32) {
+      tl.add(C_SCOORD, viv_drain(a, wq, q_len, lane, sentinel));
+      q_len = 0;
+    }
+    if (direct_ok) {
+      const int at = q_len + __popc(dm & ((1u << lane) - 1u));
+      wq->row[at] = i;
+      wq->tgt[at] = tgt;
+      wq->med[at] = med;
+    }
+    q_len += __popc(dm);
+    __syncwarp();
+
+    // A3. Probe order: a wrapped row's is the stable ascending order of this
+    // tick's uniforms (column c's rank: the columns below it, and those
+    // equal to it at a lower index), one wrapped row at a time with the
+    // lanes over its columns; every other row keeps its order.
+    const float* perm_u = ptr<const float>(a, P_PERMU);
+    for (uint32_t wr = __ballot_sync(FULL, wrapped); wr; wr &= wr - 1u) {
+      const int j = __ffs(wr) - 1;
+      const float* pu = perm_u + static_cast<size_t>(base + j) * K;
+      for (int c = lane; c < K; c += 32) s_pu[wib][c] = pu[c];
+      __syncwarp();
+      uint16_t* mrow = tmeta + j * RS;
+      for (int c = lane; c < K; c += 32) {
+        const float x = s_pu[wib][c];
+        int rank = 0;
+        for (int c2 = 0; c2 < K; ++c2) {
+          const float y = s_pu[wib][c2];
+          rank += (y < x) || (y == x && c2 < c);
+        }
+        mrow[rank] = static_cast<uint16_t>((mrow[rank] & 0x00FFu) | (c << 8));
       }
-      ptr<uint16_t>(a, P_XFLAGS)[i] = static_cast<uint16_t>(xbits);
-      const size_t qb = static_cast<size_t>(i) * Q;
-      for (int q = 0; q < Q; ++q) {
-        ptr<int32_t>(a, P_SOUT + S_QRESP)[qb + q] =
-            ptr<const int32_t>(a, P_SIN + S_QRESP)[qb + q];
-        ptr<int32_t>(a, P_SOUT + S_QACK)[qb + q] =
-            ptr<const int32_t>(a, P_SIN + S_QACK)[qb + q];
+      __syncwarp();
+    }
+    // meta out (status bits clear: C sets them), lanes over the tile's
+    // cells; with the sentinel, the non-finite written RTT slots, this
+    // tick's sample in its slot.
+    const int sflags = (direct_ok ? 1 : 0) | (col_c << 1);
+    for (int e0 = 0; e0 < tot; e0 += 32) {
+      const int e = e0 + lane;
+      const int j = row_of(e, K, kdiv);
+      int fj = 0, slot_j = 0;
+      float rtt_j = 0.0f;
+      if (sentinel) {
+        fj = __shfl_sync(FULL, sflags, j & 31);
+        slot_j = __shfl_sync(FULL, slot, j & 31);
+        rtt_j = __shfl_sync(FULL, rtt_obs, j & 31);
+      }
+      if (e >= tot) continue;
+      const int c = e - j * K;
+      o_meta[eb + e] = static_cast<uint16_t>(tmeta[j * RS + c] & 0xFFFCu);
+      if (sentinel) {
+        const bool here = (fj & 1) && c == (fj >> 1);
+        const int cnt = in_lcnt[eb + e];
+        const int written = min(here ? min(cnt + 1, 65535) : cnt, S);
+        for (int s = 0; s < written; ++s) {
+          const float x = (here && s == slot_j) ? rtt_j
+                                                : f8tof(in_lbuf[(eb + e) * S + s]);
+          tl.add(C_SRTT, !isfinite(x));
+        }
       }
     }
-
-    // Fields no later phase changes, packed against t + 1. The probe
-    // deadline is canonicalized to t while no probe is outstanding.
-    if (pcol < 0) pfail = t;
-    ptr<uint8_t>(a, P_OUT + L_FLAGS)[i] = static_cast<uint8_t>(fl & ~REVIVED);
-    ptr<uint8_t>(a, P_OUT + L_OWN_TX)[i] = static_cast<uint8_t>(own_tx);
-    ptr<uint8_t>(a, P_OUT + L_AWARE)[i] = static_cast<uint8_t>(aw);
-    ptr<uint8_t>(a, P_OUT + L_PTR)[i] = static_cast<uint8_t>(ptr1);
-    ptr<int16_t>(a, P_OUT + L_NEXT)[i] =
-        static_cast<int16_t>(clampi(next_probe - (t + 1), -32768, 32767));
-    ptr<uint8_t>(a, P_OUT + L_PCOL)[i] =
-        static_cast<uint8_t>(pcol < 0 ? 255 : pcol);
-    ptr<int16_t>(a, P_OUT + L_PFAIL)[i] =
-        static_cast<int16_t>(clampi(pfail - (t + 1), -32768, 32767));
-    ptr<uint8_t>(a, P_OUT + L_NACK)[i] =
-        static_cast<uint8_t>(clampi(nack, 0, 255));
+    __syncwarp();
   }
-  bc.flush(ptr<int>(a, P_CNT));
+  tl.add(C_SCOORD, viv_drain(a, wq, q_len, lane, sentinel));
+  tl.flush(smem, lane);
+  block_flush(smem, ptr<int>(a, P_CNT));
 }
 
 // ---------------------------------------------------------------------------
@@ -1138,6 +1385,14 @@ __global__ void k_receive(TickArgs a) {
 
 // ---------------------------------------------------------------------------
 // (C) pushpull: push-pull, refutation, reconciliation, budget re-arm, pack.
+//
+// Per tile: (C1) one row per lane: the push-pull decisions (the row's own
+// pull, and the initiator s's push recomputed from its row) and the
+// refutation; (C2) lanes over the tile's cells: the merge against the
+// partner's and the initiator's view rows (permutations within one row:
+// one or two lines per warp load), reconciliation, re-arm and pack, the
+// SLO indicators and the sentinel's cell checks; (C3) one row per lane:
+// the sentinel's row checks.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool is_up(uint8_t fl) { return (fl & 1) && !(fl & 2); }
@@ -1150,163 +1405,225 @@ __device__ __forceinline__ bool pp_due(int x, uint8_t fl, int t, int pp) {
   return is_active(fl) && floor_mod(t + stagger, pp) == 0;
 }
 
-__global__ void k_pushpull(TickArgs a) {
+__global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_rows) {
   __shared__ int smem[N_CNT];
   __shared__ int slo_bits;  // the block's OR of the rows' SLO indicators
+  __shared__ uint32_t s_bad[WARPS];  // bit j: a cell of tile row j out of range
   if (threadIdx.x == 0) slo_bits = 0;
-  BlockCounters bc;
-  bc.init(smem);
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) smem[k] = 0;
+  __syncthreads();
+  Tally tl;
+  uint32_t row_bits = 0;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const bool chaos = a.i[I_CHAOS] != 0, sentinel = a.i[I_SENTINEL] != 0;
   const int n = a.i[I_N];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n) {
-    const int K = a.i[I_K], pp = a.i[I_PP_PERIOD];
-    const int amax = a.i[I_AWARE_MAX];
-    const int t = *ptr<const int32_t>(a, P_IN + L_T);
-    const int32_t* off = ptr<const int32_t>(a, P_OFF);
-    const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
-    const int32_t* inv = ptr<const int32_t>(a, P_INV);
-    const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
-    const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
-    const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
-    const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
-    const uint32_t* vmid = ptr<const uint32_t>(a, P_VMID);
-    uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
-    uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
-    uint16_t* o_vinc = ptr<uint16_t>(a, P_OUT + L_VINC);
-    uint16_t* o_sdelta = ptr<uint16_t>(a, P_OUT + L_SDELTA);
-    const size_t rb = static_cast<size_t>(r) * K;
+  const int K = a.i[I_K], pp = a.i[I_PP_PERIOD];
+  const int amax = a.i[I_AWARE_MAX];
+  const uint32_t kdiv = 0xFFFFFFFFu / static_cast<uint32_t>(K) + 1u;
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  const int32_t* off = ptr<const int32_t>(a, P_OFF);
+  const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
+  const int32_t* inv = ptr<const int32_t>(a, P_INV);
+  const uint16_t* in_vinc = ptr<const uint16_t>(a, P_IN + L_VINC);
+  const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
+  const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
+  const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
+  const uint32_t* vmid = ptr<const uint32_t>(a, P_VMID);
+  uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
+  uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+  uint16_t* o_vinc = ptr<uint16_t>(a, P_OUT + L_VINC);
+  uint16_t* o_sdelta = ptr<uint16_t>(a, P_OUT + L_SDELTA);
+  uint8_t* o_own_tx = ptr<uint8_t>(a, P_OUT + L_OWN_TX);
+  uint8_t* o_aw = ptr<uint8_t>(a, P_OUT + L_AWARE);
+  const int tx_limit = a.i[I_TX_LIMIT];
 
-    const int j = static_cast<int>(*ptr<const int64_t>(a, P_PPJ));
-    const int shift = off[j];
-    const int icol = inv[j];
+  const int j = static_cast<int>(*ptr<const int64_t>(a, P_PPJ));
+  const int shift = off[j];
+  const int icol = inv[j];
+  auto ownk = [&](int x) {
+    return mk(inc_at(a, x), (flags_at(a, x) & 6) ? LEFT : ALIVE);
+  };
+
+  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x * WARPS + wib; tile < ntiles; tile += gridDim.x * WARPS) {
+    const int base = tile * tile_rows;
+    const int rows = min(tile_rows, n - base);
+    const bool valid = lane < rows;
+    const int r = base + (valid ? lane : 0);
+    const size_t eb = static_cast<size_t>(base) * K;
+    const int tot = rows * K;
+
+    // C1. One row per lane: who pulls and pushes, and the refutation.
     const uint8_t fl = flags_at(a, r);
     const uint32_t own_inc = inc_at(a, r);
-    auto ownk = [&](int x) {
-      return mk(inc_at(a, x), (flags_at(a, x) & 6) ? LEFT : ALIVE);
-    };
-
-    const int p = (r + shift) % n;          // pull partner
-    const int s = (r - shift + n) % n;      // push initiator
-    const size_t pb = static_cast<size_t>(p) * K;
-    const size_t sb = static_cast<size_t>(s) * K;
-    bool init_ok = pp_due(r, fl, t, pp) && is_up(flags_at(a, p)) &&
-                   contactable(vmid[rb + j]);
-    bool s_ok = pp_due(s, flags_at(a, s), t, pp) && is_up(fl) &&
-                contactable(vmid[sb + j]);
+    const bool active = valid && is_active(fl);
     const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
-    if (chaos) {
-      // One TCP session per initiator, kept iff its round trip clears the
-      // initiator's u_pp (no base loss); the initiator s's own session
-      // toward r is recomputed from its row.
-      const float* upp = ptr<const float>(a, P_UPP);
-      init_ok = init_ok && pair_ok(a, me, terms_at(a, p), upp[r], 1.0f, true);
-      s_ok = s_ok && pair_ok(a, terms_at(a, s), me, upp[s], 1.0f, true);
-    }
-    const uint32_t ownk_p = ownk(p), ownk_s = ownk(s);
-    uint32_t refute_pp = 0;
-    if (init_ok) {
-      const uint32_t their = vmid[pb + icol];
-      if (refutes(their, own_inc)) refute_pp = kinc(their);
-    }
-    if (s_ok) {
-      const uint32_t their2 = vmid[sb + j];
-      if (refutes(their2, own_inc)) refute_pp = max(refute_pp, kinc(their2));
-    }
-    bc.add(C_PP, (init_ok ? 1 : 0) + (s_ok ? 1 : 0));
-
-    // Refutation.
-    const uint32_t claim = max(ptr<const uint32_t>(a, P_REFUTE)[r], refute_pp);
-    const bool active = is_active(fl);
-    const bool refuting = claim > 0 && active && !(fl & 4);
-    bc.add(C_REFUT, refuting);
-    const uint32_t new_inc = refuting ? claim + 1 : own_inc;
-    uint8_t* o_own_tx = ptr<uint8_t>(a, P_OUT + L_OWN_TX);
-    uint8_t* o_aw = ptr<uint8_t>(a, P_OUT + L_AWARE);
-    if (refuting) {
-      o_own_tx[r] = static_cast<uint8_t>(clampi(a.i[I_OWN_LIMIT], 0, 255));
-      o_aw[r] = static_cast<uint8_t>(clampi(o_aw[r] + 1, 0, amax - 1));
-    }
-    ptr<uint16_t>(a, P_OUT + L_OWN_INC)[r] =
-        static_cast<uint16_t>(min(new_inc, 65535u));
-
-    // Merge, reconcile, re-arm, pack; the SLO indicators and the sentinel
-    // read the final cells.
-    int n_susp = 0, n_mono = 0, n_bad_susp = 0, row_bits = 0;
-    bool bad_range = false;
-    for (int c = 0; c < K; ++c) {
-      uint32_t v = vmid[rb + c];
+    bool init_ok = false, s_ok = false;
+    uint32_t ownk_p = 0, ownk_s = 0, new_inc = own_inc;
+    if (valid) {
+      const int p = (r + shift) % n;          // pull partner
+      const int s = (r - shift + n) % n;      // push initiator
+      const size_t rb = static_cast<size_t>(r) * K;
+      const size_t pb = static_cast<size_t>(p) * K;
+      const size_t sb = static_cast<size_t>(s) * K;
+      init_ok = pp_due(r, fl, t, pp) && is_up(flags_at(a, p)) &&
+                contactable(vmid[rb + j]);
+      s_ok = pp_due(s, flags_at(a, s), t, pp) && is_up(fl) &&
+             contactable(vmid[sb + j]);
+      if (chaos) {
+        // One TCP session per initiator, kept iff its round trip clears the
+        // initiator's u_pp (no base loss); the initiator s's own session
+        // toward r is recomputed from its row.
+        const float* upp = ptr<const float>(a, P_UPP);
+        init_ok = init_ok && pair_ok(a, me, terms_at(a, p), upp[r], 1.0f, true);
+        s_ok = s_ok && pair_ok(a, terms_at(a, s), me, upp[s], 1.0f, true);
+      }
+      ownk_p = ownk(p);
+      ownk_s = ownk(s);
+      uint32_t refute_pp = 0;
       if (init_ok) {
-        const int rc = rcol[j * K + c];
-        const uint32_t ent = c == j ? ownk_p : (rc >= 0 ? vmid[pb + rc] : 0u);
-        v = max(v, demote(ent));
+        const uint32_t their = vmid[pb + icol];
+        if (refutes(their, own_inc)) refute_pp = kinc(their);
       }
       if (s_ok) {
-        const int rc2 = rcol[icol * K + c];
-        const uint32_t ent2 = c == icol ? ownk_s
-                                        : (rc2 >= 0 ? vmid[sb + rc2] : 0u);
-        v = max(v, demote(ent2));
+        const uint32_t their2 = vmid[sb + j];
+        if (refutes(their2, own_inc)) refute_pp = max(refute_pp, kinc(their2));
       }
-      const uint32_t k0 = mk(in_vinc[rb + c], in_meta[rb + c] & 3u);
-      const uint32_t st0 = kst(k0), st1 = kst(v);
-      const bool now_s = st1 == SUSPECT;
-      const bool fresh = now_s && st0 != SUSPECT;
-      const bool re_inc = now_s && st0 == SUSPECT && kinc(v) > kinc(k0);
-      const bool restarted = fresh || re_inc;
-      n_susp += restarted;
-      const uint16_t sd0 = in_sdelta[rb + c];
-      const int sstart0 = sd0 == 65535 ? -1 : t - static_cast<int>(sd0);
-      const int sstart = restarted ? t : (now_s ? sstart0 : -1);
-      uint32_t seen = now_s ? o_sseen[rb + c] : 0u;
-      if (re_inc) seen = 1u;
-      if (fresh && seen == 0u) seen = 1u;
-      const bool changed = v != k0 || (seen & ~in_sseen[rb + c]) != 0u;
-      const uint16_t m = o_meta[rb + c];
-      int tx = (m >> 2) & 63;
-      if (changed && active) tx = a.i[I_TX_LIMIT];
-      o_vinc[rb + c] = static_cast<uint16_t>(min(kinc(v), 65535u));
-      o_meta[rb + c] = static_cast<uint16_t>(
-          (m & 0xFF00u) | (clampi(tx, 0, 63) << 2) | st1);
-      o_sdelta[rb + c] = static_cast<uint16_t>(
-          sstart < 0 ? 65535 : clampi(t + 1 - sstart, 0, 65534));
-      o_sseen[rb + c] = seen;
-      if (chaos) {
-        // Subject truth at r + off[c]: unreachable when cut off by a
-        // partition or held down; suspected/confirmed from the final view.
-        const int sr = (r + off[c]) % n;
-        const uint8_t sf = flags_at(a, sr);
-        const bool s_alive = sf & 1, s_left = sf & 2;
-        const bool cross = ptr<const int32_t>(a, P_CCOLOR)[sr] != me.color;
-        const bool suspected = st1 == SUSPECT || st1 == DEAD;
-        const bool unreach = active && (cross || (!s_alive && !s_left));
-        if (unreach) row_bits |= 1;
-        if (unreach && suspected) row_bits |= 2;
-        if (unreach && st1 == DEAD) row_bits |= 4;
-        if (active && suspected && s_alive && !s_left && !cross) row_bits |= 8;
+      tl.add(C_PP, (init_ok ? 1 : 0) + (s_ok ? 1 : 0));
+
+      // Refutation.
+      const uint32_t claim = max(ptr<const uint32_t>(a, P_REFUTE)[r], refute_pp);
+      const bool refuting = claim > 0 && active && !(fl & 4);
+      tl.add(C_REFUT, refuting);
+      new_inc = refuting ? claim + 1 : own_inc;
+      if (refuting) {
+        o_own_tx[r] = static_cast<uint8_t>(clampi(a.i[I_OWN_LIMIT], 0, 255));
+        o_aw[r] = static_cast<uint8_t>(clampi(o_aw[r] + 1, 0, amax - 1));
       }
-      if (sentinel) {
-        n_mono += v < k0;
-        const bool armed = sstart >= 0;
-        n_bad_susp += (now_s != armed) || (now_s != (seen != 0u));
-        bad_range = bad_range || sstart > t;
+      ptr<uint16_t>(a, P_OUT + L_OWN_INC)[r] =
+          static_cast<uint16_t>(min(new_inc, 65535u));
+    }
+    if (lane == 0) s_bad[wib] = 0u;
+    __syncwarp();
+
+    // C2. Merge, reconcile, re-arm, pack, lanes over the tile's cells; the
+    // SLO indicators and the sentinel read the final cells.
+    const int rflags = (init_ok ? 1 : 0) | (s_ok ? 2 : 0) | (active ? 4 : 0);
+    for (int e00 = 0; e00 < tot; e00 += 32 * UNROLL) {
+      int jr[UNROLL], fr[UNROLL];
+      uint32_t kp[UNROLL], ks[UNROLL];
+      int color[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int e = e00 + 32 * u + lane;
+        jr[u] = row_of(e, K, kdiv);
+        fr[u] = __shfl_sync(FULL, rflags, jr[u] & 31);
+        kp[u] = __shfl_sync(FULL, ownk_p, jr[u] & 31);
+        ks[u] = __shfl_sync(FULL, ownk_s, jr[u] & 31);
+        color[u] = chaos ? __shfl_sync(FULL, me.color, jr[u] & 31) : 0;
+      }
+      uint32_t v[UNROLL], ep[UNROLL], es[UNROLL], seen_in[UNROLL], seen_ab[UNROLL];
+      uint16_t vi[UNROLL], mt0[UNROLL], sd0[UNROLL], mt[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int e = e00 + 32 * u + lane;
+        if (e < tot) {
+          const int c = e - jr[u] * K;
+          const int row = base + jr[u];
+          v[u] = vmid[eb + e];
+          ep[u] = es[u] = 0u;
+          if (fr[u] & 1) {
+            const int rc = rcol[j * K + c];
+            const size_t pb = static_cast<size_t>((row + shift) % n) * K;
+            ep[u] = c == j ? kp[u] : (rc >= 0 ? vmid[pb + rc] : 0u);
+          }
+          if (fr[u] & 2) {
+            const int rc2 = rcol[icol * K + c];
+            const size_t sb = static_cast<size_t>((row - shift + n) % n) * K;
+            es[u] = c == icol ? ks[u] : (rc2 >= 0 ? vmid[sb + rc2] : 0u);
+          }
+          vi[u] = in_vinc[eb + e];
+          mt0[u] = in_meta[eb + e];
+          sd0[u] = in_sdelta[eb + e];
+          seen_in[u] = in_sseen[eb + e];
+          seen_ab[u] = o_sseen[eb + e];
+          mt[u] = o_meta[eb + e];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int e = e00 + 32 * u + lane;
+        if (e >= tot) continue;
+        const int c = e - jr[u] * K;
+        const int row = base + jr[u];
+        const bool act = fr[u] & 4;
+        uint32_t vv = v[u];
+        if (fr[u] & 1) vv = max(vv, demote(ep[u]));
+        if (fr[u] & 2) vv = max(vv, demote(es[u]));
+        const uint32_t k0 = mk(vi[u], mt0[u] & 3u);
+        const uint32_t st0 = kst(k0), st1 = kst(vv);
+        const bool now_s = st1 == SUSPECT;
+        const bool fresh = now_s && st0 != SUSPECT;
+        const bool re_inc = now_s && st0 == SUSPECT && kinc(vv) > kinc(k0);
+        const bool restarted = fresh || re_inc;
+        tl.add(C_SUSP, restarted);
+        const int sstart0 = sd0[u] == 65535 ? -1 : t - static_cast<int>(sd0[u]);
+        const int sstart = restarted ? t : (now_s ? sstart0 : -1);
+        uint32_t seen = now_s ? seen_ab[u] : 0u;
+        if (re_inc) seen = 1u;
+        if (fresh && seen == 0u) seen = 1u;
+        const bool changed = vv != k0 || (seen & ~seen_in[u]) != 0u;
+        int tx = (mt[u] >> 2) & 63;
+        if (changed && act) tx = tx_limit;
+        o_vinc[eb + e] = static_cast<uint16_t>(min(kinc(vv), 65535u));
+        o_meta[eb + e] = static_cast<uint16_t>(
+            (mt[u] & 0xFF00u) | (clampi(tx, 0, 63) << 2) | st1);
+        o_sdelta[eb + e] = static_cast<uint16_t>(
+            sstart < 0 ? 65535 : clampi(t + 1 - sstart, 0, 65534));
+        o_sseen[eb + e] = seen;
+        if (chaos) {
+          // Subject truth at row + off[c]: unreachable when cut off by a
+          // partition or held down; suspected/confirmed from the final view.
+          const int sr = (row + off[c]) % n;
+          const uint8_t sf = flags_at(a, sr);
+          const bool s_alive = sf & 1, s_left = sf & 2;
+          const bool cross = ptr<const int32_t>(a, P_CCOLOR)[sr] != color[u];
+          const bool suspected = st1 == SUSPECT || st1 == DEAD;
+          const bool unreach = act && (cross || (!s_alive && !s_left));
+          if (unreach) row_bits |= 1;
+          if (unreach && suspected) row_bits |= 2;
+          if (unreach && st1 == DEAD) row_bits |= 4;
+          if (act && suspected && s_alive && !s_left && !cross) row_bits |= 8;
+        }
+        if (sentinel) {
+          tl.add(C_SMONO, vv < k0);
+          const bool armed = sstart >= 0;
+          tl.add(C_SSUSP, (now_s != armed) || (now_s != (seen != 0u)));
+          if (sstart > t) atomicOr(&s_bad[wib], 1u << jr[u]);
+        }
       }
     }
-    bc.add(C_SUSP, n_susp);
-    if (sentinel) {
+    __syncwarp();
+
+    // C3. The sentinel's row checks, one row per lane.
+    if (valid && sentinel) {
       const int aw = o_aw[r];
       const int ptr1 = ptr<const uint8_t>(a, P_OUT + L_PTR)[r];
       const uint8_t pc = ptr<const uint8_t>(a, P_OUT + L_PCOL)[r];
       const int pcol = pc == 255 ? -1 : static_cast<int>(pc);
-      bad_range = bad_range || new_inc > MAX_INCARNATION || aw < 0 ||
-                  aw >= amax || ptr1 < 0 || ptr1 >= K || pcol < -1 || pcol >= K;
-      bc.add(C_SRANGE, bad_range);
-      bc.add(C_SMONO, n_mono + (new_inc < own_inc ? 1 : 0));
-      bc.add(C_SSUSP, n_bad_susp);
+      const bool bad_range = ((s_bad[wib] >> lane) & 1u) || new_inc > MAX_INCARNATION ||
+                             aw < 0 || aw >= amax || ptr1 < 0 || ptr1 >= K ||
+                             pcol < -1 || pcol >= K;
+      tl.add(C_SRANGE, bad_range);
+      tl.add(C_SMONO, new_inc < own_inc ? 1 : 0);
     }
-    if (row_bits) atomicOr(&slo_bits, row_bits);
-    if (r == 0) *ptr<int32_t>(a, P_OUT + L_T) = t + 1;
+    if (valid && r == 0) *ptr<int32_t>(a, P_OUT + L_T) = t + 1;
+    __syncwarp();
   }
-  bc.flush(ptr<int>(a, P_CNT));
+  tl.flush(smem, lane);
+  row_bits = __reduce_or_sync(FULL, row_bits);
+  if (lane == 0 && row_bits) atomicOr(&slo_bits, static_cast<int>(row_bits));
+  block_flush(smem, ptr<int>(a, P_CNT));
   if (chaos && threadIdx.x == 0) {
     // Grid-wide SLO indicators: OR the block's word in, then the last
     // block to take a ticket turns the final word into the counters.
@@ -1317,7 +1634,6 @@ __global__ void k_pushpull(TickArgs a) {
       const int bits = atomicOr(&slo[0], 0);
       const bool fault = bits & 1, detected = bits & 2, confirmed = bits & 4;
       const bool wrong = bits & 8;
-      const int t = *ptr<const int32_t>(a, P_IN + L_T);
       bool started = false;  // chaos.fault_started
       for (int q = 0; q < a.i[I_NP]; ++q)
         started = started || ptr<const int32_t>(a, P_PSTART)[q] <= t;
@@ -1620,9 +1936,33 @@ extern "C" int gossip_chaos_pre(const TickArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gossip_probe_send(const TickArgs* a, void* stream) {
-  k_probe_send<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+// A and C run on persistent grids: as many blocks as stay resident on the
+// card at once (from the occupancy of the kernel as built), and no more
+// than the tiles need. A warp takes 32 rows while the tiles outnumber the
+// resident warps, and fewer rows on a small population (down to one, so a
+// dense view of 256 rows spreads over 256 warps).
+static int resident_blocks(const void* fn) {
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, WARPS * 32, 0);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return std::max(per_sm, 1) * std::max(sms, 1);
+}
+
+static int launch_tiles(void (*kern)(TickArgs, int), const TickArgs* a, void* stream,
+                        int max_rows) {
+  const int n = a->i[I_N];
+  const int blocks = resident_blocks(reinterpret_cast<const void*>(kern));
+  int rows = max_rows;
+  while (rows > 1 && (n + rows - 1) / rows < blocks * WARPS) rows = (rows + 1) / 2;
+  const int tiles = (n + rows - 1) / rows;
+  const int grid = std::min(blocks, (tiles + WARPS - 1) / WARPS);
+  kern<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(*a, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_probe_send(const TickArgs* a, void* stream) {
+  return launch_tiles(k_probe_send, a, stream, probe_tile_rows(a->i[I_K]));
 }
 
 extern "C" int gossip_receive(const TickArgs* a, void* stream) {
@@ -1631,8 +1971,7 @@ extern "C" int gossip_receive(const TickArgs* a, void* stream) {
 }
 
 extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
-  k_pushpull<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_tiles(k_pushpull, a, stream, 32);
 }
 
 extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {

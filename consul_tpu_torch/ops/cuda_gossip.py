@@ -6,12 +6,18 @@ over the packed state, for ``step_fn=swim.step_counted`` (the bare SWIM
 tick) or ``step_fn=serf.step_counted`` (the fused serf plane), each with
 or without a fault schedule and the invariant sentinel, on the sparse
 circulant view or the dense one (K = N - 1 <= 255). The port's kernel is
-``consul_tpu_torch/csrc/gossip_tick.cu``: three launches over row blocks
-split at the tick's grid-wide read-after-write barriers (probe/sender,
-receive, push-pull/pack), in the serf variant a fourth (serf_post), and
-with a schedule a first one (chaos_pre) that applies the churn edges and
-evaluates the schedule per row; see the note at the top of that file for
-what bounds it (bytes) and what the split does about it.
+``consul_tpu_torch/csrc/gossip_tick.cu``: three launches split at the
+tick's grid-wide read-after-write barriers (probe/sender, receive,
+push-pull/pack), in the serf variant a fourth (serf_post), and with a
+schedule a first one (chaos_pre) that applies the churn edges and
+evaluates the schedule per row. The tick is bound by bytes, most of them
+the [N, K] view rows, so the two launches that walk them (probe/sender
+and push-pull/pack) run on persistent grids of warp tiles: a warp owns up
+to 32 consecutive rows, takes their cells with consecutive lanes (every
+warp load of a view leaf a full line) and their per-row scalar work one
+row per lane; the other launches take one row per thread. See the note
+at the top of that file. :func:`launch_hbm_bytes_per_node` counts each
+launch's least traffic, the yardstick of its time on the card.
 
 Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
 (``unpack -> swim.step_counted -> pack``) and :func:`plain_serf_tick`
@@ -132,6 +138,112 @@ def tick_hbm_bytes_per_node(state, world=None, sched=None) -> float:
     leaves = [x for tr in trees for x in layout_mod.leaves(tr)]
     n = max(int(x.shape[0]) for x in leaves if x.dim() >= 1)
     return sum(layout_mod.np_size_bytes(x) for x in leaves) / float(n)
+
+
+STAGES = tuple(LAUNCHES)
+
+
+def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
+                              cfg: SimConfig, out=None) -> float:
+    """The least memory traffic of one launch in bytes/tick/node: each
+    leaf, scratch buffer and draw the launch must read counted once, each
+    it must write counted once, from the shapes of one tick's tensors.
+
+    A row read again at a displacement (a probe target, a partner's view
+    row) is counted once, as a part of its leaf. Where what a launch reads
+    depends on the data, only what this tick's data needs is counted: the
+    probe draws (jitter, round trips, relay legs, Vivaldi's random
+    directions) by the rows whose probe is due, and ``perm_u`` by the rows
+    whose cursor wraps (from ``out``, the tick's output state, when given,
+    else the due rows at the last column, which wrap whatever they find).
+    Writes and cells that only the run decides (B's merges into view_mid,
+    a refuting row's own budget, D's tally) are left out, so the count is
+    a floor. ``stage`` is a key of :data:`LAUNCHES`; ``cfg`` gives the
+    piggyback widths, which no tensor of the tick carries."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown launch {stage!r}; expected one of {STAGES}")
+    serf_plane = isinstance(state, serf.SerfState)
+    sw, sd = (state.swim, draws.swim) if serf_plane else (state, draws)
+    sched = chaos_mod.or_none(sched)
+    chaos = sched is not None
+    n, k = sw.meta.shape
+    s, d, wd = sw.lat_buf.shape[2], sw.viv.vec.shape[1], world.pos.shape[1]
+    ic, fan = sd.u_a.shape[1], sd.u_drop.shape[1]
+    p = cfg.gossip.piggyback_msgs
+    b = layout_mod.np_size_bytes
+
+    def row_bytes(x):
+        return b(x) / float(n)
+
+    # A row's own scalars as every launch reads them: the input's flags and
+    # incarnation, or chaos_pre's post-churn flags, incarnation and node
+    # terms (color, side bits, two survival products) under a schedule.
+    own = 1 + 4 + 20 if chaos else 1 + 2
+    view_in = sum(row_bytes(x) for x in (sw.view_inc, sw.meta, sw.susp_delta,
+                                         sw.susp_seen))
+    u16, u32 = 2 * k, 4 * k     # one [K] row of uint16 / uint32
+    if stage == "chaos_pre":
+        if not chaos:
+            return 0.0
+        # The input's flags and incarnation and the schedule the kernel
+        # reads; the post-churn flags, incarnation and terms written.
+        masks = sum(row_bytes(getattr(sched, f)) for f in _SCHED_LEAVES)
+        return 1 + 2 + masks + 1 + 4 + 4 * 5
+
+    if stage == "probe_send":
+        flags = sw.flags
+        active = (flags & 1).bool() & ~(flags & 2).bool() & ~(flags & 8).bool()
+        due = active & (sw.next_probe_delta <= 0)
+        if out is not None:
+            osw = out.swim if serf_plane else out
+            wraps = (osw.probe_ptr == 0) & (sw.probe_ptr > 0)
+        else:
+            wraps = due & (sw.probe_ptr.to(torch.int32) >= k - 1)
+        f_due, f_wrap = float(due.float().mean()), float(wraps.float().mean())
+        scalars = 1 + 1 + 1 + 2 + 1 + 2 + 1       # own_tx .. nack
+        viv = sum(row_bytes(x) for x in sw.viv)
+        rd = (own + scalars + view_in + row_bytes(sw.lat_cnt)
+              + row_bytes(sw.lat_buf) + viv + 4 * wd + 4
+              + f_due * (4 + 8 + 3 * 4 * ic + 2 * 4 * d) + f_wrap * 4 * k
+              + (8 * ic + 8 * fan + 4 * k) / n)   # relay/gossip cols, offsets
+        wr = (u32 + u32 + u16 + u16 + k * s + viv + 1 + scalars
+              + 2 + p + 4 * p + 4 * p + 4 + 4)    # payload, own key, poke
+        if serf_plane:
+            q = state.q_acks.shape[1]
+            pe = cfg.serf.piggyback_events
+            rd += (row_bytes(state.ev_key) + row_bytes(state.ev_origin)
+                   + row_bytes(state.ev_tx) + 8 * q)
+            wr += 2 + 4 * pe + 4 * pe + 8 * q
+        return rd + wr
+
+    if stage == "receive":
+        rd = (own + 2 + p + 4 * p + 4 * p + 4 + 4 + 4 * fan
+              + (4 * fan * k + 8 * fan) / n)       # rcol rows, inv, off
+        return rd + 4                              # + refute
+
+    if stage == "pushpull":
+        # Own flags and refute claim; view_mid, whose partner and initiator
+        # rows are rows of the same array; the input view; A's and B's
+        # o_sseen and o_meta; the two rcol rows of this tick's column.
+        rd = (own + 4 + u32 + view_in + u32 + u16 + (4 if chaos else 0)
+              + (8 * k + 8) / n)
+        return rd + 3 * u16 + u32 + 2             # view out, own_inc
+
+    # serf_post: the serf leaves it reads and rewrites, the row's flags
+    # (and terms), the senders' payloads, the intake and tally draws, and
+    # C's final meta row.
+    if not serf_plane:
+        return 0.0
+    keep = ("leave_at", "ev_key", "ev_origin", "ev_tx", "ev_pending",
+            "ev_bkt_lt", "ev_bkt_sig", "q_bkt_lt", "q_bkt_sig", "ev_floor",
+            "q_floor", "clock", "event_clock", "query_clock", "ev_delivered",
+            "q_responder", "q_open_key", "q_deadline", "down_since")
+    rw = sum(row_bytes(getattr(state, f)) for f in keep)
+    pe = cfg.serf.piggyback_events
+    rf = draws.relay_u1.shape[1]
+    rd = (rw + (1 + 20 if chaos else 1) + 2 + 4 * pe + 4 * pe + 4 * fan + 4
+          + 8 * rf + u16 + 8 * rf / n)
+    return rd + rw + 1
 
 
 class BuildInfo(NamedTuple):

@@ -32,6 +32,7 @@ from consul_tpu_torch.models import counters as tcounters
 from consul_tpu_torch.config import SimConfig as TSimConfig
 from consul_tpu_torch.models import layout as tlayout
 from consul_tpu_torch.models import state as tstate
+from consul_tpu_torch.models import serf as tserf
 from consul_tpu_torch.models import swim as tswim
 from consul_tpu_torch.ops import cuda_gossip, topology as ttopo
 
@@ -57,6 +58,45 @@ def test_plain_tick_matches_interpret_tick():
                                         tp.to_tick_draws(draws(key)))
         tp.assert_packed_close(tp.np_tree(kp), pp, f"tick {t}")
         assert pc.tolist() == [int(x) for x in kc], f"tick {t} counters"
+
+
+@pytest.mark.parametrize("n,view_degree", [(128, 8), (16, 0)],
+                         ids=["k8", "dense16"])
+def test_plain_tick_matches_interpret_tick_when_rows_wrap_and_budgets_tie(
+        n, view_degree):
+    """Every row's probe due with its cursor at the last column, so every
+    live row wraps and reshuffles on the first tick, and the view's
+    budgets on three values drawn with numpy, so the top-P peel by budget
+    ties: the plain tick against the reference's interpret-mode tick, 3
+    ticks, as test_plain_tick_matches_interpret_tick compares them."""
+    jcfg, tcfg, world, topo, st = tp.setup(n, view_degree, packet_loss=0.02)
+    k = jcfg.degree
+    rng = np.random.default_rng(23)
+    kill = np.zeros(n, bool)
+    kill[: max(1, n // 16)] = True
+    st = st._replace(
+        alive_truth=st.alive_truth & ~kill,
+        probe_ptr=np.full(n, k - 1, np.int32),
+        next_probe_tick=np.zeros(n, np.int32),
+        tx_left=rng.choice(np.array([0, 2, 5], np.int32), size=(n, k)))
+    tick = jax.jit(pallas_gossip.interpret_tick(jcfg, topo))
+    draws = tp.make_draws_fn(jcfg)
+    kp = jlayout.pack_state(st)
+    tw = convert.world_from(tp.np_tree(world))
+    tt = convert.topology_from(tp.np_tree(topo))
+    pp = convert.packed_state_from(tp.np_tree(kp))
+    base = jax.random.PRNGKey(29)
+    wrapped = 0
+    for t in range(3):
+        key = jax.random.fold_in(base, t)
+        kp, kc = tick(world, None, kp, key)
+        before = pp.probe_ptr
+        pp, pc = cuda_gossip.plain_tick(tcfg, tt, tw, pp,
+                                        tp.to_tick_draws(draws(key)))
+        tp.assert_packed_close(tp.np_tree(kp), pp, f"tick {t}")
+        assert pc.tolist() == [int(x) for x in kc], f"tick {t} counters"
+        wrapped += int(((pp.probe_ptr == 0) & (before > 0)).sum())
+    assert wrapped >= n - int(kill.sum())
 
 
 def _small(n=128, k=16):
@@ -230,3 +270,84 @@ def test_hbm_contract_matches_reference():
                                          tswim.draw_tick(tcfg, gen, "cpu"))
     assert moved > got
 
+
+
+def _launch_bytes(cfg, serf_plane=False, sched=None, due_at_last_col=False):
+    gen = torch.Generator().manual_seed(0)
+    world = ttopo.make_world(cfg, gen)
+    if serf_plane:
+        st = tlayout.pack_state(tserf.init(cfg, gen, "cpu"))
+        d = tserf.draw_serf_tick(cfg, gen, "cpu", chaos=sched is not None)
+    else:
+        st = tlayout.pack(tstate.init(cfg, gen))
+        d = tswim.draw_tick(cfg, gen, "cpu", chaos=sched is not None)
+    if due_at_last_col:
+        sw = st.swim if serf_plane else st
+        sw = sw._replace(next_probe_delta=torch.zeros_like(sw.next_probe_delta),
+                         probe_ptr=torch.full_like(sw.probe_ptr, cfg.degree - 1))
+        st = st._replace(swim=sw) if serf_plane else sw
+    return {stage: cuda_gossip.launch_hbm_bytes_per_node(
+        stage, st, world, d, sched, cfg=cfg) for stage in cuda_gossip.STAGES}
+
+
+@pytest.mark.parametrize("n,view_degree", [(1024, 32), (256, 0)],
+                         ids=["k32", "dense255"])
+def test_launch_bytes_match_hand_counts(n, view_degree):
+    """The per-launch floors of the bare tick at K = 32 and on the dense
+    view (K = 255), every probe due at the last column (so the probe draws
+    and perm_u count for every row), against counts made by hand from the
+    leaf widths: S = 3 RTT slots, D = 8, W = 20, 3 world dims, 3 relays,
+    3 gossip legs, 3 piggybacked facts."""
+    cfg = TSimConfig(n=n, view_degree=view_degree)
+    k = cfg.degree
+    assert k == (32 if view_degree else 255)
+    got = _launch_bytes(cfg, due_at_last_col=True)
+    own, scalars = 1 + 2, 9                   # flags + own_inc; own_tx .. nack
+    view_in = (2 + 2 + 2 + 4) * k             # view_inc, meta, susp_delta, seen
+    viv = 2 * 8 + 2 + 2 + 2 + 20 + 1 + 1      # vec .. resets
+    probe = 4 + 8 + 3 * 3 * 4 + 2 * 8 * 4     # jitter, u2, u_a/b/c, viv/grav
+    a_read = (own + scalars + view_in + 2 * k + 3 * k + viv + 3 * 4 + 4
+              + probe + 4 * k + (3 * 8 + 3 * 8 + 4 * k) / n)
+    a_write = (4 * k + 4 * k + 2 * k + 2 * k + 3 * k + viv + 1 + scalars
+               + 2 + 3 + 12 + 12 + 4 + 4)
+    want = {
+        "chaos_pre": 0.0,
+        "probe_send": a_read + a_write,
+        "receive": own + 2 + 3 + 12 + 12 + 4 + 4 + 3 * 4
+                   + (3 * 4 * k + 3 * 8) / n + 4,
+        "pushpull": own + 4 + 4 * k + view_in + 4 * k + 2 * k
+                    + (8 * k + 8) / n + 3 * 2 * k + 4 * k + 2,
+        "serf_post": 0.0,
+    }
+    assert got == pytest.approx(want, rel=1e-12)
+    if k == 32:
+        assert round(want["probe_send"]) == 1363 and round(want["pushpull"]) == 969
+    else:
+        assert round(want["probe_send"]) == 8949 and round(want["pushpull"]) == 7667
+
+
+def test_launch_bytes_serf_and_schedule_hand_counts():
+    """The serf plane's launch D and a schedule's launch P at K = 32 (E = 8
+    queue slots with int16 origins and int8 budgets, R = 16 buckets of O =
+    4 signatures, Q = 4 query slots, 2 piggybacked events), against hand
+    counts; a schedule adds the post-churn row scalars and terms to every
+    launch's own read."""
+    from consul_tpu_torch.chaos import schedule as tchaos
+    cfg = TSimConfig(n=1024, view_degree=32)
+    sched = tchaos.compile_schedule(1024, [
+        tchaos.Partition(0, 8, slice(0, 256)),
+        tchaos.Degrade(0, 8, slice(512, 768), tx_loss=0.5)], "cpu")
+    got = _launch_bytes(cfg, serf_plane=True, sched=sched)
+    serf_rw = (4 + 8 * 4 + 8 * 2 + 8 + 8 + 16 * 4 + 16 * 4 * 4 + 16 * 4
+               + 16 * 4 * 4 + 4 + 4 + 3 * 4 + 4 + 1 + 4 * 4 + 4 * 4 + 32 * 4)
+    assert serf_rw == 893
+    d_read = serf_rw + 1 + 20 + 2 + 2 * 4 + 2 * 4 + 3 * 4 + 4 + 2 * 32
+    assert got["serf_post"] == pytest.approx(d_read + serf_rw + 1, rel=1e-12)
+    # One partition slot and one degrade slot: a byte per node and slot of
+    # each mask family the kernel reads, plus the per-slot ticks and rates.
+    masks = sum(tlayout.np_size_bytes(getattr(sched, f))
+                for f in cuda_gossip._SCHED_LEAVES) / 1024
+    assert got["chaos_pre"] == pytest.approx(1 + 2 + masks + 1 + 4 + 20)
+    bare = _launch_bytes(cfg)
+    assert got["pushpull"] - bare["pushpull"] == pytest.approx(22 + 4)
+    assert got["receive"] - bare["receive"] == pytest.approx(22)
