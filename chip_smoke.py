@@ -830,11 +830,12 @@ def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate):
 def tie_and_wrap(sw, k):
     """A packed SWIM plane with every probe due (next_probe_delta 0) at
     the last column and each view cell's remaining budget set to 0, 2 or
-    5 by position; meta is edited on a host copy (CUDA has no bitwise ops
-    on uint16)."""
+    5 by (row + column) mod 3, so every row holds all three values, each
+    tied across a third of its columns; meta is edited on a host copy
+    (CUDA has no bitwise ops on uint16)."""
     n = sw.meta.shape[0]
     meta = sw.meta.cpu().to(torch.int32)
-    cell = torch.arange(n)[:, None] * 7 + torch.arange(k)[None, :] * 3
+    cell = torch.arange(n)[:, None] + torch.arange(k)[None, :]
     budget = torch.tensor([0, 2, 5], dtype=torch.int32)[cell % 3]
     meta = (meta & ~(63 << 2)) | (budget << 2)
     return sw._replace(next_probe_delta=torch.zeros_like(sw.next_probe_delta),

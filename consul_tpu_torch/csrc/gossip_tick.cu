@@ -292,8 +292,15 @@ __device__ __forceinline__ int floor_mod(int x, int m) {
   return r < 0 ? r + m : r;
 }
 
-// Block-level counter reduction: shared-memory atomics, then one global
-// atomic per counter per block.
+// Folds a block's shared-memory counters into the global ones: one global
+// atomic per nonzero counter per block.
+__device__ void block_flush(const int* smem, int* global) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x)
+    if (smem[k]) atomicAdd(&global[k], smem[k]);
+}
+
+// Block-level counter reduction: shared-memory atomics, then block_flush.
 struct BlockCounters {
   int* s;
   __device__ void init(int* smem) {
@@ -304,11 +311,7 @@ struct BlockCounters {
   __device__ void add(int k, int v) {
     if (v) atomicAdd(&s[k], v);
   }
-  __device__ void flush(int* global) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < N_CNT; k += blockDim.x)
-      if (s[k]) atomicAdd(&global[k], s[k]);
-  }
+  __device__ void flush(int* global) { block_flush(s, global); }
 };
 
 // ---------------------------------------------------------------------------
@@ -738,12 +741,6 @@ struct Tally {
     }
   }
 };
-
-__device__ void block_flush(const int* smem, int* global) {
-  __syncthreads();
-  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x)
-    if (smem[k]) atomicAdd(&global[k], smem[k]);
-}
 
 // The row of flat cell e of a tile: e / K as a multiply-high (exact for
 // e < 2^24; kdiv = floor((2^32 - 1) / K) + 1).
@@ -1940,7 +1937,9 @@ extern "C" int gossip_chaos_pre(const TickArgs* a, void* stream) {
 // card at once (from the occupancy of the kernel as built), and no more
 // than the tiles need. A warp takes 32 rows while the tiles outnumber the
 // resident warps, and fewer rows on a small population (down to one, so a
-// dense view of 256 rows spreads over 256 warps).
+// dense view of 256 rows spreads over 256 warps). The resident count is
+// asked of the runtime once per kernel, on the card of its first launch: a
+// process drives one card.
 static int resident_blocks(const void* fn) {
   int dev = 0, per_sm = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -1949,10 +1948,9 @@ static int resident_blocks(const void* fn) {
   return std::max(per_sm, 1) * std::max(sms, 1);
 }
 
-static int launch_tiles(void (*kern)(TickArgs, int), const TickArgs* a, void* stream,
-                        int max_rows) {
+static int launch_tiles(void (*kern)(TickArgs, int), int blocks, const TickArgs* a,
+                        void* stream, int max_rows) {
   const int n = a->i[I_N];
-  const int blocks = resident_blocks(reinterpret_cast<const void*>(kern));
   int rows = max_rows;
   while (rows > 1 && (n + rows - 1) / rows < blocks * WARPS) rows = (rows + 1) / 2;
   const int tiles = (n + rows - 1) / rows;
@@ -1962,7 +1960,8 @@ static int launch_tiles(void (*kern)(TickArgs, int), const TickArgs* a, void* st
 }
 
 extern "C" int gossip_probe_send(const TickArgs* a, void* stream) {
-  return launch_tiles(k_probe_send, a, stream, probe_tile_rows(a->i[I_K]));
+  static const int blocks = resident_blocks(reinterpret_cast<const void*>(k_probe_send));
+  return launch_tiles(k_probe_send, blocks, a, stream, probe_tile_rows(a->i[I_K]));
 }
 
 extern "C" int gossip_receive(const TickArgs* a, void* stream) {
@@ -1971,7 +1970,8 @@ extern "C" int gossip_receive(const TickArgs* a, void* stream) {
 }
 
 extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
-  return launch_tiles(k_pushpull, a, stream, 32);
+  static const int blocks = resident_blocks(reinterpret_cast<const void*>(k_pushpull));
+  return launch_tiles(k_pushpull, blocks, a, stream, 32);
 }
 
 extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {

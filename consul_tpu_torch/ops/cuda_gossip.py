@@ -144,7 +144,7 @@ STAGES = tuple(LAUNCHES)
 
 
 def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
-                              cfg: SimConfig, out=None) -> float:
+                              cfg: SimConfig, out) -> float:
     """The least memory traffic of one launch in bytes/tick/node: each
     leaf, scratch buffer and draw the launch must read counted once, each
     it must write counted once, from the shapes of one tick's tensors.
@@ -154,8 +154,7 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
     depends on the data, only what this tick's data needs is counted: the
     probe draws (jitter, round trips, relay legs, Vivaldi's random
     directions) by the rows whose probe is due, and ``perm_u`` by the rows
-    whose cursor wraps (from ``out``, the tick's output state, when given,
-    else the due rows at the last column, which wrap whatever they find).
+    whose cursor wraps (read from ``out``, the tick's output state).
     Writes and cells that only the run decides (B's merges into view_mid,
     a refuting row's own budget, D's tally) are left out, so the count is
     a floor. ``stage`` is a key of :data:`LAUNCHES`; ``cfg`` gives the
@@ -194,11 +193,8 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
         flags = sw.flags
         active = (flags & 1).bool() & ~(flags & 2).bool() & ~(flags & 8).bool()
         due = active & (sw.next_probe_delta <= 0)
-        if out is not None:
-            osw = out.swim if serf_plane else out
-            wraps = (osw.probe_ptr == 0) & (sw.probe_ptr > 0)
-        else:
-            wraps = due & (sw.probe_ptr.to(torch.int32) >= k - 1)
+        osw = out.swim if serf_plane else out
+        wraps = (osw.probe_ptr == 0) & (sw.probe_ptr > 0)
         f_due, f_wrap = float(due.float().mean()), float(wraps.float().mean())
         scalars = 1 + 1 + 1 + 2 + 1 + 2 + 1       # own_tx .. nack
         viv = sum(row_bytes(x) for x in sw.viv)

@@ -286,16 +286,21 @@ def _launch_bytes(cfg, serf_plane=False, sched=None, due_at_last_col=False):
         sw = sw._replace(next_probe_delta=torch.zeros_like(sw.next_probe_delta),
                          probe_ptr=torch.full_like(sw.probe_ptr, cfg.degree - 1))
         st = st._replace(swim=sw) if serf_plane else sw
+    plain = cuda_gossip.plain_serf_tick if serf_plane else cuda_gossip.plain_tick
+    out, _ = plain(cfg, ttopo.make_topology(cfg, gen), world, st, d, sched)
     return {stage: cuda_gossip.launch_hbm_bytes_per_node(
-        stage, st, world, d, sched, cfg=cfg) for stage in cuda_gossip.STAGES}
+        stage, st, world, d, sched, cfg=cfg, out=out)
+        for stage in cuda_gossip.STAGES}
 
 
 @pytest.mark.parametrize("n,view_degree", [(1024, 32), (256, 0)],
                          ids=["k32", "dense255"])
 def test_launch_bytes_match_hand_counts(n, view_degree):
     """The per-launch floors of the bare tick at K = 32 and on the dense
-    view (K = 255), every probe due at the last column (so the probe draws
-    and perm_u count for every row), against counts made by hand from the
+    view (K = 255), every probe due at the last column (so in the plain
+    tick that gives the output state every row probes and wraps, and the
+    probe draws and perm_u count for every row), against counts made by
+    hand from the
     leaf widths: S = 3 RTT slots, D = 8, W = 20, 3 world dims, 3 relays,
     3 gossip legs, 3 piggybacked facts."""
     cfg = TSimConfig(n=n, view_degree=view_degree)
