@@ -22,9 +22,13 @@ leave in flight; and every variant on the dense view (the complete
 graph, n = 256); and tie-and-wrap windows (every probing row wrapping,
 tied budgets and tied reshuffle draws) for the bare and the serf + chaos
 + sentinel variants at 1,048,576 nodes and the bare and serf variants on
-the dense view. It drives the port's main paths through their entry
-points: ``Simulation`` (a 1,048,576-node, K = 32 view converging after
-a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event storm
+the dense view; and serf stress windows for the serf and serf + chaos +
+sentinel variants at 1,048,576 nodes and on the dense view (events
+spread over more Lamport times than the dedup ring holds, more origins
+at one Lamport time than a bucket holds, overflowing queues, one key from
+many origins, a relayed query under loss). It drives the port's main
+paths through their entry points: ``Simulation`` (a 1,048,576-node,
+K = 32 view converging after a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event storm
 and an open query, with fresh events every 512 ticks), ``Simulation``
 and ``SerfSimulation`` with the sentinel on through ``run_scenario``
 (the game day's composed partition + churn timeline with a lossy link
@@ -138,6 +142,15 @@ TIE_WINDOWS = (("bare", MAIN_N, False, False),
                ("serf_chaos", MAIN_N, True, True),
                ("dense", DENSE_N, False, False),
                ("dense_serf", DENSE_N, True, False))
+# The serf stress windows, for serf_post: (name, n, schedule and
+# sentinel), STRESS_TICKS ticks each (1 % packet loss, query_relay_factor
+# 2) from a state 32 ticks old into which stress_events fires its storm;
+# under a schedule (and the sentinel) slo_events from the window's first
+# tick, suspicion cut as in the SLO window.
+STRESS_TICKS = 24
+STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
+                  ("dense_serf", DENSE_N, False),
+                  ("dense_serf_chaos", DENSE_N, True))
 
 
 def emit(obj):
@@ -911,6 +924,106 @@ def tie_wrap_parity(name: str, n: int, serf_plane: bool, chaos_on: bool,
                 ok=not bad and bit_equal and wrapped[0] > 0)
 
 
+def stress_events(cfg, packed):
+    """On a packed SerfState whose event clocks are all still 1: 8 origins
+    spread over the ring fire one event of one name at Lamport time 1
+    (equal keys from 8 origins, twice seen_width: buckets fill), 2 more
+    fire 24 events each (their queues keep the last 8, Lamport times
+    17..24, so buckets are taken over and floors rise, and receivers'
+    queues overflow), and a row opens a query (relayed, with loss, so
+    many responses add onto one origin slot). Returns (state, query row,
+    its slot)."""
+    from consul_tpu_torch.models import layout, serf
+
+    n, dev = cfg.n, packed.clock.device
+    dense = layout.unpack_state(packed)
+    dense = serf.user_event(cfg, dense,
+                            _rows(n, [(n // 8) * j + 5 for j in range(8)], dev), 1)
+    storm = _rows(n, [n // 3 + 1, 2 * n // 3 + 1], dev)
+    for k in range(24):
+        dense = serf.user_event(cfg, dense, storm, 2 + k)
+    q_row = n // 2 + 9
+    dense = serf.query(cfg, dense, _rows(n, [q_row], dev), 3)
+    return layout.pack_state(dense), q_row, serf.newest_query_slot(dense, q_row)
+
+
+def stress_hits(s, out):
+    """The dedup and queue branches one serf tick from ``s`` to ``out``
+    took: buckets taken over from an older Lamport time, floors raised,
+    full buckets, and queues holding one key from two origins."""
+    def i64(x):  # uint32 has no comparisons in PyTorch
+        return x.to(torch.int64)
+
+    key, org = i64(out.ev_key), out.ev_origin
+    same = ((key[:, :, None] == key[:, None, :]) & (key[:, :, None] > 0)
+            & (org[:, :, None] != org[:, None, :]))
+    lt0 = i64(s.ev_bkt_lt)
+    return dict(
+        takeovers=int(((i64(out.ev_bkt_lt) != lt0) & (lt0 > 0)).sum()),
+        floor_bumps=int((i64(out.ev_floor) > i64(s.ev_floor)).sum()),
+        full_bucket_rows=int((out.ev_bkt_sig.view(torch.int32) != 0)
+                             .all(-1).any(-1).sum()),
+        same_key_rows=int(same.flatten(1).any(1).sum()))
+
+
+def serf_stress_parity(name: str, n: int, chaos_on: bool, seed: int):
+    """A serf variant against plain_serf_tick over STRESS_TICKS ticks from
+    stress_events' storm, compared as compare_window does. Passes only if
+    every packed and serf leaf and all 26 counters are equal on every
+    tick, every float leaf bit for bit, and each branch was hit: bucket
+    takeovers and floor bumps, full buckets, queues holding one key from
+    two origins, queue evictions (serf_intents_dropped) and relayed query
+    responses adding onto the origin's slot."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import GossipConfig, SerfConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    gossip = (GossipConfig(suspicion_mult=1, suspicion_max_timeout_mult=2)
+              if chaos_on else GossipConfig())
+    cfg = SimConfig(n=n, view_degree=0 if n == DENSE_N else 32,
+                    packet_loss=0.01, gossip=gossip,
+                    serf=SerfConfig(query_relay_factor=2))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    st = layout.pack_state(serf.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=True,
+                                        sentinel=chaos_on)
+    for _ in range(32):
+        st, _ = tick(world, st, serf.draw_serf_tick(cfg, gen, dev))
+    st, q_row, q_slot = stress_events(cfg, st)
+    sched = None
+    if chaos_on:
+        t0 = int(layout.tick_of(st))
+        events = dense_events(chaos, n) if n == DENSE_N else slo_events(chaos, n)
+        sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
+                                     t0 - (2 if n == DENSE_N else SLO_START))
+    hits = {}
+
+    def plain(w, s, d, sc):
+        out, cnt = cuda_gossip.plain_serf_tick(cfg, topo, w, s, d, sc,
+                                               sentinel=chaos_on)
+        for k, v in stress_hits(s, out).items():
+            hits[k] = hits.get(k, 0) + v
+        return out, cnt
+
+    pp, totals, bad, gaps = compare_window(
+        tick, plain, world, st,
+        lambda: serf.draw_serf_tick(cfg, gen, dev, chaos=chaos_on),
+        STRESS_TICKS, sched)
+    hits["intents_dropped"] = int(totals[FIELDS.index("serf_intents_dropped")])
+    hits["query_acks"] = int(pp.q_acks[q_row, q_slot])
+    bit_equal = all(g["abs"] == 0.0 and g["steps"] == 0 for g in gaps.values())
+    return dict(variant=name, n=n, k=cfg.degree, ticks=STRESS_TICKS,
+                relay_factor=2, mismatches=bad[:5], float_gaps=gaps,
+                hits=hits,
+                ok=not bad and bit_equal and all(v > 0 for v in hits.values()))
+
+
 def dense_main_path():
     """The dense view through the entry points, each variant: Simulation
     or SerfSimulation(SimConfig(n=DENSE_N), kernel="cuda") (view_degree 0,
@@ -1273,6 +1386,18 @@ def main() -> int:
         emit({"phase": "tie_wrap_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"tie_wrap_kernel_parity {variant}")
+    stress_rows = {"serf": "gossip_tick_serf", "serf_chaos": "gossip_tick_serf_chaos",
+                   "dense_serf": "gossip_tick_dense_serf",
+                   "dense_serf_chaos": "gossip_tick_dense_serf_chaos"}
+    for variant, n, chaos_on in STRESS_WINDOWS:
+        t0 = time.perf_counter()
+        res = serf_stress_parity(variant, n, chaos_on, seed=37)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        fold_abs(stress_rows[variant], res)
+        emit({"phase": "serf_stress_kernel_parity", **res})
+        if not res["ok"]:
+            failed.append(f"serf_stress_kernel_parity {variant}")
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1

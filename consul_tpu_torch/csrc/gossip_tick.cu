@@ -21,7 +21,7 @@
 //   (B) receive: each receiver reads its senders' payloads, merges facts,
 //       applies Lifeguard confirmations against the post-merge view,
 //       collects refute claims and scans the K in-columns for pokes. It
-//       updates only its own view_mid row. One thread per row.
+//       updates only its own view_mid row.
 //   (C) pushpull: pull and push against view_mid rows of the partner and
 //       the initiator (recomputing the initiator's init_ok from its row),
 //       refutation, suspicion reconciliation, budget re-arm and pack.
@@ -30,9 +30,9 @@
 // math and with -fmad=false, so the float operations keep the reference's
 // order.
 //
-// A and C, warp tiles. Most of their bytes are the [N, K] view leaves
-// (view_inc, meta, susp_delta, susp_seen, view_mid, lat_cnt, lat_buf), one
-// row-major row of 64-128 B per node at K = 32. A thread walking its own
+// A, B, C and D, warp tiles. Most of A's and C's bytes are the [N, K] view
+// leaves (view_inc, meta, susp_delta, susp_seen, view_mid, lat_cnt,
+// lat_buf), one row-major row of 64-128 B per node at K = 32. A thread walking its own
 // row puts a warp's 32 loads on 32 rows, 32 sectors for 2-4 useful bytes
 // each, and the lines are gone from L1 before the next column. So a warp
 // owns a tile of up to 32 consecutive rows, whose cells are contiguous in
@@ -62,6 +62,9 @@
 // counter per block. Only integer work moves between lanes; each float
 // operation of a row stays on one lane in the reference's order, and no
 // float sum is split.
+// B and D follow the same plan (their notes below): B's rows, and D's
+// queue and dedup buckets, are the tile's contiguous cells, its per-row
+// work one row per lane over them.
 // What still bounds them: C moves its bytes near the card's rate. A's row
 // phases chase dependent scattered reads (probe target, relays, the
 // target's coordinates) one row per lane, so A runs a few times over its
@@ -85,7 +88,7 @@
 //       the per-leg liveness-only send gate ex_sendable, to the x_* payload
 //       scratch beside pay_*; and copies q_resps/q_acks to the output, so
 //       the tally's cross-row adds in D land on the input values.
-//   (D) serf_post, after C has written the final view, one thread per row:
+//   (D) serf_post, after C has written the final view, in warp tiles:
 //       the row's quiet leave (left |= quiet in its own packed flags),
 //       delivery of the oldest staged entry against the dedup buckets, the
 //       Lamport witness, the query tally, budget decrement and retirement,
@@ -99,9 +102,11 @@
 //       exact in any order. The slot match reads q_open_key from the INPUT
 //       (pre-expiry, serf.py:723 then :558); the origin's and each relay
 //       row's liveness is recomputed post-quiet from their flags (after
-//       P's churn edges, under a schedule) and leave_at. D copies its
-//       row's dedup buckets to the output and updates them there, in the
-//       order the reference rejects in.
+//       P's churn edges, under a schedule) and leave_at. D stages its
+//       tile's queue and event dedup buckets in shared memory, updates them
+//       there in the order the reference rejects in and writes them out;
+//       the query buckets, which only query keys touch, are copied to the
+//       output and updated there.
 //
 // The chaos + sentinel variant replaces the same pallas_call with a
 // non-empty ChaosSchedule (I_CHAOS = 1) and/or sentinel=True
@@ -299,20 +304,6 @@ __device__ void block_flush(const int* smem, int* global) {
   for (int k = threadIdx.x; k < N_CNT; k += blockDim.x)
     if (smem[k]) atomicAdd(&global[k], smem[k]);
 }
-
-// Block-level counter reduction: shared-memory atomics, then block_flush.
-struct BlockCounters {
-  int* s;
-  __device__ void init(int* smem) {
-    s = smem;
-    for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) s[k] = 0;
-    __syncthreads();
-  }
-  __device__ void add(int k, int v) {
-    if (v) atomicAdd(&s[k], v);
-  }
-  __device__ void flush(int* global) { block_flush(s, global); }
-};
 
 // ---------------------------------------------------------------------------
 // Chaos schedule (chaos/schedule.py), per row.
@@ -550,7 +541,7 @@ __device__ bool viv_observe(const TickArgs& a, int i, int tgt, bool direct_ok, f
 }
 
 // ---------------------------------------------------------------------------
-// Serf helpers (models/serf.py), one row per thread.
+// Serf helpers (models/serf.py), for one row.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int load_origin(const TickArgs& a, int k, size_t idx) {
@@ -749,17 +740,68 @@ __device__ __forceinline__ int row_of(int e, int K, uint32_t kdiv) {
 }
 
 // Copies nbytes from src to dst with the lanes of one warp, 16 bytes a lane
-// where both ends allow it.
+// where both ends allow it, U loads of a lane in flight at once.
+template <int U = 1>
 __device__ void warp_copy(uint8_t* dst, const uint8_t* src, size_t nbytes, int lane) {
   size_t done = 0;
   if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
     const size_t nv = nbytes / 16;
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
     uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (size_t x = lane; x < nv; x += 32) d4[x] = s4[x];
+    for (size_t x0 = 0; x0 < nv; x0 += 32 * U) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (x0 + 32 * u + lane < nv) v[u] = s4[x0 + 32 * u + lane];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (x0 + 32 * u + lane < nv) d4[x0 + 32 * u + lane] = v[u];
+    }
     done = nv * 16;
   }
   for (size_t x = done + lane; x < nbytes; x += 32) dst[x] = src[x];
+}
+
+#define MAXFAN 8   // widest gossip fan-out (gossip_nodes)
+
+// The multiplier of row_of for a row width w.
+__host__ __device__ __forceinline__ uint32_t div_of(int w) {
+  return 0xFFFFFFFFu / static_cast<uint32_t>(w) + 1u;
+}
+
+// (x + d) mod n and (x - d) mod n for 0 <= x, d < n.
+__device__ __forceinline__ int wrap_add(int x, int d, int n) {
+  const int y = x + d;
+  return y >= n ? y - n : y;
+}
+__device__ __forceinline__ int wrap_sub(int x, int d, int n) {
+  const int y = x - d;
+  return y < 0 ? y + n : y;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A tile's [rows, w] 32-bit cells (contiguous at src) into stage rows of
+// stride s words, lanes over cells, by cp.async; cp_async_wait_all and a
+// __syncwarp() make them visible.
+__device__ __forceinline__ void stage_in(uint32_t* dst, int s, const uint32_t* src,
+                                         int rows, int w, uint32_t wdiv, int lane) {
+  const int tot = rows * w;
+  for (int e = lane; e < tot; e += 32)
+    cp_async4(dst + e + row_of(e, w, wdiv) * (s - w), src + e);
+}
+// And back out, coalesced.
+__device__ __forceinline__ void stage_out(uint32_t* dst, const uint32_t* src, int s,
+                                          int rows, int w, uint32_t wdiv, int lane) {
+  const int tot = rows * w;
+  for (int e = lane; e < tot; e += 32) dst[e] = src[e + row_of(e, w, wdiv) * (s - w)];
 }
 
 // ---------------------------------------------------------------------------
@@ -1279,55 +1321,91 @@ __global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int ti
 }
 
 // ---------------------------------------------------------------------------
-// (B) receive
+// (B) receive, in warp tiles
+//
+// Per tile of up to 32 rows, one row per lane: each leg's arrival (the
+// senders of consecutive rows are consecutive rows, so the reads of their
+// flags and payloads are coalesced across lanes), the merges in the
+// reference's order into the row's view_mid cells, the Lifeguard
+// confirmations against the post-merge row (o_sseen ORs in place), the
+// refute claim and the poke scan over the K in-neighbours (consecutive
+// rows across lanes for each column). The tick's offsets and gossip
+// columns sit in shared memory and every displacement wraps by one
+// compare, not an integer division. The merges stay read-modify-writes of
+// the touched cells: staging the tile's view_mid rows in shared memory
+// and writing them back cost more than the scattered cells it saved, in
+// every state measured (PERF.md, section 6).
 // ---------------------------------------------------------------------------
 
-__global__ void k_receive(TickArgs a) {
+__global__ void __launch_bounds__(WARPS * 32) k_receive(TickArgs a, int tile_rows) {
   __shared__ int smem[N_CNT];
-  BlockCounters bc;
-  bc.init(smem);
-  const int n = a.i[I_N];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n) {
-    const int K = a.i[I_K], FAN = a.i[I_FAN], P = a.i[I_P];
-    const float pl = a.f[F_PLOSS];
-    const int t = *ptr<const int32_t>(a, P_IN + L_T);
-    const int32_t* off = ptr<const int32_t>(a, P_OFF);
-    const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
-    const int32_t* inv = ptr<const int32_t>(a, P_INV);
-    const uint16_t* pflags = ptr<const uint16_t>(a, P_PFLAGS);
-    const uint8_t* pscol = ptr<const uint8_t>(a, P_PSCOL);
-    const uint32_t* pskey = ptr<const uint32_t>(a, P_PSKEY);
-    const uint32_t* psbits = ptr<const uint32_t>(a, P_PSBITS);
-    const uint32_t* pownk = ptr<const uint32_t>(a, P_POWNK);
-    const float* udrop = ptr<const float>(a, P_UDROP);
-    uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
-    uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+  __shared__ int s_off[MAXK];
+  __shared__ int s_gcol[MAXFAN];
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  const int K = a.i[I_K], FAN = a.i[I_FAN];
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) smem[k] = 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) s_off[k] = ptr<const int32_t>(a, P_OFF)[k];
+  if (threadIdx.x < MAXFAN)
+    s_gcol[threadIdx.x] = static_cast<int>(threadIdx.x) < FAN ? gossip_col(a, t, threadIdx.x)
+                                                               : 0;
+  __syncthreads();
+  Tally tl;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int n = a.i[I_N], P = a.i[I_P];
+  const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
+  const bool chaos = a.i[I_CHAOS] != 0;
+  const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
+  const int32_t* inv = ptr<const int32_t>(a, P_INV);
+  const uint16_t* pflags = ptr<const uint16_t>(a, P_PFLAGS);
+  const uint8_t* pscol = ptr<const uint8_t>(a, P_PSCOL);
+  const uint32_t* pskey = ptr<const uint32_t>(a, P_PSKEY);
+  const uint32_t* psbits = ptr<const uint32_t>(a, P_PSBITS);
+  const uint32_t* pownk = ptr<const uint32_t>(a, P_POWNK);
+  const uint32_t* poke = ptr<const uint32_t>(a, P_POKE);
+  const float* udrop = ptr<const float>(a, P_UDROP);
+  uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
+  uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
+
+  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x * WARPS + wib; tile < ntiles; tile += gridDim.x * WARPS) {
+    const int base = tile * tile_rows;
+    const int rows = min(tile_rows, n - base);
+    const bool valid = lane < rows;
+    const int r = base + (valid ? lane : 0);
+    if (!valid) continue;
     const size_t rb = static_cast<size_t>(r) * K;
+
+    // Which legs arrived.
     const uint8_t fl = flags_at(a, r);
     const bool recv_up = (fl & 1) && !(fl & 2);
-    const uint32_t own_inc = inc_at(a, r);
-    const bool chaos = a.i[I_CHAOS] != 0;
     const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
-
-    uint32_t refute = 0;
-    int n_rx = 0, n_cdrop = 0;
     uint32_t arrived_bits = 0;
+    int n_rx = 0, n_cdrop = 0;
     for (int f = 0; f < FAN; ++f) {
-      const int jc = gossip_col(a, t, f);
-      const int s = (r - off[jc] + n) % n;
+      const int s = wrap_sub(r, s_off[s_gcol[f]], n);
       const uint16_t pf = pflags[s];
       const float u = udrop[static_cast<size_t>(r) * FAN + f];
       const bool sent = (pf >> f) & 1;
       bool ok_leg = u >= pl;
       if (chaos) {  // one-way sender -> receiver on the leg's drop draw
-        ok_leg = pair_ok(a, terms_at(a, s), me, u, a.f[F_KEEP], false);
+        ok_leg = pair_ok(a, terms_at(a, s), me, u, keep, false);
         n_cdrop += sent && recv_up && u >= pl && !ok_leg;
       }
-      const bool arrived = sent && ok_leg && recv_up;
-      if (!arrived) continue;
+      if (!(sent && ok_leg && recv_up)) continue;
       arrived_bits |= 1u << f;
       ++n_rx;
+    }
+    tl.add(C_GRX, n_rx);
+    tl.add(C_CDROPPED, n_cdrop);
+
+    // Merges in the reference's order, then confirmations, refute, pokes.
+    const uint32_t own_inc = inc_at(a, r);
+    uint32_t refute = 0;
+    for (int f = 0; f < FAN; ++f) {
+      if (!((arrived_bits >> f) & 1)) continue;
+      const int jc = s_gcol[f];
+      const int s = wrap_sub(r, s_off[jc], n);
+      const uint16_t pf = pflags[s];
       for (int q = 0; q < P; ++q) {
         if (!((pf >> (8 + q)) & 1)) continue;
         const size_t sq = static_cast<size_t>(s) * P + q;
@@ -1347,8 +1425,8 @@ __global__ void k_receive(TickArgs a) {
     // Lifeguard confirmations against the post-merge view.
     for (int f = 0; f < FAN; ++f) {
       if (!((arrived_bits >> f) & 1)) continue;
-      const int jc = gossip_col(a, t, f);
-      const int s = (r - off[jc] + n) % n;
+      const int jc = s_gcol[f];
+      const int s = wrap_sub(r, s_off[jc], n);
       const uint16_t pf = pflags[s];
       for (int q = 0; q < P; ++q) {
         if (!((pf >> (8 + q)) & 1)) continue;
@@ -1357,19 +1435,15 @@ __global__ void k_receive(TickArgs a) {
         if (mycol < 0) continue;
         const uint32_t key = pskey[sq];
         const uint32_t post = vmid[rb + mycol];
-        if (kst(key) == SUSPECT && kst(post) == SUSPECT &&
-            kinc(key) >= kinc(post))
+        if (kst(key) == SUSPECT && kst(post) == SUSPECT && kinc(key) >= kinc(post))
           o_sseen[rb + mycol] |= psbits[sq];
       }
     }
-    bc.add(C_GRX, n_rx);
-    bc.add(C_CDROPPED, n_cdrop);
-
     // Pokes: was I probed by an in-neighbor that believes me suspect?
-    const uint32_t* poke = ptr<const uint32_t>(a, P_POKE);
     uint32_t claim = 0;
+#pragma unroll 4
     for (int j = 0; j < K; ++j) {
-      const uint32_t w = poke[(r - off[j] + n) % n];
+      const uint32_t w = poke[wrap_sub(r, s_off[j], n)];
       if ((w >> 31) && static_cast<int>((w >> 16) & 0xFFu) == j)
         claim = max(claim, w & 0xFFFFu);
     }
@@ -1377,7 +1451,8 @@ __global__ void k_receive(TickArgs a) {
         (claim >= own_inc && recv_up && claim > 0) ? claim : 0u;
     ptr<uint32_t>(a, P_REFUTE)[r] = max(refute, refute_poke);
   }
-  bc.flush(ptr<int>(a, P_CNT));
+  tl.flush(smem, lane);
+  block_flush(smem, ptr<int>(a, P_CNT));
 }
 
 // ---------------------------------------------------------------------------
@@ -1647,8 +1722,33 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
 
 // ---------------------------------------------------------------------------
 // (D) serf_post: the post-gossip half of the fused serf tick
-//     (serf.py:539-568 and _fused_event_post_body :802-895).
+//     (serf.py:539-568 and _fused_event_post_body :802-895), in warp tiles.
+//
+// Per tile of up to 32 rows: (D1) lanes over cells: the tile's event dedup
+// buckets and queue staged in shared memory (cp.async for the 32-bit
+// leaves), the query buckets copied to the output, and while the copies
+// fly the query expiry over [rows, Q] and the reap walk over [rows, K];
+// (D2) one row per lane: the quiet leave, delivery, the Lamport witness,
+// the query tally, the peel with its budget decrement, retirement and
+// intake, on the staged queue and buckets (the query buckets, which only
+// query keys touch, in the output); (D3) lanes over cells: the staged
+// queue and buckets written out. Stage rows are padded to an odd number
+// of words, so 32 lanes on 32 rows at one column hit 32 banks; the intake
+// candidates sit in a [candidate][lane] block of the stage.
 // ---------------------------------------------------------------------------
+
+#define SWARPS 4              // warps per block of D
+#define SERF_WARP_WORDS 4096  // stage words per warp of D (16 KB)
+
+// Words of a tile row in D's stage: event bucket ltimes and signatures,
+// queue keys, origins and tx | pending, each padded to an odd count.
+__host__ __device__ __forceinline__ int serf_row_words(int E, int R, int O) {
+  return (R | 1) + ((R * O) | 1) + 3 * (E | 1);
+}
+__host__ __device__ __forceinline__ int serf_warp_words(int rows, int E, int R, int O,
+                                                        int nc) {
+  return rows * serf_row_words(E, R, O) + 64 * nc;
+}
 
 // Post-quiet liveness of row x (alive_truth & ~left after the tick's churn
 // edges and quiet leaves), from its post-churn flags and leave_at.
@@ -1658,266 +1758,367 @@ __device__ __forceinline__ bool serf_up(const TickArgs& a, int x, int t1) {
   return (f & 1) && !(f & 2) && !(la >= 0 && t1 >= la);
 }
 
-template <typename T>
-__device__ __forceinline__ void copy_row(const TickArgs& a, int leaf, size_t b,
-                                         int len) {
-  const T* src = ptr<const T>(a, P_SIN + leaf) + b;
-  T* dst = ptr<T>(a, P_SOUT + leaf) + b;
-  for (int k = 0; k < len; ++k) dst[k] = src[k];
-}
-
-__global__ void k_serf_post(TickArgs a) {
+__global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_rows) {
+  extern __shared__ uint32_t s_dyn[];
   __shared__ int smem[N_CNT];
-  BlockCounters bc;
-  bc.init(smem);
+  __shared__ int s_goff[MAXFAN];  // off[] of the tick's gossip columns
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) smem[k] = 0;
+  if (threadIdx.x < MAXFAN)
+    s_goff[threadIdx.x] = static_cast<int>(threadIdx.x) < a.i[I_FAN]
+        ? ptr<const int32_t>(a, P_OFF)[gossip_col(a, t, threadIdx.x)] : 0;
+  __syncthreads();
+  Tally tl;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int n = a.i[I_N];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n) {
-    const int K = a.i[I_K], FAN = a.i[I_FAN];
-    const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O], Q = a.i[I_Q];
-    const int PE = a.i[I_PE], RF = a.i[I_RF];
-    const bool exact = a.i[I_EXACT_SIG] != 0;
-    const bool chaos = a.i[I_CHAOS] != 0;
-    const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
-    const int t = *ptr<const int32_t>(a, P_IN + L_T);
-    const int t1 = t + 1;
-    const int32_t* off = ptr<const int32_t>(a, P_OFF);
-    const size_t eb = static_cast<size_t>(r) * E;
-    const size_t qb = static_cast<size_t>(r) * Q;
-    const size_t rb = static_cast<size_t>(r) * K;
+  const int K = a.i[I_K], FAN = a.i[I_FAN];
+  const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O], Q = a.i[I_Q];
+  const int PE = a.i[I_PE], RF = a.i[I_RF];
+  const int RO = R * O, nc = FAN * PE;
+  const bool exact = a.i[I_EXACT_SIG] != 0;
+  const bool chaos = a.i[I_CHAOS] != 0, orig16 = a.i[I_ORIG16] != 0;
+  const bool sentinel = a.i[I_SENTINEL] != 0;
+  const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
+  const int t1 = t + 1;
+  const int tx_limit = a.i[I_TX_LIMIT];
+  const int32_t* off = ptr<const int32_t>(a, P_OFF);
+  const int LS = R | 1, SS = RO | 1, QS = E | 1;
+  const uint32_t dR = div_of(R), dRO = div_of(RO), dE = div_of(E);
 
-    // Quiet leaves: left |= quiet, in the row's own packed flags, on top of
-    // the tick's churn edges (what A wrote there).
-    const uint8_t fl = static_cast<uint8_t>(flags_at(a, r) & ~REVIVED);
-    const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
-    const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
-    const bool quiet = leave_in >= 0 && t1 >= leave_in;
-    const bool alive = fl & 1, left = fl & 2, external = fl & 8;
-    const bool active = alive && !left && !quiet;
-    ptr<uint8_t>(a, P_OUT + L_FLAGS)[r] = static_cast<uint8_t>(fl | (quiet ? 2 : 0));
-    ptr<int32_t>(a, P_SOUT + S_LEAVE)[r] = quiet ? -1 : leave_in;
+  const uint32_t* in_elt = ptr<const uint32_t>(a, P_SIN + S_EBLT);
+  const uint32_t* in_esig = ptr<const uint32_t>(a, P_SIN + S_EBSIG);
+  const uint32_t* in_key = ptr<const uint32_t>(a, P_SIN + S_EKEY);
+  const int8_t* in_tx = ptr<const int8_t>(a, P_SIN + S_ETX);
+  const uint8_t* in_pend = ptr<const uint8_t>(a, P_SIN + S_EPEND);
+  const uint32_t* qopen_in = ptr<const uint32_t>(a, P_SIN + S_QOPEN);
+  const int32_t* qdead_in = ptr<const int32_t>(a, P_SIN + S_QDEAD);
+  const uint16_t* o_meta = ptr<const uint16_t>(a, P_OUT + L_META);
+  const int32_t* ds_in = ptr<const int32_t>(a, P_SIN + S_DOWN);
+  int32_t* ds_out = ptr<int32_t>(a, P_SOUT + S_DOWN);
+  uint32_t* o_qlt = ptr<uint32_t>(a, P_SOUT + S_QBLT);
+  uint32_t* o_qsig = ptr<uint32_t>(a, P_SOUT + S_QBSIG);
+  const uint16_t* xflags = ptr<const uint16_t>(a, P_XFLAGS);
+  const uint32_t* xkey = ptr<const uint32_t>(a, P_XKEY);
+  const int32_t* xorig = ptr<const int32_t>(a, P_XORIG);
+  const float* udrop = ptr<const float>(a, P_UDROP);
 
-    // The row's queue, in registers.
-    uint32_t key[MAXE];
-    int org[MAXE], tx[MAXE];
-    bool pend[MAXE];
-    const uint32_t* in_key = ptr<const uint32_t>(a, P_SIN + S_EKEY) + eb;
-    const int8_t* in_tx = ptr<const int8_t>(a, P_SIN + S_ETX) + eb;
-    const uint8_t* in_pend = ptr<const uint8_t>(a, P_SIN + S_EPEND) + eb;
-    for (int e = 0; e < E; ++e) {
-      key[e] = in_key[e];
-      org[e] = load_origin(a, P_SIN + S_EORIG, eb + e);
-      tx[e] = in_tx[e];
-      pend[e] = in_pend[e] != 0;
+  // The warp's stage.
+  uint32_t* s_elt = s_dyn + static_cast<size_t>(wib) *
+                                serf_warp_words(tile_rows, E, R, O, nc);
+  uint32_t* s_esig = s_elt + tile_rows * LS;
+  uint32_t* s_key = s_esig + tile_rows * SS;
+  int32_t* s_org = reinterpret_cast<int32_t*>(s_key + tile_rows * QS);
+  int32_t* s_txp = s_org + tile_rows * QS;   // tx * 2 + pending
+  uint32_t* s_ck = reinterpret_cast<uint32_t*>(s_txp + tile_rows * QS);
+  int32_t* s_co = reinterpret_cast<int32_t*>(s_ck + 32 * nc);
+
+  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x * SWARPS + wib; tile < ntiles; tile += gridDim.x * SWARPS) {
+    const int base = tile * tile_rows;
+    const int rows = min(tile_rows, n - base);
+    const bool valid = lane < rows;
+    const int r = base + (valid ? lane : 0);
+    const size_t b = static_cast<size_t>(base);
+
+    // D1. Stage the event buckets and the queue; the query buckets go to
+    // the output as they are (a query delivery updates its row there).
+    stage_in(s_elt, LS, in_elt + b * R, rows, R, dR, lane);
+    stage_in(s_esig, SS, in_esig + b * RO, rows, RO, dRO, lane);
+    stage_in(s_key, QS, in_key + b * E, rows, E, dE, lane);
+    if (!orig16)
+      stage_in(reinterpret_cast<uint32_t*>(s_org), QS,
+               ptr<const uint32_t>(a, P_SIN + S_EORIG) + b * E, rows, E, dE, lane);
+    for (int e = lane; e < rows * E; e += 32) {
+      const int x = e + row_of(e, E, dE) * (QS - E);
+      if (orig16) s_org[x] = ptr<const int16_t>(a, P_SIN + S_EORIG)[b * E + e];
+      s_txp[x] = static_cast<int>(in_tx[b * E + e]) * 2 + (in_pend[b * E + e] ? 1 : 0);
     }
-    // The row's dedup buckets, updated in place in the output.
-    const size_t bb = static_cast<size_t>(r) * R;
-    const size_t sb = bb * O;
-    copy_row<uint32_t>(a, S_EBLT, bb, R);
-    copy_row<uint32_t>(a, S_QBLT, bb, R);
-    copy_row<uint32_t>(a, S_EBSIG, sb, R * O);
-    copy_row<uint32_t>(a, S_QBSIG, sb, R * O);
-    Bucket evb{ptr<uint32_t>(a, P_SOUT + S_EBLT) + bb,
-               ptr<uint32_t>(a, P_SOUT + S_EBSIG) + sb,
-               ptr<const uint32_t>(a, P_SIN + S_EFLOOR)[r], R, O, exact};
-    Bucket qub{ptr<uint32_t>(a, P_SOUT + S_QBLT) + bb,
-               ptr<uint32_t>(a, P_SOUT + S_QBSIG) + sb,
-               ptr<const uint32_t>(a, P_SIN + S_QFLOOR)[r], R, O, exact};
-    const uint32_t clock0 = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
-    const uint32_t eclock0 = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
-    const uint32_t qclock0 = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
-    uint32_t eclock = eclock0, qclock = qclock0;
-    int delivered = ptr<const int32_t>(a, P_SIN + S_EDELIV)[r];
-
-    // 1. Deliver the oldest staged-undelivered entry.
-    uint32_t del_key = 0xFFFFFFFFu;
-    for (int e = 0; e < E; ++e)
-      if (pend[e] && key[e] > 0u && active && key[e] < del_key) del_key = key[e];
-    const bool has = del_key != 0xFFFFFFFFu;
-    int del_slot = 0;
-    for (int e = E - 1; e >= 0; --e)
-      if (pend[e] && key[e] > 0u && active && key[e] == del_key) del_slot = e;
-    const uint32_t wkey = has ? del_key : 0u;
-    const int worig = has ? org[del_slot] : 0;
-    const bool is_q = wkey & 1u;
-    const bool stale = is_q ? qub.rejects(wkey, worig) : evb.rejects(wkey, worig);
-    const bool deliver = has && !stale;
-    const uint32_t lt = wkey >> 9;
-    if (deliver && !is_q) {
-      evb.apply(wkey, worig);
-      delivered += 1;
-      eclock = max(eclock, lt + 1u);
-    }
-    if (deliver && is_q) {
-      qub.apply(wkey, worig);
-      qclock = max(qclock, lt + 1u);
-      // The query tally: ack (and answer) the origin's open slot. Under a
-      // schedule the direct response and both legs of each relayed copy
-      // are pair_ok legs, with the origin's terms read at its row.
-      const float ur = ptr<const float>(a, P_URESP)[r];
-      const Terms og = chaos ? terms_at(a, worig) : me;
-      bool arrived = chaos ? pair_ok(a, me, og, ur, keep, false) : ur >= pl;
-      if (RF > 0 && (chaos || pl > 0.0f)) {
-        const int64_t* rcols = ptr<const int64_t>(a, P_RCOLS);
-        const float* u1 = ptr<const float>(a, P_RU1);
-        const float* u2 = ptr<const float>(a, P_RU2);
-        for (int k = 0; k < RF; ++k) {
-          const int rrow = (r + off[rcols[k]]) % n;
-          const size_t u = static_cast<size_t>(r) * RF + k;
-          bool legs = u1[u] >= pl && u2[u] >= pl;
-          if (chaos) {
-            const Terms rt = terms_at(a, rrow);
-            legs = pair_ok(a, me, rt, u1[u], keep, false) &&
-                   pair_ok(a, rt, og, u2[u], keep, false);
-          }
-          if (serf_up(a, rrow, t1) && legs) arrived = true;
+    warp_copy<4>(reinterpret_cast<uint8_t*>(o_qlt + b * R),
+                 ptr<const uint8_t>(a, P_SIN + S_QBLT) + b * R * 4,
+                 static_cast<size_t>(rows) * R * 4, lane);
+    warp_copy<4>(reinterpret_cast<uint8_t*>(o_qsig + b * RO),
+                 ptr<const uint8_t>(a, P_SIN + S_QBSIG) + b * RO * 4,
+                 static_cast<size_t>(rows) * RO * 4, lane);
+    // Query expiry (the tally matched the pre-expiry keys, from the input).
+    for (int e0 = 0; e0 < rows * Q; e0 += 32 * 4) {
+      uint32_t qk[4];
+      int32_t dl[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + 32 * u + lane;
+        if (e < rows * Q) {
+          qk[u] = qopen_in[b * Q + e];
+          dl[u] = qdead_in[b * Q + e];
         }
       }
-      if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
-        const uint32_t* qopen = ptr<const uint32_t>(a, P_SIN + S_QOPEN);
-        const bool responder = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r] != 0;
-        int32_t* qacks = ptr<int32_t>(a, P_SOUT + S_QACK);
-        int32_t* qresps = ptr<int32_t>(a, P_SOUT + S_QRESP);
-        const size_t ob = static_cast<size_t>(worig) * Q;
-        for (int q = 0; q < Q; ++q) {
-          if (qopen[ob + q] != wkey) continue;
-          atomicAdd(&qacks[ob + q], 1);
-          if (responder) atomicAdd(&qresps[ob + q], 1);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + 32 * u + lane;
+        if (e >= rows * Q) continue;
+        ptr<uint32_t>(a, P_SOUT + S_QOPEN)[b * Q + e] =
+            (qk[u] > 0u && t1 >= dl[u]) ? 0u : qk[u];
+        ptr<int32_t>(a, P_SOUT + S_QDEAD)[b * Q + e] = dl[u];
+      }
+    }
+    // Reap bookkeeping from the final view status (C's output).
+    const size_t kb = b * K;
+    const int ktot = rows * K;
+    for (int e0 = 0; e0 < ktot; e0 += 32 * 8) {
+      uint16_t m[8];
+      int32_t ds[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + 32 * u + lane;
+        if (e < ktot) {
+          m[u] = o_meta[kb + e];
+          ds[u] = ds_in[kb + e];
         }
       }
-    }
-    if (has) pend[del_slot] = false;
-
-    // 2. Budget decrement by the legs sent, from the pre-tick selection;
-    //    retire spent delivered entries.
-    const uint32_t xbits = ptr<const uint16_t>(a, P_XFLAGS)[r];
-    const int ex_sends = __popc(xbits & 0xFFu);
-    int order[MAXPE], mtx[MAXPE];
-    serf_peel(a, eb, E, PE, order, mtx);
-    int n_retx = 0;
-    for (int q = 0; q < PE; ++q) {
-      const int sends = ((xbits >> (8 + q)) & 1u) ? ex_sends : 0;
-      n_retx += sends;
-      tx[order[q]] = max(mtx[q] - sends, 0);
-    }
-    for (int e = 0; e < E; ++e)
-      if (tx[e] <= 0 && !pend[e]) key[e] = 0u;
-
-    // 3. Intake: up to 2 fresh arrivals off the legs, re-read from the
-    //    senders' payloads at this tick's displacements. A leg arrives as
-    //    the membership leg does in B: its drop draw (a one-way pair_ok
-    //    under a schedule) and the receiver's pre-quiet liveness.
-    const bool recv_up = alive && !left;
-    const uint16_t* xflags = ptr<const uint16_t>(a, P_XFLAGS);
-    const uint32_t* xkey = ptr<const uint32_t>(a, P_XKEY);
-    const int32_t* xorig = ptr<const int32_t>(a, P_XORIG);
-    const float* udrop = ptr<const float>(a, P_UDROP);
-    uint32_t ck[MAXC];
-    int co[MAXC];
-    uint32_t fresh = 0;
-    for (int f = 0; f < FAN; ++f) {
-      const int jc = gossip_col(a, t, f);
-      const int s = (r - off[jc] + n) % n;
-      const uint32_t xs = xflags[s];
-      const float u = udrop[static_cast<size_t>(r) * FAN + f];
-      const bool ok_leg = chaos ? pair_ok(a, terms_at(a, s), me, u, keep, false)
-                                : u >= pl;
-      const bool leg = ((xs >> f) & 1u) && ok_leg && recv_up;
-      for (int q = 0; q < PE; ++q) {
-        const int c = f * PE + q;
-        const bool ok = leg && ((xs >> (8 + q)) & 1u);
-        const size_t sq = static_cast<size_t>(s) * PE + q;
-        ck[c] = ok ? xkey[sq] : 0u;
-        co[c] = ok ? xorig[sq] : -1;
-        const bool rej = (ck[c] & 1u) ? qub.rejects(ck[c], co[c])
-                                      : evb.rejects(ck[c], co[c]);
-        if (ck[c] > 0u && !rej) fresh |= 1u << c;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + 32 * u + lane;
+        if (e >= ktot) continue;
+        const uint32_t st = m[u] & 3u;
+        const bool down = st == DEAD || st == LEFT;
+        ds_out[kb + e] = down ? (ds[u] < 0 ? t : ds[u]) : -1;
       }
     }
-    const int nc = FAN * PE;
-    const int tx_limit = a.i[I_TX_LIMIT];
-    int queued = 0, dropped = 0;
-    for (int round = 0; round < 2; ++round) {
-      uint32_t win = 0xFFFFFFFFu;
-      for (int c = 0; c < nc; ++c)
-        if (((fresh >> c) & 1u) && ck[c] < win) win = ck[c];
-      if (win == 0xFFFFFFFFu) break;
-      int slot_i = 0;
-      for (int c = nc - 1; c >= 0; --c)
-        if (((fresh >> c) & 1u) && ck[c] == win) slot_i = c;
-      const int worg = co[slot_i];
-      // _equeue_push: same subject, else empty, else most transmitted.
-      int slot = 0, best = 0;
-      bool slot_same = false, slot_empty = false;
+    cp_async_wait_all();
+    __syncwarp();
+
+    // D2. One row per lane, on the stage.
+    if (valid) {
+      uint32_t* kq = s_key + lane * QS;
+      int32_t* oq = s_org + lane * QS;
+      int32_t* tq = s_txp + lane * QS;
+
+      // Quiet leaves: left |= quiet, in the row's own packed flags, on top
+      // of the tick's churn edges (what A wrote there).
+      const uint8_t fl = static_cast<uint8_t>(flags_at(a, r) & ~REVIVED);
+      const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
+      const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
+      const bool quiet = leave_in >= 0 && t1 >= leave_in;
+      const bool alive = fl & 1, left = fl & 2, external = fl & 8;
+      const bool active = alive && !left && !quiet;
+      ptr<uint8_t>(a, P_OUT + L_FLAGS)[r] = static_cast<uint8_t>(fl | (quiet ? 2 : 0));
+      ptr<int32_t>(a, P_SOUT + S_LEAVE)[r] = quiet ? -1 : leave_in;
+
+      Bucket evb{s_elt + lane * LS, s_esig + lane * SS,
+                 ptr<const uint32_t>(a, P_SIN + S_EFLOOR)[r], R, O, exact};
+      Bucket qub{o_qlt + static_cast<size_t>(r) * R, o_qsig + static_cast<size_t>(r) * RO,
+                 ptr<const uint32_t>(a, P_SIN + S_QFLOOR)[r], R, O, exact};
+      const uint32_t clock0 = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
+      const uint32_t eclock0 = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
+      const uint32_t qclock0 = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
+      uint32_t eclock = eclock0, qclock = qclock0;
+      int delivered = ptr<const int32_t>(a, P_SIN + S_EDELIV)[r];
+
+      // 1. Deliver the oldest staged-undelivered entry (the minimum key,
+      //    lowest slot on ties).
+      uint32_t del_key = 0xFFFFFFFFu;
+      int del_slot = 0;
       for (int e = 0; e < E; ++e) {
-        const bool same = key[e] == win && org[e] == worg;
-        const bool empty = key[e] == 0u;
-        const int score = (same ? 3000000 : 0) + (empty ? 2000000 : 0) +
-                          (1000000 - min(tx[e], 999999));
-        if (e == 0 || score > best) {
-          best = score;
-          slot = e;
-          slot_same = same;
-          slot_empty = empty;
+        const uint32_t k = kq[e];
+        if ((tq[e] & 1) && k > 0u && active && k < del_key) {
+          del_key = k;
+          del_slot = e;
         }
       }
-      dropped += (!slot_same && !slot_empty) ? 1 : 0;
-      ++queued;
-      key[slot] = win;
-      org[slot] = worg;
-      tx[slot] = tx_limit;
-      pend[slot] = true;
-      for (int c = 0; c < nc; ++c)
-        if (ck[c] == win && co[c] == worg) fresh &= ~(1u << c);
-    }
-    bc.add(C_SQUEUED, queued);
-    bc.add(C_SRETX, n_retx);
-    bc.add(C_SDROPPED, dropped);
-    // Sentinel: Lamport regressions within the tick (the clocks move only
-    // through the witness max, so any is corruption).
-    if (a.i[I_SENTINEL])
-      bc.add(C_SMONO, (eclock < eclock0) + (qclock < qclock0));
+      const bool has = del_key != 0xFFFFFFFFu;
+      const uint32_t wkey = has ? del_key : 0u;
+      const int worig = has ? oq[del_slot] : 0;
+      const bool is_q = wkey & 1u;
+      const bool stale = is_q ? qub.rejects(wkey, worig) : evb.rejects(wkey, worig);
+      const bool deliver = has && !stale;
+      const uint32_t lt = wkey >> 9;
+      if (deliver && !is_q) {
+        evb.apply(wkey, worig);
+        delivered += 1;
+        eclock = max(eclock, lt + 1u);
+      }
+      if (deliver && is_q) {
+        qub.apply(wkey, worig);
+        qclock = max(qclock, lt + 1u);
+        // The query tally: ack (and answer) the origin's open slot. Under a
+        // schedule the direct response and both legs of each relayed copy
+        // are pair_ok legs, with the origin's terms read at its row.
+        const float ur = ptr<const float>(a, P_URESP)[r];
+        const Terms og = chaos ? terms_at(a, worig) : me;
+        bool arrived = chaos ? pair_ok(a, me, og, ur, keep, false) : ur >= pl;
+        if (RF > 0 && (chaos || pl > 0.0f)) {
+          const int64_t* rcols = ptr<const int64_t>(a, P_RCOLS);
+          const float* u1 = ptr<const float>(a, P_RU1);
+          const float* u2 = ptr<const float>(a, P_RU2);
+          for (int k = 0; k < RF; ++k) {
+            const int rrow = wrap_add(r, off[rcols[k]], n);
+            const size_t u = static_cast<size_t>(r) * RF + k;
+            bool legs = u1[u] >= pl && u2[u] >= pl;
+            if (chaos) {
+              const Terms rt = terms_at(a, rrow);
+              legs = pair_ok(a, me, rt, u1[u], keep, false) &&
+                     pair_ok(a, rt, og, u2[u], keep, false);
+            }
+            if (serf_up(a, rrow, t1) && legs) arrived = true;
+          }
+        }
+        if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
+          const bool responder = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r] != 0;
+          int32_t* qacks = ptr<int32_t>(a, P_SOUT + S_QACK);
+          int32_t* qresps = ptr<int32_t>(a, P_SOUT + S_QRESP);
+          const size_t ob = static_cast<size_t>(worig) * Q;
+          for (int q = 0; q < Q; ++q) {
+            if (qopen_in[ob + q] != wkey) continue;
+            atomicAdd(&qacks[ob + q], 1);
+            if (responder) atomicAdd(&qresps[ob + q], 1);
+          }
+        }
+      }
+      if (has) tq[del_slot] &= ~1;
 
-    // Write the queue, clocks and buffers' scalars.
-    uint32_t* o_key = ptr<uint32_t>(a, P_SOUT + S_EKEY) + eb;
-    int8_t* o_tx = ptr<int8_t>(a, P_SOUT + S_ETX) + eb;
-    uint8_t* o_pend = ptr<uint8_t>(a, P_SOUT + S_EPEND) + eb;
-    for (int e = 0; e < E; ++e) {
-      o_key[e] = key[e];
-      store_origin(a, P_SOUT + S_EORIG, eb + e, org[e]);
-      o_tx[e] = static_cast<int8_t>(tx[e]);
-      o_pend[e] = pend[e] ? 1 : 0;
-    }
-    ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = clock0;
-    ptr<uint32_t>(a, P_SOUT + S_ECLOCK)[r] = eclock;
-    ptr<uint32_t>(a, P_SOUT + S_QCLOCK)[r] = qclock;
-    ptr<uint32_t>(a, P_SOUT + S_EFLOOR)[r] = evb.floor;
-    ptr<uint32_t>(a, P_SOUT + S_QFLOOR)[r] = qub.floor;
-    ptr<int32_t>(a, P_SOUT + S_EDELIV)[r] = delivered;
-    ptr<uint8_t>(a, P_SOUT + S_QRESPONDER)[r] =
-        ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r];
+      // 2. Budget decrement by the legs sent, from the pre-tick selection:
+      //    the top-PE slots by remaining budget (max value, lowest index on
+      //    ties; a slot's budget is read before any decrement, since a
+      //    taken slot is never compared again). Then retire spent
+      //    delivered entries.
+      const uint32_t xbits = xflags[r];
+      const int ex_sends = __popc(xbits & 0xFFu);
+      uint32_t taken = 0;
+      int n_retx = 0;
+      for (int q = 0; q < PE; ++q) {
+        int best = -1, bv = 0;
+        for (int e = 0; e < E; ++e) {
+          if ((taken >> e) & 1u) continue;
+          const int v = tq[e] >> 1;
+          if (best < 0 || v > bv) {
+            best = e;
+            bv = v;
+          }
+        }
+        taken |= 1u << best;
+        const int sends = ((xbits >> (8 + q)) & 1u) ? ex_sends : 0;
+        n_retx += sends;
+        tq[best] = max(bv - sends, 0) * 2 + (tq[best] & 1);
+      }
+      for (int e = 0; e < E; ++e)
+        if ((tq[e] >> 1) <= 0 && !(tq[e] & 1)) kq[e] = 0u;
 
-    // Query expiry (pre-expiry keys were what the tally matched).
-    const uint32_t* qopen_in = ptr<const uint32_t>(a, P_SIN + S_QOPEN) + qb;
-    const int32_t* qdead_in = ptr<const int32_t>(a, P_SIN + S_QDEAD) + qb;
-    for (int q = 0; q < Q; ++q) {
-      const uint32_t qk = qopen_in[q];
-      ptr<uint32_t>(a, P_SOUT + S_QOPEN)[qb + q] = (qk > 0u && t1 >= qdead_in[q]) ? 0u : qk;
-      ptr<int32_t>(a, P_SOUT + S_QDEAD)[qb + q] = qdead_in[q];
-    }
+      // 3. Intake: up to 2 fresh arrivals off the legs, re-read from the
+      //    senders' payloads at this tick's displacements. A leg arrives as
+      //    the membership leg does in B: its drop draw (a one-way pair_ok
+      //    under a schedule) and the receiver's pre-quiet liveness.
+      //    The senders' flags and draws of every leg are read at once, then
+      //    the candidates' keys and origins eight at a time.
+      const bool recv_up = alive && !left;
+      uint32_t okmask = 0;  // bit f * PE + q: candidate q of leg f arrived
+#pragma unroll
+      for (int f = 0; f < MAXFAN; ++f) {
+        const int s = wrap_sub(r, s_goff[f], n);
+        const uint32_t xs = xflags[s];
+        const float u = udrop[static_cast<size_t>(r) * FAN + min(f, FAN - 1)];
+        if (f >= FAN) continue;
+        const bool ok_leg = chaos ? pair_ok(a, terms_at(a, s), me, u, keep, false)
+                                  : u >= pl;
+        if (((xs >> f) & 1u) && ok_leg && recv_up)
+          okmask |= ((xs >> 8) & ((1u << PE) - 1u)) << (f * PE);
+      }
+      uint32_t fresh = 0;
+      for (int c0 = 0; c0 < nc; c0 += 8) {
+        uint32_t ckv[8];
+        int cov[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int c = min(c0 + u, nc - 1);
+          const int f = c / PE;
+          const size_t sq = static_cast<size_t>(wrap_sub(r, s_goff[f], n)) * PE + (c - f * PE);
+          ckv[u] = xkey[sq];
+          cov[u] = xorig[sq];
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int c = c0 + u;
+          if (c >= nc) continue;
+          const bool ok = (okmask >> c) & 1u;
+          const uint32_t ck = ok ? ckv[u] : 0u;
+          const int co = ok ? cov[u] : -1;
+          s_ck[c * 32 + lane] = ck;
+          s_co[c * 32 + lane] = co;
+          if (ck > 0u && !((ck & 1u) ? qub.rejects(ck, co) : evb.rejects(ck, co)))
+            fresh |= 1u << c;
+        }
+      }
+      int queued = 0, dropped = 0;
+      for (int round = 0; round < 2; ++round) {
+        // The minimum fresh key, lowest candidate on ties.
+        uint32_t win = 0xFFFFFFFFu;
+        int slot_i = 0;
+        for (int c = 0; c < nc; ++c) {
+          const uint32_t ck = s_ck[c * 32 + lane];
+          if (((fresh >> c) & 1u) && ck < win) {
+            win = ck;
+            slot_i = c;
+          }
+        }
+        if (win == 0xFFFFFFFFu) break;
+        const int worg = s_co[slot_i * 32 + lane];
+        // _equeue_push: same subject, else empty, else most transmitted.
+        int slot = 0, best = 0;
+        bool slot_same = false, slot_empty = false;
+        for (int e = 0; e < E; ++e) {
+          const bool same = kq[e] == win && oq[e] == worg;
+          const bool empty = kq[e] == 0u;
+          const int score = (same ? 3000000 : 0) + (empty ? 2000000 : 0) +
+                            (1000000 - min(tq[e] >> 1, 999999));
+          if (e == 0 || score > best) {
+            best = score;
+            slot = e;
+            slot_same = same;
+            slot_empty = empty;
+          }
+        }
+        dropped += (!slot_same && !slot_empty) ? 1 : 0;
+        ++queued;
+        kq[slot] = win;
+        oq[slot] = worg;
+        tq[slot] = tx_limit * 2 + 1;
+        for (int c = 0; c < nc; ++c)
+          if (s_ck[c * 32 + lane] == win && s_co[c * 32 + lane] == worg)
+            fresh &= ~(1u << c);
+      }
+      tl.add(C_SQUEUED, queued);
+      tl.add(C_SRETX, n_retx);
+      tl.add(C_SDROPPED, dropped);
+      // Sentinel: Lamport regressions within the tick (the clocks move only
+      // through the witness max, so any is corruption).
+      if (sentinel) tl.add(C_SMONO, (eclock < eclock0) + (qclock < qclock0));
 
-    // Reap bookkeeping from the final view status (C's output row).
-    const uint16_t* o_meta = ptr<const uint16_t>(a, P_OUT + L_META);
-    const int32_t* ds_in = ptr<const int32_t>(a, P_SIN + S_DOWN);
-    int32_t* ds_out = ptr<int32_t>(a, P_SOUT + S_DOWN);
-    for (int c = 0; c < K; ++c) {
-      const uint32_t st = o_meta[rb + c] & 3u;
-      const bool down = st == DEAD || st == LEFT;
-      const int ds = ds_in[rb + c];
-      ds_out[rb + c] = down ? (ds < 0 ? t : ds) : -1;
+      ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = clock0;
+      ptr<uint32_t>(a, P_SOUT + S_ECLOCK)[r] = eclock;
+      ptr<uint32_t>(a, P_SOUT + S_QCLOCK)[r] = qclock;
+      ptr<uint32_t>(a, P_SOUT + S_EFLOOR)[r] = evb.floor;
+      ptr<uint32_t>(a, P_SOUT + S_QFLOOR)[r] = qub.floor;
+      ptr<int32_t>(a, P_SOUT + S_EDELIV)[r] = delivered;
+      ptr<uint8_t>(a, P_SOUT + S_QRESPONDER)[r] =
+          ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r];
     }
+    __syncwarp();
+
+    // D3. The staged queue and event buckets out, lanes over cells.
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBLT) + b * R, s_elt, LS, rows, R, dR, lane);
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBSIG) + b * RO, s_esig, SS, rows, RO, dRO,
+              lane);
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EKEY) + b * E, s_key, QS, rows, E, dE, lane);
+    int8_t* o_tx = ptr<int8_t>(a, P_SOUT + S_ETX);
+    uint8_t* o_pend = ptr<uint8_t>(a, P_SOUT + S_EPEND);
+    for (int e = lane; e < rows * E; e += 32) {
+      const int x = e + row_of(e, E, dE) * (QS - E);
+      store_origin(a, P_SOUT + S_EORIG, b * E + e, s_org[x]);
+      o_tx[b * E + e] = static_cast<int8_t>(s_txp[x] >> 1);
+      o_pend[b * E + e] = static_cast<uint8_t>(s_txp[x] & 1);
+    }
+    __syncwarp();
   }
-  bc.flush(ptr<int>(a, P_CNT));
+  tl.flush(smem, lane);
+  block_flush(smem, ptr<int>(a, P_CNT));
 }
 
 // ---------------------------------------------------------------------------
@@ -1940,19 +2141,26 @@ extern "C" int gossip_chaos_pre(const TickArgs* a, void* stream) {
 // dense view of 256 rows spreads over 256 warps). The resident count is
 // asked of the runtime once per kernel, on the card of its first launch: a
 // process drives one card.
-static int resident_blocks(const void* fn) {
+static int resident_blocks(const void* fn, int warps = WARPS, size_t smem = 0) {
   int dev = 0, per_sm = 0, sms = 0;
   cudaGetDevice(&dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, WARPS * 32, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, warps * 32, smem);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return std::max(per_sm, 1) * std::max(sms, 1);
+}
+
+// Rows per tile: max_rows, halved while the tiles would not fill every
+// resident warp.
+static int tile_rows_for(int n, int blocks, int warps, int max_rows) {
+  int rows = max_rows;
+  while (rows > 1 && (n + rows - 1) / rows < blocks * warps) rows = (rows + 1) / 2;
+  return rows;
 }
 
 static int launch_tiles(void (*kern)(TickArgs, int), int blocks, const TickArgs* a,
                         void* stream, int max_rows) {
   const int n = a->i[I_N];
-  int rows = max_rows;
-  while (rows > 1 && (n + rows - 1) / rows < blocks * WARPS) rows = (rows + 1) / 2;
+  const int rows = tile_rows_for(n, blocks, WARPS, max_rows);
   const int tiles = (n + rows - 1) / rows;
   const int grid = std::min(blocks, (tiles + WARPS - 1) / WARPS);
   kern<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(*a, rows);
@@ -1965,8 +2173,8 @@ extern "C" int gossip_probe_send(const TickArgs* a, void* stream) {
 }
 
 extern "C" int gossip_receive(const TickArgs* a, void* stream) {
-  k_receive<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  static const int blocks = resident_blocks(reinterpret_cast<const void*>(k_receive));
+  return launch_tiles(k_receive, blocks, a, stream, 32);
 }
 
 extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
@@ -1974,8 +2182,28 @@ extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
   return launch_tiles(k_pushpull, blocks, a, stream, 32);
 }
 
+// D's tiles take as many rows (up to 32) as its stage holds at this
+// configuration's queue and bucket widths; its dynamic shared memory is
+// SWARPS stages of that many rows. Resident blocks are counted at the
+// full stage, which no launch exceeds.
 extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
-  k_serf_post<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  const void* fn = reinterpret_cast<const void*>(k_serf_post);
+  const int full = SWARPS * SERF_WARP_WORDS * 4;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, full);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int blocks = resident_blocks(fn, SWARPS, full);
+  const int E = a->i[I_E], R = a->i[I_R], O = a->i[I_O];
+  const int nc = a->i[I_FAN] * a->i[I_PE];
+  const int max_rows = std::min(
+      32, (SERF_WARP_WORDS - 64 * nc) / serf_row_words(E, R, O));
+  if (max_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = a->i[I_N];
+  const int rows = tile_rows_for(n, blocks, SWARPS, max_rows);
+  const int tiles = (n + rows - 1) / rows;
+  const int grid = std::min(blocks, (tiles + SWARPS - 1) / SWARPS);
+  const size_t bytes = static_cast<size_t>(SWARPS) * serf_warp_words(rows, E, R, O, nc) * 4;
+  k_serf_post<<<grid, SWARPS * 32, bytes, (cudaStream_t)stream>>>(*a, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,6 +41,17 @@ from consul_tpu_torch.utils import metrics
 RMSE_SAMPLES = 2048
 
 
+def metric_seed(seed: int, t: int) -> int:
+    """The seed of tick ``t``'s RMSE sample pairs: a mix of the
+    simulation's seed and the tick number (the counterpart of the
+    reference's ``fold_in(tick_key, 1)``), apart from the stream the
+    tick's own draws come from."""
+    x = (seed * 0x9E3779B97F4A7C15 + t + 1) % (1 << 64)
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) % (1 << 64)
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) % (1 << 64)
+    return (x ^ (x >> 31)) >> 1
+
+
 class TickTrace(NamedTuple):
     """Per-tick metrics of one chunk, [C] float32 each."""
 
@@ -109,6 +120,8 @@ class Simulation:
         cuda_gossip.validate_kernel(self.kernel, self.layout, self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(self.seed)
+        # The metric pairs' generator, reseeded every tick (metric_seed).
+        self._metric_gen = torch.Generator(device=self.device)
         if self.world is None:
             self.world = topology.make_world(self.cfg, self.gen, self.device)
         if self.topo is None:
@@ -254,11 +267,14 @@ class Simulation:
             d = self.draws(self._t)
             self.state, cv = self._tick_fn(self.world, self.state, d, self.chaos)
             cnt = cnt + cv
-            self._t += 1
             if with_metrics:
-                ij = metrics.rmse_samples(self.cfg, self.gen, RMSE_SAMPLES,
-                                          self.device)
+                # The pairs come from a generator of their own, so metrics
+                # never move the trajectory.
+                self._metric_gen.manual_seed(metric_seed(self.seed, self._t))
+                ij = metrics.rmse_samples(self.cfg, self._metric_gen,
+                                          RMSE_SAMPLES, self.device)
                 rows.append(self._metrics(*ij))
+            self._t += 1
         if not with_metrics:
             return cnt, None
         return cnt, TickTrace(*(torch.stack(x).to(torch.float32)

@@ -11,12 +11,13 @@ tick's grid-wide read-after-write barriers (probe/sender, receive,
 push-pull/pack), in the serf variant a fourth (serf_post), and with a
 schedule a first one (chaos_pre) that applies the churn edges and
 evaluates the schedule per row. The tick is bound by bytes, most of them
-the [N, K] view rows, so the two launches that walk them (probe/sender
-and push-pull/pack) run on persistent grids of warp tiles: a warp owns up
-to 32 consecutive rows, takes their cells with consecutive lanes (every
-warp load of a view leaf a full line) and their per-row scalar work one
-row per lane; the other launches take one row per thread. See the note
-at the top of that file. :func:`launch_hbm_bytes_per_node` counts each
+[N, K] view rows and [N, E] / [N, R, O] serf rows, so every launch but
+chaos_pre runs on a persistent grid of warp tiles: a warp owns up to 32
+consecutive rows, takes their cells with consecutive lanes (every warp
+load of a row-major leaf a full line; serf_post stages its queue and
+dedup buckets in shared memory) and their per-row scalar work one row
+per lane; chaos_pre takes one row per thread. See the note at the top of
+that file. :func:`launch_hbm_bytes_per_node` counts each
 launch's least traffic, the yardstick of its time on the card.
 
 Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
@@ -73,6 +74,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "consul_tpu_torch")
 # Limits of the kernel's per-thread arrays (gossip_tick.cu).
 _MAXD, _MAXW, _MAXS, _MAXFAN, _MAXP = 16, 64, 8, 8, 7
 _MAXE, _MAXPE, _MAXC = 16, 8, 32
+# serf_post's shared-memory stage per warp, in 32-bit words
+# (SERF_WARP_WORDS), and the words one tile row takes (serf_row_words).
+_SERF_WARP_WORDS = 4096
+
+
+def _serf_row_words(e: int, r: int, o: int) -> int:
+    return (r | 1) + ((r * o) | 1) + 3 * (e | 1)
 # The largest query_relay_factor the serf variant takes.
 MAX_RELAY_FACTOR = 8
 
@@ -375,6 +383,14 @@ class TickKernel:
                         "piggyback_events"),
                        (g.gossip_nodes * sf.piggyback_events, _MAXC,
                         "gossip_nodes * piggyback_events")]
+            nc = g.gossip_nodes * sf.piggyback_events
+            if _SERF_WARP_WORDS - 64 * nc < _serf_row_words(
+                    sf.event_queue_slots, sf.seen_ring, sf.seen_width):
+                raise ValueError(
+                    "the serf variant stages a row's queue and dedup buckets "
+                    f"in {_SERF_WARP_WORDS * 4} B per warp; event_queue_slots "
+                    f"{sf.event_queue_slots}, seen_ring {sf.seen_ring} and "
+                    f"seen_width {sf.seen_width} do not fit")
             if not 0 <= sf.query_relay_factor <= MAX_RELAY_FACTOR:
                 raise ValueError("the serf variant takes query_relay_factor "
                                  f"in [0, {MAX_RELAY_FACTOR}], got "

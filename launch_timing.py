@@ -1,0 +1,174 @@
+"""Per-launch device times of the CUDA tick kernel on fixed states.
+
+Run from the root of a checkout, on one NVIDIA card:
+
+    python3 launch_timing.py [--reps N]
+
+It imports ``consul_tpu_torch`` from the directory it is run from, builds
+that checkout's kernel, makes the states below from seeds through that
+kernel, and times every launch of one tick on each (the profiler's
+device time per launch, and CUDA events for the whole tick). The states
+are ones that any kernel equal to the plain version bit for bit reaches,
+so running this script from two checkouts (``cd other && python3
+/path/to/launch_timing.py``) times two versions of the kernel on the same
+inputs; alternate them in one call (A, B, A, B) to compare. Each state is
+timed twice, in a first pass over all of them and again in a second, so
+an effect of what ran before shows as a difference between the passes.
+
+States, at n = 1,048,576 and K = 32 unless noted, each 32 ticks old when
+a 5 % kill lands (the serf ones also fire an event storm from 4 live
+rows, a query and a leave then), then 64 ticks on:
+- ``bare``: the SWIM tick;
+- ``serf``: the serf tick;
+- ``serf_chaos``: the serf tick with the sentinel under a partition, a
+  churn wave, a lossy link and a degraded block opened at the kill;
+- ``dense_serf``: the serf tick on the dense view, n = 256 (K = 255).
+
+Prints one JSON line per state and pass, the card's name and power limit
+as ``nvidia-smi`` gives them, and a last JSON line with every reading.
+Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+MAIN_N = 1_048_576
+DENSE_N = 256
+WARM, AFTER = 32, 64
+
+
+def make_state(name: str):
+    """(tick kernel, world, state, draw, schedule) of one named state."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import SerfConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf, state as sim_state, swim
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    n = DENSE_N if name.startswith("dense") else MAIN_N
+    serf_plane = name != "bare"
+    chaos_on = name == "serf_chaos"
+    cfg = SimConfig(n=n, view_degree=0 if n == DENSE_N else 32,
+                    packet_loss=0.01, serf=SerfConfig(query_relay_factor=2))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, serf_plane=serf_plane,
+                                        sentinel=chaos_on)
+
+    def draw():
+        if serf_plane:
+            return serf.draw_serf_tick(cfg, gen, dev, chaos=chaos_on)
+        return swim.draw_tick(cfg, gen, dev, chaos=chaos_on)
+
+    def rows(rs):
+        m = torch.zeros(n, dtype=torch.bool, device=dev)
+        m[rs] = True
+        return m
+
+    init = serf.init(cfg, gen, dev) if serf_plane else sim_state.init(cfg, gen, dev)
+    st = layout.pack_state(init)
+    for _ in range(WARM):
+        st, _ = tick(world, st, serf.draw_serf_tick(cfg, gen, dev)
+                     if serf_plane else swim.draw_tick(cfg, gen, dev))
+    d = layout.unpack_state(st)
+    dead = torch.arange(n, device=dev) < n // 20
+    sched = None
+    if serf_plane:
+        d = d._replace(swim=sim_state.kill(d.swim, dead))
+        d = serf.user_event(cfg, d, rows([n // 20 + 1 + (n // 8) * j
+                                          for j in range(4)]), 1)
+        d = serf.query(cfg, d, rows([n // 2 + 3]), 3)
+        d = serf.leave(cfg, d, rows([3 * n // 4 + 11]))
+    else:
+        d = sim_state.kill(d, dead)
+    st = layout.pack_state(d)
+    if chaos_on:
+        events = [chaos.Partition(0, 4 * AFTER, side_a=slice(0, n // 4)),
+                  chaos.ChurnWave(0, 4 * AFTER, nodes=slice(n // 2, n // 2 + n // 20),
+                                  period=16, down_ticks=8),
+                  chaos.LinkLoss(0, 4 * AFTER, a=slice(n // 4, 3 * n // 8),
+                                 b=slice(3 * n // 8, n // 2), fwd=0.8, rev=0.2),
+                  chaos.Degrade(0, 4 * AFTER, nodes=slice(n - n // 8, n),
+                                tx_loss=0.4)]
+        sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
+                                     int(layout.tick_of(st)))
+    for _ in range(AFTER):
+        st, _ = tick(world, st, draw(), sched)
+    torch.cuda.synchronize()
+    return tick, world, st, draw(), sched
+
+
+def time_state(tick, world, st, d, sched, reps):
+    """ms per launch (profiler device time, by kernel name) and ms per
+    tick (CUDA events over 20 ticks) of the tick on one state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def fn():
+        tick(world, st, d, sched)
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launches = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if ev.key.startswith("k_") and us:
+            launches[ev.key.split("(")[0]] = us / 1000.0 / reps
+    return dict(ms_per_tick=start.elapsed_time(end) / 20,
+                ms_by_launch=launches or "not measured")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("launch_timing: no CUDA device", file=sys.stderr)
+        return 2
+    from consul_tpu_torch.ops import cuda_gossip
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    info = cuda_gossip.build()
+    tree = os.getcwd()
+    states = {name: make_state(name)
+              for name in ("bare", "serf", "serf_chaos", "dense_serf")}
+    readings = []
+    for pass_ in (1, 2):
+        for name, (tick, world, st, d, sched) in states.items():
+            res = dict(tree=tree, state=name, pass_=pass_,
+                       **time_state(tick, world, st, d, sched, args.reps))
+            readings.append(res)
+            print(json.dumps(res), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"tree": tree, "build_s": round(info.seconds, 3),
+                      "library": os.path.relpath(info.path, tree),
+                      "device": torch.cuda.get_device_name(0),
+                      "readings": readings}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

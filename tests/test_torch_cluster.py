@@ -8,6 +8,11 @@ port's package rules.
   with equal per-chunk counters and equal per-tick agreement (exact: the
   discrete plane). The suspicion timeouts are cut (``suspicion_mult=2``,
   ``suspicion_max_timeout_mult=2``) so the run converges in ~200 ticks.
+- metrics never move the trajectory (fault C1): ``Simulation`` and
+  ``SerfSimulation`` stepped from one seed through ``run`` or
+  ``run_scenario`` with ``with_metrics`` on and off end with equal packed
+  leaves and counters, and a tick's RMSE pairs do not depend on chunking
+  or on whether earlier ticks had metrics.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
 - No module of ``consul_tpu_torch`` (its ``chaos`` subpackage included)
@@ -21,9 +26,15 @@ import jax
 import numpy as np
 import pytest
 
+import torch
+
 from consul_tpu.models.cluster import Simulation as JSimulation
+from consul_tpu_torch import chaos as tchaos
 from consul_tpu_torch import convert
+from consul_tpu_torch.config import GossipConfig as TGossipConfig
 from consul_tpu_torch.config import SimConfig as TSimConfig
+from consul_tpu_torch.models import layout as tlayout
+from consul_tpu_torch.models.cluster import SerfSimulation as TSerfSimulation
 from consul_tpu_torch.models.cluster import Simulation as TSimulation
 
 import torch_parity as tp
@@ -75,6 +86,45 @@ def test_simulation_converges_on_the_reference_tick():
     assert sum(c["deaths_declared"] for c in got) > 0
     assert float(tsim.health().agreement) == 1.0
     assert np.isfinite(tsim.rmse())
+
+
+@pytest.mark.parametrize("verb", ["run", "run_scenario"])
+@pytest.mark.parametrize("cls", [TSimulation, TSerfSimulation],
+                         ids=["swim", "serf"])
+def test_metrics_leave_the_trajectory_unchanged(cls, verb):
+    n, ticks = 256, 16
+    cfg = TSimConfig(n=n, view_degree=16, packet_loss=0.01,
+                     gossip=TGossipConfig(**GOSSIP))
+    events = [tchaos.Partition(2, 10, side_a=slice(0, n // 4))]
+
+    def make():
+        sim = cls(cfg, seed=4, kernel="torch", device="cpu")
+        if cls is TSerfSimulation:
+            sim.user_event(np.arange(n) == 7, 5)
+        sim.kill(np.arange(n) < n // 20)
+        return sim
+
+    def drive(sim, count, with_metrics, chunk):
+        if verb == "run":
+            return sim.run(count, chunk=chunk, with_metrics=with_metrics)
+        return sim.run_scenario(events, ticks=count, chunk=chunk,
+                                with_metrics=with_metrics).trace
+
+    on, off = make(), make()
+    trace = drive(on, ticks, True, 4)
+    assert drive(off, ticks, False, ticks) is None
+    assert trace.rmse.shape == (ticks,)
+    assert on.counters == off.counters
+    assert on.counters["deaths_declared"] + on.counters["suspicions_started"] > 0
+    for a, b in zip(tlayout.leaves(on.state), tlayout.leaves(off.state)):
+        assert torch.equal(a, b)
+    # A tick's pairs: the same in one chunk, and after ticks without metrics.
+    assert torch.equal(drive(make(), ticks, True, ticks).rmse, trace.rmse)
+    late = make()
+    late.run(ticks // 2, chunk=ticks, with_metrics=False)
+    tail = late.run(ticks // 2, chunk=ticks // 2)
+    if verb == "run":
+        assert torch.equal(tail.rmse, trace.rmse[ticks // 2:])
 
 
 def test_cuda_kernel_never_falls_back():

@@ -16,13 +16,20 @@ K = 16, 1 % packet loss:
   tick; Vivaldi floats of the dense plane within ``torch_parity``'s
   rtol 1e-5 / atol 1e-7, packed float leaves within 3 storage steps (or
   1e-5 s where values cross zero);
+- under the serf stress of ``chip_smoke.py`` (equal keys from 8 origins
+  at one Lamport time, 24 Lamport times from 2 more origins, a relayed
+  query under loss), 24 ticks of ``serf.step_counted`` and
+  ``plain_serf_tick`` against the reference's, leaf for leaf, with bucket
+  takeovers and floor bumps, full buckets, one key from two origins in a
+  queue, queue evictions and many acks on one query slot in the window;
 - 4 ticks of ``plain_serf_tick`` against the reference's interpret-mode
   Pallas tick with ``step_fn=serf.step_counted``;
 - ``SerfSimulation(device="cpu", kernel="torch")`` follows the reference's
   trajectory to ``event_coverage == 1.0``;
 - the CUDA serf wrapper raises on CPU tensors, a view wider than 255
-  columns, a relay factor beyond its limit and ev_tx wider than int8, and
-  takes the dense view.
+  columns, a relay factor beyond its limit, dedup buckets too wide for
+  its shared-memory stage and ev_tx wider than int8, and takes the dense
+  view.
 """
 
 import jax
@@ -49,6 +56,7 @@ import torch_parity as tp
 
 N, K, LOSS = 256, 16, 0.01
 TICKS = 10
+STRESS_TICKS = 24
 _JIT = {}
 
 
@@ -269,6 +277,65 @@ def test_step_counted_matches_reference(rf):
         jserf.event_coverage(jcfg, st, key, 3))
 
 
+def _stress(jcfg, st):
+    """chip_smoke.stress_events on the reference's state: one event of one
+    name from 8 origins at Lamport time 1, 24 from 2 more origins, a query."""
+    st = jserf.user_event(jcfg, st, _mask([(N // 8) * j + 5 for j in range(8)]), 1)
+    for k in range(24):
+        st = jserf.user_event(jcfg, st, _mask([N // 3 + 1, 2 * N // 3 + 1]), 2 + k)
+    return jserf.query(jcfg, st, _mask([N // 2 + 9]), 3)
+
+
+def _stress_hits(before, after):
+    same = ((after.ev_key[:, :, None] == after.ev_key[:, None, :])
+            & (after.ev_key[:, :, None] > 0)
+            & (after.ev_origin[:, :, None] != after.ev_origin[:, None, :]))
+    return np.array([
+        ((after.ev_bkt_lt != before.ev_bkt_lt) & (before.ev_bkt_lt > 0)).sum(),
+        (after.ev_floor > before.ev_floor).sum(),
+        (after.ev_bkt_sig != 0).all(-1).any(-1).sum(),
+        same.reshape(N, -1).any(1).sum()])
+
+
+def test_step_counted_matches_reference_under_stress():
+    jcfg, tcfg, world, topo, st = _setup(rf=2)
+    ref_tick, draws = _ref_tick(jcfg, topo, world)
+    for t in range(4):
+        st, _ = ref_tick(st, jax.random.PRNGKey(2000 + t))
+    assert (np.asarray(st.event_clock) == 1).all()
+    st = _stress(jcfg, st)
+    tw = convert.world_from(tp.np_tree(world))
+    tt = convert.topology_from(tp.np_tree(topo))
+    dense = convert.serf_state_from(tp.np_tree(st))
+    packed = convert.serf_state_from(tp.np_tree(jlayout.pack_state(st)))
+    base = jax.random.PRNGKey(31)
+    totals, hits = np.zeros(26, np.int64), np.zeros(4, np.int64)
+    for t in range(STRESS_TICKS):
+        key = jax.random.fold_in(base, t)
+        before = tp.np_tree(st)
+        st, jc = ref_tick(st, key)
+        d = tp.to_serf_draws(draws(key))
+        dense, dc = tserf.step_counted(tcfg, tt, tw, dense, d)
+        dense = tlayout.unpack_state(tlayout.pack_state(dense))
+        packed, pc = cuda_gossip.plain_serf_tick(tcfg, tt, tw, packed, d)
+        want = [int(x) for x in jc]
+        assert [int(x) for x in dc] == want, f"tick {t} counters"
+        assert pc.tolist() == want, f"tick {t} plain_serf_tick counters"
+        ref = tp.np_tree(st)
+        tp.assert_serf_equal(ref, dense, f"tick {t}")
+        tp.assert_state_matches(ref.swim, dense.swim, f"tick {t}")
+        ref_p = tp.np_tree(jlayout.pack_state(st))
+        tp.assert_serf_equal(ref_p, packed, f"tick {t} packed")
+        tp.assert_packed_close(ref_p.swim, packed.swim, f"tick {t} packed")
+        totals += want
+        hits += _stress_hits(before, ref)
+    # takeovers, floor bumps, full buckets, one key from two origins.
+    assert (hits > 0).all(), hits
+    assert totals[tserf.counters_mod.FIELDS.index("serf_intents_dropped")] > 0
+    slot = jserf.newest_query_slot(st, N // 2 + 9)
+    assert tp.np_tree(st).q_acks[N // 2 + 9, slot] > 1
+
+
 def test_plain_serf_tick_matches_interpret_tick():
     jcfg, tcfg, world, topo, st = _setup()
     st = _in_flight(jcfg, topo, world, st)
@@ -350,6 +417,11 @@ def test_cuda_serf_wrapper_raises():
         query_relay_factor=cuda_gossip.MAX_RELAY_FACTOR + 1))
     with pytest.raises(ValueError, match="query_relay_factor"):
         cuda_gossip.make_tick_kernel(far, topo, serf_plane=True)
+    # serf_post stages a row's queue and dedup buckets in shared memory.
+    wide_ring = TSimConfig(n=128, view_degree=16,
+                           serf=TSerfConfig(seen_ring=128, seen_width=64))
+    with pytest.raises(ValueError, match="stages a row's queue"):
+        cuda_gossip.make_tick_kernel(wide_ring, topo, serf_plane=True)
     d = tserf.draw_serf_tick(cfg, gen, "cpu")
     with pytest.raises(TypeError, match="ev_tx"):
         kernel._check_inputs(world, st._replace(ev_tx=st.ev_tx.to(torch.int32)),
