@@ -34,9 +34,17 @@ and ``SerfSimulation`` with the sentinel on through ``run_scenario``
 (the game day's composed partition + churn timeline with a lossy link
 and a degraded block) and on to convergence, and each variant on the
 dense view at n = 256. It times each variant at 1M (and the dense ones
-at 256), and prints one JSON line per phase, the kernel table, the
-card's name and power limit, and a last line ``{"ok": true, "device":
-{...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
+at 256). Every main path's metrics run through launch M of the same
+source (the TickTrace row of a tick from the packed leaves), which
+``metrics_parity`` holds against its plain version on every main path's
+final state, the chaos paths' states at window tick 50, the dense states
+and a state with NaN coordinates, and ``metrics_timing`` times (alone,
+and a tick with metrics against one without on the SWIM and serf
+paths). ``resilient`` runs ``run_resilient`` at 1M for 256 ticks,
+preempted by SIGTERM at tick 128 and resumed in a fresh ``Simulation``,
+against an uninterrupted run, bit for bit. It prints one JSON line per
+phase, the kernel table, the card's name and power limit, and a last
+line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
 result.
 """
@@ -44,7 +52,10 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -147,6 +158,17 @@ TIE_WINDOWS = (("bare", MAIN_N, False, False),
 # 2) from a state 32 ticks old into which stress_events fires its storm;
 # under a schedule (and the sentinel) slo_events from the window's first
 # tick, suspicion cut as in the SLO window.
+# Launch M against its plain version: the three health values bit-equal,
+# the RMSE within RMSE_RTOL relative (both sum 2,048 pairs' err^2 in
+# float32, in different orders) or NaN on both sides.
+RMSE_RTOL = 1e-6
+METRIC_PAIRS = 2048
+# Ticks of each timed run with and without metrics (off, on, on, off).
+METRICS_TIMED_TICKS = 32
+# The resilient phase: ticks, chunk, and the tick of the SIGTERM.
+RESILIENT_TICKS = 256
+RESILIENT_CHUNK = 64
+RESILIENT_STOP = 128
 STRESS_TICKS = 24
 STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
                   ("dense_serf", DENSE_N, False),
@@ -155,6 +177,13 @@ STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def tick_launches(launches) -> int:
+    """Launches of the tick's stages in a LAUNCHES snapshot (all but M)."""
+    from consul_tpu_torch.ops import cuda_gossip
+
+    return sum(launches[k] for k in cuda_gossip.STAGES)
 
 
 def nvidia_smi() -> str:
@@ -656,7 +685,9 @@ def chaos_main_path(cfg):
                form_launches=form_launches,
                bytes_per_node=layout.bytes_per_node(sim.state, n))
     ok = (converged and agreement == 1.0 and finite and mask == 0
-          and all(v > 0 for k, v in scenario_launches.items() if k != "serf_post")
+          and all(v > 0 for k, v in scenario_launches.items()
+                  if k not in ("serf_post", "metrics"))
+          and launches["metrics"] > 0
           and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
     sched = chaos.shift_schedule(
         chaos.compile_schedule(n, events, sim.device), t_window)
@@ -1030,14 +1061,16 @@ def dense_main_path():
     the default: the complete graph), 64 ticks to form, then a 5 % kill,
     or with the sentinel on run_scenario over dense_events, then
     run_until_converged. The serf variants fire an event from a live row
-    after the fault; its coverage is read at the end."""
+    after the fault; its coverage is read at the end. Returns the runs'
+    results and, by variant, (cfg, topology, world, final packed SWIM
+    plane) for metrics_parity."""
     from consul_tpu_torch import chaos
     from consul_tpu_torch.config import SimConfig
     from consul_tpu_torch.models import cluster, counters, serf
     from consul_tpu_torch.ops import cuda_gossip
 
     n = DENSE_N
-    out = {}
+    out, finals = {}, {}
     for name, serf_plane, chaos_on in DENSE_VARIANTS:
         cls = cluster.SerfSimulation if serf_plane else cluster.Simulation
         t0 = time.perf_counter()
@@ -1070,11 +1103,150 @@ def dense_main_path():
         res["ok"] = (converged and res["agreement"] == 1.0 and sim.topo.dense
                      and res["sentinel_mask"] == 0
                      and res["launches"]["probe_send"] > 0
+                     and res["launches"]["metrics"] > 0
                      and (res["launches"]["chaos_pre"] > 0) == chaos_on
                      and (res["launches"]["serf_post"] > 0) == serf_plane
                      and res.get("coverage", 1.0) == 1.0)
         out[name] = res
-    return out
+        finals[name] = (sim.cfg, sim.topo, sim.world, sim._swim_at_rest())
+    return out, finals
+
+
+def metrics_case(name, cfg, topo, world, packed, seed, nan_rows=None):
+    """Launch M against its plain version (cuda_gossip.plain_metrics) on
+    one packed SWIM plane, over METRIC_PAIRS pairs drawn from ``seed``:
+    the health values bit-equal, the RMSE within RMSE_RTOL or NaN on both
+    sides. With ``nan_rows`` (rows holding NaN coordinates) the first pair
+    is the first live one of them and a live row, and both RMSEs must be
+    NaN."""
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.utils import metrics
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    i, j = metrics.rmse_samples(cfg, gen, METRIC_PAIRS, "cuda")
+    if nan_rows is not None:
+        alive = (packed.flags & 1).bool().cpu()
+        i[0] = next(r for r in nan_rows if alive[r])
+        j[0] = next(r for r in range(cfg.n) if alive[r] and r not in nan_rows)
+    out = torch.empty(4, device="cuda")
+    cuda_gossip.make_metrics_kernel(cfg, topo)(world, packed, i, j, out)
+    want = cuda_gossip.plain_metrics(cfg, topo, world, packed, i, j)
+    torch.cuda.synchronize()
+    got, ref = out.tolist(), want.tolist()
+    both_nan = math.isnan(got[3]) and math.isnan(ref[3])
+    rel = 0.0 if both_nan else (abs(got[3] - ref[3]) / abs(ref[3]) if ref[3]
+                                else abs(got[3]))
+    ok = bool(torch.equal(out[:3], want[:3])) and (
+        both_nan or (math.isfinite(got[3]) and math.isfinite(ref[3])
+                     and rel <= RMSE_RTOL))
+    if nan_rows is not None:
+        ok = ok and both_nan
+    err = max([abs(a - b) for a, b in zip(got[:3], ref[:3])]
+              + [0.0 if both_nan else abs(got[3] - ref[3])])
+    return dict(name=name, n=cfg.n, k=cfg.degree, kernel=got, plain=ref,
+                rmse_rel=rel, max_abs_err=err, ok=ok)
+
+
+def tick_with_and_without_metrics(sim):
+    """Device ms per tick (CUDA events around whole runs, so host stalls
+    count) of ``sim.run`` without and with metrics, in turns off, on, on,
+    off, METRICS_TIMED_TICKS ticks each."""
+    out = {False: [], True: []}
+    for on in (False, True, True, False):
+        ms = cuda_ms(lambda: sim.run(METRICS_TIMED_TICKS,
+                                     chunk=METRICS_TIMED_TICKS,
+                                     with_metrics=on), 1)
+        out[on].append(ms / METRICS_TIMED_TICKS)
+    off, on = (sum(out[k]) / 2 for k in (False, True))
+    return {"off_ms": out[False], "on_ms": out[True], "ratio": on / off}
+
+
+def _leaf_bits(x):
+    return x.detach().reshape(-1).view(torch.uint8)
+
+
+def resilient_phase(cfg):
+    """run_resilient at the main path's shape: RESILIENT_TICKS ticks
+    uninterrupted, then the same call with a CheckpointPolicy whose
+    SignalTrap takes a SIGTERM sent at tick RESILIENT_STOP (it saves and
+    raises Preempted), then the same call again in a fresh Simulation,
+    which resumes from the checkpoint. Passes when the resumed run ends
+    with every packed leaf bit-equal to the uninterrupted one's and
+    retires its checkpoint."""
+    from consul_tpu_torch import runtime as rt
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.utils import checkpoint as ckpt
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "resilient")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    ref = cluster.Simulation(cfg, seed=1)
+    ref.kill(torch.arange(cfg.n) < cfg.n // 20)
+    rt.run_resilient(ref, RESILIENT_TICKS, chunk=RESILIENT_CHUNK)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    timing = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing[name] = time.perf_counter() - t
+            return out
+        return run
+
+    sim = cluster.Simulation(cfg, seed=1)
+    sim.kill(torch.arange(cfg.n) < cfg.n // 20)
+    pol = rt.CheckpointPolicy(directory=d, tag="resilient_1m",
+                              min_interval_s=1e9, trap=rt.SignalTrap())
+    pol.save = timed("save_s", pol.save)
+    real_run = sim.run
+
+    def run_then_sigterm(*a, **kw):
+        out = real_run(*a, **kw)
+        if sim._t == RESILIENT_STOP:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    sim.run = run_then_sigterm
+    preempted = None
+    try:
+        rt.run_resilient(sim, RESILIENT_TICKS, chunk=RESILIENT_CHUNK,
+                         policy=pol)
+    except rt.Preempted as e:
+        preempted = e.report
+    size = os.path.getsize(pol.path) if os.path.exists(pol.path) else 0
+    del sim
+    torch.cuda.empty_cache()
+    fresh = cluster.Simulation(cfg, seed=1)
+    fresh.kill(torch.arange(cfg.n) < cfg.n // 20)
+    pol2 = rt.CheckpointPolicy(directory=d, tag="resilient_1m",
+                               min_interval_s=1e9)
+    pol2.load = timed("restore_s", pol2.load)
+    rep = rt.run_resilient(fresh, RESILIENT_TICKS, chunk=RESILIENT_CHUNK,
+                           policy=pol2)
+    torch.cuda.synchronize()
+    pairs = list(zip(ckpt.flatten(ref.state), ckpt.flatten(fresh.state)))
+    differ = [p for (p, a), (_, b) in pairs
+              if not torch.equal(_leaf_bits(a), _leaf_bits(b))]
+    res = dict(n=cfg.n, ticks=RESILIENT_TICKS, chunk=RESILIENT_CHUNK,
+               preempted_at=None if preempted is None else preempted.ticks_done,
+               resumed_from=rep.resumed_from_tick, ticks_done=rep.ticks_done,
+               checkpoint_bytes=size, save_s=timing.get("save_s"),
+               restore_s=timing.get("restore_s"),
+               uninterrupted_s=round(ref_s, 3), leaves=len(pairs),
+               leaves_differing=differ, t=int(fresh.state.t),
+               retired=not os.path.exists(pol2.path))
+    res["ok"] = (res["preempted_at"] == RESILIENT_STOP
+                 and rep.resumed_from_tick == RESILIENT_STOP
+                 and rep.ticks_done == RESILIENT_TICKS and not differ
+                 and size > 0 and res["retired"]
+                 and fresh._t == ref._t == RESILIENT_TICKS)
+    shutil.rmtree(d, ignore_errors=True)
+    return res
 
 
 def _rows(n, rows, dev):
@@ -1263,7 +1435,8 @@ def serf_main_path(cfg):
                       "live_nodes": int((state.swim.alive_truth
                                          & ~state.swim.left).sum())},
                bytes_per_node=layout.bytes_per_node(sim.state, n))
-    ok = converged and agreement == 1.0 and sum(launches.values()) > 0 and finite
+    ok = (converged and agreement == 1.0 and tick_launches(launches) > 0
+          and launches["metrics"] > 0 and finite)
     return sim, res, ok
 
 
@@ -1282,6 +1455,7 @@ def main() -> int:
     from consul_tpu_torch.config import SimConfig
     from consul_tpu_torch.models import cluster, layout, serf, swim
     from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.utils import metrics
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -1427,11 +1601,13 @@ def main() -> int:
           "wall_s": round(wall, 3), "setup_s": round(setup_s, 3),
           "launches": launches, "counters": sim.counters,
           "bytes_per_node": layout.bytes_per_node(sim.state, cfg.n)})
-    if not (converged and agreement == 1.0 and sum(launches.values()) > 0
+    if not (converged and agreement == 1.0 and tick_launches(launches) > 0
+            and launches["metrics"] > 0
             and finite):
         emit({"phase": "failed", "failed": ["main_path"]})
         return 1
-    swim_launches = sum(launches.values())
+    swim_launches = tick_launches(launches)
+    m_launches = launches["metrics"]
 
     # Kernel timing at the main path's shapes, on its final state.
     tick = cuda_gossip.make_tick_kernel(cfg, sim.topo)
@@ -1441,7 +1617,32 @@ def main() -> int:
         sim.world, sim.state, d,
         cuda_gossip.tick_hbm_bytes_per_node(sim.state, sim.world), cfg.n, rate)
     emit({"phase": "timing", **swim_t})
-    del sim, tick, d
+    # Launch M on the SWIM path's final state: parity, its time per launch
+    # against its bound and its plain version's, then a tick with metrics
+    # against one without.
+    m_cases = [metrics_case("swim_final", cfg, sim.topo, sim.world,
+                            sim.state, seed=41)]
+    mk = cuda_gossip.make_metrics_kernel(cfg, sim.topo)
+    mgen = torch.Generator(device="cuda")
+    mgen.manual_seed(43)
+    mi, mj = metrics.rmse_samples(cfg, mgen, METRIC_PAIRS, "cuda")
+    mout = torch.empty(4, device="cuda")
+    # "ms" is the kernel's own device time (profiler; None when the
+    # profiler records none); "ms_events" is CUDA events around
+    # back-to-back calls, the wrapper's host work included.
+    m_call = lambda: mk(sim.world, sim.state, mi, mj, mout)  # noqa: E731
+    m_prof = launch_breakdown(m_call, 20)
+    m_t = {"ms_events": cuda_ms(m_call, 50),
+           "plain_ms": cuda_ms(lambda: cuda_gossip.plain_metrics(
+               cfg, sim.topo, sim.world, sim.state, mi, mj), 5),
+           "bytes": cuda_gossip.metrics_hbm_bytes(sim.state, sim.world,
+                                                  METRIC_PAIRS)}
+    m_dev = m_prof if isinstance(m_prof, dict) else {}
+    m_t["ms"] = next((v for k, v in m_dev.items() if k.startswith("k_metrics")),
+                     None)
+    m_t["bound_ms"] = m_t["bytes"] / rate * 1e3
+    m_ticks = {"swim": tick_with_and_without_metrics(sim)}
+    del sim, tick, d, mk
     torch.cuda.empty_cache()
 
     # The chaos main path, and the chaos + sentinel variant's timing on its
@@ -1453,7 +1654,8 @@ def main() -> int:
         return 1
     # The scenario's ticks ran the chaos + sentinel variant; forming and
     # converging ran the sentinel variant without a schedule.
-    form, scen, final = (sum(res[k].values()) for k in (
+    m_launches += res["launches"]["metrics"]
+    form, scen, final = (tick_launches(res[k]) for k in (
         "form_launches", "scenario_launches", "launches"))
     chaos_launches, sentinel_launches = scen - form, form + final - scen
     ctick = cuda_gossip.make_tick_kernel(cfg, csim.topo, sentinel=True)
@@ -1477,6 +1679,13 @@ def main() -> int:
         cuda_gossip.tick_hbm_bytes_per_node(csim.state, csim.world), cfg.n,
         rate)
     emit({"phase": "sentinel_timing", "t": int(csim.state.t), **sentinel_t})
+    m_cases += [
+        metrics_case("chaos_window", cfg, csim.topo, csim.world, cstate, seed=47),
+        metrics_case("chaos_final", cfg, csim.topo, csim.world, csim.state,
+                     seed=53),
+        metrics_case("chaos_window_nan", cfg, csim.topo, csim.world,
+                     corrupt(cstate, cfg.n, cfg.degree), seed=59,
+                     nan_rows=range(cfg.n // 3, cfg.n // 3 + 3))]
     del csim, ctick, cstate, csched, d
     torch.cuda.empty_cache()
 
@@ -1486,7 +1695,8 @@ def main() -> int:
     if not ok:
         emit({"phase": "failed", "failed": ["serf_main_path"]})
         return 1
-    serf_launches = sum(res["launches"].values())
+    serf_launches = tick_launches(res["launches"])
+    m_launches += res["launches"]["metrics"]
     stick = cuda_gossip.make_tick_kernel(cfg, ssim.topo, serf_plane=True)
     d = serf.draw_serf_tick(cfg, ssim.gen, ssim.device)
     serf_t = time_kernel(
@@ -1495,6 +1705,9 @@ def main() -> int:
         ssim.world, ssim.state, d,
         cuda_gossip.tick_hbm_bytes_per_node(ssim.state, ssim.world), cfg.n, rate)
     emit({"phase": "serf_timing", **serf_t})
+    m_cases.append(metrics_case("serf_final", cfg, ssim.topo, ssim.world,
+                                ssim.state.swim, seed=61))
+    m_ticks["serf"] = tick_with_and_without_metrics(ssim)
     del ssim, stick, d
     torch.cuda.empty_cache()
 
@@ -1505,7 +1718,8 @@ def main() -> int:
     if not ok:
         emit({"phase": "failed", "failed": ["serf_chaos_main_path"]})
         return 1
-    serf_chaos_launches = sum(res["launches"].values())
+    serf_chaos_launches = tick_launches(res["launches"])
+    m_launches += res["launches"]["metrics"]
     xtick = cuda_gossip.make_tick_kernel(cfg, xsim.topo, serf_plane=True,
                                          sentinel=True)
     d = serf.draw_serf_tick(cfg, xsim.gen, xsim.device, chaos=True)
@@ -1518,14 +1732,39 @@ def main() -> int:
         rate, sched=xsched)
     emit({"phase": "serf_chaos_timing", "window_tick": CHAOS_TIMED_TICK,
           "t": int(xstate.swim.t), **serf_chaos_t})
+    m_cases += [
+        metrics_case("serf_chaos_window", cfg, xsim.topo, xsim.world,
+                     xstate.swim, seed=67),
+        metrics_case("serf_chaos_final", cfg, xsim.topo, xsim.world,
+                     xsim.state.swim, seed=71)]
     del xsim, xtick, xstate, xsched, d
     torch.cuda.empty_cache()
 
     # The dense view through the entry points, each variant.
-    dense_runs = dense_main_path()
+    dense_runs, dense_finals = dense_main_path()
     emit({"phase": "dense_main_path", **dense_runs})
     if not all(r["ok"] for r in dense_runs.values()):
         emit({"phase": "failed", "failed": ["dense_main_path"]})
+        return 1
+    m_launches += sum(r["launches"]["metrics"] for r in dense_runs.values())
+    m_cases += [metrics_case(v + "_final", *dense_finals[v], seed=73)
+                for v, _, _ in DENSE_VARIANTS]
+
+    # Launch M against its plain version on every state above.
+    emit({"phase": "metrics_parity", "rtol_rmse": RMSE_RTOL,
+          "cases": m_cases})
+    if not all(c["ok"] for c in m_cases):
+        emit({"phase": "failed", "failed": ["metrics_parity"]})
+        return 1
+    emit({"phase": "metrics_timing", "n": MAIN_N, "pairs": METRIC_PAIRS,
+          "launch": m_t, "tick_ms": m_ticks,
+          "main_path_metrics_launches": m_launches})
+
+    # run_resilient at 1M: preempted, resumed, bit-equal.
+    res = resilient_phase(cfg)
+    emit({"phase": "resilient", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["resilient"]})
         return 1
 
     def row(name, config, launches, t):
@@ -1545,7 +1784,7 @@ def main() -> int:
             + ("sched=<dense_events>, sentinel=True" if ch
                else "sched=None, sentinel=False")
             + f", dense (K = {DENSE_N - 1}), packed",
-            sum(dense_runs[v]["launches"].values()), dense_t[v])
+            tick_launches(dense_runs[v]["launches"]), dense_t[v])
         for v, sp, ch in DENSE_VARIANTS]
     print(json.dumps({"kernels": [
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
@@ -1559,7 +1798,19 @@ def main() -> int:
             "sentinel=True, sparse, packed", sentinel_launches, sentinel_t),
         row("gossip_tick_serf_chaos", "step_fn=serf.step_counted (extra_tx), "
             "sched=<composed> or None, sentinel=True, sparse, packed",
-            serf_chaos_launches, serf_chaos_t)] + dense_rows}),
+            serf_chaos_launches, serf_chaos_t)] + dense_rows + [
+        {"name": "gossip_metrics", "route": "cuda",
+         "source": "consul_tpu_torch/csrc/gossip_tick.cu",
+         "replaces": "consul_tpu/models/cluster.py:263",
+         "config": "launch M: the TickTrace row from the packed leaves, "
+                   f"{METRIC_PAIRS} RMSE pairs (not a TPU kernel: the "
+                   "reference's metrics tail of the chunk body)",
+         "launches": m_launches,
+         "max_abs_err": max(c["max_abs_err"] for c in m_cases),
+         "ms": m_t["ms"], "ms_events": m_t["ms_events"],
+         "plain_ms": m_t["plain_ms"],
+         "bound_ms": m_t["bound_ms"], "bound_by": "bytes",
+         "library_ms": None}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2122,6 +2122,228 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
 }
 
 // ---------------------------------------------------------------------------
+// (M) gossip_metrics: one tick's TickTrace row from the packed leaves.
+//
+// Replaces the metrics tail of the reference's chunk body
+// (consul_tpu/models/cluster.py:263-276: metrics.health and
+// metrics.vivaldi_rmse on a transient unpacked view, fused by XLA into the
+// scan). Not a TPU kernel: the port ran it as PyTorch ops on an unpacked
+// copy of the whole SWIM plane every tick. Its plain version is
+// metrics.health_packed + metrics.vivaldi_rmse_packed.
+//
+// What bounds it: bytes. One pass over meta ([N, K] uint16, of which it
+// needs the 2-bit status) and flags ([N] uint8: a row's own liveness and,
+// at (r + off[c]) wrapped by a compare, each cell's subject's), 2K + 1
+// B/node; the RMSE reads 2 x 2048 sampled rows, a few hundred KB. Threads
+// walk the flat cells in groups of 8 of one row (one 16-byte load of meta,
+// consecutive threads on consecutive groups, so a warp load is 512
+// contiguous bytes), or one at a time where K % 8 != 0 (the dense view);
+// a thread carries (row, column) from one grid stride to the next with no
+// division. The subject flags are scattered byte reads of an [N] array
+// that stays in L2; each step issues all of its loads before it uses one.
+//
+// Counts are integers, reduced per warp (__reduce_add_sync), per block in
+// shared memory and over the grid with 64-bit atomics, exact in any order.
+// The last ceil(S / 256) blocks of the grid (the RMSE blocks) take one
+// sampled pair a thread, so no block chases more than one pair's
+// dependent reads, and sum err^2 over their pairs in a fixed shuffle tree
+// into a partial of their own; the partials add in block order, so the
+// sum's order is fixed (a NaN propagates as in torch.sum). The last block
+// to finish (a ticket) divides once, as the reference does (count and
+// edges each rounded to float32, one IEEE division), writes the four
+// floats of the row and zeroes the grid scratch for the next launch.
+// ---------------------------------------------------------------------------
+
+enum MPtr {
+  M_META, M_FLAGS, M_OFF, M_VEC, M_VH, M_VADJ, M_POS, M_HEIGHT, M_I, M_J,
+  M_ACC, M_OUT, N_MPTR
+};
+enum MInt { MI_N, MI_K, MI_D, MI_WD, MI_S, MI_VEC, N_MINT };
+
+struct MetricsArgs {
+  void* p[N_MPTR];
+  int32_t i[N_MINT];
+};
+
+// M_ACC, unsigned 64-bit words: agree, false positive, undetected, active
+// rows, ticket, then for RMSE block b its err^2 partial (float bits) at
+// A_PART + 2b and its live pairs at A_PART + 2b + 1.
+enum MAcc { A_AGREE, A_FP, A_UND, A_ROWS, A_TICKET, A_PART };
+
+#define MTHREADS 256
+
+__host__ __device__ __forceinline__ int m_rmse_blocks(int samples) {
+  return (samples + MTHREADS - 1) / MTHREADS;
+}
+
+__device__ __forceinline__ bool m_active(const uint8_t* flags, int x) {
+  const uint8_t f = flags[x];
+  return (f & 1) && !(f & 2);
+}
+
+__device__ __forceinline__ float m_pair_err2(const MetricsArgs& a, int64_t pi,
+                                             int64_t pj, bool* ok_out) {
+  const uint8_t* flags = static_cast<const uint8_t*>(a.p[M_FLAGS]);
+  const bool ok = pi != pj && (flags[pi] & 1) && (flags[pj] & 1);
+  *ok_out = ok;
+  const int D = a.i[MI_D], WD = a.i[MI_WD];
+  const uint16_t* vec = static_cast<const uint16_t*>(a.p[M_VEC]);
+  const uint16_t* vh = static_cast<const uint16_t*>(a.p[M_VH]);
+  const uint16_t* vadj = static_cast<const uint16_t*>(a.p[M_VADJ]);
+  const float* pos = static_cast<const float*>(a.p[M_POS]);
+  const float* hgt = static_cast<const float*>(a.p[M_HEIGHT]);
+  // vivaldi.distance: the norm as a left fold from 0, then + heights, then
+  // + adjustments, used only while positive.
+  float sq = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    const float diff = bf2f(vec[pi * D + d]) - bf2f(vec[pj * D + d]);
+    sq = sq + diff * diff;
+  }
+  const float dist = (sqrtf(sq) + bf2f(vh[pi])) + bf2f(vh[pj]);
+  const float adjusted = (dist + bf2f(vadj[pi])) + bf2f(vadj[pj]);
+  const float est = adjusted > 0.0f ? adjusted : dist;
+  // topology.true_rtt.
+  float w = 0.0f;
+  for (int d = 0; d < WD; ++d) {
+    const float diff = pos[pi * WD + d] - pos[pj * WD + d];
+    w = w + diff * diff;
+  }
+  const float rtt = (sqrtf(w) + hgt[pi]) + hgt[pj];
+  const float err = ok ? est - rtt : 0.0f;
+  return err * err;
+}
+
+// The health counts of the cells this thread visits, G consecutive cells
+// of one row at a time (G = 8: one 16-byte load of meta, where K % 8 == 0
+// and meta is 16-byte aligned; else one cell). Each step issues the row's
+// flags, the G statuses and the G subjects' flags before it uses any.
+template <int G>
+__device__ void m_health(const MetricsArgs& a, unsigned int v[4]) {
+  const int n = a.i[MI_N], K = a.i[MI_K];
+  const uint16_t* meta = static_cast<const uint16_t*>(a.p[M_META]);
+  const uint8_t* flags = static_cast<const uint8_t*>(a.p[M_FLAGS]);
+  const int32_t* off = static_cast<const int32_t*>(a.p[M_OFF]);
+  const long long groups = static_cast<long long>(n) * K / G;
+  const long long stride =
+      static_cast<long long>(gridDim.x - m_rmse_blocks(a.i[MI_S])) * MTHREADS;
+  long long g = static_cast<long long>(blockIdx.x) * MTHREADS + threadIdx.x;
+  const long long step = stride * G;
+  const int dr = static_cast<int>(step / K), dc = static_cast<int>(step % K);
+  int r = static_cast<int>(g * G / K), c = static_cast<int>(g * G % K);
+  for (; g < groups; g += stride) {
+    uint16_t m[G];
+    if constexpr (G == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(meta + g * G);
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        m[2 * k] = static_cast<uint16_t>(w[k] & 0xFFFFu);
+        m[2 * k + 1] = static_cast<uint16_t>(w[k] >> 16);
+      }
+    } else {
+      m[0] = meta[g];
+    }
+    const bool obs = m_active(flags, r);
+    bool up[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      int nb = r + off[c + k];
+      if (nb >= n) nb -= n;
+      up[k] = m_active(flags, nb);
+    }
+    if (obs) {
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        const uint32_t st = m[k] & 3u;
+        const bool b_up = st == ALIVE, b_down = st == DEAD || st == LEFT;
+        v[0] += (up[k] && b_up) || (!up[k] && b_down);
+        v[1] += up[k] && b_down;
+        v[2] += !up[k] && b_up;
+      }
+      v[3] += c == 0;
+    }
+    c += dc;
+    r += dr;
+    if (c >= K) { c -= K; ++r; }
+  }
+}
+
+__global__ void __launch_bounds__(MTHREADS) k_metrics(MetricsArgs a) {
+  __shared__ unsigned int s_cnt[4];
+  __shared__ float s_sq[MTHREADS / 32];
+  __shared__ unsigned int s_ok[MTHREADS / 32];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  unsigned long long* acc = static_cast<unsigned long long*>(a.p[M_ACC]);
+  if (threadIdx.x < 4) s_cnt[threadIdx.x] = 0;
+  __syncthreads();
+
+  const int S = a.i[MI_S], rmse_blocks = m_rmse_blocks(S);
+  const int rb = static_cast<int>(blockIdx.x) - (static_cast<int>(gridDim.x) - rmse_blocks);
+  if (rb < 0) {
+    // Health: the cell pass over the grid's first blocks.
+    unsigned int v[4] = {0, 0, 0, 0};
+    if (a.i[MI_VEC]) m_health<8>(a, v);
+    else m_health<1>(a, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned int s = __reduce_add_sync(FULL, v[k]);
+      if (lane == 0 && s) atomicAdd(&s_cnt[k], s);
+    }
+    __syncthreads();
+    if (threadIdx.x < 4 && s_cnt[threadIdx.x])
+      atomicAdd(&acc[A_AGREE + threadIdx.x], static_cast<unsigned long long>(s_cnt[threadIdx.x]));
+  } else {
+    // RMSE: pair rb * MTHREADS + threadIdx.x.
+    const int s = rb * MTHREADS + threadIdx.x;
+    float sq = 0.0f;
+    unsigned int oks = 0;
+    if (s < S) {
+      bool ok;
+      sq = m_pair_err2(a, static_cast<const int64_t*>(a.p[M_I])[s],
+                       static_cast<const int64_t*>(a.p[M_J])[s], &ok);
+      oks = ok;
+    }
+    for (int o = 16; o > 0; o >>= 1) sq = sq + __shfl_down_sync(FULL, sq, o);
+    oks = __reduce_add_sync(FULL, oks);
+    if (lane == 0) { s_sq[wib] = sq; s_ok[wib] = oks; }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float tot = 0.0f;
+      unsigned int ok_tot = 0;
+      for (int w = 0; w < MTHREADS / 32; ++w) { tot = tot + s_sq[w]; ok_tot += s_ok[w]; }
+      acc[A_PART + 2 * rb] = __float_as_uint(tot);
+      acc[A_PART + 2 * rb + 1] = ok_tot;
+    }
+  }
+
+  // The last block to finish writes the row and clears the scratch.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&acc[A_TICKET], 1ull) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last || threadIdx.x != 0) return;
+  __threadfence();
+  volatile unsigned long long* vacc = acc;
+  unsigned long long edges = vacc[A_ROWS] * static_cast<unsigned long long>(a.i[MI_K]);
+  if (edges < 1) edges = 1;
+  const float fe = __ull2float_rn(edges);
+  float* out = static_cast<float*>(a.p[M_OUT]);
+  out[0] = __fdiv_rn(__ull2float_rn(vacc[A_AGREE]), fe);
+  out[1] = __fdiv_rn(__ull2float_rn(vacc[A_FP]), fe);
+  out[2] = __fdiv_rn(__ull2float_rn(vacc[A_UND]), fe);
+  float sq = 0.0f;
+  unsigned long long oks = 0;
+  for (int b = 0; b < rmse_blocks; ++b) {
+    sq = sq + __uint_as_float(static_cast<uint32_t>(vacc[A_PART + 2 * b]));
+    oks += vacc[A_PART + 2 * b + 1];
+  }
+  out[3] = __fsqrt_rn(__fdiv_rn(sq, __ull2float_rn(oks < 1 ? 1 : oks)));
+  for (int k = 0; k < A_PART + 2 * rmse_blocks; ++k) vacc[k] = 0;
+}
+
+// ---------------------------------------------------------------------------
 // Host entry points: one per launch, each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
@@ -2205,6 +2427,26 @@ extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
   const size_t bytes = static_cast<size_t>(SWARPS) * serf_warp_words(rows, E, R, O, nc) * 4;
   k_serf_post<<<grid, SWARPS * 32, bytes, (cudaStream_t)stream>>>(*a, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// M runs its health pass on as many blocks as stay resident (no more than
+// the cells need) and its RMSE on ceil(S / 256) more, the last of the grid.
+extern "C" int gossip_metrics(const MetricsArgs* a, void* stream) {
+  static const int blocks =
+      resident_blocks(reinterpret_cast<const void*>(k_metrics), MTHREADS / 32);
+  const long long cells = static_cast<long long>(a->i[MI_N]) * a->i[MI_K];
+  const long long need = std::max(1LL, (cells + MTHREADS - 1) / MTHREADS);
+  const int health = static_cast<int>(std::min(need, static_cast<long long>(blocks)));
+  k_metrics<<<health + m_rmse_blocks(a->i[MI_S]), MTHREADS, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_metrics_layout(int* out) {
+  out[0] = N_MPTR;
+  out[1] = N_MINT;
+  out[2] = A_PART;
+  out[3] = static_cast<int>(sizeof(MetricsArgs));
+  return 0;
 }
 
 extern "C" int gossip_layout(int* out) {

@@ -4,6 +4,14 @@ per-tick metrics trace and convergence detection, for the bare SWIM tick
 (``Simulation``, with fault schedules and the invariant sentinel) and the
 fused serf tick (``SerfSimulation``).
 
+Metrics come from the packed leaves: on the card launch M of the CUDA
+kernel (``cuda_gossip.MetricsKernel``) writes each tick's TickTrace row
+into a [C, 4] device buffer, with no host read per tick; on the CPU its
+plain version does. Counters of metrics-off runs are deferred and
+flushed in one batched transfer when ``counters`` is read (every chunk
+while the sentinel is on); each chunk with metrics records the
+reference's telemetry into ``Simulation.sink``.
+
 ``Simulation(cfg, seed)`` builds the world, topology and state on the
 card and steps the packed state through the CUDA tick kernel, on the
 sparse view or the dense one (``view_degree=0``, n <= 256). Pass
@@ -20,7 +28,9 @@ a fault schedule installed needs ``TickDraws.u_pp``.
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import os
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -33,7 +43,8 @@ from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import state as sim_state
 from consul_tpu_torch.models import serf, swim
 from consul_tpu_torch.ops import cuda_gossip, topology
-from consul_tpu_torch.utils import metrics
+from consul_tpu_torch.utils import checkpoint as ckpt_mod
+from consul_tpu_torch.utils import metrics, telemetry
 
 
 # Node pairs sampled for the per-tick RMSE (the reference's chunk body
@@ -86,16 +97,18 @@ class ScenarioResult(NamedTuple):
 class SentinelViolation(RuntimeError):
     """The invariant sentinel tripped: ``mask`` has bit i set for each
     counters.SENTINEL_FIELDS[i] with a nonzero tally, ``deltas`` holds
-    those tallies over the chunk. (The reference's diagnostic checkpoint
-    is not ported: checkpoints are ROADMAP A12.)"""
+    those tallies over the chunk, ``dump_path`` the diagnostic checkpoint
+    written before raising (None without a dump directory)."""
 
-    def __init__(self, mask: int, deltas: dict):
+    def __init__(self, mask: int, deltas: dict, dump_path=None):
         self.mask = mask
         self.deltas = {f: deltas.get(f, 0) for f in counters_mod.SENTINEL_FIELDS}
+        self.dump_path = dump_path
         tripped = [f for f in counters_mod.SENTINEL_FIELDS if deltas.get(f, 0)]
+        where = f"; diagnostic checkpoint: {dump_path}" if dump_path else ""
         super().__init__(
             f"invariant sentinel tripped (mask {mask:#x}): "
-            + ", ".join(f"{f}={deltas.get(f, 0)}" for f in tripped))
+            + ", ".join(f"{f}={deltas.get(f, 0)}" for f in tripped) + where)
 
 
 @dataclasses.dataclass
@@ -111,8 +124,11 @@ class Simulation:
     topo: Optional[topology.Topology] = None
     state: object = None
     draws: Optional[Callable[[int], swim.TickDraws]] = None
-    # The invariant sentinel, toggled with set_sentinel.
+    # The invariant sentinel and the directory of its diagnostic
+    # checkpoint, set with set_sentinel.
     sentinel: bool = dataclasses.field(default=False, init=False)
+    sentinel_dump_dir: Optional[str] = dataclasses.field(default=None,
+                                                         init=False)
 
     def __post_init__(self):
         layout_mod.validate(self.cfg, self.layout)
@@ -136,10 +152,19 @@ class Simulation:
         # Installed fault schedule (None: none), on the simulation's device.
         self.chaos = None
         self._tick_fn = self._make_tick_fn()
+        self._metrics_fn = self._make_metrics_fn()
         # Host copy of the tick: one device read here, none per tick.
         self._t = int(layout_mod.tick_of(self.state))
+        # Reference-named metrics recorded at chunk boundaries.
+        self.sink = telemetry.Sink()
+        # Cumulative counters (Python ints); metrics-off chunks queue
+        # their [26] device vectors here until the next flush.
         self._counters = {f: 0 for f in counters_mod.FIELDS}
+        self._pending_counters = []
         self.chunk_counters = []
+        # Chunk lengths run once with metrics: the first run of each is
+        # recorded without timing (the reference's warmed-shape rule).
+        self._warmed = set()
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
     _serf_plane = False
@@ -149,6 +174,28 @@ class Simulation:
     def _own_draws(self, t):
         return swim.draw_tick(self.cfg, self.gen, self.device,
                               chaos=self.chaos is not None)
+
+    def _make_metrics_fn(self):
+        """``metrics(i, j, row)``: the tick's TickTrace row into ``row``, a
+        [4] float32 tensor. Launch M where the tick runs on the CUDA
+        kernel, its plain version where it runs the plain tick (on the
+        CPU or the card), both over the packed leaves; the dense layout's
+        own metrics otherwise."""
+        cfg, topo = self.cfg, self.topo
+        if self.layout != layout_mod.PACKED:
+            def dense(i, j, row):
+                sw = self.swim_state
+                h = metrics.health(cfg, topo, sw)
+                rmse = metrics.vivaldi_rmse(cfg, self.world, sw, i, j)
+                row.copy_(torch.stack([h.agreement, h.false_positive,
+                                       h.undetected, rmse]))
+            return dense
+        if self.kernel == cuda_gossip.CUDA:
+            kernel = cuda_gossip.make_metrics_kernel(cfg, topo)
+            return lambda i, j, row: kernel(self.world, self._swim_at_rest(),
+                                            i, j, row)
+        return lambda i, j, row: row.copy_(cuda_gossip.plain_metrics(
+            cfg, topo, self.world, self._swim_at_rest(), i, j))
 
     def _init_state(self):
         return sim_state.init(self.cfg, self.gen, self.device)
@@ -173,6 +220,30 @@ class Simulation:
     @property
     def swim_state(self) -> sim_state.SimState:
         return layout_mod.swim_plane(self.state)
+
+    def _swim_at_rest(self):
+        """The SWIM plane as it is stored (packed or dense), not converted."""
+        return self.state.swim if self._serf_plane else self.state
+
+    def generator_state(self) -> dict:
+        """The draw generator's state, encoded for JSON (a checkpoint's
+        meta carries it, so a resume draws what the run would have)."""
+        raw = self.gen.get_state().numpy().tobytes()
+        return {"device": self.device.type,
+                "state": base64.b64encode(raw).decode("ascii")}
+
+    def load_state(self, state, generator: Optional[dict] = None):
+        """Replace the whole simulation state (a restored checkpoint's) and,
+        when given, the draw generator's (:meth:`generator_state`)."""
+        self.state = state
+        self._t = int(layout_mod.tick_of(state))
+        if generator is not None:
+            if generator["device"] != self.device.type:
+                raise ValueError(
+                    f"the draw generator's state is a {generator['device']} "
+                    f"generator's; this simulation draws on {self.device.type}")
+            raw = bytearray(base64.b64decode(generator["state"]))
+            self.gen.set_state(torch.frombuffer(raw, dtype=torch.uint8))
 
     def _to_dense(self):
         return layout_mod.unpack_state(self.state)
@@ -212,13 +283,12 @@ class Simulation:
                       else chaos_mod.to_device(sched, self.device))
 
     def set_sentinel(self, on: bool, dump_dir: Optional[str] = None):
-        """Toggle the invariant sentinel for the ticks that follow: each
-        chunk's sentinel tallies are read when the chunk is folded, and a
-        nonzero one raises SentinelViolation. A diagnostic ``dump_dir``
-        needs checkpoints (ROADMAP A12) and raises."""
+        """Toggle the invariant sentinel for the ticks that follow: every
+        chunk's counters are flushed, and a nonzero sentinel tally raises
+        SentinelViolation, after writing a diagnostic checkpoint of the
+        state into ``dump_dir`` when one is set."""
         if dump_dir is not None:
-            raise NotImplementedError("the sentinel's diagnostic checkpoint "
-                                      "needs checkpoints (ROADMAP A12)")
+            self.sentinel_dump_dir = dump_dir
         if bool(on) != self.sentinel:
             self.sentinel = bool(on)
             self._tick_fn = self._make_tick_fn()
@@ -227,8 +297,23 @@ class Simulation:
         if not self.sentinel:
             return
         mask = counters_mod.violation_mask(deltas)
-        if mask:
-            raise SentinelViolation(mask, deltas)
+        if not mask:
+            return
+        self.sink.incr_counter("sim.sentinel.trips", 1)
+        dump = None
+        if self.sentinel_dump_dir:
+            dump = ckpt_mod.diagnostic_dump_path(self.sentinel_dump_dir,
+                                                 self._t)
+            try:
+                os.makedirs(self.sentinel_dump_dir, exist_ok=True)
+                ckpt_mod.save(dump, self.state, meta={
+                    "reason": "sentinel", "mask": mask,
+                    "deltas": {f: int(deltas.get(f, 0))
+                               for f in counters_mod.SENTINEL_FIELDS},
+                    "t": self._t, "n": self.cfg.n})
+            except (OSError, ValueError):
+                dump = None  # the diagnostic must not mask the trip
+        raise SentinelViolation(mask, deltas, dump)
 
     def run_scenario(self, events, ticks=None, chunk: int = 64,
                      with_metrics: bool = False, settle: int = 64):
@@ -252,18 +337,14 @@ class Simulation:
                               counters=deltas, ticks=ticks, trace=trace)
 
     # -- execution -------------------------------------------------------
-    def _metrics(self, i, j):
-        sw = self.swim_state
-        h = metrics.health(self.cfg, self.topo, sw)
-        rmse = metrics.vivaldi_rmse(self.cfg, self.world, sw, i, j)
-        return (h.agreement, h.false_positive, h.undetected, rmse)
-
     def _exec_chunk(self, c: int, with_metrics: bool):
-        """Run ``c`` ticks; returns (counters[26] int32, TickTrace|None)."""
+        """Run ``c`` ticks; returns (counters[26] int32, TickTrace|None),
+        both on the device."""
         cnt = torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
                           device=self.device)
-        rows = []
-        for _ in range(c):
+        trace = (torch.empty((c, 4), dtype=torch.float32, device=self.device)
+                 if with_metrics else None)
+        for k in range(c):
             d = self.draws(self._t)
             self.state, cv = self._tick_fn(self.world, self.state, d, self.chaos)
             cnt = cnt + cv
@@ -273,31 +354,30 @@ class Simulation:
                 self._metric_gen.manual_seed(metric_seed(self.seed, self._t))
                 ij = metrics.rmse_samples(self.cfg, self._metric_gen,
                                           RMSE_SAMPLES, self.device)
-                rows.append(self._metrics(*ij))
+                self._metrics_fn(*ij, trace[k])
             self._t += 1
         if not with_metrics:
             return cnt, None
-        return cnt, TickTrace(*(torch.stack(x).to(torch.float32)
-                                for x in zip(*rows)))
-
-    def _fold(self, cnt: torch.Tensor):
-        deltas = dict(zip(counters_mod.FIELDS, cnt.tolist()))
-        for f, v in deltas.items():
-            self._counters[f] += v
-        self.chunk_counters.append(deltas)
-        self._check_sentinel(deltas)
+        return cnt, TickTrace(*trace.t().contiguous())
 
     def run(self, ticks: int, chunk: int = 64, with_metrics: bool = True):
         """Advance ``ticks`` ticks; returns the concatenated TickTrace (None
-        when metrics are off)."""
+        when metrics are off). A chunk without metrics reads nothing back:
+        its counters wait for the next flush (every chunk while the
+        sentinel is on)."""
         traces = []
         remaining = ticks
         while remaining > 0:
             c = min(chunk, remaining)
+            t0 = time.perf_counter()
             cnt, trace = self._exec_chunk(c, with_metrics)
-            self._fold(cnt)
             if with_metrics:
                 traces.append(trace)
+                self._record_chunk(trace, cnt, c, t0)
+            else:
+                self._pending_counters.append(cnt)
+                if self.sentinel:
+                    self._flush_counters()
             remaining -= c
         if not with_metrics:
             return None
@@ -315,8 +395,9 @@ class Simulation:
         trace = None
         while used < max_ticks:
             c = min(chunk, max_ticks - used)
+            t0 = time.perf_counter()
             cnt, trace = self._exec_chunk(c, True)
-            self._fold(cnt)
+            self._record_chunk(trace, cnt, c, t0)
             used += c
             ok = float(trace.agreement[-1]) >= require_agreement
             if ok and rmse_target_s is not None:
@@ -333,16 +414,73 @@ class Simulation:
             if timed:
                 t0 = time.perf_counter()
             cnt, _ = self._exec_chunk(ticks, False)
-            self._fold(cnt)
+            self._pending_counters.append(cnt)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return ticks / (time.perf_counter() - t0)
 
-    # -- inspection ------------------------------------------------------
+    # -- counters and telemetry ------------------------------------------
     @property
     def counters(self):
-        """Cumulative protocol-event totals (Python ints by field name)."""
+        """Cumulative protocol-event totals (Python ints by field name),
+        after flushing the deferred chunks."""
+        self._flush_counters()
         return self._counters
+
+    def counters_snapshot(self) -> dict:
+        """A copy of :attr:`counters`, safe to serialize."""
+        return dict(self.counters)
+
+    def _flush_counters(self, extra=None):
+        """One batched device -> host transfer of every deferred chunk's
+        counters and, with ``extra``, the current chunk's, whose deltas
+        are returned unfolded. Each chunk's deltas join
+        ``chunk_counters``; the deferred ones fold as one sum."""
+        pending = self._pending_counters
+        if not pending and extra is None:
+            return None
+        self._pending_counters = []
+        rows = torch.stack(pending + ([] if extra is None else [extra])).tolist()
+        fields = counters_mod.FIELDS
+        if pending:
+            self.chunk_counters += [dict(zip(fields, r)) for r in rows[:len(pending)]]
+            total = [sum(col) for col in zip(*rows[:len(pending)])]
+            self._fold_counter_deltas(dict(zip(fields, total)))
+        return None if extra is None else dict(zip(fields, rows[-1]))
+
+    def _fold_counter_deltas(self, deltas: dict):
+        for f, v in deltas.items():
+            self._counters[f] += v
+        telemetry.emit_counter_deltas(self.sink, deltas)
+        self._check_sentinel(deltas)
+
+    def _record_chunk(self, trace: TickTrace, cnt, ticks: int, t0: float):
+        """Fold one chunk with metrics: its counters (with any deferred
+        ones, one transfer) and the reference's telemetry of the chunk
+        boundary (one more). The first chunk of each length is recorded
+        without timing, as the reference's first run of a program shape
+        is (it compiles there; here it builds the kernel)."""
+        deltas = self._flush_counters(extra=cnt)
+        key = (ticks, True)
+        if key in self._warmed:
+            wall_s: Optional[float] = time.perf_counter() - t0
+        else:
+            self._warmed.add(key)
+            wall_s = None
+        for f, v in deltas.items():
+            self._counters[f] += v
+        self.chunk_counters.append(deltas)
+        last = TickTrace(*(x[-1] for x in trace))
+        telemetry.emit_sim_metrics(
+            self._swim_at_rest(), self.sink, health=last, rmse_s=last.rmse,
+            rounds_per_sec=(ticks / wall_s if wall_s else None),
+            chunk_wall_s=wall_s, chunk_ticks=ticks,
+            serf_state=self.state if self._serf_plane else None,
+            queue_depth_warning=self.cfg.serf.queue_depth_warning,
+            counters=deltas)
+        self._check_sentinel(deltas)
+
+    # -- inspection ------------------------------------------------------
 
     def health(self) -> metrics.HealthMetrics:
         return metrics.health(self.cfg, self.topo, self.swim_state)

@@ -49,6 +49,38 @@ class GossipCounters(NamedTuple):
 
 FIELDS = GossipCounters._fields
 
+# Sink names each counter folds into at the chunk boundary
+# (telemetry.emit_counter_deltas): the reference's names, field for field.
+METRIC_NAMES = {
+    "probes_sent": "memberlist.probeNode",
+    "acks_received": "sim.probe.acks",
+    "nacks_received": "sim.probe.nacks",
+    "probe_timeouts": "sim.probe.timeouts",
+    "suspicions_started": "memberlist.msg.suspect",
+    "refutations": "memberlist.msg.alive",
+    "deaths_declared": "memberlist.msg.dead",
+    "gossip_tx": "memberlist.udp.sent",
+    "gossip_rx": "memberlist.udp.received",
+    "gossip_msgs_tx": "sim.gossip.msgs_sent",
+    "pushpull_merges": "memberlist.pushPullNode",
+    "serf_intents_queued": "serf.events",
+    "serf_intents_retx": "sim.serf.event_retransmits",
+    "serf_intents_dropped": "sim.serf.event_drops",
+    "chaos_fault_ticks": "sim.chaos.fault_ticks",
+    "chaos_first_suspect_wait": "sim.chaos.time_to_first_suspect",
+    "chaos_confirm_wait": "sim.chaos.time_to_confirm",
+    "chaos_heal_wait": "sim.chaos.time_to_heal",
+    "chaos_false_deaths": "sim.chaos.false_positive_deaths",
+    "chaos_msgs_dropped": "sim.chaos.messages_dropped",
+    "sentinel_range": "sim.sentinel.range_violations",
+    "sentinel_monotonic": "sim.sentinel.monotonicity_violations",
+    "sentinel_suspicion": "sim.sentinel.suspicion_violations",
+    "sentinel_nonfinite_coord": "sim.sentinel.nonfinite_coordinates",
+    "sentinel_nonfinite_rtt": "sim.sentinel.nonfinite_rtt",
+    "writes_applied": "sim.serving.writes_applied",
+}
+assert set(METRIC_NAMES) == set(FIELDS)
+
 # The invariant-sentinel fields, in bitmask order: bit i of the violation
 # mask (violation_mask) is SENTINEL_FIELDS[i].
 SENTINEL_FIELDS = tuple(f for f in FIELDS if f.startswith("sentinel_"))

@@ -20,6 +20,12 @@ per lane; chaos_pre takes one row per thread. See the note at the top of
 that file. :func:`launch_hbm_bytes_per_node` counts each
 launch's least traffic, the yardstick of its time on the card.
 
+One more launch of that file, M (:class:`MetricsKernel`), is not a TPU
+kernel: it computes a tick's TickTrace row (agreement, false positives,
+undetected deaths, Vivaldi RMSE) from the packed leaves, where the
+reference's chunk body unpacks a transient view. Its plain version is
+:func:`plain_metrics`.
+
 Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
 (``unpack -> swim.step_counted -> pack``) and :func:`plain_serf_tick`
 (``unpack_state -> serf.step_counted -> pack_state``), which the CPU tests
@@ -55,6 +61,7 @@ from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import serf, swim
 from consul_tpu_torch.ops import topology
 from consul_tpu_torch.ops.topology import Topology
+from consul_tpu_torch.utils import metrics
 
 TORCH = "torch"
 CUDA = "cuda"
@@ -62,10 +69,11 @@ KERNELS = (TORCH, CUDA)
 
 # Kernel launches on the card since the last reset, by launch stage
 # (serf_post runs in the serf variant only, chaos_pre in ticks with a
-# fault schedule). Incremented only where a stage is launched;
-# chip_smoke.py zeroes it before it drives a main path and reads it after.
+# fault schedule; metrics is launch M, once per tick with metrics on).
+# Incremented only where a stage is launched; chip_smoke.py zeroes it
+# before it drives a main path and reads it after.
 LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0, "pushpull": 0,
-            "serf_post": 0}
+            "serf_post": 0, "metrics": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gossip_tick.cu")
@@ -122,6 +130,19 @@ class _TickArgs(ctypes.Structure):
                 ("f", ctypes.c_float * len(_FLTS))]
 
 
+# MetricsArgs tables of launch M, in the order of MPtr / MInt; its grid
+# scratch holds _MACC words (MAcc) and two per block of 256 sampled pairs.
+_MPTRS = ("meta", "flags", "off", "vec", "height", "adjustment", "pos",
+          "world_height", "i", "j", "acc", "out")
+_MINTS = ("n", "k", "d", "wd", "samples", "vec")
+_MACC = 5
+
+
+class _MetricsArgs(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p * len(_MPTRS)),
+                ("i", ctypes.c_int32 * len(_MINTS))]
+
+
 def validate_kernel(kernel: str, layout: str, device=None) -> None:
     """Reject invalid engine selections up front: the CUDA kernel is
     packed-native and runs only on a CUDA device."""
@@ -148,7 +169,8 @@ def tick_hbm_bytes_per_node(state, world=None, sched=None) -> float:
     return sum(layout_mod.np_size_bytes(x) for x in leaves) / float(n)
 
 
-STAGES = tuple(LAUNCHES)
+# The tick's launch stages (every launch but M).
+STAGES = tuple(k for k in LAUNCHES if k != "metrics")
 
 
 def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
@@ -302,14 +324,21 @@ def build() -> BuildInfo:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_TickArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.gossip_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.gossip_layout.restype = ctypes.c_int
-        lay = (ctypes.c_int * 4)()
-        lib.gossip_layout(lay)
-        want = (len(_PTRS), len(_INTS), len(_FLTS), ctypes.sizeof(_TickArgs))
-        if tuple(lay) != want:
-            raise RuntimeError(f"TickArgs layout mismatch: library {tuple(lay)}, "
-                               f"wrapper {want}")
+        lib.gossip_metrics.argtypes = [ctypes.POINTER(_MetricsArgs),
+                                       ctypes.c_void_p]
+        lib.gossip_metrics.restype = ctypes.c_int
+        for fn, want in (
+                (lib.gossip_layout, (len(_PTRS), len(_INTS), len(_FLTS),
+                                     ctypes.sizeof(_TickArgs))),
+                (lib.gossip_metrics_layout, (len(_MPTRS), len(_MINTS), _MACC,
+                                             ctypes.sizeof(_MetricsArgs)))):
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            lay = (ctypes.c_int * 4)()
+            fn(lay)
+            if tuple(lay) != want:
+                raise RuntimeError(f"{fn.__name__} mismatch: library "
+                                   f"{tuple(lay)}, wrapper {want}")
         _LIB = lib
         _LIB_INFO = BuildInfo(out, seconds, log)
         return _LIB_INFO
@@ -662,3 +691,94 @@ def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
     or with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant;
     a fault schedule per call, the sentinel with ``sentinel=True``."""
     return TickKernel(cfg, topo, serf_plane, sentinel)
+
+
+def plain_metrics(cfg: SimConfig, topo: Topology, world, packed, i, j):
+    """The plain PyTorch version of launch M: [4] float32 agreement,
+    false_positive, undetected and Vivaldi RMSE of a PackedSimState over
+    the pairs (i, j) (metrics.health_packed, metrics.vivaldi_rmse_packed)."""
+    h = metrics.health_packed(cfg, topo, packed)
+    rmse = metrics.vivaldi_rmse_packed(cfg, world, packed, i, j)
+    return torch.stack([h.agreement, h.false_positive, h.undetected,
+                        rmse]).to(torch.float32)
+
+
+def metrics_hbm_bytes(packed, world, samples: int) -> float:
+    """The least memory traffic of one launch M in bytes: meta and flags
+    read once, and for each sampled pair its two indices and the two rows'
+    flags, coordinates and world positions; the [4] row written."""
+    n, k = packed.meta.shape
+    d, wd = packed.viv.vec.shape[1], world.pos.shape[1]
+    per_row = 1 + 2 * d + 2 + 2 + 4 * wd + 4
+    return (2 * n * k + n + 4 * k + samples * (2 * 8 + 2 * per_row) + 16)
+
+
+class MetricsKernel:
+    """Launch M for one (config, topology): ``m(world, packed, i, j, out)``
+    writes the tick's TickTrace row of a PackedSimState (agreement,
+    false_positive, undetected, Vivaldi RMSE over the pairs (i, j)) into
+    ``out``, a [4] float32 CUDA tensor (a row of the chunk's [C, 4]
+    trace), with no read back to the host. CUDA tensors only: the plain
+    version is :func:`plain_metrics`."""
+
+    def __init__(self, cfg: SimConfig, topo: Topology):
+        self.cfg, self.topo = cfg, topo
+        self._tables = {}
+
+    def _scratch(self, device, samples: int):
+        """The offsets as int32 and the grid scratch for ``samples`` pairs,
+        which each launch leaves zeroed for the next."""
+        words = _MACC + 2 * -(-samples // 256)
+        if device not in self._tables or self._tables[device][1].numel() < words:
+            off = self.topo.off.to(device=device, dtype=torch.int32).contiguous()
+            acc = torch.zeros((words,), dtype=torch.int64, device=device)
+            self._tables[device] = (off, acc)
+        return self._tables[device]
+
+    def __call__(self, world, packed, i, j, out):
+        cfg = self.cfg
+        device = packed.meta.device
+        if device.type != "cuda":
+            raise ValueError(f"launch M takes CUDA tensors, got {device}; use "
+                             "plain_metrics for the plain version")
+        n, k = cfg.n, cfg.degree
+        d, wd = cfg.vivaldi.dimensionality, cfg.world_dims
+        s = i.shape[0] if i.dim() == 1 else -1
+        bf = torch.bfloat16
+        for name, t, dt, shape in (
+                ("meta", packed.meta, torch.uint16, (n, k)),
+                ("flags", packed.flags, torch.uint8, (n,)),
+                ("viv.vec", packed.viv.vec, bf, (n, d)),
+                ("viv.height", packed.viv.height, bf, (n,)),
+                ("viv.adjustment", packed.viv.adjustment, bf, (n,)),
+                ("world.pos", world.pos, torch.float32, (n, wd)),
+                ("world.height", world.height, torch.float32, (n,)),
+                ("i", i, torch.int64, (s,)), ("j", j, torch.int64, (s,)),
+                ("out", out, torch.float32, (4,))):
+            _check(t, name, dt, shape, device)
+        if s < 1:
+            raise ValueError("launch M needs at least one sampled pair")
+        build()
+        off, acc = self._scratch(device, s)
+        args = _MetricsArgs()
+        ptrs = (packed.meta, packed.flags, off, packed.viv.vec,
+                packed.viv.height, packed.viv.adjustment, world.pos,
+                world.height, i, j, acc, out)
+        for idx, x in enumerate(ptrs):
+            args.p[idx] = x.data_ptr()
+        # Groups of 8 cells in one 16-byte load where rows hold whole groups.
+        vec = k % 8 == 0 and packed.meta.data_ptr() % 16 == 0
+        for idx, x in enumerate((n, k, d, wd, s, vec)):
+            args.i[idx] = int(x)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = _LIB.gossip_metrics(ctypes.byref(args), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"gossip_metrics launch failed: CUDA error {rc}")
+        LAUNCHES["metrics"] += 1
+        return out
+
+
+def make_metrics_kernel(cfg: SimConfig, topo: Topology) -> MetricsKernel:
+    """Launch M for ``cfg`` and ``topo`` (sparse or dense view)."""
+    return MetricsKernel(cfg, topo)

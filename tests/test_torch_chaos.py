@@ -373,15 +373,18 @@ def test_unported_paths_raise():
     assert cuda_gossip.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA device"):
         tcluster.SerfSimulation(cfg, device="cpu", kernel="cuda")
-    # What is still not ported: the raft lane (A16) and the sentinel's
-    # diagnostic checkpoint (A12), on both simulations.
+    # What is still not ported: the raft lane (A16), on both simulations.
+    # The sentinel's diagnostic checkpoint is (A12): a dump directory is
+    # taken, and nothing is written until the sentinel trips.
     sim = tcluster.Simulation(cfg, device="cpu", kernel="torch")
     ssim = tcluster.SerfSimulation(cfg, device="cpu", kernel="torch")
     for s in (sim, ssim):
         with pytest.raises(NotImplementedError, match="A16"):
             s.set_chaos([tchaos.RaftKill(2, 8)])
-        with pytest.raises(NotImplementedError, match="A12"):
-            s.set_sentinel(True, dump_dir="diag")
+        s.set_sentinel(True, dump_dir="diag")
+        assert s.sentinel and s.sentinel_dump_dir == "diag"
+        s.set_sentinel(False)
+        assert not s.sentinel and s.sentinel_dump_dir == "diag"
     ssim.set_chaos([tchaos.Partition(1, 4, [0])])
     ssim.set_sentinel(True)
     assert ssim.chaos is not None and ssim.sentinel

@@ -15,8 +15,9 @@ port's package rules.
   or on whether earlier ticks had metrics.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
-- No module of ``consul_tpu_torch`` (its ``chaos`` subpackage included)
-  and no line of ``chip_smoke.py`` imports ``jax`` or ``consul_tpu``.
+- No module of ``consul_tpu_torch`` (its ``chaos`` and ``runtime``
+  subpackages included) and no line of ``chip_smoke.py`` imports ``jax``
+  or ``consul_tpu``.
 """
 
 import ast
@@ -155,6 +156,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"__init__.py", "schedule.py"} <= {
         os.path.basename(f) for f in files
         if os.path.basename(os.path.dirname(f)) == "chaos"}
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {os.path.join("consul_tpu_torch", *p) for p in (
+        ("runtime", "__init__.py"), ("runtime", "harness.py"),
+        ("runtime", "policy.py"), ("runtime", "watchdog.py"),
+        ("utils", "checkpoint.py"), ("utils", "telemetry.py"))} <= rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
