@@ -42,7 +42,14 @@ and a state with NaN coordinates, and ``metrics_timing`` times (alone,
 and a tick with metrics against one without on the SWIM and serf
 paths). ``resilient`` runs ``run_resilient`` at 1M for 256 ticks,
 preempted by SIGTERM at tick 128 and resumed in a fresh ``Simulation``,
-against an uninterrupted run, bit for bit. It prints one JSON line per
+against an uninterrupted run, bit for bit. The serving phases run the
+serving plane over a live 1M ``Simulation``: ``serving_parity`` (NearestN
+on a fresh simulation answers the lowest live ids; every query mode on the
+card against the CPU; after the mixed run, the write state and every watch
+frame against the numpy oracles; a write-attached plane leaves the
+trajectory bit-equal), ``serving`` (32 batches of 1,024 NearestN queries
+at k = 8, bench.py:750-785) and ``serving_mixed`` (``run_mixed`` at 90:9:1,
+bench.py:795-805). It prints one JSON line per
 phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -51,9 +58,11 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import random
 import shutil
 import signal
 import subprocess
@@ -169,6 +178,24 @@ METRICS_TIMED_TICKS = 32
 RESILIENT_TICKS = 256
 RESILIENT_CHUNK = 64
 RESILIENT_STOP = 128
+# The serving phases (bench.py:736-815) over a live 1M Simulation: NearestN
+# at k = 8 in batches of 1,024 after one 128-tick chunk, a warm batch and 32
+# timed ones from random.Random(0) sources; then run_mixed at 90:9:1, 16
+# rounds, read batch 1,024, 8 watchers, 8 services, 256 KV slots, seed 0.
+# serving_parity holds the card against the CPU on SERVING_QUERIES queries
+# of each mode: ids, counts and tick equal, rtts within SERVING_RTOL
+# relative, after checking that each NEAREST row's k-th and (k+1)-th
+# distances differ by more than that.
+SERVING_K = 8
+SERVING_BATCH = 1024
+SERVING_REPS = 32
+SERVING_CHUNK = 128
+SERVING_QUERIES = 64
+SERVING_RTOL = 1e-6
+MIXED_ROUNDS = 16
+MIXED_SERVICES = 8
+MIXED_KV_SLOTS = 256
+MIXED_WATCHERS = 8
 STRESS_TICKS = 24
 STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
                   ("dense_serf", DENSE_N, False),
@@ -1249,6 +1276,310 @@ def resilient_phase(cfg):
     return res
 
 
+def op_breakdown(fn):
+    """Device ms of one call of ``fn`` by PyTorch op (each kernel's time
+    under the innermost ``aten::`` op that launched it, from the
+    profiler), largest first; "not measured" if it records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "self_device_time_total", 0)
+              or getattr(ev, "self_cuda_time_total", 0))
+        if ev.key.startswith("aten::") and us:
+            out[ev.key] = out.get(ev.key, 0.0) + us / 1000.0
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])) or "not measured"
+
+
+def _host_copy(snap):
+    from consul_tpu_torch.ops import serving
+
+    return serving.Snapshot(*[x.cpu() for x in snap[:6]], snap.tick.cpu())
+
+
+def _ids(results):
+    return [[node for node, _ in r.nodes] for r in results]
+
+
+def serving_parity_reads(cfg):
+    """serving_parity (a) and (b). (a) On a fresh Simulation (tick 0, every
+    distance equal) NEAREST from 64 sources answers ids 0..7; after killing
+    rows 0..n/20-1, the 8 lowest live ids. (b) After SERVING_CHUNK more
+    ticks, SERVING_QUERIES queries of each mode (half with a service
+    filter) through ``ops/serving.execute`` on the card and on the CPU over
+    the same snapshot copied to the host: ids, counts and tick equal, rtts
+    within SERVING_RTOL relative, once every NEAREST row's k-th and
+    (k+1)-th distances (a CPU run at k + 1) are more than SERVING_RTOL
+    apart."""
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import serving
+    from consul_tpu_torch.serving import ServingPlane
+
+    t0 = time.perf_counter()
+    n, k = cfg.n, SERVING_K
+    sim = cluster.Simulation(cfg, seed=0)
+    plane = ServingPlane(k=k, buckets=(SERVING_QUERIES,),
+                         num_services=MIXED_SERVICES)
+    sim.attach_serving(plane)
+    rng = random.Random(1)
+    srcs = [rng.randrange(n) for _ in range(SERVING_QUERIES)]
+    dead = n // 20
+    fresh = _ids(plane.nearest_many(srcs))
+    sim.kill(torch.arange(n) < dead)
+    killed = _ids(plane.nearest_many(srcs))
+    tie_ok = (all(ids == list(range(k)) for ids in fresh)
+              and all(ids == list(range(dead, dead + k)) for ids in killed))
+
+    sim.run(SERVING_CHUNK, chunk=SERVING_CHUNK, with_metrics=False)
+    snap = plane.snapshot()
+    modes = (serving.MODE_NEAREST, serving.MODE_DIST, serving.MODE_CATALOG,
+             serving.MODE_HEALTH, serving.MODE_NOOP)
+    q = []
+    for m in modes:
+        for j in range(SERVING_QUERIES):
+            if m == serving.MODE_DIST:
+                arg = rng.randrange(n)
+            else:
+                arg = -1 if j % 2 == 0 else rng.randrange(MIXED_SERVICES)
+            q.append((m, rng.randrange(n), arg))
+    q = torch.tensor(q, dtype=torch.int32).t().contiguous()
+    card = [x.cpu() for x in serving.execute(k, snap, *q.cuda())[:3]]
+    host_snap = _host_copy(snap)
+    host = serving.execute(k, host_snap, *q)
+    near = q[0] == serving.MODE_NEAREST
+    wide = serving.execute(k + 1, host_snap, *(x[near] for x in q))
+    full = wide[2] > k
+    r_k, r_k1 = wide[1][full, k - 1], wide[1][full, k]
+    gap = ((r_k1 - r_k) / r_k).min().item() if bool(full.any()) else None
+    gap_ok = gap is not None and gap > SERVING_RTOL
+    inf_ok = torch.equal(torch.isinf(card[1]), torch.isinf(host[1]))
+    fin = torch.isfinite(host[1])
+    rel = ((card[1][fin] - host[1][fin]).abs() / host[1][fin].abs()).max().item()
+    read_ok = (torch.equal(card[0], host[0]) and torch.equal(card[2], host[2])
+               and int(snap.tick) == int(host[3]) and inf_ok
+               and rel <= SERVING_RTOL)
+    res = dict(part="ab", n=n, k=k, tie_sources=len(srcs),
+               tie_fresh_ok=all(ids == list(range(k)) for ids in fresh),
+               tie_killed_first=killed[0], tick=int(snap.tick),
+               queries=int(q.shape[1]), nearest_rows_full=int(full.sum()),
+               min_gap_rel_k_k1=gap, ids_equal=torch.equal(card[0], host[0]),
+               counts_equal=torch.equal(card[2], host[2]),
+               rtt_max_rel_err=rel, rtol=SERVING_RTOL,
+               counts_by_mode={str(m): int(host[2][q[0] == m].sum())
+                               for m in modes},
+               seconds=round(time.perf_counter() - t0, 3))
+    res["ok"] = tie_ok and gap_ok and read_ok
+    return res
+
+
+def serving_phase(cfg, rate):
+    """The bench's serving phase (bench.py:750-785) through the entry
+    points: one SERVING_CHUNK-tick chunk on a fresh Simulation, a
+    ServingPlane(k=8, buckets=(1024,)) attached, a warm batch, then
+    SERVING_REPS timed batches of 1,024 NEAREST queries from
+    random.Random(0) sources. Reports q/s, p50/p99 batch ms, padding waste,
+    the peak of one batch's temporaries, and the batch's bytes bound (the
+    snapshot read once) at the card's memory rate."""
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import serving
+    from consul_tpu_torch.serving import MODE_NEAREST, ServingPlane
+
+    n = cfg.n
+    t0 = time.perf_counter()
+    qsim = cluster.Simulation(cfg, seed=0)
+    qsim.run(SERVING_CHUNK, chunk=SERVING_CHUNK, with_metrics=False)
+    plane = ServingPlane(k=SERVING_K, buckets=(SERVING_BATCH,))
+    qsim.attach_serving(plane)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    srng = random.Random(0)
+
+    def batch():
+        return [(MODE_NEAREST, srng.randrange(n), -1)
+                for _ in range(SERVING_BATCH)]
+
+    t_warm = time.perf_counter()
+    plane.batcher.execute(batch())
+    warm_s = time.perf_counter() - t_warm
+    plane.batcher.latencies_s.clear()
+    batches0 = plane.batcher.batches
+    t1 = time.perf_counter()
+    for _ in range(SERVING_REPS):
+        plane.batcher.execute(batch())
+    wall = time.perf_counter() - t1
+    st = plane.stats()
+    one = batch()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plane.batcher.execute(one)
+    peak = torch.cuda.max_memory_allocated() - base
+    by_op = op_breakdown(lambda: plane.batcher.execute(batch()))
+    snap = plane.snapshot()
+    nbytes = serving.snapshot_bytes(snap)
+    res = dict(n=n, batch=SERVING_BATCH, k=SERVING_K,
+               queries=SERVING_REPS * SERVING_BATCH,
+               queries_per_sec=SERVING_REPS * SERVING_BATCH / wall,
+               wall_s=wall, warm_s=warm_s, setup_s=setup_s,
+               p50_batch_ms=st["p50_batch_ms"], p99_batch_ms=st["p99_batch_ms"],
+               padding_waste_pct=st["padding_waste_pct"],
+               block_rows=serving.block_rows(n, snap.vec.shape[1],
+                                             SERVING_BATCH),
+               peak_temp_bytes=peak, temp_budget_bytes=serving.TEMP_BUDGET_BYTES,
+               bound_bytes=nbytes, bound_ms=nbytes / rate * 1e3,
+               bound_by="bytes", tick=int(snap.tick), device_ms_by_op=by_op)
+    res["ok"] = (st["batches"] - batches0 == SERVING_REPS and peak <= (4 << 30)
+                 and int(snap.tick) == SERVING_CHUNK)
+    return qsim, res
+
+
+def serving_mixed_phase(qsim):
+    """run_mixed at the bench's configuration (bench.py:795-805) on the
+    serving phase's Simulation. It records, on the host only (so the
+    timed flips allocate nothing for the check), every write batch
+    applied, the host frame of every flip with the number of batches
+    applied before it, each flip's host time, the card memory the
+    allocator reserved during it, and the pauses of Python's cyclic
+    garbage collector (all, and those inside each flip). Then
+    serving_parity (c): the write state equals apply_writes_reference
+    replayed on the host over those batches, field by field, and each
+    frame equals diff_snapshots_reference on the flip's two write states
+    (that replay, cut at the flip) and the snapshot's live mask, which
+    the mix leaves unchanged (it runs no tick)."""
+    from types import SimpleNamespace
+
+    from consul_tpu_torch.ops import deltas
+    from consul_tpu_torch.serving import ServingPlane
+    from consul_tpu_torch.serving.mixed import run_mixed
+
+    t0 = time.perf_counter()
+    plane = ServingPlane(k=SERVING_K, buckets=(SERVING_BATCH,),
+                         num_services=MIXED_SERVICES)
+    qsim.attach_serving(plane, writes=True, kv_slots=MIXED_KV_SLOTS)
+    ws0 = deltas.WriteState(*[x.cpu().numpy() for x in plane.write_state])
+    snap0 = plane.snapshot()
+    live = SimpleNamespace(live=snap0.live.cpu().numpy(), tick=int(snap0.tick))
+    batches, flips, pauses, gc_t0 = [], [], [], [0.0]
+    real_execute, real_on_flip = plane.writes.execute, plane.watch.on_flip
+
+    def execute(ops):
+        batches.append(list(ops))
+        return real_execute(ops)
+
+    def on_flip(prev, cur):
+        n0, r0, t = len(pauses), torch.cuda.memory_reserved(), time.perf_counter()
+        real_on_flip(prev, cur)
+        flips.append(dict(
+            s=time.perf_counter() - t, batches=len(batches),
+            frame=plane.watch.last_frame,
+            gc_s=sum(p for _, p in pauses[n0:]),
+            grew=torch.cuda.memory_reserved() - r0))
+
+    def gc_pause(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - gc_t0[0]))
+
+    plane.writes.execute, plane.watch.on_flip = execute, on_flip
+    gc.callbacks.append(gc_pause)
+    try:
+        mixed = run_mixed(qsim, plane, ratio="90:9:1", rounds=MIXED_ROUNDS,
+                          read_batch=SERVING_BATCH, watchers=MIXED_WATCHERS,
+                          seed=0)
+    finally:
+        gc.callbacks.remove(gc_pause)
+    torch.cuda.synchronize()
+    mixed["setup_and_run_s"] = time.perf_counter() - t0
+    slowest = max(flips, key=lambda f: f["s"])
+    mixed["flip_host"] = dict(
+        ms=[f["s"] * 1e3 for f in flips],
+        reserved_growth_bytes=[f["grew"] for f in flips],
+        gc_ms_inside=[f["gc_s"] * 1e3 for f in flips],
+        slowest_ms=slowest["s"] * 1e3, gc_pauses=len(pauses),
+        gc_gen2=sum(g == 2 for g, _ in pauses),
+        gc_max_pause_ms=max((p for _, p in pauses), default=0.0) * 1e3)
+
+    t1 = time.perf_counter()
+    states = [ws0]
+    for ops in batches:
+        states.append(deltas.apply_writes_reference(
+            states[-1],
+            deltas.WriteBatch(*torch.tensor(ops, dtype=torch.int32).t()))[0])
+    fields_differ = [f for f, a, b in zip(deltas.WriteState._fields,
+                                          plane.write_state, states[-1])
+                     if not (a.cpu().numpy() == b).all()]
+    frames_differ, before = [], 0
+    for i, f in enumerate(flips):
+        want = deltas.diff_snapshots_reference(
+            plane.watch.k, live, states[before], live, states[f["batches"]])
+        if not all((a == b).all() for a, b in zip(f["frame"], want)):
+            frames_differ.append(i)
+        before = f["batches"]
+    changes = [int(f["frame"].n_node_changes) for f in flips]
+    check = dict(part="c", write_batches=len(batches),
+                 writes=sum(len(b) for b in batches),
+                 apply_index=int(plane.write_state.apply_index),
+                 state_fields_differing=fields_differ, flips=len(flips),
+                 frames_differing=frames_differ,
+                 node_changes_per_flip=changes,
+                 kv_changes_per_flip=[int(f["frame"].n_kv_changes)
+                                      for f in flips],
+                 seconds=round(time.perf_counter() - t1, 3))
+    check["ok"] = (not fields_differ and not frames_differ
+                   and len(flips) == MIXED_ROUNDS + 1 and len(batches) > 0
+                   and check["apply_index"] > 0 and sum(changes) > 0
+                   and plane.tick == live.tick)
+    mixed["ok"] = (mixed["read"]["count"] == MIXED_ROUNDS * SERVING_BATCH
+                   and mixed["watch"]["deliveries"] > 0)
+    plane.close()
+    return mixed, check
+
+
+def serving_trajectory(cfg):
+    """serving_parity (d): SERVING_CHUNK ticks from one seed with a
+    write-attached plane (writes and reads between the chunks) and without
+    one end on bit-equal packed leaves and generator states."""
+    from consul_tpu_torch.models import cluster, layout
+    from consul_tpu_torch.ops import deltas
+    from consul_tpu_torch.serving import ServingPlane
+
+    t0 = time.perf_counter()
+    sims = []
+    for attach in (False, True):
+        sim = cluster.Simulation(cfg, seed=2)
+        if attach:
+            plane = ServingPlane(k=SERVING_K, buckets=(SERVING_QUERIES,),
+                                 num_services=MIXED_SERVICES)
+            sim.attach_serving(plane, writes=True, kv_slots=MIXED_KV_SLOTS)
+        for c in range(2):
+            if attach:
+                slot = plane.keys.slot_for(f"t/{c}", create=True)
+                plane.writes.execute([(deltas.OP_REGISTER, 5 + c, 3),
+                                      (deltas.OP_KV_PUT, slot, 7 + c)])
+                plane.nearest_many(range(SERVING_QUERIES))
+            sim.run(SERVING_CHUNK // 2, chunk=SERVING_CHUNK // 2,
+                    with_metrics=False)
+        torch.cuda.synchronize()
+        sims.append(sim)
+    a, b = sims
+    leaves = list(zip(layout.leaves(a.state), layout.leaves(b.state)))
+    differ = [i for i, (x, y) in enumerate(leaves)
+              if not torch.equal(_leaf_bits(x), _leaf_bits(y))]
+    gen_equal = bool(a.gen.get_state().equal(b.gen.get_state()))
+    res = dict(part="d", n=cfg.n, ticks=SERVING_CHUNK, leaves=len(leaves),
+               leaves_differing=differ, generator_equal=gen_equal,
+               flips=plane.watch.flips, apply_index=plane.apply_index,
+               t=(a._t, b._t), seconds=round(time.perf_counter() - t0, 3))
+    res["ok"] = (not differ and gen_equal and a._t == b._t == SERVING_CHUNK
+                 and plane.apply_index > 0)
+    return res
+
+
 def _rows(n, rows, dev):
     m = torch.zeros(n, dtype=torch.bool, device=dev)
     m[rows] = True
@@ -1765,6 +2096,45 @@ def main() -> int:
     emit({"phase": "resilient", **res})
     if not res["ok"]:
         emit({"phase": "failed", "failed": ["resilient"]})
+        return 1
+
+    # The serving plane over the live 1M simulation (bench.py:736-815):
+    # reads card against CPU and the tie, the serving and mixed phases (the
+    # tick kernel's launches counted from the serving phase's first tick to
+    # the mixed run's last flip), the write/watch check on the mixed run,
+    # then the trajectory with and without a plane.
+    t_serving = time.perf_counter()
+    res = serving_parity_reads(cfg)
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_parity", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["serving_parity (a, b)"]})
+        return 1
+    reset_launches()
+    qsim, res = serving_phase(cfg, rate)
+    emit({"phase": "serving", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["serving"]})
+        return 1
+    mixed, check = serving_mixed_phase(qsim)
+    serving_launches = tick_launches(cuda_gossip.LAUNCHES)
+    mixed["tick_launches"] = serving_launches
+    emit({"phase": "serving_mixed", "n": cfg.n, **mixed})
+    emit({"phase": "serving_parity", **check})
+    del qsim
+    torch.cuda.empty_cache()
+    if not (mixed["ok"] and serving_launches > 0):
+        emit({"phase": "failed", "failed": ["serving_mixed"]})
+        return 1
+    if not check["ok"]:
+        emit({"phase": "failed", "failed": ["serving_parity (c)"]})
+        return 1
+    res = serving_trajectory(cfg)
+    torch.cuda.empty_cache()
+    res["serving_phases_s"] = round(time.perf_counter() - t_serving, 3)
+    emit({"phase": "serving_parity", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["serving_parity (d)"]})
         return 1
 
     def row(name, config, launches, t):

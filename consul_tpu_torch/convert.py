@@ -1,7 +1,8 @@
 """Carry the reference's state across into the port.
 
 The functions here take the JAX package's ``SimState``, ``PackedSimState``,
-``World`` and ``Topology`` as NamedTuples (or nested dicts) of **numpy
+``World`` and ``Topology`` (and the serving plane's ``Snapshot``,
+``WriteState`` and ``WriteBatch``) as NamedTuples (or nested dicts) of **numpy
 arrays** — ``jax.tree.map(np.asarray, x)`` gives that — and return the
 port's tensors on a chosen device. This is the port's "weights carried
 across": a test makes the state once with the reference, converts it,
@@ -139,3 +140,39 @@ def schedule_from(src, device="cpu"):
 
     return chaos.ChaosSchedule(*[tensor(_get(src, f), device)
                                  for f in chaos.ChaosSchedule._fields])
+
+
+def snapshot_from(src, device="cpu"):
+    """Reference serving Snapshot (numpy leaves) -> the port's Snapshot on
+    ``device``: float32 coordinates, bool masks, int32 labels and a 0-d
+    int32 tick."""
+    from consul_tpu_torch.ops import serving
+
+    f32, b = torch.float32, torch.bool
+    return serving.Snapshot(
+        vec=tensor(_get(src, "vec"), device, f32),
+        height=tensor(_get(src, "height"), device, f32),
+        adjustment=tensor(_get(src, "adjustment"), device, f32),
+        known=tensor(_get(src, "known"), device, b),
+        live=tensor(_get(src, "live"), device, b),
+        service=tensor(_get(src, "service"), device, torch.int32),
+        tick=tensor(_get(src, "tick"), device, torch.int32))
+
+
+def write_state_from(src, device="cpu"):
+    """Reference WriteState (numpy leaves) -> the port's WriteState on
+    ``device``, dtype for dtype (int32 labels, sessions, KV words and
+    index; bool masks)."""
+    from consul_tpu_torch.ops import deltas
+
+    return deltas.WriteState(*[tensor(_get(src, f), device)
+                               for f in deltas.WriteState._fields])
+
+
+def write_batch_from(src, device="cpu"):
+    """Reference WriteBatch (numpy leaves) -> the port's int32 WriteBatch
+    on ``device``."""
+    from consul_tpu_torch.ops import deltas
+
+    return deltas.WriteBatch(*[tensor(_get(src, f), device, torch.int32)
+                               for f in deltas.WriteBatch._fields])

@@ -19,6 +19,10 @@ sparse view or the dense one (``view_degree=0``, n <= 256). Pass
 Nothing falls back: ``kernel="cuda"`` without a CUDA device, or with the
 dense layout, raises.
 
+A serving plane (``serving.ServingPlane``, ``attach_serving``) is
+republished at every chunk boundary and after a kill or a revive; the
+projection draws nothing and writes nothing into the state.
+
 Tests can hand in an initial world, topology and state (``convert.py``
 carries the reference's across) and a draw source, a callable from the
 tick number to its :class:`swim.TickDraws`; by default the simulation
@@ -165,6 +169,8 @@ class Simulation:
         # Chunk lengths run once with metrics: the first run of each is
         # recorded without timing (the reference's warmed-shape rule).
         self._warmed = set()
+        # The attached serving plane (serving.ServingPlane), or None.
+        self.serving = None
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
     _serf_plane = False
@@ -259,13 +265,36 @@ class Simulation:
     def _mask(self, mask) -> torch.Tensor:
         return torch.as_tensor(mask, dtype=torch.bool).to(self.device)
 
+    # -- serving plane ---------------------------------------------------
+    def attach_serving(self, plane, writes: bool = False,
+                       kv_slots: int = 256, **write_kw):
+        """Attach a serving plane (consul_tpu_torch/serving): it publishes a
+        snapshot now and again at every chunk boundary, after a kill and a
+        revive. With ``writes=True`` the write path and the watch plane
+        come up too (``plane.attach_writes``): batched catalog/KV/session
+        writes apply between chunks, become visible at flips, and every
+        flip carries the monotone apply index."""
+        plane.attach(self)
+        if writes:
+            plane.attach_writes(kv_slots=kv_slots, **write_kw)
+
+    def publish_serving(self):
+        """Republish the serving snapshot from the current state (nothing
+        without a plane). The projection copies what it reads and draws
+        nothing, so it moves neither the state nor any generator, and a
+        published snapshot outlives the ticks that follow."""
+        if self.serving is not None:
+            self.serving.publish(self)
+
     # -- fault injection -------------------------------------------------
     def kill(self, mask):
         self._from_dense(sim_state.kill(self.swim_state, self._mask(mask)))
+        self.publish_serving()
 
     def revive(self, mask, cold: bool = False):
         self._from_dense(sim_state.revive(self.cfg, self.swim_state,
                                           self._mask(mask), cold=cold))
+        self.publish_serving()
 
     def set_chaos(self, sched):
         """Install (or clear, with None) a fault schedule for the ticks
@@ -378,6 +407,7 @@ class Simulation:
                 self._pending_counters.append(cnt)
                 if self.sentinel:
                     self._flush_counters()
+            self.publish_serving()
             remaining -= c
         if not with_metrics:
             return None
@@ -398,6 +428,7 @@ class Simulation:
             t0 = time.perf_counter()
             cnt, trace = self._exec_chunk(c, True)
             self._record_chunk(trace, cnt, c, t0)
+            self.publish_serving()
             used += c
             ok = float(trace.agreement[-1]) >= require_agreement
             if ok and rmse_target_s is not None:
@@ -417,7 +448,9 @@ class Simulation:
             self._pending_counters.append(cnt)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        return ticks / (time.perf_counter() - t0)
+        rate = ticks / (time.perf_counter() - t0)
+        self.publish_serving()
+        return rate
 
     # -- counters and telemetry ------------------------------------------
     @property
@@ -535,12 +568,14 @@ class SerfSimulation(Simulation):
         st = self._to_dense()
         self._from_dense(st._replace(
             swim=sim_state.kill(st.swim, self._mask(mask))))
+        self.publish_serving()
 
     def revive(self, mask, cold: bool = False):
         st = self._to_dense()
         self._from_dense(st._replace(
             swim=sim_state.revive(self.cfg, st.swim, self._mask(mask),
                                   cold=cold)))
+        self.publish_serving()
 
     @property
     def serf_state(self) -> serf.SerfState:

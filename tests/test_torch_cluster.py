@@ -15,9 +15,9 @@ port's package rules.
   or on whether earlier ticks had metrics.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
-- No module of ``consul_tpu_torch`` (its ``chaos`` and ``runtime``
-  subpackages included) and no line of ``chip_smoke.py`` imports ``jax``
-  or ``consul_tpu``.
+- No module of ``consul_tpu_torch`` (its ``chaos``, ``runtime``,
+  ``server`` and ``serving`` subpackages included) and no line of
+  ``chip_smoke.py`` imports ``jax`` or ``consul_tpu``.
 """
 
 import ast
@@ -160,7 +160,13 @@ def test_port_imports_no_jax_and_no_reference():
     assert {os.path.join("consul_tpu_torch", *p) for p in (
         ("runtime", "__init__.py"), ("runtime", "harness.py"),
         ("runtime", "policy.py"), ("runtime", "watchdog.py"),
-        ("utils", "checkpoint.py"), ("utils", "telemetry.py"))} <= rel
+        ("utils", "checkpoint.py"), ("utils", "telemetry.py"),
+        ("server", "rtt.py"), ("ops", "serving.py"), ("ops", "deltas.py"),
+        ("serving", "__init__.py"), ("serving", "batcher.py"),
+        ("serving", "plane.py"), ("serving", "writes.py"),
+        ("serving", "watch.py"), ("serving", "mixed.py"))} <= rel
+    # The asyncio front end comes with the port's front ends (ROADMAP A19).
+    assert os.path.join("consul_tpu_torch", "serving", "frontend.py") not in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
