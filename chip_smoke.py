@@ -49,8 +49,20 @@ card against the CPU; after the mixed run, the write state and every watch
 frame against the numpy oracles; a write-attached plane leaves the
 trajectory bit-equal), ``serving`` (32 batches of 1,024 NearestN queries
 at k = 8, bench.py:750-785) and ``serving_mixed`` (``run_mixed`` at 90:9:1,
-bench.py:795-805). It prints one JSON line per
-phase, the kernel table, the card's name and power limit, and a last
+bench.py:795-805). The raft phases run the raft tier (``set_raft``) over
+a live 1M ``Simulation``: ``raft_parity`` (16x5 and 4x3 groups, 256 ticks
+under a leader kill, a partition and a storm: every raft field and
+counter on the card equal to ``raft_ops.tick`` replayed on the CPU from
+the same draw tensors at every chunk boundary, the chaos masks equal to
+their numpy twin, the gossip trajectory with raft bit-equal to one
+without, and the bare kernel's chaos variant under the raft-only
+schedule bit-equal to ``plain_tick``), ``raft_main_path`` (the bench's
+raft flow, bench.py:482-554: ticks/s, elections/s under a storm, commit
+latency), ``raft_serving`` (``run_mixed`` at 90:9:1 through the raft
+write gate, then the leader-kill drill of tests/test_raft_device.py:
+308-366 at 1M) and ``raft_timing`` (ms/tick with and without raft, the
+raft step's device time, launches and host syncs). It prints one JSON
+line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
 result.
@@ -196,6 +208,25 @@ MIXED_ROUNDS = 16
 MIXED_SERVICES = 8
 MIXED_KV_SLOTS = 256
 MIXED_WATCHERS = 8
+# The raft tier (bench.py:482-554; tests/test_raft_device.py): the bench
+# ladder's shapes, each group one Consul server set (3 or 5 servers), with
+# the reference's default timings and a 32-entry log window.
+RAFT_SHAPES = ((16, 5), (4, 3))
+RAFT_WINDOW = 32
+RAFT_PARITY_TICKS = 256
+RAFT_PARITY_CHUNK = 32
+RAFT_TRAJECTORY_TICKS = 128
+RAFT_GOSSIP_WINDOW = 8
+# Client entries proposed on every group at the start of these chunks.
+RAFT_PARITY_PROPOSALS = {1: 3, 4: 5}
+RAFT_CHUNK = 8
+RAFT_TIMED_TICKS = 32
+# The leader-kill drill's group (tests/test_raft_device.py:308-366): one
+# group of 5 with the reference test's short timeouts, re-elected within
+# 48 ticks of the kill's start.
+DRILL_RAFT = dict(peers=5, window=16, election_ticks_min=6,
+                  election_ticks_max=12)
+DRILL_BOUND_TICKS = 48
 STRESS_TICKS = 24
 STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
                   ("dense_serf", DENSE_N, False),
@@ -1771,6 +1802,431 @@ def serf_main_path(cfg):
     return sim, res, ok
 
 
+def raft_events(chaos):
+    """raft_parity's schedule: the leaders of every group killed, a 2|3
+    cut of every group, then a storm on every group."""
+    return [chaos.RaftKill(start=48, stop=80, group=-1, peer=-1),
+            chaos.RaftPartition(start=112, stop=160, cut=2, group=-1),
+            chaos.RaftStorm(start=192, stop=224, group=-1)]
+
+
+def raft_parity(cfg, groups, peers, seed, twin):
+    """The raft tier on the card against the CPU: RAFT_PARITY_TICKS ticks
+    of a 1M Simulation with set_raft(groups, peers) under raft_events,
+    proposals at two chunk boundaries; then raft_ops.tick replayed on the
+    CPU from the card's draw tensors (recorded as the ticks ran) and the
+    same schedule. Every RaftState field and the cumulative RaftCounters
+    equal at every chunk boundary; chaos_masks on the card equal
+    chaos_masks_reference at every tick. With ``twin``, a second
+    Simulation without raft under the same schedule runs first: at tick
+    RAFT_TRAJECTORY_TICKS the packed leaves and generators of both are
+    bit-equal, and the bare kernel's chaos variant (the raft-only
+    schedule: zero slots in every node family) is held against plain_tick
+    over RAFT_GOSSIP_WINDOW ticks from the twin's state."""
+    import numpy as np
+
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster, layout, swim
+    from consul_tpu_torch.ops import cuda_gossip, raft_ops
+
+    t0 = time.perf_counter()
+    events = raft_events(chaos)
+    res = dict(groups=groups, peers=peers, window=RAFT_WINDOW, n=cfg.n,
+               ticks=RAFT_PARITY_TICKS, chunk=RAFT_PARITY_CHUNK)
+    if twin:
+        other = cluster.Simulation(cfg, seed=seed)
+        other.set_chaos(events)
+        other.run(RAFT_TRAJECTORY_TICKS, chunk=RAFT_PARITY_CHUNK,
+                  with_metrics=False)
+    sim = cluster.Simulation(cfg, seed=seed)
+    plane = sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+    sim.set_chaos(events)
+    timers = plane.state.timer.cpu()
+    own, draws = plane.draws, []
+
+    def record(t):
+        d = own(t)
+        draws.append(d)
+        return d
+    plane.draws = record
+    snaps = []
+    for c in range(RAFT_PARITY_TICKS // RAFT_PARITY_CHUNK):
+        for g in range(groups):
+            if c in RAFT_PARITY_PROPOSALS:
+                plane.propose([(0, 0, 0)] * RAFT_PARITY_PROPOSALS[c], group=g)
+        sim.run(RAFT_PARITY_CHUNK, chunk=RAFT_PARITY_CHUNK, with_metrics=False)
+        snaps.append(([x.cpu() for x in plane.state],
+                      plane.counters_snapshot()))
+        if twin and sim._t == RAFT_TRAJECTORY_TICKS:
+            pairs = list(zip(layout.leaves(sim.state),
+                             layout.leaves(other.state)))
+            res["trajectory"] = dict(
+                ticks=sim._t, leaves=len(pairs),
+                leaves_differing=[i for i, (a, b) in enumerate(pairs)
+                                  if not torch.equal(_leaf_bits(a),
+                                                     _leaf_bits(b))],
+                generator_equal=bool(sim.gen.get_state().equal(
+                    other.gen.get_state())))
+    torch.cuda.synchronize()
+    res["card_s"] = round(time.perf_counter() - t0, 3)
+    res["summary"] = plane.summary()
+    res["counters"] = plane.counters_snapshot()
+    res["inflight"] = plane.inflight
+
+    rcfg = plane.rcfg
+    sched = chaos.compile_schedule(cfg.n, events)
+    gids = np.arange(groups)
+    gids_dev = torch.arange(groups, dtype=torch.int32, device=sim.device)
+    rst = raft_ops.init(rcfg, timers)
+    total = torch.zeros(len(raft_ops.FIELDS), dtype=torch.int64)
+    bad, mask_bad = [], []
+    for t in range(RAFT_PARITY_TICKS):
+        c = t // RAFT_PARITY_CHUNK
+        if t % RAFT_PARITY_CHUNK == 0 and c in RAFT_PARITY_PROPOSALS:
+            rst = rst._replace(next_seq=rst.next_seq
+                               + RAFT_PARITY_PROPOSALS[c])
+        want = raft_ops.chaos_masks_reference(events, t, rst.role.numpy(),
+                                              gids)
+        got = raft_ops.chaos_masks(sim.chaos, t, rst.role.to(sim.device),
+                                   gids_dev)
+        if not all(np.array_equal(g.cpu().numpy(), w)
+                   for g, w in zip(got, want)):
+            mask_bad.append(t)
+        rst, rc = raft_ops.tick(rcfg, rst, t, draws[t].cpu(), sched)
+        total += raft_ops.counters_stack(rc)
+        if (t + 1) % RAFT_PARITY_CHUNK == 0:
+            card, cnt = snaps[c]
+            bad += [f"tick {t + 1} {f}" for f, a, b in zip(
+                raft_ops.RaftState._fields, card, rst)
+                if not (a.dtype == b.dtype and torch.equal(a, b))]
+            if cnt != dict(zip(raft_ops.FIELDS, total.tolist())):
+                bad.append(f"tick {t + 1} counters {cnt} != {total.tolist()}")
+    res.update(mismatches=bad[:20], mask_mismatch_ticks=mask_bad[:20],
+               seconds_cpu_replay=round(time.perf_counter() - t0
+                                        - res["card_s"], 3))
+    s = res["summary"]
+    res["ok"] = (not bad and not mask_bad and res["inflight"] == 0
+                 and all(x >= 0 for x in s["leaders"])
+                 and s["committed_clients"] == [sum(
+                     RAFT_PARITY_PROPOSALS.values())] * groups
+                 and res["counters"]["elections_won"] > groups
+                 and res["counters"]["term_changes"] > 0)
+    if twin:
+        tr = res["trajectory"]
+        tick = cuda_gossip.make_tick_kernel(cfg, other.topo)
+        _, _, wbad, gaps = compare_window(
+            tick, lambda w, st, d, sc: cuda_gossip.plain_tick(
+                cfg, other.topo, w, st, d, sc),
+            other.world, other.state,
+            lambda: swim.draw_tick(cfg, other.gen, other.device, chaos=True),
+            RAFT_GOSSIP_WINDOW, sched=other.chaos)
+        res["raft_only_schedule_window"] = dict(
+            ticks=RAFT_GOSSIP_WINDOW, t=other._t, mismatches=wbad[:20],
+            float_gaps=gaps,
+            node_slots=[int(getattr(other.chaos, f).shape[0]) for f in (
+                "part_start", "ll_start", "cw_start", "dg_start")],
+            raft_slots=int(other.chaos.rk_kind.shape[0]))
+        res["float_gaps"] = gaps
+        res["ok"] = (res["ok"] and not wbad and not tr["leaves_differing"]
+                     and tr["generator_equal"])
+        del other, tick
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    return res
+
+
+def raft_main_path(cfg, groups, peers):
+    """The bench's raft flow (bench.py:482-554) at 1M through the entry
+    points: set_raft(groups, peers), 4 chunks of RAFT_CHUNK ticks to form,
+    16 steady chunks (ticks/s on the host clock, synchronized), a
+    RaftStorm scenario over 4 chunks with 2 of settling (elections/s),
+    then 8 single-write proposals, each run in chunks until its ticket
+    commits (commit latency in ticks, at chunk resolution). Counts the
+    tick kernel's launches without a schedule and under the storm's
+    raft-only one. Passes if every proposal commits and every group has a
+    leader at the end."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+
+    t0 = time.perf_counter()
+    sim = cluster.Simulation(cfg, seed=0)
+    plane = sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+    reset_launches()
+    sim.run(4 * RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+    torch.cuda.synchronize()
+    form_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    steady = 16 * RAFT_CHUNK
+    sim.run(steady, chunk=RAFT_CHUNK, with_metrics=False)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t1
+    bare = tick_launches(cuda_gossip.LAUNCHES)
+    before = plane.counters_snapshot()["elections_started"]
+    t1 = time.perf_counter()
+    scen = sim.run_scenario([chaos.RaftStorm(start=2, stop=2 + 4 * RAFT_CHUNK)],
+                            chunk=RAFT_CHUNK, settle=2 * RAFT_CHUNK)
+    torch.cuda.synchronize()
+    storm_s = time.perf_counter() - t1
+    storm = tick_launches(cuda_gossip.LAUNCHES) - bare
+    elections = plane.counters_snapshot()["elections_started"] - before
+    lat = []
+    for i in range(8):
+        tk = plane.propose([(0, 0, i)])
+        ticks = 0
+        while not tk.done.is_set() and ticks < 32 * RAFT_CHUNK:
+            sim.run(RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+            ticks += RAFT_CHUNK
+        lat.append(ticks if tk.done.is_set() else None)
+    torch.cuda.synchronize()
+    bare = tick_launches(cuda_gossip.LAUNCHES) - storm
+    s = plane.summary()
+    done = sorted(x for x in lat if x is not None)
+    res = dict(groups=groups, peers=peers, window=RAFT_WINDOW, n=cfg.n,
+               chunk=RAFT_CHUNK, ticks_per_s=steady / steady_s,
+               steady_ticks=steady, steady_s=steady_s,
+               ms_per_tick=steady_s / steady * 1e3, form_s=form_s,
+               storm_ticks=scen.ticks, elections=elections,
+               elections_per_s=elections / storm_s, storm_s=storm_s,
+               commit_ticks=lat,
+               commit_ticks_p50=done[len(done) // 2] if done else None,
+               commit_ticks_p99=done[-1] if done else None,
+               summary=s, counters=plane.counters_snapshot(),
+               tick_launches_bare=bare, tick_launches_raft_schedule=storm,
+               ticks_total=sim._t, wall_s=time.perf_counter() - t0)
+    res["ok"] = (len(done) == 8 and all(x >= 0 for x in s["leaders"])
+                 and elections > 0 and bare > 0 and storm > 0)
+    return res
+
+
+def raft_serving(cfg):
+    """A write-attached ServingPlane(k=8, buckets=(1024,), num_services=8)
+    over a 1M Simulation with raft 4x3: 4 chunks to elect, then run_mixed
+    at 90:9:1 (the serving_mixed phase's configuration). Every write
+    answers ``proposed`` and the apply index does not move during the
+    mix (it runs no tick); the pump applies the committed tickets at the
+    chunks that follow (commit latency in ticks). The log window follows
+    the reference game day's rule for the planned write volume
+    (consul_tpu/gameday/harness.py:126-139): 32 entries hold no 64-write
+    batch. Then the leader-kill drill (tests/test_raft_device.py:308-366)
+    on a fresh 1M Simulation with one group of 5: elect, commit 6
+    acknowledged writes, kill the leader, a new leader at a higher term
+    within DRILL_BOUND_TICKS, every acknowledged write read back at the
+    next flip, one more write committed after the failover."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.serving import ServingPlane
+    from consul_tpu_torch.serving.mixed import run_mixed
+
+    t0 = time.perf_counter()
+    groups, peers = 4, 3
+    write_batch = max(1, round(SERVING_BATCH * 9 / 90))
+    per_group = -(-((MIXED_ROUNDS + 1) * write_batch + 8) // groups)
+    window = 32
+    while window < 2 * per_group + 8:
+        window *= 2
+    reset_launches()
+    sim = cluster.Simulation(cfg, seed=0)
+    plane = ServingPlane(k=SERVING_K, buckets=(SERVING_BATCH,),
+                         num_services=MIXED_SERVICES)
+    sim.attach_serving(plane, writes=True, kv_slots=MIXED_KV_SLOTS)
+    rplane = sim.set_raft(groups, peers=peers, window=window)
+    sim.run(4 * RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+    statuses = {}
+    real_execute = plane.writes.execute
+
+    def execute(ops):
+        out = real_execute(ops)
+        for r in out:
+            statuses[r.status] = statuses.get(r.status, 0) + 1
+        return out
+    plane.writes.execute = execute
+    index0 = plane.apply_index
+    mixed = run_mixed(sim, plane, ratio="90:9:1", rounds=MIXED_ROUNDS,
+                      read_batch=SERVING_BATCH, watchers=MIXED_WATCHERS,
+                      seed=0)
+    index_mixed = plane.apply_index
+    inflight = rplane.inflight
+    ticks = 0
+    while rplane.inflight and ticks < 64 * RAFT_CHUNK:
+        sim.run(RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+        ticks += RAFT_CHUNK
+    torch.cuda.synchronize()
+    s = rplane.summary()
+    res = dict(n=cfg.n, groups=groups, peers=peers, window=window,
+               write_statuses=statuses, apply_index_before=index0,
+               apply_index_after_mix=index_mixed,
+               tickets_after_mix=inflight, commit_ticks=ticks,
+               apply_index_committed=plane.apply_index,
+               writes_applied=plane.writes.writes, summary=s,
+               mixed=mixed)
+    mixed_ok = (set(statuses) == {"proposed"} and index_mixed == index0
+                and inflight > 0 and rplane.inflight == 0
+                and plane.apply_index == index0 + sum(statuses.values())
+                and mixed["read"]["count"] == MIXED_ROUNDS * SERVING_BATCH)
+    plane.close()
+    del sim, plane, rplane
+    torch.cuda.empty_cache()
+
+    sim = cluster.Simulation(cfg, seed=5)
+    plane = ServingPlane(k=SERVING_K, buckets=(SERVING_BATCH,),
+                         num_services=MIXED_SERVICES)
+    sim.attach_serving(plane, writes=True, kv_slots=64)
+    rplane = sim.set_raft(1, **DRILL_RAFT)
+    sim.run(3 * RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+    acks = [plane.kv_put(f"drill/{i}", 100 + i).status for i in range(6)]
+    for _ in range(24):
+        if rplane.inflight == 0:
+            break
+        sim.run(RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+    acked_index = plane.apply_index
+    before = rplane.summary()
+    t_kill = sim._t
+    bare = tick_launches(cuda_gossip.LAUNCHES)
+    sim.set_chaos([chaos.RaftKill(start=t_kill + 2, stop=t_kill + 20, group=0,
+                                  peer=-1)])
+    reelected = None
+    for k in range(DRILL_BOUND_TICKS // RAFT_CHUNK):
+        sim.run(RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+        now = rplane.summary()
+        if (reelected is None and now["leaders"][0] >= 0
+                and now["terms"][0] > before["terms"][0]):
+            reelected = sim._t - t_kill
+    sim.set_chaos(None)
+    under_kill = tick_launches(cuda_gossip.LAUNCHES) - bare
+    after = rplane.summary()
+    read_back = [(plane.kv_get(f"drill/{i}") or {}).get("Value")
+                 for i in range(6)]
+    post = plane.kv_put("drill/post", 999).status
+    for _ in range(24):
+        if rplane.inflight == 0:
+            break
+        sim.run(RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+    post_value = (plane.kv_get("drill/post") or {}).get("Value")
+    drill = dict(acks=acks, acked_index=acked_index, before=before,
+                 after=after, reelected_after_ticks=reelected,
+                 bound_ticks=DRILL_BOUND_TICKS, read_back=read_back,
+                 apply_index=plane.apply_index, post=post,
+                 post_value=post_value, ticks_total=sim._t)
+    drill_ok = (acks == ["proposed"] * 6 and before["leaders"][0] >= 0
+                and before["committed_clients"][0] == 6
+                and reelected is not None and reelected <= DRILL_BOUND_TICKS
+                and after["committed_clients"][0] >= 6
+                and read_back == [100 + i for i in range(6)]
+                and plane.apply_index >= acked_index and post == "proposed"
+                and post_value == 999)
+    plane.close()
+    res.update(drill=drill, tick_launches_raft_schedule=under_kill,
+               tick_launches_bare=tick_launches(cuda_gossip.LAUNCHES)
+               - under_kill, seconds=round(time.perf_counter() - t0, 3))
+    res["ok"] = mixed_ok and drill_ok
+    return res
+
+
+def device_kernels(fn, reps: int):
+    """(device ms per call, kernel launches per call) of ``fn`` from the
+    profiler's device events; (None, None) if it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ks:
+        return None, None
+    return (sum(e.time_range.elapsed_us() for e in ks) / 1000.0 / reps,
+            len(ks) / reps)
+
+
+def sync_count(fn) -> int:
+    """Host synchronizations ``fn`` makes, counted as the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")`` (not its notice that the
+    mode is a prototype)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def raft_timing(cfg):
+    """ms per tick at 1M with raft 16x5 and without (CUDA events over
+    RAFT_TIMED_TICKS-tick chunks, in turns: without, with, with,
+    without) and the host's time to enqueue such a chunk (host clock, no
+    wait: near the event time, the host is the bound); the raft step of one tick alone (its draw, the tick, the
+    counter add, as _exec_chunk runs them): device ms and launches
+    (profiler) and CUDA-event ms; the host synchronizations of the raft
+    step (RAFT_TIMED_TICKS of them) and of a whole chunk with raft."""
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import raft_ops
+
+    sim = cluster.Simulation(cfg, seed=0)
+    sim.run(64, chunk=64, with_metrics=False)
+    groups, peers = RAFT_SHAPES[0]
+
+    def chunk():
+        sim._exec_chunk(RAFT_TIMED_TICKS, False)
+    ms = {"without": [], "with": []}
+    host_ms = {"without": [], "with": []}
+    for armed in (False, True, True, False):
+        if armed:
+            sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+        else:
+            sim.set_raft(None)
+        key = "with" if armed else "without"
+        ms[key].append(cuda_ms(chunk, 2) / RAFT_TIMED_TICKS)
+        # The host's share: enqueueing a chunk, without waiting for it.
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        chunk()
+        host_ms[key].append((time.perf_counter() - h0) * 1e3
+                            / RAFT_TIMED_TICKS)
+        torch.cuda.synchronize()
+    plane = sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+    sim.run(RAFT_TIMED_TICKS, chunk=RAFT_TIMED_TICKS, with_metrics=False)
+    box = {"rst": plane.take_state(),
+           "cnt": torch.zeros(len(raft_ops.FIELDS), dtype=torch.int32,
+                              device=sim.device)}
+    t = sim._t
+
+    def step():
+        rst, rc = raft_ops.tick(plane.rcfg, box["rst"], t, plane.draws(t),
+                                None)
+        box["rst"] = rst
+        box["cnt"] = box["cnt"] + raft_ops.counters_stack(rc)
+    # Events before the profiler: a profiled run may leave its tracing
+    # hooks on the launches that follow.
+    step_ms = cuda_ms(step, RAFT_TIMED_TICKS)
+    dev_ms, launches = device_kernels(step, RAFT_TIMED_TICKS)
+    res = dict(n=cfg.n, groups=groups, peers=peers, window=RAFT_WINDOW,
+               ticks=RAFT_TIMED_TICKS, ms_per_tick_without=ms["without"],
+               ms_per_tick_with=ms["with"],
+               host_enqueue_ms_per_tick_without=host_ms["without"],
+               host_enqueue_ms_per_tick_with=host_ms["with"],
+               raft_step_device_ms=dev_ms, raft_step_launches=launches,
+               raft_step_ms_events=step_ms,
+               raft_step_syncs=sync_count(
+                   lambda: [step() for _ in range(RAFT_TIMED_TICKS)]),
+               chunk_syncs_with_raft=sync_count(chunk),
+               # The counter's control: one read back to the host.
+               sync_control=sync_count(lambda: box["cnt"].sum().item()))
+    res["ok"] = (res["raft_step_syncs"] == 0 and res["sync_control"] >= 1
+                 and launches is not None
+                 and all(x > 0 for x in ms["with"] + ms["without"]))
+    return res
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -2137,6 +2593,49 @@ def main() -> int:
         emit({"phase": "failed", "failed": ["serving_parity (d)"]})
         return 1
 
+    # The raft tier (ROADMAP A16) over the 1M simulation: card against
+    # CPU (and the gossip trajectory with and without raft, and the
+    # kernel under a raft-only schedule), the bench's flow for both
+    # shapes, the write gate under the mix and the leader-kill drill, the
+    # raft tick's cost. Tick launches of these paths join the bare and
+    # chaos rows.
+    t_raft = time.perf_counter()
+    raft_launches = {"bare": 0, "raft_schedule": 0}
+    for i, (g, p) in enumerate(RAFT_SHAPES):
+        res = raft_parity(cfg, g, p, seed=43 + i, twin=i == 0)
+        torch.cuda.empty_cache()
+        if "float_gaps" in res:
+            fold_abs("gossip_tick_chaos", res)
+        emit({"phase": "raft_parity", **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": [f"raft_parity {g}x{p}"]})
+            return 1
+    for g, p in RAFT_SHAPES:
+        res = raft_main_path(cfg, g, p)
+        torch.cuda.empty_cache()
+        emit({"phase": "raft_main_path", **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": [f"raft_main_path {g}x{p}"]})
+            return 1
+        raft_launches["bare"] += res["tick_launches_bare"]
+        raft_launches["raft_schedule"] += res["tick_launches_raft_schedule"]
+    res = raft_serving(cfg)
+    torch.cuda.empty_cache()
+    emit({"phase": "raft_serving", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["raft_serving"]})
+        return 1
+    raft_launches["bare"] += res["tick_launches_bare"]
+    raft_launches["raft_schedule"] += res["tick_launches_raft_schedule"]
+    res = raft_timing(cfg)
+    torch.cuda.empty_cache()
+    res["raft_phases_s"] = round(time.perf_counter() - t_raft, 3)
+    res["tick_launches"] = raft_launches
+    emit({"phase": "raft_timing", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["raft_timing"]})
+        return 1
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -2158,12 +2657,15 @@ def main() -> int:
         for v, sp, ch in DENSE_VARIANTS]
     print(json.dumps({"kernels": [
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
-            "sentinel=False, sparse, packed", swim_launches, swim_t),
+            "sentinel=False, sparse, packed (SWIM path and the raft paths)",
+            swim_launches + raft_launches["bare"], swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed", serf_launches,
             serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
-            "sentinel=True, sparse, packed", chaos_launches, chaos_t),
+            "sentinel=True (chaos path); sched=<raft-only>, sentinel=False "
+            "(raft paths), sparse, packed",
+            chaos_launches + raft_launches["raft_schedule"], chaos_t),
         row("gossip_tick_sentinel", "step_fn=swim.step_counted, sched=None, "
             "sentinel=True, sparse, packed", sentinel_launches, sentinel_t),
         row("gossip_tick_serf_chaos", "step_fn=serf.step_counted (extra_tx), "

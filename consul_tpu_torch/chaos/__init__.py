@@ -21,7 +21,6 @@ from consul_tpu_torch.chaos.schedule import (  # noqa: F401
     down_at,
     empty,
     fault_started,
-    has_raft_events,
     is_empty,
     node_terms,
     or_none,

@@ -25,9 +25,10 @@ Partition (:func:`pair_ok`). The survival products are taken slot by
 slot in a fixed order, the reference's: a one-ulp difference in a
 threshold flips a draw.
 
-The raft entries compile into the ``rk_*`` lane as in the reference; the
-raft tier that reads them is not ported (``Simulation.set_chaos`` refuses
-a schedule that holds any).
+The raft entries compile into the ``rk_*`` lane as in the reference, which
+the raft tier's chaos masks read (``ops/raft_ops.chaos_masks``); a
+schedule that holds only raft entries is not empty, so the gossip tick
+runs its chaos variant under it, as the reference's does.
 """
 
 from __future__ import annotations
@@ -302,10 +303,6 @@ def is_empty(sched: ChaosSchedule) -> bool:
 def or_none(sched: Optional[ChaosSchedule]) -> Optional[ChaosSchedule]:
     """The schedule a tick runs under: None for None or an empty one."""
     return None if sched is None or is_empty(sched) else sched
-
-
-def has_raft_events(sched: Optional[ChaosSchedule]) -> bool:
-    return sched is not None and sched.rk_kind.shape[0] > 0
 
 
 def to_device(sched: ChaosSchedule, device) -> ChaosSchedule:

@@ -248,6 +248,47 @@ class VivaldiConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RaftConfig:
+    """Device raft tier shape (models/raft.py + ops/raft_ops.py): R
+    independent ``groups`` of ``peers`` voters each, stepped as [R, P]
+    tensors after every gossip tick. Frozen and hashable; ``None`` on a
+    simulation is raft off.
+
+    Timing constants default to the reference host tier's
+    (server/raft.py HEARTBEAT_TICKS / ELECTION_TICKS_MIN /
+    ELECTION_TICKS_MAX). ``window`` is the bounded on-device log: at most
+    ``window`` entries per group per run (no InstallSnapshot)."""
+
+    groups: int = 4
+    peers: int = 5
+    window: int = 32
+    heartbeat_ticks: int = 2
+    election_ticks_min: int = 10
+    election_ticks_max: int = 20
+
+    def __post_init__(self):
+        if self.groups < 1:
+            raise ValueError(f"raft groups must be >= 1, got {self.groups}")
+        if self.peers < 1:
+            raise ValueError(f"raft peers must be >= 1, got {self.peers}")
+        if self.window < 2:
+            raise ValueError(f"raft window must be >= 2, got {self.window}")
+        if self.heartbeat_ticks < 1:
+            raise ValueError("raft heartbeat_ticks must be >= 1")
+        if not (self.heartbeat_ticks < self.election_ticks_min
+                <= self.election_ticks_max):
+            raise ValueError(
+                "need heartbeat_ticks < election_ticks_min <= "
+                "election_ticks_max, got "
+                f"{self.heartbeat_ticks}/{self.election_ticks_min}/"
+                f"{self.election_ticks_max}")
+
+    @property
+    def quorum(self) -> int:
+        return self.peers // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Top-level simulation parameters for one simulated datacenter."""
 

@@ -2,7 +2,8 @@
 
 The functions here take the JAX package's ``SimState``, ``PackedSimState``,
 ``World`` and ``Topology`` (and the serving plane's ``Snapshot``,
-``WriteState`` and ``WriteBatch``) as NamedTuples (or nested dicts) of **numpy
+``WriteState`` and ``WriteBatch``, and the raft tier's ``RaftState`` and
+draw tables) as NamedTuples (or nested dicts) of **numpy
 arrays** — ``jax.tree.map(np.asarray, x)`` gives that — and return the
 port's tensors on a chosen device. This is the port's "weights carried
 across": a test makes the state once with the reference, converts it,
@@ -176,3 +177,19 @@ def write_batch_from(src, device="cpu"):
 
     return deltas.WriteBatch(*[tensor(_get(src, f), device, torch.int32)
                                for f in deltas.WriteBatch._fields])
+
+
+def raft_state_from(src, device="cpu"):
+    """Reference RaftState (numpy leaves) -> the port's RaftState on
+    ``device``, dtype for dtype (int32, bool ``log_client``)."""
+    from consul_tpu_torch.ops import raft_ops
+
+    return raft_ops.RaftState(*[tensor(_get(src, f), device)
+                                for f in raft_ops.RaftState._fields])
+
+
+def raft_draws_from(table, device="cpu") -> torch.Tensor:
+    """A reference ``raft_ops.draw_table`` / ``timeout_draws`` table
+    ([R, P] numpy) -> the port's int32 draw tensor on ``device`` (what
+    ``raft_ops.tick`` and ``raft_ops.init`` take)."""
+    return tensor(table, device, torch.int32)

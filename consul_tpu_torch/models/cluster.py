@@ -23,6 +23,16 @@ A serving plane (``serving.ServingPlane``, ``attach_serving``) is
 republished at every chunk boundary and after a kill or a revive; the
 projection draws nothing and writes nothing into the state.
 
+``set_raft`` arms the batched raft tier (``ops/raft_ops.tick``, host
+half ``models/raft.RaftPlane``): R groups of P peers stepped after every
+gossip tick, keyed on the pre-step tick (the host copy ``_t``), with
+their own draws, so arming raft leaves the gossip trajectory as it was.
+Raft counters are deferred like the gossip counters; at every chunk
+boundary (and after a kill or a revive) the commit pump runs before the
+serving republish, so writes staged through a write-attached plane apply
+only at quorum commit. Raft entries of a fault schedule (``RaftKill``,
+``RaftPartition``, ``RaftStorm``) drive the raft tier's chaos lane.
+
 Tests can hand in an initial world, topology and state (``convert.py``
 carries the reference's across) and a draw source, a callable from the
 tick number to its :class:`swim.TickDraws`; by default the simulation
@@ -46,7 +56,7 @@ from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import state as sim_state
 from consul_tpu_torch.models import serf, swim
-from consul_tpu_torch.ops import cuda_gossip, topology
+from consul_tpu_torch.ops import cuda_gossip, raft_ops, topology
 from consul_tpu_torch.utils import checkpoint as ckpt_mod
 from consul_tpu_torch.utils import metrics, telemetry
 
@@ -171,6 +181,8 @@ class Simulation:
         self._warmed = set()
         # The attached serving plane (serving.ServingPlane), or None.
         self.serving = None
+        # The raft tier's host half (models/raft.RaftPlane) while armed.
+        self.raft = None
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
     _serf_plane = False
@@ -282,9 +294,34 @@ class Simulation:
         """Republish the serving snapshot from the current state (nothing
         without a plane). The projection copies what it reads and draws
         nothing, so it moves neither the state nor any generator, and a
-        published snapshot outlives the ticks that follow."""
+        published snapshot outlives the ticks that follow. With the raft
+        tier armed, the commit pump runs first: quorum-committed
+        proposals apply to the write state here, so the flip is
+        consistent as of the committed prefix."""
+        if self.raft is not None:
+            self.raft.pump()
         if self.serving is not None:
             self.serving.publish(self)
+
+    # -- raft tier -------------------------------------------------------
+    def set_raft(self, groups=None, draws=None, timers=None, **kw):
+        """Arm (or clear, with None) the batched raft tier for the ticks
+        that follow: ``groups`` is a group count (the other RaftConfig
+        knobs in ``kw``) or a RaftConfig. Arming builds a fresh
+        :class:`~consul_tpu_torch.models.raft.RaftPlane`; ``draws`` (tick
+        -> [R, P] int32 timeouts) and ``timers`` (the initial [R, P]
+        timeouts) replace its own draws, as ``Simulation.draws`` does the
+        gossip tick's. Returns the RaftPlane (None when cleared)."""
+        from consul_tpu_torch.config import RaftConfig
+        from consul_tpu_torch.models import raft as raft_mod
+
+        if groups is None:
+            self.raft = None
+            return None
+        rcfg = (groups if isinstance(groups, RaftConfig)
+                else RaftConfig(groups=int(groups), **kw))
+        self.raft = raft_mod.RaftPlane(self, rcfg, draws=draws, timers=timers)
+        return self.raft
 
     # -- fault injection -------------------------------------------------
     def kill(self, mask):
@@ -299,14 +336,11 @@ class Simulation:
     def set_chaos(self, sched):
         """Install (or clear, with None) a fault schedule for the ticks
         that follow: a compiled ChaosSchedule or a sequence of entries
-        (compiled here). An empty schedule is none. Raft entries raise:
-        the raft tier that reads them is not ported (ROADMAP A16)."""
+        (compiled here). An empty schedule is none. Raft entries drive the
+        raft tier's chaos lane; a schedule that holds only those still
+        runs the gossip tick's chaos variant, as the reference's does."""
         if sched is not None and not isinstance(sched, chaos_mod.ChaosSchedule):
             sched = chaos_mod.compile_schedule(self.cfg.n, sched)
-        if sched is not None and chaos_mod.has_raft_events(sched):
-            raise NotImplementedError(
-                "the schedule holds raft events; the raft tier is not "
-                "ported (ROADMAP A16)")
         sched = chaos_mod.or_none(sched)
         self.chaos = (None if sched is None
                       else chaos_mod.to_device(sched, self.device))
@@ -368,15 +402,27 @@ class Simulation:
     # -- execution -------------------------------------------------------
     def _exec_chunk(self, c: int, with_metrics: bool):
         """Run ``c`` ticks; returns (counters[26] int32, TickTrace|None),
-        both on the device."""
+        both on the device. With raft armed, the raft tick follows each
+        gossip tick and the chunk's [8] raft counters queue on the
+        RaftPlane."""
         cnt = torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
                           device=self.device)
         trace = (torch.empty((c, 4), dtype=torch.float32, device=self.device)
                  if with_metrics else None)
+        raft = self.raft
+        if raft is not None:
+            rst = raft.take_state()
+            rcnt = torch.zeros((len(raft_ops.FIELDS),), dtype=torch.int32,
+                               device=self.device)
         for k in range(c):
             d = self.draws(self._t)
             self.state, cv = self._tick_fn(self.world, self.state, d, self.chaos)
             cnt = cnt + cv
+            if raft is not None:
+                # Keyed on the pre-step tick, as the reference's is.
+                rst, rc = raft_ops.tick(raft.rcfg, rst, self._t,
+                                        raft.draws(self._t), self.chaos)
+                rcnt = rcnt + raft_ops.counters_stack(rc)
             if with_metrics:
                 # The pairs come from a generator of their own, so metrics
                 # never move the trajectory.
@@ -385,6 +431,9 @@ class Simulation:
                                           RMSE_SAMPLES, self.device)
                 self._metrics_fn(*ij, trace[k])
             self._t += 1
+        if raft is not None:
+            raft.state = rst
+            raft.absorb(rcnt)
         if not with_metrics:
             return cnt, None
         return cnt, TickTrace(*trace.t().contiguous())

@@ -93,7 +93,20 @@ def _scenario_meta(sim, tag: str, ticks: int, t0: int, done: int,
         # The port's draw stream: what a resume needs to draw what the
         # run would have drawn.
         "generator": sim.generator_state(),
+        # Raft-tier provenance (not matched on resume): the per-group
+        # commit frontier at save time, None when raft is off. The raft
+        # log itself is not checkpointed, as in the reference.
+        "raft": _raft_meta(sim),
     }
+
+
+def _raft_meta(sim):
+    plane = getattr(sim, "raft", None)
+    if plane is None:
+        return None
+    s = plane.summary()
+    return {"groups": plane.rcfg.groups, "peers": plane.rcfg.peers,
+            "terms": s["terms"], "commit": s["commit"]}
 
 
 def hang_dump_path(dump_dir: str, t: int) -> str:

@@ -197,9 +197,14 @@ class ServingPlane:
 
     @property
     def raft_gate(self):
-        """The raft tier's write gate: None, since the port has no raft
-        tier yet (ROADMAP A16), so writes go straight to apply_writes."""
-        return None
+        """The attached sim's RaftPlane while its raft tier is armed
+        (``Simulation.set_raft``) and the write path is up: the
+        WriteBatcher then stages batches as raft proposals and the commit
+        pump applies them at quorum commit (serving/writes.py
+        ``_run_batch``). None routes writes straight to apply_writes."""
+        if self._sim is None or self.write_state is None:
+            return None
+        return self._sim.raft
 
     @property
     def apply_index(self) -> int:

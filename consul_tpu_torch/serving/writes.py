@@ -46,7 +46,8 @@ class WriteResult(NamedTuple):
     op (for ``applied`` results, the snapshot index the write becomes
     visible at); ``status`` is ``applied`` / ``rejected`` (invalid op,
     e.g. an out-of-range target) / ``shed`` (dropped by admission control
-    before it was applied)."""
+    before it was applied) / ``proposed`` (staged on the raft tier, index
+    -1: the applied result lands on the RaftTicket at quorum commit)."""
 
     applied: bool
     index: int
@@ -137,9 +138,14 @@ class WriteBatcher:
 
     def _run_batch(self, ops: Sequence[tuple[int, int, int]]
                    ) -> list[WriteResult]:
-        # The reference stages a batch as a raft proposal here when its
-        # raft tier is armed (plane.raft_gate); the port's raft tier is
-        # ROADMAP A16, so every batch applies at once.
+        # With the raft tier armed (models/raft.py) the batch becomes a
+        # proposal: the gate stages it on a raft group and answers
+        # ``proposed``; the commit pump calls ``_apply_batch`` only once a
+        # quorum holds the entries, so the apply index (X-Consul-Index)
+        # moves strictly at quorum commit.
+        gate = self.plane.raft_gate
+        if gate is not None:
+            return gate.stage(self, ops)
         return self._apply_batch(ops)
 
     def _apply_batch(self, ops: Sequence[tuple[int, int, int]]

@@ -373,14 +373,19 @@ def test_unported_paths_raise():
     assert cuda_gossip.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA device"):
         tcluster.SerfSimulation(cfg, device="cpu", kernel="cuda")
-    # What is still not ported: the raft lane (A16), on both simulations.
-    # The sentinel's diagnostic checkpoint is (A12): a dump directory is
-    # taken, and nothing is written until the sentinel trips.
+    # The raft lane is taken on both simulations (ROADMAP A16): a
+    # raft-only schedule is installed and runs the chaos tick (its draws
+    # carry u_pp). The sentinel's diagnostic checkpoint (A12): a dump
+    # directory is taken, and nothing is written until the sentinel trips.
     sim = tcluster.Simulation(cfg, device="cpu", kernel="torch")
     ssim = tcluster.SerfSimulation(cfg, device="cpu", kernel="torch")
     for s in (sim, ssim):
-        with pytest.raises(NotImplementedError, match="A16"):
-            s.set_chaos([tchaos.RaftKill(2, 8)])
+        s.set_chaos([tchaos.RaftKill(2, 8)])
+        assert s.chaos is not None and s.chaos.rk_kind.shape[0] == 1
+        d = s.draws(s._t)
+        assert tuple((d.swim if s is ssim else d).u_pp.shape) == (cfg.n,)
+        s.run(2, chunk=2, with_metrics=False)
+        s.set_chaos(None)
         s.set_sentinel(True, dump_dir="diag")
         assert s.sentinel and s.sentinel_dump_dir == "diag"
         s.set_sentinel(False)

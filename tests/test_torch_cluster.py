@@ -164,7 +164,8 @@ def test_port_imports_no_jax_and_no_reference():
         ("server", "rtt.py"), ("ops", "serving.py"), ("ops", "deltas.py"),
         ("serving", "__init__.py"), ("serving", "batcher.py"),
         ("serving", "plane.py"), ("serving", "writes.py"),
-        ("serving", "watch.py"), ("serving", "mixed.py"))} <= rel
+        ("serving", "watch.py"), ("serving", "mixed.py"),
+        ("ops", "raft_ops.py"), ("models", "raft.py"))} <= rel
     # The asyncio front end comes with the port's front ends (ROADMAP A19).
     assert os.path.join("consul_tpu_torch", "serving", "frontend.py") not in rel
     for path in files:
