@@ -61,7 +61,15 @@ raft flow, bench.py:482-554: ticks/s, elections/s under a storm, commit
 latency), ``raft_serving`` (``run_mixed`` at 90:9:1 through the raft
 write gate, then the leader-kill drill of tests/test_raft_device.py:
 308-366 at 1M) and ``raft_timing`` (ms/tick with and without raft, the
-raft step's device time, launches and host syncs). It prints one JSON
+raft step's device time, launches and host syncs). The sweep phases run
+the scenario-sweep plane (``chaos/sweep.py``): ``sweep_parity`` (five
+lanes at 65,536 nodes through the kernel against the plain tick on each
+view-graph family, bit for bit, and once more on ``SerfSimulation``),
+``sweep_main_path`` (``bench_pareto`` at 1M: 16 partition lanes on each
+family, the Pareto table, lane-ticks/s, peak memory, host syncs, and on
+circulant lane 0 and the worst lane against their solo replays),
+``sweep_serf``, ``sweep_raft`` (raft 16x5 armed) and
+``sweep_bench_shape`` (the bench's n = 1,024). It prints one JSON
 line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -231,6 +239,30 @@ STRESS_TICKS = 24
 STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
                   ("dense_serf", DENSE_N, False),
                   ("dense_serf_chaos", DENSE_N, True))
+# Scenario sweeps (ROADMAP A17; consul_tpu/chaos/sweep.py, bench.py:556-590).
+# Parity: five lanes at 65,536 nodes on each view-graph family, formed
+# SWEEP_FORM ticks, settling SWEEP_PARITY_SETTLE after the last stop; then
+# at MAIN_N the main path's own lane shape (one Partition slot): its first
+# and last grid lanes, settling SWEEP_PARITY_MAIN_SETTLE, since the plain
+# tick takes ~0.1 s a lane-tick there. The main path: the bench's
+# topology phase at 1M, 16 grid lanes settling SWEEP_SETTLE ticks: the
+# longest heal of a 1M grid lane in a 2,048-tick window was 452 ticks
+# (H100, 700 W; sweep_main_path(cfg, settle=2048)), so 512 lets every
+# lane heal inside the window. The bench's own shape runs at n = 1,024 as
+# BENCH_SWEEP.
+SWEEP_PARITY_N = 65536
+SWEEP_FORM = 64
+SWEEP_PARITY_SETTLE = 32
+SWEEP_PARITY_MAIN_SETTLE = 12
+SWEEP_FAMILIES = ("circulant", "expander", "smallworld", "hier")
+SWEEP_LANES = 16
+SWEEP_SETTLE = 512
+# A sweep reads its counters back once, at its end.
+SWEEP_SYNCS = 1
+SWEEP_SERF_LANES = 8
+SWEEP_SERF_SETTLE = 64
+SWEEP_RAFT_TICKS = 32
+BENCH_SWEEP = dict(n=1024, degree=16, scenarios=16, settle=192)
 
 
 def emit(obj):
@@ -2227,6 +2259,362 @@ def raft_timing(cfg):
     return res
 
 
+def sweep_lanes(chaos, sweep, n):
+    """sweep_parity's lanes: scenario_random(n, 4, seed=7) (a Partition, a
+    ChurnWave and a Degrade in each lane) and the first scenario_grid lane
+    padded to their shape with no-op entries (an empty ChurnWave, a
+    Degrade without loss), as run_sweep's refusal asks."""
+    grid = sweep.scenario_grid(n, 1)[0]
+    p = grid[0]
+    return sweep.scenario_random(n, 4, seed=7) + [grid + [
+        chaos.ChurnWave(start=p.start, stop=p.stop, nodes=slice(0, 0)),
+        chaos.Degrade(start=p.start, stop=p.stop, nodes=slice(0, n // 10),
+                      tx_loss=0.0)]]
+
+
+def main_path_lanes(chaos, sweep, n):
+    """sweep_parity's lanes at MAIN_N: the first and the last of the main
+    path's scenario_grid lanes (the smallest, shortest partition and the
+    largest, longest), in the main path's slot shape."""
+    grid = sweep.scenario_grid(n, SWEEP_LANES)
+    return [grid[0], grid[-1]]
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    return [x for f, sub in zip(tree._fields, tree)
+            for x in _named_leaves(sub, f"{prefix}.{f}" if prefix else f)]
+
+
+def _lane_bits(x):
+    return x.reshape(-1).view(torch.uint8)
+
+
+def lanes_diverge(ka, pa):
+    """The first (lane, leaf) whose bits differ between two lists of lane
+    states, or None."""
+    for lane, (a, b) in enumerate(zip(ka, pa)):
+        for (name, x), (_, y) in zip(_named_leaves(a), _named_leaves(b)):
+            if not torch.equal(_lane_bits(x), _lane_bits(y)):
+                return lane, name
+    return None
+
+
+def sweep_parity(n, family, serf_plane, seed, lanes=sweep_lanes,
+                 settle=SWEEP_PARITY_SETTLE):
+    """The lanes of a sweep through the CUDA tick kernel against the plain
+    tick on the card, on one view-graph family: form SWEEP_FORM ticks
+    through the kernel (for serf, then fire an event from a live row
+    before the fault), copy the simulation into a kernel="torch" twin
+    (same world, topology, state and generator state), and run the
+    ``lanes`` scenarios, ``settle`` ticks past their last stop, on both
+    (the lane runner under run_sweep). Every lane's
+    counters and every lane's final packed state bit-equal; on a
+    mismatch, the first diverging tick by bisection over the window."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.chaos import sweep
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.models.counters import FIELDS
+
+    cls = cluster.SerfSimulation if serf_plane else cluster.Simulation
+    cfg = SimConfig(n=n, view_degree=32, topo_family=family)
+    sim = cls(cfg, seed=seed)
+    sim.run(SWEEP_FORM, chunk=SWEEP_FORM, with_metrics=False)
+    if serf_plane:
+        sim.user_event(_rows(n, [n // 3], sim.device), 9)
+    plain = cls(cfg, seed=seed, kernel="torch", world=sim.world,
+                topo=sim.topo, state=sim.state)
+    plain.load_state(sim.state, sim.generator_state())
+    scens = lanes(chaos, sweep, n)
+    scheds, ticks = sweep.compile_scenarios(sim, scens, settle=settle)
+
+    def both(k):
+        ks, kc, _ = sim._run_lanes(scheds, k)
+        ps, pc, _ = plain._run_lanes(scheds, k)
+        torch.cuda.synchronize()
+        bad = lanes_diverge(ks, ps)
+        if bad is None and not torch.equal(kc, pc):
+            bad = (int((kc != pc).any(dim=1).nonzero()[0]), "counters")
+        return bad, pc
+    bad, cnt = both(ticks)
+    first = None
+    if bad is not None:
+        lo, hi = 1, ticks
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if both(mid)[0] is None:
+                lo = mid + 1
+            else:
+                hi = mid
+        lane, leaf = both(lo)[0]
+        first = {"lane": lane, "leaf": leaf, "tick": lo - 1}
+    rows = cnt.cpu().tolist()
+    col = {f: [r[FIELDS.index(f)] for r in rows] for f in (
+        "chaos_fault_ticks", "chaos_msgs_dropped", "chaos_heal_wait",
+        "deaths_declared")}
+    res = dict(n=n, k=cfg.degree, family=family, serf=serf_plane,
+               lanes=len(scens), ticks=ticks, form=SWEEP_FORM,
+               bit_equal=bad is None, first_divergence=first, in_lanes=col)
+    res["ok"] = (bad is None and all(x > 0 for x in col["chaos_fault_ticks"])
+                 and sum(col["chaos_msgs_dropped"]) > 0)
+    return res
+
+
+def _unmoved(sim, before):
+    """The simulation's state bits, tick, generator state and counters
+    equal ``before`` (a ``_sim_point``)."""
+    now = _sim_point(sim)
+    return (lanes_diverge([now[0]], [before[0]]) is None
+            and now[1:] == before[1:])
+
+
+def _sim_point(sim):
+    from consul_tpu_torch.models.cluster import _clone
+
+    return (_clone(sim.state), sim._t, sim.generator_state(),
+            dict(sim.counters))
+
+
+def _replay_equal(sim, point, events, row, chunk=32):
+    """Replay one sweep lane solo: load the simulation's state and
+    generator state from ``point`` and run_scenario over the sweep's
+    window; True if every counter (and with raft, every raft summary field
+    and counter) equals the lane's row."""
+    from consul_tpu_torch.models.cluster import _clone
+
+    sim.load_state(_clone(point[0]), point[2])
+    raft = sim.raft
+    if raft is not None:
+        raft.state = _clone(point[4])
+        before = raft.counters_snapshot()
+    r = sim.run_scenario(events, ticks=row["ticks"], chunk=chunk)
+    ok = r.counters == row["counters"] and r.slo == row["slo"]
+    if raft is not None:
+        after = raft.counters_snapshot()
+        got = dict(raft.summary(), counters={
+            f: after[f] - before[f] for f in after})
+        ok = ok and got == row["raft"]
+    return ok
+
+
+def _railed(slos, scens, ticks):
+    """Lanes whose time_to_heal equals the window's end: no tick after
+    the fault lifted without a wrong suspicion."""
+    return sum(r["time_to_heal"] == ticks - ev[0].stop
+               for r, ev in zip(slos, scens))
+
+
+def measured_pareto(table, railed):
+    """The Pareto rows without their lanes, each marked with whether its
+    worst heal is only a lower bound (a lane railed), and with the
+    dominance claims that rest on measured axes only: o dominates r only
+    if no lane of o railed (bytes are never capped, and a railed r's heal
+    only grows past its bound)."""
+    exact = {r["family"] for r in table if railed[r["family"]] == 0}
+    return [dict({k: v for k, v in r.items() if k != "scenarios"},
+                  heal_worst_is_lower_bound=railed[r["family"]] > 0,
+                  dominated_by_measured=[o for o in r["dominated_by"]
+                                         if o in exact])
+            for r in table]
+
+
+def sweep_main_path(cfg, settle=SWEEP_SETTLE):
+    """bench_pareto at the main path's shape (bench.py:556-590): 16
+    scenario_grid lanes, ``settle`` ticks past the last stop, on each
+    family (one call a family, wall on the host clock), with every lane's
+    heal and the lanes that railed; then on circulant the same sweep
+    through Simulation.sweep on a simulation formed as bench_pareto forms
+    it: its rows give the same Pareto row, it makes SWEEP_SYNCS host
+    syncs, the simulation is unmoved, and lane 0 and the worst lane equal
+    their solo run_scenario replays. Lane-ticks/s and the peak memory are
+    read on that sweep."""
+    from consul_tpu_torch.chaos import sweep
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+
+    scens = sweep.scenario_grid(cfg.n, SWEEP_LANES)
+    ticks = max(ev[0].stop for ev in scens) + settle
+    per_family, walls, railed, heals = {}, {}, {}, {}
+    launches = {"bare": 0, "chaos": 0}
+    for fam in SWEEP_FAMILIES:
+        before = dict(cuda_gossip.LAUNCHES)
+        t0 = time.perf_counter()
+        out = sweep.bench_pareto(n=cfg.n, degree=cfg.degree,
+                                 scenarios=SWEEP_LANES, families=(fam,),
+                                 mode="grid", settle=settle)
+        torch.cuda.synchronize()
+        walls[fam] = time.perf_counter() - t0
+        row = out["pareto"][0]
+        per_family[fam] = {k: v for k, v in row.items()
+                           if k not in ("family", "dominated_by")}
+        railed[fam] = _railed(row["scenarios"], scens, ticks)
+        heals[fam] = [r["time_to_heal"] for r in row["scenarios"]]
+        d = {k: cuda_gossip.LAUNCHES[k] - before[k] for k in before}
+        launches["chaos"] += 4 * d["chaos_pre"]
+        launches["bare"] += tick_launches(d) - 4 * d["chaos_pre"]
+        torch.cuda.empty_cache()
+    table = sweep.pareto_table(per_family)
+
+    sim = cluster.Simulation(cfg, seed=0)
+    sim.run(64, chunk=32, with_metrics=False)
+    point = _sim_point(sim)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    before = dict(cuda_gossip.LAUNCHES)
+    box = {}
+    t0 = time.perf_counter()
+    syncs = sync_count(lambda: box.update(rows=sim.sweep(
+        scens, settle=settle)))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    d = {k: cuda_gossip.LAUNCHES[k] - before[k] for k in before}
+    launches["chaos"] += tick_launches(d)
+    rows = box["rows"]
+    unmoved = _unmoved(sim, point)
+    worst = sweep.worst_case(rows)
+    circ = per_family["circulant"]
+    same_row = (circ["worst_scenario"] == worst
+                and [r["time_to_heal"] for r in circ["scenarios"]]
+                == [r["slo"]["time_to_heal"] for r in rows])
+    replays = {str(i): _replay_equal(sim, point, scens[i], rows[i])
+               for i in sorted({0, worst})}
+    lane_ticks = SWEEP_LANES * ticks
+    dominators = sweep.strict_dominators(per_family)
+    res = dict(n=cfg.n, k=cfg.degree, lanes=SWEEP_LANES, ticks=ticks,
+               settle=settle, families=list(SWEEP_FAMILIES),
+               pareto=measured_pareto(table, railed),
+               dominates_default=dominators,
+               dominates_default_measured=[f for f in dominators
+                                           if railed[f] == 0],
+               wall_s_by_family=walls, railed_by_family=railed,
+               heal_by_family=heals,
+               sweep_wall_s=wall, lane_ticks=lane_ticks,
+               lane_ticks_per_s=lane_ticks / wall,
+               ms_per_lane_tick=wall / lane_ticks * 1e3,
+               peak_bytes=peak, bytes_before_sweep=base_mem,
+               host_syncs=syncs, worst_lane=worst, replays_equal=replays,
+               circulant_row_reproduced=same_row, sim_unmoved=unmoved,
+               tick_launches=launches)
+    res["ok"] = (all(replays.values()) and unmoved and same_row
+                 and syncs == SWEEP_SYNCS and len(table) == len(SWEEP_FAMILIES)
+                 and all(r["bytes_per_tick_node"] > 0 for r in table))
+    return res
+
+
+def sweep_serf(cfg):
+    """SerfSimulation at the main path's shape: an event fired from a live
+    row, then SWEEP_SERF_LANES scenario_grid lanes settling
+    SWEEP_SERF_SETTLE ticks through the serf kernel; the worst lane equals
+    its solo replay and the simulation is unmoved."""
+    from consul_tpu_torch.chaos import sweep
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+
+    sim = cluster.SerfSimulation(cfg, seed=0)
+    sim.run(64, chunk=32, with_metrics=False)
+    sim.user_event(_rows(cfg.n, [cfg.n // 3], sim.device), 9)
+    scens = sweep.scenario_grid(cfg.n, SWEEP_SERF_LANES)
+    point = _sim_point(sim)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cuda_gossip.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sim.sweep(scens, settle=SWEEP_SERF_SETTLE)
+    wall = time.perf_counter() - t0
+    d = {k: cuda_gossip.LAUNCHES[k] - before[k] for k in before}
+    unmoved = _unmoved(sim, point)
+    worst = sweep.worst_case(rows)
+    replay = _replay_equal(sim, point, scens[worst], rows[worst])
+    lane_ticks = len(scens) * rows[0]["ticks"]
+    res = dict(n=cfg.n, lanes=len(scens), ticks=rows[0]["ticks"],
+               sweep_wall_s=wall, lane_ticks_per_s=lane_ticks / wall,
+               ms_per_lane_tick=wall / lane_ticks * 1e3,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               slo=[r["slo"] for r in rows], worst_lane=worst,
+               replay_equal=replay, sim_unmoved=unmoved,
+               tick_launches={"serf_chaos": tick_launches(d)})
+    res["ok"] = (replay and unmoved and d["serf_post"] == lane_ticks
+                 and d["chaos_pre"] == lane_ticks)
+    return res
+
+
+def sweep_raft(cfg):
+    """Raft 16x5 armed at the main path's shape (raft_main_path's set-up),
+    two lanes over SWEEP_RAFT_TICKS ticks: a storm and a leader kill. The
+    rows carry raft; each lane equals its solo replay on every raft
+    summary field and counter; the live plane and the simulation are
+    unmoved. ms per lane-tick with raft."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+
+    groups, peers = RAFT_SHAPES[0]
+    sim = cluster.Simulation(cfg, seed=0)
+    plane = sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+    sim.run(4 * RAFT_CHUNK, chunk=RAFT_CHUNK, with_metrics=False)
+    scens = [[chaos.RaftStorm(start=2, stop=18)],
+             [chaos.RaftKill(start=2, stop=14, group=0, peer=-1)]]
+    point = _sim_point(sim) + (cluster._clone(plane.take_state()),)
+    base = (plane.summary(), plane.counters_snapshot())
+    before = dict(cuda_gossip.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sim.sweep(scens, ticks=SWEEP_RAFT_TICKS)
+    wall = time.perf_counter() - t0
+    d = {k: cuda_gossip.LAUNCHES[k] - before[k] for k in before}
+    plane_unmoved = (plane.summary(), plane.counters_snapshot()) == base
+    unmoved = _unmoved(sim, point[:4])
+    replays = [_replay_equal(sim, point, ev, row, chunk=RAFT_CHUNK)
+               for ev, row in zip(scens, rows)]
+    lane_ticks = len(scens) * SWEEP_RAFT_TICKS
+    res = dict(n=cfg.n, groups=groups, peers=peers, window=RAFT_WINDOW,
+               lanes=len(scens), ticks=SWEEP_RAFT_TICKS, sweep_wall_s=wall,
+               ms_per_lane_tick=wall / lane_ticks * 1e3,
+               raft=[r.get("raft") for r in rows], replays_equal=replays,
+               plane_unmoved=plane_unmoved, sim_unmoved=unmoved,
+               tick_launches={"chaos": tick_launches(d)})
+    res["ok"] = (all("raft" in r for r in rows) and all(replays)
+                 and plane_unmoved and unmoved
+                 and rows[0]["raft"]["counters"]["elections_started"] > 0)
+    return res
+
+
+def sweep_bench_shape():
+    """bench_pareto at the bench's own shape (bench.py:567-586): wall on
+    the host clock, forming included, and the host ms per lane-tick
+    (the wrappers' host work sets the pace at this size)."""
+    from consul_tpu_torch.chaos import sweep
+    from consul_tpu_torch.ops import cuda_gossip
+
+    before = dict(cuda_gossip.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep.bench_pareto(**BENCH_SWEEP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = {k: cuda_gossip.LAUNCHES[k] - before[k] for k in before}
+    lane_ticks = d["chaos_pre"]
+    scens = sweep.scenario_grid(BENCH_SWEEP["n"], BENCH_SWEEP["scenarios"])
+    ticks = max(ev[0].stop for ev in scens) + BENCH_SWEEP["settle"]
+    railed = {r["family"]: _railed(r["scenarios"], scens, ticks)
+              for r in out["pareto"]}
+    res = dict(BENCH_SWEEP, wall_s=wall, lane_ticks=lane_ticks,
+               ms_per_lane_tick=wall / max(1, lane_ticks) * 1e3,
+               pareto=measured_pareto(out["pareto"], railed),
+               railed_by_family=railed,
+               dominates_default=out["dominates_default"],
+               dominates_default_measured=[
+                   f for f in out["dominates_default"] if railed[f] == 0],
+               tick_launches={"chaos": 4 * lane_ticks,
+                              "bare": tick_launches(d) - 4 * lane_ticks})
+    res["ok"] = (len(out["pareto"]) == 4 and lane_ticks > 0
+                 and all(len(r["scenarios"]) == BENCH_SWEEP["scenarios"]
+                         for r in out["pareto"]))
+    return res
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -2636,6 +3024,48 @@ def main() -> int:
         emit({"phase": "failed", "failed": ["raft_timing"]})
         return 1
 
+    # Scenario sweeps (ROADMAP A17): the lanes through the kernel against
+    # the plain tick on every family, then bench_pareto at 1M, the serf
+    # and raft sweeps and the bench's own shape. Their lanes run the
+    # chaos variants with the sentinel off (B2, B6); forming runs B1.
+    t_sweep = time.perf_counter()
+    cases = [(f, False) for f in SWEEP_FAMILIES] + [("circulant", True)]
+    for i, (n, (family, serf_plane)) in enumerate(
+            [(SWEEP_PARITY_N, c) for c in cases]
+            + [(MAIN_N, c) for c in cases]):
+        t0 = time.perf_counter()
+        if n == MAIN_N:
+            res = sweep_parity(n, family, serf_plane, seed=59 + i,
+                               lanes=main_path_lanes,
+                               settle=SWEEP_PARITY_MAIN_SETTLE)
+        else:
+            res = sweep_parity(n, family, serf_plane, seed=59 + i)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "sweep_parity", **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": [
+                f"sweep_parity {n} {family}"
+                + (" serf" if serf_plane else "")]})
+            return 1
+    sweep_launches = {"bare": 0, "chaos": 0, "serf_chaos": 0}
+    for phase, fn in (("sweep_main_path", lambda: sweep_main_path(cfg)),
+                      ("sweep_serf", lambda: sweep_serf(cfg)),
+                      ("sweep_raft", lambda: sweep_raft(cfg)),
+                      ("sweep_bench_shape", sweep_bench_shape)):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": phase, **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": [phase]})
+            return 1
+        for k, v in res["tick_launches"].items():
+            sweep_launches[k] += v
+    emit({"phase": "sweep_phases", "seconds": round(
+        time.perf_counter() - t_sweep, 3), "tick_launches": sweep_launches})
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -2657,20 +3087,27 @@ def main() -> int:
         for v, sp, ch in DENSE_VARIANTS]
     print(json.dumps({"kernels": [
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
-            "sentinel=False, sparse, packed (SWIM path and the raft paths)",
-            swim_launches + raft_launches["bare"], swim_t),
+            "sentinel=False, sparse, packed (SWIM path, the raft paths and "
+            "the sweeps' forming)",
+            swim_launches + raft_launches["bare"] + sweep_launches["bare"],
+            swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed", serf_launches,
             serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
             "sentinel=True (chaos path); sched=<raft-only>, sentinel=False "
-            "(raft paths), sparse, packed",
-            chaos_launches + raft_launches["raft_schedule"], chaos_t),
+            "(raft paths); sched=<sweep lane>, sentinel=False, families "
+            "circulant, expander, smallworld, hier (sweeps), sparse, packed",
+            chaos_launches + raft_launches["raft_schedule"]
+            + sweep_launches["chaos"], chaos_t),
         row("gossip_tick_sentinel", "step_fn=swim.step_counted, sched=None, "
             "sentinel=True, sparse, packed", sentinel_launches, sentinel_t),
         row("gossip_tick_serf_chaos", "step_fn=serf.step_counted (extra_tx), "
-            "sched=<composed> or None, sentinel=True, sparse, packed",
-            serf_chaos_launches, serf_chaos_t)] + dense_rows + [
+            "sched=<composed> or None, sentinel=True (serf chaos path); "
+            "sched=<sweep lane>, sentinel=False, circulant (serf sweep), "
+            "sparse, packed",
+            serf_chaos_launches + sweep_launches["serf_chaos"],
+            serf_chaos_t)] + dense_rows + [
         {"name": "gossip_metrics", "route": "cuda",
          "source": "consul_tpu_torch/csrc/gossip_tick.cu",
          "replaces": "consul_tpu/models/cluster.py:263",
@@ -2686,7 +3123,7 @@ def main() -> int:
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,7 +1,8 @@
 """Fault schedules compiled to device tensors (PyTorch port of
 ``consul_tpu/chaos``): the host entries, the compiled
 :class:`ChaosSchedule` and its per-tick evaluation. The scenario-sweep
-plane (``chaos/sweep.py`` in the reference) is not ported."""
+plane (S scenarios per formed simulation, the Pareto table over view-graph
+families) is ``chaos/sweep.py``."""
 
 from consul_tpu_torch.chaos.schedule import (  # noqa: F401
     MAX_LINKS,
@@ -29,6 +30,7 @@ from consul_tpu_torch.chaos.schedule import (  # noqa: F401
     roll_terms,
     shard_once,
     shift_schedule,
+    static_key_of,
     to_device,
     unpack_terms,
 )

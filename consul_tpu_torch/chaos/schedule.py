@@ -305,6 +305,17 @@ def or_none(sched: Optional[ChaosSchedule]) -> Optional[ChaosSchedule]:
     return None if sched is None or is_empty(sched) else sched
 
 
+def static_key_of(sched: Optional[ChaosSchedule]):
+    """The slot counts of a compiled schedule, family by family; None for
+    None or an empty schedule. Schedules of one key run the same tick
+    variant, so the lanes of a sweep must share one (``chaos/sweep``)."""
+    if sched is None or is_empty(sched):
+        return None
+    return ("chaos", sched.part_start.shape[0], sched.ll_start.shape[0],
+            sched.cw_start.shape[0], sched.dg_start.shape[0],
+            sched.rk_kind.shape[0])
+
+
 def to_device(sched: ChaosSchedule, device) -> ChaosSchedule:
     return ChaosSchedule(*(x.to(device) for x in sched))
 

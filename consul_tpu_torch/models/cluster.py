@@ -33,6 +33,10 @@ serving republish, so writes staged through a write-attached plane apply
 only at quorum commit. Raft entries of a fault schedule (``RaftKill``,
 ``RaftPartition``, ``RaftStorm``) drive the raft tier's chaos lane.
 
+``sweep`` runs S fault scenarios against the current state, each in a
+lane of its own (``_run_lanes``; ``chaos/sweep.py``), and leaves the
+simulation where it was.
+
 Tests can hand in an initial world, topology and state (``convert.py``
 carries the reference's across) and a draw source, a callable from the
 tick number to its :class:`swim.TickDraws`; by default the simulation
@@ -75,6 +79,13 @@ def metric_seed(seed: int, t: int) -> int:
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) % (1 << 64)
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) % (1 << 64)
     return (x ^ (x >> 31)) >> 1
+
+
+def _clone(tree):
+    """A copy of a state tree (nested NamedTuples of tensors)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
 
 
 class TickTrace(NamedTuple):
@@ -218,9 +229,12 @@ class Simulation:
     def _init_state(self):
         return sim_state.init(self.cfg, self.gen, self.device)
 
-    def _make_tick_fn(self):
-        """``tick(world, state, draws, sched) -> (state, counters[26])``."""
-        cfg, topo, sentinel = self.cfg, self.topo, self.sentinel
+    def _make_tick_fn(self, sentinel: Optional[bool] = None):
+        """``tick(world, state, draws, sched) -> (state, counters[26])``,
+        with the invariant sentinel as set (``sentinel=None``) or as
+        given. The tick writes fresh tensors and never its input."""
+        cfg, topo = self.cfg, self.topo
+        sentinel = self.sentinel if sentinel is None else sentinel
         if self.kernel == cuda_gossip.CUDA:
             return cuda_gossip.make_tick_kernel(
                 cfg, topo, serf_plane=self._serf_plane, sentinel=sentinel)
@@ -398,6 +412,65 @@ class Simulation:
         deltas = {f: self.counters[f] - before[f] for f in counters_mod.FIELDS}
         return ScenarioResult(slo={SLO_KEYS[f]: deltas[f] for f in SLO_KEYS},
                               counters=deltas, ticks=ticks, trace=trace)
+
+    def sweep(self, scenarios, *, ticks=None, chunk: int = 32,
+              settle: int = 64):
+        """Run S fault scenarios against the current state, each in a lane
+        of its own (``chaos/sweep.run_sweep``): the simulation does not
+        advance, and each lane's counters equal a solo
+        :meth:`run_scenario` replay from the same state and draw
+        generator. Returns one row per scenario, in input order.
+        ``chunk`` is taken for the reference's signature and not used."""
+        from consul_tpu_torch.chaos import sweep as sweep_mod
+
+        return sweep_mod.run_sweep(self, scenarios, ticks=ticks, chunk=chunk,
+                                   settle=settle)
+
+    def _run_lanes(self, scheds, ticks: int):
+        """Step one lane per schedule (compiled, shifted onto ``_t``, on the
+        device) for ``ticks`` ticks from copies of the live state, with the
+        sentinel off. Tick outer, lane inner: every lane takes the tick's
+        one draw bundle, drawn as a schedule-armed tick draws it (with
+        ``u_pp``), and with raft armed the tick's one raft draw. Returns
+        ``(states, counters [S, 26] int64, raft)``, raft being None or
+        ``(raft states, raft counters [S, 8] int32)``, all on the device;
+        nothing is read back. The state, ``_t``, the draw generator, the
+        counters and the raft plane are as they were before."""
+        tick = self._make_tick_fn(sentinel=False)
+        lanes = len(scheds)
+        states = [_clone(self.state) for _ in range(lanes)]
+        # int64: a 1M-node lane sends more than 2**31 messages within ~1,000
+        # ticks; the int32 tick counters add up exactly here, as a solo
+        # replay's chunks do on the host.
+        cnt = torch.zeros((lanes, len(counters_mod.FIELDS)), dtype=torch.int64,
+                          device=self.device)
+        raft = self.raft
+        if raft is not None:
+            rsts = [_clone(raft.take_state()) for _ in range(lanes)]
+            rcnt = torch.zeros((lanes, len(raft_ops.FIELDS)),
+                               dtype=torch.int32, device=self.device)
+        # The draw generator is a running stream: the lanes' draws must not
+        # move it, so a sweep leaves the trajectory where it was.
+        gen_state = self.gen.get_state()
+        # Installed for the ticks' draws only: the simulation's own draws
+        # add u_pp while a schedule is installed, as a solo replay's do.
+        prev = self.chaos
+        self.chaos = scheds[0]
+        try:
+            for t in range(self._t, self._t + ticks):
+                d = self.draws(t)
+                rd = raft.draws(t) if raft is not None else None
+                for s, sched in enumerate(scheds):
+                    states[s], cv = tick(self.world, states[s], d, sched)
+                    cnt[s] += cv
+                    if raft is not None:
+                        rsts[s], rc = raft_ops.tick(raft.rcfg, rsts[s], t, rd,
+                                                    sched)
+                        rcnt[s] += raft_ops.counters_stack(rc)
+        finally:
+            self.chaos = prev
+            self.gen.set_state(gen_state)
+        return states, cnt, (None if raft is None else (rsts, rcnt))
 
     # -- execution -------------------------------------------------------
     def _exec_chunk(self, c: int, with_metrics: bool):

@@ -94,6 +94,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running scenario tests excluded from the tier-1 "
         "run (ROADMAP.md runs -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels run only on the "
+        "card); skips without one")
 
 
 def pumped_cluster_stack(n=3, seed=11, node="test-agent",
