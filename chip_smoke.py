@@ -69,7 +69,19 @@ view-graph family, bit for bit, and once more on ``SerfSimulation``),
 family, the Pareto table, lane-ticks/s, peak memory, host syncs, and on
 circulant lane 0 and the worst lane against their solo replays),
 ``sweep_serf``, ``sweep_raft`` (raft 16x5 armed) and
-``sweep_bench_shape`` (the bench's n = 1,024). It prints one JSON
+``sweep_bench_shape`` (the bench's n = 1,024). The federation phases
+run the port's ``Federation`` and ``DcnFederation``:
+``federation_parity`` (4 DCs x 65,536 nodes, then the main path's 4 x
+250,000, each with the 12-server WAN pool, kernel against plain from one
+formed state for 40 LAN ticks with 16 WAN fires, bit for bit),
+``federation_main_path`` (BASELINE.json's fifth config, 4 x 250,000: a
+non-server kill that stays in dc0, dc3 killed and seen dead on the WAN,
+the port's Router order equal to the true DC order on a fault-free
+federation of the same seed, LAN ticks/s, peak bytes, host
+syncs, the LAN launch sets and the WAN tick timed apart) and
+``dcn_drill`` (bench.py's drill through the port, kernel against plain
+and its link envelope against the CPU's, then at 2 x 250,000 with the
+sync's ms a round, kernel against plain). It prints one JSON
 line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -263,6 +275,39 @@ SWEEP_SERF_LANES = 8
 SWEEP_SERF_SETTLE = 64
 SWEEP_RAFT_TICKS = 32
 BENCH_SWEEP = dict(n=1024, degree=16, scenarios=16, settle=192)
+# The federation and the DCN tier (ROADMAP A14; consul_tpu/models/
+# federation.py, consul_tpu/parallel/dcn.py), LAN view K = 32 as the main
+# path's. Parity, at 4 DCs x 65,536 nodes and at the main path's own 4 x
+# 250,000 (250,000 = 7,812 x 32 + 16: the last warp tile half filled), each
+# with the WAN pool (4 x 3 servers, the dense view K = 11): formed
+# FED_PARITY_FORM ticks through the kernel, then
+# a 5 % kill of dc0's other nodes and dc1's server 0, FED_PARITY_SETTLE
+# ticks more, then FED_PARITY_TICKS LAN ticks (16 of them fire the WAN
+# tick) through the kernel and the plain tick from one state with one draw
+# bundle per tick. The main path: BASELINE.json's fifth config, 4 DCs x
+# 250,000 nodes, formed FED_FORM ticks, a non-server node of dc0 killed and
+# dc3 killed whole, then FED_AFTER ticks (tests/test_federation.py's flow).
+FED_PARITY = dict(n_dc=4, nodes_per_dc=65536, servers_per_dc=3)
+FED_PARITY_FORM = 60
+FED_PARITY_SETTLE = 20
+FED_PARITY_TICKS = 40
+FED_MAIN = dict(n_dc=4, nodes_per_dc=250_000, servers_per_dc=3)
+FED_FORM = 60
+FED_AFTER = 780
+FED_CHUNK = 32
+FED_TIMED_TICKS = 32
+FED_VIEW = 32
+# bench.py's DCN drill (:641-676): 2 DCs x 64 nodes, 2 servers, K = 8, two
+# islands, the link 0 -> 1 timing out and 1 -> 0 dropping over sync rounds
+# [1, 4), DCN_ROUNDS rounds of DCN_SYNC ticks; then the same faults at
+# 2 islands x 1 DC x 250,000 nodes (K = 32).
+DCN_DRILL = dict(n_dc=2, nodes_per_dc=64, servers_per_dc=2)
+DCN_DRILL_VIEW = 8
+DCN_BIG = dict(n_dc=2, nodes_per_dc=250_000, servers_per_dc=2)
+DCN_ROUNDS = 12
+DCN_SYNC = 16
+DCN_COUNTERS = ("retries", "link_down_ticks", "send_timeouts", "retx_dropped",
+                "heals", "link_degraded")
 
 
 def emit(obj):
@@ -2615,6 +2660,366 @@ def sweep_bench_shape():
     return res
 
 
+def _fed_cfg(kw, view):
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models.federation import FederationConfig
+
+    return FederationConfig(lan=SimConfig(view_degree=view), **kw)
+
+
+def _fed_pools(st):
+    """A FederationState's pools in order: the LAN pools, then the WAN."""
+    return [*st.lan, st.wan]
+
+
+def federation_parity(seed: int, kw: dict):
+    """Federation(kernel="cuda") against Federation(kernel="torch") at the
+    size ``kw`` from one formed state, one draw bundle per LAN tick on both sides (the WAN
+    bundle read on fire ticks): every pool's discrete leaves and every
+    counter of every DC and of the WAN pool equal after every tick, float
+    leaves within MAX_STEPS / FLOOR_S. Gaps are kept apart for the LAN
+    pools (B1) and the WAN pool (the dense view, n = 12)."""
+    from consul_tpu_torch.models import federation, swim
+    from consul_tpu_torch.models.cluster import _clone
+    from consul_tpu_torch.models.counters import FIELDS
+
+    cfg = _fed_cfg(kw, FED_VIEW)
+    n, s = cfg.nodes_per_dc, cfg.servers_per_dc
+    fk = federation.Federation(cfg, seed=seed)
+    fk.run(FED_PARITY_FORM, chunk=FED_CHUNK)
+    rows = torch.arange(n)
+    fk.kill(0, (rows >= s) & (rows < s + n // 20))
+    fk.kill(1, rows == 0)
+    fk.run(FED_PARITY_SETTLE, chunk=FED_CHUNK)
+    st = fk.state
+    fp = federation.Federation(
+        cfg, seed=seed, kernel="torch", lan_topo=fk.lan_topo,
+        wan_topo=fk.wan_topo, lan_world=fk.lan_world, wan_world=fk.wan_world,
+        state=st._replace(lan=tuple(_clone(x) for x in st.lan),
+                          wan=_clone(st.wan)))
+    base = fk.counters()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    bad = []
+    gaps = {p: {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+            for p in ("lan", "wan")}
+    wan_t0 = int(fk.state.wan.t)
+    launches0 = (fk._lan_tick.launches, fk._wan_tick.launches)
+    for t in range(FED_PARITY_TICKS):
+        bundle = ([swim.draw_tick(cfg.lan, gen, "cuda") for _ in range(cfg.n_dc)],
+                  swim.draw_tick(cfg.wan, gen, "cuda"))
+        for f in (fk, fp):
+            f.draws = lambda _t, b=bundle: b
+            f.run(1)
+        torch.cuda.synchronize()
+        for i, (kp, pp) in enumerate(zip(_fed_pools(fk.state),
+                                         _fed_pools(fp.state))):
+            where = "wan" if i == cfg.n_dc else "lan"
+            compare_packed(kp, pp, t, gaps[where], bad)
+        ck, cp = fk.counters(), fp.counters()
+        moved = [{f: a[f] - b[f] for f in FIELDS}
+                 for a, b in zip(ck["lan"] + [ck["wan"]],
+                                 base["lan"] + [base["wan"]])]
+        if moved != cp["lan"] + [cp["wan"]]:
+            bad.append(f"tick {t} counters differ")
+        if fk.state.wan_accum_ms != fp.state.wan_accum_ms:
+            bad.append(f"tick {t} WAN accumulator differs")
+        if bad:
+            break
+    cp = fp.counters()
+    lan_sum = {f: sum(c[f] for c in cp["lan"]) for f in FIELDS}
+    fires = int(fk.state.wan.t) - wan_t0
+    res = dict(n_dc=cfg.n_dc, nodes_per_dc=n, k=cfg.lan.degree,
+               n_wan=cfg.n_wan, k_wan=cfg.wan.degree, ticks=FED_PARITY_TICKS,
+               wan_fire_ticks=fires, mismatches=bad[:10],
+               float_gaps_lan=gaps["lan"], float_gaps_wan=gaps["wan"],
+               lan_counters_in_window=lan_sum, wan_counters_in_window=cp["wan"],
+               kernel_launches={"lan": fk._lan_tick.launches - launches0[0],
+                                "wan": fk._wan_tick.launches - launches0[1]})
+    res["ok"] = (not bad and fires == FED_PARITY_TICKS * 2 // 5
+                 and lan_sum["suspicions_started"] > 0
+                 and cp["wan"]["probes_sent"] > 0)
+    return res
+
+
+def _wan_rmse_s(fed):
+    """RMS error, in seconds, of the WAN coordinates' distance
+    (server/rtt.compute_distance) against the true RTT over every ordered
+    pair of WAN servers."""
+    from consul_tpu_torch.ops import topology
+    from consul_tpu_torch.server import rtt
+
+    cfg = fed.cfg
+    n, s = cfg.n_wan, cfg.servers_per_dc
+    coords = [fed.wan_server_coord(*divmod(i, s)) for i in range(n)]
+    pos = fed.wan_world.pos.cpu()
+    height = fed.wan_world.height.cpu()
+    world = topology.World(pos=pos, height=height)
+    err = [rtt.compute_distance(coords[i], coords[j])
+           - float(topology.true_rtt(world, i, j))
+           for i in range(n) for j in range(n) if i != j]
+    return math.sqrt(sum(e * e for e in err) / len(err))
+
+
+def router_check(fed):
+    """The port's Router (server/router.py) over the WAN coordinates: its
+    get_datacenters_by_distance against true_dc_distance_order(0), and
+    whether every pair of DCs whose true site distances from dc0 differ by
+    more than the WAN coordinates' RMS error is in the true order."""
+    from consul_tpu_torch.server.router import Router
+
+    cfg = fed.cfg
+    r = Router("dc0")
+    for dc in range(cfg.n_dc):
+        for srv in range(cfg.servers_per_dc):
+            r.add_server(f"srv{srv}.dc{dc}", f"dc{dc}",
+                         coord=fed.wan_server_coord(dc, srv))
+    got = [int(d[2:]) for d in r.get_datacenters_by_distance()]
+    want = fed.true_dc_distance_order(0)
+    sites = fed.wan_world.pos[::cfg.servers_per_dc].cpu()
+    true_s = [float(x) for x in torch.linalg.norm(sites - sites[0], dim=1)]
+    rmse = _wan_rmse_s(fed)
+    rank = {dc: i for i, dc in enumerate(got)}
+    pairs = [(a, b) for a in range(cfg.n_dc) for b in range(cfg.n_dc)
+             if true_s[a] + rmse < true_s[b]]
+    return dict(router_order=got, true_order=want, router_equal=got == want,
+                true_site_distance_ms=[x * 1e3 for x in true_s],
+                wan_rmse_ms=rmse * 1e3, resolvable_pairs=len(pairs),
+                resolvable_in_order=all(rank[a] < rank[b] for a, b in pairs),
+                route_dc1=r.find_route("dc1"))
+
+
+def federation_main_path(rate):
+    """BASELINE.json's fifth config through Federation: 4 DCs x 250,000
+    nodes (K = 32) and the WAN pool (12 servers, K = 11), formed FED_FORM
+    ticks, a non-server node of dc0 killed and dc3 killed whole, then
+    FED_AFTER ticks in FED_CHUNK-tick chunks (host syncs counted): every
+    LAN pool's health, dc3's servers as dc0 sees them on the WAN, the
+    port's Router order, LAN ticks/s, peak bytes; then ms per LAN tick on
+    the host clock over FED_TIMED_TICKS ticks and by CUDA events for the
+    four LAN launch sets and the WAN tick apart (the WAN tick's row:
+    time_kernel on its final state)."""
+    from consul_tpu_torch.models import federation, layout, swim
+    from consul_tpu_torch.ops import cuda_gossip
+
+    cfg = _fed_cfg(FED_MAIN, FED_VIEW)
+    n = cfg.nodes_per_dc
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fed = federation.Federation(cfg, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    fed.run(FED_FORM, chunk=FED_CHUNK)
+    fed.kill(0, torch.arange(n) == 10)
+    fed.kill_dc(3)
+    torch.cuda.synchronize()
+    form_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    syncs = sync_count(lambda: fed.run(FED_AFTER, chunk=FED_CHUNK))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(cuda_gossip.LAUNCHES)
+    lan_k, wan_k = fed._lan_tick, fed._wan_tick
+    kl = {"lan": lan_k.launches, "wan": wan_k.launches}
+    lan = []
+    for dc in range(cfg.n_dc):
+        h = fed.lan_health(dc)
+        lan.append({k: float(getattr(h, k)) for k in h._fields})
+    wh = fed.wan_health()
+    wan = {k: float(getattr(wh, k)) for k in wh._fields}
+    dc3 = [m["status"] for m in fed.wan_members_seen_by(0) if m["dc"] == "dc3"]
+    router = router_check(fed)
+    finite = all(bool(torch.isfinite(p.viv.vec.float()).all())
+                 for p in _fed_pools(fed.state))
+    # Timing: the host clock over a chunk, CUDA events for the LAN launch
+    # sets and the WAN tick on the final state.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(71)
+    d_lan = [swim.draw_tick(cfg.lan, gen, "cuda") for _ in range(cfg.n_dc)]
+    d_wan = swim.draw_tick(cfg.wan, gen, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fed.run(FED_TIMED_TICKS, chunk=FED_TIMED_TICKS)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / FED_TIMED_TICKS * 1e3
+    lan_ms = cuda_ms(lambda: [lan_k(fed.lan_world[i], fed.state.lan[i],
+                                    d_lan[i]) for i in range(cfg.n_dc)], 10)
+    wan_t = time_kernel(
+        wan_k, lambda w, st, dd: cuda_gossip.plain_tick(cfg.wan, fed.wan_topo,
+                                                        w, st, dd),
+        fed.wan_world, fed.state.wan, d_wan,
+        cuda_gossip.tick_hbm_bytes_per_node(fed.state.wan, fed.wan_world),
+        cfg.n_wan, rate)
+    wan_ms = cuda_ms(lambda: wan_k(fed.wan_world, fed.state.wan, d_wan), 20)
+    res = dict(n_dc=cfg.n_dc, nodes_per_dc=n, k=cfg.lan.degree,
+               n_wan=cfg.n_wan, k_wan=cfg.wan.degree, form_ticks=FED_FORM,
+               ticks_after_kill=FED_AFTER, chunk=FED_CHUNK,
+               setup_s=setup_s, form_s=form_s, wall_s=wall,
+               lan_ticks_per_s=FED_AFTER / wall,
+               ms_per_lan_tick_run=wall / FED_AFTER * 1e3,
+               ms_per_lan_tick_host=host_ms,
+               ms_lan_launch_sets_events=lan_ms,
+               ms_wan_tick_events=wan_ms,
+               wan_fire_share=2 / 5,
+               peak_bytes=peak - base_bytes, host_syncs=syncs,
+               bytes_per_node=layout.bytes_per_node(fed.state.lan[0], n),
+               lan=lan, wan=wan, dc3_seen_by_dc0=dc3, router=router,
+               wan_ticks=int(fed.state.wan.t), launches=launches,
+               kernel_launches=kl, counters=fed.counters())
+    # The kill stays local: dc0 declares its node dead with no false
+    # positive (its viewers' suspicions time out over up to ~650 ticks at
+    # this size, so not every one has yet), dc1 and dc2 untouched, the WAN
+    # whole apart from dc3.
+    cnt = res["counters"]
+    local = (lan[0]["live_nodes"] == n - 1 and lan[0]["false_positive"] == 0.0
+             and cnt["lan"][0]["deaths_declared"] > 0
+             and all(lan[i]["live_nodes"] == n and lan[i]["agreement"] == 1.0
+                     and cnt["lan"][i]["suspicions_started"] == 0
+                     for i in (1, 2))
+             and lan[3]["live_nodes"] == 0)
+    res["stays_local"] = local
+    # The learned WAN coordinates order the DCs on a federation of the same
+    # seed that runs as long with no fault: tests/test_federation.py's order
+    # check (:79-80) at config 5, the Router's order equal to
+    # true_dc_distance_order(0). The order after the kill above is reported
+    # only: dc3's coordinates froze when it died, FED_FORM ticks in.
+    formed = federation.Federation(cfg, seed=0)
+    formed.run(FED_FORM + FED_AFTER, chunk=FED_CHUNK)
+    res["router_formed"] = router_check(formed)
+    kl["lan"] += formed._lan_tick.launches
+    kl["wan"] += formed._wan_tick.launches
+    del formed
+    res["ok"] = (local and dc3 and all(x == "dead" for x in dc3)
+                 and wan["agreement"] == 1.0 and wan["undetected"] == 0.0
+                 and res["router_formed"]["router_equal"]
+                 and res["router_formed"]["route_dc1"] is not None
+                 and syncs == 0 and finite and kl["lan"] > 0 and kl["wan"] > 0)
+    return res, wan_t
+
+
+def _dcn_view(d):
+    """The DCN tier's envelope: the sink's sim.dcn.* counters and every
+    link's (attempt, down_until, degraded, queue_peak, queue depth)."""
+    return dict(
+        counters={c: d.sink.counter_sum("sim.dcn." + c) for c in DCN_COUNTERS},
+        links={f"{a}->{b}": [ls.attempt, ls.down_until, ls.degraded,
+                             ls.queue_peak, len(ls.queue)]
+               for (a, b), ls in d._links.items()})
+
+
+def dcn_run(kw, view, device, kernel):
+    """DcnFederation.run over DCN_ROUNDS rounds of DCN_SYNC ticks under
+    bench.py's link faults, with each sync timed (host clock, after the
+    islands' work has finished) and replicas_agree read after it."""
+    from consul_tpu_torch.parallel import dcn
+    from consul_tpu_torch.utils.telemetry import Sink
+
+    cfg = _fed_cfg(kw, view)
+    d = dcn.DcnFederation(cfg, n_islands=2, seed=0, sink=Sink(),
+                          link_policy=dcn.LinkPolicy(retry_max=3, queue_bound=4),
+                          device=device, kernel=kernel)
+    d.inject_link_faults([
+        dcn.LinkFault(src=0, dst=1, start=1, stop=4, kind="timeout"),
+        dcn.LinkFault(src=1, dst=0, start=1, stop=4)])
+    sync_ms, agree = [], []
+    sync = d.sync
+
+    def timed_sync(ticks=1):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync(ticks)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        agree.append(d.replicas_agree())
+
+    d.sync = timed_sync
+    t0 = time.perf_counter()
+    d.run(DCN_ROUNDS * DCN_SYNC, sync_every=DCN_SYNC, chunk=DCN_SYNC)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return d, dict(wall_s=wall, sync_ms=sync_ms, agree_by_round=agree,
+                   **_dcn_view(d), queue_peak=d.queue_peak(),
+                   queue_bound=d.link_policy.queue_bound,
+                   replicas_agree=d.replicas_agree())
+
+
+def _dcn_launches(d):
+    return {"lan": sum(i._lan_tick.launches for i in d.islands),
+            "wan": sum(i._wan_tick.launches for i in d.islands)}
+
+
+def dcn_drill():
+    """bench.py's DCN drill on the card, and its link envelope against the
+    same drill on the CPU's plain path (the envelope does not depend on
+    the gossip); then the same faults at 2 islands x 250,000 nodes with
+    the sync's ms per round, held against its plain twin on the card."""
+    d, res = dcn_run(DCN_DRILL, DCN_DRILL_VIEW, "cuda", "cuda")
+    # The plain tick on the card draws what the kernel's run drew (each
+    # island's generator, seeded alike): every pool equal at the end.
+    p, plain = dcn_run(DCN_DRILL, DCN_DRILL_VIEW, "cuda", "torch")
+    bad = []
+    gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+    for k, (a, b) in enumerate(zip(d.islands, p.islands)):
+        for x, y in zip(_fed_pools(a.state), _fed_pools(b.state)):
+            compare_packed(x, y, f"island {k} end", gaps, bad)
+        if a.counters() != b.counters():
+            bad.append(f"island {k} counters differ")
+    res["plain_mismatches"] = bad[:10]
+    res["plain_float_gaps"] = gaps
+    del p
+    _, cpu = dcn_run(DCN_DRILL, DCN_DRILL_VIEW, "cpu", "torch")
+    res["envelope_equals_cpu"] = (
+        (res["counters"], res["links"]) == (cpu["counters"], cpu["links"])
+        and res["agree_by_round"] == cpu["agree_by_round"]
+        and (plain["counters"], plain["links"]) == (cpu["counters"],
+                                                    cpu["links"]))
+    res["kernel_launches"] = _dcn_launches(d)
+    res.update(n_dc=DCN_DRILL["n_dc"], nodes_per_dc=DCN_DRILL["nodes_per_dc"],
+               k=DCN_DRILL_VIEW, islands=2, rounds=DCN_ROUNDS,
+               sync_every=DCN_SYNC)
+    del d
+    big_d, big = dcn_run(DCN_BIG, FED_VIEW, "cuda", "cuda")
+    big["kernel_launches"] = _dcn_launches(big_d)
+    # Its plain twin on the card, as for the small drill.
+    big_p, big_plain = dcn_run(DCN_BIG, FED_VIEW, "cuda", "torch")
+    big_bad = []
+    big_gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+    for k, (a, b) in enumerate(zip(big_d.islands, big_p.islands)):
+        for x, y in zip(_fed_pools(a.state), _fed_pools(b.state)):
+            compare_packed(x, y, f"island {k} end", big_gaps, big_bad)
+        if a.counters() != b.counters():
+            big_bad.append(f"island {k} counters differ")
+    big["plain_mismatches"] = big_bad[:10]
+    big["plain_float_gaps"] = big_gaps
+    big["envelope_equals_plain"] = (
+        (big["counters"], big["links"], big["agree_by_round"])
+        == (big_plain["counters"], big_plain["links"],
+            big_plain["agree_by_round"]))
+    del big_p
+    big.update(n_dc=DCN_BIG["n_dc"],
+               nodes_per_dc=DCN_BIG["nodes_per_dc"], k=FED_VIEW,
+               n_wan=big_d.cfg.n_wan, k_wan=big_d.cfg.wan.degree)
+    del big_d
+
+    def ok(r):
+        return (r["replicas_agree"] and r["queue_peak"] <= r["queue_bound"]
+                and r["counters"]["heals"] == 2 and r["counters"]["retries"] > 0
+                and not r["agree_by_round"][2]
+                and r["kernel_launches"]["lan"] > 0
+                and r["kernel_launches"]["wan"] > 0)
+
+    res["ok"] = ok(res) and res["envelope_equals_cpu"] and not bad
+    big["ok"] = ok(big) and big["envelope_equals_plain"] and not big_bad
+    return res, big
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -2649,6 +3054,7 @@ def main() -> int:
         "gossip_tick", "gossip_tick_serf", "gossip_tick_chaos",
         "gossip_tick_sentinel", "gossip_tick_serf_chaos")}
     max_abs.update({"gossip_tick_" + v[0]: 0.0 for v in DENSE_VARIANTS})
+    max_abs["gossip_tick_wan_dense"] = 0.0
 
     def fold_abs(name, res):
         max_abs[name] = max([max_abs[name]] + [
@@ -3066,6 +3472,54 @@ def main() -> int:
     emit({"phase": "sweep_phases", "seconds": round(
         time.perf_counter() - t_sweep, 3), "tick_launches": sweep_launches})
 
+    # The federation and the DCN tier (ROADMAP A14): every DC's LAN pool
+    # through the kernel (B1), the WAN pool through it on the dense view
+    # (n = 12, K = 11; the DCN drill's n = 4, K = 3), against the plain
+    # tick, then BASELINE.json's fifth config and bench.py's DCN drill.
+    t_fed = time.perf_counter()
+    for kw in (FED_PARITY, FED_MAIN):
+        t0 = time.perf_counter()
+        res = federation_parity(61, kw)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        max_abs["gossip_tick"] = max([max_abs["gossip_tick"]] + [
+            g["abs"] for g in res["float_gaps_lan"].values()])
+        max_abs["gossip_tick_wan_dense"] = max(
+            [max_abs["gossip_tick_wan_dense"]]
+            + [g["abs"] for g in res["float_gaps_wan"].values()])
+        emit({"phase": "federation_parity", **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": ["federation_parity"]})
+            return 1
+    t0 = time.perf_counter()
+    res, wan_t = federation_main_path(rate)
+    torch.cuda.empty_cache()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "federation_main_path", **res})
+    emit({"phase": "federation_wan_timing", **wan_t})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["federation_main_path"]})
+        return 1
+    fed_launches = dict(res["kernel_launches"])
+    t0 = time.perf_counter()
+    drill, big = dcn_drill()
+    torch.cuda.empty_cache()
+    drill["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "dcn_drill", **drill})
+    emit({"phase": "dcn_drill_250k", **big})
+    if not (drill["ok"] and big["ok"]):
+        emit({"phase": "failed", "failed": ["dcn_drill"]})
+        return 1
+    for name in ("gossip_tick", "gossip_tick_wan_dense"):
+        max_abs[name] = max([max_abs[name]] + [
+            g["abs"] for r in (drill, big)
+            for g in r["plain_float_gaps"].values()])
+    for r in (drill, big):
+        for k in fed_launches:
+            fed_launches[k] += r["kernel_launches"][k]
+    emit({"phase": "federation_phases", "seconds": round(
+        time.perf_counter() - t_fed, 3), "kernel_launches": fed_launches})
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -3087,10 +3541,11 @@ def main() -> int:
         for v, sp, ch in DENSE_VARIANTS]
     print(json.dumps({"kernels": [
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
-            "sentinel=False, sparse, packed (SWIM path, the raft paths and "
-            "the sweeps' forming)",
-            swim_launches + raft_launches["bare"] + sweep_launches["bare"],
-            swim_t),
+            "sentinel=False, sparse, packed (SWIM path, the raft paths, "
+            "the sweeps' forming, and every DC's LAN pool of the federation "
+            "and the DCN islands)",
+            swim_launches + raft_launches["bare"] + sweep_launches["bare"]
+            + fed_launches["lan"], swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed", serf_launches,
             serf_t),
@@ -3108,6 +3563,12 @@ def main() -> int:
             "sparse, packed",
             serf_chaos_launches + sweep_launches["serf_chaos"],
             serf_chaos_t)] + dense_rows + [
+        row("gossip_tick_wan_dense", "step_fn=swim.step_counted, sched=None, "
+            "sentinel=False, dense, packed: the federation's WAN pool (n = "
+            f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc']}, K = "
+            f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc'] - 1}, timed) and "
+            "the DCN islands' (n = 4, K = 3); one partly filled warp tile, "
+            "so launch-bound", fed_launches["wan"], wan_t)] + [
         {"name": "gossip_metrics", "route": "cuda",
          "source": "consul_tpu_torch/csrc/gossip_tick.cu",
          "replaces": "consul_tpu/models/cluster.py:263",

@@ -193,3 +193,48 @@ def raft_draws_from(table, device="cpu") -> torch.Tensor:
     ([R, P] numpy) -> the port's int32 draw tensor on ``device`` (what
     ``raft_ops.tick`` and ``raft_ops.init`` take)."""
     return tensor(table, device, torch.int32)
+
+
+def _take(tree, i):
+    """Entry ``i`` along the leading axis of every leaf of a (nested)
+    NamedTuple or dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_take(x, i) for x in tree])
+    return np.asarray(tree)[i]
+
+
+def federation_state_from(src, device="cpu"):
+    """Reference FederationState (numpy leaves: the dense LAN SimState
+    stacked [n_dc, ...], the dense WAN SimState, the Bresenham
+    accumulator) -> the port's FederationState: n_dc packed LAN states,
+    the packed WAN state and the accumulator as a Python int."""
+    from consul_tpu_torch.models import federation
+
+    lan = _get(src, "lan")
+    n_dc = np.asarray(_get(lan, "t")).shape[0]
+    return federation.FederationState(
+        lan=tuple(layout.pack(sim_state_from(_take(lan, i), device))
+                  for i in range(n_dc)),
+        wan=layout.pack(sim_state_from(_get(src, "wan"), device)),
+        wan_accum_ms=int(np.asarray(_get(src, "wan_accum_ms"))))
+
+
+def lan_worlds_from(src, device="cpu") -> list:
+    """The reference federation's stacked LAN World ([n_dc, N, D] and
+    [n_dc, N] numpy) -> one port World per DC."""
+    n_dc = np.asarray(_get(src, "pos")).shape[0]
+    return [world_from(_take(src, i), device) for i in range(n_dc)]
+
+
+def federation_kw(jfed, device="cpu") -> dict:
+    """The keyword arguments that start a port ``Federation`` from a
+    reference one (its attributes as numpy trees): the shared LAN and WAN
+    topologies, the per-DC LAN worlds, the WAN world and the state."""
+    return dict(
+        lan_topo=topology_from(_get(jfed, "lan_topo"), device),
+        wan_topo=topology_from(_get(jfed, "wan_topo"), device),
+        lan_world=lan_worlds_from(_get(jfed, "lan_world"), device),
+        wan_world=world_from(_get(jfed, "wan_world"), device),
+        state=federation_state_from(_get(jfed, "state"), device))

@@ -173,6 +173,15 @@ def _top_k_peel(x: torch.Tensor, p: int):
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
+def step(cfg: SimConfig, topo: Topology, world: World, state: SimState,
+         draws: TickDraws, *, sched=None, sentinel: bool = False) -> SimState:
+    """Advance the whole cluster by one tick: :func:`step_counted` with
+    its counters discarded (the reference's uncounted wrapper,
+    swim.py:184-192)."""
+    return step_counted(cfg, topo, world, state, draws, sched=sched,
+                        sentinel=sentinel)[0]
+
+
 def step_counted(cfg: SimConfig, topo: Topology, world: World,
                  state: SimState, draws: TickDraws, extra_tx=None, *,
                  sched=None, sentinel: bool = False):

@@ -430,6 +430,9 @@ class TickKernel:
                                  f"[1, {hi}], got {val}")
         self.cfg, self.topo, self.serf = cfg, topo, serf_plane
         self.sentinel = sentinel
+        # This instance's launches (every stage), beside LAUNCHES: the
+        # federation reads its LAN and WAN pools' apart.
+        self.launches = 0
         sc = swim.protocol_scalars(cfg, topo)
         self._ints = (cfg.n, cfg.degree, v.latency_filter_size,
                       v.dimensionality, v.adjustment_window_size,
@@ -681,6 +684,7 @@ class TickKernel:
                     raise RuntimeError(f"gossip_tick {stage} launch failed: "
                                        f"CUDA error {rc}")
                 LAUNCHES[stage] += 1
+                self.launches += 1
         return out, scratch["counters"]
 
 

@@ -101,6 +101,12 @@ def neighbor_of(topo: Topology, row, col):
     return (row + topo.off[col]) % topo.n
 
 
+def nbrs_table(topo: Topology) -> torch.Tensor:
+    """Materialized [N, K] neighbor-id table (host-side read-outs only)."""
+    rows = torch.arange(topo.n, dtype=torch.int64, device=topo.off.device)
+    return (rows[:, None] + topo.off[None, :]) % topo.n
+
+
 def remap_row(topo: Topology, j):
     """``rcol[j]`` as a [K] vector; entry c is the receiver's column for
     the sender's column-c subject (SELF when c == j)."""

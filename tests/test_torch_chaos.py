@@ -54,6 +54,7 @@ from consul_tpu_torch.models import swim as tswim
 from consul_tpu_torch.ops import cuda_gossip, merge, topology as ttopo
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 FIELDS = tcounters.FIELDS
 

@@ -39,6 +39,7 @@ from consul_tpu_torch.ops import vivaldi as tvivaldi
 from consul_tpu_torch.utils import checkpoint as tck
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 CFG = dict(n=64, view_degree=8)
 

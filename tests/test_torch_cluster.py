@@ -39,6 +39,7 @@ from consul_tpu_torch.models.cluster import SerfSimulation as TSerfSimulation
 from consul_tpu_torch.models.cluster import Simulation as TSimulation
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 16
@@ -165,7 +166,9 @@ def test_port_imports_no_jax_and_no_reference():
         ("serving", "__init__.py"), ("serving", "batcher.py"),
         ("serving", "plane.py"), ("serving", "writes.py"),
         ("serving", "watch.py"), ("serving", "mixed.py"),
-        ("ops", "raft_ops.py"), ("models", "raft.py"))} <= rel
+        ("ops", "raft_ops.py"), ("models", "raft.py"),
+        ("models", "federation.py"), ("parallel", "dcn.py"),
+        ("server", "router.py"))} <= rel
     # The asyncio front end comes with the port's front ends (ROADMAP A19).
     assert os.path.join("consul_tpu_torch", "serving", "frontend.py") not in rel
     for path in files:

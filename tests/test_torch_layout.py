@@ -18,6 +18,7 @@ from consul_tpu_torch.models import layout as tlayout
 from consul_tpu_torch.models import state as tstate
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 
 def _random_state(n, k, seed):

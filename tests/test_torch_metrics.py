@@ -35,6 +35,7 @@ from consul_tpu_torch.ops import cuda_gossip
 from consul_tpu_torch.utils import metrics as tmetrics
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 N, K, SAMPLES = 256, 16, 2048
 RMSE_RTOL = 1e-6

@@ -26,6 +26,7 @@ from consul_tpu_torch.ops import topology as ttopo
 from consul_tpu_torch.ops import vivaldi as tvivaldi
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 
 def _keys(rng, size):

@@ -45,6 +45,7 @@ from consul_tpu_torch.ops import raft_ops as traft
 from consul_tpu_torch.serving import ServingPlane
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 # Short timeouts so elections resolve inside small windows (the
 # reference's tests/test_raft_device.py settings).

@@ -43,6 +43,7 @@ from consul_tpu_torch.runtime import watchdog as wd
 from consul_tpu_torch.utils import checkpoint as tck
 
 import torch_parity  # noqa: F401  (one intra-op thread per worker)
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

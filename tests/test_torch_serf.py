@@ -53,6 +53,7 @@ from consul_tpu_torch.ops import cuda_gossip, lamport as tlamport
 from consul_tpu_torch.ops import topology as ttopo
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 N, K, LOSS = 256, 16, 0.01
 TICKS = 10

@@ -49,6 +49,7 @@ from consul_tpu_torch.models import serf as tserf
 from consul_tpu_torch.ops import cuda_gossip, merge, topology as ttopo
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 FIELDS = tcounters.FIELDS
 N, K = 256, 16

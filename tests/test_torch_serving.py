@@ -45,6 +45,7 @@ from consul_tpu_torch.serving import (MODE_CATALOG, MODE_DIST, MODE_HEALTH,
                                       ServingClosedError, ServingPlane)
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 RTOL = 1e-6
 N, D = 64, 8

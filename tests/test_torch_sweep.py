@@ -55,6 +55,7 @@ from consul_tpu_torch.models import cluster as tcluster
 from consul_tpu_torch.models import counters as tcounters
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 N, VD = 128, 8
 FORM, TICKS, CHUNK = 32, 40, 20

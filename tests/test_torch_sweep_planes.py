@@ -27,6 +27,7 @@ from consul_tpu_torch.config import RaftConfig as TRaftConfig
 from consul_tpu_torch.models import cluster as tcluster
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 from test_torch_sweep import (CHUNK, N, TICKS, _assert_rows_equal, _draws_fn,
                               _formed_pair, _to_ref)
 

@@ -21,6 +21,7 @@ from consul_tpu_torch.models import state as tstate
 from consul_tpu_torch.models import swim as tswim
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 TICKS = 32
 KILL_AT = 8

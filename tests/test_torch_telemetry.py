@@ -35,6 +35,7 @@ from consul_tpu_torch.models import counters as tcounters
 from consul_tpu_torch.utils import telemetry as ttelemetry
 
 import torch_parity as tp
+from torch_parity import quick_reference_compiles  # noqa: F401
 
 
 def _filled(mod):

@@ -234,16 +234,37 @@ def test_concurrent_submits_coalesce(wsim):
     wb = plane.writes
     batches0 = wb.write_batches
     results = [None] * 8
+    # Every pump waits until all 8 submits are queued, so the coalescing
+    # does not depend on how the threads are scheduled.
+    queued = threading.Event()
+    pump = wb.pump
+
+    def held_pump():
+        assert queued.wait(timeout=30.0)
+        return pump()
 
     def go(i):
         results[i] = wb.submit(deltas.OP_SESSION_CREATE, i, 500 + i)
 
-    threads = [threading.Thread(target=go, args=(i,)) for i in range(8)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=30.0)
-        assert not t.is_alive()
+    wb.pump = held_pump
+    try:
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30.0
+        while True:
+            with wb._lock:
+                if len(wb._pending) == 8:
+                    break
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        queued.set()
+        for t in threads:
+            t.join(timeout=30.0)
+            assert not t.is_alive()
+    finally:
+        queued.set()
+        del wb.pump
     assert all(r.status == "applied" for r in results)
     assert wb.write_batches - batches0 < 8
     assert len({r.index for r in results}) == 8

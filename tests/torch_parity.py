@@ -8,17 +8,22 @@ random numbers.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from consul_tpu.config import GossipConfig as JGossipConfig
 from consul_tpu.config import SimConfig as JSimConfig
+from consul_tpu.models import federation as j_federation
 from consul_tpu.models import state as j_state
 from consul_tpu.ops import topology as j_topology
 from consul_tpu_torch import convert
 from consul_tpu_torch.config import GossipConfig as TGossipConfig
 from consul_tpu_torch.config import SimConfig as TSimConfig
+from consul_tpu_torch.models import federation as t_federation
 from consul_tpu_torch.models import layout as t_layout
 from consul_tpu_torch.models import serf as t_serf
 from consul_tpu_torch.models import swim as t_swim
@@ -27,6 +32,26 @@ from consul_tpu_torch.models import swim as t_swim
 # intra-op thread each avoids oversubscribing the cores (PyTorch starts
 # one thread per core in every process by default).
 torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def quick_reference_compiles():
+    """Compile the reference's programs with most of XLA's optimization
+    work off (``jax_disable_most_optimizations``) while a parity module
+    runs, and put the flag back after it. The oracles then compile about
+    40 % faster on the CPU, and the same fields are checked at the same
+    ticks with the same tolerances. The flag can move the reference's f32
+    Vivaldi and RTT floats in their last bits (another fusion, another
+    rounding), which the float tolerances are there for:
+    ``tests/reference_flag_check.py`` runs the interpret-mode tick,
+    ``run_scenario`` and the federation's runners with the flag off and
+    on and reports every array that moved. In the cases it runs, no
+    discrete leaf and no counter did. A test module
+    takes it with ``from torch_parity import quick_reference_compiles``."""
+    prev = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", prev)
+
 
 # Vivaldi floats of the plain step against the reference, both in f32 on
 # the CPU: the same operations in the same order; XLA and PyTorch may sum
@@ -227,3 +252,157 @@ def assert_packed_close(ref, got, context):
         else:
             np.testing.assert_array_equal(convert.bits(g), convert.ref_bits(r),
                                           err_msg=f"{context}.{f}")
+
+
+# tests/test_layout_parity.py's tolerance for the packed floats against the
+# dense f32 reference (bfloat16 coordinates, float8 RTT windows).
+PACKED_RTOL = 3e-2
+PACKED_ATOL = 2e-3
+PACKED_LAT_ATOL = 2e-2
+
+
+def assert_fed_state(ref, got, context):
+    """A port FederationState against the reference's (numpy): every
+    pool's packed state unpacks to the reference's dense one, the discrete
+    plane bit for bit and the floats within tests/test_layout_parity.py's
+    tolerance."""
+    assert got.wan_accum_ms == int(ref.wan_accum_ms), context
+    pools = [(f"{context} lan{i}", convert._take(ref.lan, i), p)
+             for i, p in enumerate(got.lan)]
+    pools.append((f"{context} wan", ref.wan, got.wan))
+    for where, r, p in pools:
+        d = t_layout.unpack(p)
+        for f in DISCRETE:
+            np.testing.assert_array_equal(
+                getattr(d, f).numpy().astype(np.int64),
+                np.asarray(getattr(r, f)).astype(np.int64),
+                err_msg=f"{where}: {f}")
+        for f in ("adj_idx", "resets"):
+            np.testing.assert_array_equal(
+                getattr(d.viv, f).numpy(), np.asarray(getattr(r.viv, f)),
+                err_msg=f"{where}: viv.{f}")
+        for f in ("vec", "height", "error", "adjustment", "adj_samples"):
+            np.testing.assert_allclose(
+                getattr(d.viv, f).numpy(), np.asarray(getattr(r.viv, f)),
+                rtol=PACKED_RTOL,
+                atol=PACKED_ATOL if f != "adj_samples" else PACKED_LAT_ATOL,
+                err_msg=f"{where}: viv.{f}")
+        np.testing.assert_allclose(d.lat_buf.numpy(), np.asarray(r.lat_buf),
+                                   rtol=PACKED_RTOL, atol=PACKED_LAT_ATOL,
+                                   err_msg=f"{where}: lat_buf")
+
+
+def ladder_draws(jcfg, base_key, holder):
+    """``draws(t)`` from the reference's ladder (federation.py:111-113,
+    :173): ``fold_in(base_key, t)`` split into LAN and WAN keys, the LAN key
+    split n_dc ways; the WAN bundle only when the port's WAN tick fires.
+    One jitted call derives the tick's keys and every bundle."""
+    lan_fn = make_draws_fn(jcfg.lan)
+    wan_fn = make_draws_fn(jcfg.wan)
+
+    @jax.jit
+    def ladder(t):
+        k_lan, k_wan = jax.random.split(jax.random.fold_in(base_key, t))
+        return (jax.vmap(lan_fn)(jax.random.split(k_lan, jcfg.n_dc)),
+                wan_fn(k_wan))
+
+    def draws(t):
+        lan, wan = jax.device_get(ladder(t))
+        lan = [to_tick_draws({k: v[i] for k, v in lan.items()})
+               for i in range(jcfg.n_dc)]
+        wan = to_tick_draws(wan) if holder["fed"].next_wan_fires() else None
+        return lan, wan
+
+    return draws
+
+
+def port_federation(jcfg, tcfg, jfed, **kw):
+    """The port's plain-path Federation started from a reference one."""
+    holder = {}
+    fed = t_federation.Federation(
+        tcfg, seed=0, device="cpu", kernel="torch",
+        draws=ladder_draws(jcfg, jfed.base_key, holder),
+        **convert.federation_kw(jfed), **kw)
+    holder["fed"] = fed
+    return fed
+
+
+def fed_configs(**kw):
+    lan = kw.pop("lan", {})
+    return (j_federation.FederationConfig(lan=JSimConfig(**lan), **kw),
+            t_federation.FederationConfig(lan=TSimConfig(**lan), **kw))
+
+
+def fed_oracle(jcfg, lan_topo, wan_topo):
+    """The reference's federation tick (federation.py:101-143) with its
+    counters, rounded through the reference's packed codec after every
+    step, as the reference's packed simulation is: a jitted
+    ``tick(lan_world, wan_world, state, key, off=0) -> (state, lan counters
+    [n_dc, 26], WAN counters [26])`` over a dense FederationState (``off``
+    the first owned WAN row, ``dc_offset * servers_per_dc``), built
+    from the reference's ``swim.step_counted`` and ``layout.pack`` /
+    ``unpack``. The WAN step runs every tick and is kept where the
+    Bresenham accumulator fires (its counters are zero elsewhere)."""
+    import jax.numpy as jnp
+
+    from consul_tpu.models import counters as j_counters
+    from consul_tpu.models import layout as j_layout
+    from consul_tpu.models import swim as j_swim
+
+    lan_cfg, wan_cfg = jcfg.lan, jcfg.wan
+    s = jcfg.servers_per_dc
+    lan_ms, wan_ms = lan_cfg.gossip.tick_ms, wan_cfg.gossip.tick_ms
+
+    def rounded(st):
+        return j_layout.unpack(j_layout.pack(st))
+
+    def lan_step(world, st, key):
+        st, c = j_swim.step_counted(lan_cfg, lan_topo, world, st, key)
+        return rounded(st), j_counters.stack(c)
+
+    @jax.jit
+    def tick(lan_world, wan_world, state, key, off=0):
+        k_lan, k_wan = jax.random.split(key)
+        lan, lc = jax.vmap(lan_step)(lan_world, state.lan,
+                                     jax.random.split(k_lan, jcfg.n_dc))
+        wan = state.wan._replace(
+            alive_truth=jax.lax.dynamic_update_slice(
+                state.wan.alive_truth, lan.alive_truth[:, :s].reshape(-1), (off,)),
+            left=jax.lax.dynamic_update_slice(
+                state.wan.left, lan.left[:, :s].reshape(-1), (off,)))
+        accum = state.wan_accum_ms + lan_ms
+        fire = accum >= wan_ms
+        stepped, wc = j_swim.step_counted(wan_cfg, wan_topo, wan_world, wan, k_wan)
+        wan = jax.tree.map(functools.partial(jnp.where, fire), rounded(stepped), wan)
+        wc = jnp.where(fire, j_counters.stack(wc), 0)
+        accum = jnp.where(fire, accum - wan_ms, accum)
+        return state._replace(lan=lan, wan=wan, wan_accum_ms=accum), lc, wc
+
+    @jax.jit
+    def start(state):
+        """The reference's initial state, rounded as the port packs it."""
+        return state._replace(lan=jax.vmap(rounded)(state.lan),
+                              wan=rounded(state.wan))
+
+    tick.start = start
+    return tick
+
+
+@functools.lru_cache(maxsize=None)
+def _j_pack():
+    from consul_tpu.models import layout as j_layout
+
+    return jax.jit(j_layout.pack)
+
+
+def assert_fed_close(ref, got, context):
+    """A port FederationState against the rounded reference
+    (:func:`fed_oracle`, numpy): every pool's packed state equal to the
+    reference's packing of it, discrete leaves bit for bit and float
+    leaves within MAX_STEPS / FLOOR_S (:func:`assert_packed_close`)."""
+    pack = _j_pack()
+    assert got.wan_accum_ms == int(ref.wan_accum_ms), context
+    for i, p in enumerate(got.lan):
+        assert_packed_close(np_tree(pack(convert._take(ref.lan, i))),
+                            p, f"{context} lan{i}")
+    assert_packed_close(np_tree(pack(ref.wan)), got.wan, f"{context} wan")
