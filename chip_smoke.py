@@ -81,7 +81,17 @@ federation of the same seed, LAN ticks/s, peak bytes, host
 syncs, the LAN launch sets and the WAN tick timed apart) and
 ``dcn_drill`` (bench.py's drill through the port, kernel against plain
 and its link envelope against the CPU's, then at 2 x 250,000 with the
-sync's ms a round, kernel against plain). It prints one JSON
+sync's ms a round, kernel against plain). The sharded call (B7, the
+tick once per node-axis shard, on ``["cuda:0"] * R``) runs beside the
+B1 windows at 65,536 and 50,000 nodes, the chaos + sentinel, serf and
+serf + chaos + sentinel windows at 65,536, two dense variants and the
+bare tie-and-wrap window at 1M: ``sharded_kernel_parity`` holds it at 2
+and 4 shards bit for bit to the one-device kernel on every tick, and the
+sharded plain runner (one thread per shard) to it for the first ticks;
+``sharded_timing`` times it at 1M (the exchanges and the launch sets
+apart) and ``sharded_main_path`` drives the 1M SWIM main path through
+``Simulation(mesh=["cuda:0"] * 4)``, which must converge on the
+one-device run's tick with bit-equal counters and state. It prints one JSON
 line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -102,6 +112,16 @@ import sys
 import time
 
 import torch
+
+# The sharded call (B7) on one card: shard counts of the parity windows
+# and the timing, the main path's shard count, and the ticks of each
+# window on which the sharded plain runner is held to B7 as well.
+SHARDS = (2, 4)
+SHARD_MAIN = 4
+SHARD_PLAIN_TICKS = 8
+# The dense variants held sharded (the plain runner's threads dominate
+# a dense window's time).
+SHARD_DENSE = ("dense", "dense_serf_chaos")
 
 # HBM rate of the card the bound is stated for: NVIDIA's data sheet for
 # the H100 SXM (80 GB HBM3, 3.35 TB/s at its full 700 W).
@@ -413,12 +433,115 @@ def compare_packed(kp, pp, t, gaps, bad):
             bad.append(f"tick {t} {name}: {nbad} elements differ")
 
 
-def compare_window(tick, plain, world, st, draw, ticks, sched=None):
+def _bits(x):
+    """A tensor's elements as integers of its width (floats by their bits,
+    so that NaN equals NaN)."""
+    if x.is_floating_point():
+        return x.view({1: torch.uint8, 2: torch.int16,
+                       4: torch.int32}[x.element_size()])
+    return x
+
+
+def tree_diff(a, b, prefix=""):
+    """Leaves of two state trees that differ in any bit."""
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(_bits(a), _bits(b)) else [prefix or "."]
+    out = []
+    for f, x, y in zip(a._fields, a, b):
+        out += tree_diff(x, y, f"{prefix}.{f}" if prefix else f)
+    return out
+
+
+class ShardCheck:
+    """The sharded call (B7) at each shard count of ``shards``, on
+    ``["cuda:0"] * R``, beside a window's one-device kernel: from the
+    window's start state, the same draw bundle each tick, B7's gathered
+    state and summed counters bit-equal to the one-device kernel's on
+    every tick; and for the first SHARD_PLAIN_TICKS ticks the sharded
+    plain runner (one thread per shard on the card) against B7, as
+    compare_window holds the kernel to its plain version."""
+
+    def __init__(self, tick, world, st, sched, shards, plain=True):
+        from consul_tpu_torch import chaos
+        from consul_tpu_torch.models import serf
+        from consul_tpu_torch.ops import cuda_gossip
+        from consul_tpu_torch.parallel import mesh as mesh_mod, shard_step
+
+        cfg, topo = tick.cfg, tick.topo
+        self.n, self.serf = cfg.n, isinstance(st, serf.SerfState)
+        self.plain = plain
+        self.runs = {}
+        for r in shards:
+            mesh = mesh_mod.make_mesh(["cuda:0"] * r)
+            k7 = cuda_gossip.ShardedTickKernel(
+                cfg, topo, mesh, serf_plane=tick.serf, sentinel=tick.sentinel)
+            k7.set_world(world)
+            runner = (shard_step.make_sharded_chunk_runner(
+                cfg, topo, mesh, world, serf_plane=tick.serf,
+                sentinel=tick.sentinel, kernel="torch") if plain else None)
+            sb = (None if sched is None else
+                  [chaos.place(sched, d, r, dev)
+                   for d, dev in enumerate(mesh.devices)])
+            blocks = shard_step.place(mesh, st, cfg.n)
+            self.runs[r] = dict(k7=k7, runner=runner, sched=sb, kb=blocks,
+                                pb=list(blocks), bad=[],
+                                gaps={f: {"steps": 0, "abs": 0.0}
+                                      for f in FLOAT_LEAVES},
+                                launches=0)
+
+    def step(self, t, d, kp, kc):
+        from consul_tpu_torch.models import serf
+        from consul_tpu_torch.parallel import shard_step
+
+        dev = torch.device("cuda", 0)
+        for r, run in self.runs.items():
+            if run["bad"]:
+                continue
+            run["kb"], cv = run["k7"](run["kb"], d, run["sched"])
+            whole = shard_step.gather(run["kb"], self.n, dev)
+            cnt = sum(c.to(torch.int64) for c in cv)
+            diff = tree_diff(kp, whole)
+            if diff:
+                run["bad"].append(f"tick {t}: B7 x{r} differs from the "
+                                  f"one-device kernel in {diff[:4]}")
+            if not torch.equal(cnt, kc.to(torch.int64)):
+                run["bad"].append(f"tick {t}: B7 x{r} counters {cnt.tolist()} "
+                                  f"!= {kc.tolist()}")
+            if self.plain and t < SHARD_PLAIN_TICKS:
+                run["pb"], pc, _ = run["runner"].run(
+                    run["pb"], lambda _t: d, 0, 1, run["sched"])
+                pw = shard_step.gather(run["pb"], self.n, dev)
+                if self.serf:
+                    compare_packed(whole.swim, pw.swim, t, run["gaps"], run["bad"])
+                    for name in serf.SerfState._fields[1:]:
+                        if not torch.equal(getattr(whole, name), getattr(pw, name)):
+                            run["bad"].append(f"tick {t} x{r} plain {name} differs")
+                else:
+                    compare_packed(whole, pw, t, run["gaps"], run["bad"])
+                if not torch.equal(pc.to(torch.int64), cnt):
+                    run["bad"].append(f"tick {t} x{r} plain counters "
+                                      f"{pc.tolist()} != {cnt.tolist()}")
+            run["launches"] = run["k7"].launches
+
+    def result(self):
+        return {str(r): dict(mismatches=run["bad"][:5], float_gaps_plain=run["gaps"],
+                             b7_launches=run["launches"],
+                             plain_ticks=SHARD_PLAIN_TICKS if self.plain else 0)
+                for r, run in self.runs.items()}
+
+    def ok(self):
+        return all(not run["bad"] for run in self.runs.values())
+
+
+def compare_window(tick, plain, world, st, draw, ticks, sched=None,
+                   shards=(), sharded=None, shard_plain=True):
     """Kernel vs plain version from one state with one draw bundle per
     tick (``draw()``): all 26 counters and every discrete packed leaf (and
     every serf leaf of a SerfState) equal on every tick, float leaves
-    within MAX_STEPS / FLOOR_S. Returns (the plain side's last state,
-    counter totals, mismatches, float gaps)."""
+    within MAX_STEPS / FLOOR_S. With ``shards`` a ShardCheck runs B7 at
+    those shard counts beside the kernel and puts its result into the
+    dict ``sharded`` ("ok" and "shards"). Returns (the plain side's last
+    state, counter totals, mismatches, float gaps)."""
     from consul_tpu_torch.models import serf
     from consul_tpu_torch.models.counters import FIELDS
 
@@ -427,10 +550,13 @@ def compare_window(tick, plain, world, st, draw, ticks, sched=None):
     totals = torch.zeros(len(FIELDS), dtype=torch.int64)
     bad = []
     gaps = {f: {"steps": 0, "abs": 0.0} for f in FLOAT_LEAVES}
+    check = ShardCheck(tick, world, st, sched, shards, shard_plain) if shards else None
     for t in range(ticks):
         d = draw()
         kp, kc = tick(world, kp, d, sched)
         pp, pc = plain(world, pp, d, sched)
+        if check is not None:
+            check.step(t, d, kp, kc)
         torch.cuda.synchronize()
         if not torch.equal(kc, pc):
             bad.append(f"tick {t} counters {kc.tolist()} != {pc.tolist()}")
@@ -446,10 +572,12 @@ def compare_window(tick, plain, world, st, draw, ticks, sched=None):
             compare_packed(kp, pp, t, gaps, bad)
         if bad:
             break
+    if check is not None:
+        sharded.update(ok=check.ok() and not bad, shards=check.result())
     return pp, totals, bad, gaps
 
 
-def parity(n: int, packet_loss: float, ticks: int, seed: int):
+def parity(n: int, packet_loss: float, ticks: int, seed: int, shards=()):
     """Kernel vs plain version from one state with one draw bundle per
     tick: discrete packed leaves and counters equal on every tick, float
     leaves within MAX_STEPS / FLOOR_S. The window opens just after the
@@ -490,18 +618,21 @@ def parity(n: int, packet_loss: float, ticks: int, seed: int):
         st, _ = step(st)
     warm += 10
 
+    sharded = {}
     _, totals, bad, gaps = compare_window(
         tick, lambda w, s, d, _: cuda_gossip.plain_tick(cfg, topo, w, s, d),
-        world, st, lambda: swim.draw_tick(cfg, gen, dev), ticks)
+        world, st, lambda: swim.draw_tick(cfg, gen, dev), ticks,
+        shards=shards, sharded=sharded)
     fired = {f: int(totals[FIELDS.index(f)]) for f in (
         "suspicions_started", "deaths_declared", "refutations",
         "probe_timeouts", "pushpull_merges")}
     return dict(n=n, k=cfg.degree, packet_loss=packet_loss, ticks=ticks,
                 warm=warm, mismatches=bad[:5], float_gaps=gaps,
-                counters_in_window=fired)
+                counters_in_window=fired, sharded=sharded)
 
 
-def serf_parity(n: int, packet_loss: float, relay: int, ticks: int, seed: int):
+def serf_parity(n: int, packet_loss: float, relay: int, ticks: int, seed: int,
+                shards=()):
     """The serf variant against plain_serf_tick from one state with one
     SerfDraws per tick: every discrete packed leaf, every serf leaf and
     all 26 counters equal on every tick, float leaves within MAX_STEPS /
@@ -539,16 +670,18 @@ def serf_parity(n: int, packet_loss: float, relay: int, ticks: int, seed: int):
     st, q_slot = fire_in_flight(cfg, st, [n // 3 + 7 * j for j in range(4)],
                                 q_row, leaver)
 
+    sharded = {}
     pp, totals, bad, gaps = compare_window(
         tick, lambda w, s, d, _: cuda_gossip.plain_serf_tick(cfg, topo, w, s, d),
-        world, st, lambda: serf.draw_serf_tick(cfg, gen, dev), ticks)
+        world, st, lambda: serf.draw_serf_tick(cfg, gen, dev), ticks,
+        shards=shards, sharded=sharded)
     window = {f: int(totals[FIELDS.index(f)]) for f in (
         "serf_intents_queued", "serf_intents_retx", "serf_intents_dropped",
         "deaths_declared")}
     window.update(serf_in_window(st, pp, q_row, q_slot, leaver))
     return dict(n=n, k=cfg.degree, packet_loss=packet_loss, relay_factor=relay,
                 ticks=ticks, warm=warm, mismatches=bad[:5], float_gaps=gaps,
-                in_window=window)
+                in_window=window, sharded=sharded)
 
 
 def fire_in_flight(cfg, packed, origins, q_row, leaver):
@@ -660,7 +793,7 @@ def corrupt(packed, n, k):
 
 
 def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
-                 family: str = "all"):
+                 family: str = "all", shards=()):
     """The chaos + sentinel variant against plain_tick(sched,
     sentinel=True) from one state with one draw bundle per tick: discrete
     packed leaves and all 26 counters equal on every tick, float leaves
@@ -705,17 +838,18 @@ def chaos_parity(n: int, packet_loss: float, ticks: int, seed: int,
     sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
                                  int(st.t))
     st = corrupt(st, n, cfg.degree)
+    sharded = {}
     _, totals, bad, gaps = compare_window(
         tick, lambda w, s, d, sc: cuda_gossip.plain_tick(cfg, topo, w, s, d, sc,
                                                          sentinel=True),
         world, st, lambda: swim.draw_tick(cfg, gen, dev, chaos=True), ticks,
-        sched)
+        sched, shards=shards, sharded=sharded)
     window = {f: int(totals[FIELDS.index(f)]) for f in FIELDS
               if f.startswith(("chaos_", "sentinel_")) or f in (
                   "deaths_declared", "refutations", "suspicions_started")}
     return dict(n=n, k=cfg.degree, packet_loss=packet_loss, ticks=ticks,
                 family=family, warm=warm, mismatches=bad[:5], float_gaps=gaps,
-                in_window=window)
+                in_window=window, sharded=sharded)
 
 
 def chaos_ok(res) -> bool:
@@ -830,7 +964,7 @@ def chaos_main_path(cfg):
 
 
 def serf_chaos_parity(n: int, packet_loss: float, relay: int, ticks: int,
-                      fault: int, seed: int):
+                      fault: int, seed: int, shards=()):
     """The serf + chaos + sentinel variant against plain_serf_tick(sched,
     sentinel=True), compared as compare_window does. The window opens on a
     whole cluster 32 ticks old (no mass kill: with dead rows every SLO
@@ -867,18 +1001,19 @@ def serf_chaos_parity(n: int, packet_loss: float, relay: int, ticks: int,
     st = st._replace(swim=corrupt(st.swim, n, cfg.degree))
     sched = chaos.shift_schedule(chaos.compile_schedule(
         n, slo_events(chaos, n, fault), dev), int(st.swim.t))
+    sharded = {}
     pp, totals, bad, gaps = compare_window(
         tick, lambda w, s, d, sc: cuda_gossip.plain_serf_tick(
             cfg, topo, w, s, d, sc, sentinel=True),
         world, st, lambda: serf.draw_serf_tick(cfg, gen, dev, chaos=True),
-        ticks, sched)
+        ticks, sched, shards=shards, sharded=sharded)
     window = {f: int(totals[FIELDS.index(f)]) for f in FIELDS
               if f.startswith(("chaos_", "sentinel_", "serf_")) or f in (
                   "deaths_declared", "refutations", "suspicions_started")}
     window.update(serf_in_window(st, pp, q_row, q_slot, leaver))
     return dict(n=n, k=cfg.degree, packet_loss=packet_loss, relay_factor=relay,
                 ticks=ticks, fault_ticks=fault, mismatches=bad[:5],
-                float_gaps=gaps, in_window=window)
+                float_gaps=gaps, in_window=window, sharded=sharded)
 
 
 def serf_chaos_ok(res) -> bool:
@@ -910,7 +1045,8 @@ def dense_events(chaos, n):
             chaos.Degrade(2, 14, nodes=slice(n - n // 8, n), tx_loss=0.4)]
 
 
-def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate):
+def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate,
+                 shards=()):
     """One variant on the dense view (n = DENSE_N, K = n - 1) against its
     plain version over DENSE_TICKS ticks, compared as compare_window
     does. Without a schedule the window opens after the deaths wave of a
@@ -982,9 +1118,10 @@ def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate):
     def plain(w, s, d, sc):
         return plain_fn(cfg, topo, w, s, d, sc, sentinel=chaos_on)
 
+    sharded = {}
     pp, totals, bad, gaps = compare_window(
         tick, plain, world, st, lambda: draw(sched is not None), DENSE_TICKS,
-        sched)
+        sched, shards=shards, sharded=sharded)
     window = {f: int(totals[FIELDS.index(f)]) for f in (
         "suspicions_started", "deaths_declared", "refutations",
         "chaos_msgs_dropped", "chaos_first_suspect_wait", "chaos_confirm_wait",
@@ -1003,7 +1140,7 @@ def dense_parity(name: str, serf_plane: bool, chaos_on: bool, seed: int, rate):
         sched=sched)
     return dict(variant=name, n=n, k=cfg.degree, ticks=DENSE_TICKS, warm=warm,
                 mismatches=bad[:5], float_gaps=gaps, in_window=window,
-                ok=ok), timing
+                ok=ok, sharded=sharded), timing
 
 
 def tie_and_wrap(sw, k):
@@ -1023,7 +1160,7 @@ def tie_and_wrap(sw, k):
 
 
 def tie_wrap_parity(name: str, n: int, serf_plane: bool, chaos_on: bool,
-                    seed: int):
+                    seed: int, shards=(), shard_plain=True):
     """A variant against its plain version over TIE_TICKS ticks from a
     state 32 ticks old put through tie_and_wrap, with perm_u cut to
     multiples of 1/16 in every bundle; under a schedule (and the sentinel)
@@ -1077,16 +1214,17 @@ def tie_wrap_parity(name: str, n: int, serf_plane: bool, chaos_on: bool,
         wrapped[0] += int(((so.probe_ptr == 0) & (si.probe_ptr > 0)).sum())
         return out, cnt
 
+    sharded = {}
     _, totals, bad, gaps = compare_window(
         tick, plain, world, st, lambda: draw(sched is not None), TIE_TICKS,
-        sched)
+        sched, shards=shards, sharded=sharded, shard_plain=shard_plain)
     from consul_tpu_torch.models.counters import FIELDS
     window = {f: int(totals[FIELDS.index(f)]) for f in (
         "probes_sent", "gossip_msgs_tx", "chaos_msgs_dropped")}
     bit_equal = all(g["abs"] == 0.0 and g["steps"] == 0 for g in gaps.values())
     return dict(variant=name, n=n, k=cfg.degree, ticks=TIE_TICKS,
                 wrapped_rows=wrapped[0], mismatches=bad[:5], float_gaps=gaps,
-                in_window=window,
+                in_window=window, sharded=sharded,
                 ok=not bad and bit_equal and wrapped[0] > 0)
 
 
@@ -3020,11 +3158,123 @@ def dcn_drill():
     return res, big
 
 
+def sharded_timing(cfg, world, topo, state, draws, rate):
+    """B7 on the main path's state at 1M, at each shard count of SHARDS, on
+    one card: ms a tick (CUDA events over back-to-back calls), the device's
+    own time and operations a tick (profiler), the exchanges and the launch
+    sets apart (event marks inside the call), the sharded plain runner's
+    ms, and the bound: the tick's least bytes (tick_hbm_bytes_per_node)
+    plus the exchanges' (exchange_bytes_per_node); each launch's least
+    bytes are kept as a breakdown."""
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.parallel import mesh as mesh_mod, shard_step
+
+    out = {}
+    n = cfg.n
+    for r in SHARDS:
+        mesh = mesh_mod.make_mesh(["cuda:0"] * r)
+        k7 = cuda_gossip.ShardedTickKernel(cfg, topo, mesh)
+        k7.set_world(world)
+        blocks = shard_step.place(mesh, state, n)
+        ms = cuda_ms(lambda: k7(blocks, draws), 20)
+        # The device's own time a tick (kernels and copies, profiler), apart
+        # from the host's: back-to-back calls wait on the host when it is
+        # the slower side.
+        dev_ms, dev_ops = device_kernels(lambda: k7(blocks, draws), 5)
+        k7.events = []
+        for _ in range(10):
+            k7(blocks, draws)
+        torch.cuda.synchronize()
+        parts = {}
+        marks = k7.events
+        k7.events = None
+        for (label, a), (_, b) in zip(marks, marks[1:]):
+            if label != "end":
+                parts[label] = parts.get(label, 0.0) + a.elapsed_time(b) / 10
+        runner = shard_step.make_sharded_chunk_runner(cfg, topo, mesh, world,
+                                                      kernel="torch")
+        plain_ms = cuda_ms(lambda: runner.run(blocks, lambda _t: draws, 0, 1), 2)
+        whole_out = shard_step.gather(k7(blocks, draws)[0], n, state.meta.device)
+        stages = [k for k in cuda_gossip.STAGES if k not in ("chaos_pre", "serf_post")]
+        bytes_pn = {k: cuda_gossip.launch_hbm_bytes_per_node(
+            k, state, world, draws, cfg=cfg, out=whole_out) for k in stages}
+        exch_pn = {k: cuda_gossip.exchange_bytes_per_node(k, state, cfg=cfg)
+                   for k in stages}
+        tick_pn = cuda_gossip.tick_hbm_bytes_per_node(state, world)
+        bound_ms = (tick_pn + sum(exch_pn.values())) * n / rate * 1e3
+        out[str(r)] = dict(
+            ms_per_tick=ms, device_ms=dev_ms, device_ops=dev_ops,
+            plain_ms=plain_ms, bound_ms=bound_ms,
+            ms_exchange=sum(v for k, v in parts.items() if k.startswith("exchange")),
+            ms_launches=sum(v for k, v in parts.items() if k.startswith("launch")),
+            ms_by_part=parts, tick_bytes_per_node=tick_pn,
+            bytes_per_node=bytes_pn, exchange_bytes_per_node=exch_pn)
+        del k7, blocks, runner, whole_out
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_main_path(cfg, ref):
+    """The main path through Simulation(mesh=["cuda:0"] * SHARD_MAIN): the
+    same seed, 64 ticks, a 5 % kill, run_until_converged(4096, chunk=128),
+    every tick through B7; it must converge at the one-device run's tick
+    (``ref``) with bit-equal counters and final state. Reports ms a tick
+    on the host clock, peak bytes, B7's launches and host syncs per chunk
+    (with metrics and without)."""
+    from consul_tpu_torch.models import cluster, layout
+    from consul_tpu_torch.ops import cuda_gossip
+
+    t0 = time.perf_counter()
+    sim = cluster.Simulation(cfg, seed=0, layout="packed", kernel="cuda",
+                             mesh=["cuda:0"] * SHARD_MAIN)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.run(64, chunk=64)
+    mask = torch.zeros(cfg.n, dtype=torch.bool)
+    mask[: cfg.n // 20] = True
+    sim.kill(mask)
+    converged, used, trace = sim.run_until_converged(max_ticks=4096, chunk=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    b7 = dict(cuda_gossip.SHARDED_LAUNCHES)
+    launches = dict(cuda_gossip.LAUNCHES)
+    diff = tree_diff(ref["state"], sim._whole())
+    counters_equal = sim.counters == ref["counters"]
+    syncs = {"with_metrics": sync_count(lambda: sim.run(128, chunk=128)),
+             "without_metrics": sync_count(
+                 lambda: sim.run(128, chunk=128, with_metrics=False))}
+    sim.counters  # flush the deferred chunk
+    b7_ticks = sum(v for k, v in b7.items() if k != "slo_fold")
+    res = dict(n=cfg.n, k=cfg.degree, shards=SHARD_MAIN, converged=converged,
+               ticks_after_kill=used, ticks_one_device=ref["used"],
+               ticks_total=ref["t"], agreement=float(trace.agreement[-1]),
+               rmse_ms=float(trace.rmse[-1]) * 1000.0,
+               state_bit_equal=not diff, differing_leaves=diff[:5],
+               counters_equal=counters_equal, wall_s=round(wall, 3),
+               ms_per_tick=wall * 1e3 / ref["t"], setup_s=round(setup_s, 3),
+               peak_bytes=peak, b7_launches=b7, launches=launches,
+               host_syncs_per_chunk=syncs,
+               bytes_per_node=layout.bytes_per_node(sim._whole(), cfg.n))
+    res["ok"] = (converged and used == ref["used"] and not diff
+                 and counters_equal and b7_ticks > 0
+                 and launches["metrics"] > 0)
+    world, topo, state = sim.world, sim.topo, sim._whole()
+    del sim
+    torch.cuda.empty_cache()
+    return res, (world, topo, state)
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
     for k in cuda_gossip.LAUNCHES:
         cuda_gossip.LAUNCHES[k] = 0
+    for k in cuda_gossip.SHARDED_LAUNCHES:
+        cuda_gossip.SHARDED_LAUNCHES[k] = 0
 
 
 def main() -> int:
@@ -3059,21 +3309,42 @@ def main() -> int:
     def fold_abs(name, res):
         max_abs[name] = max([max_abs[name]] + [
             g["abs"] for g in res["float_gaps"].values()])
+
+    # B7 beside the windows below: its phase lines, and the largest float
+    # gap of the sharded plain runner against it.
+    max_abs["gossip_tick_sharded"] = 0.0
+
+    def note_sharded(config, res):
+        sh = res.get("sharded")
+        if not sh:
+            return
+        emit({"phase": "sharded_kernel_parity", "config": config,
+              "n": res["n"], **sh})
+        for r in sh["shards"].values():
+            max_abs["gossip_tick_sharded"] = max(
+                [max_abs["gossip_tick_sharded"]]
+                + [g["abs"] for g in r["float_gaps_plain"].values()])
+        if not sh["ok"]:
+            failed.append(f"sharded_kernel_parity {config} n={res['n']}")
     for n, loss in PARITY:
         t0 = time.perf_counter()
-        res = parity(n, loss, PARITY_TICKS, seed=7)
+        res = parity(n, loss, PARITY_TICKS, seed=7,
+                     shards=SHARDS if n < MAIN_N else ())
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = not res["mismatches"] and all(
             res["counters_in_window"][f] > 0
             for f in ("suspicions_started", "deaths_declared", "refutations"))
         fold_abs("gossip_tick", res)
+        sharded = res.pop("sharded")
         emit({"phase": "kernel_parity", **res})
+        note_sharded("B1", dict(res, sharded=sharded))
         if not res["ok"]:
             failed.append(f"kernel_parity n={n}")
     for n, loss, relay, ticks in SERF_PARITY:
         t0 = time.perf_counter()
-        res = serf_parity(n, loss, relay, ticks, seed=11)
+        res = serf_parity(n, loss, relay, ticks, seed=11,
+                          shards=SHARDS if n == 65536 else ())
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = not res["mismatches"] and all(
@@ -3082,17 +3353,22 @@ def main() -> int:
                 "serf_intents_dropped", "delivered", "query_acks",
                 "leave_quiet"))
         fold_abs("gossip_tick_serf", res)
+        sharded = res.pop("sharded")
         emit({"phase": "serf_kernel_parity", **res})
+        note_sharded("B4", dict(res, sharded=sharded))
         if not res["ok"]:
             failed.append(f"serf_kernel_parity n={n}")
     for n, loss in CHAOS_PARITY:
         t0 = time.perf_counter()
-        res = chaos_parity(n, loss, PARITY_TICKS, seed=13)
+        res = chaos_parity(n, loss, PARITY_TICKS, seed=13,
+                           shards=SHARDS if n == 65536 else ())
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = chaos_ok(res)
         fold_abs("gossip_tick_chaos", res)
+        sharded = res.pop("sharded")
         emit({"phase": "chaos_kernel_parity", **res})
+        note_sharded("B2+B3", dict(res, sharded=sharded))
         if not res["ok"]:
             failed.append(f"chaos_kernel_parity n={n}")
     windows = ([(MAIN_N, 0.0, SLO_TICKS, 19, "slo")]
@@ -3111,22 +3387,28 @@ def main() -> int:
             failed.append(f"chaos_kernel_parity n={n} family={family}")
     for n, loss, relay, ticks, fault in SERF_CHAOS_PARITY:
         t0 = time.perf_counter()
-        res = serf_chaos_parity(n, loss, relay, ticks, fault, seed=23)
+        res = serf_chaos_parity(n, loss, relay, ticks, fault, seed=23,
+                                shards=SHARDS if n == 65536 else ())
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         res["ok"] = serf_chaos_ok(res)
         fold_abs("gossip_tick_serf_chaos", res)
+        sharded = res.pop("sharded")
         emit({"phase": "serf_chaos_kernel_parity", **res})
+        note_sharded("B6", dict(res, sharded=sharded))
         if not res["ok"]:
             failed.append(f"serf_chaos_kernel_parity n={n}")
     dense_t = {}
     for variant, serf_plane, chaos_on in DENSE_VARIANTS:
         t0 = time.perf_counter()
-        res, dense_t[variant] = dense_parity(variant, serf_plane, chaos_on,
-                                             seed=29, rate=rate)
+        res, dense_t[variant] = dense_parity(
+            variant, serf_plane, chaos_on, seed=29, rate=rate,
+            shards=SHARDS if variant in SHARD_DENSE else ())
         res["seconds"] = round(time.perf_counter() - t0, 3)
         fold_abs("gossip_tick_" + variant, res)
+        sharded = res.pop("sharded")
         emit({"phase": "dense_kernel_parity", **res})
+        note_sharded("B5 " + variant, dict(res, sharded=sharded))
         if not res["ok"]:
             failed.append(f"dense_kernel_parity {variant}")
     emit({"phase": "dense_timing", "n": DENSE_N, **dense_t})
@@ -3134,11 +3416,15 @@ def main() -> int:
                "dense": "gossip_tick_dense", "dense_serf": "gossip_tick_dense_serf"}
     for variant, n, serf_plane, chaos_on in TIE_WINDOWS:
         t0 = time.perf_counter()
-        res = tie_wrap_parity(variant, n, serf_plane, chaos_on, seed=31)
+        res = tie_wrap_parity(variant, n, serf_plane, chaos_on, seed=31,
+                              shards=(SHARD_MAIN,) if variant == "bare" else (),
+                              shard_plain=False)
         torch.cuda.empty_cache()
         res["seconds"] = round(time.perf_counter() - t0, 3)
         fold_abs(rows_of[variant], res)
+        sharded = res.pop("sharded")
         emit({"phase": "tie_wrap_kernel_parity", **res})
+        note_sharded("B1 tie-and-wrap", dict(res, sharded=sharded))
         if not res["ok"]:
             failed.append(f"tie_wrap_kernel_parity {variant}")
     stress_rows = {"serf": "gossip_tick_serf", "serf_chaos": "gossip_tick_serf_chaos",
@@ -3189,6 +3475,8 @@ def main() -> int:
         return 1
     swim_launches = tick_launches(launches)
     m_launches = launches["metrics"]
+    main_ref = dict(used=used, t=sim._t, counters=dict(sim.counters),
+                    state=cluster._clone(sim.state))
 
     # Kernel timing at the main path's shapes, on its final state.
     tick = cuda_gossip.make_tick_kernel(cfg, sim.topo)
@@ -3198,6 +3486,8 @@ def main() -> int:
         sim.world, sim.state, d,
         cuda_gossip.tick_hbm_bytes_per_node(sim.state, sim.world), cfg.n, rate)
     emit({"phase": "timing", **swim_t})
+    b7_t = sharded_timing(cfg, sim.world, sim.topo, sim.state, d, rate)
+    emit({"phase": "sharded_timing", "n": cfg.n, **b7_t})
     # Launch M on the SWIM path's final state: parity, its time per launch
     # against its bound and its plain version's, then a tick with metrics
     # against one without.
@@ -3225,6 +3515,18 @@ def main() -> int:
     m_ticks = {"swim": tick_with_and_without_metrics(sim)}
     del sim, tick, d, mk
     torch.cuda.empty_cache()
+
+    # The main path in 4 shards on the one card, through B7 (ROADMAP A13,
+    # first part), held to the one-device run above.
+    t0 = time.perf_counter()
+    shard_res, _ = sharded_main_path(cfg, main_ref)
+    shard_res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "sharded_main_path", **shard_res})
+    del main_ref
+    torch.cuda.empty_cache()
+    if not shard_res["ok"]:
+        emit({"phase": "failed", "failed": ["sharded_main_path"]})
+        return 1
 
     # The chaos main path, and the chaos + sentinel variant's timing on its
     # state at window tick CHAOS_TIMED_TICK under the same schedule.
@@ -3580,7 +3882,25 @@ def main() -> int:
          "ms": m_t["ms"], "ms_events": m_t["ms_events"],
          "plain_ms": m_t["plain_ms"],
          "bound_ms": m_t["bound_ms"], "bound_by": "bytes",
-         "library_ms": None}]}),
+         "library_ms": None},
+        {"name": "gossip_tick_sharded", "route": "cuda",
+         "source": "consul_tpu_torch/csrc/gossip_tick.cu",
+         "replaces": "consul_tpu/ops/pallas_gossip.py:145",
+         "config": f"B7: the tick once per node-axis shard (the reference's "
+                   f"shard_map call, consul_tpu/parallel/shard_step.py:253), "
+                   f"{SHARD_MAIN} shards of the 1M SWIM main path on one card, "
+                   "mirrors exchanged between launches; timed at "
+                   f"{SHARD_MAIN} shards (ms_by_shards: each of {list(SHARDS)})",
+         "launches": sum(v for k, v in shard_res["b7_launches"].items()
+                         if k != "slo_fold"),
+         "max_abs_err": max_abs["gossip_tick_sharded"],
+         "ms": b7_t[str(SHARD_MAIN)]["ms_per_tick"],
+         "plain_ms": b7_t[str(SHARD_MAIN)]["plain_ms"],
+         "bound_ms": b7_t[str(SHARD_MAIN)]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "ms_by_shards": {r: {k: t[k] for k in (
+             "ms_per_tick", "device_ms", "ms_exchange", "ms_launches",
+             "plain_ms", "bound_ms")} for r, t in b7_t.items()}}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

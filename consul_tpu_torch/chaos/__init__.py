@@ -27,6 +27,7 @@ from consul_tpu_torch.chaos.schedule import (  # noqa: F401
     or_none,
     pack_terms,
     pair_ok,
+    place,
     roll_terms,
     shard_once,
     shift_schedule,

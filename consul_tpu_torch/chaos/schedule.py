@@ -489,4 +489,23 @@ def roll_terms(terms: NodeTerms, shift) -> NodeTerms:
 def shard_once(x):
     """Zero a replicated indicator on every shard but the first: the
     identity on one device."""
-    return x
+    return coll.shard_once(x)
+
+
+# The [N, slots] node masks; every other leaf is a per-entry scalar.
+NODE_MASKS = ("part_side", "ll_a", "ll_b", "cw_mask", "dg_mask")
+
+
+def place(sched: ChaosSchedule, shard: int, n_shards: int,
+          device) -> ChaosSchedule:
+    """Shard ``shard``'s copy of a schedule on ``device``: its row block of
+    every node mask, every per-entry scalar whole (the reference's
+    shard_step.py:68-75)."""
+    n = sched.part_side.shape[0]
+    if n % n_shards != 0:
+        raise ValueError(f"n={n} must divide over {n_shards} shards")
+    b = n // n_shards
+    return ChaosSchedule(*(
+        (x[shard * b:(shard + 1) * b] if f in NODE_MASKS else x).to(
+            device, copy=True)
+        for f, x in zip(ChaosSchedule._fields, sched)))

@@ -238,3 +238,22 @@ def federation_kw(jfed, device="cpu") -> dict:
         lan_world=lan_worlds_from(_get(jfed, "lan_world"), device),
         wan_world=world_from(_get(jfed, "wan_world"), device),
         state=federation_state_from(_get(jfed, "state"), device))
+
+
+def on_mesh(tree, mesh, n: int) -> list:
+    """A port tree (a reference state converted by the functions above, a
+    World, a draw bundle) placed on a node-axis mesh: one copy per shard,
+    its rows of every node-axis leaf on its device (parallel/mesh.split),
+    as the reference's ``shard_step.place`` places a state."""
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.split(mesh, tree, n)
+
+
+def gathered(blocks: list, n: int, device="cpu"):
+    """The whole state back from its shards' blocks, on ``device``, for
+    comparison with the reference's gathered arrays (``bits`` reads its
+    leaves)."""
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.join(blocks, n, device)

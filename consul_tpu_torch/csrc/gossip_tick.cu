@@ -160,6 +160,28 @@
 // of topology.remap_row / inv_col, and the gossip displacements are the
 // draws' i.i.d. gossip_jcols instead of the sweep (gossip_col). A warp then
 // takes fewer rows (down to one, so n = 256 spreads over 256 warps).
+//
+// The sharded call (B7) replaces the same pallas_call run once per node-axis
+// shard under shard_map (consul_tpu/parallel/shard_step.py:253-267,
+// :295-299). Every launch takes a row range [row0, row0 + rows) of the
+// n-row cluster (I_ROW0, I_ROWS), and its warp tiles (chaos_pre's threads)
+// cover those rows only. The wrapper passes the shard's own [rows, ...]
+// tensors (state, draws, scratch, schedule masks) as row origins: the
+// address at which global row 0 would sit, so that global row g is element
+// g - row0 of the block, every write lands in the shard's block, and only
+// the block's rows are dereferenced through them. Every read of another
+// row (a probe target's or a relay's flags, incarnation, terms and Vivaldi
+// leaves, a sender's payload and poke, a partner's or an initiator's
+// view_mid row and u_pp, a subject's flags and colour, a query origin's
+// open keys and leave tick) goes to a mirror (P_M*): a full-height copy,
+// indexed by global row, that the wrapper fills between launches
+// (ops/cuda_gossip.py, ShardedTickKernel). D's one cross-row write, the
+// tally, goes to a zeroed full-height scratch per shard (P_TACK, P_TRESP),
+// which the wrapper sums over the shards in order and adds to each block;
+// C leaves its shard's SLO word (I_SLO_DEFER) for k_slo_fold, which ORs the
+// shards' words and forms the tick's SLO counters once. On one device the
+// mirrors and the tally targets are the leaves themselves, row0 = 0 and
+// rows = n.
 
 #include <algorithm>
 #include <cstdint>
@@ -195,7 +217,19 @@ enum Ptr {
   P_PSTART, P_PSTOP, P_PSIDE, P_LSTART, P_LSTOP, P_LFWD, P_LREV, P_LA, P_LB,
   P_CSTART, P_CSTOP, P_CPERIOD, P_CDOWN, P_CMASK, P_DSTART, P_DSTOP, P_DTX,
   P_DRX, P_DMASK, P_UPP, P_CFLAGS, P_CINC, P_CCOLOR, P_CABITS, P_CBBITS,
-  P_CQTX, P_CQRX, P_SLO, N_PTR
+  P_CQTX, P_CQRX, P_SLO,
+  // Mirrors: full-height copies, indexed by global row, of every leaf a
+  // launch reads at rows other than its own (on one device, the leaves
+  // themselves): the input's flags and incarnation, its Vivaldi leaves,
+  // chaos_pre's scratch, view_mid, A's payloads and pokes, the push-pull
+  // draw, the serf payloads, the input's open query keys and leave ticks.
+  P_MFLAGS, P_MINC, P_MVEC, P_MVH, P_MVERR, P_MVADJ, P_MCFLAGS, P_MCINC,
+  P_MCCOLOR, P_MCABITS, P_MCBBITS, P_MCQTX, P_MCQRX, P_MVMID, P_MPFLAGS,
+  P_MPSCOL, P_MPSKEY, P_MPSBITS, P_MPOWNK, P_MPOKE, P_MUPP, P_MXFLAGS,
+  P_MXKEY, P_MXORIG, P_MQOPEN, P_MLEAVE,
+  // D's query tally targets, [N, Q] int32 each: the output's q_acks and
+  // q_resps on one device, a zeroed full-height scratch per shard.
+  P_TACK, P_TRESP, N_PTR
 };
 
 // Serf leaves, in SerfState field order after the SWIM plane.
@@ -210,7 +244,10 @@ enum Int {
   I_N, I_K, I_S, I_D, I_W, I_WD, I_IC, I_FAN, I_P, I_TX_LIMIT, I_SUSP_K,
   I_PP_PERIOD, I_OWN_LIMIT, I_PROBE_PERIOD, I_AWARE_MAX,
   I_SERF, I_E, I_R, I_O, I_Q, I_PE, I_RF, I_ORIG16, I_EXACT_SIG,
-  I_CHAOS, I_SENTINEL, I_NP, I_NL, I_NC, I_ND, I_DENSE, N_INT
+  I_CHAOS, I_SENTINEL, I_NP, I_NL, I_NC, I_ND, I_DENSE,
+  I_ROW0, I_ROWS,   // the launch's rows: [row0, row0 + rows) of n
+  I_SLO_DEFER,      // 1: C leaves its SLO word for gossip_slo_fold
+  N_INT
 };
 
 enum Flt {
@@ -311,13 +348,14 @@ __device__ void block_flush(const int* smem, int* global) {
 
 // A row's flags and incarnation as the tick sees them: after chaos_pre's
 // churn edges when a schedule is installed, else the input's.
+// Any row's, from the mirrors.
 __device__ __forceinline__ uint8_t flags_at(const TickArgs& a, int x) {
-  return a.i[I_CHAOS] ? ptr<const uint8_t>(a, P_CFLAGS)[x]
-                      : ptr<const uint8_t>(a, P_IN + L_FLAGS)[x];
+  return a.i[I_CHAOS] ? ptr<const uint8_t>(a, P_MCFLAGS)[x]
+                      : ptr<const uint8_t>(a, P_MFLAGS)[x];
 }
 __device__ __forceinline__ uint32_t inc_at(const TickArgs& a, int x) {
-  return a.i[I_CHAOS] ? ptr<const uint32_t>(a, P_CINC)[x]
-                      : static_cast<uint32_t>(ptr<const uint16_t>(a, P_IN + L_OWN_INC)[x]);
+  return a.i[I_CHAOS] ? ptr<const uint32_t>(a, P_MCINC)[x]
+                      : static_cast<uint32_t>(ptr<const uint16_t>(a, P_MINC)[x]);
 }
 
 struct Terms {
@@ -326,9 +364,9 @@ struct Terms {
 };
 
 __device__ __forceinline__ Terms terms_at(const TickArgs& a, int x) {
-  return Terms{ptr<const int32_t>(a, P_CCOLOR)[x], ptr<const int32_t>(a, P_CABITS)[x],
-               ptr<const int32_t>(a, P_CBBITS)[x], ptr<const float>(a, P_CQTX)[x],
-               ptr<const float>(a, P_CQRX)[x]};
+  return Terms{ptr<const int32_t>(a, P_MCCOLOR)[x], ptr<const int32_t>(a, P_MCABITS)[x],
+               ptr<const int32_t>(a, P_MCBBITS)[x], ptr<const float>(a, P_MCQTX)[x],
+               ptr<const float>(a, P_MCQRX)[x]};
 }
 
 // chaos._link_survival: slot by slot, forward then reverse.
@@ -463,12 +501,15 @@ __device__ bool viv_observe(const TickArgs& a, int i, int tgt, bool direct_ok, f
   const float h = bf2f(in_vh[i]), err = bf2f(in_verr[i]), adj = bf2f(in_vadj[i]);
   bool accepted = false;
   if (direct_ok) {
+    // The target's leaves, from the mirrors.
     const size_t tb = static_cast<size_t>(tgt) * d;
+    const uint16_t* m_vec = ptr<const uint16_t>(a, P_MVEC);
     float ovec[MAXD];
 #pragma unroll
-    for (int k = 0; k < MAXD; ++k) ovec[k] = k < d ? bf2f(in_vec[tb + k]) : 0.0f;
-    const float oh = bf2f(in_vh[tgt]), oerr = bf2f(in_verr[tgt]);
-    const float oadj = bf2f(in_vadj[tgt]);
+    for (int k = 0; k < MAXD; ++k) ovec[k] = k < d ? bf2f(m_vec[tb + k]) : 0.0f;
+    const float oh = bf2f(ptr<const uint16_t>(a, P_MVH)[tgt]);
+    const float oerr = bf2f(ptr<const uint16_t>(a, P_MVERR)[tgt]);
+    const float oadj = bf2f(ptr<const uint16_t>(a, P_MVADJ)[tgt]);
     bool ok = isfinite(oh) && isfinite(oerr) && isfinite(oadj) && isfinite(med) &&
               med >= 0.0f && med <= 10.0f;
 #pragma unroll
@@ -649,9 +690,8 @@ __device__ bool churn_down(const TickArgs& a, int i, int t) {
 }
 
 __global__ void k_chaos_pre(TickArgs a) {
-  const int n = a.i[I_N];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int i = a.i[I_ROW0] + blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.i[I_ROW0] + a.i[I_ROWS]) return;
   const int t = *ptr<const int32_t>(a, P_IN + L_T);
   const int NP = a.i[I_NP], NL = a.i[I_NL], ND = a.i[I_ND];
   const size_t row = static_cast<size_t>(i);
@@ -893,10 +933,11 @@ __global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int ti
   VivQueue* wq = &s_viv[wib];
   int q_len = 0;
 
-  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
+  const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
   for (int tile = blockIdx.x * WARPS + wib; tile < ntiles; tile += gridDim.x * WARPS) {
-    const int base = tile * tile_rows;
-    const int rows = min(tile_rows, n - base);
+    const int base = row0 + tile * tile_rows;
+    const int rows = min(tile_rows, row_end - base);
     const bool valid = lane < rows;
     const int i = base + (valid ? lane : 0);
     const size_t rb = static_cast<size_t>(i) * K;
@@ -950,7 +991,7 @@ __global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int ti
               const int sr = (base + j + off[c]) % n;
               const uint8_t sf = flags_at(a, sr);
               tl.add(C_FALSE_DEATHS, (sf & 1) && !(sf & 2) &&
-                                         ptr<const int32_t>(a, P_CCOLOR)[sr] == color);
+                                         ptr<const int32_t>(a, P_MCCOLOR)[sr] == color);
             }
           }
         }
@@ -1356,20 +1397,22 @@ __global__ void __launch_bounds__(WARPS * 32) k_receive(TickArgs a, int tile_row
   const bool chaos = a.i[I_CHAOS] != 0;
   const int32_t* rcol = ptr<const int32_t>(a, P_RCOL);
   const int32_t* inv = ptr<const int32_t>(a, P_INV);
-  const uint16_t* pflags = ptr<const uint16_t>(a, P_PFLAGS);
-  const uint8_t* pscol = ptr<const uint8_t>(a, P_PSCOL);
-  const uint32_t* pskey = ptr<const uint32_t>(a, P_PSKEY);
-  const uint32_t* psbits = ptr<const uint32_t>(a, P_PSBITS);
-  const uint32_t* pownk = ptr<const uint32_t>(a, P_POWNK);
-  const uint32_t* poke = ptr<const uint32_t>(a, P_POKE);
+  // The senders' payloads and pokes, from the mirrors.
+  const uint16_t* pflags = ptr<const uint16_t>(a, P_MPFLAGS);
+  const uint8_t* pscol = ptr<const uint8_t>(a, P_MPSCOL);
+  const uint32_t* pskey = ptr<const uint32_t>(a, P_MPSKEY);
+  const uint32_t* psbits = ptr<const uint32_t>(a, P_MPSBITS);
+  const uint32_t* pownk = ptr<const uint32_t>(a, P_MPOWNK);
+  const uint32_t* poke = ptr<const uint32_t>(a, P_MPOKE);
   const float* udrop = ptr<const float>(a, P_UDROP);
   uint32_t* vmid = ptr<uint32_t>(a, P_VMID);
   uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
 
-  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
+  const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
   for (int tile = blockIdx.x * WARPS + wib; tile < ntiles; tile += gridDim.x * WARPS) {
-    const int base = tile * tile_rows;
-    const int rows = min(tile_rows, n - base);
+    const int base = row0 + tile * tile_rows;
+    const int rows = min(tile_rows, row_end - base);
     const bool valid = lane < rows;
     const int r = base + (valid ? lane : 0);
     if (!valid) continue;
@@ -1477,6 +1520,23 @@ __device__ __forceinline__ bool pp_due(int x, uint8_t fl, int t, int pp) {
   return is_active(fl) && floor_mod(t + stagger, pp) == 0;
 }
 
+// The tick's four SLO counters from the grid-wide OR of the indicators
+// (bit 0 a fault, 1 suspected, 2 confirmed, 3 a stale suspicion after it).
+__device__ void slo_counters(const TickArgs& a, int bits, int t) {
+  const bool fault = bits & 1, detected = bits & 2, confirmed = bits & 4;
+  const bool wrong = bits & 8;
+  bool started = false;  // chaos.fault_started
+  for (int q = 0; q < a.i[I_NP]; ++q)
+    started = started || ptr<const int32_t>(a, P_PSTART)[q] <= t;
+  for (int q = 0; q < a.i[I_NC]; ++q)
+    started = started || ptr<const int32_t>(a, P_CSTART)[q] <= t;
+  int* cnt = ptr<int>(a, P_CNT);
+  if (fault) atomicAdd(&cnt[C_FAULT], 1);
+  if (fault && !detected) atomicAdd(&cnt[C_FIRST], 1);
+  if (fault && !confirmed) atomicAdd(&cnt[C_CONFIRM], 1);
+  if (started && !fault && wrong) atomicAdd(&cnt[C_HEAL], 1);
+}
+
 __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_rows) {
   __shared__ int smem[N_CNT];
   __shared__ int slo_bits;  // the block's OR of the rows' SLO indicators
@@ -1500,7 +1560,8 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
   const uint16_t* in_meta = ptr<const uint16_t>(a, P_IN + L_META);
   const uint16_t* in_sdelta = ptr<const uint16_t>(a, P_IN + L_SDELTA);
   const uint32_t* in_sseen = ptr<const uint32_t>(a, P_IN + L_SSEEN);
-  const uint32_t* vmid = ptr<const uint32_t>(a, P_VMID);
+  // view_mid after B, every row, from the mirror.
+  const uint32_t* vmid = ptr<const uint32_t>(a, P_MVMID);
   uint16_t* o_meta = ptr<uint16_t>(a, P_OUT + L_META);
   uint32_t* o_sseen = ptr<uint32_t>(a, P_OUT + L_SSEEN);
   uint16_t* o_vinc = ptr<uint16_t>(a, P_OUT + L_VINC);
@@ -1516,10 +1577,11 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
     return mk(inc_at(a, x), (flags_at(a, x) & 6) ? LEFT : ALIVE);
   };
 
-  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
+  const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
   for (int tile = blockIdx.x * WARPS + wib; tile < ntiles; tile += gridDim.x * WARPS) {
-    const int base = tile * tile_rows;
-    const int rows = min(tile_rows, n - base);
+    const int base = row0 + tile * tile_rows;
+    const int rows = min(tile_rows, row_end - base);
     const bool valid = lane < rows;
     const int r = base + (valid ? lane : 0);
     const size_t eb = static_cast<size_t>(base) * K;
@@ -1546,7 +1608,7 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
         // One TCP session per initiator, kept iff its round trip clears the
         // initiator's u_pp (no base loss); the initiator s's own session
         // toward r is recomputed from its row.
-        const float* upp = ptr<const float>(a, P_UPP);
+        const float* upp = ptr<const float>(a, P_MUPP);
         init_ok = init_ok && pair_ok(a, me, terms_at(a, p), upp[r], 1.0f, true);
         s_ok = s_ok && pair_ok(a, terms_at(a, s), me, upp[s], 1.0f, true);
       }
@@ -1659,7 +1721,7 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
           const int sr = (row + off[c]) % n;
           const uint8_t sf = flags_at(a, sr);
           const bool s_alive = sf & 1, s_left = sf & 2;
-          const bool cross = ptr<const int32_t>(a, P_CCOLOR)[sr] != color[u];
+          const bool cross = ptr<const int32_t>(a, P_MCCOLOR)[sr] != color[u];
           const bool suspected = st1 == SUSPECT || st1 == DEAD;
           const bool unreach = act && (cross || (!s_alive && !s_left));
           if (unreach) row_bits |= 1;
@@ -1689,7 +1751,7 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
       tl.add(C_SRANGE, bad_range);
       tl.add(C_SMONO, new_inc < own_inc ? 1 : 0);
     }
-    if (valid && r == 0) *ptr<int32_t>(a, P_OUT + L_T) = t + 1;
+    if (valid && r == a.i[I_ROW0]) *ptr<int32_t>(a, P_OUT + L_T) = t + 1;
     __syncwarp();
   }
   tl.flush(smem, lane);
@@ -1702,22 +1764,18 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
     int* slo = ptr<int>(a, P_SLO);
     if (slo_bits) atomicOr(&slo[0], slo_bits);
     __threadfence();
-    if (atomicAdd(&slo[1], 1) == static_cast<int>(gridDim.x) - 1) {
-      const int bits = atomicOr(&slo[0], 0);
-      const bool fault = bits & 1, detected = bits & 2, confirmed = bits & 4;
-      const bool wrong = bits & 8;
-      bool started = false;  // chaos.fault_started
-      for (int q = 0; q < a.i[I_NP]; ++q)
-        started = started || ptr<const int32_t>(a, P_PSTART)[q] <= t;
-      for (int q = 0; q < a.i[I_NC]; ++q)
-        started = started || ptr<const int32_t>(a, P_CSTART)[q] <= t;
-      int* cnt = ptr<int>(a, P_CNT);
-      if (fault) atomicAdd(&cnt[C_FAULT], 1);
-      if (fault && !detected) atomicAdd(&cnt[C_FIRST], 1);
-      if (fault && !confirmed) atomicAdd(&cnt[C_CONFIRM], 1);
-      if (started && !fault && wrong) atomicAdd(&cnt[C_HEAL], 1);
-    }
+    // Under a mesh the shard's word waits for gossip_slo_fold instead.
+    if (!a.i[I_SLO_DEFER] && atomicAdd(&slo[1], 1) == static_cast<int>(gridDim.x) - 1)
+      slo_counters(a, atomicOr(&slo[0], 0), t);
   }
+}
+
+// Under a mesh, after every shard's C: the OR of the shards' SLO words
+// (``words``, one per shard, in shard order) into the tick's counters, once.
+__global__ void k_slo_fold(TickArgs a, const int* words, int nwords) {
+  int bits = 0;
+  for (int d = 0; d < nwords; ++d) bits |= words[d];
+  slo_counters(a, bits, *ptr<const int32_t>(a, P_IN + L_T));
 }
 
 // ---------------------------------------------------------------------------
@@ -1754,7 +1812,7 @@ __host__ __device__ __forceinline__ int serf_warp_words(int rows, int E, int R, 
 // edges and quiet leaves), from its post-churn flags and leave_at.
 __device__ __forceinline__ bool serf_up(const TickArgs& a, int x, int t1) {
   const uint8_t f = flags_at(a, x);
-  const int la = ptr<const int32_t>(a, P_SIN + S_LEAVE)[x];
+  const int la = ptr<const int32_t>(a, P_MLEAVE)[x];
   return (f & 1) && !(f & 2) && !(la >= 0 && t1 >= la);
 }
 
@@ -1797,9 +1855,10 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
   int32_t* ds_out = ptr<int32_t>(a, P_SOUT + S_DOWN);
   uint32_t* o_qlt = ptr<uint32_t>(a, P_SOUT + S_QBLT);
   uint32_t* o_qsig = ptr<uint32_t>(a, P_SOUT + S_QBSIG);
-  const uint16_t* xflags = ptr<const uint16_t>(a, P_XFLAGS);
-  const uint32_t* xkey = ptr<const uint32_t>(a, P_XKEY);
-  const int32_t* xorig = ptr<const int32_t>(a, P_XORIG);
+  // The senders' serf payloads, from the mirrors.
+  const uint16_t* xflags = ptr<const uint16_t>(a, P_MXFLAGS);
+  const uint32_t* xkey = ptr<const uint32_t>(a, P_MXKEY);
+  const int32_t* xorig = ptr<const int32_t>(a, P_MXORIG);
   const float* udrop = ptr<const float>(a, P_UDROP);
 
   // The warp's stage.
@@ -1812,10 +1871,11 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
   uint32_t* s_ck = reinterpret_cast<uint32_t*>(s_txp + tile_rows * QS);
   int32_t* s_co = reinterpret_cast<int32_t*>(s_ck + 32 * nc);
 
-  const int ntiles = (n + tile_rows - 1) / tile_rows;
+  const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
+  const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
   for (int tile = blockIdx.x * SWARPS + wib; tile < ntiles; tile += gridDim.x * SWARPS) {
-    const int base = tile * tile_rows;
-    const int rows = min(tile_rows, n - base);
+    const int base = row0 + tile * tile_rows;
+    const int rows = min(tile_rows, row_end - base);
     const bool valid = lane < rows;
     const int r = base + (valid ? lane : 0);
     const size_t b = static_cast<size_t>(base);
@@ -1963,11 +2023,12 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
         }
         if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
           const bool responder = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r] != 0;
-          int32_t* qacks = ptr<int32_t>(a, P_SOUT + S_QACK);
-          int32_t* qresps = ptr<int32_t>(a, P_SOUT + S_QRESP);
+          int32_t* qacks = ptr<int32_t>(a, P_TACK);
+          int32_t* qresps = ptr<int32_t>(a, P_TRESP);
+          const uint32_t* qopen_o = ptr<const uint32_t>(a, P_MQOPEN);
           const size_t ob = static_cast<size_t>(worig) * Q;
           for (int q = 0; q < Q; ++q) {
-            if (qopen_in[ob + q] != wkey) continue;
+            if (qopen_o[ob + q] != wkey) continue;
             atomicAdd(&qacks[ob + q], 1);
             if (responder) atomicAdd(&qresps[ob + q], 1);
           }
@@ -2348,7 +2409,7 @@ __global__ void __launch_bounds__(MTHREADS) k_metrics(MetricsArgs a) {
 // ---------------------------------------------------------------------------
 
 static dim3 grid_for(const TickArgs* a, int threads) {
-  return dim3((a->i[I_N] + threads - 1) / threads);
+  return dim3((a->i[I_ROWS] + threads - 1) / threads);
 }
 
 extern "C" int gossip_chaos_pre(const TickArgs* a, void* stream) {
@@ -2381,7 +2442,7 @@ static int tile_rows_for(int n, int blocks, int warps, int max_rows) {
 
 static int launch_tiles(void (*kern)(TickArgs, int), int blocks, const TickArgs* a,
                         void* stream, int max_rows) {
-  const int n = a->i[I_N];
+  const int n = a->i[I_ROWS];
   const int rows = tile_rows_for(n, blocks, WARPS, max_rows);
   const int tiles = (n + rows - 1) / rows;
   const int grid = std::min(blocks, (tiles + WARPS - 1) / WARPS);
@@ -2404,6 +2465,12 @@ extern "C" int gossip_pushpull(const TickArgs* a, void* stream) {
   return launch_tiles(k_pushpull, blocks, a, stream, 32);
 }
 
+extern "C" int gossip_slo_fold(const TickArgs* a, const int* words, int nwords,
+                               void* stream) {
+  k_slo_fold<<<1, 1, 0, (cudaStream_t)stream>>>(*a, words, nwords);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // D's tiles take as many rows (up to 32) as its stage holds at this
 // configuration's queue and bucket widths; its dynamic shared memory is
 // SWARPS stages of that many rows. Resident blocks are counted at the
@@ -2420,7 +2487,7 @@ extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
   const int max_rows = std::min(
       32, (SERF_WARP_WORDS - 64 * nc) / serf_row_words(E, R, O));
   if (max_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = a->i[I_N];
+  const int n = a->i[I_ROWS];
   const int rows = tile_rows_for(n, blocks, SWARPS, max_rows);
   const int tiles = (n + rows - 1) / rows;
   const int grid = std::min(blocks, (tiles + SWARPS - 1) / SWARPS);

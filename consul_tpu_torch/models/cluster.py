@@ -37,6 +37,19 @@ only at quorum commit. Raft entries of a fault schedule (``RaftKill``,
 lane of its own (``_run_lanes``; ``chaos/sweep.py``), and leaves the
 simulation where it was.
 
+``mesh=`` (a ``parallel.mesh.Mesh`` or a list of devices, which may
+repeat: ``["cuda:0"] * 4``, ``["cpu"] * 4``) shards the node axis: the
+world, topology and state are built whole on the mesh's first device
+(which ``device`` must name: ``device="cpu"`` with ``["cpu"] * 4``)
+from the same generator as on one device, then split into one row block
+per shard (``parallel/shard_step.py``), and every chunk runs on the
+sharded runner, through the sharded CUDA tick (B7) or the plain tick in
+one thread per shard; counters and the one metrics row of a chunk (its
+last tick's) match the one-device run's. Kills, revives, the serf verbs
+and schedules are placed by row block; ``swim_state`` / ``serf_state``
+gather. The raft tier, a serving plane and ``sweep`` raise on a sharded
+simulation (ROADMAP A13).
+
 Tests can hand in an initial world, topology and state (``convert.py``
 carries the reference's across) and a draw source, a callable from the
 tick number to its :class:`swim.TickDraws`; by default the simulation
@@ -61,6 +74,9 @@ from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import state as sim_state
 from consul_tpu_torch.models import serf, swim
 from consul_tpu_torch.ops import cuda_gossip, raft_ops, topology
+from consul_tpu_torch.parallel import collective as coll
+from consul_tpu_torch.parallel import mesh as mesh_mod
+from consul_tpu_torch.parallel import shard_step
 from consul_tpu_torch.utils import checkpoint as ckpt_mod
 from consul_tpu_torch.utils import metrics, telemetry
 
@@ -144,11 +160,14 @@ class Simulation:
     seed: int = 0
     layout: str = layout_mod.PACKED
     kernel: str = cuda_gossip.CUDA
+    # The device; with a mesh, the mesh's first device.
     device: str = "cuda"
     world: Optional[topology.World] = None
     topo: Optional[topology.Topology] = None
     state: object = None
     draws: Optional[Callable[[int], swim.TickDraws]] = None
+    # A node-axis mesh (parallel/mesh.Mesh or a list of devices), or None.
+    mesh: object = None
     # The invariant sentinel and the directory of its diagnostic
     # checkpoint, set with set_sentinel.
     sentinel: bool = dataclasses.field(default=False, init=False)
@@ -157,6 +176,8 @@ class Simulation:
 
     def __post_init__(self):
         layout_mod.validate(self.cfg, self.layout)
+        if self.mesh is not None:
+            self._check_mesh()
         self.device = torch.device(self.device)
         cuda_gossip.validate_kernel(self.kernel, self.layout, self.device)
         self.gen = torch.Generator(device=self.device)
@@ -172,14 +193,18 @@ class Simulation:
         self.state = (layout_mod.pack_state(self.state)
                       if self.layout == layout_mod.PACKED
                       else layout_mod.unpack_state(self.state))
+        # Host copy of the tick: one device read here, none per tick.
+        self._t = int(layout_mod.tick_of(self.state))
+        if self.mesh is not None:
+            self.state = shard_step.place(self.mesh, self.state, self.cfg.n)
+        # The installed schedule placed by row block (mesh only).
+        self._placed_chaos = None
         if self.draws is None:
             self.draws = self._own_draws
         # Installed fault schedule (None: none), on the simulation's device.
         self.chaos = None
         self._tick_fn = self._make_tick_fn()
         self._metrics_fn = self._make_metrics_fn()
-        # Host copy of the tick: one device read here, none per tick.
-        self._t = int(layout_mod.tick_of(self.state))
         # Reference-named metrics recorded at chunk boundaries.
         self.sink = telemetry.Sink()
         # Cumulative counters (Python ints); metrics-off chunks queue
@@ -203,6 +228,29 @@ class Simulation:
     def _own_draws(self, t):
         return swim.draw_tick(self.cfg, self.gen, self.device,
                               chaos=self.chaos is not None)
+
+    def _check_mesh(self):
+        """Normalize ``mesh`` and hold it to the rest of the arguments: the
+        node count divides over its shards, ``device`` is its first
+        device, and every device takes the kernel."""
+        if not isinstance(self.mesh, mesh_mod.Mesh):
+            self.mesh = mesh_mod.make_mesh(list(self.mesh))
+        first = self.mesh.devices[0]
+        if mesh_mod.as_device(self.device) != first:
+            raise ValueError(f"device={self.device!r} disagrees with the "
+                             f"mesh, whose first device is {first}")
+        mesh_mod.check_rows(self.cfg.n, self.mesh.size)
+        if self.layout != layout_mod.PACKED:
+            raise ValueError("a sharded simulation keeps the packed layout")
+        for dev in self.mesh.unique_devices():
+            cuda_gossip.validate_kernel(self.kernel, self.layout, dev)
+        self.device = first
+
+    def _no_mesh(self, what: str):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a sharded simulation waits for the rest of the "
+                "multi-GPU port (ROADMAP A13)")
 
     def _make_metrics_fn(self):
         """``metrics(i, j, row)``: the tick's TickTrace row into ``row``, a
@@ -235,6 +283,11 @@ class Simulation:
         given. The tick writes fresh tensors and never its input."""
         cfg, topo = self.cfg, self.topo
         sentinel = self.sentinel if sentinel is None else sentinel
+        if self.mesh is not None:
+            # The sharded chunk runner (its own metrics, once per chunk).
+            return shard_step.make_sharded_chunk_runner(
+                cfg, topo, self.mesh, self.world, serf_plane=self._serf_plane,
+                sentinel=sentinel, kernel=self.kernel)
         if self.kernel == cuda_gossip.CUDA:
             return cuda_gossip.make_tick_kernel(
                 cfg, topo, serf_plane=self._serf_plane, sentinel=sentinel)
@@ -251,11 +304,18 @@ class Simulation:
     # -- state access ----------------------------------------------------
     @property
     def swim_state(self) -> sim_state.SimState:
-        return layout_mod.swim_plane(self.state)
+        return layout_mod.swim_plane(self._whole())
 
-    def _swim_at_rest(self):
+    def _whole(self):
+        """The state at rest, whole: gathered from the shards under a mesh."""
+        if self.mesh is None:
+            return self.state
+        return shard_step.gather(self.state, self.cfg.n, self.device)
+
+    def _swim_at_rest(self, whole=None):
         """The SWIM plane as it is stored (packed or dense), not converted."""
-        return self.state.swim if self._serf_plane else self.state
+        whole = self._whole() if whole is None else whole
+        return whole.swim if self._serf_plane else whole
 
     def generator_state(self) -> dict:
         """The draw generator's state, encoded for JSON (a checkpoint's
@@ -267,8 +327,9 @@ class Simulation:
     def load_state(self, state, generator: Optional[dict] = None):
         """Replace the whole simulation state (a restored checkpoint's) and,
         when given, the draw generator's (:meth:`generator_state`)."""
-        self.state = state
         self._t = int(layout_mod.tick_of(state))
+        self.state = (state if self.mesh is None
+                      else shard_step.place(self.mesh, state, self.cfg.n))
         if generator is not None:
             if generator["device"] != self.device.type:
                 raise ValueError(
@@ -278,11 +339,31 @@ class Simulation:
             self.gen.set_state(torch.frombuffer(raw, dtype=torch.uint8))
 
     def _to_dense(self):
-        return layout_mod.unpack_state(self.state)
+        return layout_mod.unpack_state(self._whole())
 
     def _from_dense(self, st):
-        self.state = (layout_mod.pack_state(st)
-                      if self.layout == layout_mod.PACKED else st)
+        st = layout_mod.pack_state(st) if self.layout == layout_mod.PACKED else st
+        self.state = (st if self.mesh is None
+                      else shard_step.place(self.mesh, st, self.cfg.n))
+
+    def _edit(self, fn, mask):
+        """Apply ``fn(dense_state, mask) -> dense_state`` (a row-local edit:
+        a kill, a revive, a serf verb) to the state; under a mesh to each
+        shard's block with its rows of ``mask`` (the reference's
+        ``_place_node`` funnel), inside the shard's row context so that
+        ``collective.rows`` gives global ids."""
+        mask = self._mask(mask)
+        if self.mesh is None:
+            self._from_dense(fn(self._to_dense(), mask))
+            return
+        r, n = self.mesh.size, self.cfg.n
+        masks = shard_step.place(self.mesh, mask, n)
+        blocks = []
+        for d, blk in enumerate(self.state):
+            with coll.node_axis(r, n, d):
+                st = fn(layout_mod.unpack_state(blk), masks[d])
+            blocks.append(layout_mod.pack_state(st))
+        self.state = blocks
 
     def set_swim_state(self, st: sim_state.SimState):
         """Replace the SWIM plane with a dense SimState."""
@@ -300,6 +381,7 @@ class Simulation:
         come up too (``plane.attach_writes``): batched catalog/KV/session
         writes apply between chunks, become visible at flips, and every
         flip carries the monotone apply index."""
+        self._no_mesh("a serving plane")
         plane.attach(self)
         if writes:
             plane.attach_writes(kv_slots=kv_slots, **write_kw)
@@ -329,6 +411,8 @@ class Simulation:
         from consul_tpu_torch.config import RaftConfig
         from consul_tpu_torch.models import raft as raft_mod
 
+        if groups is not None:
+            self._no_mesh("the raft tier")
         if groups is None:
             self.raft = None
             return None
@@ -339,12 +423,12 @@ class Simulation:
 
     # -- fault injection -------------------------------------------------
     def kill(self, mask):
-        self._from_dense(sim_state.kill(self.swim_state, self._mask(mask)))
+        self._edit(sim_state.kill, mask)
         self.publish_serving()
 
     def revive(self, mask, cold: bool = False):
-        self._from_dense(sim_state.revive(self.cfg, self.swim_state,
-                                          self._mask(mask), cold=cold))
+        self._edit(lambda st, m: sim_state.revive(self.cfg, st, m, cold=cold),
+                   mask)
         self.publish_serving()
 
     def set_chaos(self, sched):
@@ -383,7 +467,7 @@ class Simulation:
                                                  self._t)
             try:
                 os.makedirs(self.sentinel_dump_dir, exist_ok=True)
-                ckpt_mod.save(dump, self.state, meta={
+                ckpt_mod.save(dump, self._whole(), meta={
                     "reason": "sentinel", "mask": mask,
                     "deltas": {f: int(deltas.get(f, 0))
                                for f in counters_mod.SENTINEL_FIELDS},
@@ -423,6 +507,7 @@ class Simulation:
         ``chunk`` is taken for the reference's signature and not used."""
         from consul_tpu_torch.chaos import sweep as sweep_mod
 
+        self._no_mesh("a sweep")
         return sweep_mod.run_sweep(self, scenarios, ticks=ticks, chunk=chunk,
                                    settle=settle)
 
@@ -436,6 +521,7 @@ class Simulation:
         ``(raft states, raft counters [S, 8] int32)``, all on the device;
         nothing is read back. The state, ``_t``, the draw generator, the
         counters and the raft plane are as they were before."""
+        self._no_mesh("a sweep")
         tick = self._make_tick_fn(sentinel=False)
         lanes = len(scheds)
         states = [_clone(self.state) for _ in range(lanes)]
@@ -477,7 +563,9 @@ class Simulation:
         """Run ``c`` ticks; returns (counters[26] int32, TickTrace|None),
         both on the device. With raft armed, the raft tick follows each
         gossip tick and the chunk's [8] raft counters queue on the
-        RaftPlane."""
+        RaftPlane. Under a mesh the trace has one row, the last tick's."""
+        if self.mesh is not None:
+            return self._exec_sharded_chunk(c, with_metrics)
         cnt = torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
                           device=self.device)
         trace = (torch.empty((c, 4), dtype=torch.float32, device=self.device)
@@ -510,6 +598,31 @@ class Simulation:
         if not with_metrics:
             return cnt, None
         return cnt, TickTrace(*trace.t().contiguous())
+
+    def _sched_blocks(self):
+        """The installed schedule, placed by row block (cached per
+        schedule)."""
+        if self.chaos is None:
+            return None
+        if self._placed_chaos is None or self._placed_chaos[0] is not self.chaos:
+            r = self.mesh.size
+            self._placed_chaos = (self.chaos, [
+                chaos_mod.place(self.chaos, d, r, dev)
+                for d, dev in enumerate(self.mesh.devices)])
+        return self._placed_chaos[1]
+
+    def _exec_sharded_chunk(self, c: int, with_metrics: bool):
+        """``c`` ticks on the sharded runner; metrics (one row) on the final
+        state with the pairs the one-device run's last row takes."""
+        pairs = None
+        if with_metrics:
+            self._metric_gen.manual_seed(metric_seed(self.seed, self._t + c - 1))
+            pairs = metrics.rmse_samples(self.cfg, self._metric_gen,
+                                         RMSE_SAMPLES, self.device)
+        self.state, cnt, trace = self._tick_fn.run(
+            self.state, self.draws, self._t, c, self._sched_blocks(), pairs)
+        self._t += c
+        return cnt, trace
 
     def run(self, ticks: int, chunk: int = 64, with_metrics: bool = True):
         """Advance ``ticks`` ticks; returns the concatenated TickTrace (None
@@ -568,8 +681,10 @@ class Simulation:
                 t0 = time.perf_counter()
             cnt, _ = self._exec_chunk(ticks, False)
             self._pending_counters.append(cnt)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in (self.mesh.unique_devices() if self.mesh is not None
+                        else [self.device]):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         rate = ticks / (time.perf_counter() - t0)
         self.publish_serving()
         return rate
@@ -626,11 +741,13 @@ class Simulation:
             self._counters[f] += v
         self.chunk_counters.append(deltas)
         last = TickTrace(*(x[-1] for x in trace))
+        whole = self._whole()
         telemetry.emit_sim_metrics(
-            self._swim_at_rest(), self.sink, health=last, rmse_s=last.rmse,
+            self._swim_at_rest(whole), self.sink, health=last,
+            rmse_s=last.rmse,
             rounds_per_sec=(ticks / wall_s if wall_s else None),
             chunk_wall_s=wall_s, chunk_ticks=ticks,
-            serf_state=self.state if self._serf_plane else None,
+            serf_state=whole if self._serf_plane else None,
             queue_depth_warning=self.cfg.serf.queue_depth_warning,
             counters=deltas)
         self._check_sentinel(deltas)
@@ -673,30 +790,24 @@ class SerfSimulation(Simulation):
     def set_swim_state(self, st: sim_state.SimState):
         self._from_dense(self._to_dense()._replace(swim=st))
 
-    # -- serf verbs (on the dense SWIM plane; _from_dense re-packs) ------
+    # -- serf verbs (on the dense SWIM plane; the edit re-packs) ----------
     def user_event(self, mask, name: int):
-        self._from_dense(serf.user_event(self.cfg, self._to_dense(),
-                                         self._mask(mask), name))
+        self._edit(lambda st, m: serf.user_event(self.cfg, st, m, name), mask)
 
     def query(self, mask, name: int):
-        self._from_dense(serf.query(self.cfg, self._to_dense(),
-                                    self._mask(mask), name))
+        self._edit(lambda st, m: serf.query(self.cfg, st, m, name), mask)
 
     def leave(self, mask):
-        self._from_dense(serf.leave(self.cfg, self._to_dense(),
-                                    self._mask(mask)))
+        self._edit(lambda st, m: serf.leave(self.cfg, st, m), mask)
 
     def kill(self, mask):
-        st = self._to_dense()
-        self._from_dense(st._replace(
-            swim=sim_state.kill(st.swim, self._mask(mask))))
+        self._edit(lambda st, m: st._replace(swim=sim_state.kill(st.swim, m)),
+                   mask)
         self.publish_serving()
 
     def revive(self, mask, cold: bool = False):
-        st = self._to_dense()
-        self._from_dense(st._replace(
-            swim=sim_state.revive(self.cfg, st.swim, self._mask(mask),
-                                  cold=cold)))
+        self._edit(lambda st, m: st._replace(swim=sim_state.revive(
+            self.cfg, st.swim, m, cold=cold)), mask)
         self.publish_serving()
 
     @property

@@ -511,14 +511,14 @@ def _query_response_tally(cfg: SimConfig, topo, s: SerfState, active, worig,
     n = cfg.n
     pl = cfg.packet_loss
     if sched is not None:
-        og = chaos_mod.NodeTerms(*(coll.all_rows(x)[worig] for x in terms))
+        og = chaos_mod.NodeTerms(*coll.take_rows_many(list(terms), worig))
         arrived = chaos_mod.pair_ok(sched, terms, og, draws.u_resp, pl)
     else:
         arrived = draws.u_resp >= pl
     rf = cfg.serf.query_relay_factor
     if relay_draws_used(cfg, sched is not None):
         shifts = [-topo.off[draws.relay_cols[i]] for i in range(rf)]
-        relay_up = torch.stack([coll.roll(active, x) for x in shifts], dim=1)
+        relay_up = torch.stack(coll.rolls(active, shifts), dim=1)
         if sched is not None:
             legs = []
             for i, x in enumerate(shifts):
@@ -530,8 +530,8 @@ def _query_response_tally(cfg: SimConfig, topo, s: SerfState, active, worig,
         else:
             relayed = (draws.relay_u1 >= pl) & (draws.relay_u2 >= pl)
         arrived = arrived | torch.any(relay_up & relayed, dim=1)
-    q_open_g = coll.all_rows(s.q_open_key)                     # [N, Q]
-    up_g = coll.all_rows(s.swim.alive_truth & ~s.swim.left)
+    q_open_g, up_g = coll.all_rows_many(                      # [N, Q], [N]
+        [s.q_open_key, s.swim.alive_truth & ~s.swim.left])
     slot_hit = q_open_g[worig] == wkey[:, None]
     landed = isq & arrived & up_g[worig] & (worig != grows) & ~s.swim.external
     landed_slot = landed[:, None] & slot_hit

@@ -26,7 +26,9 @@ the reference with no threefry code in the port.
 
 Per-row reads at a displacement are index gathers here (the TPU's
 roll/one-hot formulations were a TPU cost trade; the values are the
-same). Sparse and dense (complete-graph) views are both supported; the
+same). Every read of another row goes through parallel/collective.py
+(rolls, ``take_rows``), so the same step runs on one shard's row block
+under a mesh (parallel/shard_step.py). Sparse and dense (complete-graph) views are both supported; the
 CUDA tick kernel (ops/cuda_gossip.py) covers the sparse view.
 """
 
@@ -214,7 +216,7 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     chaos_on = sched is not None
     terms = tgt_terms = None
     if chaos_on:
-        if tuple(draws.u_pp.shape) != (n,):
+        if tuple(draws.u_pp.shape) != (coll.local_n(n),):
             raise ValueError("a tick with a fault schedule needs draws.u_pp "
                              "[N]: draw_tick(..., chaos=True)")
         # Churn edges first: a wave starting this tick kills its rows, one
@@ -287,13 +289,16 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     viv = state.viv
     tcol = torch.where(has_target, target_col, torch.zeros_like(target_col))
     target = topology.neighbor_of(topo, rows, tcol if roll_mode else target_col)
+    # The target's rows, by global id (one gather across shards).
     up_all = state.alive_truth & ~state.left
-    target_up = up_all[target] & has_target
-    t_pos, t_h = world.pos[target], world.height[target]
-    t_vec, t_vh = viv.vec[target], viv.height[target]
-    t_verr, t_vadj = viv.error[target], viv.adjustment[target]
+    tgt = coll.take_rows_many(
+        [up_all, world.pos, world.height, viv.vec, viv.height, viv.error,
+         viv.adjustment, state.own_inc] + (list(terms) if chaos_on else []),
+        target)
+    target_up = tgt[0] & has_target
+    t_pos, t_h, t_vec, t_vh, t_verr, t_vadj, t_inc = tgt[1:8]
     if chaos_on:
-        tgt_terms = chaos_mod.NodeTerms(*(x[target] for x in terms))
+        tgt_terms = chaos_mod.NodeTerms(*tgt[8:])
     true_rtt = vivaldi.norm(world.pos - t_pos) + world.height + t_h
     jitter = draws.jitter * cfg.rtt_jitter_frac
     rtt_obs = true_rtt * torch.exp(jitter) if cfg.rtt_jitter_frac > 0 \
@@ -314,8 +319,8 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     direct_ok = has_target & target_up & (rtt_obs <= timeout_s) & ok_direct_leg
     ic = g.indirect_checks
     relay_avail = torch.stack(
-        [coll.roll(active, -topo.off[draws.relay_jcols[i]]) for i in range(ic)],
-        dim=1)
+        coll.rolls(active, [-topo.off[draws.relay_jcols[i]]
+                            for i in range(ic)]), dim=1)
     if chaos_on:
         oka, okb, okc = [], [], []
         for i in range(ic):
@@ -364,7 +369,6 @@ def step_counted(cfg: SimConfig, topo: Topology, world: World,
     perm = torch.argsort(draws.perm_u, dim=1, stable=True)
     probe_perm = torch.where(wrapped[:, None], perm, state.probe_perm)
     # A successful ack joins (target incarnation, ALIVE) at its column.
-    t_inc = state.own_inc[target]
     ack_oh = col_ids[None, :] == torch.where(
         acked, target_col, -torch.ones_like(target_col))[:, None]
     ack_key = merge.make_key(t_inc, merge.ALIVE)
@@ -495,7 +499,7 @@ def _chaos_slo(cfg, topo: Topology, state: SimState, sched, terms, t,
     pk = ((terms.color.to(torch.int64) << 2)
           | (state.alive_truth.to(torch.int64) << 1)
           | state.left.to(torch.int64))
-    subj = pk[(rows[:, None] + topo.off[None, :]) % n]
+    subj = coll.take_rows(pk, (rows[:, None] + topo.off[None, :]) % n)
     subj_color = subj >> 2
     subj_alive = (subj & 2) != 0
     subj_left = (subj & 1) != 0
@@ -688,18 +692,24 @@ def _poke_refutes(cfg, topo: Topology, state: SimState, poke_flag, poke_col,
     up = state.alive_truth & ~state.left
     poked_inc = torch.where(poke_flag, poke_inc, torch.zeros_like(poke_inc))
     if (not topo.dense) and k_deg <= _ROLL_DEGREE_MAX:
+        # roll(where(col == j, inc, 0), s) == where(roll(col, s) == j,
+        # roll(inc, s), 0): two arrays rolled by every offset.
         claim = torch.zeros_like(state.own_inc)
-        for j, shift in enumerate(topo.off_host):
-            contrib = coll.roll(torch.where(poke_col == j, poked_inc,
-                                            torch.zeros_like(poked_inc)), shift)
+        cols = coll.rolls(poke_col, topo.off_host)
+        incs = coll.rolls(poked_inc, topo.off_host)
+        for j in range(len(topo.off_host)):
+            contrib = torch.where(cols[j] == j, incs[j],
+                                  torch.zeros_like(poked_inc))
             claim = torch.maximum(claim, contrib)
         refut = (claim >= state.own_inc) & up & (claim > 0)
         return torch.where(refut, claim, torch.zeros_like(claim))
     rows = coll.rows(n, poke_col.device)
     s_mat = (rows[:, None] - topo.off[None, :]) % n
     col_ids = torch.arange(k_deg, device=poke_col.device)
-    hit = (poke_col[s_mat] == col_ids[None, :]) & poke_flag[s_mat] & up[:, None]
-    inc = torch.where(hit, poke_inc[s_mat], torch.zeros_like(s_mat))
+    poke_col_s, poke_flag_s, poke_inc_s = coll.take_rows_many(
+        [poke_col, poke_flag, poke_inc], s_mat)
+    hit = (poke_col_s == col_ids[None, :]) & poke_flag_s & up[:, None]
+    inc = torch.where(hit, poke_inc_s, torch.zeros_like(s_mat))
     refut = inc >= state.own_inc[:, None]
     return torch.amax(torch.where(refut & hit, inc, torch.zeros_like(inc)), dim=1)
 

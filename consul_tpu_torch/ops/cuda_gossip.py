@@ -74,6 +74,10 @@ KERNELS = (TORCH, CUDA)
 # before it drives a main path and reads it after.
 LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0, "pushpull": 0,
             "serf_post": 0, "metrics": 0}
+# The sharded call's launches (B7, ShardedTickKernel), by stage, beside
+# LAUNCHES (which counts them too), and its cross-shard SLO folds.
+SHARDED_LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0,
+                    "pushpull": 0, "serf_post": 0, "slo_fold": 0}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gossip_tick.cu")
@@ -115,10 +119,73 @@ _PTRS = (
     + ["u_pp", "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx",
        "c_qrx", "slo"]
 )
+# The mirrors (full-height copies of what a launch reads at other rows) and
+# where each comes from in a tick: a SWIM-plane leaf of the input, a
+# scratch buffer, a draw or a serf leaf of the input.
+MIRRORS = {
+    "m_flags": "flags", "m_inc": "own_inc", "m_vec": "viv.vec",
+    "m_vh": "viv.height", "m_verr": "viv.error", "m_vadj": "viv.adjustment",
+    "m_cflags": "c_flags", "m_cinc": "c_inc", "m_ccolor": "c_color",
+    "m_cabits": "c_abits", "m_cbbits": "c_bbits", "m_cqtx": "c_qtx",
+    "m_cqrx": "c_qrx", "m_vmid": "view_mid", "m_pflags": "pay_flags",
+    "m_pscol": "pay_scol", "m_pskey": "pay_skey", "m_psbits": "pay_sbits",
+    "m_pownk": "pay_ownk", "m_poke": "poke", "m_upp": "u_pp",
+    "m_xflags": "x_flags", "m_xkey": "x_key", "m_xorig": "x_orig",
+    "m_qopen": "q_open_key", "m_leave": "leave_at"}
+
+
+def _leaf_ptr(leaf: str, side: str = "in") -> str:
+    """The pointer that carries ``leaf`` (a MIRRORS source) in one tick."""
+    sw, ss = layout_mod.PackedSimState._fields, serf.SerfState._fields
+    if leaf.startswith("viv."):
+        k = len(sw) - 1 + layout_mod.PackedVivaldi._fields.index(leaf[4:])
+        return f"{side}_{k}"
+    if leaf in sw:
+        return f"{side}_{sw.index(leaf)}"
+    if leaf in ss:
+        return f"s{side}_{ss.index(leaf) - 1}"
+    return leaf
+
+
+_PTRS += list(MIRRORS) + ["t_acks", "t_resps"]
+# On one device each mirror is its source and D's tally lands in the
+# output's q_acks / q_resps: the column each of those pointers repeats.
+_ALIASES = tuple(_PTRS.index(_leaf_ptr(leaf)) for leaf in MIRRORS.values()) + (
+    _PTRS.index(_leaf_ptr("q_acks", "out")), _PTRS.index(_leaf_ptr("q_resps", "out")))
+_SOURCE = dict(zip(range(len(_PTRS) - len(_ALIASES), len(_PTRS)), _ALIASES))
 _INTS = ("n", "k", "s", "d", "w", "wd", "ic", "fan", "p", "tx_limit",
          "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max",
          "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig",
-         "chaos", "sentinel", "np", "nl", "nc", "nd", "dense")
+         "chaos", "sentinel", "np", "nl", "nc", "nd", "dense", "row0", "rows",
+         "slo_defer")
+# Pointers to a shard's own [rows, ...] tensors, passed as row origins
+# (gossip_tick.cu, the sharded call): every leaf of the state but t, the
+# per-row draws, the per-row scratch and the schedule's node masks.
+_ROW_PTRS = frozenset(
+    [f"in_{k}" for k in range(1, _LEAVES)] + [f"out_{k}" for k in range(1, _LEAVES)]
+    + ["jitter", "u2", "u_a", "u_b", "u_c", "perm_u", "viv_fb", "grav_fb",
+       "u_drop", "view_mid", "pay_flags", "pay_scol", "pay_skey", "pay_sbits",
+       "pay_ownk", "poke", "refute"]
+    + [f"sin_{k}" for k in range(_SERF_LEAVES)]
+    + [f"sout_{k}" for k in range(_SERF_LEAVES)]
+    + ["u_resp", "relay_u1", "relay_u2", "x_flags", "x_key", "x_orig",
+       "part_side", "ll_a", "ll_b", "cw_mask", "dg_mask", "u_pp", "c_flags",
+       "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx", "c_qrx"])
+assert _ROW_PTRS <= set(_PTRS)
+_ROW_COLS = tuple(sorted(_PTRS.index(p) for p in _ROW_PTRS))
+# The mirrors each launch needs filled before it runs under a mesh (with a
+# schedule, chaos_pre's scratch takes the place of the input's flags and
+# incarnation; u_pp is the tick's draw, whole on every device).
+EXCHANGES = {
+    "probe_send": ("m_flags", "m_inc", "m_vec", "m_vh", "m_verr", "m_vadj"),
+    "probe_send_chaos": ("m_cflags", "m_cinc", "m_ccolor", "m_cabits",
+                         "m_cbbits", "m_cqtx", "m_cqrx", "m_vec", "m_vh",
+                         "m_verr", "m_vadj"),
+    "receive": ("m_pflags", "m_pscol", "m_pskey", "m_psbits", "m_pownk",
+                "m_poke"),
+    "pushpull": ("m_vmid",),
+    "serf_post": ("m_xflags", "m_xkey", "m_xorig", "m_qopen", "m_leave"),
+}
 _FLTS = ("susp_min", "susp_max", "susp_diff", "packet_loss", "timeout_s",
          "jitter_frac", "ce", "cc", "err_max", "height_min", "gravity_rho",
          "keep")
@@ -188,7 +255,8 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
     Writes and cells that only the run decides (B's merges into view_mid,
     a refuting row's own budget, D's tally) are left out, so the count is
     a floor. ``stage`` is a key of :data:`LAUNCHES`; ``cfg`` gives the
-    piggyback widths, which no tensor of the tick carries."""
+    piggyback widths, which no tensor of the tick carries. The sharded
+    call's exchanges are counted apart (:func:`exchange_bytes_per_node`)."""
     if stage not in STAGES:
         raise ValueError(f"unknown launch {stage!r}; expected one of {STAGES}")
     serf_plane = isinstance(state, serf.SerfState)
@@ -324,6 +392,10 @@ def build() -> BuildInfo:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_TickArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.gossip_slo_fold.argtypes = [ctypes.POINTER(_TickArgs),
+                                        ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
+        lib.gossip_slo_fold.restype = ctypes.c_int
         lib.gossip_metrics.argtypes = [ctypes.POINTER(_MetricsArgs),
                                        ctypes.c_void_p]
         lib.gossip_metrics.restype = ctypes.c_int
@@ -477,10 +549,10 @@ class TickKernel:
             return 0
         return self.cfg.serf.query_relay_factor
 
-    def _check_schedule(self, sched, draws, device):
+    def _check_schedule(self, sched, draws, device, n):
         """Every leaf the kernel reads, by its name's suffix: slot ticks
-        int32 [m], loss rates float32 [m], node masks bool [n, m]."""
-        n = self.cfg.n
+        int32 [m], loss rates float32 [m], node masks bool [n, m] (``n``
+        the launch's rows)."""
         for fam in ("part", "ll"):
             m = getattr(sched, fam + "_start").shape[0]
             # Partition colors and link sides are int32 bitfields.
@@ -501,9 +573,13 @@ class TickKernel:
         # A tick with a schedule needs swim.draw_tick(..., chaos=True).
         _check(draws.u_pp, "draws.u_pp", torch.float32, (n,), device)
 
-    def _check_inputs(self, world, packed, draws, device, sched=None):
+    def _check_inputs(self, world, packed, draws, device, sched=None,
+                      rows=None):
+        """Every input's dtype, shape, device and layout; ``rows`` is the
+        launch's row count (the shard's block; default every row). The
+        world is whole."""
         cfg = self.cfg
-        n, k = cfg.n, cfg.degree
+        n, k = (cfg.n if rows is None else rows), cfg.degree
         g, v = cfg.gossip, cfg.vivaldi
         s, d, w = v.latency_filter_size, v.dimensionality, v.adjustment_window_size
         u8, u16, i16 = torch.uint8, torch.uint16, torch.int16
@@ -551,8 +627,8 @@ class TickKernel:
                  ("adj_idx", u8, (n,)), ("resets", u8, (n,)))
         for name, dt, shape in vspec:
             _check(getattr(packed.viv, name), "viv." + name, dt, shape, device)
-        _check(world.pos, "world.pos", f32, (n, cfg.world_dims), device)
-        _check(world.height, "world.height", f32, (n,), device)
+        _check(world.pos, "world.pos", f32, (cfg.n, cfg.world_dims), device)
+        _check(world.height, "world.height", f32, (cfg.n,), device)
         ic, fan = g.indirect_checks, g.gossip_nodes
         dspec = (("jitter", f32, (n,)), ("u2", f32, (n, 2)),
                  ("relay_jcols", i64, (ic,)), ("u_a", f32, (n, ic)),
@@ -563,13 +639,16 @@ class TickKernel:
         for name, dt, shape in dspec:
             _check(getattr(draws, name), "draws." + name, dt, shape, device)
         if sched is not None:
-            self._check_schedule(sched, draws, device)
+            self._check_schedule(sched, draws, device, n)
 
-    def _buffers(self, world, packed, draws, device, sched=None):
+    def _buffers(self, world, packed, draws, device, sched=None, rows=None):
         """The output state, the scratch buffers and the flat operand list
-        (in TickArgs order, None for a null pointer) of one tick."""
+        (in TickArgs order, None for a null pointer) of one tick over
+        ``rows`` rows (default every row); the mirrors and tally targets
+        are the tick's own leaves (one device), which a sharded call
+        replaces."""
         cfg = self.cfg
-        n, k, p = cfg.n, cfg.degree, cfg.gossip.piggyback_msgs
+        n, k, p = (cfg.n if rows is None else rows), cfg.degree, cfg.gossip.piggyback_msgs
         sw_in, sw_draws = ((packed.swim, draws.swim) if self.serf
                            else (packed, draws))
         sw_out = layout_mod.PackedSimState(
@@ -627,8 +706,51 @@ class TickKernel:
             scratch.update(cs)
             tensors += ([getattr(sched, f) for f in _SCHED_LEAVES]
                         + [sw_draws.u_pp] + list(cs.values()))
+        tensors += [tensors[c] for c in _ALIASES]
         assert len(tensors) == len(_PTRS)
         return out, scratch, tensors
+
+    def _args(self, tensors, sched, row0: int = 0, rows=None,
+              slo_defer: bool = False) -> _TickArgs:
+        """The TickArgs of one launch set: pointers (the row leaves as row
+        origins, ``row0`` rows back), ints and floats."""
+        args = _TickArgs()
+        ptrs = [None if x is None else x.data_ptr() for x in tensors]
+        if row0:
+            for c in _ROW_COLS:
+                x = tensors[c]
+                if x is not None and x.numel():
+                    ptrs[c] -= row0 * (x.numel() // x.shape[0]) * x.element_size()
+        args.p[:] = ptrs
+        ints = list(self._ints) + [
+            int(sched is not None), int(self.sentinel),
+            *((0, 0, 0, 0) if sched is None else (
+                sched.part_start.shape[0], sched.ll_start.shape[0],
+                sched.cw_start.shape[0], sched.dg_start.shape[0])),
+            int(self.topo.dense), row0, self.cfg.n if rows is None else rows,
+            int(slo_defer)]
+        ints[_INTS.index("rf")] = self._relay_factor(sched)
+        args.i[:] = [int(x) for x in ints]
+        args.f[:] = [float(x) for x in self._flts]
+        return args
+
+    def _stages(self, sched):
+        stages = [("chaos_pre", _LIB.gossip_chaos_pre)] if sched is not None else []
+        stages += [("probe_send", _LIB.gossip_probe_send),
+                   ("receive", _LIB.gossip_receive),
+                   ("pushpull", _LIB.gossip_pushpull)]
+        if self.serf:
+            stages.append(("serf_post", _LIB.gossip_serf_post))
+        return stages
+
+    def _launch(self, stage, fn, args, stream):
+        """One launch on ``stream`` (of the current device)."""
+        rc = fn(ctypes.byref(args), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"gossip_tick {stage} launch failed: "
+                               f"CUDA error {rc}")
+        LAUNCHES[stage] += 1
+        self.launches += 1
 
     def buffer_bytes_per_node(self, world, packed, draws, sched=None) -> float:
         """Bytes per node of every buffer the launches touch, from the
@@ -641,7 +763,9 @@ class TickKernel:
         sched = chaos_mod.or_none(sched)
         self._check_inputs(world, packed, draws, device, sched)
         _, scratch, tensors = self._buffers(world, packed, draws, device, sched)
-        total = sum(layout_mod.np_size_bytes(x) for x in tensors if x is not None)
+        # The mirrors and tally targets alias the tick's own leaves here.
+        own = tensors[:len(_PTRS) - len(_ALIASES)]
+        total = sum(layout_mod.np_size_bytes(x) for x in own if x is not None)
         total += sum(layout_mod.np_size_bytes(x) for x in scratch.values())
         return total / float(self.cfg.n)
 
@@ -656,35 +780,11 @@ class TickKernel:
         build()
         out, scratch, tensors = self._buffers(world, packed, draws, device,
                                               sched)
-        args = _TickArgs()
-        for idx, x in enumerate(tensors):
-            args.p[idx] = None if x is None else x.data_ptr()
-        ints = list(self._ints) + [
-            int(sched is not None), int(self.sentinel),
-            *((0, 0, 0, 0) if sched is None else (
-                sched.part_start.shape[0], sched.ll_start.shape[0],
-                sched.cw_start.shape[0], sched.dg_start.shape[0])),
-            int(self.topo.dense)]
-        ints[_INTS.index("rf")] = self._relay_factor(sched)
-        for idx, x in enumerate(ints):
-            args.i[idx] = int(x)
-        for idx, x in enumerate(self._flts):
-            args.f[idx] = float(x)
-        stages = [("chaos_pre", _LIB.gossip_chaos_pre)] if sched is not None else []
-        stages += [("probe_send", _LIB.gossip_probe_send),
-                  ("receive", _LIB.gossip_receive),
-                  ("pushpull", _LIB.gossip_pushpull)]
-        if self.serf:
-            stages.append(("serf_post", _LIB.gossip_serf_post))
+        args = self._args(tensors, sched)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            for stage, fn in stages:
-                rc = fn(ctypes.byref(args), ctypes.c_void_p(stream))
-                if rc != 0:
-                    raise RuntimeError(f"gossip_tick {stage} launch failed: "
-                                       f"CUDA error {rc}")
-                LAUNCHES[stage] += 1
-                self.launches += 1
+            for stage, fn in self._stages(sched):
+                self._launch(stage, fn, args, stream)
         return out, scratch["counters"]
 
 
@@ -695,6 +795,224 @@ def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
     or with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant;
     a fault schedule per call, the sentinel with ``sentinel=True``."""
     return TickKernel(cfg, topo, serf_plane, sentinel)
+
+
+def _row_views(tree, n: int, row0: int, rows: int, device):
+    """A shard's rows of every node-axis leaf of a draw bundle (views where
+    the bundle is on ``device``, copies elsewhere), every other leaf whole."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        if tree is None:
+            return None
+        x = tree[row0:row0 + rows] if tree.dim() >= 1 and tree.shape[0] == n \
+            else tree
+        return x.to(device)
+    return type(tree)(*(_row_views(x, n, row0, rows, device) for x in tree))
+
+
+class ShardedTickKernel:
+    """B7, the tick once per node-axis shard (the reference's kernel under
+    ``shard_map``, parallel/shard_step.py:253-267, :295-299):
+    ``tick(blocks, draws, sched_blocks=None) -> (blocks, counters)``.
+
+    ``blocks`` holds each shard's packed state (a ``SerfState`` with a
+    packed SWIM plane for ``serf_plane=True``) of ``n / R`` rows on its
+    mesh device; ``draws`` is the tick's one bundle for the whole cluster
+    (``swim.draw_tick`` / ``serf.draw_serf_tick``), on the mesh's first
+    device; ``sched_blocks`` each shard's copy of the schedule
+    (``chaos.schedule.place``). Each stage (chaos_pre, probe_send,
+    receive, pushpull, serf_post) launches once per shard, on the shard's
+    device and its current stream, over the shard's rows; before each, the
+    rows it reads at other shards are copied into a full-height mirror on
+    every device of the mesh (:data:`EXCHANGES`). Under a schedule the
+    shards' SLO words are OR-ed into the counters by one more launch
+    (``gossip_slo_fold``); in the serf variant D's query tally lands in a
+    zeroed full-height scratch per shard, summed over the shards in order
+    and added to each block. Returns the new blocks and each shard's [26]
+    int32 counters (the SLO counters on shard 0's), which sum to the
+    tick's. CUDA devices only; the plain version is the threaded runner
+    of parallel/shard_step.py."""
+
+    def __init__(self, cfg: SimConfig, topo: Topology, mesh,
+                 serf_plane: bool = False, sentinel: bool = False):
+        from consul_tpu_torch.parallel import mesh as mesh_mod
+
+        self.mesh = mesh
+        self.rows = mesh_mod.check_rows(cfg.n, mesh.size)
+        for dev in mesh.unique_devices():
+            if dev.type != "cuda":
+                raise ValueError(f"kernel='cuda' needs CUDA devices; the mesh "
+                                 f"holds {dev}")
+        self.kernel = TickKernel(cfg, topo, serf_plane, sentinel)
+        self.cfg, self.serf = cfg, serf_plane
+        self.launches = 0
+        self._worlds = {}
+        self._mirrors = {}
+        # Set to a list to trace a tick: (label, CUDA event) marks on the
+        # first device's stream before each exchange and each stage's
+        # launch set, and an "end" mark (chip_smoke.py times them apart).
+        self.events = None
+
+    def _mark(self, label: str):
+        if self.events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.mesh.devices[0]))
+            self.events.append((label, ev))
+
+    def set_world(self, world):
+        """The world, whole on every device of the mesh (it never changes:
+        one copy at placement)."""
+        self._worlds = {dev: topology.World(*(x.to(dev, copy=True) for x in world))
+                        for dev in self.mesh.unique_devices()}
+
+    def _mirror(self, dev, name, like):
+        key = (dev, name)
+        shape = (self.cfg.n,) + tuple(like.shape[1:])
+        m = self._mirrors.get(key)
+        if m is None or m.dtype != like.dtype or tuple(m.shape) != shape:
+            m = torch.empty(shape, dtype=like.dtype, device=dev)
+            self._mirrors[key] = m
+        return m
+
+    def _exchange(self, names, tensors):
+        """Copy every shard's block of each named mirror (its source column
+        in the shard's operands) into the mirror of every device."""
+        for name in names:
+            src = _SOURCE[_PTRS.index(name)]
+            for dev in self.mesh.unique_devices():
+                m = self._mirror(dev, name, tensors[0][src])
+                for d, tens in enumerate(tensors):
+                    m[d * self.rows:(d + 1) * self.rows].copy_(tens[src])
+
+    def __call__(self, blocks, draws, sched_blocks=None):
+        mesh, cfg, b = self.mesh, self.cfg, self.rows
+        r = mesh.size
+        if len(blocks) != r:
+            raise ValueError(f"{len(blocks)} blocks for a mesh of {r} shards")
+        sched_blocks = (None if sched_blocks is None
+                        or chaos_mod.or_none(sched_blocks[0]) is None
+                        else sched_blocks)
+        if not self._worlds:
+            raise ValueError("set_world first: the kernel reads the world "
+                             "whole on every device")
+        build()
+        k = self.kernel
+        # The push-pull draw is the tick's, whole on every device.
+        u_pp = (draws.swim if self.serf else draws).u_pp
+        outs, scratches, tensors = [], [], []
+        for d, (blk, dev) in enumerate(zip(blocks, mesh.devices)):
+            if layout_mod.tick_of(blk).device != dev:
+                raise ValueError(f"shard {d}'s block is on "
+                                 f"{layout_mod.tick_of(blk).device}, its mesh "
+                                 f"device is {dev}")
+            dd = _row_views(draws, cfg.n, d * b, b, dev)
+            sd = None if sched_blocks is None else sched_blocks[d]
+            world = self._worlds[dev]
+            k._check_inputs(world, blk, dd, dev, sd, rows=b)
+            out, scratch, tens = k._buffers(world, blk, dd, dev, sd, rows=b)
+            # Mirrors stay null until the exchange that fills them.
+            for col in _SOURCE:
+                tens[col] = None
+            if sd is not None:
+                tens[_PTRS.index("m_upp")] = u_pp.to(dev)
+            if self.serf:
+                q = cfg.serf.query_slots
+                for name in ("t_acks", "t_resps"):
+                    tens[_PTRS.index(name)] = torch.zeros(
+                        (cfg.n, q), dtype=torch.int32, device=dev)
+            outs.append(out)
+            scratches.append(scratch)
+            tensors.append(tens)
+        stages = k._stages(sched_blocks)
+        keys = {stage: ("probe_send_chaos" if stage == "probe_send"
+                        and sched_blocks is not None else stage)
+                for stage, _ in stages}
+        # Each shard's operands point at its device's mirrors from the
+        # start; the exchange before a launch fills the ones it reads.
+        for key in keys.values():
+            for name in EXCHANGES.get(key, ()):
+                col = _PTRS.index(name)
+                like = tensors[0][_SOURCE[col]]
+                for d, dev in enumerate(mesh.devices):
+                    tensors[d][col] = self._mirror(dev, name, like)
+        args = [k._args(tensors[d], None if sched_blocks is None
+                        else sched_blocks[d], d * b, b,
+                        slo_defer=sched_blocks is not None)
+                for d in range(r)]
+        for stage, fn in stages:
+            if keys[stage] in EXCHANGES:
+                self._mark("exchange:" + stage)
+                self._exchange(EXCHANGES[keys[stage]], tensors)
+            self._mark("launch:" + stage)
+            for d, dev in enumerate(mesh.devices):
+                with torch.cuda.device(dev):
+                    k._launch(stage, fn, args[d],
+                              torch.cuda.current_stream(dev).cuda_stream)
+                SHARDED_LAUNCHES[stage] += 1
+                self.launches += 1
+            if stage == "pushpull" and sched_blocks is not None:
+                self._slo_fold(args[0], scratches)
+        if self.serf:
+            self._mark("exchange:tally")
+            self._tally(outs, tensors)
+        self._mark("end")
+        return outs, [sc["counters"] for sc in scratches]
+
+    def _slo_fold(self, args0, scratches):
+        """The shards' SLO words, OR-ed into shard 0's counters."""
+        dev0 = self.mesh.devices[0]
+        words = torch.cat([sc["slo"][:1].to(dev0) for sc in scratches])
+        with torch.cuda.device(dev0):
+            stream = torch.cuda.current_stream(dev0).cuda_stream
+            rc = _LIB.gossip_slo_fold(ctypes.byref(args0),
+                                      ctypes.c_void_p(words.data_ptr()),
+                                      len(scratches), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"gossip_slo_fold launch failed: CUDA error {rc}")
+        SHARDED_LAUNCHES["slo_fold"] += 1
+
+    def _tally(self, outs, tensors):
+        """D's tallies summed over the shards in order, each block's rows
+        added to its q_acks / q_resps (sum_scatter_rows; integer adds)."""
+        b = self.rows
+        for name, leaf in (("t_acks", "q_acks"), ("t_resps", "q_resps")):
+            col = _PTRS.index(name)
+            total = tensors[0][col]
+            for tens in tensors[1:]:
+                total = total + tens[col].to(total.device)
+            for d, out in enumerate(outs):
+                dst = getattr(out, leaf)
+                dst += total[d * b:(d + 1) * b].to(dst.device)
+
+
+def exchange_bytes_per_node(stage: str, state, sched=None, *,
+                            cfg: SimConfig) -> float:
+    """Bytes per node that the sharded call's exchange before launch
+    ``stage`` moves when the shards share one device: each mirrored leaf
+    (:data:`EXCHANGES`) read once from the shards' blocks and written once
+    into the device's mirror. From the shapes of one tick's state (a block
+    or the whole: per node it is the same)."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown launch {stage!r}; expected one of {STAGES}")
+    serf_plane = isinstance(state, serf.SerfState)
+    sw = state.swim if serf_plane else state
+    sched = chaos_mod.or_none(sched)
+    n, k = sw.meta.shape
+    p = cfg.gossip.piggyback_msgs
+    if stage == "probe_send":
+        viv = sum(layout_mod.np_size_bytes(x) for x in (
+            sw.viv.vec, sw.viv.height, sw.viv.error, sw.viv.adjustment)) / n
+        # flags and incarnation, or chaos_pre's flags, incarnation and terms.
+        per = viv + (1 + 4 + 4 * 5 if sched is not None else 1 + 2)
+    elif stage == "receive":
+        per = 2 + p + 4 * p + 4 * p + 4 + 4
+    elif stage == "pushpull":
+        per = 4 * k
+    elif stage == "serf_post" and serf_plane:
+        pe, q = cfg.serf.piggyback_events, state.q_open_key.shape[1]
+        per = 2 + 4 * pe + 4 * pe + 4 * q + 4
+    else:
+        per = 0.0
+    return 2 * per
 
 
 def plain_metrics(cfg: SimConfig, topo: Topology, world, packed, i, j):

@@ -1,0 +1,290 @@
+"""Node-sharded execution of the gossip tick over a mesh (PyTorch port of
+``consul_tpu/parallel/shard_step.py``).
+
+The reference runs its step under ``shard_map``: one program per device
+over a block of rows, every cross-node exchange an explicit collective.
+The port keeps its single controller and runs the same split two ways.
+
+- **The plain step, SPMD in threads** (:func:`run_ticks`): one thread per
+  shard runs the port's own ``swim.step_counted`` / ``serf.step_counted``
+  (through ``cuda_gossip.plain_tick`` / ``plain_serf_tick`` on the packed
+  layout) on its block, inside ``collective.node_axis``, and the
+  primitives of parallel/collective.py exchange rows through the shards'
+  board, as ``torch.nn.parallel.parallel_apply`` runs one module per
+  device.
+- **The kernel (B7)** needs no threads: ``cuda_gossip.ShardedTickKernel``
+  walks the tick's launches, moving the rows each reads from other shards
+  before it and launching it once per shard.
+
+Each tick the controller draws the one-device bundle once from the
+simulation's generator (on the plain path shard 0's thread makes that
+draw and shares it) and every shard takes its rows, so a sharded run is
+bit-equal to one device. Counters are per-shard sums, added over the
+shards once per chunk; metrics are sampled once per chunk on the final
+state, gathered to the mesh's first device, with the RMSE pairs of the
+one-device runner's last row (a length-1 ``TickTrace``).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+import torch
+
+from consul_tpu_torch.chaos import schedule as chaos_mod
+from consul_tpu_torch.config import SimConfig
+from consul_tpu_torch.models import counters as counters_mod
+from consul_tpu_torch.models import layout as layout_mod
+from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.ops import cuda_gossip
+from consul_tpu_torch.ops.topology import Topology
+from consul_tpu_torch.parallel import collective as coll
+from consul_tpu_torch.parallel import mesh as mesh_mod
+
+TORCH, CUDA = cuda_gossip.TORCH, cuda_gossip.CUDA
+
+
+def place(mesh: mesh_mod.Mesh, tree, n: int) -> list:
+    """One copy of ``tree`` per shard: its rows of every node-axis leaf,
+    every other leaf whole."""
+    return mesh_mod.split(mesh, tree, n)
+
+
+def gather(blocks: list, n: int, device):
+    """The whole state from its shards' blocks, on ``device``."""
+    return mesh_mod.join(blocks, n, device)
+
+
+def topo_on(topo: Topology, device) -> Topology:
+    """The topology's tables on ``device``."""
+    def mv(x):
+        return None if x is None else x.to(device)
+    return topo._replace(off=mv(topo.off), rcol=mv(topo.rcol), inv=mv(topo.inv))
+
+
+def run_shards(mesh: mesh_mod.Mesh, n: int, fn: Callable, args: list) -> list:
+    """``fn(shard, *args[shard])`` in one thread per shard, each inside
+    ``collective.node_axis`` with the shards' board and on its mesh
+    device. A shard that raises breaks the board's barrier for all of them
+    and its exception is re-raised here; returns the results in shard
+    order."""
+    r = mesh.size
+    mesh_mod.check_rows(n, r)
+    board = coll.ShardBoard(r)
+    results, errors = [None] * r, [None] * r
+
+    def work(d):
+        dev = mesh.devices[d]
+        try:
+            with coll.node_axis(r, n, d, board):
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev):
+                        results[d] = fn(d, *args[d])
+                else:
+                    results[d] = fn(d, *args[d])
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors[d] = e
+            board.abort()
+
+    threads = [threading.Thread(target=work, args=(d,), daemon=True,
+                                name=f"shard-{d}") for d in range(r)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    # The first failure that is not another shard's broken barrier.
+    first = next((e for e in errors if e is not None
+                  and not isinstance(e, coll.ShardAborted)), None)
+    first = first or next((e for e in errors if e is not None), None)
+    if first is not None:
+        raise first
+    return results
+
+
+def _shared_draw(d: int, draw, t: int):
+    """The controller's draw of tick ``t``, made on shard 0's thread and
+    handed to every shard through the board."""
+    ctx = coll.current()
+    bundle = draw(t) if d == 0 else None
+    return ctx.board.exchange(d, bundle)[0]
+
+
+def run_ticks(mesh: mesh_mod.Mesh, n: int, tick: Callable, topos: dict,
+              world_blocks, state_blocks, sched_blocks, draw: Callable,
+              t0: int, ticks: int):
+    """The plain sharded step: ``ticks`` ticks of ``tick(topo, world,
+    state, draws, sched) -> (state, counters [26] int32)`` on each shard's
+    block, one thread per shard (:func:`run_shards`), tick ``t``'s global
+    bundle ``draw(t)`` made once and sliced per shard. Returns the blocks
+    and the counters summed over the ticks and the shards
+    (``collective.tree_psum``), on shard 0's device."""
+    r = mesh.size
+    scheds = sched_blocks if sched_blocks is not None else [None] * r
+
+    def one(d, world_d, state_d, sched_d):
+        dev = mesh.devices[d]
+        cnt = torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
+                          device=dev)
+        for k in range(ticks):
+            dd = mesh_mod.block_of(_shared_draw(d, draw, t0 + k), n, d, r, dev)
+            state_d, c = tick(topos[dev], world_d, state_d, dd, sched_d)
+            cnt = cnt + c
+        return state_d, coll.tree_psum(cnt)
+
+    out = run_shards(mesh, n, one, list(zip(world_blocks, state_blocks, scheds)))
+    return [o[0] for o in out], out[0][1]
+
+
+def _make_sharded(step_fn, cfg: SimConfig, topo: Topology,
+                  mesh: mesh_mod.Mesh, counted: bool = False,
+                  chaos: bool = False, sentinel: bool = False):
+    """``step(world_blocks, [sched_blocks,] state_blocks, draws)``: one
+    tick of ``step_fn`` on each shard's dense block (:func:`run_ticks`);
+    with ``counted`` also the GossipCounters summed over the shards."""
+    mesh_mod.check_rows(cfg.n, mesh.size)
+    topos = {dev: topo_on(topo, dev) for dev in mesh.unique_devices()}
+
+    def tick(topo_d, w, s, d, sched):
+        s, c = step_fn(cfg, topo_d, w, s, d, sched=sched, sentinel=sentinel)
+        return s, counters_mod.stack(c)
+
+    def run(world_blocks, sched_blocks, state_blocks, draws):
+        states, cnt = run_ticks(mesh, cfg.n, tick, topos, world_blocks,
+                                state_blocks, sched_blocks, lambda _t: draws,
+                                0, 1)
+        return (states, counters_mod.unstack(cnt)) if counted else states
+
+    if chaos:
+        return run
+    return lambda world_blocks, state_blocks, draws: run(
+        world_blocks, None, state_blocks, draws)
+
+
+def make_sharded_step(cfg: SimConfig, topo: Topology, mesh: mesh_mod.Mesh):
+    """``step(world_blocks, state_blocks, draws) -> state_blocks``: the SWIM
+    tick on each shard's dense ``SimState`` block."""
+    return _make_sharded(swim.step_counted, cfg, topo, mesh)
+
+
+def make_sharded_serf_step(cfg: SimConfig, topo: Topology,
+                           mesh: mesh_mod.Mesh):
+    """The full serf tick (SWIM + events, queries, reap) per shard; beyond
+    the rolls, the origin reads ride ``all_rows`` and the query tally
+    ``sum_scatter_rows``."""
+    return _make_sharded(serf.step_counted, cfg, topo, mesh)
+
+
+def make_sharded_counted_step(cfg: SimConfig, topo: Topology,
+                              mesh: mesh_mod.Mesh, sentinel: bool = False):
+    """``step(world_blocks, state_blocks, draws) -> (state_blocks,
+    GossipCounters)``, the counters summed over the shards."""
+    return _make_sharded(swim.step_counted, cfg, topo, mesh, counted=True,
+                         sentinel=sentinel)
+
+
+def make_sharded_counted_serf_step(cfg: SimConfig, topo: Topology,
+                                   mesh: mesh_mod.Mesh):
+    """The counted serf tick per shard (see :func:`make_sharded_counted_step`)."""
+    return _make_sharded(serf.step_counted, cfg, topo, mesh, counted=True)
+
+
+def make_sharded_chaos_step(cfg: SimConfig, topo: Topology,
+                            mesh: mesh_mod.Mesh, *, counted: bool = False,
+                            serf_plane: bool = False, sentinel: bool = False):
+    """``step(world_blocks, sched_blocks, state_blocks, draws)`` with a
+    fault schedule placed per shard (``chaos.schedule.place``): node masks
+    by block, per-entry scalars whole."""
+    fn = serf.step_counted if serf_plane else swim.step_counted
+    return _make_sharded(fn, cfg, topo, mesh, counted=counted, chaos=True,
+                         sentinel=sentinel)
+
+
+class ShardedChunkRunner:
+    """The counterpart of the reference's ``make_sharded_chunk_runner``:
+    ``run(blocks, draw, t0, ticks, sched_blocks=None, pairs=None) ->
+    (blocks, counters [26] int32, TickTrace or None)``.
+
+    ``blocks`` are the shards' packed states, ``draw(t)`` the tick's global bundle on
+    the mesh's first device, ``pairs`` the (i, j) RMSE pairs of the
+    chunk's last tick (metrics off when None). ``kernel="cuda"`` steps
+    through B7 (``cuda_gossip.ShardedTickKernel``); ``kernel="torch"``
+    runs the plain tick SPMD in threads. The counters are summed over the
+    shards once, at the end of the chunk, on the first device."""
+
+    def __init__(self, cfg: SimConfig, topo: Topology, mesh: mesh_mod.Mesh,
+                 world, *, serf_plane: bool = False, sentinel: bool = False,
+                 kernel: str = TORCH):
+        n = cfg.n
+        mesh_mod.check_rows(n, mesh.size)
+        for dev in mesh.unique_devices():
+            cuda_gossip.validate_kernel(kernel, layout_mod.PACKED, dev)
+        self.cfg, self.topo, self.mesh = cfg, topo, mesh
+        self.serf, self.sentinel, self.kernel = serf_plane, sentinel, kernel
+        self.device = mesh.devices[0]
+        self.world = world
+        self.world_blocks = place(mesh, world, n)
+        self.topos = {dev: topo_on(topo, dev) for dev in mesh.unique_devices()}
+        if kernel == CUDA:
+            self._tick = cuda_gossip.ShardedTickKernel(
+                cfg, topo, mesh, serf_plane=serf_plane, sentinel=sentinel)
+            self._tick.set_world(world)
+            self._metrics = cuda_gossip.make_metrics_kernel(
+                cfg, self.topos[self.device])
+
+    def _run_plain(self, blocks, draw, t0, ticks, sched_blocks):
+        cfg, sentinel = self.cfg, self.sentinel
+        plain = cuda_gossip.plain_serf_tick if self.serf else cuda_gossip.plain_tick
+
+        def tick(topo, w, s, d, sched):
+            return plain(cfg, topo, w, s, d, sched, sentinel)
+
+        blocks, cnt = run_ticks(self.mesh, cfg.n, tick, self.topos,
+                                self.world_blocks, blocks, sched_blocks, draw,
+                                t0, ticks)
+        return blocks, cnt.to(self.device)
+
+    def _run_kernel(self, blocks, draw, t0, ticks, sched_blocks):
+        cnts = None
+        for k in range(ticks):
+            blocks, cv = self._tick(blocks, draw(t0 + k), sched_blocks)
+            cnts = cv if cnts is None else [a + b for a, b in zip(cnts, cv)]
+        total = cnts[0]
+        for c in cnts[1:]:
+            total = total + c.to(total.device)
+        return blocks, total
+
+    def metrics(self, blocks, pairs):
+        """[4] float32 TickTrace row of the gathered state: launch M on
+        the card under ``kernel="cuda"``, its plain version otherwise."""
+        whole = gather([b.swim if self.serf else b for b in blocks],
+                       self.cfg.n, self.device)
+        i, j = pairs
+        if self.kernel == CUDA:
+            out = torch.empty((4,), dtype=torch.float32, device=self.device)
+            return self._metrics(self.world, whole, i, j, out)
+        return cuda_gossip.plain_metrics(self.cfg, self.topos[self.device],
+                                         self.world, whole, i, j)
+
+    def run(self, blocks, draw, t0: int, ticks: int, sched_blocks=None,
+            pairs=None):
+        if sched_blocks is not None and chaos_mod.or_none(sched_blocks[0]) is None:
+            sched_blocks = None
+        run = self._run_kernel if self.kernel == CUDA else self._run_plain
+        blocks, cnt = run(blocks, draw, t0, ticks, sched_blocks)
+        if pairs is None:
+            return blocks, cnt, None
+        from consul_tpu_torch.models.cluster import TickTrace  # no cycle
+
+        row = self.metrics(blocks, pairs)
+        return blocks, cnt, TickTrace(*row[:, None])
+
+
+def make_sharded_chunk_runner(cfg: SimConfig, topo: Topology,
+                              mesh: mesh_mod.Mesh, world, *,
+                              serf_plane: bool = False, sentinel: bool = False,
+                              kernel: str = TORCH) -> ShardedChunkRunner:
+    """The sharded chunk runner (:class:`ShardedChunkRunner`)."""
+    return ShardedChunkRunner(cfg, topo, mesh, world, serf_plane=serf_plane,
+                              sentinel=sentinel, kernel=kernel)
+

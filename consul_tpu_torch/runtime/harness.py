@@ -176,7 +176,7 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
     (HeartbeatMonitor) whose hang writes the last completed state into
     ``hang_dump_dir`` (default: ``sentinel_dump_dir``, then the policy's
     directory). The report's counters cover the ticks this call ran."""
-    if mesh is not None or elastic:
+    if mesh is not None or elastic or getattr(sim, "mesh", None) is not None:
         raise NotImplementedError("mesh placement and elastic resume wait "
                                   "for the multi-GPU port (ROADMAP A13)")
     if sentinel:

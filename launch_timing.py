@@ -2,7 +2,7 @@
 
 Run from the root of a checkout, on one NVIDIA card:
 
-    python3 launch_timing.py [--reps N]
+    python3 launch_timing.py [--reps N] [--states NAME,NAME,...]
 
 It imports ``consul_tpu_torch`` from the directory it is run from, builds
 that checkout's kernel, makes the states below from seeds through that
@@ -22,7 +22,16 @@ rows, a query and a leave then), then 64 ticks on:
 - ``serf``: the serf tick;
 - ``serf_chaos``: the serf tick with the sentinel under a partition, a
   churn wave, a lossy link and a degraded block opened at the kill;
-- ``dense_serf``: the serf tick on the dense view, n = 256 (K = 255).
+- ``dense_serf``: the serf tick on the dense view, n = 256 (K = 255);
+- ``dense_chaos``, ``dense_serf_chaos``: the SWIM and the serf tick on the
+  dense view at n = 256 with the sentinel under that schedule;
+- ``wan``: the SWIM tick on the dense view at n = 12 (K = 11), the shape
+  of the federation's WAN pool;
+- ``lan_250k``: the SWIM tick at n = 250,000, the shape of one of the
+  federation's LAN pools.
+The first four are timed unless ``--states`` names others. The ticks
+on the dense view and at n = 12 are bound by the wrapper's host work, so
+their CUDA-event time over back-to-back ticks is that work's.
 
 Prints one JSON line per state and pass, the card's name and power limit
 as ``nvidia-smi`` gives them, and a last JSON line with every reading.
@@ -44,6 +53,9 @@ sys.path.insert(0, os.getcwd())
 MAIN_N = 1_048_576
 DENSE_N = 256
 WARM, AFTER = 32, 64
+STATES = ("bare", "serf", "serf_chaos", "dense_serf", "dense_chaos",
+          "dense_serf_chaos", "wan", "lan_250k")
+DEFAULT_STATES = STATES[:4]
 
 
 def make_state(name: str):
@@ -54,10 +66,11 @@ def make_state(name: str):
     from consul_tpu_torch.ops import cuda_gossip, topology
 
     dev = torch.device("cuda")
-    n = DENSE_N if name.startswith("dense") else MAIN_N
-    serf_plane = name != "bare"
-    chaos_on = name == "serf_chaos"
-    cfg = SimConfig(n=n, view_degree=0 if n == DENSE_N else 32,
+    n = {"wan": 12, "lan_250k": 250_000}.get(
+        name, DENSE_N if name.startswith("dense") else MAIN_N)
+    serf_plane = "serf" in name
+    chaos_on = name.endswith("chaos")
+    cfg = SimConfig(n=n, view_degree=0 if n <= DENSE_N else 32,
                     packet_loss=0.01, serf=SerfConfig(query_relay_factor=2))
     gen = torch.Generator(device=dev)
     gen.manual_seed(41)
@@ -142,7 +155,13 @@ def time_state(tick, world, st, d, sched, reps):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--states", default=",".join(DEFAULT_STATES),
+                    help=f"comma-separated, of {', '.join(STATES)}")
     args = ap.parse_args()
+    names = args.states.split(",")
+    bad = [x for x in names if x not in STATES]
+    if bad:
+        ap.error(f"unknown states {bad}")
     if not torch.cuda.is_available():
         print("launch_timing: no CUDA device", file=sys.stderr)
         return 2
@@ -153,8 +172,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     info = cuda_gossip.build()
     tree = os.getcwd()
-    states = {name: make_state(name)
-              for name in ("bare", "serf", "serf_chaos", "dense_serf")}
+    states = {name: make_state(name) for name in names}
     readings = []
     for pass_ in (1, 2):
         for name, (tick, world, st, d, sched) in states.items():
