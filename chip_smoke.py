@@ -85,13 +85,21 @@ sync's ms a round, kernel against plain). The sharded call (B7, the
 tick once per node-axis shard, on ``["cuda:0"] * R``) runs beside the
 B1 windows at 65,536 and 50,000 nodes, the chaos + sentinel, serf and
 serf + chaos + sentinel windows at 65,536, two dense variants and the
-bare tie-and-wrap window at 1M: ``sharded_kernel_parity`` holds it at 2
-and 4 shards bit for bit to the one-device kernel on every tick, and the
-sharded plain runner (one thread per shard) to it for the first ticks;
-``sharded_timing`` times it at 1M (the exchanges and the launch sets
-apart) and ``sharded_main_path`` drives the 1M SWIM main path through
+bare tie-and-wrap window at 1M, under two groupings of the shards: the
+default (the card's shards in one device group, one launch set a stage,
+no exchange) and one group per shard (the launches, exchanges, tally
+scratch and SLO fold a mesh of one card per shard runs):
+``sharded_kernel_parity`` holds it at 2 and 4 shards bit for bit to the
+one-device kernel on every tick, and the sharded plain runner (one
+thread per shard) to it for the first ticks; ``sharded_timing`` times it
+at 1M under both groupings (launches and copies a tick, the exchanges
+and the launch sets apart, beside B1 on the same state) and
+``sharded_main_path`` drives the 1M SWIM main path through
 ``Simulation(mesh=["cuda:0"] * 4)``, which must converge on the
-one-device run's tick with bit-equal counters and state. It prints one JSON
+one-device run's tick with bit-equal counters and state, in the
+one-device launch set a tick with no copy (wall and peak bytes beside
+the one-device run's). ``metrics_timing`` times launch M at 1M and on
+the dense view (n = 256). It prints one JSON
 line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -122,6 +130,18 @@ SHARD_PLAIN_TICKS = 8
 # The dense variants held sharded (the plain runner's threads dominate
 # a dense window's time).
 SHARD_DENSE = ("dense", "dense_serf_chaos")
+# B7's groupings of the shards on the one card: "device", the default
+# (every shard of the card in one group: one launch set, no exchange), and
+# "shard", one group per shard (what a mesh of one card per shard runs).
+GROUPINGS = ("device", "shard")
+
+
+def group_of(mesh, grouping: str):
+    """The grouping named ``grouping`` of ``mesh`` (GROUPINGS)."""
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    return (mesh_mod.device_groups(mesh) if grouping == "device"
+            else mesh_mod.shard_groups(mesh))
 
 # HBM rate of the card the bound is stated for: NVIDIA's data sheet for
 # the H100 SXM (80 GB HBM3, 3.35 TB/s at its full 700 W).
@@ -454,15 +474,18 @@ def tree_diff(a, b, prefix=""):
 
 class ShardCheck:
     """The sharded call (B7) at each shard count of ``shards``, on
-    ``["cuda:0"] * R``, beside a window's one-device kernel: from the
-    window's start state, the same draw bundle each tick, B7's gathered
-    state and summed counters bit-equal to the one-device kernel's on
-    every tick; and for the first SHARD_PLAIN_TICKS ticks the sharded
-    plain runner (one thread per shard on the card) against B7, as
-    compare_window holds the kernel to its plain version."""
+    ``["cuda:0"] * R``, beside a window's one-device kernel, under each
+    grouping of GROUPINGS: the default (the shards of the one card in one
+    group: one launch set a stage, no exchange) and one group per shard
+    (the launches, exchanges, tally scratch and SLO fold of a mesh of one
+    card per shard). From the window's start state, the same draw bundle
+    each tick, B7's gathered state and summed counters bit-equal to the
+    one-device kernel's on every tick; and for the first
+    SHARD_PLAIN_TICKS ticks the sharded plain runner (one thread per shard
+    on the card) against B7 under the default grouping, as compare_window
+    holds the kernel to its plain version."""
 
     def __init__(self, tick, world, st, sched, shards, plain=True):
-        from consul_tpu_torch import chaos
         from consul_tpu_torch.models import serf
         from consul_tpu_torch.ops import cuda_gossip
         from consul_tpu_torch.parallel import mesh as mesh_mod, shard_step
@@ -473,28 +496,32 @@ class ShardCheck:
         self.runs = {}
         for r in shards:
             mesh = mesh_mod.make_mesh(["cuda:0"] * r)
-            k7 = cuda_gossip.ShardedTickKernel(
-                cfg, topo, mesh, serf_plane=tick.serf, sentinel=tick.sentinel)
-            k7.set_world(world)
-            runner = (shard_step.make_sharded_chunk_runner(
-                cfg, topo, mesh, world, serf_plane=tick.serf,
-                sentinel=tick.sentinel, kernel="torch") if plain else None)
-            sb = (None if sched is None else
-                  [chaos.place(sched, d, r, dev)
-                   for d, dev in enumerate(mesh.devices)])
-            blocks = shard_step.place(mesh, st, cfg.n)
-            self.runs[r] = dict(k7=k7, runner=runner, sched=sb, kb=blocks,
-                                pb=list(blocks), bad=[],
-                                gaps={f: {"steps": 0, "abs": 0.0}
-                                      for f in FLOAT_LEAVES},
-                                launches=0)
+            for grouping in GROUPINGS:
+                k7 = cuda_gossip.ShardedTickKernel(
+                    cfg, topo, mesh, serf_plane=tick.serf,
+                    sentinel=tick.sentinel, groups=group_of(mesh, grouping))
+                k7.set_world(world)
+                with_plain = plain and grouping == "device"
+                runner = (shard_step.make_sharded_chunk_runner(
+                    cfg, topo, mesh, world, serf_plane=tick.serf,
+                    sentinel=tick.sentinel, kernel="torch")
+                    if with_plain else None)
+                sb = (None if sched is None else shard_step.place_schedule(
+                    mesh, sched, cfg.n, groups=k7.groups))
+                blocks = shard_step.place(mesh, st, cfg.n, groups=k7.groups)
+                key = str(r) if grouping == "device" else f"{r}/{grouping}"
+                self.runs[key] = dict(
+                    k7=k7, runner=runner, sched=sb, kb=blocks, pb=list(blocks),
+                    bad=[], gaps={f: {"steps": 0, "abs": 0.0}
+                                  for f in FLOAT_LEAVES},
+                    launches=0, copies=0, groups=len(k7.groups))
 
     def step(self, t, d, kp, kc):
         from consul_tpu_torch.models import serf
         from consul_tpu_torch.parallel import shard_step
 
         dev = torch.device("cuda", 0)
-        for r, run in self.runs.items():
+        for key, run in self.runs.items():
             if run["bad"]:
                 continue
             run["kb"], cv = run["k7"](run["kb"], d, run["sched"])
@@ -502,12 +529,12 @@ class ShardCheck:
             cnt = sum(c.to(torch.int64) for c in cv)
             diff = tree_diff(kp, whole)
             if diff:
-                run["bad"].append(f"tick {t}: B7 x{r} differs from the "
+                run["bad"].append(f"tick {t}: B7 x{key} differs from the "
                                   f"one-device kernel in {diff[:4]}")
             if not torch.equal(cnt, kc.to(torch.int64)):
-                run["bad"].append(f"tick {t}: B7 x{r} counters {cnt.tolist()} "
+                run["bad"].append(f"tick {t}: B7 x{key} counters {cnt.tolist()} "
                                   f"!= {kc.tolist()}")
-            if self.plain and t < SHARD_PLAIN_TICKS:
+            if run["runner"] is not None and t < SHARD_PLAIN_TICKS:
                 run["pb"], pc, _ = run["runner"].run(
                     run["pb"], lambda _t: d, 0, 1, run["sched"])
                 pw = shard_step.gather(run["pb"], self.n, dev)
@@ -515,19 +542,22 @@ class ShardCheck:
                     compare_packed(whole.swim, pw.swim, t, run["gaps"], run["bad"])
                     for name in serf.SerfState._fields[1:]:
                         if not torch.equal(getattr(whole, name), getattr(pw, name)):
-                            run["bad"].append(f"tick {t} x{r} plain {name} differs")
+                            run["bad"].append(f"tick {t} x{key} plain {name} differs")
                 else:
                     compare_packed(whole, pw, t, run["gaps"], run["bad"])
                 if not torch.equal(pc.to(torch.int64), cnt):
-                    run["bad"].append(f"tick {t} x{r} plain counters "
+                    run["bad"].append(f"tick {t} x{key} plain counters "
                                       f"{pc.tolist()} != {cnt.tolist()}")
             run["launches"] = run["k7"].launches
+            run["copies"] = run["k7"].copies
 
     def result(self):
-        return {str(r): dict(mismatches=run["bad"][:5], float_gaps_plain=run["gaps"],
-                             b7_launches=run["launches"],
-                             plain_ticks=SHARD_PLAIN_TICKS if self.plain else 0)
-                for r, run in self.runs.items()}
+        return {key: dict(mismatches=run["bad"][:5], float_gaps_plain=run["gaps"],
+                          groups=run["groups"], b7_launches=run["launches"],
+                          b7_copies=run["copies"],
+                          plain_ticks=(SHARD_PLAIN_TICKS
+                                       if run["runner"] is not None else 0))
+                for key, run in self.runs.items()}
 
     def ok(self):
         return all(not run["bad"] for run in self.runs.values())
@@ -1419,6 +1449,35 @@ def metrics_case(name, cfg, topo, world, packed, seed, nan_rows=None):
               + [0.0 if both_nan else abs(got[3] - ref[3])])
     return dict(name=name, n=cfg.n, k=cfg.degree, kernel=got, plain=ref,
                 rmse_rel=rel, max_abs_err=err, ok=ok)
+
+
+def metrics_timing(cfg, topo, world, packed, rate, seed):
+    """Launch M on one packed state with METRIC_PAIRS pairs: "ms", the
+    kernel's own device time (profiler; None when it records none);
+    "ms_events", CUDA events around back-to-back calls, the wrapper's host
+    work included; its plain version's ms; and the bound, metrics_hbm_bytes
+    over the card's memory rate."""
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.utils import metrics
+
+    mk = cuda_gossip.make_metrics_kernel(cfg, topo)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    i, j = metrics.rmse_samples(cfg, gen, METRIC_PAIRS, "cuda")
+    out = torch.empty(4, device="cuda")
+
+    def call():
+        return mk(world, packed, i, j, out)
+    prof = launch_breakdown(call, 20)
+    res = {"ms_events": cuda_ms(call, 50),
+           "plain_ms": cuda_ms(lambda: cuda_gossip.plain_metrics(
+               cfg, topo, world, packed, i, j), 5),
+           "bytes": cuda_gossip.metrics_hbm_bytes(packed, world, METRIC_PAIRS)}
+    dev = prof if isinstance(prof, dict) else {}
+    res["ms"] = next((v for k, v in dev.items() if k.startswith("k_metrics")),
+                     None)
+    res["bound_ms"] = res["bytes"] / rate * 1e3
+    return res
 
 
 def tick_with_and_without_metrics(sim):
@@ -3159,68 +3218,93 @@ def dcn_drill():
 
 
 def sharded_timing(cfg, world, topo, state, draws, rate):
-    """B7 on the main path's state at 1M, at each shard count of SHARDS, on
-    one card: ms a tick (CUDA events over back-to-back calls), the device's
-    own time and operations a tick (profiler), the exchanges and the launch
-    sets apart (event marks inside the call), the sharded plain runner's
-    ms, and the bound: the tick's least bytes (tick_hbm_bytes_per_node)
-    plus the exchanges' (exchange_bytes_per_node); each launch's least
-    bytes are kept as a breakdown."""
+    """B7 on the main path's state at 1M, at each shard count of SHARDS
+    and under each grouping of GROUPINGS, on one card: launches and
+    exchange copies a tick, ms a tick (CUDA events over back-to-back
+    calls), the device's own time and operations a tick (profiler), the
+    exchanges and the launch sets apart (event marks inside the call), and
+    the bound: the tick's least bytes (tick_hbm_bytes_per_node) plus the
+    exchanges' under that grouping (exchange_bytes_per_node); each
+    launch's least bytes are kept as a breakdown. Beside them, in the same
+    call, the one-device kernel's ms a tick on the same state and draws
+    (B1) and the sharded plain runner's ms at each shard count."""
     from consul_tpu_torch.ops import cuda_gossip
     from consul_tpu_torch.parallel import mesh as mesh_mod, shard_step
 
-    out = {}
     n = cfg.n
+    tick = cuda_gossip.make_tick_kernel(cfg, topo)
+    out = {"b1_ms_per_tick": cuda_ms(lambda: tick(world, state, draws), 20)}
+    tick_pn = cuda_gossip.tick_hbm_bytes_per_node(state, world)
+    stages = [k for k in cuda_gossip.STAGES if k not in ("chaos_pre", "serf_post")]
+    whole_out = tick(world, state, draws)[0]
+    bytes_pn = {k: cuda_gossip.launch_hbm_bytes_per_node(
+        k, state, world, draws, cfg=cfg, out=whole_out) for k in stages}
+    del whole_out
     for r in SHARDS:
         mesh = mesh_mod.make_mesh(["cuda:0"] * r)
-        k7 = cuda_gossip.ShardedTickKernel(cfg, topo, mesh)
-        k7.set_world(world)
-        blocks = shard_step.place(mesh, state, n)
-        ms = cuda_ms(lambda: k7(blocks, draws), 20)
-        # The device's own time a tick (kernels and copies, profiler), apart
-        # from the host's: back-to-back calls wait on the host when it is
-        # the slower side.
-        dev_ms, dev_ops = device_kernels(lambda: k7(blocks, draws), 5)
-        k7.events = []
-        for _ in range(10):
+        for grouping in GROUPINGS:
+            groups = group_of(mesh, grouping)
+            k7 = cuda_gossip.ShardedTickKernel(cfg, topo, mesh, groups=groups)
+            k7.set_world(world)
+            blocks = shard_step.place(mesh, state, n, groups=groups)
+            launches, copies = k7.launches, k7.copies
             k7(blocks, draws)
-        torch.cuda.synchronize()
-        parts = {}
-        marks = k7.events
-        k7.events = None
-        for (label, a), (_, b) in zip(marks, marks[1:]):
-            if label != "end":
-                parts[label] = parts.get(label, 0.0) + a.elapsed_time(b) / 10
-        runner = shard_step.make_sharded_chunk_runner(cfg, topo, mesh, world,
-                                                      kernel="torch")
-        plain_ms = cuda_ms(lambda: runner.run(blocks, lambda _t: draws, 0, 1), 2)
-        whole_out = shard_step.gather(k7(blocks, draws)[0], n, state.meta.device)
-        stages = [k for k in cuda_gossip.STAGES if k not in ("chaos_pre", "serf_post")]
-        bytes_pn = {k: cuda_gossip.launch_hbm_bytes_per_node(
-            k, state, world, draws, cfg=cfg, out=whole_out) for k in stages}
-        exch_pn = {k: cuda_gossip.exchange_bytes_per_node(k, state, cfg=cfg)
-                   for k in stages}
-        tick_pn = cuda_gossip.tick_hbm_bytes_per_node(state, world)
-        bound_ms = (tick_pn + sum(exch_pn.values())) * n / rate * 1e3
-        out[str(r)] = dict(
-            ms_per_tick=ms, device_ms=dev_ms, device_ops=dev_ops,
-            plain_ms=plain_ms, bound_ms=bound_ms,
-            ms_exchange=sum(v for k, v in parts.items() if k.startswith("exchange")),
-            ms_launches=sum(v for k, v in parts.items() if k.startswith("launch")),
-            ms_by_part=parts, tick_bytes_per_node=tick_pn,
-            bytes_per_node=bytes_pn, exchange_bytes_per_node=exch_pn)
-        del k7, blocks, runner, whole_out
-        torch.cuda.empty_cache()
+            per_tick = dict(launches=k7.launches - launches,
+                            copies=k7.copies - copies)
+            ms = cuda_ms(lambda: k7(blocks, draws), 20)
+            # The device's own time a tick (kernels and copies, profiler),
+            # apart from the host's: back-to-back calls wait on the host
+            # when it is the slower side.
+            dev_ms, dev_ops = device_kernels(lambda: k7(blocks, draws), 5)
+            k7.events = []
+            for _ in range(10):
+                k7(blocks, draws)
+            torch.cuda.synchronize()
+            parts = {}
+            marks = k7.events
+            k7.events = None
+            for (label, a), (_, b) in zip(marks, marks[1:]):
+                if label != "end":
+                    parts[label] = parts.get(label, 0.0) + a.elapsed_time(b) / 10
+            exch_pn = {k: cuda_gossip.exchange_bytes_per_node(
+                k, state, cfg=cfg, groups=groups) for k in stages}
+            bound_ms = (tick_pn + sum(exch_pn.values())) * n / rate * 1e3
+            res = dict(
+                groups=len(groups), per_tick=per_tick, ms_per_tick=ms,
+                device_ms=dev_ms, device_ops=dev_ops, bound_ms=bound_ms,
+                ms_exchange=sum(v for k, v in parts.items()
+                                if k.startswith("exchange")),
+                ms_launches=sum(v for k, v in parts.items()
+                                if k.startswith("launch")),
+                ms_by_part=parts, tick_bytes_per_node=tick_pn,
+                bytes_per_node=bytes_pn, exchange_bytes_per_node=exch_pn)
+            if grouping == "device":
+                runner = shard_step.make_sharded_chunk_runner(
+                    cfg, topo, mesh, world, kernel="torch")
+                res["plain_ms"] = cuda_ms(
+                    lambda: runner.run(blocks, lambda _t: draws, 0, 1), 2)
+                del runner
+            out[str(r) if grouping == "device" else f"{r}/{grouping}"] = res
+            del k7, blocks
+            torch.cuda.empty_cache()
     return out
+
+
+def b7_ticks_of(launches) -> int:
+    """B7's tick launches in a SHARDED_LAUNCHES snapshot (its SLO folds
+    apart)."""
+    return sum(v for k, v in launches.items() if k != "slo_fold")
 
 
 def sharded_main_path(cfg, ref):
     """The main path through Simulation(mesh=["cuda:0"] * SHARD_MAIN): the
     same seed, 64 ticks, a 5 % kill, run_until_converged(4096, chunk=128),
-    every tick through B7; it must converge at the one-device run's tick
-    (``ref``) with bit-equal counters and final state. Reports ms a tick
-    on the host clock, peak bytes, B7's launches and host syncs per chunk
-    (with metrics and without)."""
+    every tick through B7 (the card's shards in one device group); it must
+    converge at the one-device run's tick (``ref``) with bit-equal
+    counters and final state. Reports wall and ms a tick on the host
+    clock and peak bytes beside the one-device run's, B7's launches and
+    exchange copies (a tick and in all) and host syncs per chunk (with
+    metrics and without)."""
     from consul_tpu_torch.models import cluster, layout
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -3231,6 +3315,7 @@ def sharded_main_path(cfg, ref):
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sim.run(64, chunk=64)
     mask = torch.zeros(cfg.n, dtype=torch.bool)
@@ -3241,6 +3326,7 @@ def sharded_main_path(cfg, ref):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     b7 = dict(cuda_gossip.SHARDED_LAUNCHES)
+    copies = sim._tick_fn._tick.copies
     launches = dict(cuda_gossip.LAUNCHES)
     diff = tree_diff(ref["state"], sim._whole())
     counters_equal = sim.counters == ref["counters"]
@@ -3248,7 +3334,7 @@ def sharded_main_path(cfg, ref):
              "without_metrics": sync_count(
                  lambda: sim.run(128, chunk=128, with_metrics=False))}
     sim.counters  # flush the deferred chunk
-    b7_ticks = sum(v for k, v in b7.items() if k != "slo_fold")
+    b7_ticks = b7_ticks_of(b7)
     res = dict(n=cfg.n, k=cfg.degree, shards=SHARD_MAIN, converged=converged,
                ticks_after_kill=used, ticks_one_device=ref["used"],
                ticks_total=ref["t"], agreement=float(trace.agreement[-1]),
@@ -3256,12 +3342,20 @@ def sharded_main_path(cfg, ref):
                state_bit_equal=not diff, differing_leaves=diff[:5],
                counters_equal=counters_equal, wall_s=round(wall, 3),
                ms_per_tick=wall * 1e3 / ref["t"], setup_s=round(setup_s, 3),
-               peak_bytes=peak, b7_launches=b7, launches=launches,
+               peak_bytes=peak, peak_over_start_bytes=peak - start_bytes,
+               one_device=dict(wall_s=round(ref["wall"], 3),
+                               ms_per_tick=ref["wall"] * 1e3 / ref["t"],
+                               peak_bytes=ref["peak"],
+                               peak_over_start_bytes=ref["peak_over_start"]),
+               groups=len(sim._tick_fn._tick.groups),
+               b7_launches_per_tick=b7_ticks_of(b7) / ref["t"],
+               b7_copies=copies, b7_launches=b7, launches=launches,
                host_syncs_per_chunk=syncs,
                bytes_per_node=layout.bytes_per_node(sim._whole(), cfg.n))
+    # One device group: the one-device launch set a tick, no exchange.
     res["ok"] = (converged and used == ref["used"] and not diff
-                 and counters_equal and b7_ticks > 0
-                 and launches["metrics"] > 0)
+                 and counters_equal and b7_ticks == 3 * ref["t"]
+                 and copies == 0 and launches["metrics"] > 0)
     world, topo, state = sim.world, sim.topo, sim._whole()
     del sim
     torch.cuda.empty_cache()
@@ -3285,7 +3379,6 @@ def main() -> int:
     from consul_tpu_torch.config import SimConfig
     from consul_tpu_torch.models import cluster, layout, serf, swim
     from consul_tpu_torch.ops import cuda_gossip
-    from consul_tpu_torch.utils import metrics
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -3449,6 +3542,9 @@ def main() -> int:
     sim = cluster.Simulation(cfg, seed=0, layout="packed", kernel="cuda")
     setup_s = time.perf_counter() - t0
     reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sim.run(64, chunk=64)
     mask = torch.zeros(cfg.n, dtype=torch.bool)
@@ -3457,6 +3553,7 @@ def main() -> int:
     converged, used, trace = sim.run_until_converged(max_ticks=4096, chunk=128)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(cuda_gossip.LAUNCHES)
     agreement = float(trace.agreement[-1])
     rmse_ms = float(trace.rmse[-1]) * 1000.0
@@ -3466,6 +3563,7 @@ def main() -> int:
           "converged": converged, "ticks_after_kill": used,
           "ticks_total": sim._t, "agreement": agreement, "rmse_ms": rmse_ms,
           "wall_s": round(wall, 3), "setup_s": round(setup_s, 3),
+          "peak_bytes": peak, "peak_over_start_bytes": peak - start_bytes,
           "launches": launches, "counters": sim.counters,
           "bytes_per_node": layout.bytes_per_node(sim.state, cfg.n)})
     if not (converged and agreement == 1.0 and tick_launches(launches) > 0
@@ -3476,7 +3574,8 @@ def main() -> int:
     swim_launches = tick_launches(launches)
     m_launches = launches["metrics"]
     main_ref = dict(used=used, t=sim._t, counters=dict(sim.counters),
-                    state=cluster._clone(sim.state))
+                    state=cluster._clone(sim.state), wall=wall, peak=peak,
+                    peak_over_start=peak - start_bytes)
 
     # Kernel timing at the main path's shapes, on its final state.
     tick = cuda_gossip.make_tick_kernel(cfg, sim.topo)
@@ -3493,27 +3592,9 @@ def main() -> int:
     # against one without.
     m_cases = [metrics_case("swim_final", cfg, sim.topo, sim.world,
                             sim.state, seed=41)]
-    mk = cuda_gossip.make_metrics_kernel(cfg, sim.topo)
-    mgen = torch.Generator(device="cuda")
-    mgen.manual_seed(43)
-    mi, mj = metrics.rmse_samples(cfg, mgen, METRIC_PAIRS, "cuda")
-    mout = torch.empty(4, device="cuda")
-    # "ms" is the kernel's own device time (profiler; None when the
-    # profiler records none); "ms_events" is CUDA events around
-    # back-to-back calls, the wrapper's host work included.
-    m_call = lambda: mk(sim.world, sim.state, mi, mj, mout)  # noqa: E731
-    m_prof = launch_breakdown(m_call, 20)
-    m_t = {"ms_events": cuda_ms(m_call, 50),
-           "plain_ms": cuda_ms(lambda: cuda_gossip.plain_metrics(
-               cfg, sim.topo, sim.world, sim.state, mi, mj), 5),
-           "bytes": cuda_gossip.metrics_hbm_bytes(sim.state, sim.world,
-                                                  METRIC_PAIRS)}
-    m_dev = m_prof if isinstance(m_prof, dict) else {}
-    m_t["ms"] = next((v for k, v in m_dev.items() if k.startswith("k_metrics")),
-                     None)
-    m_t["bound_ms"] = m_t["bytes"] / rate * 1e3
+    m_t = metrics_timing(cfg, sim.topo, sim.world, sim.state, rate, seed=43)
     m_ticks = {"swim": tick_with_and_without_metrics(sim)}
-    del sim, tick, d, mk
+    del sim, tick, d
     torch.cuda.empty_cache()
 
     # The main path in 4 shards on the one card, through B7 (ROADMAP A13,
@@ -3632,6 +3713,7 @@ def main() -> int:
     m_launches += sum(r["launches"]["metrics"] for r in dense_runs.values())
     m_cases += [metrics_case(v + "_final", *dense_finals[v], seed=73)
                 for v, _, _ in DENSE_VARIANTS]
+    m_dense_t = metrics_timing(*dense_finals["dense"], rate, seed=79)
 
     # Launch M against its plain version on every state above.
     emit({"phase": "metrics_parity", "rtol_rmse": RMSE_RTOL,
@@ -3640,8 +3722,8 @@ def main() -> int:
         emit({"phase": "failed", "failed": ["metrics_parity"]})
         return 1
     emit({"phase": "metrics_timing", "n": MAIN_N, "pairs": METRIC_PAIRS,
-          "launch": m_t, "tick_ms": m_ticks,
-          "main_path_metrics_launches": m_launches})
+          "launch": m_t, "launch_dense": dict(n=DENSE_N, **m_dense_t),
+          "tick_ms": m_ticks, "main_path_metrics_launches": m_launches})
 
     # run_resilient at 1M: preempted, resumed, bit-equal.
     res = resilient_phase(cfg)
@@ -3888,19 +3970,22 @@ def main() -> int:
          "replaces": "consul_tpu/ops/pallas_gossip.py:145",
          "config": f"B7: the tick once per node-axis shard (the reference's "
                    f"shard_map call, consul_tpu/parallel/shard_step.py:253), "
-                   f"{SHARD_MAIN} shards of the 1M SWIM main path on one card, "
-                   "mirrors exchanged between launches; timed at "
-                   f"{SHARD_MAIN} shards (ms_by_shards: each of {list(SHARDS)})",
-         "launches": sum(v for k, v in shard_res["b7_launches"].items()
-                         if k != "slo_fold"),
+                   f"{SHARD_MAIN} shards of the 1M SWIM main path on one card "
+                   "in one device group (one launch set a stage, no "
+                   f"exchange); timed at {SHARD_MAIN} shards (ms_by_shards: "
+                   f"each of {list(SHARDS)}, and '/shard' one group per shard, "
+                   "mirrors exchanged between launches)",
+         "launches": b7_ticks_of(shard_res["b7_launches"]),
          "max_abs_err": max_abs["gossip_tick_sharded"],
          "ms": b7_t[str(SHARD_MAIN)]["ms_per_tick"],
          "plain_ms": b7_t[str(SHARD_MAIN)]["plain_ms"],
          "bound_ms": b7_t[str(SHARD_MAIN)]["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
+         "b1_ms": b7_t["b1_ms_per_tick"],
          "ms_by_shards": {r: {k: t[k] for k in (
-             "ms_per_tick", "device_ms", "ms_exchange", "ms_launches",
-             "plain_ms", "bound_ms")} for r, t in b7_t.items()}}]}),
+             "per_tick", "ms_per_tick", "device_ms", "ms_exchange",
+             "ms_launches", "plain_ms", "bound_ms") if k in t}
+             for r, t in b7_t.items() if isinstance(t, dict)}}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

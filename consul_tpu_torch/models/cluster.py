@@ -351,7 +351,8 @@ class Simulation:
         a kill, a revive, a serf verb) to the state; under a mesh to each
         shard's block with its rows of ``mask`` (the reference's
         ``_place_node`` funnel), inside the shard's row context so that
-        ``collective.rows`` gives global ids."""
+        ``collective.rows`` gives global ids, the edited blocks copied back
+        into their adjacent placement (``shard_step.adjoin``)."""
         mask = self._mask(mask)
         if self.mesh is None:
             self._from_dense(fn(self._to_dense(), mask))
@@ -363,7 +364,7 @@ class Simulation:
             with coll.node_axis(r, n, d):
                 st = fn(layout_mod.unpack_state(blk), masks[d])
             blocks.append(layout_mod.pack_state(st))
-        self.state = blocks
+        self.state = shard_step.adjoin(self.mesh, blocks, n)
 
     def set_swim_state(self, st: sim_state.SimState):
         """Replace the SWIM plane with a dense SimState."""
@@ -605,10 +606,8 @@ class Simulation:
         if self.chaos is None:
             return None
         if self._placed_chaos is None or self._placed_chaos[0] is not self.chaos:
-            r = self.mesh.size
-            self._placed_chaos = (self.chaos, [
-                chaos_mod.place(self.chaos, d, r, dev)
-                for d, dev in enumerate(self.mesh.devices)])
+            self._placed_chaos = (self.chaos, shard_step.place_schedule(
+                self.mesh, self.chaos, self.cfg.n))
         return self._placed_chaos[1]
 
     def _exec_sharded_chunk(self, c: int, with_metrics: bool):

@@ -75,7 +75,7 @@ KERNELS = (TORCH, CUDA)
 LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0, "pushpull": 0,
             "serf_post": 0, "metrics": 0}
 # The sharded call's launches (B7, ShardedTickKernel), by stage, beside
-# LAUNCHES (which counts them too), and its cross-shard SLO folds.
+# LAUNCHES (which counts them too), and its cross-group SLO folds.
 SHARDED_LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0,
                     "pushpull": 0, "serf_post": 0, "slo_fold": 0}
 
@@ -132,6 +132,35 @@ MIRRORS = {
     "m_pownk": "pay_ownk", "m_poke": "poke", "m_upp": "u_pp",
     "m_xflags": "x_flags", "m_xkey": "x_key", "m_xorig": "x_orig",
     "m_qopen": "q_open_key", "m_leave": "leave_at"}
+
+
+# The sources of MIRRORS that are leaves of the state (the rest are scratch
+# buffers of a tick and the push-pull draw), as paths into a packed SWIM
+# plane ("viv.vec") or a SerfState ("swim.viv.vec", "q_open_key"). Under a
+# mesh of several device groups each is stored full height per group, so
+# that the group's rows and the other groups' (filled in by the exchange)
+# form one buffer: the group's mirror.
+_SWIM_FULL = frozenset(v for v in MIRRORS.values() if v.startswith("viv.")
+                       or v in layout_mod.PackedSimState._fields)
+_SERF_FULL = frozenset(v for v in MIRRORS.values()
+                       if v in serf.SerfState._fields)
+# The rest are the tick's scratch buffers (TickKernel._buffers makes each
+# of them full height under several groups) and the push-pull draw.
+assert frozenset(MIRRORS.values()) - _SWIM_FULL - _SERF_FULL == {
+    "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx", "c_qrx",
+    "view_mid", "pay_flags", "pay_scol", "pay_skey", "pay_sbits", "pay_ownk",
+    "poke", "x_flags", "x_key", "x_orig", "u_pp"}
+
+
+def full_height_leaves(tree) -> frozenset:
+    """Paths (``parallel.mesh.split``'s) of the leaves of a packed state
+    that the sharded tick reads at other rows: stored full height per
+    device group, the group's own rows in place."""
+    if isinstance(tree, serf.SerfState):
+        return frozenset("swim." + p for p in _SWIM_FULL) | _SERF_FULL
+    if isinstance(tree, layout_mod.PackedSimState):
+        return _SWIM_FULL
+    return frozenset()
 
 
 def _leaf_ptr(leaf: str, side: str = "in") -> str:
@@ -641,28 +670,49 @@ class TickKernel:
         if sched is not None:
             self._check_schedule(sched, draws, device, n)
 
-    def _buffers(self, world, packed, draws, device, sched=None, rows=None):
+    def _buffers(self, world, packed, draws, device, sched=None, rows=None,
+                 row0=None):
         """The output state, the scratch buffers and the flat operand list
         (in TickArgs order, None for a null pointer) of one tick over
         ``rows`` rows (default every row); the mirrors and tally targets
         are the tick's own leaves (one device), which a sharded call
-        replaces."""
+        replaces. With ``row0`` (a device group of a mesh of several) the
+        mirrored output leaves and scratch buffers are the rows [row0,
+        row0 + rows) of new full-height buffers."""
         cfg = self.cfg
         n, k, p = (cfg.n if rows is None else rows), cfg.degree, cfg.gossip.piggyback_msgs
+
+        def tall(shape, dtype):
+            """A mirrored buffer: rows [row0, row0 + rows) of a full-height
+            one under ``row0``."""
+            if row0 is None:
+                return torch.empty(shape, dtype=dtype, device=device)
+            return torch.empty((cfg.n,) + tuple(shape[1:]), dtype=dtype,
+                               device=device)[row0:row0 + shape[0]]
+
+        def out_of(xs, fields, mirrored):
+            """New leaves like ``xs``; the ``mirrored`` ones tall."""
+            if row0 is None:
+                return [torch.empty_like(x) for x in xs]
+            return [tall(x.shape, x.dtype) if f in mirrored
+                    else torch.empty_like(x) for f, x in zip(fields, xs)]
+
         sw_in, sw_draws = ((packed.swim, draws.swim) if self.serf
                            else (packed, draws))
         sw_out = layout_mod.PackedSimState(
-            *[torch.empty_like(x) for x in sw_in[:-1]],
-            layout_mod.PackedVivaldi(*[torch.empty_like(x) for x in sw_in.viv]))
+            *out_of(sw_in[:-1], layout_mod.PackedSimState._fields, _SWIM_FULL),
+            layout_mod.PackedVivaldi(*out_of(
+                sw_in.viv, ["viv." + f for f in layout_mod.PackedVivaldi._fields],
+                _SWIM_FULL)))
         u32 = torch.uint32
         scratch = dict(
-            view_mid=torch.empty((n, k), dtype=u32, device=device),
-            pay_flags=torch.empty((n,), dtype=torch.uint16, device=device),
-            pay_scol=torch.empty((n, p), dtype=torch.uint8, device=device),
-            pay_skey=torch.empty((n, p), dtype=u32, device=device),
-            pay_sbits=torch.empty((n, p), dtype=u32, device=device),
-            pay_ownk=torch.empty((n,), dtype=u32, device=device),
-            poke=torch.empty((n,), dtype=u32, device=device),
+            view_mid=tall((n, k), u32),
+            pay_flags=tall((n,), torch.uint16),
+            pay_scol=tall((n, p), torch.uint8),
+            pay_skey=tall((n, p), u32),
+            pay_sbits=tall((n, p), u32),
+            pay_ownk=tall((n,), u32),
+            poke=tall((n,), u32),
             refute=torch.empty((n,), dtype=u32, device=device),
             counters=torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
                                  device=device),
@@ -681,11 +731,12 @@ class TickKernel:
         else:
             pe = cfg.serf.piggyback_events
             s_in = list(packed[1:])
-            out = serf.SerfState(sw_out, *[torch.empty_like(x) for x in s_in])
+            out = serf.SerfState(sw_out, *out_of(
+                packed[1:], serf.SerfState._fields[1:], _SERF_FULL))
             xs = dict(
-                x_flags=torch.empty((n,), dtype=torch.uint16, device=device),
-                x_key=torch.empty((n, pe), dtype=u32, device=device),
-                x_orig=torch.empty((n, pe), dtype=torch.int32, device=device))
+                x_flags=tall((n,), torch.uint16),
+                x_key=tall((n, pe), u32),
+                x_orig=tall((n, pe), torch.int32))
             scratch.update(xs)
             tensors += (s_in + list(out[1:])
                         + [draws.u_resp, draws.relay_u1, draws.relay_u2,
@@ -695,13 +746,13 @@ class TickKernel:
         else:
             i32, f32 = torch.int32, torch.float32
             cs = dict(
-                c_flags=torch.empty((n,), dtype=torch.uint8, device=device),
-                c_inc=torch.empty((n,), dtype=u32, device=device),
-                c_color=torch.empty((n,), dtype=i32, device=device),
-                c_abits=torch.empty((n,), dtype=i32, device=device),
-                c_bbits=torch.empty((n,), dtype=i32, device=device),
-                c_qtx=torch.empty((n,), dtype=f32, device=device),
-                c_qrx=torch.empty((n,), dtype=f32, device=device),
+                c_flags=tall((n,), torch.uint8),
+                c_inc=tall((n,), u32),
+                c_color=tall((n,), i32),
+                c_abits=tall((n,), i32),
+                c_bbits=tall((n,), i32),
+                c_qtx=tall((n,), f32),
+                c_qrx=tall((n,), f32),
                 slo=torch.zeros((2,), dtype=i32, device=device))
             scratch.update(cs)
             tensors += ([getattr(sched, f) for f in _SCHED_LEAVES]
@@ -798,8 +849,9 @@ def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
 
 
 def _row_views(tree, n: int, row0: int, rows: int, device):
-    """A shard's rows of every node-axis leaf of a draw bundle (views where
-    the bundle is on ``device``, copies elsewhere), every other leaf whole."""
+    """Rows [row0, row0 + rows) of every node-axis leaf of a draw bundle
+    (views where the bundle is on ``device``, copies elsewhere), every
+    other leaf whole."""
     if tree is None or isinstance(tree, torch.Tensor):
         if tree is None:
             return None
@@ -809,6 +861,30 @@ def _row_views(tree, n: int, row0: int, rows: int, device):
     return type(tree)(*(_row_views(x, n, row0, rows, device) for x in tree))
 
 
+def exchange_plan(key: str, groups, b: int) -> list:
+    """The copies of the sharded call's exchange before launch ``key`` (a
+    key of :data:`EXCHANGES`) under ``groups`` (``parallel.mesh``'s
+    grouping, ``b`` rows a shard): one ``(mirror, to, from, row0, rows)``
+    per mirror the launch reads and pair of distinct groups, the source
+    group's rows [row0, row0 + rows) copied into the receiving group's
+    full-height buffer. A group's own rows are never copied; one group
+    copies nothing."""
+    spans = [(g[0] * b, len(g) * b) for g in groups]
+    return [(name, to, frm, *spans[frm]) for name in EXCHANGES.get(key, ())
+            for to in range(len(groups)) for frm in range(len(groups))
+            if to != frm]
+
+
+class _Group(NamedTuple):
+    """One device group's operands of a sharded tick."""
+    device: torch.device
+    row0: int
+    rows: int
+    out: object
+    scratch: dict
+    tensors: list
+
+
 class ShardedTickKernel:
     """B7, the tick once per node-axis shard (the reference's kernel under
     ``shard_map``, parallel/shard_step.py:253-267, :295-299):
@@ -816,37 +892,50 @@ class ShardedTickKernel:
 
     ``blocks`` holds each shard's packed state (a ``SerfState`` with a
     packed SWIM plane for ``serf_plane=True``) of ``n / R`` rows on its
-    mesh device; ``draws`` is the tick's one bundle for the whole cluster
-    (``swim.draw_tick`` / ``serf.draw_serf_tick``), on the mesh's first
-    device; ``sched_blocks`` each shard's copy of the schedule
-    (``chaos.schedule.place``). Each stage (chaos_pre, probe_send,
-    receive, pushpull, serf_post) launches once per shard, on the shard's
-    device and its current stream, over the shard's rows; before each, the
-    rows it reads at other shards are copied into a full-height mirror on
-    every device of the mesh (:data:`EXCHANGES`). Under a schedule the
-    shards' SLO words are OR-ed into the counters by one more launch
-    (``gossip_slo_fold``); in the serf variant D's query tally lands in a
-    zeroed full-height scratch per shard, summed over the shards in order
-    and added to each block. Returns the new blocks and each shard's [26]
-    int32 counters (the SLO counters on shard 0's), which sum to the
-    tick's. CUDA devices only; the plain version is the threaded runner
-    of parallel/shard_step.py."""
+    mesh device, placed by ``parallel.shard_step.place`` under this
+    call's ``groups``; ``draws`` is the tick's one bundle for the whole
+    cluster (``swim.draw_tick`` / ``serf.draw_serf_tick``) on the mesh's
+    first device; ``sched_blocks`` the schedule placed by
+    ``shard_step.place_schedule`` under the same ``groups``.
+
+    The shards of one device group (``groups``, by default
+    ``parallel.mesh.device_groups``: a run of shards on one device) are
+    adjacent row views of one storage per leaf, so each stage (chaos_pre,
+    probe_send, receive, pushpull, serf_post) launches once per group,
+    over the group's rows, on the group's device and its current stream.
+    On one card the default grouping is one group, and a tick is the
+    one-device launch set (row0 = 0, rows = n): no exchange, no mirror, D's
+    tally straight into the output, C's SLO counters formed by C. With
+    several groups the leaves a launch reads at other rows
+    (:func:`full_height_leaves`, and the scratch behind :data:`MIRRORS`)
+    are full height per group; before each launch that reads them
+    (:data:`EXCHANGES`) every group receives the other groups' rows, one
+    copy per (leaf, source group) (:func:`exchange_plan`); D's tally lands
+    in a zeroed full-height scratch per group, summed in group order and
+    added to each group's rows, and the groups' SLO words are OR-ed into
+    the counters by one more launch (``gossip_slo_fold``). A group whose
+    blocks are not adjacent raises; they are never copied into place.
+    ``groups=parallel.mesh.shard_groups(mesh)`` runs the schedule of a
+    mesh of one card per shard on any mesh, one card included. Returns
+    the new blocks (adjacent views again) and each group's [26] int32
+    counters (the SLO counters on group 0's), which sum to the tick's.
+    A call takes CUDA tensors only and raises on others; the plain version
+    is the threaded runner of parallel/shard_step.py."""
 
     def __init__(self, cfg: SimConfig, topo: Topology, mesh,
-                 serf_plane: bool = False, sentinel: bool = False):
+                 serf_plane: bool = False, sentinel: bool = False,
+                 groups=None):
         from consul_tpu_torch.parallel import mesh as mesh_mod
 
         self.mesh = mesh
         self.rows = mesh_mod.check_rows(cfg.n, mesh.size)
-        for dev in mesh.unique_devices():
-            if dev.type != "cuda":
-                raise ValueError(f"kernel='cuda' needs CUDA devices; the mesh "
-                                 f"holds {dev}")
+        self.groups = mesh_mod.check_groups(mesh, groups)
         self.kernel = TickKernel(cfg, topo, serf_plane, sentinel)
         self.cfg, self.serf = cfg, serf_plane
+        # Launches and exchange copies since construction.
         self.launches = 0
+        self.copies = 0
         self._worlds = {}
-        self._mirrors = {}
         # Set to a list to trace a tick: (label, CUDA event) marks on the
         # first device's stream before each exchange and each stage's
         # launch set, and an "end" mark (chip_smoke.py times them apart).
@@ -864,133 +953,149 @@ class ShardedTickKernel:
         self._worlds = {dev: topology.World(*(x.to(dev, copy=True) for x in world))
                         for dev in self.mesh.unique_devices()}
 
-    def _mirror(self, dev, name, like):
-        key = (dev, name)
-        shape = (self.cfg.n,) + tuple(like.shape[1:])
-        m = self._mirrors.get(key)
-        if m is None or m.dtype != like.dtype or tuple(m.shape) != shape:
-            m = torch.empty(shape, dtype=like.dtype, device=dev)
-            self._mirrors[key] = m
-        return m
-
-    def _exchange(self, names, tensors):
-        """Copy every shard's block of each named mirror (its source column
-        in the shard's operands) into the mirror of every device."""
-        for name in names:
-            src = _SOURCE[_PTRS.index(name)]
-            for dev in self.mesh.unique_devices():
-                m = self._mirror(dev, name, tensors[0][src])
-                for d, tens in enumerate(tensors):
-                    m[d * self.rows:(d + 1) * self.rows].copy_(tens[src])
-
     def __call__(self, blocks, draws, sched_blocks=None):
-        mesh, cfg, b = self.mesh, self.cfg, self.rows
-        r = mesh.size
-        if len(blocks) != r:
-            raise ValueError(f"{len(blocks)} blocks for a mesh of {r} shards")
+        from consul_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh, b = self.mesh, self.rows
+        if len(blocks) != mesh.size:
+            raise ValueError(f"{len(blocks)} blocks for a mesh of {mesh.size} shards")
         sched_blocks = (None if sched_blocks is None
                         or chaos_mod.or_none(sched_blocks[0]) is None
                         else sched_blocks)
         if not self._worlds:
             raise ValueError("set_world first: the kernel reads the world "
                              "whole on every device")
-        build()
-        k = self.kernel
-        # The push-pull draw is the tick's, whole on every device.
-        u_pp = (draws.swim if self.serf else draws).u_pp
-        outs, scratches, tensors = [], [], []
         for d, (blk, dev) in enumerate(zip(blocks, mesh.devices)):
+            if dev.type != "cuda":
+                raise ValueError(f"the sharded CUDA tick takes CUDA tensors; "
+                                 f"shard {d} is on {dev}: run the plain "
+                                 "version (parallel/shard_step.run_ticks)")
             if layout_mod.tick_of(blk).device != dev:
                 raise ValueError(f"shard {d}'s block is on "
                                  f"{layout_mod.tick_of(blk).device}, its mesh "
                                  f"device is {dev}")
-            dd = _row_views(draws, cfg.n, d * b, b, dev)
-            sd = None if sched_blocks is None else sched_blocks[d]
-            world = self._worlds[dev]
-            k._check_inputs(world, blk, dd, dev, sd, rows=b)
-            out, scratch, tens = k._buffers(world, blk, dd, dev, sd, rows=b)
-            # Mirrors stay null until the exchange that fills them.
-            for col in _SOURCE:
-                tens[col] = None
-            if sd is not None:
-                tens[_PTRS.index("m_upp")] = u_pp.to(dev)
-            if self.serf:
-                q = cfg.serf.query_slots
-                for name in ("t_acks", "t_resps"):
-                    tens[_PTRS.index(name)] = torch.zeros(
-                        (cfg.n, q), dtype=torch.int32, device=dev)
-            outs.append(out)
-            scratches.append(scratch)
-            tensors.append(tens)
+        build()
+        k = self.kernel
+        multi, chaos = len(self.groups) > 1, sched_blocks is not None
+        parts, args = self._operands(blocks, draws, sched_blocks)
         stages = k._stages(sched_blocks)
-        keys = {stage: ("probe_send_chaos" if stage == "probe_send"
-                        and sched_blocks is not None else stage)
-                for stage, _ in stages}
-        # Each shard's operands point at its device's mirrors from the
-        # start; the exchange before a launch fills the ones it reads.
-        for key in keys.values():
-            for name in EXCHANGES.get(key, ()):
-                col = _PTRS.index(name)
-                like = tensors[0][_SOURCE[col]]
-                for d, dev in enumerate(mesh.devices):
-                    tensors[d][col] = self._mirror(dev, name, like)
-        args = [k._args(tensors[d], None if sched_blocks is None
-                        else sched_blocks[d], d * b, b,
-                        slo_defer=sched_blocks is not None)
-                for d in range(r)]
         for stage, fn in stages:
-            if keys[stage] in EXCHANGES:
+            key = "probe_send_chaos" if stage == "probe_send" and chaos else stage
+            if multi and key in EXCHANGES:
                 self._mark("exchange:" + stage)
-                self._exchange(EXCHANGES[keys[stage]], tensors)
+                self._exchange(key, parts)
             self._mark("launch:" + stage)
-            for d, dev in enumerate(mesh.devices):
-                with torch.cuda.device(dev):
-                    k._launch(stage, fn, args[d],
-                              torch.cuda.current_stream(dev).cuda_stream)
+            for part, a in zip(parts, args):
+                with torch.cuda.device(part.device):
+                    k._launch(stage, fn, a,
+                              torch.cuda.current_stream(part.device).cuda_stream)
                 SHARDED_LAUNCHES[stage] += 1
                 self.launches += 1
-            if stage == "pushpull" and sched_blocks is not None:
-                self._slo_fold(args[0], scratches)
-        if self.serf:
+            if stage == "pushpull" and multi and chaos:
+                self._slo_fold(args[0], parts)
+        if multi and self.serf:
             self._mark("exchange:tally")
-            self._tally(outs, tensors)
+            self._tally(parts)
         self._mark("end")
-        return outs, [sc["counters"] for sc in scratches]
+        out = []
+        for g, part in zip(self.groups, parts):
+            out += mesh_mod.shard_views(part.out, g, b)
+        return out, [part.scratch["counters"] for part in parts]
 
-    def _slo_fold(self, args0, scratches):
-        """The shards' SLO words, OR-ed into shard 0's counters."""
-        dev0 = self.mesh.devices[0]
-        words = torch.cat([sc["slo"][:1].to(dev0) for sc in scratches])
+    def _operands(self, blocks, draws, sched_blocks):
+        """Each group's operands (:class:`_Group`) and TickArgs for one
+        tick: the group's blocks as one tree of its rows (views, checked
+        adjacent), its rows of the draws, its new buffers and, under
+        several groups, its mirrors."""
+        from consul_tpu_torch.parallel import mesh as mesh_mod
+
+        cfg, b, k = self.cfg, self.rows, self.kernel
+        multi, chaos = len(self.groups) > 1, sched_blocks is not None
+        # The push-pull draw is the tick's, whole on every device.
+        u_pp = (draws.swim if self.serf else draws).u_pp if chaos else None
+        parts, args = [], []
+        for g in self.groups:
+            dev = self.mesh.devices[g[0]]
+            row0, rows = g[0] * b, len(g) * b
+            st = mesh_mod.group_tree(blocks, g, b, cfg.n)
+            dd = _row_views(draws, cfg.n, row0, rows, dev)
+            sd = (None if not chaos else mesh_mod.group_tree(
+                sched_blocks, g, b, cfg.n, rows=chaos_mod.NODE_MASKS))
+            world = self._worlds[dev]
+            k._check_inputs(world, st, dd, dev, sd, rows=rows)
+            out, scratch, tens = k._buffers(world, st, dd, dev, sd, rows=rows,
+                                            row0=row0 if multi else None)
+            if multi:
+                self._mirrors(tens, row0, dev, u_pp)
+            parts.append(_Group(dev, row0, rows, out, scratch, tens))
+            args.append(k._args(tens, sd, row0, rows, slo_defer=multi and chaos))
+        return parts, args
+
+    def _mirrors(self, tens, row0, dev, u_pp):
+        """A group's mirror operands under several groups: each source's
+        full-height buffer (the group's input leaves as placed, its new
+        scratch), the whole push-pull draw, zeroed tally scratch."""
+        from consul_tpu_torch.parallel import mesh as mesh_mod
+
+        q = self.cfg.serf.query_slots
+        for col, src in _SOURCE.items():
+            name, x = _PTRS[col], tens[src]
+            if x is None:
+                tens[col] = None
+            elif name == "m_upp":
+                tens[col] = u_pp.to(dev)
+            elif name in ("t_acks", "t_resps"):
+                tens[col] = torch.zeros((self.cfg.n, q), dtype=torch.int32,
+                                        device=dev)
+            else:
+                tens[col] = mesh_mod.full_view(
+                    x, row0, self.cfg.n,
+                    what=f"{name} (place blocks with parallel.shard_step.place)")
+
+    def _exchange(self, key, parts):
+        """Each group's full-height buffers receive the other groups' rows
+        of the mirrors launch ``key`` reads (:func:`exchange_plan`)."""
+        for name, to, frm, row0, rows in exchange_plan(key, self.groups, self.rows):
+            col = _PTRS.index(name)
+            parts[to].tensors[col][row0:row0 + rows].copy_(
+                parts[frm].tensors[_SOURCE[col]])
+            self.copies += 1
+
+    def _slo_fold(self, args0, parts):
+        """The groups' SLO words, OR-ed into group 0's counters."""
+        dev0 = parts[0].device
+        words = torch.cat([p.scratch["slo"][:1].to(dev0) for p in parts])
         with torch.cuda.device(dev0):
             stream = torch.cuda.current_stream(dev0).cuda_stream
             rc = _LIB.gossip_slo_fold(ctypes.byref(args0),
                                       ctypes.c_void_p(words.data_ptr()),
-                                      len(scratches), ctypes.c_void_p(stream))
+                                      len(parts), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"gossip_slo_fold launch failed: CUDA error {rc}")
         SHARDED_LAUNCHES["slo_fold"] += 1
 
-    def _tally(self, outs, tensors):
-        """D's tallies summed over the shards in order, each block's rows
+    def _tally(self, parts):
+        """D's tallies summed over the groups in order, each group's rows
         added to its q_acks / q_resps (sum_scatter_rows; integer adds)."""
-        b = self.rows
         for name, leaf in (("t_acks", "q_acks"), ("t_resps", "q_resps")):
             col = _PTRS.index(name)
-            total = tensors[0][col]
-            for tens in tensors[1:]:
-                total = total + tens[col].to(total.device)
-            for d, out in enumerate(outs):
-                dst = getattr(out, leaf)
-                dst += total[d * b:(d + 1) * b].to(dst.device)
+            total = parts[0].tensors[col]
+            for part in parts[1:]:
+                total = total + part.tensors[col].to(total.device)
+            for part in parts:
+                dst = getattr(part.out, leaf)
+                dst += total[part.row0:part.row0 + part.rows].to(dst.device)
 
 
-def exchange_bytes_per_node(stage: str, state, sched=None, *,
-                            cfg: SimConfig) -> float:
+def exchange_bytes_per_node(stage: str, state, sched=None, *, cfg: SimConfig,
+                            groups) -> float:
     """Bytes per node that the sharded call's exchange before launch
-    ``stage`` moves when the shards share one device: each mirrored leaf
-    (:data:`EXCHANGES`) read once from the shards' blocks and written once
-    into the device's mirror. From the shapes of one tick's state (a block
-    or the whole: per node it is the same)."""
+    ``stage`` moves under ``groups`` (``parallel.mesh``'s grouping): each
+    mirrored leaf (:data:`EXCHANGES`) read once from its source group and
+    written once into each other group's buffer, only rows copied across
+    groups (:func:`exchange_plan`): with G groups, G - 1 copies of the
+    leaf in all; none with one group. From the shapes of one tick's state
+    (a block or the whole: per node it is the same)."""
     if stage not in STAGES:
         raise ValueError(f"unknown launch {stage!r}; expected one of {STAGES}")
     serf_plane = isinstance(state, serf.SerfState)
@@ -1012,7 +1117,7 @@ def exchange_bytes_per_node(stage: str, state, sched=None, *,
         per = 2 + 4 * pe + 4 * pe + 4 * q + 4
     else:
         per = 0.0
-    return 2 * per
+    return 2 * per * (len(groups) - 1)
 
 
 def plain_metrics(cfg: SimConfig, topo: Topology, world, packed, i, j):
@@ -1088,8 +1193,10 @@ class MetricsKernel:
                 world.height, i, j, acc, out)
         for idx, x in enumerate(ptrs):
             args.p[idx] = x.data_ptr()
-        # Groups of 8 cells in one 16-byte load where rows hold whole groups.
-        vec = k % 8 == 0 and packed.meta.data_ptr() % 16 == 0
+        # The bit-sliced pass where rows are whole 16-byte chunks of meta and
+        # flags can be read 16 bytes at a time; one cell a thread otherwise.
+        vec = (k % 8 == 0 and packed.meta.data_ptr() % 16 == 0
+               and packed.flags.data_ptr() % 16 == 0)
         for idx, x in enumerate((n, k, d, wd, s, vec)):
             args.i[idx] = int(x)
         with torch.cuda.device(device):

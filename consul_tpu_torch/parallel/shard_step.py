@@ -13,16 +13,22 @@ The port keeps its single controller and runs the same split two ways.
   board, as ``torch.nn.parallel.parallel_apply`` runs one module per
   device.
 - **The kernel (B7)** needs no threads: ``cuda_gossip.ShardedTickKernel``
-  walks the tick's launches, moving the rows each reads from other shards
-  before it and launching it once per shard.
+  walks the tick's launches once per device group (a run of shards on
+  one device, ``mesh.device_groups``), whose shards' blocks are adjacent
+  row views of one storage per leaf (:func:`place`), so a group launches
+  over its rows as one block. On one card that is one launch set, the
+  one-device tick's; between groups the rows a launch reads are copied
+  into each group's full-height buffers before it.
 
 Each tick the controller draws the one-device bundle once from the
 simulation's generator (on the plain path shard 0's thread makes that
 draw and shares it) and every shard takes its rows, so a sharded run is
-bit-equal to one device. Counters are per-shard sums, added over the
-shards once per chunk; metrics are sampled once per chunk on the final
-state, gathered to the mesh's first device, with the RMSE pairs of the
-one-device runner's last row (a length-1 ``TickTrace``).
+bit-equal to one device. Counters are per-shard (per-group on the
+kernel) sums, added once per chunk; metrics are sampled once per chunk on
+the final state with the RMSE pairs of the one-device runner's last row
+(a length-1 ``TickTrace``): launch M reads the group's storage in place
+where one group holds every shard on the mesh's first device, and a
+gathered copy otherwise.
 """
 
 from __future__ import annotations
@@ -45,10 +51,28 @@ from consul_tpu_torch.parallel import mesh as mesh_mod
 TORCH, CUDA = cuda_gossip.TORCH, cuda_gossip.CUDA
 
 
-def place(mesh: mesh_mod.Mesh, tree, n: int) -> list:
-    """One copy of ``tree`` per shard: its rows of every node-axis leaf,
-    every other leaf whole."""
-    return mesh_mod.split(mesh, tree, n)
+def place(mesh: mesh_mod.Mesh, tree, n: int, groups=None) -> list:
+    """``tree`` placed on the mesh: each shard's rows of every node-axis
+    leaf as adjacent views of one storage per device group (the leaves
+    the sharded tick reads at other rows full height,
+    ``cuda_gossip.full_height_leaves``), every other leaf whole. A copy."""
+    return mesh_mod.split(mesh, tree, n, groups=groups,
+                          full=cuda_gossip.full_height_leaves(tree))
+
+
+def adjoin(mesh: mesh_mod.Mesh, blocks: list, n: int, groups=None) -> list:
+    """Per-shard state blocks (each edited on its own) copied into the
+    placement :func:`place` makes."""
+    return mesh_mod.adjoin(blocks, mesh, n, groups=groups,
+                           full=cuda_gossip.full_height_leaves(blocks[0]))
+
+
+def place_schedule(mesh: mesh_mod.Mesh, sched, n: int, groups=None) -> list:
+    """A fault schedule placed per shard: its node masks by row block
+    (adjacent per device group), every per-entry leaf whole (the
+    reference's shard_step.py:68-75)."""
+    return mesh_mod.split(mesh, sched, n, groups=groups,
+                          rows=chaos_mod.NODE_MASKS)
 
 
 def gather(blocks: list, n: int, device):
@@ -205,12 +229,13 @@ class ShardedChunkRunner:
     ``run(blocks, draw, t0, ticks, sched_blocks=None, pairs=None) ->
     (blocks, counters [26] int32, TickTrace or None)``.
 
-    ``blocks`` are the shards' packed states, ``draw(t)`` the tick's global bundle on
-    the mesh's first device, ``pairs`` the (i, j) RMSE pairs of the
-    chunk's last tick (metrics off when None). ``kernel="cuda"`` steps
-    through B7 (``cuda_gossip.ShardedTickKernel``); ``kernel="torch"``
-    runs the plain tick SPMD in threads. The counters are summed over the
-    shards once, at the end of the chunk, on the first device."""
+    ``blocks`` are the shards' packed states (placed by :func:`place`),
+    ``draw(t)`` the tick's global bundle on the mesh's first device,
+    ``pairs`` the (i, j) RMSE pairs of the chunk's last tick (metrics off
+    when None). ``kernel="cuda"`` steps through B7
+    (``cuda_gossip.ShardedTickKernel``, one launch set per device group);
+    ``kernel="torch"`` runs the plain tick SPMD in threads. The counters
+    are summed once, at the end of the chunk, on the first device."""
 
     def __init__(self, cfg: SimConfig, topo: Topology, mesh: mesh_mod.Mesh,
                  world, *, serf_plane: bool = False, sentinel: bool = False,
@@ -223,6 +248,7 @@ class ShardedChunkRunner:
         self.serf, self.sentinel, self.kernel = serf_plane, sentinel, kernel
         self.device = mesh.devices[0]
         self.world = world
+        self.groups = mesh_mod.device_groups(mesh)
         self.world_blocks = place(mesh, world, n)
         self.topos = {dev: topo_on(topo, dev) for dev in mesh.unique_devices()}
         if kernel == CUDA:
@@ -255,10 +281,16 @@ class ShardedChunkRunner:
         return blocks, total
 
     def metrics(self, blocks, pairs):
-        """[4] float32 TickTrace row of the gathered state: launch M on
-        the card under ``kernel="cuda"``, its plain version otherwise."""
-        whole = gather([b.swim if self.serf else b for b in blocks],
-                       self.cfg.n, self.device)
+        """[4] float32 TickTrace row of the whole state: launch M on the
+        card under ``kernel="cuda"`` (over the group's storage in place
+        where one group holds every shard), its plain version otherwise
+        (over a gathered copy)."""
+        planes = [b.swim if self.serf else b for b in blocks]
+        if self.kernel == CUDA and len(self.groups) == 1:
+            whole = mesh_mod.group_tree(planes, self.groups[0],
+                                        self.cfg.n // self.mesh.size, self.cfg.n)
+        else:
+            whole = gather(planes, self.cfg.n, self.device)
         i, j = pairs
         if self.kernel == CUDA:
             out = torch.empty((4,), dtype=torch.float32, device=self.device)

@@ -7,7 +7,8 @@ Run from the root of a checkout, on one NVIDIA card:
 It imports ``consul_tpu_torch`` from the directory it is run from, builds
 that checkout's kernel, makes the states below from seeds through that
 kernel, and times every launch of one tick on each (the profiler's
-device time per launch, and CUDA events for the whole tick). The states
+device time per launch, and CUDA events for the whole tick), and launch
+M (the TickTrace row) on each state's SWIM plane. The states
 are ones that any kernel equal to the plain version bit for bit reaches,
 so running this script from two checkouts (``cd other && python3
 /path/to/launch_timing.py``) times two versions of the kernel on the same
@@ -122,34 +123,66 @@ def make_state(name: str):
     return tick, world, st, draw(), sched
 
 
-def time_state(tick, world, st, d, sched, reps):
-    """ms per launch (profiler device time, by kernel name) and ms per
-    tick (CUDA events over 20 ticks) of the tick on one state."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def fn():
-        tick(world, st, d, sched)
-
+def _events_ms(fn, count: int) -> float:
+    """ms per call of ``fn`` by CUDA events over ``count`` back-to-back
+    calls, after one warm call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(20):
+    for _ in range(count):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def _device_ms(fn, reps: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name
+    (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    launches = {}
+    out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         if ev.key.startswith("k_") and us:
-            launches[ev.key.split("(")[0]] = us / 1000.0 / reps
-    return dict(ms_per_tick=start.elapsed_time(end) / 20,
-                ms_by_launch=launches or "not measured")
+            out[ev.key.split("(")[0]] = us / 1000.0 / reps
+    return out
+
+
+def time_state(tick, world, st, d, sched, reps):
+    """ms per launch (profiler device time, by kernel name) and ms per
+    tick (CUDA events over 20 ticks) of the tick on one state; and launch
+    M (the TickTrace row, 2,048 RMSE pairs from a seed) on the state's
+    SWIM plane, its device ms (profiler) and ms per launch by events."""
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.utils import metrics
+
+    def fn():
+        tick(world, st, d, sched)
+
+    ms = _events_ms(fn, 20)
+    launches = _device_ms(fn, reps)
+    mk = cuda_gossip.make_metrics_kernel(tick.cfg, tick.topo)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    i, j = metrics.rmse_samples(tick.cfg, gen, 2048, "cuda")
+    out = torch.empty(4, device="cuda")
+    sw = st.swim if tick.serf else st
+
+    def m():
+        mk(world, sw, i, j, out)
+
+    m_ms_events = _events_ms(m, 50)
+    m_dev = _device_ms(m, 4 * reps)
+    return dict(ms_per_tick=ms, ms_by_launch=launches or "not measured",
+                metrics_ms=m_dev.get("k_metrics", "not measured"),
+                metrics_ms_events=m_ms_events)
 
 
 def main() -> int:

@@ -11,6 +11,14 @@ collectives, sharded.
   ``local_n``, ``any_rows``, ``all_rows``, ``take_rows``,
   ``sum_scatter_rows``, ``tree_psum`` and ``shard_once`` (cf.
   tests/test_shardmap.py:67-173); every result equal.
+- Device groups (``mesh.device_groups``: runs of shards on one device)
+  and the adjacent placement: ``split`` / ``adjoin`` hand each group's
+  shards row views of one storage per leaf (full height for the leaves
+  named), checked by ``data_ptr``; ``group_view`` reads a group whole
+  without a copy and refuses blocks that are not adjacent; ``join``
+  returns a copy. The sharded CUDA tick's exchange plan and its bytes
+  under one group per device and one group per shard: only other
+  groups' rows move, none with one group.
 - A shard that fails ends the run with its own exception, and a shard
   that never reaches the barrier fails the run at the barrier's timeout
   instead of hanging it.
@@ -24,6 +32,10 @@ import pytest
 import torch
 
 from consul_tpu.parallel import mesh as jmesh
+from consul_tpu_torch.config import SimConfig
+from consul_tpu_torch.models import layout as tlayout
+from consul_tpu_torch.models import state as tstate
+from consul_tpu_torch.ops import cuda_gossip as cg
 from consul_tpu_torch.parallel import collective as coll
 from consul_tpu_torch.parallel import mesh as tmesh
 from consul_tpu_torch.parallel import shard_step
@@ -232,3 +244,133 @@ def test_reference_mesh_builders_are_numpy_free_here():
     m = tmesh.make_mesh(_cpu(2))
     assert all(isinstance(d, torch.device) for d in m.devices)
     assert np.asarray(m.shape).tolist() == [2]
+
+
+# -- device groups and the adjacent placement ------------------------------
+
+@pytest.mark.parametrize("devs,want", [
+    (["cpu"] * 4, ((0, 1, 2, 3),)),
+    (["cpu", "cpu", "meta", "meta"], ((0, 1), (2, 3))),
+    (["cpu", "meta", "cpu"], ((0,), (1,), (2,))),
+    (["cpu"], ((0,),))], ids=["one", "two", "runs", "single"])
+def test_device_groups(devs, want):
+    mesh = tmesh.make_mesh(devs)
+    assert tmesh.device_groups(mesh) == want
+    assert tmesh.check_groups(mesh) == want
+    assert tmesh.shard_groups(mesh) == tuple((d,) for d in range(len(devs)))
+    assert tmesh.check_groups(mesh, [list(g) for g in want]) == want
+
+
+@pytest.mark.parametrize("bad", [((0, 2), (1, 3)), ((0, 1),), ((1, 0), (2, 3)),
+                                 ((0, 1, 2), (3,)), ((0, 1), (), (2, 3))])
+def test_check_groups_refuses_what_is_not_a_grouping(bad):
+    with pytest.raises(ValueError, match="groups|group"):
+        tmesh.check_groups(tmesh.make_mesh(["cpu", "cpu", "meta", "meta"]), bad)
+
+
+def _tree():
+    return (torch.arange(N * 3, dtype=torch.int64).reshape(N, 3),
+            torch.arange(N, dtype=torch.int16), torch.tensor(5))
+
+
+@pytest.mark.parametrize("r", SHARDS)
+@pytest.mark.parametrize("grouping", ["device", "shard"])
+def test_split_places_each_group_as_adjacent_views(r, grouping):
+    mesh = tmesh.make_mesh(_cpu(r))
+    groups = (tmesh.device_groups(mesh) if grouping == "device"
+              else tmesh.shard_groups(mesh))
+    tree, b = _tree(), N // r
+    blocks = tmesh.split(mesh, tree, N, groups=groups, full={"1"})
+    for g in groups:
+        lo, hi = g[0] * b, (g[-1] + 1) * b
+        xs = [blocks[d][0] for d in g]
+        assert [x.data_ptr() for x in xs] == [
+            xs[0].data_ptr() + i * b * 3 * 8 for i in range(len(g))]
+        assert xs[0].untyped_storage().nbytes() == len(g) * b * 3 * 8
+        whole = tmesh.group_view(xs, g, b, N)
+        assert whole.data_ptr() == xs[0].data_ptr()
+        assert torch.equal(whole, tree[0][lo:hi])
+        # A full-height leaf: the group's rows in their place among N.
+        ys = [blocks[d][1] for d in g]
+        full = tmesh.group_view(ys, g, b, N, full=True)
+        assert full.shape[0] == N and ys[0].untyped_storage().nbytes() == N * 2
+        assert full.data_ptr() == ys[0].data_ptr() - lo * 2
+        assert torch.equal(full[lo:hi], tree[1][lo:hi])
+        assert all(int(blocks[d][2]) == 5 for d in g)
+    assert len({blocks[g[0]][0].untyped_storage().data_ptr()
+                for g in groups}) == len(groups)
+    back = tmesh.join(blocks, N, "cpu")
+    assert all(torch.equal(a, c) for a, c in zip(back, tree))
+
+
+def test_join_returns_a_copy():
+    tree = _tree()
+    blocks = tmesh.split(tmesh.make_mesh(_cpu(4)), tree, N)
+    back = tmesh.join(blocks, N, "cpu")
+    assert back[0].data_ptr() != blocks[0][0].data_ptr()
+    back[0].add_(1)
+    back[1].add_(1)
+    again = tmesh.join(blocks, N, "cpu")
+    assert torch.equal(again[0], tree[0]) and torch.equal(again[1], tree[1])
+
+
+def test_adjoin_places_loose_blocks_and_group_view_refuses_them():
+    mesh, b = tmesh.make_mesh(_cpu(4)), N // 4
+    x = torch.arange(N * 2).reshape(N, 2)
+    loose = [tmesh.block_of((x,), N, d, 4, "cpu") for d in range(4)]
+    with pytest.raises(ValueError, match="parallel.mesh.split"):
+        tmesh.group_tree(loose, (0, 1, 2, 3), b, N)
+    placed = tmesh.adjoin(loose, mesh, N)
+    whole = tmesh.group_tree(placed, (0, 1, 2, 3), b, N)
+    assert whole[0].data_ptr() == placed[0][0].data_ptr()
+    assert torch.equal(whole[0], x)
+    with pytest.raises(ValueError, match="adjacent"):
+        tmesh.group_view([placed[1][0], placed[0][0]], (0, 1), b, N)
+    # One storage per shard: no full height behind it.
+    apart = tmesh.adjoin(loose, mesh, N, groups=tmesh.shard_groups(mesh))
+    assert tmesh.group_view([apart[2][0]], (2,), b, N).data_ptr() == \
+        apart[2][0].data_ptr()
+    with pytest.raises(ValueError, match="full height"):
+        tmesh.group_view([apart[2][0]], (2,), b, N, full=True)
+    # The views of one group shard back into its blocks.
+    views = tmesh.shard_views((whole[0],), (0, 1, 2, 3), b)
+    assert [v[0].data_ptr() for v in views] == [p[0].data_ptr() for p in placed]
+
+
+# -- the sharded CUDA tick's exchange plan and bytes -----------------------
+
+@pytest.mark.parametrize("r", SHARDS)
+def test_exchange_plan_moves_only_other_groups_rows(r):
+    mesh, b = tmesh.make_mesh(_cpu(r)), N // r
+    for key in cg.EXCHANGES:
+        assert cg.exchange_plan(key, tmesh.device_groups(mesh), b) == []
+    groups = tmesh.shard_groups(mesh)
+    for key, names in cg.EXCHANGES.items():
+        assert set(names) <= set(cg.MIRRORS)
+        plan = cg.exchange_plan(key, groups, b)
+        assert len(plan) == len(names) * r * (r - 1)
+        for name in names:
+            for to in range(r):
+                got = sorted((row0, rows) for nm, t, frm, row0, rows in plan
+                             if nm == name and t == to)
+                assert got == [(f * b, b) for f in range(r) if f != to]
+        assert all(frm != to and row0 == frm * b for _, to, frm, row0, _ in plan)
+    pairs = cg.exchange_plan("pushpull", ((0, 1), (2, 3)), N // 4)
+    assert pairs == [("m_vmid", 0, 1, N // 2, N // 2),
+                     ("m_vmid", 1, 0, 0, N // 2)]
+
+
+def test_exchange_bytes_count_only_rows_across_groups():
+    cfg = SimConfig(n=256, view_degree=32)
+    st = tlayout.pack(tstate.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    for g in (1, 2, 4, 8):
+        groups = tuple((d,) for d in range(g))
+        per = {k: cg.exchange_bytes_per_node(k, st, cfg=cfg, groups=groups)
+               for k in cg.STAGES}
+        # 25 B/node of flags, incarnation and Vivaldi before A, 37 of
+        # payloads and pokes before B, 128 of view_mid before C; read and
+        # written, once per other group.
+        assert per == {"chaos_pre": 0.0, "probe_send": 50.0 * (g - 1),
+                       "receive": 74.0 * (g - 1), "pushpull": 256.0 * (g - 1),
+                       "serf_post": 0.0}
+        assert sum(per.values()) == 380 * (g - 1)

@@ -22,6 +22,16 @@ layout="packed")`` and the reference's ``make_sharded_counted_serf_step``
 the reference's key ladder: discrete leaves and counters bit for bit,
 floats within ``torch_parity``'s packed / Vivaldi tolerances.
 
+The placement (no reference needed): a sharded ``Simulation``'s blocks
+are adjacent row views of one storage per device group after placement,
+a kill (``_edit``), ``set_swim_state``, ``load_state`` and a serf verb,
+and its schedule's node masks too (checked by ``data_ptr``). The sharded
+CUDA tick's operands, built on the CPU without a launch: each group's
+row origin of a mirrored leaf is its mirror (one group: the leaf itself;
+one group per shard: the group's full-height buffer), its exchange fills
+every other group's rows and its tally sums the groups' in order; a call
+on CPU blocks raises, and so do blocks that are not adjacent.
+
 What must raise: an ``n`` that does not divide over the shards,
 ``kernel="cuda"`` on a CPU mesh, the dense layout on a mesh, a
 ``device=`` that disagrees with the mesh, and the raft tier, a serving plane, a sweep and ``run_resilient``
@@ -46,7 +56,10 @@ from consul_tpu_torch.models import serf as tserf
 from consul_tpu_torch.models import state as tstate
 from consul_tpu_torch.models import swim as tswim
 from consul_tpu_torch.models.cluster import SerfSimulation, Simulation
+from consul_tpu_torch.models import layout as tlayout
+from consul_tpu_torch.ops import cuda_gossip as cg
 from consul_tpu_torch.ops import topology
+from consul_tpu_torch.parallel import mesh as tmesh
 from consul_tpu_torch.parallel import shard_step as tshard
 from consul_tpu_torch.serving import ServingPlane
 
@@ -92,7 +105,7 @@ def _mask(rows):
     return m
 
 
-@pytest.mark.parametrize("r", SHARDS)
+@pytest.mark.parametrize("r", SHARDS + (8,))
 def test_swim_matches_one_device(r):
     sim = _twins(Simulation, SimConfig(n=N, view_degree=K, packet_loss=0.05), r)
     assert sim.counters["gossip_rx"] > 0 and sim.counters["nacks_received"] > 0
@@ -269,3 +282,139 @@ def test_what_must_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A13"):
         runtime.run_resilient(sim, 8, chunk=4)
     assert sim.raft is None and sim.serving is None and sim._t == 0
+
+
+# -- the adjacent placement and the sharded CUDA tick's operands ------------
+
+def _assert_adjacent(blocks, n, r, leaf=lambda b: b.meta):
+    """Every shard's block of ``leaf`` right after the one before it, in
+    one storage (``["cpu"] * r`` is one device group)."""
+    xs = [leaf(b) for b in blocks]
+    step = xs[0].numel() * xs[0].element_size()
+    assert [x.data_ptr() for x in xs] == [xs[0].data_ptr() + d * step
+                                          for d in range(r)]
+    assert xs[0].untyped_storage().nbytes() == r * step
+    tmesh.group_tree(blocks, tuple(range(r)), n // r, n)
+
+
+def test_a_sharded_simulation_keeps_its_blocks_adjacent():
+    cfg = SimConfig(n=N, view_degree=K)
+    sim = SerfSimulation(cfg, seed=5, kernel="torch", device="cpu",
+                         mesh=["cpu"] * 4)
+    for leaf in (lambda b: b.swim.meta, lambda b: b.swim.flags,
+                 lambda b: b.q_acks, lambda b: b.swim.viv.vec):
+        _assert_adjacent(sim.state, N, 4, leaf)
+    sim.kill(_mask(slice(0, 8)))
+    _assert_adjacent(sim.state, N, 4, lambda b: b.swim.meta)
+    sim.user_event(_mask([3]), 7)
+    _assert_adjacent(sim.state, N, 4, lambda b: b.ev_key)
+    sim.set_swim_state(sim.swim_state)
+    _assert_adjacent(sim.state, N, 4, lambda b: b.swim.susp_seen)
+    before = sim._whole()
+    sim.load_state(before)
+    _assert_adjacent(sim.state, N, 4, lambda b: b.swim.lat_buf)
+    _bits_equal(before, sim._whole(), "restored")
+    sim.set_chaos([tchaos.Partition(0, 4, slice(0, N // 3))])
+    _assert_adjacent(sim._sched_blocks(), N, 4, lambda s: s.part_side)
+
+
+def _k7_operands(r, grouping, serf_plane, chaos_on):
+    """A sharded tick's operands for one tick on ``["cpu"] * r``, built
+    without a launch: (kernel, blocks, draws, schedule blocks, groups'
+    operands, their TickArgs)."""
+    n = 64
+    cfg = SimConfig(n=n, view_degree=16, packet_loss=0.05)
+    gen = torch.Generator().manual_seed(3)
+    world = topology.make_world(cfg, gen, "cpu")
+    topo = topology.make_topology(cfg, gen, "cpu")
+    st = tlayout.pack_state(tserf.init(cfg, gen, "cpu") if serf_plane
+                            else tstate.init(cfg, gen, "cpu"))
+    sched = (tchaos.compile_schedule(n, [
+        tchaos.Partition(0, 8, slice(0, n // 4))], "cpu") if chaos_on else None)
+    d = (tserf.draw_serf_tick(cfg, gen, "cpu", chaos=chaos_on) if serf_plane
+         else tswim.draw_tick(cfg, gen, "cpu", chaos=chaos_on))
+    mesh = tmesh.make_mesh(["cpu"] * r)
+    k7 = cg.ShardedTickKernel(
+        cfg, topo, mesh, serf_plane=serf_plane, sentinel=chaos_on,
+        groups=(tmesh.device_groups(mesh) if grouping == "device"
+                else tmesh.shard_groups(mesh)))
+    k7.set_world(world)
+    blocks = tshard.place(mesh, st, n, groups=k7.groups)
+    sb = (tshard.place_schedule(mesh, sched, n, groups=k7.groups)
+          if chaos_on else None)
+    parts, args = k7._operands(blocks, d, sb)
+    return k7, blocks, d, sb, parts, args
+
+
+@pytest.mark.parametrize("r", SHARDS)
+@pytest.mark.parametrize("grouping", ["device", "shard"])
+@pytest.mark.parametrize("serf_plane,chaos_on", [(False, False), (True, True)],
+                         ids=["bare", "serf_chaos"])
+def test_sharded_tick_operands(r, grouping, serf_plane, chaos_on):
+    k7, blocks, d, sb, parts, args = _k7_operands(r, grouping, serf_plane,
+                                                  chaos_on)
+    multi = grouping == "shard"
+    assert len(parts) == (r if multi else 1)
+    # Each group's row origin of a mirrored leaf is its mirror: the leaf
+    # itself in one group, the group's full-height buffer under several.
+    for part, a in zip(parts, args):
+        assert a.i[cg._INTS.index("slo_defer")] == int(multi and chaos_on)
+        assert (a.i[cg._INTS.index("row0")], a.i[cg._INTS.index("rows")]) == (
+            part.row0, part.rows)
+        for col, src in cg._SOURCE.items():
+            name = cg._PTRS[col]
+            if multi and name in ("t_acks", "t_resps"):
+                t = part.tensors[col]
+                assert (t is None) != serf_plane
+                assert t is None or (t.shape[0] == 64 and not t.any())
+                continue
+            assert a.p[col] == a.p[src], name
+    # The outputs, handed back as blocks, are what the next tick takes.
+    outs = [blk for g, part in zip(k7.groups, parts)
+            for blk in tmesh.shard_views(part.out, g, k7.rows)]
+    k7._operands(outs, d, sb)
+    # The exchange before each launch fills every other group's rows of
+    # each leaf it reads, and copies nothing with one group.
+    stamp = {}
+    for gi, part in enumerate(parts):
+        for col in cg._SOURCE:
+            src, x = cg._SOURCE[col], part.tensors[cg._SOURCE[col]]
+            if cg._PTRS[col] in cg.EXCHANGES["probe_send"] + \
+                    cg.EXCHANGES["pushpull"] and x is not None:
+                x.copy_(torch.full_like(x, gi + 1))
+                stamp[(gi, col)] = part.tensors[col]
+    for key in ("probe_send", "pushpull"):
+        k7._exchange(key, parts)
+    assert k7.copies == (0 if not multi else 7 * r * (r - 1))
+    for (gi, col), mirror in stamp.items():
+        for gj, other in enumerate(parts):
+            rows = mirror[other.row0:other.row0 + other.rows]
+            assert bool((rows == gj + 1).all()), (cg._PTRS[col], gi, gj)
+    if serf_plane and multi:
+        # D's tally: the groups' scratch summed in order into each group's
+        # rows of the output.
+        q = parts[0].out.q_acks
+        before = [p.out.q_acks.clone() for p in parts]
+        g = torch.Generator().manual_seed(1)
+        tallies = [torch.randint(0, 3, p.tensors[cg._PTRS.index("t_acks")].shape,
+                                 generator=g, dtype=torch.int32) for p in parts]
+        for p, t in zip(parts, tallies):
+            p.tensors[cg._PTRS.index("t_acks")].copy_(t)
+            p.tensors[cg._PTRS.index("t_resps")].zero_()
+        k7._tally(parts)
+        total = sum(tallies)
+        for p, b0 in zip(parts, before):
+            assert torch.equal(p.out.q_acks,
+                               b0 + total[p.row0:p.row0 + p.rows])
+        assert q.dtype == torch.int32
+
+
+def test_sharded_tick_raises_on_cpu_blocks_and_loose_blocks():
+    k7, blocks, d, _, _, _ = _k7_operands(4, "device", False, False)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        k7(blocks, d)
+    loose = [tmesh.block_of(tlayout.pack_state(tstate.init(
+        k7.cfg, torch.Generator().manual_seed(3), "cpu")), 64, s, 4, "cpu")
+        for s in range(4)]
+    with pytest.raises(ValueError, match="parallel.mesh.split"):
+        k7._operands(loose, d, None)
