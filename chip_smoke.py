@@ -99,7 +99,23 @@ and the launch sets apart, beside B1 on the same state) and
 one-device run's tick with bit-equal counters and state, in the
 one-device launch set a tick with no copy (wall and peak bytes beside
 the one-device run's). ``metrics_timing`` times launch M at 1M and on
-the dense view (n = 256). It prints one JSON
+the dense view (n = 256). The observability phases (ROADMAP A18):
+``lens_parity`` holds launch L (the node-lens row, ``LensKernel``)
+against ``obs.lens.snapshot_packed`` bit for bit after every tick of a
+32-tick window on four states (the SWIM path's after a kill, serf, chaos +
+sentinel, dense at n = 256) at ``normalize_ids(n, 64)`` plus rows 1 and
+n - 1; ``lens_main_path`` drives the 1M SWIM main path with
+``set_lens(64)`` armed, which must converge on the unarmed run's tick
+with bit-equal state and counters, one L launch a tick, and no host
+sync in a metrics-off chunk; ``trace_capture`` reads the ``cuda.build``
+span of this run's build (exactly one when this run compiled the
+library, none when it loaded a library an earlier run had built), exports a traced run with the lens's counter
+tracks and checks its schema and chunk spans, then runs
+``utils/debug.capture_sim`` with an 8-tick ``torch.profiler`` profile
+whose trace must hold every tick launch, L and the ``sim_chunk`` range;
+``lens_timing`` times L alone and a tick with the lens against one
+without on the SWIM and serf paths (at most 1.1x); ``blackbox_live``
+captures the CUDA-init black box in this process. It prints one JSON
 line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -348,6 +364,23 @@ DCN_ROUNDS = 12
 DCN_SYNC = 16
 DCN_COUNTERS = ("retries", "link_down_ticks", "send_timeouts", "retx_dropped",
                 "heals", "link_degraded")
+
+# The observability plane (obs/): the node lens's sampled rows on the main
+# path (normalize_ids(n, LENS_S)) and, for launch L against its plain
+# version, those plus rows 1 and n - 1, over LENS_WINDOW ticks a state;
+# the ticks of each run of the with / without the lens timing; the traced
+# run (LENS_TRACE_IDS rows, LENS_TRACE_CHUNKS chunks of LENS_TRACE_CHUNK)
+# and the debug bundle's profiled ticks, written under TRACE_DIR (removed
+# after). The limit on a tick with the lens over one without.
+LENS_S = 64
+LENS_WINDOW = 32
+LENS_TIMED_TICKS = 32
+LENS_TICK_RATIO_MAX = 1.1
+LENS_TRACE_IDS = 8
+LENS_TRACE_CHUNKS = 4
+LENS_TRACE_CHUNK = 32
+PROFILE_TICKS = 8
+TRACE_DIR = os.path.join("build", "trace_capture")
 
 
 def emit(obj):
@@ -985,7 +1018,7 @@ def chaos_main_path(cfg):
                bytes_per_node=layout.bytes_per_node(sim.state, n))
     ok = (converged and agreement == 1.0 and finite and mask == 0
           and all(v > 0 for k, v in scenario_launches.items()
-                  if k not in ("serf_post", "metrics"))
+                  if k not in ("serf_post", "metrics", "lens"))
           and launches["metrics"] > 0
           and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
     sched = chaos.shift_schedule(
@@ -2001,7 +2034,7 @@ def serf_chaos_main_path(cfg):
                bytes_per_node=layout.bytes_per_node(sim.state, n))
     ok = (converged and agreement == 1.0 and finite and mask == 0
           and all(c["coverage"] == 1.0 for c in coverage if c["name"] == 2)
-          and all(v > 0 for v in launches.values())
+          and all(v > 0 for k, v in launches.items() if k != "lens")
           and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
     sched = chaos.shift_schedule(
         chaos.compile_schedule(n, chaos_main_events(chaos, n), sim.device),
@@ -3362,6 +3395,309 @@ def sharded_main_path(cfg, ref):
     return res, (world, topo, state)
 
 
+def lens_ids(n: int) -> tuple:
+    """The lens parity's rows: normalize_ids(n, LENS_S), rows 1 and n - 1."""
+    from consul_tpu_torch.obs import lens
+
+    return tuple(sorted(set(lens.normalize_ids(n, LENS_S)) | {1, n - 1}))
+
+
+def lens_window(name: str, sim, kill_frac: int = 0):
+    """Launch L against its plain version (obs.lens.snapshot_packed) on
+    ``sim``'s packed state after each of LENS_WINDOW ticks, each run
+    through the simulation's own CUDA tick (one tick a chunk), at
+    lens_ids(n): the rows bit for bit. With ``kill_frac`` the first
+    n // kill_frac rows are killed before the window. Also counts the
+    sampled rows that are dead, hold a suspicion, have a probe in flight
+    or a nonzero Lamport clock (the decoded cases the window reached)."""
+    from consul_tpu_torch.obs import lens
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n = sim.cfg.n
+    if kill_frac:
+        sim.kill(torch.arange(n) < n // kill_frac)
+    ids = lens_ids(n)
+    kernel = cuda_gossip.make_lens_kernel(sim.cfg)
+    out = torch.empty((len(ids), 7), device="cuda")
+    bad, err = 0, 0.0
+    seen = torch.zeros(4, dtype=torch.int64, device="cuda")
+    t0 = sim._t
+    for _ in range(LENS_WINDOW):
+        sim.run(1, chunk=1, with_metrics=False)
+        packed, clock = sim._swim_at_rest(), sim._clock_of(sim.state)
+        kernel(packed, clock, ids, out)
+        want = lens.snapshot_packed(packed, clock, ids)
+        bad += int((out.view(torch.int32) != want.view(torch.int32))
+                   .any(1).sum())
+        err = max(err, float(torch.nan_to_num((out - want).abs()).max()))
+        seen += torch.stack([(want[:, 0] == 0).sum(), (want[:, 2] >= 0).sum(),
+                             (want[:, 3] >= 0).sum(), (want[:, 4] > 0).sum()])
+    torch.cuda.synchronize()
+    return dict(state=name, n=n, k=sim.cfg.degree, window=[t0, sim._t],
+                ids=list(ids), mismatched_rows=bad, max_abs_err=err,
+                row_ticks=dict(zip(("dead", "suspicion_open", "probe_in_flight",
+                                    "lamport_nonzero"), seen.tolist())),
+                ok=bad == 0)
+
+
+def lens_parity(cfg):
+    """lens_window on four states: the SWIM path's after a 5 % kill, the
+    serf path's after an event storm (its Lamport clock nonzero), the
+    chaos + sentinel variant's inside the parity schedule, and the dense
+    view's at n = DENSE_N after a 5 % kill."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models import cluster
+
+    n = cfg.n
+    out = []
+    sim = cluster.Simulation(cfg, seed=5)
+    sim.run(64, chunk=64, with_metrics=False)
+    out.append(lens_window("swim_after_kill", sim, kill_frac=20))
+    del sim
+    sim = cluster.SerfSimulation(cfg, seed=7)
+    sim.run(32, chunk=32, with_metrics=False)
+    sim.user_event(_rows(n, range(n // 3, n // 3 + 64), "cpu"), 5)
+    sim.leave(_rows(n, [n // 2 + 1], "cpu"))
+    out.append(lens_window("serf", sim))
+    del sim
+    sim = cluster.Simulation(cfg, seed=9)
+    sim.set_sentinel(True)
+    sim.set_chaos(chaos_events(chaos, n, 64))
+    sim.run(16, chunk=16, with_metrics=False)
+    out.append(lens_window("chaos_sentinel", sim))
+    del sim
+    sim = cluster.Simulation(SimConfig(n=DENSE_N), seed=11)
+    sim.run(32, chunk=32, with_metrics=False)
+    out.append(lens_window("dense", sim, kill_frac=20))
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def lens_main_path(cfg, ref):
+    """The SWIM north star (as main_path: seed 0, 64 ticks, a 5 % kill,
+    run_until_converged(4096, chunk=128)) with set_lens(LENS_S) armed: it
+    must converge on the unarmed run's tick (``ref``) with bit-equal state
+    and counters, record every tick, and launch L once a tick; then a
+    metrics-off chunk with the lens armed must make no host sync. Returns
+    the result and the simulation."""
+    import numpy as np
+
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+
+    sim = cluster.Simulation(cfg, seed=0, layout="packed", kernel="cuda")
+    ids = sim.set_lens(LENS_S)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(64, chunk=64)
+    mask = torch.zeros(cfg.n, dtype=torch.bool)
+    mask[: cfg.n // 20] = True
+    sim.kill(mask)
+    converged, used, trace = sim.run_until_converged(max_ticks=4096, chunk=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_gossip.LAUNCHES)
+    diff = tree_diff(ref["state"], sim.state)
+    counters_equal = sim.counters == ref["counters"]
+    recorded = sim.lens.ticks_recorded
+    t_run = sim._t
+    syncs = sync_count(lambda: sim.run(128, chunk=128, with_metrics=False))
+    sim.counters  # flush the deferred chunk
+    ticks, vals = sim.lens.timelines()
+    res = dict(n=cfg.n, k=cfg.degree, lens_ids=len(ids), converged=converged,
+               ticks_after_kill=used, ticks_unarmed=ref["used"],
+               ticks_total=t_run, state_bit_equal=not diff,
+               differing_leaves=diff[:5], counters_equal=counters_equal,
+               ticks_recorded=recorded, lens_launches=launches["lens"],
+               tick_launches=tick_launches(launches),
+               host_syncs_metrics_off_chunk=syncs,
+               ticks_recorded_after=sim.lens.ticks_recorded,
+               finite=bool(np.isfinite(vals).all()),
+               dead_at_end=int((vals[-1, :, 0] == 0).sum()),
+               wall_s=round(wall, 3), wall_unarmed_s=round(ref["wall"], 3))
+    res["ok"] = (converged and used == ref["used"] and not diff
+                 and counters_equal and recorded == t_run
+                 and launches["lens"] == t_run and syncs == 0
+                 and res["ticks_recorded_after"] == t_run + 128
+                 and ticks[-1] == t_run + 127 and res["finite"])
+    return res, sim
+
+
+def lens_launch_timing(sim, rate):
+    """Launch L on ``sim``'s packed state at its armed ids: "ms", its own
+    device time (profiler; None when it records none); "ms_events", CUDA
+    events around back-to-back calls, the wrapper's host work included;
+    its plain version's ms; and the bound, lens_hbm_bytes over the card's
+    memory rate."""
+    from consul_tpu_torch.obs import lens
+    from consul_tpu_torch.ops import cuda_gossip
+
+    ids = sim.lens.ids
+    packed, clock = sim._swim_at_rest(), sim._clock_of(sim.state)
+    kernel = cuda_gossip.make_lens_kernel(sim.cfg)
+    idx = torch.tensor(ids, device="cuda")
+    out = torch.empty((len(ids), 7), device="cuda")
+
+    def call():
+        return kernel(packed, clock, ids, out)
+    prof = launch_breakdown(call, 20)
+    res = {"s": len(ids), "ms_events": cuda_ms(call, 50),
+           "plain_ms": cuda_ms(lambda: lens.snapshot_packed(packed, clock, idx),
+                               5),
+           "bytes": cuda_gossip.lens_hbm_bytes(packed, ids, clock)}
+    dev = prof if isinstance(prof, dict) else {}
+    res["ms"] = next((v for k, v in dev.items() if k.startswith("k_lens")), None)
+    res["bound_ms"] = res["bytes"] / rate * 1e3
+    return res
+
+
+def tick_with_and_without_lens(sim):
+    """Device ms per tick (CUDA events around whole runs) of ``sim.run``
+    without metrics, with set_lens(LENS_S) armed and without, in turns
+    off, on, on, off, LENS_TIMED_TICKS ticks each."""
+    out = {False: [], True: []}
+    for on in (False, True, True, False):
+        sim.set_lens(LENS_S if on else 0)
+        ms = cuda_ms(lambda: sim.run(LENS_TIMED_TICKS, chunk=LENS_TIMED_TICKS,
+                                     with_metrics=False), 1)
+        out[on].append(ms / LENS_TIMED_TICKS)
+    sim.set_lens(0)
+    off, on = (sum(out[k]) / 2 for k in (False, True))
+    return {"off_ms": out[False], "on_ms": out[True], "ratio": on / off}
+
+
+def _kernel_counts(pairs):
+    """Launches by kernel name (the part before its argument list), from
+    (name, launches) pairs."""
+    counts = {}
+    for name, c in pairs:
+        base = name.split("(")[0]
+        counts[base] = counts.get(base, 0) + c
+    return counts
+
+
+def profile_per_tick(events, ticks: int):
+    """Where ``ticks`` profiled ticks' time went, from the Chrome trace's
+    events: device ms a tick by kernel (summed durations), the tick's own
+    launches (A, B, C), L and the rest (the draw bundle's and counters'
+    kernels) apart, the device window a tick (first kernel start to last
+    kernel end) and the device's idle share in it, and the host's
+    ``sim_chunk`` range a tick (its enqueue window, profiler overhead
+    included)."""
+    ks = [e for e in events if e.get("cat") == "kernel"]
+    by = {}
+    for e in ks:
+        base = e["name"].split("(")[0]
+        by[base] = by.get(base, 0.0) + e["dur"] / 1e3 / ticks
+    busy = sum(by.values())
+    window = (max(e["ts"] + e["dur"] for e in ks)
+              - min(e["ts"] for e in ks)) / 1e3 / ticks
+    tick = sum(by.get(k, 0.0) for k in ("k_probe_send", "k_receive",
+                                        "k_pushpull"))
+    lens = by.get("k_lens", 0.0)
+    host = [e["dur"] / 1e3 / ticks for e in events
+            if e.get("name") == "sim_chunk" and e.get("cat") == "user_annotation"]
+    return dict(by_kernel={k: round(v, 5) for k, v in sorted(
+                    by.items(), key=lambda kv: -kv[1])},
+                tick_launches_ms=tick, lens_ms=lens,
+                other_kernels_ms=busy - tick - lens, device_busy_ms=busy,
+                device_window_ms=window, idle_share=1.0 - busy / window,
+                host_sim_chunk_ms=host[0] if host else None)
+
+
+def trace_capture(sim, build_spans, compiled):
+    """The tracer on the card: the ``cuda.build`` spans read right after
+    this run's build, one if it compiled (``compiled``) and none if it
+    loaded an earlier build; a run of LENS_TRACE_CHUNKS chunks with the lens
+    armed (LENS_TRACE_IDS rows), exported with its counter tracks, read
+    back: the schema, one ``chunk`` span a chunk with consecutive steps,
+    a track per (row, field); then utils/debug.capture_sim with
+    PROFILE_TICKS profiled ticks, whose Chrome trace must hold each tick
+    launch and L once a tick and the ``sim_chunk`` range. TRACE_DIR is
+    removed after."""
+    from consul_tpu_torch.obs import trace as obs_trace
+    from consul_tpu_torch.utils import debug
+
+    tr = obs_trace.get_tracer()
+    res = {"build_spans": build_spans, "compiled": compiled}
+    try:
+        ids = sim.set_lens(LENS_TRACE_IDS)
+        tr.clear()
+        seq0 = sim._chunk_seq
+        sim.run(LENS_TRACE_CHUNKS * LENS_TRACE_CHUNK, chunk=LENS_TRACE_CHUNK,
+                with_metrics=False)
+        path = tr.export(os.path.join(TRACE_DIR, "sim.json"),
+                         extra_events=sim.lens.to_trace_events())
+        with open(path) as f:
+            doc = json.load(f)
+        evs = doc["traceEvents"]
+        chunks = [e for e in evs if e.get("name") == "chunk"]
+        tracks = {e["name"] for e in evs
+                  if e.get("cat") == "lens" and e.get("ph") == "C"}
+        want = {f"node{i}/{f}" for i in ids for f in sim.lens.fields}
+        res.update(trace_bytes=os.path.getsize(path), events=len(evs),
+                   other=doc.get("otherData"),
+                   chunk_spans=len(chunks),
+                   chunk_steps=[e["args"]["step"] for e in chunks],
+                   chunk_ms=[round(e["dur"] / 1e3, 3) for e in chunks],
+                   lens_tracks=len(tracks))
+        schema = (set(doc) == {"traceEvents", "displayTimeUnit", "otherData"}
+                  and doc["otherData"]["schema_version"] == 1
+                  and doc["otherData"]["producer"] == obs_trace.PRODUCER
+                  and doc["otherData"]["dropped_events"] == 0)
+        t0 = time.perf_counter()
+        files = debug.capture_sim(sim, profile_ticks=PROFILE_TICKS,
+                                  trace_dir=os.path.join(TRACE_DIR, "profile"))
+        res["capture_s"] = round(time.perf_counter() - t0, 3)
+        with open(files["profile.json"]["trace"]) as f:
+            prof = json.load(f)["traceEvents"]
+        kernels = _kernel_counts(files["profile.json"]["kernels"].items())
+        res.update(profile_kernels=kernels,
+                   profile_per_tick=profile_per_tick(prof, PROFILE_TICKS),
+                   sim_chunk_ranges=sum(e.get("name") == "sim_chunk"
+                                        for e in prof),
+                   bundle=sorted(files),
+                   health=files["health.json"])
+        launched = ("k_probe_send", "k_receive", "k_pushpull", "k_lens")
+        built_ok = (len(build_spans) == 1 and build_spans[0]["dur"] > 0
+                    if compiled else not build_spans)
+        res["ok"] = (built_ok
+                     and schema and len(chunks) == LENS_TRACE_CHUNKS
+                     and res["chunk_steps"] == list(range(
+                         seq0, seq0 + LENS_TRACE_CHUNKS))
+                     and tracks == want
+                     and all(kernels.get(k) == PROFILE_TICKS
+                             for k in launched)
+                     and res["sim_chunk_ranges"] >= 1
+                     and "lens.json" in files)
+    finally:
+        sim.set_lens(0)
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    return res
+
+
+def blackbox_live():
+    """obs.blackbox.capture in this process, the card up: CUDA initialized
+    and the card's name among the devices, the environment only the
+    bring-up prefixes, torch's and nvcc's versions found."""
+    from consul_tpu_torch.obs import blackbox
+
+    box = blackbox.capture()
+    dev = box["devices"]
+    res = dict(devices=dev, cuda=box["cuda"], env_keys=sorted(box["env"]),
+               spans=len(box["spans"]), keys=sorted(box))
+    res["ok"] = (dev["torch_imported"] and dev["cuda_initialized"]
+                 and torch.cuda.get_device_name(0) in dev["devices"]
+                 and all(k.startswith(blackbox._ENV_PREFIXES)
+                         for k in box["env"])
+                 and box["cuda"]["torch"] == torch.__version__
+                 and bool(box["cuda"]["nvcc"]))
+    return res
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -3378,6 +3714,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from consul_tpu_torch.config import SimConfig
     from consul_tpu_torch.models import cluster, layout, serf, swim
+    from consul_tpu_torch.obs import trace as obs_trace
     from consul_tpu_torch.ops import cuda_gossip
 
     smi = nvidia_smi()
@@ -3387,10 +3724,16 @@ def main() -> int:
           "cuda": torch.version.cuda, "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "mem_rate_bytes_per_s": rate})
 
+    # The build is traced: read its cuda.build span now, before the
+    # bounded ring turns over.
     info = cuda_gossip.build()
+    build_spans = [e for e in obs_trace.get_tracer().events()
+                   if e["name"] == "cuda.build"]
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
     emit({"phase": "build", "seconds": round(info.seconds, 3),
-          "library": os.path.relpath(info.path), "ptxas": regs})
+          "compiled": info.compiled,
+          "library": os.path.relpath(info.path), "ptxas": regs,
+          "cuda_build_spans": build_spans})
 
     failed = []
     max_abs = {k: 0.0 for k in (
@@ -3594,6 +3937,7 @@ def main() -> int:
                             sim.state, seed=41)]
     m_t = metrics_timing(cfg, sim.topo, sim.world, sim.state, rate, seed=43)
     m_ticks = {"swim": tick_with_and_without_metrics(sim)}
+    lens_ticks = {"swim": tick_with_and_without_lens(sim)}
     del sim, tick, d
     torch.cuda.empty_cache()
 
@@ -3603,10 +3947,41 @@ def main() -> int:
     shard_res, _ = sharded_main_path(cfg, main_ref)
     shard_res["seconds"] = round(time.perf_counter() - t0, 3)
     emit({"phase": "sharded_main_path", **shard_res})
-    del main_ref
     torch.cuda.empty_cache()
     if not shard_res["ok"]:
         emit({"phase": "failed", "failed": ["sharded_main_path"]})
+        return 1
+
+    # The observability plane (ROADMAP A18): launch L against its plain
+    # version on four states, the SWIM main path with the lens armed held
+    # to the unarmed run above, L's time, the tracer and the debug
+    # bundle's profile on that simulation.
+    t0 = time.perf_counter()
+    windows = lens_parity(cfg)
+    lens_err = max(w["max_abs_err"] for w in windows)
+    emit({"phase": "lens_parity", "seconds": round(time.perf_counter() - t0, 3),
+          "windows": windows})
+    if not all(w["ok"] for w in windows):
+        emit({"phase": "failed", "failed": ["lens_parity"]})
+        return 1
+    t0 = time.perf_counter()
+    res, lsim = lens_main_path(cfg, main_ref)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "lens_main_path", **res})
+    del main_ref
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["lens_main_path"]})
+        return 1
+    lens_launches = res["lens_launches"]
+    lens_t = lens_launch_timing(lsim, rate)
+    t0 = time.perf_counter()
+    res = trace_capture(lsim, build_spans, info.compiled)
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "trace_capture", **res})
+    del lsim
+    torch.cuda.empty_cache()
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["trace_capture"]})
         return 1
 
     # The chaos main path, and the chaos + sentinel variant's timing on its
@@ -3672,6 +4047,7 @@ def main() -> int:
     m_cases.append(metrics_case("serf_final", cfg, ssim.topo, ssim.world,
                                 ssim.state.swim, seed=61))
     m_ticks["serf"] = tick_with_and_without_metrics(ssim)
+    lens_ticks["serf"] = tick_with_and_without_lens(ssim)
     del ssim, stick, d
     torch.cuda.empty_cache()
 
@@ -3724,6 +4100,14 @@ def main() -> int:
     emit({"phase": "metrics_timing", "n": MAIN_N, "pairs": METRIC_PAIRS,
           "launch": m_t, "launch_dense": dict(n=DENSE_N, **m_dense_t),
           "tick_ms": m_ticks, "main_path_metrics_launches": m_launches})
+    # Launch L alone on the lens main path's final state, and a tick with
+    # the lens armed against one without on the SWIM and serf paths.
+    emit({"phase": "lens_timing", "n": MAIN_N, "launch": lens_t,
+          "tick_ms": lens_ticks, "ratio_max": LENS_TICK_RATIO_MAX,
+          "main_path_lens_launches": lens_launches})
+    if not all(t["ratio"] <= LENS_TICK_RATIO_MAX for t in lens_ticks.values()):
+        emit({"phase": "failed", "failed": ["lens_timing"]})
+        return 1
 
     # run_resilient at 1M: preempted, resumed, bit-equal.
     res = resilient_phase(cfg)
@@ -3904,6 +4288,13 @@ def main() -> int:
     emit({"phase": "federation_phases", "seconds": round(
         time.perf_counter() - t_fed, 3), "kernel_launches": fed_launches})
 
+    # The CUDA-init black box, captured live.
+    res = blackbox_live()
+    emit({"phase": "blackbox_live", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["blackbox_live"]})
+        return 1
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -3965,6 +4356,17 @@ def main() -> int:
          "plain_ms": m_t["plain_ms"],
          "bound_ms": m_t["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "gossip_lens", "route": "cuda",
+         "source": "consul_tpu_torch/csrc/gossip_tick.cu",
+         "replaces": "consul_tpu/obs/lens.py:88",
+         "config": f"launch L: the node-lens row of S = {lens_t['s']} sampled "
+                   "nodes from the packed leaves, once a tick with the lens "
+                   "armed (not a TPU kernel: the reference's XLA gathers in "
+                   "its chunk scan)",
+         "launches": lens_launches, "max_abs_err": lens_err,
+         "ms": lens_t["ms"], "ms_events": lens_t["ms_events"],
+         "plain_ms": lens_t["plain_ms"], "bound_ms": lens_t["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "gossip_tick_sharded", "route": "cuda",
          "source": "consul_tpu_torch/csrc/gossip_tick.cu",
          "replaces": "consul_tpu/ops/pallas_gossip.py:145",

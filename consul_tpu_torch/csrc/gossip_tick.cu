@@ -2524,6 +2524,79 @@ __global__ void __launch_bounds__(MTHREADS) k_metrics(MetricsArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// (L) gossip_lens: one tick's node-lens row from the packed leaves.
+//
+// Replaces no TPU kernel: the reference computes the lens row with XLA
+// gathers inside its chunk scan (consul_tpu/obs/lens.py:88-124, snapshot)
+// and refuses the lens under its Pallas kernel. Here it runs once after
+// each tick over the S sampled rows of the packed output, writing the
+// [S, 7] f32 row (status, incarnation, susp_age, probe_deadline_delta,
+// lamport, vivaldi_error, msgs_tx) into a row of the chunk's [C, S, F]
+// buffer, F >= 7 (the raft columns follow, written by the plain raft
+// snapshot). Its plain version is obs/lens.snapshot_packed.
+//
+// What bounds it: the launch. Per sampled row it reads flags, own_inc,
+// own_tx, pending_col, pending_fail_delta, viv.error, the row's K cells
+// of meta and susp_delta, the serf clock and the id, and writes 28 B:
+// 173 B at K = 32, 11 KB at S = 64, a few nanoseconds of memory time.
+// So the kernel is simple: one warp per sampled row, a lane per column
+// (grid-striding over columns where K > 32), the susp max and the tx_left
+// sum reduced by shuffles, lane 0 decoding the row's scalars.
+// ---------------------------------------------------------------------------
+
+enum LPtr {
+  LN_FLAGS, LN_INC, LN_TX, LN_PCOL, LN_PFAIL, LN_VERR, LN_META, LN_SUSP,
+  LN_CLOCK, LN_IDS, LN_OUT, N_LPTR
+};
+enum LInt { LNI_N, LNI_K, LNI_S, LNI_STRIDE, N_LINT };
+
+struct LensArgs {
+  void* p[N_LPTR];
+  int32_t i[N_LINT];
+};
+
+#define LWARPS 4  // sampled rows (warps) per block of L
+
+__global__ void __launch_bounds__(LWARPS * 32) k_lens(LensArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int s = static_cast<int>(blockIdx.x) * LWARPS + (threadIdx.x >> 5);
+  if (s >= a.i[LNI_S]) return;  // whole warps: s is the warp's
+  const int K = a.i[LNI_K];
+  const size_t r = static_cast<size_t>(static_cast<const int32_t*>(a.p[LN_IDS])[s]);
+  const uint16_t* meta = static_cast<const uint16_t*>(a.p[LN_META]) + r * K;
+  const uint16_t* susp = static_cast<const uint16_t*>(a.p[LN_SUSP]) + r * K;
+  int age = -1, tx = 0;
+  for (int c = lane; c < K; c += 32) {
+    const int sd = susp[c];
+    if (sd != 65535) age = max(age, sd);
+    tx += (meta[c] >> 2) & 63;
+  }
+  for (int o = 16; o; o >>= 1) {
+    age = max(age, __shfl_xor_sync(FULL, age, o));
+    tx += __shfl_xor_sync(FULL, tx, o);
+  }
+  if (lane != 0) return;
+  const uint8_t f = static_cast<const uint8_t*>(a.p[LN_FLAGS])[r];
+  const int status = (f & 2) ? 3 : (f & 4) ? 2 : (f & 1) ? 1 : 0;
+  const int inc = static_cast<const uint16_t*>(a.p[LN_INC])[r];
+  const int own_tx = static_cast<const uint8_t*>(a.p[LN_TX])[r];
+  const int pcol = static_cast<const uint8_t*>(a.p[LN_PCOL])[r];
+  const int probe = pcol != 255 ? static_cast<const int16_t*>(a.p[LN_PFAIL])[r] : -1;
+  const float lamport =
+      a.p[LN_CLOCK] ? __uint2float_rn(static_cast<const uint32_t*>(a.p[LN_CLOCK])[r])
+                   : 0.0f;
+  const float verr = __bfloat162float(static_cast<const __nv_bfloat16*>(a.p[LN_VERR])[r]);
+  float* out = static_cast<float*>(a.p[LN_OUT]) + static_cast<size_t>(s) * a.i[LNI_STRIDE];
+  out[0] = static_cast<float>(status);
+  out[1] = static_cast<float>(inc);
+  out[2] = static_cast<float>(age);
+  out[3] = static_cast<float>(probe);
+  out[4] = lamport;
+  out[5] = verr;
+  out[6] = static_cast<float>(tx + own_tx);
+}
+
+// ---------------------------------------------------------------------------
 // Host entry points: one per launch, each returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
@@ -2632,6 +2705,21 @@ extern "C" int gossip_metrics(const MetricsArgs* a, void* stream) {
       1LL, std::min(need, static_cast<long long>(std::max(1, blocks - rmse)))));
   k_metrics<<<rmse + health, MTHREADS, 0, (cudaStream_t)stream>>>(*a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// L: one warp per sampled row, LWARPS rows a block.
+extern "C" int gossip_lens(const LensArgs* a, void* stream) {
+  const int blocks = (a->i[LNI_S] + LWARPS - 1) / LWARPS;
+  k_lens<<<blocks, LWARPS * 32, 0, (cudaStream_t)stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_lens_layout(int* out) {
+  out[0] = N_LPTR;
+  out[1] = N_LINT;
+  out[2] = LWARPS;
+  out[3] = static_cast<int>(sizeof(LensArgs));
+  return 0;
 }
 
 extern "C" int gossip_metrics_layout(int* out) {

@@ -37,6 +37,21 @@ only at quorum commit. Raft entries of a fault schedule (``RaftKill``,
 lane of its own (``_run_lanes``; ``chaos/sweep.py``), and leaves the
 simulation where it was.
 
+Observability (``obs/``): every chunk runs inside
+``obs.trace.chunk_annotation`` (a ``torch.profiler`` range, an NVTX range
+on the card and a host ``chunk`` span, numbered by ``_chunk_seq``), and
+the process tracer mirrors its span durations into ``sink``. The spans
+bracket the chunk's enqueue, not its completion: the loop issues the
+ticks' launches and returns without waiting for the card. ``set_lens``
+arms the node lens: after every tick (and its raft tick) one [S, F] row
+of the sampled nodes goes into the chunk's [C, S, F] device buffer,
+through launch L (``cuda_gossip.LensKernel``) where the tick runs on the
+CUDA kernel, through ``obs.lens.snapshot_packed`` / ``snapshot`` on the
+plain tick, with the raft fields from ``obs.lens.raft_snapshot``; the
+buffers queue on ``self.lens`` (an ``obs.lens.LensRecorder``) and reach
+the host in one copy at its flush. The lens draws nothing and writes
+nothing into the state.
+
 ``mesh=`` (a ``parallel.mesh.Mesh`` or a list of devices, which may
 repeat: ``["cuda:0"] * 4``, ``["cpu"] * 4``) shards the node axis: the
 world, topology and state are built whole on the mesh's first device
@@ -73,6 +88,8 @@ from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import state as sim_state
 from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.obs import lens as lens_obs
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import cuda_gossip, raft_ops, topology
 from consul_tpu_torch.parallel import collective as coll
 from consul_tpu_torch.parallel import mesh as mesh_mod
@@ -174,6 +191,9 @@ class Simulation:
     sentinel_dump_dir: Optional[str] = dataclasses.field(default=None,
                                                          init=False)
 
+    # The armed lens's ids (set_lens); () while it is off.
+    _lens_ids = ()
+
     def __post_init__(self):
         layout_mod.validate(self.cfg, self.layout)
         if self.mesh is not None:
@@ -219,11 +239,25 @@ class Simulation:
         self.serving = None
         # The raft tier's host half (models/raft.RaftPlane) while armed.
         self.raft = None
+        # The node lens: its LensRecorder while armed (set_lens), and the
+        # row writer of the armed ids.
+        self.lens = None
+        self._lens_row = None
+        # Chunk sequence number: the step shared by the chunk's profiler
+        # range, NVTX range and host span.
+        self._chunk_seq = 0
+        # Span durations mirror into this simulation's sink (last attach
+        # wins: one process-wide tracer).
+        obs_trace.get_tracer().attach_sink(self.sink)
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
     _serf_plane = False
     _step = staticmethod(swim.step_counted)
     _plain_tick = staticmethod(cuda_gossip.plain_tick)
+
+    def _clock_of(self, state):
+        """The serf Lamport clock the lens records (none under bare SWIM)."""
+        return None
 
     def _own_draws(self, t):
         return swim.draw_tick(self.cfg, self.gen, self.device,
@@ -235,6 +269,9 @@ class Simulation:
         device, and every device takes the kernel."""
         if not isinstance(self.mesh, mesh_mod.Mesh):
             self.mesh = mesh_mod.make_mesh(list(self.mesh))
+        if self._lens_ids:
+            raise ValueError("the node lens is single-device; "
+                             "set_lens(0) before installing a mesh")
         first = self.mesh.devices[0]
         if mesh_mod.as_device(self.device) != first:
             raise ValueError(f"device={self.device!r} disagrees with the "
@@ -416,11 +453,69 @@ class Simulation:
             self._no_mesh("the raft tier")
         if groups is None:
             self.raft = None
+            self._restart_lens()
             return None
         rcfg = (groups if isinstance(groups, RaftConfig)
                 else RaftConfig(groups=int(groups), **kw))
         self.raft = raft_mod.RaftPlane(self, rcfg, draws=draws, timers=timers)
+        self._restart_lens()
         return self.raft
+
+    # -- node lens -------------------------------------------------------
+    def set_lens(self, sample) -> tuple:
+        """Arm (or clear, with ``0`` / empty) the node lens for the ticks
+        that follow: ``sample`` is an int count (evenly spaced ids) or an
+        id list (``obs.lens.normalize_ids``). Arming starts a fresh
+        :class:`~consul_tpu_torch.obs.lens.LensRecorder` at the live
+        tick, with the raft fields while the raft tier is armed. Returns
+        the resolved id tuple."""
+        ids = lens_obs.normalize_ids(self.cfg.n, sample)
+        if ids and self.mesh is not None:
+            raise ValueError("the node lens is single-device; clear "
+                             "the mesh before arming it")
+        self._lens_ids = ids
+        self._restart_lens()
+        return ids
+
+    def _restart_lens(self):
+        """A fresh recorder and row writer for the armed ids, with the raft
+        fields while raft is armed (its field layout changes with raft)."""
+        ids = self._lens_ids
+        if not ids:
+            self.lens, self._lens_row = None, None
+            return
+        fields = lens_obs.FIELDS + (lens_obs.RAFT_FIELDS
+                                    if self.raft is not None else ())
+        self.lens = lens_obs.LensRecorder(ids, tick0=self._t, fields=fields)
+        self._lens_row = self._make_lens_row(ids)
+
+    def _make_lens_row(self, ids):
+        """``row(state, rst, out)``: the lens row of ``state`` (as stored)
+        into ``out``, an [S, F] float32 row of the chunk's buffer: launch L
+        where the tick runs on the CUDA kernel, its plain version
+        (``snapshot_packed``) on the plain packed tick, ``snapshot`` on the
+        dense layout; then the raft columns of ``rst`` unless it is None."""
+        idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        width = len(lens_obs.FIELDS)
+        if self.kernel == cuda_gossip.CUDA:
+            kernel = cuda_gossip.make_lens_kernel(self.cfg)
+
+            def swim_row(state, out):
+                kernel(self._swim_at_rest(state), self._clock_of(state), ids,
+                       out)
+        else:
+            snap = (lens_obs.snapshot_packed if self.layout == layout_mod.PACKED
+                    else lens_obs.snapshot)
+
+            def swim_row(state, out):
+                out.copy_(snap(self._swim_at_rest(state), self._clock_of(state),
+                               idx))
+
+        def row(state, rst, out):
+            swim_row(state, out[:, :width])
+            if rst is not None:
+                out[:, width:].copy_(lens_obs.raft_snapshot(rst, idx))
+        return row
 
     # -- fault injection -------------------------------------------------
     def kill(self, mask):
@@ -561,12 +656,34 @@ class Simulation:
 
     # -- execution -------------------------------------------------------
     def _exec_chunk(self, c: int, with_metrics: bool):
-        """Run ``c`` ticks; returns (counters[26] int32, TickTrace|None),
-        both on the device. With raft armed, the raft tick follows each
-        gossip tick and the chunk's [8] raft counters queue on the
-        RaftPlane. Under a mesh the trace has one row, the last tick's."""
-        if self.mesh is not None:
-            return self._exec_sharded_chunk(c, with_metrics)
+        """Run ``c`` ticks inside the chunk's observability bracket
+        (``obs.trace.chunk_annotation``, step ``_chunk_seq``); returns
+        (counters[26] int32, TickTrace|None), both on the device. With raft
+        armed, the raft tick follows each gossip tick and the chunk's [8]
+        raft counters queue on the RaftPlane. With the lens armed, the
+        chunk's [C, S, F] lens buffer queues on ``self.lens`` with the
+        chunk's host window. Under a mesh the trace has one row, the last
+        tick's. The bracket spans the enqueue: nothing here waits for the
+        card."""
+        tr = obs_trace.get_tracer()
+        t0_us = tr.now_us()
+        step = self._chunk_seq
+        self._chunk_seq += 1
+        lens = self.lens
+        with obs_trace.chunk_annotation(step, c, self.device):
+            if self.mesh is not None:
+                return self._exec_sharded_chunk(c, with_metrics)
+            lbuf = None if lens is None else torch.empty(
+                (c, len(lens.ids), len(lens.fields)), dtype=torch.float32,
+                device=self.device)
+            out = self._exec_ticks(c, with_metrics, lbuf)
+        if lens is not None:
+            lens.record(lbuf, c, t0_us, tr.now_us())
+        return out
+
+    def _exec_ticks(self, c: int, with_metrics: bool, lbuf):
+        """The one-device loop of :meth:`_exec_chunk`: ``c`` ticks, the
+        lens row of tick k into ``lbuf[k]`` unless ``lbuf`` is None."""
         cnt = torch.zeros((len(counters_mod.FIELDS),), dtype=torch.int32,
                           device=self.device)
         trace = (torch.empty((c, 4), dtype=torch.float32, device=self.device)
@@ -585,6 +702,9 @@ class Simulation:
                 rst, rc = raft_ops.tick(raft.rcfg, rst, self._t,
                                         raft.draws(self._t), self.chaos)
                 rcnt = rcnt + raft_ops.counters_stack(rc)
+            if lbuf is not None:
+                self._lens_row(self.state, rst if raft is not None else None,
+                               lbuf[k])
             if with_metrics:
                 # The pairs come from a generator of their own, so metrics
                 # never move the trajectory.
@@ -782,6 +902,9 @@ class SerfSimulation(Simulation):
     def _own_draws(self, t):
         return serf.draw_serf_tick(self.cfg, self.gen, self.device,
                                    chaos=self.chaos is not None)
+
+    def _clock_of(self, state):
+        return state.clock
 
     def _init_state(self):
         return serf.init(self.cfg, self.gen, self.device)

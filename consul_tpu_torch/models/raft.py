@@ -41,6 +41,7 @@ import torch
 
 from consul_tpu_torch.config import RaftConfig
 from consul_tpu_torch.models.cluster import metric_seed
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import raft_ops
 
 # Salts mixed into the simulation's seed for the raft streams (the
@@ -48,6 +49,11 @@ from consul_tpu_torch.ops import raft_ops
 # apart from each other and from the metric pairs' stream.
 _TICK_SALT = 7919 << 32
 _INIT_SALT = 40961 << 32
+
+# A group's max term rising by this much between two pumps marks a
+# ``raft.election_storm`` instant on the tracer: a term storm, not an
+# ordinary election (the reference's threshold).
+STORM_TERM_JUMP = 3
 
 
 def tick_seed(seed: int, t: int) -> int:
@@ -116,6 +122,8 @@ class RaftPlane:
         # Host-side intent bumps, folded into the device ``next_seq`` at
         # the next chunk (take_state), never from a proposer thread.
         self._bumps = np.zeros(rcfg.groups, np.int32)
+        # Each group's max term at the last pump (the storm marker's base).
+        self._last_term = np.zeros(rcfg.groups, np.int64)
 
     def _own_draws(self, t: int) -> torch.Tensor:
         self._gen.manual_seed(tick_seed(self.sim.seed, t))
@@ -192,9 +200,21 @@ class RaftPlane:
 
     def pump(self) -> int:
         """Fold pending counters and read the per-group commit frontier
-        (one small copy), then apply every ticket whose entries are
-        quorum-committed. Returns the number of tickets applied."""
-        term_g, leader_g, commit_g, cc = self._fetch()
+        (one small copy, the ``raft.step`` span), mark a term storm (any
+        group's term up by STORM_TERM_JUMP since the last pump) as a
+        ``raft.election_storm`` instant, then apply every ticket whose
+        entries are quorum-committed, each in a ``raft.commit`` span.
+        Returns the number of tickets applied."""
+        with obs_trace.span("raft.step", cat="raft",
+                            args={"groups": self.rcfg.groups}):
+            term_g, leader_g, commit_g, cc = self._fetch()
+        jump = term_g.astype(np.int64) - self._last_term
+        if np.any(jump >= STORM_TERM_JUMP) and np.any(self._last_term > 0):
+            obs_trace.get_tracer().instant(
+                "raft.election_storm", cat="raft",
+                args={"max_jump": int(jump.max()),
+                      "terms": [int(x) for x in term_g]})
+        self._last_term = term_g.astype(np.int64)
         sink = getattr(self.sim, "sink", None)
         if sink is not None:
             sink.set_gauge("consul.raft.commitIndex", int(commit_g.max()))
@@ -207,18 +227,23 @@ class RaftPlane:
                         break
                     tk = q.popleft()
                 applied += 1
-                try:
-                    if self._writes is not None:
-                        tk.results = self._writes._apply_batch(tk.ops)
-                    else:
-                        from consul_tpu_torch.serving.writes import WriteResult
+                with obs_trace.span("raft.commit", cat="raft",
+                                    args={"group": r, "n": len(tk.ops),
+                                          "commit": int(commit_g[r])}):
+                    try:
+                        if self._writes is not None:
+                            tk.results = self._writes._apply_batch(tk.ops)
+                        else:
+                            from consul_tpu_torch.serving.writes import (
+                                WriteResult)
 
-                        tk.results = [
-                            WriteResult(applied=True, index=int(commit_g[r]),
-                                        status="committed")
-                            for _ in tk.ops]
-                except Exception as e:  # noqa: BLE001 - surfaced on the waiter
-                    tk.error = e
+                            tk.results = [
+                                WriteResult(applied=True,
+                                            index=int(commit_g[r]),
+                                            status="committed")
+                                for _ in tk.ops]
+                    except Exception as e:  # noqa: BLE001 - surfaced on the waiter
+                        tk.error = e
                 tk.done.set()
         return applied
 

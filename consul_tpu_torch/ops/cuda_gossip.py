@@ -24,7 +24,10 @@ One more launch of that file, M (:class:`MetricsKernel`), is not a TPU
 kernel: it computes a tick's TickTrace row (agreement, false positives,
 undetected deaths, Vivaldi RMSE) from the packed leaves, where the
 reference's chunk body unpacks a transient view. Its plain version is
-:func:`plain_metrics`.
+:func:`plain_metrics`. Launch L (:class:`LensKernel`), not a TPU kernel
+either, writes a tick's node-lens row of S sampled nodes (the reference
+gathers it with XLA in its chunk scan, ``consul_tpu/obs/lens.py:88``);
+its plain version is ``obs/lens.snapshot_packed``.
 
 Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
 (``unpack -> swim.step_counted -> pack``) and :func:`plain_serf_tick`
@@ -59,6 +62,7 @@ from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import serf, swim
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import topology
 from consul_tpu_torch.ops.topology import Topology
 from consul_tpu_torch.utils import metrics
@@ -69,11 +73,12 @@ KERNELS = (TORCH, CUDA)
 
 # Kernel launches on the card since the last reset, by launch stage
 # (serf_post runs in the serf variant only, chaos_pre in ticks with a
-# fault schedule; metrics is launch M, once per tick with metrics on).
+# fault schedule; metrics is launch M, once per tick with metrics on;
+# lens is launch L, once per tick with the node lens armed).
 # Incremented only where a stage is launched; chip_smoke.py zeroes it
 # before it drives a main path and reads it after.
 LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0, "pushpull": 0,
-            "serf_post": 0, "metrics": 0}
+            "serf_post": 0, "metrics": 0, "lens": 0}
 # The sharded call's launches (B7, ShardedTickKernel), by stage, beside
 # LAUNCHES (which counts them too), and its cross-group SLO folds.
 SHARDED_LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0,
@@ -239,6 +244,19 @@ class _MetricsArgs(ctypes.Structure):
                 ("i", ctypes.c_int32 * len(_MINTS))]
 
 
+# LensArgs of launch L, in the order of LPtr / LInt; LWARPS sampled rows
+# a block.
+_LPTRS = ("flags", "own_inc", "own_tx", "pending_col", "pending_fail_delta",
+          "viv.error", "meta", "susp_delta", "clock", "ids", "out")
+_LINTS = ("n", "k", "s", "stride")
+_LWARPS = 4
+
+
+class _LensArgs(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p * len(_LPTRS)),
+                ("i", ctypes.c_int32 * len(_LINTS))]
+
+
 def validate_kernel(kernel: str, layout: str, device=None) -> None:
     """Reject invalid engine selections up front: the CUDA kernel is
     packed-native and runs only on a CUDA device."""
@@ -265,8 +283,8 @@ def tick_hbm_bytes_per_node(state, world=None, sched=None) -> float:
     return sum(layout_mod.np_size_bytes(x) for x in leaves) / float(n)
 
 
-# The tick's launch stages (every launch but M).
-STAGES = tuple(k for k in LAUNCHES if k != "metrics")
+# The tick's launch stages (every launch but M and L).
+STAGES = tuple(k for k in LAUNCHES if k not in ("metrics", "lens"))
 
 
 def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
@@ -373,6 +391,7 @@ class BuildInfo(NamedTuple):
     path: str
     seconds: float
     log: str
+    compiled: bool  # False when the library of this source was already built
 
 
 _LIB = None
@@ -391,8 +410,10 @@ def _nvcc() -> str:
 
 def build() -> BuildInfo:
     """Compile gossip_tick.cu for sm_90a (once per source version) and load
-    it. Returns where it went, how long the compile took and what
-    ``ptxas -v`` said."""
+    it. Returns where it went, how long the compile took, what ``ptxas -v``
+    said and whether this call compiled. A real compile is recorded as a
+    ``cat="cuda"`` ``cuda.build`` span on the process tracer; a load of an
+    earlier build records nothing."""
     global _LIB, _LIB_INFO
     with _LIB_LOCK:
         if _LIB_INFO is not None:
@@ -402,7 +423,10 @@ def build() -> BuildInfo:
         out = os.path.join(BUILD_DIR, f"libgossip_tick_{tag}.so")
         t0 = time.perf_counter()
         log = ""
-        if not os.path.exists(out):
+        compiled = not os.path.exists(out)
+        if compiled:
+            tracer = obs_trace.get_tracer()
+            start_us = tracer.now_us()
             nvcc = _nvcc()
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
@@ -414,6 +438,8 @@ def build() -> BuildInfo:
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
             os.replace(tmp, out)
+            tracer.complete("cuda.build", start_us, tracer.now_us() - start_us,
+                            cat="cuda", args={"library": os.path.basename(out)})
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(out)
         for name in ("gossip_chaos_pre", "gossip_probe_send", "gossip_receive",
@@ -428,11 +454,15 @@ def build() -> BuildInfo:
         lib.gossip_metrics.argtypes = [ctypes.POINTER(_MetricsArgs),
                                        ctypes.c_void_p]
         lib.gossip_metrics.restype = ctypes.c_int
+        lib.gossip_lens.argtypes = [ctypes.POINTER(_LensArgs), ctypes.c_void_p]
+        lib.gossip_lens.restype = ctypes.c_int
         for fn, want in (
                 (lib.gossip_layout, (len(_PTRS), len(_INTS), len(_FLTS),
                                      ctypes.sizeof(_TickArgs))),
                 (lib.gossip_metrics_layout, (len(_MPTRS), len(_MINTS), _MACC,
-                                             ctypes.sizeof(_MetricsArgs)))):
+                                             ctypes.sizeof(_MetricsArgs))),
+                (lib.gossip_lens_layout, (len(_LPTRS), len(_LINTS), _LWARPS,
+                                          ctypes.sizeof(_LensArgs)))):
             fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
             lay = (ctypes.c_int * 4)()
@@ -441,7 +471,7 @@ def build() -> BuildInfo:
                 raise RuntimeError(f"{fn.__name__} mismatch: library "
                                    f"{tuple(lay)}, wrapper {want}")
         _LIB = lib
-        _LIB_INFO = BuildInfo(out, seconds, log)
+        _LIB_INFO = BuildInfo(out, seconds, log, compiled)
         return _LIB_INFO
 
 
@@ -1211,3 +1241,94 @@ class MetricsKernel:
 def make_metrics_kernel(cfg: SimConfig, topo: Topology) -> MetricsKernel:
     """Launch M for ``cfg`` and ``topo`` (sparse or dense view)."""
     return MetricsKernel(cfg, topo)
+
+
+def lens_hbm_bytes(packed, ids, clock=None) -> float:
+    """The least memory traffic of one launch L in bytes: for each sampled
+    row its flags, own_inc, own_tx, pending_col, pending_fail_delta and
+    viv.error, its K cells of meta and susp_delta, the serf clock (when
+    there is one) and its int32 id read once, and its 7 f32 written."""
+    k = packed.meta.shape[1]
+    per_row = 1 + 2 + 1 + 1 + 2 + 2 + 2 * k + 2 * k + 4 + 4 * 7
+    if clock is not None:
+        per_row += 4
+    return float(len(ids) * per_row)
+
+
+class LensKernel:
+    """Launch L for one config: ``lens(packed, clock, ids, out)`` writes the
+    tick's node-lens row of a PackedSimState at the sampled ``ids`` (the
+    obs/lens.FIELDS, with the serf Lamport ``clock`` or 0 when it is None)
+    into ``out``, an [S, 7] float32 CUDA tensor whose rows may be strided
+    (the first 7 columns of a row of the chunk's [C, S, F] buffer), with no
+    read back to the host. CUDA tensors only: the plain version is
+    ``obs/lens.snapshot_packed``."""
+
+    def __init__(self, cfg: SimConfig):
+        self.cfg = cfg
+        self._ids = {}
+
+    def _ids_on(self, ids, device) -> torch.Tensor:
+        """The ids as an int32 tensor on ``device``, checked and made once
+        per id tuple."""
+        key = (tuple(ids), device)
+        if key not in self._ids:
+            n = self.cfg.n
+            if not all(0 <= int(i) < n for i in key[0]):
+                raise ValueError(f"lens ids must lie in [0, {n})")
+            self._ids[key] = torch.tensor(key[0], dtype=torch.int32,
+                                          device=device)
+        return self._ids[key]
+
+    def __call__(self, packed, clock, ids, out):
+        cfg = self.cfg
+        device = packed.meta.device
+        if device.type != "cuda":
+            raise ValueError(f"launch L takes CUDA tensors, got {device}; use "
+                             "obs.lens.snapshot_packed for the plain version")
+        n, k, s = cfg.n, cfg.degree, len(ids)
+        for name, t, dt, shape in (
+                ("flags", packed.flags, torch.uint8, (n,)),
+                ("own_inc", packed.own_inc, torch.uint16, (n,)),
+                ("own_tx", packed.own_tx, torch.uint8, (n,)),
+                ("pending_col", packed.pending_col, torch.uint8, (n,)),
+                ("pending_fail_delta", packed.pending_fail_delta, torch.int16,
+                 (n,)),
+                ("viv.error", packed.viv.error, torch.bfloat16, (n,)),
+                ("meta", packed.meta, torch.uint16, (n, k)),
+                ("susp_delta", packed.susp_delta, torch.uint16, (n, k))):
+            _check(t, name, dt, shape, device)
+        if clock is not None:
+            _check(clock, "clock", torch.uint32, (n,), device)
+        if s < 1:
+            raise ValueError("launch L needs at least one sampled id")
+        if not isinstance(out, torch.Tensor) or out.device != device:
+            raise ValueError(f"out: expected a tensor on {device}")
+        if out.dtype != torch.float32 or tuple(out.shape) != (s, 7):
+            raise ValueError(f"out: {out.dtype} {tuple(out.shape)}, expected "
+                             f"float32 ({s}, 7)")
+        if out.stride(1) != 1 or out.stride(0) < 7:
+            raise ValueError("out: rows must be unit-stride and apart by at "
+                             "least 7 elements")
+        idx = self._ids_on(ids, device)
+        build()
+        args = _LensArgs()
+        ptrs = (packed.flags, packed.own_inc, packed.own_tx, packed.pending_col,
+                packed.pending_fail_delta, packed.viv.error, packed.meta,
+                packed.susp_delta, clock, idx, out)
+        for i, x in enumerate(ptrs):
+            args.p[i] = None if x is None else x.data_ptr()
+        for i, x in enumerate((n, k, s, out.stride(0))):
+            args.i[i] = int(x)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = _LIB.gossip_lens(ctypes.byref(args), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"gossip_lens launch failed: CUDA error {rc}")
+        LAUNCHES["lens"] += 1
+        return out
+
+
+def make_lens_kernel(cfg: SimConfig) -> LensKernel:
+    """Launch L for ``cfg`` (sparse or dense view)."""
+    return LensKernel(cfg)

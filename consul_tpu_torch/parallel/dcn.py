@@ -52,6 +52,7 @@ import torch
 
 from consul_tpu_torch.models.federation import (_DRAWS, Federation,
                                                 FederationConfig, stream_seed)
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import cuda_gossip
 
 
@@ -308,8 +309,8 @@ class DcnFederation:
         ``ticks`` is how many LAN ticks this round represents (the run
         loop passes its sync cadence, so ``sim.dcn.link_down_ticks``
         counts modeled time)."""
-        # The reference times this round as a ``dcn.sync`` span; the port's
-        # tracer is ROADMAP A18.
+        tr = obs_trace.get_tracer()
+        t0_us = tr.now_us()
         wans = [_pull(isl.state.wan) for isl in self.islands]
         for d, isl in enumerate(self.islands):
             merged = wans[d]
@@ -323,6 +324,10 @@ class DcnFederation:
             wan = _push(merged, isl.state.wan, isl.device)
             isl.state = isl.state._replace(wan=wan)
         self._round += 1
+        # Explicit timing, so the round rides along as an arg (retry and
+        # backoff rounds show as consecutive dcn.sync spans).
+        tr.complete("dcn.sync", t0_us, tr.now_us() - t0_us, cat="dcn",
+                    args={"round": self._round, "ticks": int(ticks)})
 
     def run(self, lan_ticks: int, sync_every: int = 16, chunk: int = 16):
         """Advance all islands ``lan_ticks`` LAN ticks, reconciling the WAN

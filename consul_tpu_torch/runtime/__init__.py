@@ -1,7 +1,8 @@
 """Resilient run harness (PyTorch port of ``consul_tpu/runtime``):
 checkpoint policy and SIGTERM trap (:mod:`policy`), the heartbeat
-deadline (:mod:`watchdog`) and :func:`harness.run_resilient`, the chunked
-run loop that resumes bit-identically after a kill. The sentinel's host
+deadline and the child-process init watchdog (:mod:`watchdog`) and
+:func:`harness.run_resilient`, the chunked run loop that resumes
+bit-identically after a kill. The sentinel's host
 tier lives where counters flush (models/cluster.py) and is re-exported
 here as :class:`SentinelViolation`."""
 
@@ -10,11 +11,12 @@ from consul_tpu_torch.models.counters import SENTINEL_FIELDS, violation_mask
 from consul_tpu_torch.runtime.harness import (
     Preempted, RunReport, diagnostic_dump_path, hang_dump_path, run_resilient)
 from consul_tpu_torch.runtime.policy import CheckpointPolicy, SignalTrap
-from consul_tpu_torch.runtime.watchdog import HeartbeatMonitor
+from consul_tpu_torch.runtime.watchdog import HeartbeatMonitor, InitWatchdog
 
 __all__ = [
     "CheckpointPolicy",
     "HeartbeatMonitor",
+    "InitWatchdog",
     "Preempted",
     "RunReport",
     "SENTINEL_FIELDS",

@@ -1,23 +1,33 @@
-"""The in-process heartbeat deadline of a run (a copy of
-``HeartbeatMonitor`` from ``consul_tpu/runtime/watchdog.py``).
+"""Hang watchdogs of a run (PyTorch port of
+``consul_tpu/runtime/watchdog.py``): :class:`InitWatchdog` and
+:class:`HeartbeatMonitor`, copies of the reference's.
 
-The run loop beats at every chunk boundary; a missed deadline classifies
-the hang (``mid-run-hang`` after a completed chunk, ``backend-init-hang``
-before the first) and hands the last completed state to an ``on_hang``
-callback, which the resilient harness uses to write a diagnostic
-checkpoint while the main thread is still blocked on the card. Each beat
-takes the chunk's finished state mirrored to the host
-(``checkpoint.to_host``), since a wedged card cannot serve a copy after
-the fact.
+- :class:`InitWatchdog` supervises a child process that owns the card:
+  it kills the child early when the init window expires before the child
+  proves readiness (``backend-init-hang``), or, with ``heartbeat_s``,
+  when a ready child stops making observable progress
+  (``mid-run-hang``), or at the hard deadline (``timeout``). After an
+  init-hang kill it writes the CUDA-init black box
+  (``obs/blackbox.py``) into ``blackbox_dir``.
+- :class:`HeartbeatMonitor` is the in-process tier: the run loop beats at
+  every chunk boundary; a missed deadline classifies the hang
+  (``mid-run-hang`` after a completed chunk, ``backend-init-hang`` before
+  the first) and hands the last completed state to an ``on_hang``
+  callback, which the resilient harness uses to write a diagnostic
+  checkpoint while the main thread is still blocked on the card. Each
+  beat takes the chunk's finished state mirrored to the host
+  (``checkpoint.to_host``), since a wedged card cannot serve a copy after
+  the fact.
 
-The reference's ``InitWatchdog`` and ``with_failover`` (a supervisor of
-child processes with a failover to the CPU) are not here: the port never
-falls back to the CPU.
+The reference's ``with_failover`` (retries, then a failover to the CPU)
+is not here: the port never falls back to the CPU (ROADMAP A20).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import subprocess
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -28,6 +38,105 @@ log = logging.getLogger(__name__)
 OK = "ok"
 INIT_HANG = "backend-init-hang"
 MID_RUN_HANG = "mid-run-hang"
+TIMEOUT = "timeout"
+
+
+@dataclasses.dataclass
+class InitWatchdog:
+    """Supervise one child process: kill it early if it has not proven
+    liveness (``ready()`` true) within ``init_window_s``, or at the hard
+    ``deadline`` either way. ``ready`` is polled between waits: any cheap
+    host-side probe (a phase line in the child's output file)."""
+
+    init_window_s: float = 300.0
+    poll_s: float = 10.0
+    heartbeat_s: float = 0.0  # 0 disables mid-run stall detection
+    # Where the CUDA-init black box lands (obs/blackbox.py): when set, an
+    # INIT_HANG kill is followed by a best-effort capture of the
+    # environment, CUDA versions, bring-up progress, the child's tail and
+    # the host spans into ``<blackbox_dir>/blackbox.json``; the path is
+    # published on ``self.blackbox_path`` for the caller to link.
+    blackbox_dir: Optional[str] = None
+
+    def watch(self, proc: subprocess.Popen, ready: Callable[[], bool],
+              deadline: float,
+              progress: Optional[Callable[[], Any]] = None,
+              child_tail: Optional[Callable[[], Optional[str]]] = None
+              ) -> str:
+        """Block until the child exits or is killed; returns OK /
+        INIT_HANG / MID_RUN_HANG / TIMEOUT (the exit code is the caller's
+        business). ``deadline`` is an absolute ``time.monotonic()`` stamp.
+
+        ``progress`` (optional, with ``heartbeat_s > 0``) is a cheap probe
+        of the child's forward motion (any value that changes while the
+        child works: its output file's size). Once the child has proven
+        readiness, a progress value frozen for longer than
+        ``heartbeat_s`` classifies it as a MID_RUN_HANG: the card came up
+        and then wedged, a different diagnosis than never coming up.
+
+        ``child_tail`` (optional) returns the tail of the child's output
+        for the black box, consulted only after an INIT_HANG kill."""
+        self.blackbox_path: Optional[str] = None
+        t0 = time.monotonic()
+        seen_ready = False
+        last_progress = progress() if progress is not None else None
+        last_beat = t0
+        try:
+            while True:
+                step = min(self.poll_s, max(0.1, deadline - time.monotonic()))
+                try:
+                    proc.wait(timeout=step)
+                    return OK
+                except subprocess.TimeoutExpired:
+                    pass
+                now = time.monotonic()
+                if now >= deadline:
+                    raise subprocess.TimeoutExpired(
+                        proc.args, deadline - t0)
+                if not seen_ready and ready():
+                    seen_ready = True
+                    last_beat = now  # the stall clock starts at readiness
+                if now - t0 > self.init_window_s and not seen_ready:
+                    self._kill(proc)
+                    self._capture_blackbox(child_tail)
+                    return INIT_HANG
+                if progress is not None and self.heartbeat_s > 0 \
+                        and seen_ready:
+                    cur = progress()
+                    if cur != last_progress:
+                        last_progress, last_beat = cur, now
+                    elif now - last_beat > self.heartbeat_s:
+                        self._kill(proc)
+                        return MID_RUN_HANG
+        except subprocess.TimeoutExpired:
+            self._kill(proc)
+            return TIMEOUT
+
+    def _capture_blackbox(self, child_tail):
+        """Best-effort postmortem (obs/blackbox.py) after an init-hang
+        kill. A failed capture must not mask the INIT_HANG diagnosis."""
+        if not self.blackbox_dir:
+            return
+        import os
+
+        from consul_tpu_torch.obs import blackbox
+        try:
+            tail = child_tail() if child_tail is not None else None
+            self.blackbox_path = os.path.join(
+                self.blackbox_dir, "blackbox.json")
+            blackbox.capture(self.blackbox_path, status=INIT_HANG,
+                             child_tail=tail)
+        except Exception:  # noqa: BLE001
+            log.warning("blackbox capture failed", exc_info=True)
+            self.blackbox_path = None
+
+    @staticmethod
+    def _kill(proc: subprocess.Popen):
+        proc.kill()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass  # keep the original diagnosis; the child is a zombie
 
 
 class HeartbeatMonitor:

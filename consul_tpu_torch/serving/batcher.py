@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import serving as kernels
 
 
@@ -202,7 +203,10 @@ class QueryBatcher:
         if not batch:
             return 0
         try:
-            results = self._run_batch([(w.mode, w.src, w.arg) for w in batch])
+            with obs_trace.span("serving.query_pump", cat="serving",
+                                args={"n": len(batch)}):
+                results = self._run_batch([(w.mode, w.src, w.arg)
+                                           for w in batch])
         except Exception as e:  # noqa: BLE001 - handed to every waiter
             for w in batch:
                 w.error = e

@@ -31,6 +31,7 @@ import time
 from collections import deque
 from typing import NamedTuple, Optional
 
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import deltas
 from consul_tpu_torch.serving.batcher import ServingClosedError
 
@@ -147,11 +148,14 @@ class WatchPlane:
         """Called by the plane after every snapshot flip with the
         (snapshot, write-state) pairs either side. Runs the diff, copies
         the frame to the host once, advances the blocking index, and
-        dispatches through the tree."""
+        dispatches through the tree, all inside one ``watch.on_flip``
+        span."""
         if prev_pair is None:
             # First flip: nothing to diff — just learn the index.
             self._advance(int(cur_pair[1].apply_index))
             return
+        tr = obs_trace.get_tracer()
+        t0_us = tr.now_us()
         h = deltas.frame_to_host(
             deltas.diff_kernel_for(self.k)(*prev_pair, *cur_pair))
         self.last_frame = h
@@ -225,6 +229,10 @@ class WatchPlane:
             if shed:
                 sink.incr_counter("sim.serving.shed", shed)
         self._advance(index)
+        # Explicit timing: the fan-out counts ride along as args (they
+        # exist only once delivery finished).
+        tr.complete("watch.on_flip", t0_us, tr.now_us() - t0_us,
+                    cat="serving", args={"delivered": delivered, "shed": shed})
 
     def _advance(self, index: int) -> None:
         with self._index_cond:

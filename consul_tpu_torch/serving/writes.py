@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import deltas
 from consul_tpu_torch.serving.batcher import (ServingClosedError,
                                               ServingOverloadError,
@@ -253,8 +254,10 @@ class WriteBatcher:
         if not batch:
             return 0
         try:
-            results = self._run_batch([(w.op, w.target, w.arg)
-                                       for w in batch])
+            with obs_trace.span("serving.write_pump", cat="serving",
+                                args={"n": len(batch)}):
+                results = self._run_batch([(w.op, w.target, w.arg)
+                                           for w in batch])
         except Exception as e:  # noqa: BLE001 - handed to every waiter
             for w in batch:
                 w.error = e

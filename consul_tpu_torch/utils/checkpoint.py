@@ -31,6 +31,8 @@ from typing import Any, BinaryIO
 
 import torch
 
+from consul_tpu_torch.obs import trace as obs_trace
+
 MAGIC = b"CTPU"
 FORMAT_VERSION = 2
 _MAX_MANIFEST = 64 << 20
@@ -90,6 +92,7 @@ def _dtype_name(x: torch.Tensor) -> str:
         raise ValueError(f"no checkpoint dtype for {x.dtype}") from None
 
 
+@obs_trace.traced("ckpt.save", cat="io")
 def save(path: str, state: Any, meta: Any = None) -> str:
     """Write ``state`` (a NamedTuple tree of tensors) to ``path`` and
     return the payload's hex SHA-256. Crash-safe: fsync before the atomic
@@ -210,6 +213,7 @@ def _read_leaves(path: str, verify: bool, check=None):
     return manifest, out
 
 
+@obs_trace.traced("ckpt.restore", cat="io")
 def restore(path: str, template: Any, *, verify: bool = True) -> Any:
     """Load a checkpoint into the structure of ``template`` (a state of
     the same config), each leaf on its template leaf's device. Name,

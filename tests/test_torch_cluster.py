@@ -15,7 +15,7 @@ port's package rules.
   or on whether earlier ticks had metrics.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
-- No module of ``consul_tpu_torch`` (its ``chaos``, ``runtime``,
+- No module of ``consul_tpu_torch`` (its ``chaos``, ``obs``, ``runtime``,
   ``server`` and ``serving`` subpackages included) and no line of
   ``chip_smoke.py`` imports ``jax`` or ``consul_tpu``.
 """
@@ -168,7 +168,8 @@ def test_port_imports_no_jax_and_no_reference():
         ("serving", "watch.py"), ("serving", "mixed.py"),
         ("ops", "raft_ops.py"), ("models", "raft.py"),
         ("models", "federation.py"), ("parallel", "dcn.py"),
-        ("server", "router.py"))} <= rel
+        ("server", "router.py"), ("obs", "__init__.py"), ("obs", "trace.py"),
+        ("obs", "lens.py"), ("obs", "blackbox.py"), ("utils", "debug.py"))} <= rel
     # The asyncio front end comes with the port's front ends (ROADMAP A19).
     assert os.path.join("consul_tpu_torch", "serving", "frontend.py") not in rel
     for path in files:
