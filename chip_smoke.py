@@ -115,8 +115,21 @@ tracks and checks its schema and chunk spans, then runs
 whose trace must hold every tick launch, L and the ``sim_chunk`` range;
 ``lens_timing`` times L alone and a tick with the lens against one
 without on the SWIM and serf paths (at most 1.1x); ``blackbox_live``
-captures the CUDA-init black box in this process. It prints one JSON
-line per phase, the kernel table, the card's name and power limit, and a last
+captures the CUDA-init black box in this process. The game day's slice
+(ROADMAP A10, A19) runs after the federation phases:
+``serf_reference_parity`` (``SerfSimulation`` on B4 against the
+pre-fusion oracle ``ReferenceSerfSimulation``, plain PyTorch on the card,
+from one seed at 1M: tests/test_serf_fused.py's scenarios with origins
+scaled to n, until full coverage; the SWIM plane bit-equal, delivered
+counts, Lamport floors and SLO counters equal; the oracle's ms a tick;
+``kernel="cuda"`` refused naming B8), ``snapshot_rejoin`` (the serf
+snapshotter on a seat of the 1M serf state, then a warm rejoin in fewer
+ticks than a cold restart), ``frontend_parity`` (``AsyncFrontend`` over a
+live 1M plane against the batchers, a blocking wait woken by a flip, an
+HTTP round trip on 127.0.0.1) and ``gameday_main_path`` (``run_gameday``
+at 1M with the async front end and a 4-process swarm, then the threaded
+one: the SLO verdict, lost writes 0, B1, B2 and B5 launched). It prints
+one JSON line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
 result.
@@ -381,6 +394,31 @@ LENS_TRACE_CHUNKS = 4
 LENS_TRACE_CHUNK = 32
 PROFILE_TICKS = 8
 TRACE_DIR = os.path.join("build", "trace_capture")
+
+# The game day's slice (ROADMAP A10, A19). serf_reference_parity: the
+# fused serf tick (B4) against the pre-fusion oracle from one seed, in
+# tests/test_serf_fused.py:54-59's scenarios with origins scaled to n,
+# each until every fired event covers every live node, within ORACLE_MAX
+# ticks, read every ORACLE_CHUNK ticks; the fault scenario's link loss
+# over ORACLE_FAULT ticks. snapshot_rejoin: the observed seat, SNAP_CHUNKS
+# observed chunks, the ticks the cluster gets to notice the crash, the
+# limit on the ticks to a full view. frontend_parity: NEAREST reads and
+# writes through both paths. The game day at 1M, and the threaded front
+# end's run at GAMEDAY_THREADED_N.
+ORACLE_SEED = 3
+ORACLE_MAX = 512
+ORACLE_CHUNK = 32
+ORACLE_FAULT = 32
+SNAP_NODE = 10
+SNAP_CHUNKS = 4
+SNAP_CHUNK = 32
+SNAP_NOTICE = 256
+SNAP_LIMIT = 400
+FRONTEND_READS = 256
+FRONTEND_WRITES = 64
+GAMEDAY_N = MAIN_N
+GAMEDAY_THREADED_N = MAIN_N
+SNAP_DIR = os.path.join("build", "snapshot_rejoin")
 
 
 def emit(obj):
@@ -3698,6 +3736,405 @@ def blackbox_live():
     return res
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _scaled_origins(n):
+    """tests/test_serf_fused.py:54-59's origins (rows 0, 97 and N - 1 of
+    N = 4096; the query from row 9) scaled to ``n``."""
+    events = [(0, 11), (97 * n // 4096, 42), (n - 1, 7)]
+    return events, (9 * n // 4096, 3)
+
+
+def _covered(sim, keys):
+    from consul_tpu_torch.models import serf
+
+    st = sim.serf_state
+    return [float(serf.event_coverage(sim.cfg, st, k, o)) for k, o in keys]
+
+
+def serf_reference_parity(cfg, with_chaos, device="cuda", kernel="cuda"):
+    """SerfSimulation (the fused tick; B4 on the card) against
+    ReferenceSerfSimulation (the pre-fusion oracle, plain PyTorch on the
+    same device) from one seed, so both take the same SWIM draws: three
+    events and an open query with chaos off, or the events alone under a
+    link-loss window over an eighth of the cluster. Both run in
+    ORACLE_CHUNK-tick steps until every fired event covers every live
+    node on both (at most ORACLE_MAX ticks). Then the SWIM plane must be
+    bit-equal, and the per-node delivered counts, event_clock, ev_floor,
+    q_floor and the SLO counters equal. ms a tick of each by the host
+    clock over the window (ends synchronized)."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster, serf
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n = cfg.n
+    events, query = _scaled_origins(n)
+    fused = cluster.SerfSimulation(cfg, seed=ORACLE_SEED, device=device,
+                                   kernel=kernel)
+    oracle = cluster.ReferenceSerfSimulation(cfg, seed=ORACLE_SEED,
+                                             device=device)
+    refused = False
+    try:
+        cluster.ReferenceSerfSimulation(cfg, device=device, kernel="cuda")
+    except ValueError as e:
+        refused = "B8" in str(e)
+    fired = []
+    for sim in (fused, oracle):
+        keys = []
+        for row, name in events:
+            keys.append((int(serf.make_event_key(int(sim.state.event_clock[row]),
+                                                 name)), row))
+            sim.user_event(_rows(n, [row], "cpu"), name)
+        if not with_chaos:
+            sim.query(_rows(n, [query[0]], "cpu"), query[1])
+        fired.append(keys)
+    fault = [chaos.LinkLoss(start=1, stop=13, a=slice(0, n // 8),
+                            b=slice(n // 2, n), fwd=0.5, rev=0.5)]
+    walls, cover, used = {}, {}, 0
+    reset_launches()
+    while used < ORACLE_MAX:
+        for name, sim in (("fused", fused), ("oracle", oracle)):
+            _sync(device)
+            t0 = time.perf_counter()
+            if with_chaos and used == 0:
+                sim.run_scenario(fault, ticks=ORACLE_FAULT, chunk=ORACLE_CHUNK)
+            else:
+                sim.run(ORACLE_CHUNK, chunk=ORACLE_CHUNK, with_metrics=False)
+            _sync(device)
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        used += ORACLE_FAULT if with_chaos and used == 0 else ORACLE_CHUNK
+        cover = {"fused": _covered(fused, fired[0]),
+                 "oracle": _covered(oracle, fired[0])}
+        if all(c == 1.0 for v in cover.values() for c in v):
+            break
+    launches = dict(cuda_gossip.LAUNCHES)
+    a, b = fused.serf_state, oracle.serf_state
+    swim_diff = tree_diff(fused.state.swim, oracle.state.swim)
+    equal = {f: torch.equal(_bits(getattr(a, f)), _bits(getattr(b, f)))
+             for f in ("ev_delivered", "event_clock", "ev_floor", "q_floor")}
+    slo = [{f: sim.counters[f] for f in cluster.SLO_KEYS}
+           for sim in (fused, oracle)]
+    res = dict(n=n, k=cfg.degree, scenario="chaos_events" if with_chaos
+               else "quiet_query", ticks=used, coverage=cover,
+               swim_leaves_differing=swim_diff, equal=equal,
+               slo=slo[0], slo_equal=slo[0] == slo[1],
+               delivered_total=int(a.ev_delivered.to(torch.int64).sum()),
+               fused_ms_per_tick=walls["fused"] / used * 1e3,
+               oracle_ms_per_tick=walls["oracle"] / used * 1e3,
+               oracle_wall_s=walls["oracle"], launches=launches,
+               cuda_kernel_refused=refused)
+    if not with_chaos:
+        qkey = int(serf.make_event_key(int(a.query_clock[query[0]]) - 1,
+                                       query[1], True))
+        res["query_coverage"] = [float(serf.event_coverage(cfg, st, qkey,
+                                                           query[0]))
+                                 for st in (a, b)]
+    ok = (not swim_diff and all(equal.values()) and res["slo_equal"]
+          and all(c == 1.0 for v in cover.values() for c in v) and refused
+          and all(c == 1.0 for c in res.get("query_coverage", [])))
+    if with_chaos:
+        ok = ok and slo[0]["chaos_msgs_dropped"] > 0
+    if torch.device(device).type == "cuda":
+        ok = ok and launches["serf_post"] > 0 and launches["chaos_pre"] == (
+            ORACLE_FAULT if with_chaos else 0)
+    res["ok"] = ok
+    return res
+
+
+def _full_view_ticks(sim, node, limit):
+    """Ticks until every column of ``node``'s view reads ALIVE (one row
+    copy a tick), or limit + 1."""
+    from consul_tpu_torch.models import snapshot
+    from consul_tpu_torch.ops import merge
+
+    for i in range(limit):
+        sim.run(1, chunk=1, with_metrics=False)
+        statuses, _ = snapshot._seat_row(sim.state, node)
+        if all(x == merge.ALIVE for x in statuses):
+            return i + 1
+    return limit + 1
+
+
+def snapshot_rejoin(cfg, device="cuda", kernel="cuda"):
+    """The serf snapshotter on the serf state: SNAP_NODE observed every
+    chunk (the file's bytes and ms per observe, each ending in its one
+    row copy), then killed, SNAP_NOTICE ticks for the cluster to notice,
+    and restarted from the same state and generator twice: cold (3 join
+    seeds) and warm (``SerfSimulation.rejoin`` from the replayed file).
+    The warm node's view reads all ALIVE in fewer ticks than the cold
+    one's (reference tests/test_snapshot.py:124), and its clocks resume
+    at the recorded floors."""
+    from consul_tpu_torch.models import cluster, snapshot
+    from consul_tpu_torch.ops import cuda_gossip
+
+    n, node = cfg.n, SNAP_NODE
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    os.makedirs(SNAP_DIR, exist_ok=True)
+    path = os.path.join(SNAP_DIR, "serf.snapshot")
+    sim = cluster.SerfSimulation(cfg, seed=5, device=device, kernel=kernel)
+    reset_launches()
+    snap = snapshot.Snapshotter(path, node)
+    observe_ms = []
+    for _ in range(SNAP_CHUNKS):
+        sim.run(SNAP_CHUNK, chunk=SNAP_CHUNK, with_metrics=False)
+        _sync(device)
+        t0 = time.perf_counter()
+        snap.observe(cfg, sim.topo, sim.state)
+        observe_ms.append((time.perf_counter() - t0) * 1e3)
+    snap.close()
+    rep = snapshot.replay(path)
+    sim.kill(_rows(n, [node], "cpu"))
+    sim.run(SNAP_NOTICE, chunk=64, with_metrics=False)
+    crashed, gen = cluster._clone(sim.state), sim.gen.get_state()
+    sim.revive(_rows(n, [node], "cpu"), cold=True)
+    cold = _full_view_ticks(sim, node, SNAP_LIMIT)
+    sim.load_state(crashed)
+    sim.gen.set_state(gen)
+    sim.rejoin(node, rep)
+    _, clocks = snapshot._seat_row(sim.state, node)
+    warm = _full_view_ticks(sim, node, SNAP_LIMIT)
+    launches = dict(cuda_gossip.LAUNCHES)
+    res = dict(n=n, k=cfg.degree, node=node, file_bytes=os.path.getsize(path),
+               alive_recorded=len(rep.alive), clocks_recorded=[
+                   rep.clock, rep.event_clock, rep.query_clock],
+               clocks_after_rejoin=clocks, observe_ms=observe_ms,
+               ms_per_observe=sum(observe_ms) / len(observe_ms),
+               cold_ticks=cold, warm_ticks=warm, launches=launches)
+    shutil.rmtree(SNAP_DIR, ignore_errors=True)
+    res["ok"] = (warm < cold and len(rep.alive) == cfg.degree
+                 and clocks[0] >= rep.clock and clocks[1] >= rep.event_clock)
+    if torch.device(device).type == "cuda":
+        res["ok"] = res["ok"] and launches["serf_post"] > 0
+    return res
+
+
+def frontend_parity(cfg, device="cuda", kernel="cuda"):
+    """AsyncFrontend over a live plane against the batchers direct: two
+    simulations of one seed with write-attached planes; FRONTEND_WRITES
+    writes (registrations, KV puts, deregistrations) through the front end
+    on one and straight into the write batcher on the other give the same
+    results, apply index and KV readback; FRONTEND_READS NEAREST reads and
+    the catalog and health reads through the front end equal the batcher's
+    on the same plane and on the twin; a blocking wait_index wakes on a
+    flip; an HTTP PUT / GET round trip through serve_http on 127.0.0.1;
+    one owned thread."""
+    import http.client
+    import random as _random
+
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip, deltas
+    from consul_tpu_torch.ops import serving as kernels
+    from consul_tpu_torch.serving import AsyncFrontend, ServingPlane
+
+    n = cfg.n
+    reset_launches()
+    stacks = []
+    for _ in range(2):
+        sim = cluster.Simulation(cfg, seed=9, device=device, kernel=kernel)
+        plane = ServingPlane(k=8, buckets=(64, FRONTEND_READS), num_services=8,
+                             device=device)
+        sim.attach_serving(plane, writes=True, kv_slots=256)
+        sim.run(64, chunk=32, with_metrics=False)
+        stacks.append((sim, plane))
+    (sim_a, plane_a), (sim_b, plane_b) = stacks
+    rng = _random.Random(11)
+    writes = []
+    for i in range(FRONTEND_WRITES):
+        roll = rng.random()
+        if roll < 0.5:
+            writes.append((deltas.OP_REGISTER, rng.randrange(n), rng.randrange(8)))
+        elif roll < 0.8:
+            writes.append((deltas.OP_KV_PUT, i % 16, rng.randrange(1000)))
+        else:
+            writes.append((deltas.OP_DEREGISTER, rng.randrange(n), -1))
+    for i in range(16):
+        for plane in (plane_a, plane_b):
+            plane.keys.slot_for(f"fe/{i}", create=True)
+    fe = AsyncFrontend(plane_a).start()
+    res = dict(n=n, k=cfg.degree)
+    try:
+        t0 = time.perf_counter()
+        got_w = [f.result(60.0) for f in
+                 [fe.submit_write(o, t, a) for o, t, a in writes]]
+        res["write_ms"] = (time.perf_counter() - t0) * 1e3
+        want_w = plane_b.writes.execute(writes)
+        sim_a.publish_serving()
+        sim_b.publish_serving()
+        reads = [(kernels.MODE_NEAREST, rng.randrange(n), -1)
+                 for _ in range(FRONTEND_READS - 8)]
+        reads += [(kernels.MODE_NEAREST, rng.randrange(n), s) for s in range(4)]
+        reads += [(kernels.MODE_CATALOG, 0, s) for s in (-1, 3)]
+        reads += [(kernels.MODE_HEALTH, 0, s) for s in (-1, 5)]
+        t0 = time.perf_counter()
+        got_r = [f.result(60.0) for f in
+                 [fe.submit_read(m, s, a) for m, s, a in reads]]
+        res["read_ms"] = (time.perf_counter() - t0) * 1e3
+        direct_a = plane_a.batcher.execute(reads)
+        direct_b = plane_b.batcher.execute(reads)
+
+        def same(x, y):
+            return all(int(p.count) == int(q.count)
+                       and (p.ids == q.ids).all() and (p.rtts == q.rtts).all()
+                       for p, q in zip(x, y)) and len(x) == len(y)
+
+        res["writes_equal"] = got_w == want_w
+        res["reads_equal_same_plane"] = same(got_r, direct_a)
+        res["reads_equal_twin"] = same(got_r, direct_b)
+        res["apply_index"] = [plane_a.apply_index, plane_b.apply_index]
+        res["kv_equal"] = all(plane_a.kv_get(f"fe/{i}") == plane_b.kv_get(f"fe/{i}")
+                              for i in range(16))
+        # A blocking wait woken by a flip.
+        cur = plane_a.apply_index
+        parked = fe.wait_index(cur, 30.0)
+        time.sleep(0.05)
+        early = parked.done()
+        plane_a.writes.execute([(deltas.OP_REGISTER, 1, 2)])
+        t0 = time.perf_counter()
+        sim_a.publish_serving()
+        woke = parked.result(30.0)
+        res["wait_index"] = dict(before=cur, woke_at=woke, early=early,
+                                 wake_ms=(time.perf_counter() - t0) * 1e3)
+        # One HTTP round trip on 127.0.0.1.
+        host, port = fe.serve_http("127.0.0.1", 0)
+        conn = http.client.HTTPConnection(host, port, timeout=30)
+        conn.request("PUT", "/v1/kv/fe/http", body="7")
+        put = conn.getresponse().read()
+        sim_a.publish_serving()
+        conn.request("GET", "/v1/kv/fe/http")
+        resp = conn.getresponse()
+        rows = json.loads(resp.read())
+        res["http"] = dict(put=put.decode(), value=rows[0]["Value"],
+                           index=int(resp.getheader("X-Consul-Index")))
+        conn.close()
+        res["owned_threads"] = fe.owned_threads()
+        res["stats"] = fe.stats()
+    finally:
+        fe.close()
+    res["launches"] = dict(cuda_gossip.LAUNCHES)
+    res["ok"] = (res["writes_equal"] and res["reads_equal_same_plane"]
+                 and res["reads_equal_twin"] and res["kv_equal"]
+                 and res["apply_index"][0] == res["apply_index"][1] > 0
+                 and not res["wait_index"]["early"]
+                 and res["wait_index"]["woke_at"] > cur
+                 and res["http"]["put"] == "true" and res["http"]["value"] == 7
+                 and res["owned_threads"] == 1)
+    if torch.device(device).type == "cuda":
+        res["ok"] = res["ok"] and tick_launches(res["launches"]) > 0
+    return res
+
+
+def gameday_run(n, frontend, swarm_procs, device="cuda", kernel="cuda"):
+    """run_gameday at ``n`` (the reference's defaults otherwise) with the
+    kernel objects it builds kept: the main simulation's tick and the DCN
+    leg's islands. Returns (verdict, accounting): wall per phase, the
+    launches by configuration (B1 the main simulation's ticks without a
+    schedule and the islands' LAN pools, B2 its ticks under the composed
+    schedule, B5 the islands' WAN pools), whether every tick ran on the
+    CUDA kernel, host syncs and peak bytes."""
+    from consul_tpu_torch.gameday import GamedayConfig, harness, run_gameday
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.parallel import dcn
+
+    made = {"sims": [], "feds": []}
+    make_sim, dcn_init = harness._simulation, dcn.DcnFederation.__init__
+
+    def keep_sim(cfg):
+        sim = make_sim(cfg)
+        made["sims"].append(sim)
+        return sim
+
+    def keep_fed(self, *a, **k):
+        dcn_init(self, *a, **k)
+        made["feds"].append(self)
+
+    phases, marks = {}, {}
+
+    def note(rec):
+        name = rec.get("gameday")
+        if name in ("warmup", "steady", "fault", "heal", "drain"):
+            phases[name] = rec.get("wall_s")
+            marks[name] = dict(cuda_gossip.LAUNCHES)
+
+    cfg = GamedayConfig(n=n, view_degree=32, frontend=frontend,
+                        swarm_procs=swarm_procs, device=device, kernel=kernel)
+    harness._simulation, dcn.DcnFederation.__init__ = keep_sim, keep_fed
+    cuda = torch.device(device).type == "cuda"
+    try:
+        reset_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        box = {}
+        t0 = time.perf_counter()
+        run = lambda: box.update(v=run_gameday(cfg, emit=note))  # noqa: E731
+        syncs = sync_count(run) if cuda else (run() or 0)
+        wall = time.perf_counter() - t0
+    finally:
+        harness._simulation, dcn.DcnFederation.__init__ = make_sim, dcn_init
+    v = box["v"]
+    sim = made["sims"][0]
+    islands = [i for f in made["feds"] for i in f.islands]
+    main_ticks = getattr(sim._tick_fn, "launches", 0)
+    b2 = 4 * cuda_gossip.LAUNCHES["chaos_pre"]
+    acc = dict(wall_s=wall, wall_s_by_phase=phases, host_syncs=syncs,
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+               launches=dict(cuda_gossip.LAUNCHES),
+               launches_by_phase=marks,
+               b1_main=main_ticks - b2, b2=b2,
+               b1_islands=sum(getattr(i._lan_tick, "launches", 0)
+                              for i in islands),
+               b5_wan=sum(getattr(i._wan_tick, "launches", 0) for i in islands),
+               on_kernel=isinstance(sim._tick_fn, cuda_gossip.TickKernel)
+               and all(isinstance(i._lan_tick, cuda_gossip.TickKernel)
+                       and isinstance(i._wan_tick, cuda_gossip.TickKernel)
+                       for i in islands))
+    return v, acc
+
+
+def gameday_ok(v, acc, cuda=True):
+    """The game day's gates: the SLO verdict passes with lost_writes 0,
+    the index monotone (no regression across the RaftKill window), heal
+    within its threshold, watch lag 0 at drain; on the card B1, B2 and B5
+    launched and every tick on the kernel."""
+    ok = (v["pass"] and v["lost_writes"] == 0
+          and v["ledger"]["index_regressions"] == 0
+          and v["max_time_to_heal_ticks"] is not None
+          and v["max_time_to_heal_ticks"]
+          <= v["thresholds"]["max_time_to_heal_ticks"]
+          and v["watch_delivery_lag"] == 0 and v["drained"]
+          and v["dcn"] is not None and v["dcn"]["converged"])
+    if cuda:
+        ok = ok and acc["on_kernel"] and min(
+            acc["b1_main"], acc["b2"], acc["b1_islands"], acc["b5_wan"]) > 0
+    return ok
+
+
+def gameday_main_path():
+    """The game day at 1M (reference defaults otherwise, the 2-island DCN
+    leg included) with the async front end and a 4-process HTTP swarm,
+    then with the threaded front end at GAMEDAY_THREADED_N."""
+    out = {}
+    for name, n, fe, procs in (("async", GAMEDAY_N, "async", 4),
+                               ("threaded", GAMEDAY_THREADED_N, "threaded", 0)):
+        v, acc = gameday_run(n, fe, procs)
+        torch.cuda.empty_cache()
+        keep = ("pass", "violations", "p99_read_ms", "p99_write_ms",
+                "p99_watch_ms", "p50_read_ms", "p50_write_ms", "p50_watch_ms",
+                "lost_writes", "max_time_to_heal_ticks", "watch_delivery_lag",
+                "shed", "rejected", "thresholds", "phases", "frontend",
+                "frontend_threads", "ledger", "apply_index", "watchers",
+                "deliveries", "flips", "chaos", "dcn", "swarm", "raft",
+                "wall_s", "n", "drained")
+        out[name] = dict({k: v[k] for k in keep}, **acc)
+        out[name]["ok"] = gameday_ok(v, acc)
+    out["async"]["ok"] = (out["async"]["ok"]
+                          and out["async"]["frontend_threads"] == 1
+                          and out["async"]["swarm"]["failed"] == 0)
+    return out
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -4288,6 +4725,60 @@ def main() -> int:
     emit({"phase": "federation_phases", "seconds": round(
         time.perf_counter() - t_fed, 3), "kernel_launches": fed_launches})
 
+    # The game day's slice (ROADMAP A10, A19): the fused serf tick (B4)
+    # against the pre-fusion oracle, the snapshotter's warm rejoin, the
+    # async front end against the batchers, then the game day itself.
+    # Each phase zeroes the counts before it drives its path.
+    t_gd = time.perf_counter()
+    gd_launches = {"bare": 0, "chaos": 0, "serf": 0, "serf_chaos": 0,
+                   "wan": 0}
+    oracle_ms = []
+    for with_chaos in (False, True):
+        t0 = time.perf_counter()
+        res = serf_reference_parity(cfg, with_chaos)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "serf_reference_parity", **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": [
+                "serf_reference_parity " + res["scenario"]]})
+            return 1
+        oracle_ms.append(res["oracle_ms_per_tick"])
+        chaos_ticks = res["launches"]["chaos_pre"]
+        gd_launches["serf_chaos"] += 5 * chaos_ticks
+        gd_launches["serf"] += tick_launches(res["launches"]) - 5 * chaos_ticks
+    t0 = time.perf_counter()
+    res = snapshot_rejoin(cfg)
+    torch.cuda.empty_cache()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "snapshot_rejoin", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["snapshot_rejoin"]})
+        return 1
+    gd_launches["serf"] += tick_launches(res["launches"])
+    t0 = time.perf_counter()
+    res = frontend_parity(cfg)
+    torch.cuda.empty_cache()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "frontend_parity", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["frontend_parity"]})
+        return 1
+    gd_launches["bare"] += tick_launches(res["launches"])
+    t0 = time.perf_counter()
+    runs = gameday_main_path()
+    for name, r in runs.items():
+        emit({"phase": "gameday_main_path", "run": name, **r})
+        gd_launches["bare"] += r["b1_main"] + r["b1_islands"]
+        gd_launches["chaos"] += r["b2"]
+        gd_launches["wan"] += r["b5_wan"]
+    if not all(r["ok"] for r in runs.values()):
+        emit({"phase": "failed", "failed": ["gameday_main_path"]})
+        return 1
+    emit({"phase": "gameday_phases", "seconds": round(
+        time.perf_counter() - t_gd, 3), "tick_launches": gd_launches,
+        "oracle_ms_per_tick": oracle_ms})
+
     # The CUDA-init black box, captured live.
     res = blackbox_live()
     emit({"phase": "blackbox_live", **res})
@@ -4317,33 +4808,39 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
             "sentinel=False, sparse, packed (SWIM path, the raft paths, "
-            "the sweeps' forming, and every DC's LAN pool of the federation "
-            "and the DCN islands)",
+            "the sweeps' forming, every DC's LAN pool of the federation "
+            "and the DCN islands, the front end's planes, and the game "
+            "day's warmup, steady and drain and its DCN islands)",
             swim_launches + raft_launches["bare"] + sweep_launches["bare"]
-            + fed_launches["lan"], swim_t),
+            + fed_launches["lan"] + gd_launches["bare"], swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
-            "sched=None, sentinel=False, sparse, packed", serf_launches,
-            serf_t),
+            "sched=None, sentinel=False, sparse, packed (serf path; the "
+            "oracle's fused twin and the snapshot rejoin)",
+            serf_launches + gd_launches["serf"], serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
             "sentinel=True (chaos path); sched=<raft-only>, sentinel=False "
             "(raft paths); sched=<sweep lane>, sentinel=False, families "
-            "circulant, expander, smallworld, hier (sweeps), sparse, packed",
+            "circulant, expander, smallworld, hier (sweeps); "
+            "sched=<composed with RaftKill>, sentinel=False (the game day's "
+            "fault and heal), sparse, packed",
             chaos_launches + raft_launches["raft_schedule"]
-            + sweep_launches["chaos"], chaos_t),
+            + sweep_launches["chaos"] + gd_launches["chaos"], chaos_t),
         row("gossip_tick_sentinel", "step_fn=swim.step_counted, sched=None, "
             "sentinel=True, sparse, packed", sentinel_launches, sentinel_t),
         row("gossip_tick_serf_chaos", "step_fn=serf.step_counted (extra_tx), "
             "sched=<composed> or None, sentinel=True (serf chaos path); "
-            "sched=<sweep lane>, sentinel=False, circulant (serf sweep), "
+            "sched=<sweep lane>, sentinel=False, circulant (serf sweep); "
+            "sched=<link loss>, sentinel=False (the oracle's fused twin), "
             "sparse, packed",
-            serf_chaos_launches + sweep_launches["serf_chaos"],
-            serf_chaos_t)] + dense_rows + [
+            serf_chaos_launches + sweep_launches["serf_chaos"]
+            + gd_launches["serf_chaos"], serf_chaos_t)] + dense_rows + [
         row("gossip_tick_wan_dense", "step_fn=swim.step_counted, sched=None, "
             "sentinel=False, dense, packed: the federation's WAN pool (n = "
             f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc']}, K = "
             f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc'] - 1}, timed) and "
             "the DCN islands' (n = 4, K = 3); one partly filled warp tile, "
-            "so launch-bound", fed_launches["wan"], wan_t)] + [
+            "so launch-bound (the game day's DCN islands too)",
+            fed_launches["wan"] + gd_launches["wan"], wan_t)] + [
         {"name": "gossip_metrics", "route": "cuda",
          "source": "consul_tpu_torch/csrc/gossip_tick.cu",
          "replaces": "consul_tpu/models/cluster.py:263",

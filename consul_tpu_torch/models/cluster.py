@@ -932,8 +932,104 @@ class SerfSimulation(Simulation):
             self.cfg, st.swim, m, cold=cold)), mask)
         self.publish_serving()
 
+    def rejoin(self, node: int, rep):
+        """Warm restart of ``node`` from a replayed snapshot
+        (``models/snapshot.rejoin``; a ``snapshot.Replay``)."""
+        from consul_tpu_torch.models import snapshot
+
+        self._no_mesh("a snapshot rejoin")
+        self._from_dense(snapshot.rejoin(self.cfg, self.topo, self._to_dense(),
+                                         node, rep))
+        self.publish_serving()
+
     @property
     def serf_state(self) -> serf.SerfState:
         """The whole state with a dense SWIM plane (the read-outs of
         models/serf.py take this)."""
         return self._to_dense()
+
+
+# The configuration of the reference's tick kernel that runs the oracle's
+# step: reachable there only through ``set_kernel("pallas")`` on
+# ReferenceSerfSimulation, and not ported (PERF.md's kernel table, B8).
+B8_UNPORTED = ("step_fn=serf.step_reference_counted inside the tick kernel "
+               "(consul_tpu/ops/pallas_gossip.py:145, B8)")
+
+
+def plain_reference_serf_tick(cfg: SimConfig, topo, world, packed, draws,
+                              sched=None, sentinel: bool = False):
+    """The pre-fusion tick on the packed layout:
+    ``unpack_state -> serf.step_reference_counted -> pack_state`` and the
+    stacked [26] int32 counters."""
+    state, cnt = serf.step_reference_counted(
+        cfg, topo, world, layout_mod.unpack_state(packed), draws,
+        sched=sched, sentinel=sentinel)
+    return layout_mod.pack_state(state), counters_mod.stack(cnt)
+
+
+@dataclasses.dataclass
+class ReferenceSerfSimulation(SerfSimulation):
+    """SerfSimulation on the pre-fusion tick (``serf.step_reference_counted``,
+    reference cluster.py:1161-1169): the event/query plane runs as its own
+    sweep after the SWIM tick. The oracle the fused tick is held to, not a
+    production path. It runs as plain PyTorch (``kernel="torch"``), on the
+    card by default; ``kernel="cuda"`` raises, naming the configuration
+    that would run it there (B8, not ported), and a mesh raises too.
+
+    ``draws`` maps the tick number to a :class:`serf.ReferenceSerfDraws`.
+    By default the fused tick's numbers come from the simulation's
+    generator, exactly as a ``SerfSimulation`` of the same seed draws them
+    (so both see the same SWIM draws), and the event sweep's columns and
+    loss draws from a second generator seeded from ``seed``."""
+
+    kernel: str = cuda_gossip.TORCH
+
+    _step = staticmethod(serf.step_reference_counted)
+    _plain_tick = staticmethod(plain_reference_serf_tick)
+
+    def __post_init__(self):
+        if self.kernel == cuda_gossip.CUDA:
+            raise ValueError(
+                "ReferenceSerfSimulation runs as plain PyTorch only: "
+                f"{B8_UNPORTED} is not ported; pass kernel='torch'")
+        if self.mesh is not None:
+            raise ValueError("ReferenceSerfSimulation runs on one device "
+                             "(the sharded serf runner steps the fused tick)")
+        self._ev_gen = torch.Generator(device=torch.device(self.device))
+        self._ev_gen.manual_seed(metric_seed(self.seed, -2))
+        super().__post_init__()
+
+    def _own_draws(self, t):
+        return serf.draw_reference_tick(self.cfg, self.gen, self._ev_gen,
+                                        self.device,
+                                        chaos=self.chaos is not None)
+
+    def generator_state(self) -> dict:
+        """Both draw generators' states: the SWIM draws' and the event
+        sweep's, so a resume draws what the run would have."""
+        enc = super().generator_state()
+        enc["event_state"] = base64.b64encode(
+            self._ev_gen.get_state().numpy().tobytes()).decode("ascii")
+        return enc
+
+    def load_state(self, state, generator: Optional[dict] = None):
+        """Simulation.load_state, with the event sweep's generator put back
+        too; a generator state without it is refused (it would resume the
+        event draws from wherever they stand)."""
+        if generator is not None and "event_state" not in generator:
+            raise ValueError("the draw generator's state lacks the event "
+                             "sweep's generator (not a "
+                             "ReferenceSerfSimulation's)")
+        super().load_state(state, generator)
+        if generator is not None:
+            raw = bytearray(base64.b64decode(generator["event_state"]))
+            self._ev_gen.set_state(torch.frombuffer(raw, dtype=torch.uint8))
+
+    def _run_lanes(self, scheds, ticks: int):
+        """Simulation._run_lanes, with the event sweep's generator put back
+        too, so a sweep leaves the trajectory where it was."""
+        ev_state = self._ev_gen.get_state()
+        try:
+            return super()._run_lanes(scheds, ticks)
+        finally:
+            self._ev_gen.set_state(ev_state)

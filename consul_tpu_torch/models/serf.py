@@ -30,6 +30,11 @@ inside its kernel; with nothing queued every mask of the body is false
 and it passes the state through, so the port runs it unconditionally,
 as the kernel does.
 
+The pre-fusion tick (:func:`step_reference_counted`, reference
+serf.py:584-642) stays as the oracle the fused tick is held to: the SWIM
+tick alone, then the event plane as a second sweep over the view with
+its own gossip columns and loss draws (:class:`ReferenceSerfDraws`).
+
 **Faults and the sentinel.** ``step_counted(..., sched=, sentinel=)``
 hands a fault schedule (chaos/schedule.py) and the invariant sentinel to
 the SWIM tick, gates the query tally's direct response and both legs of
@@ -429,6 +434,47 @@ def draw_serf_tick(cfg: SimConfig, gen: torch.Generator, device,
     )
 
 
+class ReferenceSerfDraws(NamedTuple):
+    """Every random number one pre-fusion serf tick
+    (:func:`step_reference_counted`) consumes. The first five fields are
+    :class:`SerfDraws`' field for field, so the SWIM plane takes the same
+    numbers as the fused tick's; the query-response draws come off the
+    reference's ``k_resp`` here (``k_cols, k_loss, k_resp = split(k_ev,
+    3)``, serf.py:949), and the event sweep's own gossip columns and loss
+    draws follow."""
+
+    swim: swim.TickDraws
+    u_resp: torch.Tensor      # [N] f32 uniform              k_resp
+    relay_u1: torch.Tensor    # [N, rf] f32 uniform          split(fold_in(k_resp, 1), 3)[0]
+    relay_u2: torch.Tensor    # [N, rf] f32 uniform          ...[1]
+    relay_cols: torch.Tensor  # [rf] int64 in [0, K)         ...[2]
+    ev_cols: torch.Tensor     # [fan] int64 in [0, K)        k_cols
+    ev_u_drop: torch.Tensor   # [N, fan] f32 uniform         k_loss
+
+
+def draw_reference_tick(cfg: SimConfig, gen: torch.Generator,
+                        ev_gen: torch.Generator, device,
+                        chaos: bool = False) -> ReferenceSerfDraws:
+    """One pre-fusion tick's bundle: :func:`draw_serf_tick` from ``gen``
+    (the same numbers, in the same order, as the fused tick draws), then
+    the event sweep's columns and loss draws from ``ev_gen``, so that
+    ``gen`` moves exactly as under the fused tick."""
+    base = draw_serf_tick(cfg, gen, device, chaos=chaos)
+    fan = cfg.gossip.gossip_nodes
+    kw = dict(generator=ev_gen, device=device)
+    return ReferenceSerfDraws(
+        *base,
+        ev_cols=torch.randint(0, cfg.degree, (fan,), **kw),
+        ev_u_drop=torch.rand((cfg.n, fan), **kw))
+
+
+def step(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws, *,
+         sched=None, sentinel: bool = False) -> SerfState:
+    """One fused serf tick without its counters (reference serf.py:466)."""
+    return step_counted(cfg, topo, world, s, draws, sched=sched,
+                        sentinel=sentinel)[0]
+
+
 def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws,
                  *, sched=None, sentinel: bool = False):
     """One fused serf tick over a dense SWIM plane; returns (SerfState,
@@ -487,6 +533,173 @@ def step_counted(cfg: SimConfig, topo, world, s: SerfState, draws: SerfDraws,
                       zip(clocks0, (w.clock, w.event_clock, w.query_clock)))
         cnt = cnt._replace(sentinel_monotonic=cnt.sentinel_monotonic + regress)
     return _narrow(cfg, w._replace(down_since=down_since)), cnt
+
+
+def step_reference(cfg: SimConfig, topo, world, s: SerfState,
+                   draws: ReferenceSerfDraws, *, sched=None,
+                   sentinel: bool = False) -> SerfState:
+    """The pre-fusion tick without its counters; see
+    :func:`step_reference_counted`."""
+    return step_reference_counted(cfg, topo, world, s, draws, sched=sched,
+                                  sentinel=sentinel)[0]
+
+
+def step_reference_counted(cfg: SimConfig, topo, world, s: SerfState,
+                           draws: ReferenceSerfDraws, *, sched=None,
+                           sentinel: bool = False):
+    """The PRE-FUSION serf tick (reference serf.py:593-642): the SWIM tick
+    first, with no extra lanes, then the event/query plane as a second
+    sweep over the view (:func:`_event_phase_ref`), then query expiry and
+    reap bookkeeping as in :func:`step_counted`. The oracle the fused tick
+    is held to: from the same seed and SWIM draws, the SWIM plane is the
+    same bit for bit, and the delivered-event sets, the Lamport floors and
+    the SLO counters agree. Returns (SerfState, GossipCounters)."""
+    w = _widen(s)
+    t = w.swim.t
+    sched = chaos_mod.or_none(sched)
+    terms = None if sched is None else chaos_mod.node_terms(sched, t)
+    clocks0 = (w.clock, w.event_clock, w.query_clock)
+    sw, cnt = swim.step_counted(cfg, topo, world, w.swim, draws.swim,
+                                sched=sched, sentinel=sentinel)
+    quiet = (w.leave_at >= 0) & (sw.t >= w.leave_at)
+    sw = sw._replace(left=sw.left | quiet)
+    w = w._replace(swim=sw, leave_at=torch.where(
+        quiet, torch.full_like(w.leave_at, -1), w.leave_at))
+    active = sw.alive_truth & ~sw.left
+
+    w, (n_queued, n_retx, n_dropped) = _event_phase_ref(
+        cfg, topo, w, active, draws, sched, terms)
+    cnt = cnt._replace(serf_intents_queued=n_queued,
+                       serf_intents_retx=n_retx,
+                       serf_intents_dropped=n_dropped)
+
+    expired = (w.q_open_key > 0) & (sw.t >= w.q_deadline)
+    w = w._replace(q_open_key=torch.where(
+        expired, torch.zeros_like(w.q_open_key), w.q_open_key))
+
+    st = merge.key_status(sw.view_key)
+    is_down = (st == merge.DEAD) | (st == merge.LEFT)
+    ds = w.down_since
+    down_since = torch.where(is_down & (ds < 0), t.expand_as(ds),
+                             torch.where(is_down, ds, torch.full_like(ds, -1)))
+    if sentinel:
+        regress = sum(counters_mod.count(after < before) for before, after in
+                      zip(clocks0, (w.clock, w.event_clock, w.query_clock)))
+        cnt = cnt._replace(sentinel_monotonic=cnt.sentinel_monotonic + regress)
+    return _narrow(cfg, w._replace(down_since=down_since)), cnt
+
+
+def _event_phase_ref(cfg: SimConfig, topo, s: SerfState, active,
+                     draws: ReferenceSerfDraws, sched=None, terms=None):
+    """The pre-fusion event phase: deliver, gossip out, take in (reference
+    serf.py:898-1075). Each active node delivers the oldest queue entry
+    its buffer does not yet hold (witnessing its ltime, answering a
+    query); sends the top ``piggyback_events`` entries by budget along
+    ``gossip_nodes`` shared displacements to live peers in its view
+    (``ev_cols``), each leg surviving loss (or ``chaos.pair_ok``) on
+    ``ev_u_drop``; budgets fall by the legs sent and spent delivered
+    entries retire; each receiver stages up to 2 fresh arrivals. The
+    reference gates this on "any queued event or open query"
+    (``lax.cond``); idle, every mask here is false and the state passes
+    through, so it runs unconditionally. Returns (state, (queued,
+    retransmits, drops))."""
+    n, fan = cfg.n, cfg.gossip.gossip_nodes
+    dev = s.ev_key.device
+    e_slots = cfg.serf.event_queue_slots
+    slots_i = torch.arange(e_slots, device=dev)
+    grows = coll.rows(n, dev)
+    sentinel = _U32
+    tx_limit = _tx_limit(cfg)
+
+    # 1. Deliver: the oldest entry the buffer does not yet hold.
+    q_fresh = ((s.ev_key > 0) & ~_lookup_any(cfg, s, s.ev_key, s.ev_origin)
+               & active[:, None])
+    del_key = torch.amin(torch.where(q_fresh, s.ev_key,
+                                     torch.full_like(s.ev_key, sentinel)), dim=1)
+    has = del_key != sentinel
+    slot_match = q_fresh & (s.ev_key == del_key[:, None])
+    del_slot = torch.argmax(slot_match.to(torch.int64), dim=1)
+    del_origin = swim._take_col(s.ev_origin, del_slot)
+    wkey = torch.where(has, del_key, torch.zeros_like(del_key))
+    worig = torch.where(has, del_origin, torch.zeros_like(del_origin))
+    s = _seen_append(cfg, s, has, wkey, worig)
+    lt = event_ltime(wkey)
+    isq = event_is_query(wkey) & has
+    isev = ~event_is_query(wkey) & has
+    s = s._replace(event_clock=lamport.witness(s.event_clock, lt, isev),
+                   query_clock=lamport.witness(s.query_clock, lt, isq))
+    s = _query_response_tally(cfg, topo, s, active, worig, wkey, isq, grows,
+                              draws, sched, terms)
+
+    # 2. Gossip out: the most-retransmittable entries to live view peers.
+    m_tx, order = swim._top_k_peel(s.ev_tx, cfg.serf.piggyback_events)
+    m_key = swim._take_cols(s.ev_key, order)
+    m_origin = swim._take_cols(s.ev_origin, order)
+    m_valid = (m_key > 0) & (m_tx > 0) & active[:, None]
+    jcols = draws.ev_cols
+    peer_status = merge.key_status(s.swim.view_key[:, jcols])     # [N, fan]
+    peer_ok = (((peer_status == merge.ALIVE) | (peer_status == merge.SUSPECT))
+               & active[:, None])
+    sends = torch.sum(peer_ok, dim=1)[:, None] * m_valid.to(torch.int64)
+    ev_tx = _scatter_cols(s.ev_tx, order, torch.clamp(m_tx - sends, min=0))
+    delivered_now = (slots_i[None, :] == del_slot[:, None]) & has[:, None]
+    still_fresh = q_fresh & ~delivered_now
+    retire = (ev_tx <= 0) & ~still_fresh
+    s = s._replace(ev_tx=ev_tx,
+                   ev_key=torch.where(retire, torch.zeros_like(s.ev_key),
+                                      s.ev_key))
+
+    # 3. Intake: roll in each displacement's sender, stage up to 2 fresh.
+    recv_up = s.swim.alive_truth & ~s.swim.left
+    pl = cfg.packet_loss
+    cand_key, cand_orig = [], []
+    for f in range(fan):
+        shift = topo.off[jcols[f]]
+        s_key, s_orig, s_valid, s_peer = coll.roll_many(
+            [m_key, m_origin, m_valid, peer_ok[:, f]], shift)
+        if sched is not None:
+            s_terms = chaos_mod.roll_terms(terms, shift)
+            ok_leg = chaos_mod.pair_ok(sched, s_terms, terms,
+                                       draws.ev_u_drop[:, f], pl)
+        else:
+            ok_leg = draws.ev_u_drop[:, f] >= pl
+        arrived = s_peer & ok_leg & recv_up
+        ok = arrived[:, None] & s_valid
+        cand_key.append(torch.where(ok, s_key, torch.zeros_like(s_key)))
+        cand_orig.append(torch.where(ok, s_orig, torch.full_like(s_orig, -1)))
+    ckey = torch.cat(cand_key, dim=1)                         # [N, fan*PE]
+    corig = torch.cat(cand_orig, dim=1)
+    s, n_queued, n_dropped = _stage_fresh(cfg, s, ckey, corig, tx_limit)
+    n_retx = torch.sum(sends).to(torch.int32)
+    return s, (n_queued, n_retx, n_dropped)
+
+
+def _stage_fresh(cfg: SimConfig, s: SerfState, ckey, corig, tx_limit):
+    """Stage up to 2 fresh (key, origin) candidates per row into the own
+    queue, lowest key first; returns (state, queued, evicted) with the
+    counts as int32 scalars."""
+    dev = s.ev_key.device
+    sentinel = _U32
+    fresh = (ckey > 0) & ~_lookup_any(cfg, s, ckey, corig)
+    n_queued = torch.zeros((), dtype=torch.int32, device=dev)
+    n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(2):
+        win_key = torch.amin(torch.where(fresh, ckey,
+                                         torch.full_like(ckey, sentinel)), dim=1)
+        got = win_key != sentinel
+        slot_i = torch.argmax((fresh & (ckey == win_key[:, None])).to(torch.int64),
+                              dim=1)
+        win_orig = swim._take_col(corig, slot_i)
+        s, evicted = _equeue_push(
+            cfg, s, got, torch.where(got, win_key, torch.zeros_like(win_key)),
+            torch.where(got, win_orig, torch.full_like(win_orig, -1)),
+            tx_limit, pending=True)
+        n_queued = n_queued + counters_mod.count(got)
+        n_dropped = n_dropped + counters_mod.count(evicted)
+        taken = ((ckey == win_key[:, None]) & (corig == win_orig[:, None])
+                 & got[:, None])
+        fresh = fresh & ~taken
+    return s, n_queued, n_dropped
 
 
 def _lookup_any(cfg: SimConfig, s: SerfState, key_, origin):
@@ -612,25 +825,7 @@ def _fused_event_post_body(cfg: SimConfig, topo, s: SerfState, active,
         cand_orig.append(torch.where(ok, r_orig, torch.full_like(r_orig, -1)))
     ckey = torch.cat(cand_key, dim=1)                         # [N, fan*PE]
     corig = torch.cat(cand_orig, dim=1)
-    fresh = (ckey > 0) & ~_lookup_any(cfg, s, ckey, corig)
-    n_queued = torch.zeros((), dtype=torch.int32, device=dev)
-    n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(2):
-        win_key = torch.amin(torch.where(fresh, ckey,
-                                         torch.full_like(ckey, sentinel)), dim=1)
-        got = win_key != sentinel
-        slot_i = torch.argmax((fresh & (ckey == win_key[:, None])).to(torch.int64),
-                              dim=1)
-        win_orig = swim._take_col(corig, slot_i)
-        s, evicted = _equeue_push(
-            cfg, s, got, torch.where(got, win_key, torch.zeros_like(win_key)),
-            torch.where(got, win_orig, torch.full_like(win_orig, -1)),
-            tx_limit, pending=True)
-        n_queued = n_queued + counters_mod.count(got)
-        n_dropped = n_dropped + counters_mod.count(evicted)
-        taken = ((ckey == win_key[:, None]) & (corig == win_orig[:, None])
-                 & got[:, None])
-        fresh = fresh & ~taken
+    s, n_queued, n_dropped = _stage_fresh(cfg, s, ckey, corig, tx_limit)
     n_retx = torch.sum(sends).to(torch.int32)
     return s, (n_queued, n_retx, n_dropped)
 

@@ -14,9 +14,9 @@ raft-style apply index), and a :class:`WatchPlane` serves blocking
 queries and watches as deltas between consecutive snapshot flips. Both
 batchers run bounded queues with reject/shed admission control;
 ``ServingPlane.close()`` wakes every parked waiter with
-:class:`ServingClosedError`. The reference's asyncio front end
-(``serving/frontend.py``) comes with the port's front ends (ROADMAP
-A19).
+:class:`ServingClosedError`. :class:`AsyncFrontend`
+(``serving/frontend.py``) puts one event loop on one owned thread in front
+of both batchers, with an HTTP listener for the wire surface.
 """
 
 from consul_tpu_torch.ops.serving import (MODE_CATALOG, MODE_DIST,
@@ -25,14 +25,15 @@ from consul_tpu_torch.ops.serving import (MODE_CATALOG, MODE_DIST,
 from consul_tpu_torch.serving.batcher import (QueryBatcher, QueryResult,
                                               ServingClosedError,
                                               ServingOverloadError)
+from consul_tpu_torch.serving.frontend import AsyncFrontend
 from consul_tpu_torch.serving.plane import NearestResult, ServingPlane
 from consul_tpu_torch.serving.watch import Watcher, WatchEvent, WatchPlane
 from consul_tpu_torch.serving.writes import (KeyTable, WriteBatcher,
                                              WriteResult)
 
 __all__ = [
-    "MODE_CATALOG", "MODE_DIST", "MODE_HEALTH", "MODE_NEAREST", "MODE_NOOP",
-    "KeyTable", "NearestResult", "QueryBatcher", "QueryResult",
+    "AsyncFrontend", "MODE_CATALOG", "MODE_DIST", "MODE_HEALTH",
+    "MODE_NEAREST", "MODE_NOOP", "KeyTable", "NearestResult", "QueryBatcher", "QueryResult",
     "ServingClosedError", "ServingOverloadError", "ServingPlane",
     "Snapshot", "Watcher", "WatchEvent", "WatchPlane", "WriteBatcher",
     "WriteResult",

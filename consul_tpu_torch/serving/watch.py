@@ -16,7 +16,9 @@ The frame's ``apply_index`` is the apply index the new snapshot is
 consistent as of; :meth:`WatchPlane.wait_index` is the blocking-query
 primitive (return at once when the index has advanced past the caller's,
 wait for a flip otherwise, never return a smaller index than called
-with).
+with); :meth:`WatchPlane.add_index_listener` registers a callback fired
+at every index advance and at close, which the async front end
+(``serving/frontend.py``) parks its waiters on instead of threads.
 
 Backpressure: each watcher's queue is bounded; a full queue drops the
 OLDEST event (the newest delta matters most) and counts it into
@@ -108,6 +110,10 @@ class WatchPlane:
         # _index_cond.
         self.apply_index = 0
         self._index_cond = threading.Condition()
+        # Index listeners (the async front end's wake seam): called with the
+        # new apply index after the condition broadcast, outside every
+        # plane lock, so a listener may re-enter the plane.
+        self._index_listeners: list = []
         # Plain-int counters mirroring the sink emissions.
         self.watchers = 0
         self.deltas = 0
@@ -239,6 +245,21 @@ class WatchPlane:
             if index > self.apply_index:
                 self.apply_index = index
             self._index_cond.notify_all()
+            listeners = list(self._index_listeners)
+        for fn in listeners:
+            fn(self.apply_index)
+
+    def add_index_listener(self, fn) -> None:
+        """Register ``fn(apply_index)`` to fire after every flip's index
+        advance and at close (threaded waiters keep using
+        :meth:`wait_index`; the async front end parks futures on this)."""
+        with self._index_cond:
+            self._index_listeners.append(fn)
+
+    def remove_index_listener(self, fn) -> None:
+        with self._index_cond:
+            if fn in self._index_listeners:
+                self._index_listeners.remove(fn)
 
     # -- blocking-query primitive (the ?index= contract) ----------------
     def wait_index(self, min_index: int = 0, wait_s: float = 10.0) -> int:
@@ -267,6 +288,9 @@ class WatchPlane:
                 w.cond.notify_all()
         with self._index_cond:
             self._index_cond.notify_all()
+            listeners = list(self._index_listeners)
+        for fn in listeners:
+            fn(self.apply_index)
 
     # -- stats -----------------------------------------------------------
     def stats(self) -> dict:

@@ -169,9 +169,14 @@ def test_port_imports_no_jax_and_no_reference():
         ("ops", "raft_ops.py"), ("models", "raft.py"),
         ("models", "federation.py"), ("parallel", "dcn.py"),
         ("server", "router.py"), ("obs", "__init__.py"), ("obs", "trace.py"),
-        ("obs", "lens.py"), ("obs", "blackbox.py"), ("utils", "debug.py"))} <= rel
-    # The asyncio front end comes with the port's front ends (ROADMAP A19).
-    assert os.path.join("consul_tpu_torch", "serving", "frontend.py") not in rel
+        ("obs", "lens.py"), ("obs", "blackbox.py"), ("utils", "debug.py"),
+        ("models", "snapshot.py"), ("models", "coalesce.py"),
+        ("agent", "__init__.py"), ("agent", "http.py"),
+        ("gameday", "__init__.py"), ("gameday", "slo.py"),
+        ("gameday", "goldens.py"), ("gameday", "harness.py"),
+        ("gameday", "swarm.py"))} <= rel
+    # The asyncio front end landed with the game day (ROADMAP A19).
+    assert os.path.join("consul_tpu_torch", "serving", "frontend.py") in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -134,36 +134,69 @@ def make_draws_fn(jcfg, chaos=False):
     return draws
 
 
+def _response_draws(jcfg, chaos, k_resp):
+    """The query-response draws of one serf tick from ``k_resp``: ``u_resp``
+    on it, and the relay draws on ``split(fold_in(k_resp, 1), 3)``
+    (serf.py:683-700); empty unless the reference draws them: with relays
+    configured, under a schedule or with packet loss."""
+    n, k_deg = jcfg.n, jcfg.degree
+    rf = jcfg.serf.query_relay_factor
+    out = dict(u_resp=jax.random.uniform(k_resp, (n,)))
+    if rf > 0 and (chaos or jcfg.packet_loss > 0.0):
+        k_rl1, k_rl2, k_rcol = jax.random.split(jax.random.fold_in(k_resp, 1), 3)
+        out.update(relay_u1=jax.random.uniform(k_rl1, (n, rf)),
+                   relay_u2=jax.random.uniform(k_rl2, (n, rf)),
+                   relay_cols=jax.random.randint(k_rcol, (rf,), 0, k_deg))
+    else:
+        out.update(relay_u1=np.zeros((n, 0), np.float32),
+                   relay_u2=np.zeros((n, 0), np.float32),
+                   relay_cols=np.zeros((0,), np.int64))
+    return out
+
+
 def make_serf_draws_fn(jcfg, chaos=False):
     """A jitted function: tick key -> the serf tick's draws as numpy
     arrays: ``k_swim, k_ev = split(key)``, the SWIM ladder on ``k_swim``,
-    then ``u_resp`` on ``k_ev`` and the relay draws on
-    ``split(fold_in(k_ev, 1), 3)`` (serf.py:498, :683-700). The relay
-    draws are empty unless the reference draws them: with relays
-    configured, under a schedule (``chaos``, which also adds ``u_pp``) or
-    with packet loss."""
-    n, k_deg = jcfg.n, jcfg.degree
-    rf = jcfg.serf.query_relay_factor
-    relay = rf > 0 and (chaos or jcfg.packet_loss > 0.0)
+    then the query-response draws on ``k_ev`` (:func:`_response_draws`;
+    serf.py:498). ``chaos`` also adds ``u_pp``."""
     swim_draws = make_draws_fn(jcfg, chaos=chaos)
 
     @jax.jit
     def draws(tick_key):
         k_swim, k_ev = jax.random.split(tick_key)
-        out = dict(swim=swim_draws(k_swim),
-                   u_resp=jax.random.uniform(k_ev, (n,)))
-        if relay:
-            k_rl1, k_rl2, k_rcol = jax.random.split(jax.random.fold_in(k_ev, 1), 3)
-            out.update(relay_u1=jax.random.uniform(k_rl1, (n, rf)),
-                       relay_u2=jax.random.uniform(k_rl2, (n, rf)),
-                       relay_cols=jax.random.randint(k_rcol, (rf,), 0, k_deg))
-        else:
-            out.update(relay_u1=np.zeros((n, 0), np.float32),
-                       relay_u2=np.zeros((n, 0), np.float32),
-                       relay_cols=np.zeros((0,), np.int64))
-        return out
+        return dict(swim=swim_draws(k_swim), **_response_draws(jcfg, chaos, k_ev))
 
     return draws
+
+
+def make_reference_serf_draws_fn(jcfg, chaos=False):
+    """A jitted function: tick key -> the pre-fusion serf tick's draws
+    (``serf.step_reference_counted``) as numpy arrays: ``k_swim, k_ev =
+    split(key)``, the SWIM ladder on ``k_swim``, then ``k_cols, k_loss,
+    k_resp = split(k_ev, 3)`` (serf.py:949): the query-response draws on
+    ``k_resp``, the event sweep's gossip columns on ``k_cols`` and its
+    loss draws on ``k_loss``."""
+    n, k_deg, fan = jcfg.n, jcfg.degree, jcfg.gossip.gossip_nodes
+    swim_draws = make_draws_fn(jcfg, chaos=chaos)
+
+    @jax.jit
+    def draws(tick_key):
+        k_swim, k_ev = jax.random.split(tick_key)
+        k_cols, k_loss, k_resp = jax.random.split(k_ev, 3)
+        return dict(swim=swim_draws(k_swim), **_response_draws(jcfg, chaos, k_resp),
+                    ev_cols=jax.random.randint(k_cols, (fan,), 0, k_deg),
+                    ev_u_drop=jax.random.uniform(k_loss, (n, fan)))
+
+    return draws
+
+
+def to_reference_serf_draws(d, device="cpu") -> t_serf.ReferenceSerfDraws:
+    base = to_serf_draws(d, device)
+    return t_serf.ReferenceSerfDraws(
+        *base,
+        ev_cols=convert.tensor(np.asarray(d["ev_cols"]), device, torch.int64),
+        ev_u_drop=convert.tensor(np.asarray(d["ev_u_drop"]), device,
+                                 torch.float32))
 
 
 def to_serf_draws(d, device="cpu") -> t_serf.SerfDraws:
