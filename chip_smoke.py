@@ -26,7 +26,13 @@ the dense view; and serf stress windows for the serf and serf + chaos +
 sentinel variants at 1,048,576 nodes and on the dense view (events
 spread over more Lamport times than the dedup ring holds, more origins
 at one Lamport time than a bucket holds, overflowing queues, one key from
-many origins, a relayed query under loss). It drives the port's main
+many origins, a relayed query under loss); and B8, the pre-fusion serf
+tick in the kernel (``variant="serf_reference"``: A-C bare, then E1 and
+E2), against ``plain_reference_serf_tick`` bit for bit in ``b8_parity``'s
+windows (1M quiet with 3 events, a query and a leave; 1M under a link
+loss with the sentinel, 2 relays and 1 % loss; the dense view with and
+without a schedule; the stress and tie-and-wrap states at 65,536 and
+dense), timed by ``b8_timing`` on the quiet 1M window. It drives the port's main
 paths through their entry points: ``Simulation`` (a 1,048,576-node,
 K = 32 view converging after a 5 % mass kill), ``SerfSimulation`` (the same, plus a live event storm
 and an open query, with fresh events every 512 ticks), ``Simulation``
@@ -118,17 +124,24 @@ without on the SWIM and serf paths (at most 1.1x); ``blackbox_live``
 captures the CUDA-init black box in this process. The game day's slice
 (ROADMAP A10, A19) runs after the federation phases:
 ``serf_reference_parity`` (``SerfSimulation`` on B4 against the
-pre-fusion oracle ``ReferenceSerfSimulation``, plain PyTorch on the card,
-from one seed at 1M: tests/test_serf_fused.py's scenarios with origins
-scaled to n, until full coverage; the SWIM plane bit-equal, delivered
-counts, Lamport floors and SLO counters equal; the oracle's ms a tick;
-``kernel="cuda"`` refused naming B8), ``snapshot_rejoin`` (the serf
+pre-fusion oracle ``ReferenceSerfSimulation`` on B8, from one seed at
+1M: tests/test_serf_fused.py's scenarios with origins scaled to n, until
+full coverage; the SWIM plane bit-equal, delivered counts, Lamport
+floors and SLO counters equal; E1 and E2 launched once a tick; the plain
+oracle's replay of the window bit-equal to the oracle's state; each
+one's ms a tick; ``kernel="cuda"`` on the CPU refused), ``snapshot_rejoin`` (the serf
 snapshotter on a seat of the 1M serf state, then a warm rejoin in fewer
 ticks than a cold restart), ``frontend_parity`` (``AsyncFrontend`` over a
 live 1M plane against the batchers, a blocking wait woken by a flip, an
 HTTP round trip on 127.0.0.1) and ``gameday_main_path`` (``run_gameday``
 at 1M with the async front end and a 4-process swarm, then the threaded
-one: the SLO verdict, lost writes 0, B1, B2 and B5 launched). It prints
+one: the SLO verdict, lost writes 0, B1, B2 and B5 launched). Then
+``cli_main_path`` runs the port's CLI verbs as a user would, each
+``python -m consul_tpu_torch.cli`` in a process of its own at 1M
+(``prewarm``, ``run --prewarm``, ``trace``, ``chaos --sweep``,
+``serve-bench``, ``gameday``), and a SIGTERM drill: ``run --ckpt-dir``
+stopped after its first checkpoint exits 75, the rerun resumes and ends
+in an uninterrupted run's state. It prints
 one JSON line per phase, the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
@@ -317,6 +330,21 @@ DRILL_RAFT = dict(peers=5, window=16, election_ticks_min=6,
                   election_ticks_max=12)
 DRILL_BOUND_TICKS = 48
 STRESS_TICKS = 24
+# B8's windows against its plain version (b8_parity): (name, n, stimulus,
+# schedule + sentinel, relay factor, packet loss); 1M and the dense view at
+# DENSE_N; the stress and tie-and-wrap states at 65,536 and dense.
+B8_TICKS = 32
+# B8's own launches (E1, E2), which no other variant runs.
+B8_STAGES = ("ref_send", "ref_intake")
+B8_WINDOWS = (("quiet_1m", MAIN_N, "quiet", False, 0, 0.0),
+              ("link_loss_1m", MAIN_N, "quiet", True, 2, 0.01),
+              ("dense", DENSE_N, "quiet", False, 2, 0.01),
+              ("dense_chaos", DENSE_N, "quiet", True, 2, 0.01),
+              ("stress", 65536, "stress", False, 2, 0.01),
+              ("stress_chaos", 65536, "stress", True, 2, 0.01),
+              ("stress_dense", DENSE_N, "stress", False, 2, 0.01),
+              ("tie_wrap", 65536, "tie_wrap", True, 2, 0.01),
+              ("tie_wrap_dense", DENSE_N, "tie_wrap", False, 0, 0.01))
 STRESS_WINDOWS = (("serf", MAIN_N, False), ("serf_chaos", MAIN_N, True),
                   ("dense_serf", DENSE_N, False),
                   ("dense_serf_chaos", DENSE_N, True))
@@ -419,6 +447,10 @@ FRONTEND_WRITES = 64
 GAMEDAY_N = MAIN_N
 GAMEDAY_THREADED_N = MAIN_N
 SNAP_DIR = os.path.join("build", "snapshot_rejoin")
+# The CLI phase's artifacts (removed after it) and its SIGTERM drill's
+# length at 1M.
+CLI_DIR = os.path.join("build", "cli_main_path")
+CLI_DRILL_TICKS = 1024
 
 
 def emit(obj):
@@ -460,23 +492,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Profiler sessions launch_breakdown opens before it gives up on a window
+# that records no kernel of ours. After sweep_main_path's lanes the next
+# two sessions of a process recorded no device event at all and the third
+# did; after the federation phases of a whole run ten in a row record none
+# (ROADMAP K1: cause not found).
+PROFILE_TRIES = 10
+# What launch_breakdown saw: sessions that recorded none of our kernels,
+# with the device events they did record (chip_smoke.py's last line
+# carries it beside the WAN row).
+PROFILE_MISSES = []
+
+
 def launch_breakdown(fn, reps: int):
-    """Device ms per call of each CUDA kernel that ``fn`` launches, by
-    name, from the profiler; "not measured" if it records no device time."""
+    """Device ms of each CUDA kernel that ``fn`` launches, by name: the
+    mean over the launches the profiler recorded (its device events; a
+    session can miss the first kernel launched in it), from up to
+    PROFILE_TRIES sessions of ``reps`` calls, the first that records our
+    ``k_*`` kernels; "not measured" if none does."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-        if ev.key.startswith("k_") and us:
-            out[ev.key] = us / 1000.0 / reps
-    return out or "not measured"
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count, seen = {}, {}, []
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            seen.append(ev.name.split("(")[0])
+            if ev.name.startswith("k_"):
+                us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+                count[ev.name] = count.get(ev.name, 0) + 1
+        if us:
+            return {k: v / 1000.0 / count[k] for k, v in us.items()}
+        PROFILE_MISSES.append({"attempt": attempt, "device_events": len(seen),
+                               "names": sorted(set(seen))[:8],
+                               "reserved_bytes": torch.cuda.memory_reserved()})
+    return "not measured"
 
 
 def warm_to_deaths(n, step, st, kill_rows, unpack, pack, kill):
@@ -1056,7 +1114,7 @@ def chaos_main_path(cfg):
                bytes_per_node=layout.bytes_per_node(sim.state, n))
     ok = (converged and agreement == 1.0 and finite and mask == 0
           and all(v > 0 for k, v in scenario_launches.items()
-                  if k not in ("serf_post", "metrics", "lens"))
+                  if k not in ("serf_post", "metrics", "lens") + B8_STAGES)
           and launches["metrics"] > 0
           and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
     sched = chaos.shift_schedule(
@@ -1427,6 +1485,110 @@ def serf_stress_parity(name: str, n: int, chaos_on: bool, seed: int):
                 relay_factor=2, mismatches=bad[:5], float_gaps=gaps,
                 hits=hits,
                 ok=not bad and bit_equal and all(v > 0 for v in hits.values()))
+
+
+def b8_parity(name: str, n: int, stimulus: str, chaos_on: bool, seed: int,
+              relay: int = 0, loss: float = 0.0, ticks: int = B8_TICKS):
+    """B8 against plain_reference_serf_tick from one state with one
+    ReferenceSerfDraws per tick (compare_window), over ``ticks`` ticks
+    from a state formed through B8 for 32 ticks (n = DENSE_N: the dense
+    view; else K = 32). ``stimulus``: "quiet" fires 3 events and opens a
+    query (and a leave) at the window's start; "stress" is
+    stress_events' storm (bucket takeovers, full buckets, one key from
+    many origins, queue evictions, a relayed query); "tie_wrap" also puts
+    the SWIM plane through tie_and_wrap with perm_u cut to multiples of
+    1/16. ``chaos_on``: a link-loss schedule (dense_events on the dense
+    view) with the sentinel. Passes only if every packed and serf leaf
+    and all 26 counters are equal on every tick, every float leaf bit for
+    bit, and the serf plane moved (events queued, sent and delivered;
+    under a schedule legs dropped)."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import GossipConfig, SerfConfig, SimConfig
+    from consul_tpu_torch.models import layout, serf
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip, topology
+
+    dev = torch.device("cuda")
+    dense = n == DENSE_N
+    gossip = (GossipConfig(suspicion_mult=1, suspicion_max_timeout_mult=2)
+              if chaos_on else GossipConfig())
+    cfg = SimConfig(n=n, view_degree=0 if dense else 32, packet_loss=loss,
+                    gossip=gossip, serf=SerfConfig(query_relay_factor=relay))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ev_gen = torch.Generator(device=dev)
+    ev_gen.manual_seed(seed + 1)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    st = layout.pack_state(serf.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo, variant="serf_reference",
+                                        sentinel=chaos_on)
+
+    def plain(w, s, d, sc):
+        return cuda_gossip.plain_reference_serf_tick(cfg, topo, w, s, d, sc,
+                                                     sentinel=chaos_on)
+
+    def draw(sched_on):
+        d = serf.draw_reference_tick(cfg, gen, ev_gen, dev, chaos=sched_on)
+        if stimulus == "tie_wrap":
+            d = d._replace(swim=d.swim._replace(
+                perm_u=torch.floor(d.swim.perm_u * 16.0) / 16.0))
+        return d
+
+    for _ in range(32):
+        st, _ = tick(world, st, draw(False))
+    q_row, q_slot, leaver = None, None, 3 * n // 4 + 11
+    if stimulus == "stress":
+        st, q_row, q_slot = stress_events(cfg, st)
+    else:
+        q_row = n // 8 + 101 if not dense else n // 8 + 5
+        origins = [n // 8, 97 * n // 4096 + 1, n - 1]
+        dn = layout.unpack_state(st)
+        for j, row in enumerate(origins):
+            dn = serf.user_event(cfg, dn, _rows(n, [row], dev), 11 + j)
+        dn = serf.query(cfg, dn, _rows(n, [q_row], dev), 3)
+        q_slot = serf.newest_query_slot(dn, q_row)
+        dn = serf.leave(cfg, dn, _rows(n, [leaver], dev))
+        st = layout.pack_state(dn)
+    if stimulus == "tie_wrap":
+        st = st._replace(swim=tie_and_wrap(st.swim, cfg.degree))
+    sched = None
+    if chaos_on:
+        events = (dense_events(chaos, n) if dense else [chaos.LinkLoss(
+            0, ticks, a=slice(0, n // 8), b=slice(n // 2, n), fwd=0.5,
+            rev=0.5)])
+        sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
+                                     int(layout.tick_of(st)))
+    pp, totals, bad, gaps = compare_window(
+        tick, plain, world, st, lambda: draw(sched is not None), ticks, sched)
+    window = {f: int(totals[FIELDS.index(f)]) for f in FIELDS
+              if f.startswith(("serf_", "sentinel_")) or f in (
+                  "chaos_msgs_dropped", "deaths_declared", "probes_sent")}
+    window.update(serf_in_window(st, pp, q_row, q_slot, leaver))
+    need = ["serf_intents_queued", "serf_intents_retx", "delivered",
+            "query_acks"] + (["chaos_msgs_dropped"] if chaos_on else [])
+    bit_equal = all(g["abs"] == 0.0 and g["steps"] == 0 for g in gaps.values())
+    return dict(window=name, n=n, k=cfg.degree, stimulus=stimulus,
+                chaos=chaos_on, sentinel=chaos_on, relay_factor=relay,
+                packet_loss=loss, ticks=ticks, mismatches=bad[:5],
+                float_gaps=gaps, in_window=window, bit_equal=bit_equal,
+                ok=not bad and bit_equal and all(window[f] > 0 for f in need)
+                and window.get("sentinel_monotonic", 0) == 0,
+                _state=(cfg, topo, world, pp, sched, tick, plain, draw))
+
+
+def b8_timing(res, rate):
+    """B8 timed (time_kernel) on a b8_parity window's last state, under
+    its schedule; the bound is the tick's state contract plus the sweep's
+    payload, written by E1 and read by E2."""
+    from consul_tpu_torch.ops import cuda_gossip
+
+    cfg, topo, world, pp, sched, tick, plain, draw = res["_state"]
+    contract = (cuda_gossip.tick_hbm_bytes_per_node(pp, world, sched)
+                + cuda_gossip.sweep_payload_bytes_per_node(cfg))
+    return time_kernel(tick, lambda w, s, d: plain(w, s, d, sched), world, pp,
+                       draw(sched is not None), contract, cfg.n, rate,
+                       sched=sched)
 
 
 def dense_main_path():
@@ -1975,9 +2137,7 @@ def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate, sched=None):
     bound_ms = bytes_per_node * n / rate * 1e3
     buffers = tick.buffer_bytes_per_node(world, st, d, sched)
     out, _ = tick(world, st, d, sched)
-    ran = [k for k in cuda_gossip.STAGES
-           if (k != "chaos_pre" or sched is not None)
-           and (k != "serf_post" or tick.serf)]
+    ran = [k for k, _ in tick._stages(sched)]
     launch_bytes = {"k_" + k: cuda_gossip.launch_hbm_bytes_per_node(
         k, st, world, d, sched, cfg=tick.cfg, out=out) for k in ran}
     return dict(ms_per_tick=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2072,7 +2232,8 @@ def serf_chaos_main_path(cfg):
                bytes_per_node=layout.bytes_per_node(sim.state, n))
     ok = (converged and agreement == 1.0 and finite and mask == 0
           and all(c["coverage"] == 1.0 for c in coverage if c["name"] == 2)
-          and all(v > 0 for k, v in launches.items() if k != "lens")
+          and all(v > 0 for k, v in launches.items()
+                  if k not in ("lens",) + B8_STAGES)
           and res.slo["fault_ticks"] > 0 and res.slo["messages_dropped"] > 0)
     sched = chaos.shift_schedule(
         chaos.compile_schedule(n, chaos_main_events(chaos, n), sim.device),
@@ -3306,7 +3467,8 @@ def sharded_timing(cfg, world, topo, state, draws, rate):
     tick = cuda_gossip.make_tick_kernel(cfg, topo)
     out = {"b1_ms_per_tick": cuda_ms(lambda: tick(world, state, draws), 20)}
     tick_pn = cuda_gossip.tick_hbm_bytes_per_node(state, world)
-    stages = [k for k in cuda_gossip.STAGES if k not in ("chaos_pre", "serf_post")]
+    stages = [k for k in cuda_gossip.STAGES
+              if k not in ("chaos_pre", "serf_post") + B8_STAGES]
     whole_out = tick(world, state, draws)[0]
     bytes_pn = {k: cuda_gossip.launch_hbm_bytes_per_node(
         k, state, world, draws, cfg=cfg, out=whole_out) for k in stages}
@@ -3757,16 +3919,21 @@ def _covered(sim, keys):
 
 def serf_reference_parity(cfg, with_chaos, device="cuda", kernel="cuda"):
     """SerfSimulation (the fused tick; B4 on the card) against
-    ReferenceSerfSimulation (the pre-fusion oracle, plain PyTorch on the
-    same device) from one seed, so both take the same SWIM draws: three
-    events and an open query with chaos off, or the events alone under a
-    link-loss window over an eighth of the cluster. Both run in
-    ORACLE_CHUNK-tick steps until every fired event covers every live
-    node on both (at most ORACLE_MAX ticks). Then the SWIM plane must be
-    bit-equal, and the per-node delivered counts, event_clock, ev_floor,
-    q_floor and the SLO counters equal. ms a tick of each by the host
-    clock over the window (ends synchronized)."""
+    ReferenceSerfSimulation (the pre-fusion oracle; B8 on the card) from
+    one seed, so both take the same SWIM draws: three events and an open
+    query with chaos off, or the events alone under a link-loss window
+    over an eighth of the cluster. Both run in ORACLE_CHUNK-tick steps
+    until every fired event covers every live node on both (at most
+    ORACLE_MAX ticks). Then the SWIM plane must be bit-equal, and the
+    per-node delivered counts, event_clock, ev_floor, q_floor and the SLO
+    counters equal; the oracle's ticks launch E1 and E2, never D. The
+    plain oracle (``kernel="torch"`` on the same device) then replays
+    the oracle's window from the same seed, and its state must equal the
+    oracle's bit for bit. ms a tick of each by the host clock over the
+    window (ends synchronized); the plain oracle's is ``plain_ms``. On
+    the card ``kernel="cuda"`` on the CPU must raise."""
     from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import SimConfig
     from consul_tpu_torch.models import cluster, serf
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -3775,14 +3942,19 @@ def serf_reference_parity(cfg, with_chaos, device="cuda", kernel="cuda"):
     fused = cluster.SerfSimulation(cfg, seed=ORACLE_SEED, device=device,
                                    kernel=kernel)
     oracle = cluster.ReferenceSerfSimulation(cfg, seed=ORACLE_SEED,
-                                             device=device)
-    refused = False
-    try:
-        cluster.ReferenceSerfSimulation(cfg, device=device, kernel="cuda")
-    except ValueError as e:
-        refused = "B8" in str(e)
+                                             device=device, kernel=kernel)
+    plain = cluster.ReferenceSerfSimulation(cfg, seed=ORACLE_SEED,
+                                            device=device, kernel="torch")
+    refused = True
+    if torch.device(device).type == "cuda":
+        try:
+            cluster.ReferenceSerfSimulation(SimConfig(n=64, view_degree=8),
+                                            device="cpu", kernel="cuda")
+            refused = False
+        except ValueError as e:
+            refused = "needs a CUDA device" in str(e)
     fired = []
-    for sim in (fused, oracle):
+    for sim in (fused, oracle, plain):
         keys = []
         for row, name in events:
             keys.append((int(serf.make_event_key(int(sim.state.event_clock[row]),
@@ -3794,23 +3966,32 @@ def serf_reference_parity(cfg, with_chaos, device="cuda", kernel="cuda"):
     fault = [chaos.LinkLoss(start=1, stop=13, a=slice(0, n // 8),
                             b=slice(n // 2, n), fwd=0.5, rev=0.5)]
     walls, cover, used = {}, {}, 0
+
+    def step(name, sim, first):
+        _sync(device)
+        t0 = time.perf_counter()
+        if with_chaos and first:
+            sim.run_scenario(fault, ticks=ORACLE_FAULT, chunk=ORACLE_CHUNK)
+        else:
+            sim.run(ORACLE_CHUNK, chunk=ORACLE_CHUNK, with_metrics=False)
+        _sync(device)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+
     reset_launches()
     while used < ORACLE_MAX:
         for name, sim in (("fused", fused), ("oracle", oracle)):
-            _sync(device)
-            t0 = time.perf_counter()
-            if with_chaos and used == 0:
-                sim.run_scenario(fault, ticks=ORACLE_FAULT, chunk=ORACLE_CHUNK)
-            else:
-                sim.run(ORACLE_CHUNK, chunk=ORACLE_CHUNK, with_metrics=False)
-            _sync(device)
-            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+            step(name, sim, used == 0)
         used += ORACLE_FAULT if with_chaos and used == 0 else ORACLE_CHUNK
         cover = {"fused": _covered(fused, fired[0]),
                  "oracle": _covered(oracle, fired[0])}
         if all(c == 1.0 for v in cover.values() for c in v):
             break
     launches = dict(cuda_gossip.LAUNCHES)
+    replayed = 0
+    while replayed < used:
+        step("plain", plain, replayed == 0)
+        replayed += ORACLE_FAULT if with_chaos and replayed == 0 else ORACLE_CHUNK
+    plain_diff = tree_diff(oracle.state, plain.state)
     a, b = fused.serf_state, oracle.serf_state
     swim_diff = tree_diff(fused.state.swim, oracle.state.swim)
     equal = {f: torch.equal(_bits(getattr(a, f)), _bits(getattr(b, f)))
@@ -3824,8 +4005,10 @@ def serf_reference_parity(cfg, with_chaos, device="cuda", kernel="cuda"):
                delivered_total=int(a.ev_delivered.to(torch.int64).sum()),
                fused_ms_per_tick=walls["fused"] / used * 1e3,
                oracle_ms_per_tick=walls["oracle"] / used * 1e3,
-               oracle_wall_s=walls["oracle"], launches=launches,
-               cuda_kernel_refused=refused)
+               plain_ms=walls["plain"] / used * 1e3,
+               oracle_wall_s=walls["oracle"], plain_wall_s=walls["plain"],
+               oracle_plain_leaves_differing=plain_diff, launches=launches,
+               cuda_on_cpu_refused=refused)
     if not with_chaos:
         qkey = int(serf.make_event_key(int(a.query_clock[query[0]]) - 1,
                                        query[1], True))
@@ -3834,12 +4017,18 @@ def serf_reference_parity(cfg, with_chaos, device="cuda", kernel="cuda"):
                                  for st in (a, b)]
     ok = (not swim_diff and all(equal.values()) and res["slo_equal"]
           and all(c == 1.0 for v in cover.values() for c in v) and refused
-          and all(c == 1.0 for c in res.get("query_coverage", [])))
+          and all(c == 1.0 for c in res.get("query_coverage", []))
+          and not plain_diff)
     if with_chaos:
         ok = ok and slo[0]["chaos_msgs_dropped"] > 0
     if torch.device(device).type == "cuda":
-        ok = ok and launches["serf_post"] > 0 and launches["chaos_pre"] == (
-            ORACLE_FAULT if with_chaos else 0)
+        # Both ticks launch P in the fault window; the fused one D, the
+        # oracle's E1 and E2, one each a tick.
+        ok = ok and (launches["serf_post"] == used
+                     and launches["ref_send"] == used
+                     and launches["ref_intake"] == used
+                     and launches["chaos_pre"] == (
+                         2 * ORACLE_FAULT if with_chaos else 0))
     res["ok"] = ok
     return res
 
@@ -4135,6 +4324,140 @@ def gameday_main_path():
     return out
 
 
+def cli(args, timeout=300):
+    """``python -m consul_tpu_torch.cli *args`` from the checkout's root:
+    (exit code, its last stdout line as JSON or None, wall s, stderr
+    tail)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "consul_tpu_torch.cli"] + [str(a) for a in args]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                       cwd=root)
+    wall = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    try:
+        out = json.loads(lines[-1]) if lines else None
+    except ValueError:
+        out = None
+    return p.returncode, out, wall, p.stderr[-1500:]
+
+
+def cli_sigterm_drill(n: int):
+    """``run`` at ``n`` nodes with a checkpoint directory, SIGTERM-ed once
+    its first checkpoint is on disk: it must exit 75; the same command run
+    again resumes and exits 0, and its final state digest must equal an
+    uninterrupted run's."""
+    import glob
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(CLI_DIR, "drill")
+    shutil.rmtree(os.path.join(root, ckpt), ignore_errors=True)
+    base = ["run", "--n", n, "--view-degree", 32, "--ticks", CLI_DRILL_TICKS,
+            "--chunk", 64, "--state-digest"]
+    args = base + ["--ckpt-dir", ckpt, "--ckpt-every-ticks", 256,
+                   "--ckpt-interval-s", 0]
+    cmd = [sys.executable, "-m", "consul_tpu_torch.cli"] + [str(a) for a in args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    sent = None
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 300:
+            if glob.glob(os.path.join(root, ckpt, "*.ckpt")):
+                proc.send_signal(signal.SIGTERM)
+                sent = time.perf_counter() - t0
+                break
+            time.sleep(0.05)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = stdout.strip().splitlines()
+    first = json.loads(lines[-1]) if lines else None
+    rc_resume, resumed, wall_resume, _ = cli(args)
+    rc_whole, whole, wall_whole, _ = cli(base)
+    shutil.rmtree(os.path.join(root, ckpt), ignore_errors=True)
+    ok = (proc.returncode == 75 and rc_resume == 0 and rc_whole == 0
+          and resumed is not None and whole is not None
+          and resumed["resumed_from_tick"] > 0
+          and resumed["state_digest"] == whole["state_digest"])
+    return dict(n=n, ticks=CLI_DRILL_TICKS, sigterm_after_s=sent,
+                rc_interrupted=proc.returncode, rc_resumed=rc_resume,
+                rc_uninterrupted=rc_whole,
+                stopped_at_tick=(first or {}).get("ticks_done"),
+                resumed_from_tick=(resumed or {}).get("resumed_from_tick"),
+                digest_equal=bool(resumed and whole and resumed.get(
+                    "state_digest") == whole.get("state_digest")),
+                wall_s_resumed=wall_resume, wall_s_uninterrupted=wall_whole,
+                stderr_tail=stderr[-600:] if proc.returncode != 75 else "",
+                ok=ok)
+
+
+def cli_main_path():
+    """The port's CLI verbs through ``python -m consul_tpu_torch.cli`` on
+    the card, each at 1M nodes (K = 32) where its main path is 1M:
+    prewarm, run (prewarmed), trace, chaos --sweep, serve-bench and the
+    game day; each must exit 0 with its report's keys, then the SIGTERM
+    drill (cli_sigterm_drill)."""
+    n, trace_dir = MAIN_N, os.path.join(CLI_DIR, "trace")
+    verbs = [
+        ("prewarm", ["prewarm", "--n", n, "--view-degree", 32, "--kinds",
+                     "swim,serf_reference", "--chunks", 64]),
+        ("run", ["run", "--n", n, "--view-degree", 32, "--ticks", 256,
+                 "--chunk", 64, "--prewarm"]),
+        ("trace", ["trace", "--n", n, "--view-degree", 32, "--ticks", 64,
+                   "--chunk", 32, "--lens", 8, "--trace-dir", trace_dir]),
+        ("chaos_sweep", ["chaos", "--n", n, "--view-degree", 32, "--sweep",
+                         4, "--settle", 64]),
+        ("serve_bench", ["serve-bench", "--n", n, "--view-degree", 32,
+                         "--queries", 4096, "--batch", 1024]),
+        ("gameday", ["gameday", "--n", n, "--view-degree", 32]),
+    ]
+    need = {"prewarm": ("signatures", "compiled", "cache", "wall_s"),
+            "run": ("ticks", "slo", "counters", "resumed_from_tick",
+                    "ckpt_failures", "reshards", "hang_status"),
+            "trace": ("ticks", "lens_ids", "agreement", "trace"),
+            "chaos_sweep": ("sweep", "families", "pareto",
+                            "dominates_default"),
+            "serve_bench": ("queries", "wall_s", "queries_per_sec_per_chip"),
+            "gameday": ("pass", "lost_writes")}
+    res, ok = {}, True
+    for name, args in verbs:
+        rc, out, wall, err = cli(args)
+        keys_ok = out is not None and all(k in out for k in need[name])
+        r = dict(rc=rc, wall_s=wall, keys_ok=keys_ok)
+        if out is not None:
+            if name == "prewarm":
+                r.update(compiled=out["compiled"], cache=out["cache"])
+            elif name == "run":
+                r.update(ticks=out["ticks"],
+                         probes_sent=out["counters"]["probes_sent"])
+            elif name == "trace":
+                r.update(agreement=out["agreement"], lens=len(out["lens_ids"]),
+                         trace_file=os.path.exists(out["trace"]))
+            elif name == "chaos_sweep":
+                r.update(pareto=out["pareto"])
+            elif name == "serve_bench":
+                r.update(queries=out["queries"],
+                         queries_per_sec=out["queries_per_sec_per_chip"])
+            elif name == "gameday":
+                r.update({k: out.get(k) for k in (
+                    "pass", "lost_writes", "max_time_to_heal_ticks")})
+        if rc != 0 or not keys_ok:
+            r["stderr_tail"] = err
+        res[name] = r
+        ok = ok and rc == 0 and keys_ok
+    t0 = time.perf_counter()
+    res["sigterm_drill"] = cli_sigterm_drill(n)
+    res["sigterm_drill"]["seconds"] = round(time.perf_counter() - t0, 3)
+    res["ok"] = (ok and res["sigterm_drill"]["ok"]
+                 and res["trace"].get("trace_file", False)
+                 and res["run"].get("probes_sent", 0) > 0
+                 and res["prewarm"].get("compiled") == 4)
+    return res
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -4312,6 +4635,25 @@ def main() -> int:
         emit({"phase": "serf_stress_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"serf_stress_kernel_parity {variant}")
+    # B8, the pre-fusion serf tick in the kernel, against its plain version
+    # in every window of B8_WINDOWS; timed on the quiet 1M window's state.
+    max_abs["gossip_tick_serf_reference"] = 0.0
+    b8_t = None
+    for name_w, n, stimulus, chaos_on, relay, loss in B8_WINDOWS:
+        t0 = time.perf_counter()
+        res = b8_parity(name_w, n, stimulus, chaos_on, seed=41, relay=relay,
+                        loss=loss)
+        if name_w == "quiet_1m" and res["ok"]:
+            b8_t = b8_timing(res, rate)
+        del res["_state"]
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        fold_abs("gossip_tick_serf_reference", res)
+        emit({"phase": "b8_parity", **res})
+        if not res["ok"]:
+            failed.append(f"b8_parity {name_w}")
+    if b8_t is not None:
+        emit({"phase": "b8_timing", **b8_t})
     if failed:
         emit({"phase": "failed", "failed": failed})
         return 1
@@ -4701,7 +5043,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     res["seconds"] = round(time.perf_counter() - t0, 3)
     emit({"phase": "federation_main_path", **res})
-    emit({"phase": "federation_wan_timing", **wan_t})
+    emit({"phase": "federation_wan_timing", **wan_t,
+          "profile_misses": PROFILE_MISSES})
     if not res["ok"]:
         emit({"phase": "failed", "failed": ["federation_main_path"]})
         return 1
@@ -4731,8 +5074,8 @@ def main() -> int:
     # Each phase zeroes the counts before it drives its path.
     t_gd = time.perf_counter()
     gd_launches = {"bare": 0, "chaos": 0, "serf": 0, "serf_chaos": 0,
-                   "wan": 0}
-    oracle_ms = []
+                   "wan": 0, "serf_reference": 0}
+    oracle_ms, oracle_plain_ms = [], []
     for with_chaos in (False, True):
         t0 = time.perf_counter()
         res = serf_reference_parity(cfg, with_chaos)
@@ -4744,9 +5087,15 @@ def main() -> int:
                 "serf_reference_parity " + res["scenario"]]})
             return 1
         oracle_ms.append(res["oracle_ms_per_tick"])
-        chaos_ticks = res["launches"]["chaos_pre"]
+        oracle_plain_ms.append(res["plain_ms"])
+        # Each path ran the fault window's ticks with P: the fused twin 5
+        # launches a tick there and 4 elsewhere; the oracle on B8 6 and 5.
+        lc = res["launches"]
+        b8 = 5 * lc["ref_send"] + lc["chaos_pre"] // 2
+        gd_launches["serf_reference"] += b8
+        chaos_ticks = lc["chaos_pre"] // 2
         gd_launches["serf_chaos"] += 5 * chaos_ticks
-        gd_launches["serf"] += tick_launches(res["launches"]) - 5 * chaos_ticks
+        gd_launches["serf"] += tick_launches(lc) - b8 - 5 * chaos_ticks
     t0 = time.perf_counter()
     res = snapshot_rejoin(cfg)
     torch.cuda.empty_cache()
@@ -4777,7 +5126,20 @@ def main() -> int:
         return 1
     emit({"phase": "gameday_phases", "seconds": round(
         time.perf_counter() - t_gd, 3), "tick_launches": gd_launches,
-        "oracle_ms_per_tick": oracle_ms})
+        "oracle_ms_per_tick": oracle_ms,
+        "plain_oracle_ms_per_tick": oracle_plain_ms})
+
+    # The port's CLI (ROADMAP A19's remainder, A20's prewarm): every sim
+    # verb through ``python -m consul_tpu_torch.cli`` at 1M, then the
+    # SIGTERM drill.
+    t0 = time.perf_counter()
+    res = cli_main_path()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "cli_main_path", **res})
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["cli_main_path"]})
+        return 1
 
     # The CUDA-init black box, captured live.
     res = blackbox_live()
@@ -4833,7 +5195,14 @@ def main() -> int:
             "sched=<link loss>, sentinel=False (the oracle's fused twin), "
             "sparse, packed",
             serf_chaos_launches + sweep_launches["serf_chaos"]
-            + gd_launches["serf_chaos"], serf_chaos_t)] + dense_rows + [
+            + gd_launches["serf_chaos"], serf_chaos_t),
+        row("gossip_tick_serf_reference", "B8: step_fn="
+            "serf.step_reference_counted (the pre-fusion oracle: A-C bare, "
+            "then E1 ref_send and E2 ref_intake), sched=None or <link loss>, "
+            "sentinel=False, sparse, packed: ReferenceSerfSimulation on the "
+            "card (timed on the quiet 1M window's state; windows also under "
+            "a schedule with the sentinel, dense, stress and tie-and-wrap)",
+            gd_launches["serf_reference"], b8_t)] + dense_rows + [
         row("gossip_tick_wan_dense", "step_fn=swim.step_counted, sched=None, "
             "sentinel=False, dense, packed: the federation's WAN pool (n = "
             f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc']}, K = "

@@ -25,8 +25,9 @@ signature and do not use it; ``bench_pareto`` forms in chunks of it.
 The reference refuses a packed simulation because its vmapped body is
 written on the dense pytree; the port's card path is the packed layout,
 and both layouts give the same counters, so both are taken here. Left
-for later items: the sharded sweep (``mesh``, A13), ``prewarm_sweep``
-(A20; the kernel builds lazily) and the reference's executable cache.
+for later items: the sharded sweep (``mesh``, A13). A sweep lane is
+warmed by ``utils/prewarm.prewarm(..., sweep=S)`` (A20); the kernel's
+one build, cached on disk, stands for the reference's executable cache.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-// One packed SWIM gossip tick for Hopper (sm_90a), in three to five launches.
+// One packed SWIM gossip tick for Hopper (sm_90a), in three to six launches.
 //
 // Replaces the TPU kernel consul_tpu/ops/pallas_gossip.py:make_tick_kernel
 // (pallas_call at :145): unpack -> swim.step_counted (or serf.step_counted)
@@ -107,6 +107,17 @@
 //       there in the order the reference rejects in and writes them out;
 //       the query buckets, which only query keys touch, are copied to the
 //       output and updated there.
+//
+// The pre-fusion serf variant (I_SERF = 1, I_SREF = 1; B8) replaces the
+// same pallas_call with step_fn=serf.step_reference_counted, the oracle the
+// fused tick is held to: P (under a schedule), then A, B and C in their
+// bare SWIM mode (no x_* lanes: A only copies q_resps / q_acks to the
+// output), then the event sweep with its own gossip columns (ev_cols) and
+// loss draws (ev_u_drop), split at its one grid-wide barrier into E1
+// (ref_send: quiet leave, delivery over all slots, tally, peel, peer_ok,
+// budgets, retirement, the payload into x_*) and E2 (ref_intake: intake,
+// expiry, reap). Both share D's tiles, stage and device code; see the
+// note above k_ref_send.
 //
 // The chaos + sentinel variant replaces the same pallas_call with a
 // non-empty ChaosSchedule (I_CHAOS = 1) and/or sentinel=True
@@ -218,6 +229,9 @@ enum Ptr {
   P_SOUT = P_SIN + 21,          // + SLeaf: output serf leaves
   P_URESP = P_SOUT + 21, P_RU1, P_RU2, P_RCOLS,
   P_XFLAGS, P_XKEY, P_XORIG,
+  // The pre-fusion sweep only (I_SREF = 1): its gossip columns, int64
+  // [fan], and its loss draws, f32 [N, fan].
+  P_EVCOLS, P_EVUDROP,
   // Chaos variant only: the schedule (ChaosSchedule field order, raft lane
   // excluded), the push-pull draw, the per-row scratch of chaos_pre, and
   // the SLO word and ticket.
@@ -254,6 +268,7 @@ enum Int {
   I_CHAOS, I_SENTINEL, I_NP, I_NL, I_NC, I_ND, I_DENSE,
   I_ROW0, I_ROWS,   // the launch's rows: [row0, row0 + rows) of n
   I_SLO_DEFER,      // 1: C leaves its SLO word for gossip_slo_fold
+  I_SREF,           // 1: the pre-fusion serf tick (B8: A-C bare, then E1, E2)
   N_INT
 };
 
@@ -1246,14 +1261,17 @@ __global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int ti
       ptr<uint32_t>(a, P_POWNK)[i] = mk(own_inc, (leaving || left) ? LEFT : ALIVE);
       if (own_sendable) own_tx = max(own_tx - n_sends, 0);
 
-      // Serf sender side: the fused event plane's payload for D.
-      if (a.i[I_SERF]) {
+      // Serf sender side: the fused event plane's payload for D (not in
+      // the pre-fusion tick, whose A is the bare SWIM tick's), and the
+      // query tallies copied to the output, where D's or E1's cross-row
+      // adds land on them.
+      if (a.i[I_SERF] && !a.i[I_SREF]) {
         uint32_t xbits = 0;
         for (int f = 0; f < FAN; ++f) {
           const int jc = gossip_col(a, t, f);
           if (alive && !left && contactable(vmid[rb + jc])) xbits |= 1u << f;
         }
-        const int E = a.i[I_E], PE = a.i[I_PE], Q = a.i[I_Q];
+        const int E = a.i[I_E], PE = a.i[I_PE];
         const size_t eq = static_cast<size_t>(i) * E;
         int order[MAXPE], mtx[MAXPE];
         serf_peel(a, eq, E, PE, order, mtx);
@@ -1268,6 +1286,9 @@ __global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int ti
           if (key > 0u && mtx[q] > 0) xbits |= 1u << (8 + q);
         }
         ptr<uint16_t>(a, P_XFLAGS)[i] = static_cast<uint16_t>(xbits);
+      }
+      if (a.i[I_SERF]) {
+        const int Q = a.i[I_Q];
         const size_t qb = static_cast<size_t>(i) * Q;
         for (int q = 0; q < Q; ++q) {
           ptr<int32_t>(a, P_SOUT + S_QRESP)[qb + q] =
@@ -1802,10 +1823,14 @@ __global__ void k_slo_fold(TickArgs a, const int* words, int nwords) {
 // queue and buckets written out. Stage rows are padded to an odd number
 // of words, so 32 lanes on 32 rows at one column hit 32 banks; the intake
 // candidates sit in a [candidate][lane] block of the stage.
+//
+// E1 and E2 (the pre-fusion sweep, below) run on the same tiles and stage
+// and share D's pieces: the queue stage, the tally, the intake, the
+// expiry and reap walk.
 // ---------------------------------------------------------------------------
 
-#define SWARPS 4              // warps per block of D
-#define SERF_WARP_WORDS 4096  // stage words per warp of D (16 KB)
+#define SWARPS 4              // warps per block of D, E1 and E2
+#define SERF_WARP_WORDS 4096  // stage words per warp of D, E1 and E2 (16 KB)
 
 // Words of a tile row in D's stage: event bucket ltimes and signatures,
 // queue keys, origins and tx | pending, each padded to an odd count.
@@ -1817,12 +1842,311 @@ __host__ __device__ __forceinline__ int serf_warp_words(int rows, int E, int R, 
   return rows * serf_row_words(E, R, O) + 64 * nc;
 }
 
+// A warp's stage: event buckets, queue (keys, origins, tx * 2 + pending)
+// and the intake candidates' keys and origins.
+struct SerfStage {
+  uint32_t* elt;
+  uint32_t* esig;
+  uint32_t* key;
+  int32_t* org;
+  int32_t* txp;
+  uint32_t* ck;
+  int32_t* co;
+};
+
+__device__ __forceinline__ SerfStage serf_stage(uint32_t* s_dyn, int wib, int tile_rows,
+                                                int E, int R, int O, int nc) {
+  SerfStage s;
+  s.elt = s_dyn + static_cast<size_t>(wib) * serf_warp_words(tile_rows, E, R, O, nc);
+  s.esig = s.elt + tile_rows * (R | 1);
+  s.key = s.esig + tile_rows * ((R * O) | 1);
+  s.org = reinterpret_cast<int32_t*>(s.key + tile_rows * (E | 1));
+  s.txp = s.org + tile_rows * (E | 1);
+  s.ck = reinterpret_cast<uint32_t*>(s.txp + tile_rows * (E | 1));
+  s.co = reinterpret_cast<int32_t*>(s.ck + 32 * nc);
+  return s;
+}
+
 // Post-quiet liveness of row x (alive_truth & ~left after the tick's churn
 // edges and quiet leaves), from its post-churn flags and leave_at.
 __device__ __forceinline__ bool serf_up(const TickArgs& a, int x, int t1) {
   const uint8_t f = flags_at(a, x);
   const int la = ptr<const int32_t>(a, P_MLEAVE)[x];
   return (f & 1) && !(f & 2) && !(la >= 0 && t1 >= la);
+}
+
+// The tile's queue into the stage, from the serf leaves at sb (P_SIN or
+// P_SOUT): keys and 32-bit origins by cp.async (made visible by
+// cp_async_wait_all and __syncwarp), 16-bit origins and tx | pending by
+// the lanes.
+__device__ void stage_queue(const TickArgs& a, int sb, const SerfStage& st, size_t b,
+                            int rows, int E, uint32_t dE, int lane) {
+  const int QS = E | 1;
+  stage_in(st.key, QS, ptr<const uint32_t>(a, sb + S_EKEY) + b * E, rows, E, dE, lane);
+  const bool orig16 = a.i[I_ORIG16] != 0;
+  if (!orig16)
+    stage_in(reinterpret_cast<uint32_t*>(st.org), QS,
+             ptr<const uint32_t>(a, sb + S_EORIG) + b * E, rows, E, dE, lane);
+  const int8_t* tx = ptr<const int8_t>(a, sb + S_ETX);
+  const uint8_t* pend = ptr<const uint8_t>(a, sb + S_EPEND);
+  for (int e = lane; e < rows * E; e += 32) {
+    const int x = e + row_of(e, E, dE) * (QS - E);
+    if (orig16) st.org[x] = ptr<const int16_t>(a, sb + S_EORIG)[b * E + e];
+    st.txp[x] = static_cast<int>(tx[b * E + e]) * 2 + (pend[b * E + e] ? 1 : 0);
+  }
+}
+
+// The staged queue out to the output's leaves, lanes over cells.
+__device__ void unstage_queue(const TickArgs& a, const SerfStage& st, size_t b, int rows,
+                              int E, uint32_t dE, int lane) {
+  const int QS = E | 1;
+  stage_out(ptr<uint32_t>(a, P_SOUT + S_EKEY) + b * E, st.key, QS, rows, E, dE, lane);
+  int8_t* o_tx = ptr<int8_t>(a, P_SOUT + S_ETX);
+  uint8_t* o_pend = ptr<uint8_t>(a, P_SOUT + S_EPEND);
+  for (int e = lane; e < rows * E; e += 32) {
+    const int x = e + row_of(e, E, dE) * (QS - E);
+    store_origin(a, P_SOUT + S_EORIG, b * E + e, st.org[x]);
+    o_tx[b * E + e] = static_cast<int8_t>(st.txp[x] >> 1);
+    o_pend[b * E + e] = static_cast<uint8_t>(st.txp[x] & 1);
+  }
+}
+
+// The input's query buckets copied to the output (a query delivery
+// updates its row there).
+__device__ void copy_query_buckets(const TickArgs& a, size_t b, int rows, int lane) {
+  const int R = a.i[I_R], RO = R * a.i[I_O];
+  warp_copy<4>(ptr<uint8_t>(a, P_SOUT + S_QBLT) + b * R * 4,
+               ptr<const uint8_t>(a, P_SIN + S_QBLT) + b * R * 4,
+               static_cast<size_t>(rows) * R * 4, lane);
+  warp_copy<4>(ptr<uint8_t>(a, P_SOUT + S_QBSIG) + b * RO * 4,
+               ptr<const uint8_t>(a, P_SIN + S_QBSIG) + b * RO * 4,
+               static_cast<size_t>(rows) * RO * 4, lane);
+}
+
+// Query expiry over the tile's [rows, Q] (the tally matched the pre-expiry
+// keys, from the input) and the reap walk over [rows, K] from the final
+// view status (C's output), lanes over cells.
+__device__ void expire_and_reap(const TickArgs& a, size_t b, int rows, int lane, int t) {
+  const int Q = a.i[I_Q], K = a.i[I_K];
+  const int t1 = t + 1;
+  const uint32_t* qopen_in = ptr<const uint32_t>(a, P_SIN + S_QOPEN);
+  const int32_t* qdead_in = ptr<const int32_t>(a, P_SIN + S_QDEAD);
+  for (int e0 = 0; e0 < rows * Q; e0 += 32 * 4) {
+    uint32_t qk[4];
+    int32_t dl[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + 32 * u + lane;
+      if (e < rows * Q) {
+        qk[u] = qopen_in[b * Q + e];
+        dl[u] = qdead_in[b * Q + e];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + 32 * u + lane;
+      if (e >= rows * Q) continue;
+      ptr<uint32_t>(a, P_SOUT + S_QOPEN)[b * Q + e] =
+          (qk[u] > 0u && t1 >= dl[u]) ? 0u : qk[u];
+      ptr<int32_t>(a, P_SOUT + S_QDEAD)[b * Q + e] = dl[u];
+    }
+  }
+  const uint16_t* o_meta = ptr<const uint16_t>(a, P_OUT + L_META);
+  const int32_t* ds_in = ptr<const int32_t>(a, P_SIN + S_DOWN);
+  int32_t* ds_out = ptr<int32_t>(a, P_SOUT + S_DOWN);
+  const size_t kb = b * K;
+  const int ktot = rows * K;
+  for (int e0 = 0; e0 < ktot; e0 += 32 * 8) {
+    uint16_t m[8];
+    int32_t ds[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + 32 * u + lane;
+      if (e < ktot) {
+        m[u] = o_meta[kb + e];
+        ds[u] = ds_in[kb + e];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + 32 * u + lane;
+      if (e >= ktot) continue;
+      const uint32_t st = m[u] & 3u;
+      const bool down = st == DEAD || st == LEFT;
+      ds_out[kb + e] = down ? (ds[u] < 0 ? t : ds[u]) : -1;
+    }
+  }
+}
+
+// The query tally of row r's delivered query wkey from worig
+// (serf._query_response_tally): ack (and answer) the origin's open slot.
+// The response lands if the origin is up and it survives loss, directly or
+// through one of the relays with both legs surviving; under a schedule the
+// direct response and both legs of each relayed copy are pair_ok legs,
+// with the origin's terms read at its row. The tally is the serf plane's
+// one cross-row write: int32 atomics into the origin row's q_acks /
+// q_resps, exact in any order. The slot match reads q_open_key from the
+// INPUT (pre-expiry).
+__device__ void query_tally(const TickArgs& a, int r, int worig, uint32_t wkey,
+                            const Terms& me, bool external, int t1) {
+  const int n = a.i[I_N], RF = a.i[I_RF], Q = a.i[I_Q];
+  const bool chaos = a.i[I_CHAOS] != 0;
+  const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
+  const int32_t* off = ptr<const int32_t>(a, P_OFF);
+  const float ur = ptr<const float>(a, P_URESP)[r];
+  const Terms og = chaos ? terms_at(a, worig) : me;
+  bool arrived = chaos ? pair_ok(a, me, og, ur, keep, false) : ur >= pl;
+  if (RF > 0 && (chaos || pl > 0.0f)) {
+    const int64_t* rcols = ptr<const int64_t>(a, P_RCOLS);
+    const float* u1 = ptr<const float>(a, P_RU1);
+    const float* u2 = ptr<const float>(a, P_RU2);
+    for (int k = 0; k < RF; ++k) {
+      const int rrow = wrap_add(r, off[rcols[k]], n);
+      const size_t u = static_cast<size_t>(r) * RF + k;
+      bool legs = u1[u] >= pl && u2[u] >= pl;
+      if (chaos) {
+        const Terms rt = terms_at(a, rrow);
+        legs = pair_ok(a, me, rt, u1[u], keep, false) &&
+               pair_ok(a, rt, og, u2[u], keep, false);
+      }
+      if (serf_up(a, rrow, t1) && legs) arrived = true;
+    }
+  }
+  if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
+    const bool responder = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r] != 0;
+    int32_t* qacks = ptr<int32_t>(a, P_TACK);
+    int32_t* qresps = ptr<int32_t>(a, P_TRESP);
+    const uint32_t* qopen_o = ptr<const uint32_t>(a, P_MQOPEN);
+    const size_t ob = static_cast<size_t>(worig) * Q;
+    for (int q = 0; q < Q; ++q) {
+      if (qopen_o[ob + q] != wkey) continue;
+      atomicAdd(&qacks[ob + q], 1);
+      if (responder) atomicAdd(&qresps[ob + q], 1);
+    }
+  }
+}
+
+// Intake of row r (serf._stage_fresh): up to 2 fresh arrivals off the
+// legs, read from the senders' x_* payloads at displacements goff[f]
+// (sender r - goff[f]). A leg arrives on its drop draw udrop[r, f] (a
+// one-way pair_ok under a schedule) with the sender's bit f set and the
+// receiver up (recv_up); candidate q of a leg rides if the sender's bit
+// 8 + q is set. Fresh candidates (not rejected by the buckets) are pushed
+// lowest key first into the staged queue row (kq, oq, tq), pending. Adds
+// the pushes and evictions to queued / dropped.
+__device__ void serf_intake(const TickArgs& a, int r, int lane, const int* goff,
+                            const float* udrop, bool recv_up, const Terms& me,
+                            const Bucket& evb, const Bucket& qub, uint32_t* kq,
+                            int32_t* oq, int32_t* tq, uint32_t* s_ck, int32_t* s_co,
+                            int& queued, int& dropped) {
+  const int n = a.i[I_N], FAN = a.i[I_FAN], E = a.i[I_E], PE = a.i[I_PE];
+  const int nc = FAN * PE, tx_limit = a.i[I_TX_LIMIT];
+  const bool chaos = a.i[I_CHAOS] != 0;
+  const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
+  const uint16_t* xflags = ptr<const uint16_t>(a, P_MXFLAGS);
+  const uint32_t* xkey = ptr<const uint32_t>(a, P_MXKEY);
+  const int32_t* xorig = ptr<const int32_t>(a, P_MXORIG);
+  // The senders' flags and draws of every leg at once, then the
+  // candidates' keys and origins eight at a time.
+  uint32_t okmask = 0;  // bit f * PE + q: candidate q of leg f arrived
+#pragma unroll
+  for (int f = 0; f < MAXFAN; ++f) {
+    const int s = wrap_sub(r, goff[f], n);
+    const uint32_t xs = xflags[s];
+    const float u = udrop[static_cast<size_t>(r) * FAN + min(f, FAN - 1)];
+    if (f >= FAN) continue;
+    const bool ok_leg = chaos ? pair_ok(a, terms_at(a, s), me, u, keep, false) : u >= pl;
+    if (((xs >> f) & 1u) && ok_leg && recv_up)
+      okmask |= ((xs >> 8) & ((1u << PE) - 1u)) << (f * PE);
+  }
+  uint32_t fresh = 0;
+  for (int c0 = 0; c0 < nc; c0 += 8) {
+    uint32_t ckv[8];
+    int cov[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int c = min(c0 + u, nc - 1);
+      const int f = c / PE;
+      const size_t sq = static_cast<size_t>(wrap_sub(r, goff[f], n)) * PE + (c - f * PE);
+      ckv[u] = xkey[sq];
+      cov[u] = xorig[sq];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int c = c0 + u;
+      if (c >= nc) continue;
+      const bool ok = (okmask >> c) & 1u;
+      const uint32_t ck = ok ? ckv[u] : 0u;
+      const int co = ok ? cov[u] : -1;
+      s_ck[c * 32 + lane] = ck;
+      s_co[c * 32 + lane] = co;
+      if (ck > 0u && !((ck & 1u) ? qub.rejects(ck, co) : evb.rejects(ck, co)))
+        fresh |= 1u << c;
+    }
+  }
+  for (int round = 0; round < 2; ++round) {
+    // The minimum fresh key, lowest candidate on ties.
+    uint32_t win = 0xFFFFFFFFu;
+    int slot_i = 0;
+    for (int c = 0; c < nc; ++c) {
+      const uint32_t ck = s_ck[c * 32 + lane];
+      if (((fresh >> c) & 1u) && ck < win) {
+        win = ck;
+        slot_i = c;
+      }
+    }
+    if (win == 0xFFFFFFFFu) break;
+    const int worg = s_co[slot_i * 32 + lane];
+    // _equeue_push: same subject, else empty, else most transmitted.
+    int slot = 0, best = 0;
+    bool slot_same = false, slot_empty = false;
+    for (int e = 0; e < E; ++e) {
+      const bool same = kq[e] == win && oq[e] == worg;
+      const bool empty = kq[e] == 0u;
+      const int score = (same ? 3000000 : 0) + (empty ? 2000000 : 0) +
+                        (1000000 - min(tq[e] >> 1, 999999));
+      if (e == 0 || score > best) {
+        best = score;
+        slot = e;
+        slot_same = same;
+        slot_empty = empty;
+      }
+    }
+    dropped += (!slot_same && !slot_empty) ? 1 : 0;
+    ++queued;
+    kq[slot] = win;
+    oq[slot] = worg;
+    tq[slot] = tx_limit * 2 + 1;
+    for (int c = 0; c < nc; ++c)
+      if (s_ck[c * 32 + lane] == win && s_co[c * 32 + lane] == worg)
+        fresh &= ~(1u << c);
+  }
+}
+
+// The row's quiet leave (left |= quiet in its own packed flags, on top of
+// the tick's churn edges, and leave_at cleared), written to the output.
+// Returns the post-churn flags without the quiet bit; quiet in *quiet.
+__device__ __forceinline__ uint8_t quiet_leave(const TickArgs& a, int r, int t1,
+                                               bool* quiet) {
+  const uint8_t fl = static_cast<uint8_t>(flags_at(a, r) & ~REVIVED);
+  const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
+  *quiet = leave_in >= 0 && t1 >= leave_in;
+  ptr<uint8_t>(a, P_OUT + L_FLAGS)[r] = static_cast<uint8_t>(fl | (*quiet ? 2 : 0));
+  ptr<int32_t>(a, P_SOUT + S_LEAVE)[r] = *quiet ? -1 : leave_in;
+  return fl;
+}
+
+// The row's serf scalars that the delivery phase leaves, to the output.
+__device__ __forceinline__ void store_serf_scalars(const TickArgs& a, int r, uint32_t eclock,
+                                                   uint32_t qclock, const Bucket& evb,
+                                                   const Bucket& qub, int delivered) {
+  ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
+  ptr<uint32_t>(a, P_SOUT + S_ECLOCK)[r] = eclock;
+  ptr<uint32_t>(a, P_SOUT + S_QCLOCK)[r] = qclock;
+  ptr<uint32_t>(a, P_SOUT + S_EFLOOR)[r] = evb.floor;
+  ptr<uint32_t>(a, P_SOUT + S_QFLOOR)[r] = qub.floor;
+  ptr<int32_t>(a, P_SOUT + S_EDELIV)[r] = delivered;
+  ptr<uint8_t>(a, P_SOUT + S_QRESPONDER)[r] = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r];
 }
 
 __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_rows) {
@@ -1837,48 +2161,19 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
   __syncthreads();
   Tally tl;
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
-  const int n = a.i[I_N];
-  const int K = a.i[I_K], FAN = a.i[I_FAN];
-  const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O], Q = a.i[I_Q];
-  const int PE = a.i[I_PE], RF = a.i[I_RF];
-  const int RO = R * O, nc = FAN * PE;
+  const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O];
+  const int PE = a.i[I_PE];
+  const int RO = R * O, nc = a.i[I_FAN] * PE;
   const bool exact = a.i[I_EXACT_SIG] != 0;
-  const bool chaos = a.i[I_CHAOS] != 0, orig16 = a.i[I_ORIG16] != 0;
+  const bool chaos = a.i[I_CHAOS] != 0;
   const bool sentinel = a.i[I_SENTINEL] != 0;
-  const float pl = a.f[F_PLOSS], keep = a.f[F_KEEP];
   const int t1 = t + 1;
-  const int tx_limit = a.i[I_TX_LIMIT];
-  const int32_t* off = ptr<const int32_t>(a, P_OFF);
   const int LS = R | 1, SS = RO | 1, QS = E | 1;
   const uint32_t dR = div_of(R), dRO = div_of(RO), dE = div_of(E);
-
-  const uint32_t* in_elt = ptr<const uint32_t>(a, P_SIN + S_EBLT);
-  const uint32_t* in_esig = ptr<const uint32_t>(a, P_SIN + S_EBSIG);
-  const uint32_t* in_key = ptr<const uint32_t>(a, P_SIN + S_EKEY);
-  const int8_t* in_tx = ptr<const int8_t>(a, P_SIN + S_ETX);
-  const uint8_t* in_pend = ptr<const uint8_t>(a, P_SIN + S_EPEND);
-  const uint32_t* qopen_in = ptr<const uint32_t>(a, P_SIN + S_QOPEN);
-  const int32_t* qdead_in = ptr<const int32_t>(a, P_SIN + S_QDEAD);
-  const uint16_t* o_meta = ptr<const uint16_t>(a, P_OUT + L_META);
-  const int32_t* ds_in = ptr<const int32_t>(a, P_SIN + S_DOWN);
-  int32_t* ds_out = ptr<int32_t>(a, P_SOUT + S_DOWN);
   uint32_t* o_qlt = ptr<uint32_t>(a, P_SOUT + S_QBLT);
   uint32_t* o_qsig = ptr<uint32_t>(a, P_SOUT + S_QBSIG);
-  // The senders' serf payloads, from the mirrors.
   const uint16_t* xflags = ptr<const uint16_t>(a, P_MXFLAGS);
-  const uint32_t* xkey = ptr<const uint32_t>(a, P_MXKEY);
-  const int32_t* xorig = ptr<const int32_t>(a, P_MXORIG);
-  const float* udrop = ptr<const float>(a, P_UDROP);
-
-  // The warp's stage.
-  uint32_t* s_elt = s_dyn + static_cast<size_t>(wib) *
-                                serf_warp_words(tile_rows, E, R, O, nc);
-  uint32_t* s_esig = s_elt + tile_rows * LS;
-  uint32_t* s_key = s_esig + tile_rows * SS;
-  int32_t* s_org = reinterpret_cast<int32_t*>(s_key + tile_rows * QS);
-  int32_t* s_txp = s_org + tile_rows * QS;   // tx * 2 + pending
-  uint32_t* s_ck = reinterpret_cast<uint32_t*>(s_txp + tile_rows * QS);
-  int32_t* s_co = reinterpret_cast<int32_t*>(s_ck + 32 * nc);
+  const SerfStage st = serf_stage(s_dyn, wib, tile_rows, E, R, O, nc);
 
   const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
   const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
@@ -1890,93 +2185,32 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
     const size_t b = static_cast<size_t>(base);
 
     // D1. Stage the event buckets and the queue; the query buckets go to
-    // the output as they are (a query delivery updates its row there).
-    stage_in(s_elt, LS, in_elt + b * R, rows, R, dR, lane);
-    stage_in(s_esig, SS, in_esig + b * RO, rows, RO, dRO, lane);
-    stage_in(s_key, QS, in_key + b * E, rows, E, dE, lane);
-    if (!orig16)
-      stage_in(reinterpret_cast<uint32_t*>(s_org), QS,
-               ptr<const uint32_t>(a, P_SIN + S_EORIG) + b * E, rows, E, dE, lane);
-    for (int e = lane; e < rows * E; e += 32) {
-      const int x = e + row_of(e, E, dE) * (QS - E);
-      if (orig16) s_org[x] = ptr<const int16_t>(a, P_SIN + S_EORIG)[b * E + e];
-      s_txp[x] = static_cast<int>(in_tx[b * E + e]) * 2 + (in_pend[b * E + e] ? 1 : 0);
-    }
-    warp_copy<4>(reinterpret_cast<uint8_t*>(o_qlt + b * R),
-                 ptr<const uint8_t>(a, P_SIN + S_QBLT) + b * R * 4,
-                 static_cast<size_t>(rows) * R * 4, lane);
-    warp_copy<4>(reinterpret_cast<uint8_t*>(o_qsig + b * RO),
-                 ptr<const uint8_t>(a, P_SIN + S_QBSIG) + b * RO * 4,
-                 static_cast<size_t>(rows) * RO * 4, lane);
-    // Query expiry (the tally matched the pre-expiry keys, from the input).
-    for (int e0 = 0; e0 < rows * Q; e0 += 32 * 4) {
-      uint32_t qk[4];
-      int32_t dl[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = e0 + 32 * u + lane;
-        if (e < rows * Q) {
-          qk[u] = qopen_in[b * Q + e];
-          dl[u] = qdead_in[b * Q + e];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int e = e0 + 32 * u + lane;
-        if (e >= rows * Q) continue;
-        ptr<uint32_t>(a, P_SOUT + S_QOPEN)[b * Q + e] =
-            (qk[u] > 0u && t1 >= dl[u]) ? 0u : qk[u];
-        ptr<int32_t>(a, P_SOUT + S_QDEAD)[b * Q + e] = dl[u];
-      }
-    }
-    // Reap bookkeeping from the final view status (C's output).
-    const size_t kb = b * K;
-    const int ktot = rows * K;
-    for (int e0 = 0; e0 < ktot; e0 += 32 * 8) {
-      uint16_t m[8];
-      int32_t ds[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int e = e0 + 32 * u + lane;
-        if (e < ktot) {
-          m[u] = o_meta[kb + e];
-          ds[u] = ds_in[kb + e];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int e = e0 + 32 * u + lane;
-        if (e >= ktot) continue;
-        const uint32_t st = m[u] & 3u;
-        const bool down = st == DEAD || st == LEFT;
-        ds_out[kb + e] = down ? (ds[u] < 0 ? t : ds[u]) : -1;
-      }
-    }
+    // the output as they are; expiry and reap while the copies fly.
+    stage_in(st.elt, LS, ptr<const uint32_t>(a, P_SIN + S_EBLT) + b * R, rows, R, dR, lane);
+    stage_in(st.esig, SS, ptr<const uint32_t>(a, P_SIN + S_EBSIG) + b * RO, rows, RO, dRO,
+             lane);
+    stage_queue(a, P_SIN, st, b, rows, E, dE, lane);
+    copy_query_buckets(a, b, rows, lane);
+    expire_and_reap(a, b, rows, lane, t);
     cp_async_wait_all();
     __syncwarp();
 
     // D2. One row per lane, on the stage.
     if (valid) {
-      uint32_t* kq = s_key + lane * QS;
-      int32_t* oq = s_org + lane * QS;
-      int32_t* tq = s_txp + lane * QS;
+      uint32_t* kq = st.key + lane * QS;
+      int32_t* oq = st.org + lane * QS;
+      int32_t* tq = st.txp + lane * QS;
 
-      // Quiet leaves: left |= quiet, in the row's own packed flags, on top
-      // of the tick's churn edges (what A wrote there).
-      const uint8_t fl = static_cast<uint8_t>(flags_at(a, r) & ~REVIVED);
+      bool quiet;
+      const uint8_t fl = quiet_leave(a, r, t1, &quiet);
       const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
-      const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
-      const bool quiet = leave_in >= 0 && t1 >= leave_in;
       const bool alive = fl & 1, left = fl & 2, external = fl & 8;
       const bool active = alive && !left && !quiet;
-      ptr<uint8_t>(a, P_OUT + L_FLAGS)[r] = static_cast<uint8_t>(fl | (quiet ? 2 : 0));
-      ptr<int32_t>(a, P_SOUT + S_LEAVE)[r] = quiet ? -1 : leave_in;
 
-      Bucket evb{s_elt + lane * LS, s_esig + lane * SS,
+      Bucket evb{st.elt + lane * LS, st.esig + lane * SS,
                  ptr<const uint32_t>(a, P_SIN + S_EFLOOR)[r], R, O, exact};
       Bucket qub{o_qlt + static_cast<size_t>(r) * R, o_qsig + static_cast<size_t>(r) * RO,
                  ptr<const uint32_t>(a, P_SIN + S_QFLOOR)[r], R, O, exact};
-      const uint32_t clock0 = ptr<const uint32_t>(a, P_SIN + S_CLOCK)[r];
       const uint32_t eclock0 = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
       const uint32_t qclock0 = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
       uint32_t eclock = eclock0, qclock = qclock0;
@@ -2008,40 +2242,7 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
       if (deliver && is_q) {
         qub.apply(wkey, worig);
         qclock = max(qclock, lt + 1u);
-        // The query tally: ack (and answer) the origin's open slot. Under a
-        // schedule the direct response and both legs of each relayed copy
-        // are pair_ok legs, with the origin's terms read at its row.
-        const float ur = ptr<const float>(a, P_URESP)[r];
-        const Terms og = chaos ? terms_at(a, worig) : me;
-        bool arrived = chaos ? pair_ok(a, me, og, ur, keep, false) : ur >= pl;
-        if (RF > 0 && (chaos || pl > 0.0f)) {
-          const int64_t* rcols = ptr<const int64_t>(a, P_RCOLS);
-          const float* u1 = ptr<const float>(a, P_RU1);
-          const float* u2 = ptr<const float>(a, P_RU2);
-          for (int k = 0; k < RF; ++k) {
-            const int rrow = wrap_add(r, off[rcols[k]], n);
-            const size_t u = static_cast<size_t>(r) * RF + k;
-            bool legs = u1[u] >= pl && u2[u] >= pl;
-            if (chaos) {
-              const Terms rt = terms_at(a, rrow);
-              legs = pair_ok(a, me, rt, u1[u], keep, false) &&
-                     pair_ok(a, rt, og, u2[u], keep, false);
-            }
-            if (serf_up(a, rrow, t1) && legs) arrived = true;
-          }
-        }
-        if (arrived && worig != r && !external && serf_up(a, worig, t1)) {
-          const bool responder = ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r] != 0;
-          int32_t* qacks = ptr<int32_t>(a, P_TACK);
-          int32_t* qresps = ptr<int32_t>(a, P_TRESP);
-          const uint32_t* qopen_o = ptr<const uint32_t>(a, P_MQOPEN);
-          const size_t ob = static_cast<size_t>(worig) * Q;
-          for (int q = 0; q < Q; ++q) {
-            if (qopen_o[ob + q] != wkey) continue;
-            atomicAdd(&qacks[ob + q], 1);
-            if (responder) atomicAdd(&qresps[ob + q], 1);
-          }
-        }
+        query_tally(a, r, worig, wkey, me, external, t1);
       }
       if (has) tq[del_slot] &= ~1;
 
@@ -2072,119 +2273,285 @@ __global__ void __launch_bounds__(SWARPS * 32) k_serf_post(TickArgs a, int tile_
       for (int e = 0; e < E; ++e)
         if ((tq[e] >> 1) <= 0 && !(tq[e] & 1)) kq[e] = 0u;
 
-      // 3. Intake: up to 2 fresh arrivals off the legs, re-read from the
-      //    senders' payloads at this tick's displacements. A leg arrives as
-      //    the membership leg does in B: its drop draw (a one-way pair_ok
-      //    under a schedule) and the receiver's pre-quiet liveness.
-      //    The senders' flags and draws of every leg are read at once, then
-      //    the candidates' keys and origins eight at a time.
-      const bool recv_up = alive && !left;
-      uint32_t okmask = 0;  // bit f * PE + q: candidate q of leg f arrived
-#pragma unroll
-      for (int f = 0; f < MAXFAN; ++f) {
-        const int s = wrap_sub(r, s_goff[f], n);
-        const uint32_t xs = xflags[s];
-        const float u = udrop[static_cast<size_t>(r) * FAN + min(f, FAN - 1)];
-        if (f >= FAN) continue;
-        const bool ok_leg = chaos ? pair_ok(a, terms_at(a, s), me, u, keep, false)
-                                  : u >= pl;
-        if (((xs >> f) & 1u) && ok_leg && recv_up)
-          okmask |= ((xs >> 8) & ((1u << PE) - 1u)) << (f * PE);
-      }
-      uint32_t fresh = 0;
-      for (int c0 = 0; c0 < nc; c0 += 8) {
-        uint32_t ckv[8];
-        int cov[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int c = min(c0 + u, nc - 1);
-          const int f = c / PE;
-          const size_t sq = static_cast<size_t>(wrap_sub(r, s_goff[f], n)) * PE + (c - f * PE);
-          ckv[u] = xkey[sq];
-          cov[u] = xorig[sq];
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int c = c0 + u;
-          if (c >= nc) continue;
-          const bool ok = (okmask >> c) & 1u;
-          const uint32_t ck = ok ? ckv[u] : 0u;
-          const int co = ok ? cov[u] : -1;
-          s_ck[c * 32 + lane] = ck;
-          s_co[c * 32 + lane] = co;
-          if (ck > 0u && !((ck & 1u) ? qub.rejects(ck, co) : evb.rejects(ck, co)))
-            fresh |= 1u << c;
-        }
-      }
+      // 3. Intake off the fused legs: the membership leg's drop draw and
+      //    the receiver's pre-quiet liveness, as in swim._gossip_phase.
       int queued = 0, dropped = 0;
-      for (int round = 0; round < 2; ++round) {
-        // The minimum fresh key, lowest candidate on ties.
-        uint32_t win = 0xFFFFFFFFu;
-        int slot_i = 0;
-        for (int c = 0; c < nc; ++c) {
-          const uint32_t ck = s_ck[c * 32 + lane];
-          if (((fresh >> c) & 1u) && ck < win) {
-            win = ck;
-            slot_i = c;
-          }
-        }
-        if (win == 0xFFFFFFFFu) break;
-        const int worg = s_co[slot_i * 32 + lane];
-        // _equeue_push: same subject, else empty, else most transmitted.
-        int slot = 0, best = 0;
-        bool slot_same = false, slot_empty = false;
-        for (int e = 0; e < E; ++e) {
-          const bool same = kq[e] == win && oq[e] == worg;
-          const bool empty = kq[e] == 0u;
-          const int score = (same ? 3000000 : 0) + (empty ? 2000000 : 0) +
-                            (1000000 - min(tq[e] >> 1, 999999));
-          if (e == 0 || score > best) {
-            best = score;
-            slot = e;
-            slot_same = same;
-            slot_empty = empty;
-          }
-        }
-        dropped += (!slot_same && !slot_empty) ? 1 : 0;
-        ++queued;
-        kq[slot] = win;
-        oq[slot] = worg;
-        tq[slot] = tx_limit * 2 + 1;
-        for (int c = 0; c < nc; ++c)
-          if (s_ck[c * 32 + lane] == win && s_co[c * 32 + lane] == worg)
-            fresh &= ~(1u << c);
-      }
+      serf_intake(a, r, lane, s_goff, ptr<const float>(a, P_UDROP), alive && !left, me,
+                  evb, qub, kq, oq, tq, st.ck, st.co, queued, dropped);
       tl.add(C_SQUEUED, queued);
       tl.add(C_SRETX, n_retx);
       tl.add(C_SDROPPED, dropped);
       // Sentinel: Lamport regressions within the tick (the clocks move only
       // through the witness max, so any is corruption).
       if (sentinel) tl.add(C_SMONO, (eclock < eclock0) + (qclock < qclock0));
-
-      ptr<uint32_t>(a, P_SOUT + S_CLOCK)[r] = clock0;
-      ptr<uint32_t>(a, P_SOUT + S_ECLOCK)[r] = eclock;
-      ptr<uint32_t>(a, P_SOUT + S_QCLOCK)[r] = qclock;
-      ptr<uint32_t>(a, P_SOUT + S_EFLOOR)[r] = evb.floor;
-      ptr<uint32_t>(a, P_SOUT + S_QFLOOR)[r] = qub.floor;
-      ptr<int32_t>(a, P_SOUT + S_EDELIV)[r] = delivered;
-      ptr<uint8_t>(a, P_SOUT + S_QRESPONDER)[r] =
-          ptr<const uint8_t>(a, P_SIN + S_QRESPONDER)[r];
+      store_serf_scalars(a, r, eclock, qclock, evb, qub, delivered);
     }
     __syncwarp();
 
     // D3. The staged queue and event buckets out, lanes over cells.
-    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBLT) + b * R, s_elt, LS, rows, R, dR, lane);
-    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBSIG) + b * RO, s_esig, SS, rows, RO, dRO,
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBLT) + b * R, st.elt, LS, rows, R, dR, lane);
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBSIG) + b * RO, st.esig, SS, rows, RO, dRO,
               lane);
-    stage_out(ptr<uint32_t>(a, P_SOUT + S_EKEY) + b * E, s_key, QS, rows, E, dE, lane);
-    int8_t* o_tx = ptr<int8_t>(a, P_SOUT + S_ETX);
-    uint8_t* o_pend = ptr<uint8_t>(a, P_SOUT + S_EPEND);
-    for (int e = lane; e < rows * E; e += 32) {
-      const int x = e + row_of(e, E, dE) * (QS - E);
-      store_origin(a, P_SOUT + S_EORIG, b * E + e, s_org[x]);
-      o_tx[b * E + e] = static_cast<int8_t>(s_txp[x] >> 1);
-      o_pend[b * E + e] = static_cast<uint8_t>(s_txp[x] & 1);
+    unstage_queue(a, st, b, rows, E, dE, lane);
+    __syncwarp();
+  }
+  tl.flush(smem, lane);
+  block_flush(smem, ptr<int>(a, P_CNT));
+}
+
+// ---------------------------------------------------------------------------
+// (E1, E2) the pre-fusion serf sweep (B8: step_fn=serf.step_reference_counted,
+//     serf.py:584-642 and _event_phase_ref :898-1075), after A, B and C have
+//     run the bare SWIM tick (I_SREF: A writes no x_* lanes) on the same
+//     warp tiles and stage as D. The sweep has one grid-wide barrier, the
+//     senders' payloads, so it is two launches:
+//   (E1) ref_send, all on the own row: the quiet leave; delivery of the
+//       oldest queue entry the dedup buckets do not hold, over all E slots
+//       (q_fresh); its bucket append, the Lamport witness and, for a query,
+//       the tally (D's, cross-row atomics); the top-PE peel by remaining
+//       budget AFTER delivery, valid only while the row is active; peer_ok,
+//       the post-SWIM status (C's output meta) of the sweep's own columns
+//       ev_cols, ALIVE or SUSPECT; the budget decrement by count(peer_ok)
+//       and retirement of spent entries that are not still fresh. The
+//       payload (peel keys and origins, peer_ok bits 0-7, valid bits 8-15)
+//       goes to the x_* scratch that the fused tick's A fills. ev_pending
+//       is left as it is.
+//   (E2) ref_intake: the intake of D (each sender at r - off[ev_cols[f]],
+//       the leg on ev_u_drop or a one-way pair_ok, the receiver's
+//       POST-quiet liveness) against the buckets and queue E1 wrote, then
+//       query expiry and the reap walk.
+// The reference wraps the sweep in a lax.cond on "any queued event or open
+// query"; idle, every mask is false and the state passes through, so it
+// runs unconditionally here, as the plain version does.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(SWARPS * 32) k_ref_send(TickArgs a, int tile_rows) {
+  extern __shared__ uint32_t s_dyn[];
+  __shared__ int smem[N_CNT];
+  __shared__ int s_ecol[MAXFAN];  // the sweep's gossip columns
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) smem[k] = 0;
+  if (threadIdx.x < MAXFAN)
+    s_ecol[threadIdx.x] = static_cast<int>(threadIdx.x) < a.i[I_FAN]
+        ? static_cast<int>(ptr<const int64_t>(a, P_EVCOLS)[threadIdx.x]) : 0;
+  __syncthreads();
+  Tally tl;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int K = a.i[I_K], FAN = a.i[I_FAN];
+  const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O];
+  const int PE = a.i[I_PE];
+  const int RO = R * O, nc = FAN * PE;
+  const bool exact = a.i[I_EXACT_SIG] != 0;
+  const bool chaos = a.i[I_CHAOS] != 0;
+  const bool sentinel = a.i[I_SENTINEL] != 0;
+  const int t1 = t + 1;
+  const int LS = R | 1, SS = RO | 1, QS = E | 1;
+  const uint32_t dR = div_of(R), dRO = div_of(RO), dE = div_of(E);
+  const uint16_t* o_meta = ptr<const uint16_t>(a, P_OUT + L_META);
+  uint32_t* o_qlt = ptr<uint32_t>(a, P_SOUT + S_QBLT);
+  uint32_t* o_qsig = ptr<uint32_t>(a, P_SOUT + S_QBSIG);
+  uint16_t* xflags = ptr<uint16_t>(a, P_XFLAGS);
+  uint32_t* xkey = ptr<uint32_t>(a, P_XKEY);
+  int32_t* xorig = ptr<int32_t>(a, P_XORIG);
+  const SerfStage st = serf_stage(s_dyn, wib, tile_rows, E, R, O, nc);
+
+  const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
+  const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x * SWARPS + wib; tile < ntiles; tile += gridDim.x * SWARPS) {
+    const int base = row0 + tile * tile_rows;
+    const int rows = min(tile_rows, row_end - base);
+    const bool valid = lane < rows;
+    const int r = base + (valid ? lane : 0);
+    const size_t b = static_cast<size_t>(base);
+
+    // E1a. Stage the input's event buckets and queue; the query buckets go
+    // to the output.
+    stage_in(st.elt, LS, ptr<const uint32_t>(a, P_SIN + S_EBLT) + b * R, rows, R, dR, lane);
+    stage_in(st.esig, SS, ptr<const uint32_t>(a, P_SIN + S_EBSIG) + b * RO, rows, RO, dRO,
+             lane);
+    stage_queue(a, P_SIN, st, b, rows, E, dE, lane);
+    copy_query_buckets(a, b, rows, lane);
+    cp_async_wait_all();
+    __syncwarp();
+
+    // E1b. One row per lane, on the stage.
+    if (valid) {
+      uint32_t* kq = st.key + lane * QS;
+      int32_t* oq = st.org + lane * QS;
+      int32_t* tq = st.txp + lane * QS;
+
+      bool quiet;
+      const uint8_t fl = quiet_leave(a, r, t1, &quiet);
+      const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
+      const bool external = fl & 8;
+      const bool active = (fl & 1) && !(fl & 2) && !quiet;
+
+      Bucket evb{st.elt + lane * LS, st.esig + lane * SS,
+                 ptr<const uint32_t>(a, P_SIN + S_EFLOOR)[r], R, O, exact};
+      Bucket qub{o_qlt + static_cast<size_t>(r) * R, o_qsig + static_cast<size_t>(r) * RO,
+                 ptr<const uint32_t>(a, P_SIN + S_QFLOOR)[r], R, O, exact};
+      const uint32_t eclock0 = ptr<const uint32_t>(a, P_SIN + S_ECLOCK)[r];
+      const uint32_t qclock0 = ptr<const uint32_t>(a, P_SIN + S_QCLOCK)[r];
+      uint32_t eclock = eclock0, qclock = qclock0;
+      int delivered = ptr<const int32_t>(a, P_SIN + S_EDELIV)[r];
+
+      // 1. Deliver the oldest entry the buckets do not hold (the minimum
+      //    key over q_fresh, lowest slot on ties), looked up before any
+      //    append.
+      uint32_t fresh = 0, del_key = 0xFFFFFFFFu;
+      int del_slot = 0;
+      for (int e = 0; e < E; ++e) {
+        const uint32_t k = kq[e];
+        if (!active || k == 0u) continue;
+        if ((k & 1u) ? qub.rejects(k, oq[e]) : evb.rejects(k, oq[e])) continue;
+        fresh |= 1u << e;
+        if (k < del_key) {
+          del_key = k;
+          del_slot = e;
+        }
+      }
+      const bool has = del_key != 0xFFFFFFFFu;
+      const uint32_t wkey = has ? del_key : 0u;
+      const int worig = has ? oq[del_slot] : 0;
+      const bool is_q = wkey & 1u;
+      const uint32_t lt = wkey >> 9;
+      if (has && !is_q) {
+        evb.apply(wkey, worig);
+        delivered += 1;
+        eclock = max(eclock, lt + 1u);
+      }
+      if (has && is_q) {
+        qub.apply(wkey, worig);
+        qclock = max(qclock, lt + 1u);
+        query_tally(a, r, worig, wkey, me, external, t1);
+      }
+
+      // 2. The top-PE entries by remaining budget (max value, lowest slot
+      //    on ties), sent to the live peers of the sweep's columns in the
+      //    post-SWIM view; each valid entry's budget falls by the legs.
+      int order[MAXPE], mtx[MAXPE];
+      uint32_t taken = 0;
+      for (int q = 0; q < PE; ++q) {
+        int best = -1, bv = 0;
+        for (int e = 0; e < E; ++e) {
+          if ((taken >> e) & 1u) continue;
+          const int v = tq[e] >> 1;
+          if (best < 0 || v > bv) {
+            best = e;
+            bv = v;
+          }
+        }
+        taken |= 1u << best;
+        order[q] = best;
+        mtx[q] = bv;
+      }
+      uint32_t peer = 0;
+      int n_peer = 0;
+      const size_t kb = static_cast<size_t>(r) * K;
+      for (int f = 0; f < FAN; ++f) {
+        const uint32_t s = o_meta[kb + s_ecol[f]] & 3u;
+        if (active && (s == ALIVE || s == SUSPECT)) {
+          peer |= 1u << f;
+          ++n_peer;
+        }
+      }
+      uint32_t vbits = 0;
+      int n_retx = 0;
+      for (int q = 0; q < PE; ++q) {
+        const int e = order[q];
+        const uint32_t key = kq[e];
+        const bool ok = key > 0u && mtx[q] > 0 && active;
+        const size_t xq = static_cast<size_t>(r) * PE + q;
+        xkey[xq] = key;
+        xorig[xq] = oq[e];
+        const int sends = ok ? n_peer : 0;
+        if (ok) vbits |= 1u << q;
+        n_retx += sends;
+        tq[e] = max(mtx[q] - sends, 0) * 2 + (tq[e] & 1);
+      }
+      xflags[r] = static_cast<uint16_t>(peer | (vbits << 8));
+      // 3. Retire spent entries that are not still fresh (q_fresh less the
+      //    one delivered now).
+      const uint32_t still = has ? fresh & ~(1u << del_slot) : fresh;
+      for (int e = 0; e < E; ++e)
+        if ((tq[e] >> 1) <= 0 && !((still >> e) & 1u)) kq[e] = 0u;
+
+      tl.add(C_SRETX, n_retx);
+      if (sentinel) tl.add(C_SMONO, (eclock < eclock0) + (qclock < qclock0));
+      store_serf_scalars(a, r, eclock, qclock, evb, qub, delivered);
     }
+    __syncwarp();
+
+    // E1c. The staged queue and event buckets out.
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBLT) + b * R, st.elt, LS, rows, R, dR, lane);
+    stage_out(ptr<uint32_t>(a, P_SOUT + S_EBSIG) + b * RO, st.esig, SS, rows, RO, dRO,
+              lane);
+    unstage_queue(a, st, b, rows, E, dE, lane);
+    __syncwarp();
+  }
+  tl.flush(smem, lane);
+  block_flush(smem, ptr<int>(a, P_CNT));
+}
+
+__global__ void __launch_bounds__(SWARPS * 32) k_ref_intake(TickArgs a, int tile_rows) {
+  extern __shared__ uint32_t s_dyn[];
+  __shared__ int smem[N_CNT];
+  __shared__ int s_goff[MAXFAN];  // off[] of the sweep's columns
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  for (int k = threadIdx.x; k < N_CNT; k += blockDim.x) smem[k] = 0;
+  if (threadIdx.x < MAXFAN)
+    s_goff[threadIdx.x] = static_cast<int>(threadIdx.x) < a.i[I_FAN]
+        ? ptr<const int32_t>(a, P_OFF)[ptr<const int64_t>(a, P_EVCOLS)[threadIdx.x]] : 0;
+  __syncthreads();
+  Tally tl;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int E = a.i[I_E], R = a.i[I_R], O = a.i[I_O];
+  const int RO = R * O, nc = a.i[I_FAN] * a.i[I_PE];
+  const bool exact = a.i[I_EXACT_SIG] != 0;
+  const bool chaos = a.i[I_CHAOS] != 0;
+  const int t1 = t + 1;
+  const int QS = E | 1;
+  const uint32_t dE = div_of(E);
+  uint32_t* o_elt = ptr<uint32_t>(a, P_SOUT + S_EBLT);
+  uint32_t* o_esig = ptr<uint32_t>(a, P_SOUT + S_EBSIG);
+  uint32_t* o_qlt = ptr<uint32_t>(a, P_SOUT + S_QBLT);
+  uint32_t* o_qsig = ptr<uint32_t>(a, P_SOUT + S_QBSIG);
+  const SerfStage st = serf_stage(s_dyn, wib, tile_rows, E, R, O, nc);
+
+  const int row0 = a.i[I_ROW0], row_end = row0 + a.i[I_ROWS];
+  const int ntiles = (a.i[I_ROWS] + tile_rows - 1) / tile_rows;
+  for (int tile = blockIdx.x * SWARPS + wib; tile < ntiles; tile += gridDim.x * SWARPS) {
+    const int base = row0 + tile * tile_rows;
+    const int rows = min(tile_rows, row_end - base);
+    const bool valid = lane < rows;
+    const int r = base + (valid ? lane : 0);
+    const size_t b = static_cast<size_t>(base);
+
+    // E2a. Stage the queue E1 wrote; expiry and reap while it flies.
+    stage_queue(a, P_SOUT, st, b, rows, E, dE, lane);
+    expire_and_reap(a, b, rows, lane, t);
+    cp_async_wait_all();
+    __syncwarp();
+
+    // E2b. One row per lane: the intake against E1's buckets.
+    if (valid) {
+      const Terms me = chaos ? terms_at(a, r) : Terms{0, 0, 0, 1.0f, 1.0f};
+      const size_t rr = static_cast<size_t>(r);
+      const Bucket evb{o_elt + rr * R, o_esig + rr * RO,
+                       ptr<const uint32_t>(a, P_SOUT + S_EFLOOR)[r], R, O, exact};
+      const Bucket qub{o_qlt + rr * R, o_qsig + rr * RO,
+                       ptr<const uint32_t>(a, P_SOUT + S_QFLOOR)[r], R, O, exact};
+      int queued = 0, dropped = 0;
+      serf_intake(a, r, lane, s_goff, ptr<const float>(a, P_EVUDROP), serf_up(a, r, t1), me,
+                  evb, qub, st.key + lane * QS, st.org + lane * QS, st.txp + lane * QS,
+                  st.ck, st.co, queued, dropped);
+      tl.add(C_SQUEUED, queued);
+      tl.add(C_SDROPPED, dropped);
+    }
+    __syncwarp();
+
+    // E2c. The staged queue out.
+    unstage_queue(a, st, b, rows, E, dE, lane);
     __syncwarp();
   }
   tl.flush(smem, lane);
@@ -2663,12 +3030,14 @@ extern "C" int gossip_slo_fold(const TickArgs* a, const int* words, int nwords,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D's tiles take as many rows (up to 32) as its stage holds at this
-// configuration's queue and bucket widths; its dynamic shared memory is
-// SWARPS stages of that many rows. Resident blocks are counted at the
-// full stage, which no launch exceeds.
-extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
-  const void* fn = reinterpret_cast<const void*>(k_serf_post);
+// D's (and E1's and E2's) tiles take as many rows (up to 32) as its stage
+// holds at this configuration's queue and bucket widths; its dynamic
+// shared memory is SWARPS stages of that many rows. Resident blocks are
+// counted at the full stage, which no launch exceeds; each kernel asks
+// once (the statics of its own instance).
+template <void (*KERN)(TickArgs, int)>
+static int launch_serf_tiles(const TickArgs* a, void* stream) {
+  const void* fn = reinterpret_cast<const void*>(KERN);
   const int full = SWARPS * SERF_WARP_WORDS * 4;
   static const cudaError_t attr =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, full);
@@ -2684,8 +3053,20 @@ extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
   const int tiles = (n + rows - 1) / rows;
   const int grid = std::min(blocks, (tiles + SWARPS - 1) / SWARPS);
   const size_t bytes = static_cast<size_t>(SWARPS) * serf_warp_words(rows, E, R, O, nc) * 4;
-  k_serf_post<<<grid, SWARPS * 32, bytes, (cudaStream_t)stream>>>(*a, rows);
+  KERN<<<grid, SWARPS * 32, bytes, (cudaStream_t)stream>>>(*a, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gossip_serf_post(const TickArgs* a, void* stream) {
+  return launch_serf_tiles<k_serf_post>(a, stream);
+}
+
+extern "C" int gossip_ref_send(const TickArgs* a, void* stream) {
+  return launch_serf_tiles<k_ref_send>(a, stream);
+}
+
+extern "C" int gossip_ref_intake(const TickArgs* a, void* stream) {
+  return launch_serf_tiles<k_ref_intake>(a, stream);
 }
 
 // M runs its RMSE on ceil(S / 256) blocks, the first of the grid, and its

@@ -196,6 +196,7 @@ class Simulation:
 
     def __post_init__(self):
         layout_mod.validate(self.cfg, self.layout)
+        self.kernel = cuda_gossip.canonical_kernel(self.kernel)
         if self.mesh is not None:
             self._check_mesh()
         self.device = torch.device(self.device)
@@ -252,6 +253,7 @@ class Simulation:
 
     # -- what the driver steps (SerfSimulation overrides these) ----------
     _serf_plane = False
+    _variant = cuda_gossip.SWIM
     _step = staticmethod(swim.step_counted)
     _plain_tick = staticmethod(cuda_gossip.plain_tick)
 
@@ -327,7 +329,7 @@ class Simulation:
                 sentinel=sentinel, kernel=self.kernel)
         if self.kernel == cuda_gossip.CUDA:
             return cuda_gossip.make_tick_kernel(
-                cfg, topo, serf_plane=self._serf_plane, sentinel=sentinel)
+                cfg, topo, variant=self._variant, sentinel=sentinel)
         plain, step = self._plain_tick, self._step
         if self.layout == layout_mod.PACKED:
             return lambda w, s, d, sched: plain(cfg, topo, w, s, d, sched,
@@ -549,6 +551,28 @@ class Simulation:
         if bool(on) != self.sentinel:
             self.sentinel = bool(on)
             self._tick_fn = self._make_tick_fn()
+
+    def set_kernel(self, kernel: str):
+        """Select the tick engine for the ticks that follow (reference
+        cluster.py:566-579): ``"cuda"`` (the CUDA tick kernel) or
+        ``"torch"`` (its plain version), with the reference's
+        ``"pallas"`` and ``"xla"`` taken as their aliases. The choice is
+        validated against the layout and the device (every device of the
+        mesh) and raises without a change where it does not fit. The
+        tick, the metrics, the armed lens's row writer and, under a mesh,
+        the sharded runner are rebound; the state, the generators, the
+        counters and the lens's recorded rows stay as they are, so a run
+        that toggles is the run that does not."""
+        kernel = cuda_gossip.canonical_kernel(kernel)
+        devices = (self.mesh.unique_devices() if self.mesh is not None
+                   else [self.device])
+        for dev in devices:
+            cuda_gossip.validate_kernel(kernel, self.layout, dev)
+        self.kernel = kernel
+        self._tick_fn = self._make_tick_fn()
+        self._metrics_fn = self._make_metrics_fn()
+        if self._lens_ids:
+            self._lens_row = self._make_lens_row(self._lens_ids)
 
     def _check_sentinel(self, deltas):
         if not self.sentinel:
@@ -896,6 +920,7 @@ class SerfSimulation(Simulation):
     Simulation's, over the serf tick."""
 
     _serf_plane = True
+    _variant = cuda_gossip.SERF
     _step = staticmethod(serf.step_counted)
     _plain_tick = staticmethod(cuda_gossip.plain_serf_tick)
 
@@ -949,22 +974,8 @@ class SerfSimulation(Simulation):
         return self._to_dense()
 
 
-# The configuration of the reference's tick kernel that runs the oracle's
-# step: reachable there only through ``set_kernel("pallas")`` on
-# ReferenceSerfSimulation, and not ported (PERF.md's kernel table, B8).
-B8_UNPORTED = ("step_fn=serf.step_reference_counted inside the tick kernel "
-               "(consul_tpu/ops/pallas_gossip.py:145, B8)")
-
-
-def plain_reference_serf_tick(cfg: SimConfig, topo, world, packed, draws,
-                              sched=None, sentinel: bool = False):
-    """The pre-fusion tick on the packed layout:
-    ``unpack_state -> serf.step_reference_counted -> pack_state`` and the
-    stacked [26] int32 counters."""
-    state, cnt = serf.step_reference_counted(
-        cfg, topo, world, layout_mod.unpack_state(packed), draws,
-        sched=sched, sentinel=sentinel)
-    return layout_mod.pack_state(state), counters_mod.stack(cnt)
+# The pre-fusion tick on the packed layout (B8's plain version).
+plain_reference_serf_tick = cuda_gossip.plain_reference_serf_tick
 
 
 @dataclasses.dataclass
@@ -972,9 +983,14 @@ class ReferenceSerfSimulation(SerfSimulation):
     """SerfSimulation on the pre-fusion tick (``serf.step_reference_counted``,
     reference cluster.py:1161-1169): the event/query plane runs as its own
     sweep after the SWIM tick. The oracle the fused tick is held to, not a
-    production path. It runs as plain PyTorch (``kernel="torch"``), on the
-    card by default; ``kernel="cuda"`` raises, naming the configuration
-    that would run it there (B8, not ported), and a mesh raises too.
+    production path. Like every driver it runs on the card through the
+    CUDA tick kernel by default, there the pre-fusion variant (B8:
+    ``cuda_gossip.make_tick_kernel(..., variant="serf_reference")``, whose
+    launches A-C run the bare SWIM tick and E1 / E2 the event sweep);
+    ``kernel="torch"`` runs its plain version
+    (:func:`plain_reference_serf_tick`), and ``set_kernel`` switches
+    between them. A mesh raises: the sharded serf runner steps the fused
+    tick.
 
     ``draws`` maps the tick number to a :class:`serf.ReferenceSerfDraws`.
     By default the fused tick's numbers come from the simulation's
@@ -982,16 +998,11 @@ class ReferenceSerfSimulation(SerfSimulation):
     (so both see the same SWIM draws), and the event sweep's columns and
     loss draws from a second generator seeded from ``seed``."""
 
-    kernel: str = cuda_gossip.TORCH
-
+    _variant = cuda_gossip.SERF_REFERENCE
     _step = staticmethod(serf.step_reference_counted)
     _plain_tick = staticmethod(plain_reference_serf_tick)
 
     def __post_init__(self):
-        if self.kernel == cuda_gossip.CUDA:
-            raise ValueError(
-                "ReferenceSerfSimulation runs as plain PyTorch only: "
-                f"{B8_UNPORTED} is not ported; pass kernel='torch'")
         if self.mesh is not None:
             raise ValueError("ReferenceSerfSimulation runs on one device "
                              "(the sharded serf runner steps the fused tick)")

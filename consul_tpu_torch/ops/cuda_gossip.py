@@ -3,12 +3,15 @@
 Counterpart of ``consul_tpu/ops/pallas_gossip.py``: its one ``pallas_call``
 (``make_tick_kernel``, pallas_call at :145) fuses unpack -> tick -> pack
 over the packed state, for ``step_fn=swim.step_counted`` (the bare SWIM
-tick) or ``step_fn=serf.step_counted`` (the fused serf plane), each with
-or without a fault schedule and the invariant sentinel, on the sparse
-circulant view or the dense one (K = N - 1 <= 255). The port's kernel is
-``consul_tpu_torch/csrc/gossip_tick.cu``: three launches split at the
-tick's grid-wide read-after-write barriers (probe/sender, receive,
-push-pull/pack), in the serf variant a fourth (serf_post), and with a
+tick), ``step_fn=serf.step_counted`` (the fused serf plane) or
+``step_fn=serf.step_reference_counted`` (the pre-fusion serf oracle,
+B8), each with or without a fault schedule and the invariant sentinel,
+on the sparse circulant view or the dense one (K = N - 1 <= 255). The
+port's kernel is ``consul_tpu_torch/csrc/gossip_tick.cu``: three
+launches split at the tick's grid-wide read-after-write barriers
+(probe/sender, receive, push-pull/pack), in the serf variant a fourth
+(serf_post), in the pre-fusion serf variant two more instead (ref_send
+and ref_intake, the event sweep split at its one barrier), and with a
 schedule a first one (chaos_pre) that applies the churn edges and
 evaluates the schedule per row. The tick is bound by bytes, most of them
 [N, K] view rows and [N, E] / [N, R, O] serf rows, so every launch but
@@ -30,8 +33,10 @@ gathers it with XLA in its chunk scan, ``consul_tpu/obs/lens.py:88``);
 its plain version is ``obs/lens.snapshot_packed``.
 
 Beside the kernel sit its plain PyTorch versions, :func:`plain_tick`
-(``unpack -> swim.step_counted -> pack``) and :func:`plain_serf_tick`
-(``unpack_state -> serf.step_counted -> pack_state``), which the CPU tests
+(``unpack -> swim.step_counted -> pack``), :func:`plain_serf_tick`
+(``unpack_state -> serf.step_counted -> pack_state``) and
+:func:`plain_reference_serf_tick` (the same through
+``serf.step_reference_counted``), which the CPU tests
 hold against the reference and which ``chip_smoke.py`` holds the kernel
 against on the card. A plain version is chosen only by an explicit
 ``kernel="torch"``; the kernel wrapper raises on anything it does not
@@ -39,9 +44,10 @@ take (a CPU tensor, K > 255, a wrong dtype or shape) and never falls
 back.
 
 Build: ``nvcc`` into a shared library with a plain C interface, loaded
-with ``ctypes``, compiled at first use into ``build/consul_tpu_torch/``
-beside the package (the file name carries a hash of the source, so an
-edited source rebuilds). Nothing is built or loaded at import.
+with ``ctypes``, compiled at first use into ``utils/compile_cache``'s
+directory (by default ``build/consul_tpu_torch/`` beside the package;
+the file name carries a hash of the source, so an edited source
+rebuilds). Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -65,20 +71,30 @@ from consul_tpu_torch.models import serf, swim
 from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import topology
 from consul_tpu_torch.ops.topology import Topology
-from consul_tpu_torch.utils import metrics
+from consul_tpu_torch.utils import compile_cache, metrics
 
 TORCH = "torch"
 CUDA = "cuda"
 KERNELS = (TORCH, CUDA)
+# The reference's engine names, taken as aliases (Simulation.set_kernel,
+# the CLI's --kernel).
+KERNEL_ALIASES = {"pallas": CUDA, "xla": TORCH}
+
+# The tick kernel's variants: the bare SWIM tick (B1-B3, B5), the fused
+# serf tick (B4, B6) and the pre-fusion serf tick (B8).
+SWIM, SERF, SERF_REFERENCE = "swim", "serf", "serf_reference"
+VARIANTS = (SWIM, SERF, SERF_REFERENCE)
 
 # Kernel launches on the card since the last reset, by launch stage
-# (serf_post runs in the serf variant only, chaos_pre in ticks with a
+# (serf_post runs in the serf variant only, ref_send and ref_intake (E1,
+# E2) in the pre-fusion serf variant only, chaos_pre in ticks with a
 # fault schedule; metrics is launch M, once per tick with metrics on;
 # lens is launch L, once per tick with the node lens armed).
 # Incremented only where a stage is launched; chip_smoke.py zeroes it
 # before it drives a main path and reads it after.
 LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0, "pushpull": 0,
-            "serf_post": 0, "metrics": 0, "lens": 0}
+            "serf_post": 0, "ref_send": 0, "ref_intake": 0, "metrics": 0,
+            "lens": 0}
 # The sharded call's launches (B7, ShardedTickKernel), by stage, beside
 # LAUNCHES (which counts them too), and its cross-group SLO folds.
 SHARDED_LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0,
@@ -86,7 +102,6 @@ SHARDED_LAUNCHES = {"chaos_pre": 0, "probe_send": 0, "receive": 0,
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gossip_tick.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "consul_tpu_torch")
 
 # Limits of the kernel's per-thread arrays (gossip_tick.cu).
 _MAXD, _MAXW, _MAXS, _MAXFAN, _MAXP = 16, 64, 8, 8, 7
@@ -119,7 +134,7 @@ _PTRS = (
     + ["sin_" + str(k) for k in range(_SERF_LEAVES)]
     + ["sout_" + str(k) for k in range(_SERF_LEAVES)]
     + ["u_resp", "relay_u1", "relay_u2", "relay_cols", "x_flags", "x_key",
-       "x_orig"]
+       "x_orig", "ev_cols", "ev_u_drop"]
     + list(_SCHED_LEAVES)
     + ["u_pp", "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx",
        "c_qrx", "slo"]
@@ -191,7 +206,7 @@ _INTS = ("n", "k", "s", "d", "w", "wd", "ic", "fan", "p", "tx_limit",
          "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max",
          "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig",
          "chaos", "sentinel", "np", "nl", "nc", "nd", "dense", "row0", "rows",
-         "slo_defer")
+         "slo_defer", "sref")
 # Pointers to a shard's own [rows, ...] tensors, passed as row origins
 # (gossip_tick.cu, the sharded call): every leaf of the state but t, the
 # per-row draws, the per-row scratch and the schedule's node masks.
@@ -203,8 +218,8 @@ _ROW_PTRS = frozenset(
     + [f"sin_{k}" for k in range(_SERF_LEAVES)]
     + [f"sout_{k}" for k in range(_SERF_LEAVES)]
     + ["u_resp", "relay_u1", "relay_u2", "x_flags", "x_key", "x_orig",
-       "part_side", "ll_a", "ll_b", "cw_mask", "dg_mask", "u_pp", "c_flags",
-       "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx", "c_qrx"])
+       "ev_u_drop", "part_side", "ll_a", "ll_b", "cw_mask", "dg_mask", "u_pp",
+       "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx", "c_qrx"])
 assert _ROW_PTRS <= set(_PTRS)
 _ROW_COLS = tuple(sorted(_PTRS.index(p) for p in _ROW_PTRS))
 # The mirrors each launch needs filled before it runs under a mesh (with a
@@ -257,6 +272,12 @@ class _LensArgs(ctypes.Structure):
                 ("i", ctypes.c_int32 * len(_LINTS))]
 
 
+def canonical_kernel(kernel: str) -> str:
+    """``kernel`` with the reference's names mapped to the port's
+    (``"pallas"`` -> ``"cuda"``, ``"xla"`` -> ``"torch"``)."""
+    return KERNEL_ALIASES.get(kernel, kernel)
+
+
 def validate_kernel(kernel: str, layout: str, device=None) -> None:
     """Reject invalid engine selections up front: the CUDA kernel is
     packed-native and runs only on a CUDA device."""
@@ -283,6 +304,14 @@ def tick_hbm_bytes_per_node(state, world=None, sched=None) -> float:
     return sum(layout_mod.np_size_bytes(x) for x in leaves) / float(n)
 
 
+def sweep_payload_bytes_per_node(cfg: SimConfig) -> float:
+    """The pre-fusion tick's (B8's) bytes per node beyond the state
+    contract: the event sweep's payload (flags, peel keys and origins)
+    that E1 writes and E2 reads back across the grid-wide barrier
+    between them."""
+    return 2.0 * (2 + 8 * cfg.serf.piggyback_events)
+
+
 # The tick's launch stages (every launch but M and L).
 STAGES = tuple(k for k in LAUNCHES if k not in ("metrics", "lens"))
 
@@ -307,6 +336,8 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
     if stage not in STAGES:
         raise ValueError(f"unknown launch {stage!r}; expected one of {STAGES}")
     serf_plane = isinstance(state, serf.SerfState)
+    # The pre-fusion serf tick (B8) takes the oracle's draws.
+    reference = isinstance(draws, serf.ReferenceSerfDraws)
     sw, sd = (state.swim, draws.swim) if serf_plane else (state, draws)
     sched = chaos_mod.or_none(sched)
     chaos = sched is not None
@@ -352,9 +383,14 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
         if serf_plane:
             q = state.q_acks.shape[1]
             pe = cfg.serf.piggyback_events
-            rd += (row_bytes(state.ev_key) + row_bytes(state.ev_origin)
-                   + row_bytes(state.ev_tx) + 8 * q)
-            wr += 2 + 4 * pe + 4 * pe + 8 * q
+            # The query tallies copied to the output; in the fused tick
+            # also the pre-tick peel of the queue and its payload.
+            rd += 8 * q
+            wr += 8 * q
+            if not reference:
+                rd += (row_bytes(state.ev_key) + row_bytes(state.ev_origin)
+                       + row_bytes(state.ev_tx))
+                wr += 2 + 4 * pe + 4 * pe
         return rd + wr
 
     if stage == "receive":
@@ -370,17 +406,48 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
               + (8 * k + 8) / n)
         return rd + 3 * u16 + u32 + 2             # view out, own_inc
 
+    pe = cfg.serf.piggyback_events
+    queue = ("ev_key", "ev_origin", "ev_tx", "ev_pending")
+    buckets = ("ev_bkt_lt", "ev_bkt_sig", "q_bkt_lt", "q_bkt_sig", "ev_floor",
+               "q_floor")
+    if stage in ("ref_send", "ref_intake"):
+        if not reference:
+            return 0.0
+        rf = draws.relay_u1.shape[1]
+        if stage == "ref_send":
+            # E1: the queue, the dedup buckets and floors, the clocks, the
+            # delivered count, the responder bit and the leave tick read
+            # and written; the row's flags (and terms), the post-SWIM
+            # status of the sweep's fan columns and the tally draws read;
+            # the flags and the payload (flags, peel keys and origins)
+            # written.
+            rw = sum(row_bytes(getattr(state, f)) for f in queue + buckets + (
+                "clock", "event_clock", "query_clock", "ev_delivered",
+                "q_responder", "leave_at"))
+            rd = (rw + (1 + 20 if chaos else 1) + 2 * fan + 4 + 8 * rf
+                  + (8 * fan + 8 * rf) / n)
+            return rd + rw + 1 + 2 + 4 * pe + 4 * pe
+        # E2: the queue read and written; E1's buckets and floors, the
+        # senders' payloads, the row's flags (and terms), leave tick and
+        # loss draws read; the open queries and deadlines and down_since
+        # (with C's final meta row) read and written.
+        rw = sum(row_bytes(getattr(state, f)) for f in queue + (
+            "q_open_key", "q_deadline", "down_since"))
+        rd = (rw + sum(row_bytes(getattr(state, f)) for f in buckets)
+              + (1 + 20 if chaos else 1) + 4 + 2 + 4 * pe + 4 * pe + 4 * fan
+              + u16 + 8 * fan / n)
+        return rd + rw
+
     # serf_post: the serf leaves it reads and rewrites, the row's flags
     # (and terms), the senders' payloads, the intake and tally draws, and
     # C's final meta row.
-    if not serf_plane:
+    if not serf_plane or reference:
         return 0.0
     keep = ("leave_at", "ev_key", "ev_origin", "ev_tx", "ev_pending",
             "ev_bkt_lt", "ev_bkt_sig", "q_bkt_lt", "q_bkt_sig", "ev_floor",
             "q_floor", "clock", "event_clock", "query_clock", "ev_delivered",
             "q_responder", "q_open_key", "q_deadline", "down_since")
     rw = sum(row_bytes(getattr(state, f)) for f in keep)
-    pe = cfg.serf.piggyback_events
     rf = draws.relay_u1.shape[1]
     rd = (rw + (1 + 20 if chaos else 1) + 2 + 4 * pe + 4 * pe + 4 * fan + 4
           + 8 * rf + u16 + 8 * rf / n)
@@ -420,7 +487,8 @@ def build() -> BuildInfo:
             return _LIB_INFO
         src = open(SOURCE, "rb").read()
         tag = hashlib.sha256(src).hexdigest()[:12]
-        out = os.path.join(BUILD_DIR, f"libgossip_tick_{tag}.so")
+        build_dir = compile_cache.build_dir()
+        out = os.path.join(build_dir, f"libgossip_tick_{tag}.so")
         t0 = time.perf_counter()
         log = ""
         compiled = not os.path.exists(out)
@@ -428,7 +496,7 @@ def build() -> BuildInfo:
             tracer = obs_trace.get_tracer()
             start_us = tracer.now_us()
             nvcc = _nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
+            os.makedirs(build_dir, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
@@ -440,10 +508,12 @@ def build() -> BuildInfo:
             os.replace(tmp, out)
             tracer.complete("cuda.build", start_us, tracer.now_us() - start_us,
                             cat="cuda", args={"library": os.path.basename(out)})
+        compile_cache.record(hit=not compiled)
         seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(out)
         for name in ("gossip_chaos_pre", "gossip_probe_send", "gossip_receive",
-                     "gossip_pushpull", "gossip_serf_post"):
+                     "gossip_pushpull", "gossip_serf_post", "gossip_ref_send",
+                     "gossip_ref_intake"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_TickArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -497,6 +567,17 @@ def plain_serf_tick(cfg: SimConfig, topo: Topology, world, packed, draws,
     return layout_mod.pack_state(state), counters_mod.stack(cnt)
 
 
+def plain_reference_serf_tick(cfg: SimConfig, topo: Topology, world, packed,
+                              draws, sched=None, sentinel: bool = False):
+    """The plain PyTorch version of the pre-fusion serf variant (B8):
+    ``unpack_state -> serf.step_reference_counted(sched, sentinel) ->
+    pack_state`` and the stacked [26] int32 counters."""
+    state, cnt = serf.step_reference_counted(
+        cfg, topo, world, layout_mod.unpack_state(packed), draws,
+        sched=sched, sentinel=sentinel)
+    return layout_mod.pack_state(state), counters_mod.stack(cnt)
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -515,13 +596,22 @@ class TickKernel:
     draws, sched=None) -> (packed, counters[26] int32)``, all on one CUDA
     device. ``sched`` is a fault schedule (None or empty: none), whose
     ticks need ``draws.u_pp``; ``sentinel=True`` adds the invariant
-    tallies. With ``serf_plane=True`` it is the serf variant: ``packed``
-    is a ``SerfState`` whose SWIM plane is packed and ``draws`` a
-    ``serf.SerfDraws`` (``draw_serf_tick(..., chaos=True)`` under a
-    schedule). The view is sparse or dense, K <= 255 either way."""
+    tallies. With ``serf_plane=True`` (``variant="serf"``) it is the serf
+    variant: ``packed`` is a ``SerfState`` whose SWIM plane is packed and
+    ``draws`` a ``serf.SerfDraws`` (``draw_serf_tick(..., chaos=True)``
+    under a schedule). ``variant="serf_reference"`` is the pre-fusion serf
+    tick (B8, ``serf.step_reference_counted``) over the same state, whose
+    draws are a ``serf.ReferenceSerfDraws``. The view is sparse or dense,
+    K <= 255 either way."""
 
     def __init__(self, cfg: SimConfig, topo: Topology, serf_plane: bool = False,
-                 sentinel: bool = False):
+                 sentinel: bool = False, variant: Optional[str] = None):
+        if variant is None:
+            variant = SERF if serf_plane else SWIM
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown tick variant {variant!r}; expected one "
+                             f"of {VARIANTS}")
+        serf_plane = variant != SWIM
         g = cfg.gossip
         if cfg.degree > 255:
             raise ValueError("the CUDA tick kernel covers views of K <= 255 "
@@ -560,6 +650,8 @@ class TickKernel:
                 raise ValueError(f"the CUDA tick kernel takes {what} in "
                                  f"[1, {hi}], got {val}")
         self.cfg, self.topo, self.serf = cfg, topo, serf_plane
+        self.variant = variant
+        self.reference = variant == SERF_REFERENCE
         self.sentinel = sentinel
         # This instance's launches (every stage), beside LAUNCHES: the
         # federation reads its LAN and WAN pools' apart.
@@ -647,8 +739,11 @@ class TickKernel:
         if self.serf:
             if not isinstance(packed, serf.SerfState):
                 raise TypeError("the serf variant takes a SerfState")
-            if not isinstance(draws, serf.SerfDraws):
-                raise TypeError("the serf variant takes serf.SerfDraws")
+            want = serf.ReferenceSerfDraws if self.reference else serf.SerfDraws
+            if not isinstance(draws, want):
+                raise TypeError(f"the {self.variant} variant takes "
+                                f"serf.{want.__name__}, got "
+                                f"{type(draws).__name__}")
             sf = cfg.serf
             dts = serf.rest_dtypes(cfg)
             e, r, o, q = (sf.event_queue_slots, sf.seen_ring, sf.seen_width,
@@ -669,6 +764,10 @@ class TickKernel:
                                     ("relay_u2", f32, (n, rf)),
                                     ("relay_cols", i64, (rf,))):
                 _check(getattr(draws, name), "draws." + name, dt, shape, device)
+            if self.reference:
+                fan = g.gossip_nodes
+                _check(draws.ev_cols, "draws.ev_cols", i64, (fan,), device)
+                _check(draws.ev_u_drop, "draws.ev_u_drop", f32, (n, fan), device)
             packed, draws = packed.swim, draws.swim
         spec = (
             ("t", torch.int32, ()), ("flags", u8, (n,)), ("own_inc", u16, (n,)),
@@ -757,7 +856,7 @@ class TickKernel:
                    + list(scratch.values()))
         if not self.serf:
             out = sw_out
-            tensors += [None] * (2 * _SERF_LEAVES + 7)
+            tensors += [None] * (2 * _SERF_LEAVES + 9)
         else:
             pe = cfg.serf.piggyback_events
             s_in = list(packed[1:])
@@ -770,7 +869,9 @@ class TickKernel:
             scratch.update(xs)
             tensors += (s_in + list(out[1:])
                         + [draws.u_resp, draws.relay_u1, draws.relay_u2,
-                           draws.relay_cols] + list(xs.values()))
+                           draws.relay_cols] + list(xs.values())
+                        + ([draws.ev_cols, draws.ev_u_drop] if self.reference
+                           else [None, None]))
         if sched is None:
             tensors += [None] * (len(_SCHED_LEAVES) + 9)
         else:
@@ -809,7 +910,7 @@ class TickKernel:
                 sched.part_start.shape[0], sched.ll_start.shape[0],
                 sched.cw_start.shape[0], sched.dg_start.shape[0])),
             int(self.topo.dense), row0, self.cfg.n if rows is None else rows,
-            int(slo_defer)]
+            int(slo_defer), int(self.reference)]
         ints[_INTS.index("rf")] = self._relay_factor(sched)
         args.i[:] = [int(x) for x in ints]
         args.f[:] = [float(x) for x in self._flts]
@@ -820,7 +921,10 @@ class TickKernel:
         stages += [("probe_send", _LIB.gossip_probe_send),
                    ("receive", _LIB.gossip_receive),
                    ("pushpull", _LIB.gossip_pushpull)]
-        if self.serf:
+        if self.reference:
+            stages += [("ref_send", _LIB.gossip_ref_send),
+                       ("ref_intake", _LIB.gossip_ref_intake)]
+        elif self.serf:
             stages.append(("serf_post", _LIB.gossip_serf_post))
         return stages
 
@@ -855,8 +959,8 @@ class TickKernel:
         sched = chaos_mod.or_none(sched)
         if device.type != "cuda":
             raise ValueError(f"the CUDA tick kernel takes CUDA tensors, got "
-                             f"{device}; use plain_tick or plain_serf_tick "
-                             "for the plain version")
+                             f"{device}; use plain_tick, plain_serf_tick or "
+                             "plain_reference_serf_tick for the plain version")
         self._check_inputs(world, packed, draws, device, sched)
         build()
         out, scratch, tensors = self._buffers(world, packed, draws, device,
@@ -871,11 +975,14 @@ class TickKernel:
 
 def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
                      serf_plane: bool = False,
-                     sentinel: bool = False) -> TickKernel:
+                     sentinel: bool = False,
+                     variant: Optional[str] = None) -> TickKernel:
     """The counterpart of pallas_gossip.make_tick_kernel: the SWIM tick,
-    or with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant;
-    a fault schedule per call, the sentinel with ``sentinel=True``."""
-    return TickKernel(cfg, topo, serf_plane, sentinel)
+    or with ``serf_plane=True`` its ``step_fn=serf.step_counted`` variant,
+    or with ``variant="serf_reference"`` its
+    ``step_fn=serf.step_reference_counted`` one (B8); a fault schedule per
+    call, the sentinel with ``sentinel=True``."""
+    return TickKernel(cfg, topo, serf_plane, sentinel, variant)
 
 
 def _row_views(tree, n: int, row0: int, rows: int, device):

@@ -11,10 +11,12 @@ from consul_tpu_torch.models.counters import SENTINEL_FIELDS, violation_mask
 from consul_tpu_torch.runtime.harness import (
     Preempted, RunReport, diagnostic_dump_path, hang_dump_path, run_resilient)
 from consul_tpu_torch.runtime.policy import CheckpointPolicy, SignalTrap
-from consul_tpu_torch.runtime.watchdog import HeartbeatMonitor, InitWatchdog
+from consul_tpu_torch.runtime.watchdog import (
+    FailoverRefused, HeartbeatMonitor, InitWatchdog, with_failover)
 
 __all__ = [
     "CheckpointPolicy",
+    "FailoverRefused",
     "HeartbeatMonitor",
     "InitWatchdog",
     "Preempted",
@@ -26,4 +28,5 @@ __all__ = [
     "hang_dump_path",
     "run_resilient",
     "violation_mask",
+    "with_failover",
 ]

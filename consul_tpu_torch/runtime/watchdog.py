@@ -19,8 +19,10 @@
   (``checkpoint.to_host``), since a wedged card cannot serve a copy after
   the fact.
 
-The reference's ``with_failover`` (retries, then a failover to the CPU)
-is not here: the port never falls back to the CPU (ROADMAP A20).
+- :func:`with_failover` retries an attempt on init-hang and fails over
+  to the next platform, as the reference's does, except that a failover
+  to the CPU raises :class:`FailoverRefused`: the port never falls back
+  to the CPU (ROADMAP A20).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import logging
 import subprocess
 import threading
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 log = logging.getLogger(__name__)
 
@@ -222,3 +224,65 @@ class HeartbeatMonitor:
                     log.warning("heartbeat on_hang callback failed",
                                 exc_info=True)
             return  # one-shot: a hang is terminal for this run
+
+
+class FailoverRefused(RuntimeError):
+    """``with_failover`` would have degraded to the CPU."""
+
+
+def with_failover(attempt: Callable[[str], dict],
+                  platforms: Sequence[str], *,
+                  max_retries: int = 1,
+                  sink=None):
+    """Run ``attempt(platform)`` (returning a dict with a ``status`` key)
+    with bounded retries on init-hang, failing over to the next platform
+    when a platform's retries are exhausted (reference
+    ``runtime/watchdog.with_failover``). Returns ``(result,
+    provenance)``::
+
+        {"platform":      the platform that produced the result,
+         "degraded_from": first platform given up on (None if primary),
+         "retries":       hang-triggered re-attempts,
+         "hang_wall_s":   wall seconds burned inside hangs,
+         "attempts":      [{"platform", "status", "wall_s",
+                            "blackbox"}, ...]}
+
+    Only INIT_HANG retries or fails over; a child that ran and crashed or
+    timed out while working is an answer and is returned as is. A
+    failover onto a ``"cpu"`` platform raises :class:`FailoverRefused`
+    (after counting the hang), where the reference degrades: the port
+    does not answer a card's question on the CPU. A run asked of the CPU
+    from the start (``platforms[0] == "cpu"``) is not a failover. ``sink``
+    (telemetry.Sink) counts hangs and failovers."""
+    prov = {"platform": None, "degraded_from": None, "retries": 0,
+            "hang_wall_s": 0.0, "attempts": []}
+    result = None
+    for i, plat in enumerate(platforms):
+        if i > 0 and str(plat).split(":")[0] == "cpu":
+            raise FailoverRefused(
+                f"{platforms[i - 1]!r} hung at init {prov['retries']} "
+                f"time(s); failing over to {plat!r} is refused: the port "
+                "never falls back to the CPU")
+        for _ in range(max_retries + 1):
+            result = attempt(plat)
+            prov["attempts"].append({
+                "platform": plat,
+                "status": result.get("status"),
+                "wall_s": result.get("wall_s"),
+                "blackbox": result.get("blackbox"),
+            })
+            if result.get("status") != INIT_HANG:
+                prov["platform"] = plat
+                return result, prov
+            prov["hang_wall_s"] += float(result.get("wall_s") or 0.0)
+            if sink is not None:
+                sink.incr_counter("sim.runtime.backend_hangs", 1)
+            prov["retries"] += 1
+        # Retries exhausted on this platform: degrade to the next.
+        if i + 1 < len(platforms):
+            if prov["degraded_from"] is None:
+                prov["degraded_from"] = plat
+            if sink is not None:
+                sink.incr_counter("sim.runtime.degraded_failovers", 1)
+    prov["platform"] = platforms[-1] if platforms else None
+    return result, prov

@@ -1,0 +1,188 @@
+"""The port's CLI (``python -m consul_tpu_torch.cli``; reference
+``consul_tpu/cli.py:709-1654``), on the CPU (``--device cpu --kernel
+torch``):
+
+- the port's parser takes every flag the reference's ``run``, ``trace``,
+  ``chaos``, ``gameday``, ``serve-bench`` and ``prewarm`` parsers define;
+- ``run`` at n = 256 prints the counters of ``run_resilient`` driven
+  directly, and its report carries the keys of the reference CLI's (one
+  in-process run of it at n = 64);
+- ``chaos --sweep`` prints the Pareto table of ``sim.sweep`` driven
+  directly; ``gameday`` at ``tests/test_torch_gameday.py``'s ``_tiny``
+  shape prints ``run_gameday``'s verdict;
+- a SIGTERM drill in a subprocess: ``run --ckpt-dir`` killed after its
+  first checkpoint exits 75, the rerun resumes and ends in the
+  uninterrupted run's state (``--state-digest``);
+- ``--budget`` / ``--layout auto`` exit 2 naming A12b, ``--elastic`` and a
+  sweep over a mesh name A13, ``--kernel cuda`` without a card exits 2.
+"""
+
+import glob
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+from consul_tpu_torch import cli
+from consul_tpu_torch.chaos import sweep as sweep_mod
+from consul_tpu_torch.config import SimConfig
+from consul_tpu_torch.models import cluster
+from consul_tpu_torch.runtime import run_resilient
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = ["--device", "cpu", "--kernel", "torch"]
+VERBS = ("run", "trace", "chaos", "gameday", "serve-bench", "prewarm")
+
+
+def _options(parser, verb):
+    sub = next(a for a in parser._actions
+               if isinstance(a, __import__("argparse")._SubParsersAction))
+    return {s for a in sub.choices[verb]._actions for s in a.option_strings}
+
+
+def _main(capsys, *args):
+    rc = cli.main([str(a) for a in args])
+    out = capsys.readouterr()
+    line = out.out.strip().splitlines()[-1] if out.out.strip() else None
+    return rc, (json.loads(line) if line else None), out.err
+
+
+@pytest.mark.parametrize("verb", VERBS)
+def test_parser_takes_every_reference_flag(verb):
+    from consul_tpu import cli as jcli
+
+    missing = _options(jcli.build_parser(), verb) - _options(
+        cli.build_parser(), verb)
+    assert not missing, missing
+
+
+def test_run_prints_run_resilient_counters(capsys):
+    rc, out, _ = _main(capsys, "run", "--n", 256, "--ticks", 48, "--chunk",
+                       16, "--seed", 3, *CPU)
+    assert rc == 0
+    sim = cluster.Simulation(SimConfig(n=256, view_degree=16), seed=3,
+                             device="cpu", kernel="torch")
+    report = run_resilient(sim, 48, chunk=16)
+    assert out["ticks"] == 48 and out["counters"] == report.counters
+    assert out["counters"]["probes_sent"] > 0
+
+
+def test_run_report_has_the_reference_keys(capsys):
+    from consul_tpu import cli as jcli
+
+    assert jcli.main(["run", "--n", "64", "--view-degree", "8", "--ticks",
+                      "8", "--chunk", "8", "--devices", "1"]) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rc, out, _ = _main(capsys, "run", "--n", 64, "--view-degree", 8,
+                       "--ticks", 8, "--chunk", 8, *CPU)
+    assert rc == 0
+    assert set(ref) <= set(out)
+    assert set(ref["counters"]) <= set(out["counters"])
+
+
+def test_chaos_sweep_equals_sim_sweep(capsys):
+    rc, out, _ = _main(capsys, "chaos", "--n", 256, "--sweep", 3,
+                       "--settle", 16, "--form-ticks", 16, "--chunk", 16,
+                       "--seed", 1, *CPU)
+    assert rc == 0
+    sim = cluster.Simulation(SimConfig(n=256, view_degree=16), seed=1,
+                             device="cpu", kernel="torch")
+    sim.run(16, chunk=16, with_metrics=False)
+    scens = sweep_mod.scenario_grid(256, 3)
+    rows = sim.sweep(scens, chunk=16, settle=16)
+    table = sweep_mod.pareto_table({"circulant": sweep_mod.family_sweep(
+        sim, scens, chunk=16, settle=16)})
+    assert out["families"] == ["circulant"]
+    assert out["pareto"] == json.loads(json.dumps(table))
+    assert [{k: v for k, v in r.items() if k != "bytes_per_tick_node"}
+            for r in out["pareto"][0]["scenarios"]] == [r["slo"] for r in rows]
+
+
+def test_gameday_prints_run_gamedays_verdict(capsys):
+    from consul_tpu_torch.gameday import GamedayConfig, run_gameday
+
+    shape = dict(n=128, view_degree=8, watchers=32, watch_queue=8,
+                 read_batch=64, warmup_ticks=32, ticks_per_round=16,
+                 steady_rounds=1, fault_rounds=2, heal_rounds=1,
+                 drain_rounds=2, dcn_islands=0)
+    rc, out, _ = _main(capsys, "gameday", *[
+        x for k, v in shape.items()
+        for x in ("--" + k.replace("_", "-"), v)], *CPU)
+    verdict = run_gameday(GamedayConfig(**shape, device="cpu",
+                                        kernel="torch"))
+    assert rc == (0 if verdict["pass"] else 1)
+    for f in ("pass", "lost_writes", "max_time_to_heal_ticks", "ledger",
+              "chaos", "drained", "phases", "watchers",
+              "watch_delivery_lag"):
+        assert out[f] == json.loads(json.dumps(verdict[f])), f
+
+
+def _cli(args, **kw):
+    return subprocess.Popen(
+        [sys.executable, "-m", "consul_tpu_torch.cli"] + [str(a) for a in args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        **kw)
+
+
+def _last_json(stdout):
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def test_sigterm_drill_exits_75_and_resumes_bit_equal(tmp_path):
+    base = ["run", "--n", 256, "--ticks", 768, "--chunk", 16,
+            "--state-digest", *CPU]
+    args = base + ["--ckpt-dir", tmp_path, "--ckpt-every-ticks", 64,
+                   "--ckpt-interval-s", 0]
+    whole = _cli(base)
+    proc = _cli(args)
+    t0 = time.monotonic()
+    while proc.poll() is None and time.monotonic() - t0 < 120:
+        if glob.glob(str(tmp_path / "*.ckpt")):
+            proc.send_signal(signal.SIGTERM)
+            break
+        time.sleep(0.02)
+    stdout, stderr = proc.communicate(timeout=120)
+    assert proc.returncode == 75, stderr[-2000:]
+    stopped = _last_json(stdout)
+    assert stopped["preempted"] and 0 < stopped["ticks_done"] < 768
+    again = _cli(args)
+    out, err = again.communicate(timeout=120)
+    assert again.returncode == 0, err[-2000:]
+    resumed = _last_json(out)
+    assert resumed["resumed_from_tick"] > 0
+    wout, werr = whole.communicate(timeout=120)
+    assert whole.returncode == 0, werr[-2000:]
+    assert resumed["state_digest"] == _last_json(wout)["state_digest"]
+
+
+@pytest.mark.parametrize("args, item", [
+    (["run", "--budget", "2GB"], "A12b"),
+    (["run", "--layout", "auto"], "A12b"),
+    (["chaos", "--layout", "auto"], "A12b"),
+    (["prewarm", "--layout", "auto"], "A12b"),
+    (["run", "--elastic"], "A13"),
+    (["chaos", "--elastic"], "A13"),
+    (["chaos", "--sweep", "2", "--n-dc", "2"], "A13"),
+], ids=["run-budget", "run-auto", "chaos-auto", "prewarm-auto",
+        "run-elastic", "chaos-elastic", "sweep-mesh"])
+def test_unported_flags_exit_2_naming_their_item(capsys, args, item):
+    rc, out, err = _main(capsys, *args, "--n", 64, *CPU)
+    assert rc == 2 and out is None
+    assert item in err
+
+
+def test_cuda_kernel_without_a_card_exits_2(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    for verb in ("run", "trace", "serve-bench", "gameday", "prewarm"):
+        rc, out, err = _main(capsys, verb, "--n", 64)
+        assert rc == 2 and out is None
+        assert "needs a CUDA device" in err, verb
+    rc, _, err = _main(capsys, "run", "--n", 64, "--device", "cpu",
+                       "--kernel", "pallas")
+    assert rc == 2 and "needs a CUDA device" in err

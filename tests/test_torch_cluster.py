@@ -174,7 +174,9 @@ def test_port_imports_no_jax_and_no_reference():
         ("agent", "__init__.py"), ("agent", "http.py"),
         ("gameday", "__init__.py"), ("gameday", "slo.py"),
         ("gameday", "goldens.py"), ("gameday", "harness.py"),
-        ("gameday", "swarm.py"))} <= rel
+        ("gameday", "swarm.py"), ("cli.py",),
+        ("utils", "prewarm.py"), ("utils", "compile_cache.py"),
+        ("analysis", "__init__.py"), ("analysis", "guards.py"))} <= rel
     # The asyncio front end landed with the game day (ROADMAP A19).
     assert os.path.join("consul_tpu_torch", "serving", "frontend.py") in rel
     for path in files:

@@ -324,6 +324,8 @@ def test_launch_bytes_match_hand_counts(n, view_degree):
         "pushpull": own + 4 + 4 * k + view_in + 4 * k + 2 * k
                     + (8 * k + 8) / n + 3 * 2 * k + 4 * k + 2,
         "serf_post": 0.0,
+        "ref_send": 0.0,
+        "ref_intake": 0.0,
     }
     assert got == pytest.approx(want, rel=1e-12)
     if k == 32:

@@ -372,5 +372,5 @@ def test_exchange_bytes_count_only_rows_across_groups():
         # written, once per other group.
         assert per == {"chaos_pre": 0.0, "probe_send": 50.0 * (g - 1),
                        "receive": 74.0 * (g - 1), "pushpull": 256.0 * (g - 1),
-                       "serf_post": 0.0}
+                       "serf_post": 0.0, "ref_send": 0.0, "ref_intake": 0.0}
         assert sum(per.values()) == 380 * (g - 1)

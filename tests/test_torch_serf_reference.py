@@ -14,7 +14,7 @@ split(k_ev, 3)``). At n = 256, K = 16:
   with a lossy link, the sentinel on and two relays: every serf leaf,
   every discrete SWIM leaf and all 26 counters equal on every tick,
   floats within ``torch_parity``'s tolerance;
-- ``ReferenceSerfSimulation(device="cpu")`` against the reference's over
+- ``ReferenceSerfSimulation(device="cpu", kernel="torch")`` against the reference's over
   two chunks from the reference's world, topology and state, fed its key
   ladder;
 - on the port alone, ``SerfSimulation`` against ``ReferenceSerfSimulation``
@@ -23,7 +23,9 @@ split(k_ev, 3)``). At n = 256, K = 16:
   per-node delivered counts, ``event_clock`` / ``ev_floor`` / ``q_floor``
   and the SLO counters equal, chaos off with a query and chaos on with
   events only;
-- ``kernel="cuda"`` raises, naming the unported configuration (B8).
+- ``kernel="cuda"`` (its default, B8) raises on the CPU; on a card the
+  oracle runs through it (``tests/test_torch_b8.py``, which imports no
+  JAX, holds that and B8's wrapper).
 """
 
 import jax
@@ -150,7 +152,7 @@ def test_reference_serf_simulation_matches_reference():
     base = jsim.base_key
     draws = tp.make_reference_serf_draws_fn(jcfg)
     tsim = tcluster.ReferenceSerfSimulation(
-        tcfg, seed=0, device="cpu",
+        tcfg, seed=0, device="cpu", kernel="torch",
         world=convert.world_from(tp.np_tree(jsim.world)),
         topo=convert.topology_from(tp.np_tree(jsim.topo)),
         state=convert.serf_state_from(tp.np_tree(jsim.state)),
@@ -200,7 +202,8 @@ def _converged(sim, keys):
 def test_fused_matches_oracle_observables(with_chaos):
     cfg = TSimConfig(n=FN, view_degree=16)
     fused = tcluster.SerfSimulation(cfg, seed=3, device="cpu", kernel="torch")
-    oracle = tcluster.ReferenceSerfSimulation(cfg, seed=3, device="cpu")
+    oracle = tcluster.ReferenceSerfSimulation(cfg, seed=3, device="cpu",
+                                              kernel="torch")
     fired = [_fire(sim) for sim in (fused, oracle)]
     assert fired[0] == fired[1]
     for sim in (fused, oracle):
@@ -280,8 +283,10 @@ def test_oracle_resume_is_bit_equal(tmp_path):
     from consul_tpu_torch.utils import checkpoint as ckpt_mod
 
     cfg = TSimConfig(n=FN, view_degree=16)
-    whole = tcluster.ReferenceSerfSimulation(cfg, seed=3, device="cpu")
-    resumed = tcluster.ReferenceSerfSimulation(cfg, seed=3, device="cpu")
+    whole = tcluster.ReferenceSerfSimulation(cfg, seed=3, device="cpu",
+                                             kernel="torch")
+    resumed = tcluster.ReferenceSerfSimulation(cfg, seed=3, device="cpu",
+                                               kernel="torch")
     for sim in (whole, resumed):
         _fire(sim)
         sim.run(16, chunk=16, with_metrics=False)
@@ -304,13 +309,23 @@ def test_oracle_resume_is_bit_equal(tmp_path):
 
 
 def test_cuda_kernel_refused():
+    """B8 is the oracle's default engine: ``kernel="cuda"`` (or its alias
+    ``"pallas"``) without a card raises and never falls back, as does a
+    mesh; ``kernel="torch"`` runs the plain version on the CPU."""
     cfg = TSimConfig(n=64, view_degree=8)
-    with pytest.raises(ValueError, match="step_reference_counted.*B8"):
-        tcluster.ReferenceSerfSimulation(cfg, device="cpu", kernel="cuda")
-    with pytest.raises(ValueError, match="not ported"):
-        tcluster.ReferenceSerfSimulation(cfg, device="cuda", kernel="cuda")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tcluster.ReferenceSerfSimulation(cfg, device="cpu")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tcluster.ReferenceSerfSimulation(cfg, device="cpu", kernel="pallas")
     with pytest.raises(ValueError, match="one device"):
-        tcluster.ReferenceSerfSimulation(cfg, device="cpu", mesh=["cpu"] * 2)
-    sim = tcluster.ReferenceSerfSimulation(cfg, seed=1, device="cpu")
+        tcluster.ReferenceSerfSimulation(cfg, device="cpu", kernel="torch",
+                                         mesh=["cpu"] * 2)
+    assert tcluster.ReferenceSerfSimulation.kernel == "cuda"
+    sim = tcluster.ReferenceSerfSimulation(cfg, seed=1, device="cpu",
+                                           kernel="xla")
     assert sim.kernel == "torch"
     assert isinstance(sim.draws(0), tserf.ReferenceSerfDraws)
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        sim.set_kernel("cuda")
+    assert sim.kernel == "torch"
+
