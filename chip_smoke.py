@@ -104,7 +104,23 @@ and the launch sets apart, beside B1 on the same state) and
 ``Simulation(mesh=["cuda:0"] * 4)``, which must converge on the
 one-device run's tick with bit-equal counters and state, in the
 one-device launch set a tick with no copy (wall and peak bytes beside
-the one-device run's). ``metrics_timing`` times launch M at 1M and on
+the one-device run's). The mesh's planes (ROADMAP A13) follow on 4
+shards of the card under both groupings, from the main path's state
+after its kill and held to the one-device ``Simulation`` of the same
+seed: ``sharded_raft`` (raft 16 x 5, group-sharded, and 6 x 5,
+replicated, under ``raft_parity``'s leader-kill drill for 256 ticks:
+every gossip and raft leaf and counter bit-equal, ms a tick with raft),
+``sharded_serving`` (1,024 NearestN queries at k = 8 through the
+two-stage top-k: ids equal, rtts within 1e-6 relative; a write batch
+and a flip: apply index and KV reads equal; batch ms and peak
+temporaries), ``sharded_sweep`` (lanes 0, 5, 10 and 15 of
+``bench_pareto``'s grid for 128 ticks: counters and lane states
+bit-equal, the simulation unmoved; ms a lane-tick) and
+``elastic_drill`` (``run_resilient`` preempted at tick 256 of 512 on 4
+shards, resumed on 2 shards and with ``elastic=True`` over the one
+card: the uninterrupted run's state digest, one reshard each).
+``federation_wan_timing`` takes the WAN pool's per-launch times from
+``launch_timing.py --states wan`` in a fresh process. ``metrics_timing`` times launch M at 1M and on
 the dense view (n = 256). The observability phases (ROADMAP A18):
 ``lens_parity`` holds launch L (the node-lens row, ``LensKernel``)
 against ``obs.lens.snapshot_packed`` bit for bit after every tick of a
@@ -172,6 +188,19 @@ SHARD_PLAIN_TICKS = 8
 # The dense variants held sharded (the plain runner's threads dominate
 # a dense window's time).
 SHARD_DENSE = ("dense", "dense_serf_chaos")
+# The mesh's planes (ROADMAP A13 items 1, 2, 3 and 5) at the main path's
+# shape on MESH_SHARDS shards of the one card: the raft shapes (R x P:
+# group-sharded over 4 shards, then replicated) and their drill's ticks,
+# the sweep's lanes of bench_pareto's grid and their ticks, the elastic
+# drill's ticks and its preemption tick, and its checkpoint directory.
+MESH_SHARDS = 4
+MESH_RAFT = ((16, 5), (6, 5))
+MESH_RAFT_TICKS = 256
+MESH_SWEEP_LANES = (0, 5, 10, 15)
+MESH_SWEEP_TICKS = 128
+MESH_ELASTIC_TICKS = 512
+MESH_ELASTIC_STOP = 256
+MESH_DIR = os.path.join("build", "mesh_planes")
 # B7's groupings of the shards on the one card: "device", the default
 # (every shard of the card in one group: one launch set, no exchange), and
 # "shard", one group per shard (what a mesh of one card per shard runs).
@@ -492,49 +521,65 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# Profiler sessions launch_breakdown opens before it gives up on a window
-# that records no kernel of ours. After sweep_main_path's lanes the next
-# two sessions of a process recorded no device event at all and the third
-# did; after the federation phases of a whole run ten in a row record none
-# (ROADMAP K1: cause not found).
-PROFILE_TRIES = 10
 # What launch_breakdown saw: sessions that recorded none of our kernels,
-# with the device events they did record (chip_smoke.py's last line
-# carries it beside the WAN row).
+# with the device events they did record (the WAN line carries it).
 PROFILE_MISSES = []
 
 
 def launch_breakdown(fn, reps: int):
     """Device ms of each CUDA kernel that ``fn`` launches, by name: the
     mean over the launches the profiler recorded (its device events; a
-    session can miss the first kernel launched in it), from up to
-    PROFILE_TRIES sessions of ``reps`` calls, the first that records our
-    ``k_*`` kernels; "not measured" if none does."""
+    session can miss the first kernel launched in it), from one session of
+    ``reps`` calls; "not measured" if it records none of our ``k_*``
+    kernels (the session joins PROFILE_MISSES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us, count, seen = {}, {}, []
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            seen.append(ev.name.split("(")[0])
-            if ev.name.startswith("k_"):
-                us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-                count[ev.name] = count.get(ev.name, 0) + 1
-        if us:
-            return {k: v / 1000.0 / count[k] for k, v in us.items()}
-        PROFILE_MISSES.append({"attempt": attempt, "device_events": len(seen),
-                               "names": sorted(set(seen))[:8],
-                               "reserved_bytes": torch.cuda.memory_reserved()})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count, seen = {}, {}, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        seen.append(ev.name.split("(")[0])
+        if ev.name.startswith("k_"):
+            us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            count[ev.name] = count.get(ev.name, 0) + 1
+    if us:
+        return {k: v / 1000.0 / count[k] for k, v in us.items()}
+    PROFILE_MISSES.append({"device_events": len(seen),
+                           "names": sorted(set(seen))[:8],
+                           "reserved_bytes": torch.cuda.memory_reserved()})
     return "not measured"
+
+
+# The WAN pool's launches (A, B, C), each of which its profile must time.
+WAN_LAUNCHES = ("k_probe_send", "k_receive", "k_pushpull")
+
+
+def wan_launch_profile() -> dict:
+    """Device ms of each launch of the WAN pool's tick (n = 12, K = 11),
+    profiled in a fresh child process: ``launch_timing.py --states wan``
+    from this checkout, the mean of its two passes (ROADMAP K1: in a whole
+    run the profiler in this process records no device event there).
+    Returns ``{"ms_by_launch": ..., "passes": ..., "rc": ...}``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "launch_timing.py", "--states",
+                           "wan"], cwd=here, capture_output=True, text=True,
+                          timeout=600)
+    passes = [json.loads(ln) for ln in proc.stdout.splitlines()
+              if ln.startswith("{") and '"pass_"' in ln]
+    got = [p["ms_by_launch"] for p in passes
+           if isinstance(p.get("ms_by_launch"), dict)]
+    ms = ({k: sum(g[k] for g in got if k in g) / sum(k in g for g in got)
+           for k in sorted(set().union(*got))} if got else "not measured")
+    return {"ms_by_launch": ms, "passes": len(passes), "rc": proc.returncode,
+            "stderr_tail": proc.stderr[-400:] if proc.returncode else ""}
 
 
 def warm_to_deaths(n, step, st, kill_rows, unpack, pack, kill):
@@ -2124,16 +2169,19 @@ def _rows(n, rows, dev):
     return m
 
 
-def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate, sched=None):
+def time_kernel(tick, plain, world, st, d, bytes_per_node, n, rate, sched=None,
+                profile=True):
     """Device ms per tick of the kernel and of its plain version (CUDA
-    events), ms by launch (profiler), the tick's bytes bound and each
-    launch's (cuda_gossip.launch_hbm_bytes_per_node on this tick's
-    inputs and output)."""
+    events), ms by launch (profiler; None with ``profile=False``), the
+    tick's bytes bound and each launch's
+    (cuda_gossip.launch_hbm_bytes_per_node on this tick's inputs and
+    output)."""
     from consul_tpu_torch.ops import cuda_gossip
 
     ms = cuda_ms(lambda: tick(world, st, d, sched), 20)
     plain_ms = cuda_ms(lambda: plain(world, st, d), 3)
-    stages = launch_breakdown(lambda: tick(world, st, d, sched), 5)
+    stages = (launch_breakdown(lambda: tick(world, st, d, sched), 5)
+              if profile else None)
     bound_ms = bytes_per_node * n / rate * 1e3
     buffers = tick.buffer_bytes_per_node(world, st, d, sched)
     out, _ = tick(world, st, d, sched)
@@ -2847,7 +2895,7 @@ def _unmoved(sim, before):
 def _sim_point(sim):
     from consul_tpu_torch.models.cluster import _clone
 
-    return (_clone(sim.state), sim._t, sim.generator_state(),
+    return (_clone(sim._whole()), sim._t, sim.generator_state(),
             dict(sim.counters))
 
 
@@ -3282,7 +3330,17 @@ def federation_main_path(rate):
                                                         w, st, dd),
         fed.wan_world, fed.state.wan, d_wan,
         cuda_gossip.tick_hbm_bytes_per_node(fed.state.wan, fed.wan_world),
-        cfg.n_wan, rate)
+        cfg.n_wan, rate, profile=False)
+    child = wan_launch_profile()
+    wan_t["ms_by_launch"] = child.pop("ms_by_launch")
+    wan_t["ms_by_launch_from"] = dict(
+        child, script="launch_timing.py --states wan (a fresh process)",
+        state="launch_timing.py's own state of the WAN shape (n = 12, "
+              "K = 11), not this federation's WAN pool")
+    # K1: the WAN line must carry A / B / C.
+    wan_profiled = child["rc"] == 0 and isinstance(
+        wan_t["ms_by_launch"], dict) and all(
+        k in wan_t["ms_by_launch"] for k in WAN_LAUNCHES)
     wan_ms = cuda_ms(lambda: wan_k(fed.wan_world, fed.state.wan, d_wan), 20)
     res = dict(n_dc=cfg.n_dc, nodes_per_dc=n, k=cfg.lan.degree,
                n_wan=cfg.n_wan, k_wan=cfg.wan.degree, form_ticks=FED_FORM,
@@ -3298,7 +3356,8 @@ def federation_main_path(rate):
                bytes_per_node=layout.bytes_per_node(fed.state.lan[0], n),
                lan=lan, wan=wan, dc3_seen_by_dc0=dc3, router=router,
                wan_ticks=int(fed.state.wan.t), launches=launches,
-               kernel_launches=kl, counters=fed.counters())
+               kernel_launches=kl, counters=fed.counters(),
+               wan_profiled=wan_profiled)
     # The kill stays local: dc0 declares its node dead with no false
     # positive (its viewers' suspicions time out over up to ~650 ticks at
     # this size, so not every one has yet), dc1 and dc2 untouched, the WAN
@@ -3326,7 +3385,8 @@ def federation_main_path(rate):
                  and wan["agreement"] == 1.0 and wan["undetected"] == 0.0
                  and res["router_formed"]["router_equal"]
                  and res["router_formed"]["route_dc1"] is not None
-                 and syncs == 0 and finite and kl["lan"] > 0 and kl["wan"] > 0)
+                 and syncs == 0 and finite and kl["lan"] > 0 and kl["wan"] > 0
+                 and wan_profiled)
     return res, wan_t
 
 
@@ -3593,6 +3653,423 @@ def sharded_main_path(cfg, ref):
     del sim
     torch.cuda.empty_cache()
     return res, (world, topo, state)
+
+
+def mesh_base(cfg, device="cuda", kernel="cuda"):
+    """The mesh_planes phases' starting point: the one-device Simulation
+    of seed 0 after 64 ticks and the 5 % kill (the main path's), as its
+    world, topology, packed state and generator state. ``device="cpu",
+    kernel="torch"`` rehearses the phases on the CPU at a small n."""
+    from consul_tpu_torch.models import cluster
+
+    sim = cluster.Simulation(cfg, seed=0, device=device, kernel=kernel)
+    sim.run(64, chunk=64, with_metrics=False)
+    sim.kill(torch.arange(cfg.n) < cfg.n // 20)
+    _sync(sim.device)
+    return dict(cfg=cfg, world=sim.world, topo=sim.topo,
+                state=cluster._clone(sim.state), device=sim.device,
+                kernel=kernel, generator=sim.generator_state(), t=sim._t)
+
+
+def mesh_twin(base, grouping, shards=MESH_SHARDS):
+    """A Simulation at ``base``'s point: on one device (``grouping``
+    None) or on ``shards`` shards of cuda:0 under ``grouping``
+    (GROUPINGS)."""
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = base["device"]
+    mesh = (None if grouping is None
+            else mesh_mod.make_mesh([dev] * shards))
+    sim = cluster.Simulation(
+        base["cfg"], seed=0, world=base["world"], topo=base["topo"],
+        state=cluster._clone(base["state"]), mesh=mesh, device=dev,
+        kernel=base["kernel"],
+        groups=None if mesh is None else group_of(mesh, grouping))
+    sim.load_state(cluster._clone(base["state"]), base["generator"])
+    return sim
+
+
+def _events_ms(fn, device) -> float:
+    """ms of one call of ``fn`` by CUDA events (the host clock, with the
+    work waited for, off the card)."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def sharded_raft(base):
+    """The raft tier on the sharded Simulation: for each of MESH_RAFT
+    (R = 16 x 5, group-sharded over 4 shards, and R = 6 x 5, replicated),
+    raft_parity's leader-kill drill (raft_events, shifted onto the live
+    tick) and its proposals over MESH_RAFT_TICKS ticks in chunks of
+    RAFT_PARITY_CHUNK, on one device and on 4 shards under each grouping
+    from the same point; every gossip and raft leaf, the gossip and raft
+    counters and the raft summary of each sharded run equal the
+    one-device run's. Then ms a tick with raft (CUDA events over one more
+    chunk), and B7's launches in the drill."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import layout
+    from consul_tpu_torch.ops import cuda_gossip
+
+    cfg = base["cfg"]
+    out = []
+    launches = 0
+    for groups, peers in MESH_RAFT:
+        runs = {}
+        for grouping in (None,) + GROUPINGS:
+            sim = mesh_twin(base, grouping)
+            plane = sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+            sim.set_chaos(chaos.shift_schedule(chaos.compile_schedule(
+                cfg.n, raft_events(chaos)), sim._t))
+            reset_launches()
+            t0 = time.perf_counter()
+            for c in range(MESH_RAFT_TICKS // RAFT_PARITY_CHUNK):
+                for g in range(groups):
+                    if c in RAFT_PARITY_PROPOSALS:
+                        plane.propose([(0, 0, 0)] * RAFT_PARITY_PROPOSALS[c],
+                                      group=g)
+                sim.run(RAFT_PARITY_CHUNK, chunk=RAFT_PARITY_CHUNK,
+                        with_metrics=False)
+            _sync(sim.device)
+            wall = time.perf_counter() - t0
+            b7 = b7_ticks_of(cuda_gossip.SHARDED_LAUNCHES)
+            launches += b7
+            ms = _events_ms(lambda: sim.run(
+                RAFT_PARITY_CHUNK, chunk=RAFT_PARITY_CHUNK,
+                with_metrics=False), sim.device) / RAFT_PARITY_CHUNK
+            runs[grouping or "one_device"] = dict(
+                state=sim._whole(), raft=plane.whole_state(),
+                counters=dict(sim.counters),
+                raft_counters=plane.counters_snapshot(),
+                summary=plane.summary(), wall_s=round(wall, 3),
+                ms_per_tick=ms, b7_launches=b7,
+                sharded=None if plane.arm is None else plane.arm.sharded)
+            del sim, plane
+            _empty_cache()
+        one = runs.pop("one_device")
+        res = dict(groups=groups, peers=peers, window=RAFT_WINDOW,
+                   ticks=MESH_RAFT_TICKS, shards=MESH_SHARDS,
+                   summary=one["summary"], raft_counters=one["raft_counters"],
+                   ms_per_tick_one_device=one["ms_per_tick"])
+        ok = (one["raft_counters"]["elections_won"] > groups
+              and all(x >= 0 for x in one["summary"]["leaders"]))
+        for name, r in runs.items():
+            diff = tree_diff(one["state"], r["state"])
+            rdiff = [f for f, a, b in zip(one["raft"]._fields, one["raft"],
+                                          r["raft"]) if not torch.equal(a, b)]
+            eq = dict(state_bit_equal=not diff, differing_leaves=diff[:5],
+                      raft_differing=rdiff,
+                      counters_equal=r["counters"] == one["counters"],
+                      raft_counters_equal=(r["raft_counters"]
+                                           == one["raft_counters"]),
+                      summary_equal=r["summary"] == one["summary"])
+            res[name] = dict(eq, ms_per_tick=r["ms_per_tick"],
+                             wall_s=r["wall_s"], b7_launches=r["b7_launches"],
+                             group_sharded=r["sharded"])
+            ok = ok and not diff and not rdiff and all(
+                v for k, v in eq.items() if k.endswith("equal")) and (
+                r["b7_launches"] > 0 or base["kernel"] != "cuda") and (
+                r["sharded"] == (groups % MESH_SHARDS == 0))
+        res["ok"] = ok
+        out.append(res)
+    return out, launches
+
+
+def sharded_serving(base):
+    """The serving plane on the sharded Simulation at the state after the
+    5 % kill: a write-attached ServingPlane(k=SERVING_K,
+    buckets=(SERVING_BATCH,)) on one device and on 4 shards under each
+    grouping; SERVING_BATCH NEAREST queries from random.Random(0) sources
+    (ids equal, rtts within SERVING_RTOL relative), then one write batch
+    (MIXED_SERVICES registrations and KV puts) and a flip (one chunk):
+    the apply index and every KV read equal. Batch ms (CUDA events over
+    SERVING_REPS // 4 batches), the peak of one batch's temporaries, and
+    B7's launches in the flips."""
+    import numpy as np
+
+    from consul_tpu_torch.ops import cuda_gossip, serving
+    from consul_tpu_torch.serving import MODE_NEAREST, ServingPlane
+
+    n = base["cfg"].n
+    dev = base["device"]
+    srng = random.Random(0)
+    queries = [(MODE_NEAREST, srng.randrange(n), -1)
+               for _ in range(SERVING_BATCH)]
+    runs = {}
+    launches = 0
+    for grouping in (None,) + GROUPINGS:
+        sim = mesh_twin(base, grouping)
+        plane = ServingPlane(k=SERVING_K, buckets=(SERVING_BATCH,),
+                             num_services=MIXED_SERVICES, device=dev)
+        sim.attach_serving(plane, writes=True, kv_slots=MIXED_KV_SLOTS)
+        got = plane.batcher.execute(queries)
+        reps = max(1, SERVING_REPS // 4)
+        ms = _events_ms(lambda: [plane.batcher.execute(queries)
+                                 for _ in range(reps)], dev) / reps
+        peak = None
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            plane.batcher.execute(queries)
+            peak = torch.cuda.max_memory_allocated() - start
+        for i in range(MIXED_SERVICES):
+            plane.register(i * 7 + 1, i)
+            plane.kv_put(f"k{i}", 100 + i)
+        reset_launches()
+        sim.run(RAFT_PARITY_CHUNK, chunk=RAFT_PARITY_CHUNK, with_metrics=False)
+        _sync(dev)
+        launches += b7_ticks_of(cuda_gossip.SHARDED_LAUNCHES)
+        snap = plane.snapshot()
+        runs[grouping or "one_device"] = dict(
+            ids=np.stack([r.ids for r in got]),
+            rtts=np.stack([r.rtts for r in got]),
+            count=[r.count for r in got], apply_index=plane.apply_index,
+            kv=[plane.kv_get(f"k{i}") for i in range(MIXED_SERVICES)],
+            health=plane.health_nodes(1).nodes[:SERVING_K],
+            batch_ms=ms, peak_temp_bytes=peak,
+            executor=getattr(plane.kernel(), "func", plane.kernel()).__name__,
+            parts=len(getattr(snap, "parts", [snap])),
+            snapshot_bytes=serving.snapshot_bytes(snap))
+        plane.close()
+        del sim, plane, snap
+        _empty_cache()
+    one = runs.pop("one_device")
+    res = dict(n=n, batch=SERVING_BATCH, k=SERVING_K, shards=MESH_SHARDS,
+               rtol=SERVING_RTOL, batch_ms_one_device=one["batch_ms"],
+               peak_temp_bytes_one_device=one["peak_temp_bytes"],
+               apply_index=one["apply_index"],
+               temp_budget_bytes=serving.TEMP_BUDGET_BYTES)
+    ok = one["apply_index"] == 2 * MIXED_SERVICES and all(
+        v is not None for v in one["kv"])
+    for name, r in runs.items():
+        ids_equal = bool(np.array_equal(r["ids"], one["ids"]))
+        fin = np.isfinite(one["rtts"])
+        rel = float(np.max(np.abs(r["rtts"][fin] - one["rtts"][fin])
+                           / np.maximum(np.abs(one["rtts"][fin]), 1e-30),
+                           initial=0.0))
+        res[name] = dict(ids_equal=ids_equal, max_rel_rtt=rel,
+                         inf_equal=bool(np.array_equal(
+                             np.isinf(r["rtts"]), ~fin)),
+                         count_equal=r["count"] == one["count"],
+                         apply_index_equal=r["apply_index"] == one["apply_index"],
+                         kv_equal=r["kv"] == one["kv"],
+                         health_equal=r["health"] == one["health"],
+                         batch_ms=r["batch_ms"],
+                         peak_temp_bytes=r["peak_temp_bytes"],
+                         executor=r["executor"], parts=r["parts"])
+        ok = ok and ids_equal and rel <= SERVING_RTOL and all(
+            res[name][k] for k in ("inf_equal", "count_equal",
+                                   "apply_index_equal", "kv_equal",
+                                   "health_equal")) and (
+            r["executor"] == "execute_sharded" and (
+                r["peak_temp_bytes"] is None
+                or r["peak_temp_bytes"] <= serving.TEMP_BUDGET_BYTES + (1 << 30)))
+    res["ok"] = ok
+    return res, launches
+
+
+def sharded_sweep(base):
+    """A sweep on the sharded Simulation: lanes MESH_SWEEP_LANES of
+    bench_pareto's SWEEP_LANES-lane grid for MESH_SWEEP_TICKS ticks from
+    the state after the kill, on one device and on 4 shards under each
+    grouping (the lane runner under run_sweep); every lane's counters and
+    final state equal the one-device sweep's and the simulation is unmoved.
+    ms a lane-tick (host clock around the lanes, synchronized), B7's
+    launches (the chaos variant, sentinel off)."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.chaos import sweep
+    from consul_tpu_torch.models.counters import FIELDS
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.parallel import shard_step
+
+    n = base["cfg"].n
+    grid = sweep.scenario_grid(n, SWEEP_LANES)
+    scens = [grid[i] for i in MESH_SWEEP_LANES]
+    runs = {}
+    launches = 0
+    for grouping in (None,) + GROUPINGS:
+        sim = mesh_twin(base, grouping)
+        before = _sim_point(sim)
+        scheds, _ = sweep.compile_scenarios(sim, scens)
+        reset_launches()
+        _sync(sim.device)
+        t0 = time.perf_counter()
+        states, cnt, _ = sim._run_lanes(scheds, MESH_SWEEP_TICKS)
+        _sync(sim.device)
+        wall = time.perf_counter() - t0
+        b7 = b7_ticks_of(cuda_gossip.SHARDED_LAUNCHES)
+        launches += b7
+        if grouping is not None:
+            states = [shard_step.gather(x, n, sim.device) for x in states]
+        runs[grouping or "one_device"] = dict(
+            states=states, cnt=cnt.cpu(), unmoved=_unmoved(sim, before),
+            ms_per_lane_tick=wall * 1e3 / (MESH_SWEEP_TICKS * len(scens)),
+            b7_launches=b7, chaos_pre=cuda_gossip.SHARDED_LAUNCHES["chaos_pre"])
+        del sim
+        _empty_cache()
+    one = runs.pop("one_device")
+    rows = one["cnt"].tolist()
+    res = dict(n=n, lanes=list(MESH_SWEEP_LANES), ticks=MESH_SWEEP_TICKS,
+               shards=MESH_SHARDS,
+               ms_per_lane_tick_one_device=one["ms_per_lane_tick"],
+               fault_ticks=[r[FIELDS.index("chaos_fault_ticks")] for r in rows],
+               msgs_dropped=[r[FIELDS.index("chaos_msgs_dropped")]
+                             for r in rows])
+    ok = one["unmoved"] and all(x > 0 for x in res["fault_ticks"])
+    for name, r in runs.items():
+        bad = lanes_diverge(r["states"], one["states"])
+        res[name] = dict(counters_equal=bool(torch.equal(r["cnt"], one["cnt"])),
+                         lanes_bit_equal=bad is None, first_bad=bad,
+                         unmoved=r["unmoved"],
+                         ms_per_lane_tick=r["ms_per_lane_tick"],
+                         b7_launches=r["b7_launches"],
+                         chaos_pre_launches=r["chaos_pre"])
+        ok = ok and res[name]["counters_equal"] and bad is None and (
+            r["unmoved"] and (r["chaos_pre"] > 0 or base["kernel"] != "cuda"))
+    res["ok"] = ok
+    return res, launches
+
+
+def elastic_drill(base):
+    """run_resilient(mesh=, elastic=) at 1M: MESH_ELASTIC_TICKS ticks after
+    the kill, uninterrupted on one device; then, under each grouping, on 4
+    shards preempted (SIGTERM) at tick MESH_ELASTIC_STOP of the run, and
+    resumed twice from that checkpoint: on 2 shards (the "device" grouping
+    through run_resilient(mesh=), the "shard" one through a simulation
+    placed under it) and with elastic=True over ["cuda:0"] (one device).
+    Every resume ends with the uninterrupted run's state digest, reshards
+    == 1 and sim.runtime.reshards == 1; the checkpoint's meta says
+    mesh_devices 4. Returns the line and B7's launches in the drill. It
+    writes under MESH_DIR and removes it."""
+    from consul_tpu_torch import cli as cli_mod
+    from consul_tpu_torch import runtime as rt
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+    from consul_tpu_torch.utils import checkpoint as ckpt
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), MESH_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    ref = mesh_twin(base, None)
+    t0 = time.perf_counter()
+    rt.run_resilient(ref, MESH_ELASTIC_TICKS, chunk=RESILIENT_CHUNK)
+    _sync(ref.device)
+    res = dict(n=base["cfg"].n, ticks=MESH_ELASTIC_TICKS,
+               stop=MESH_ELASTIC_STOP, shards=MESH_SHARDS,
+               uninterrupted_s=round(time.perf_counter() - t0, 3),
+               digest=cli_mod._state_digest(ref))
+    del ref
+    _empty_cache()
+    ok = True
+    reset_launches()
+
+    def policy(tag):
+        return rt.CheckpointPolicy(directory=d, tag=tag, min_interval_s=1e9,
+                                   trap=rt.SignalTrap())
+    for grouping in GROUPINGS:
+        tag = f"elastic_{grouping}"
+        sim = mesh_twin(base, grouping)
+        real_run, stop = sim.run, sim._t + MESH_ELASTIC_STOP
+
+        def run_then_sigterm(*a, _sim=sim, _real=real_run, **kw):
+            out = _real(*a, **kw)
+            if _sim._t == stop:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        sim.run = run_then_sigterm
+        preempted = None
+        t0 = time.perf_counter()
+        try:
+            rt.run_resilient(sim, MESH_ELASTIC_TICKS, chunk=RESILIENT_CHUNK,
+                             policy=policy(tag))
+        except rt.Preempted as e:
+            preempted = e.report.ticks_done
+        save_run_s = time.perf_counter() - t0
+        del sim
+        _empty_cache()
+        path = policy(tag).path
+        meta = ckpt.read_meta(path) or {}
+        kept = path + ".copy"
+        shutil.copy(path, kept)
+        r = dict(preempted_at=preempted, mesh_devices=meta.get("mesh_devices"),
+                 checkpoint_bytes=os.path.getsize(path),
+                 preempted_run_s=round(save_run_s, 3))
+        good = preempted == MESH_ELASTIC_STOP and meta.get("mesh_devices") == 4
+        for resume in ("2_shards", "elastic_one_device"):
+            if resume == "elastic_one_device":
+                shutil.copy(kept, path)
+                sim = mesh_twin(base, None)
+                kw = dict(elastic=True, devices=[base["device"]])
+            elif grouping == "device":
+                sim = mesh_twin(base, None)
+                kw = dict(mesh=mesh_mod.make_mesh([base["device"]] * 2))
+            else:
+                sim = mesh_twin(base, grouping, shards=2)
+                kw = {}
+            t0 = time.perf_counter()
+            rep = rt.run_resilient(sim, MESH_ELASTIC_TICKS,
+                                   chunk=RESILIENT_CHUNK, policy=policy(tag),
+                                   **kw)
+            _sync(sim.device)
+            digest = cli_mod._state_digest(sim)
+            r[resume] = dict(
+                reshards=rep.reshards,
+                sink_reshards=sim.sink.counter_sum("sim.runtime.reshards"),
+                resumed_from=rep.resumed_from_tick,
+                width=1 if sim.mesh is None else sim.mesh.size,
+                digest_equal=digest == res["digest"],
+                seconds=round(time.perf_counter() - t0, 3))
+            good = good and rep.reshards == 1 and r[resume]["sink_reshards"] == 1 \
+                and r[resume]["digest_equal"] \
+                and rep.resumed_from_tick == MESH_ELASTIC_STOP
+            del sim
+            _empty_cache()
+        r["ok"] = good
+        res[grouping] = r
+        ok = ok and good
+    shutil.rmtree(d, ignore_errors=True)
+    res["ok"] = ok
+    return res, b7_ticks_of(cuda_gossip.SHARDED_LAUNCHES)
+
+
+def _empty_cache():
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def mesh_planes(cfg, device="cuda", kernel="cuda"):
+    """ROADMAP A13 items 1, 2, 3 and 5 at 1M on MESH_SHARDS shards of the
+    one card, each phase under both groupings and held to the one-device
+    Simulation of the same seed: sharded_raft, sharded_serving,
+    sharded_sweep, elastic_drill. Returns the phases' lines, B7's
+    launches in them and their seconds."""
+    base = mesh_base(cfg, device, kernel)
+    lines, launches = [], 0
+    t0 = time.perf_counter()
+    raft, n = sharded_raft(base)
+    launches += n
+    lines += [dict(phase="sharded_raft", **r) for r in raft]
+    for phase, fn in (("sharded_serving", sharded_serving),
+                      ("sharded_sweep", sharded_sweep),
+                      ("elastic_drill", elastic_drill)):
+        t1 = time.perf_counter()
+        res, n = fn(base)
+        launches += n
+        res["seconds"] = round(time.perf_counter() - t1, 3)
+        lines.append(dict(phase=phase, **res))
+    del base
+    _empty_cache()
+    return lines, launches, round(time.perf_counter() - t0, 3)
 
 
 def lens_ids(n: int) -> tuple:
@@ -4731,6 +5208,19 @@ def main() -> int:
         emit({"phase": "failed", "failed": ["sharded_main_path"]})
         return 1
 
+    # The planes on the mesh (ROADMAP A13 items 1, 2, 3 and 5): raft,
+    # serving, a sweep and the elastic drill on 4 shards of the card under
+    # both groupings, each held to the one-device Simulation.
+    mesh_lines, mesh_launches, mesh_s = mesh_planes(cfg)
+    for line in mesh_lines:
+        emit(line)
+    emit({"phase": "mesh_planes", "seconds": mesh_s,
+          "b7_launches": mesh_launches})
+    if not all(line["ok"] for line in mesh_lines):
+        emit({"phase": "failed", "failed": [
+            line["phase"] for line in mesh_lines if not line["ok"]]})
+        return 1
+
     # The observability plane (ROADMAP A18): launch L against its plain
     # version on four states, the SWIM main path with the lens armed held
     # to the unarmed run above, L's time, the tracer and the debug
@@ -5240,10 +5730,13 @@ def main() -> int:
                    f"shard_map call, consul_tpu/parallel/shard_step.py:253), "
                    f"{SHARD_MAIN} shards of the 1M SWIM main path on one card "
                    "in one device group (one launch set a stage, no "
-                   f"exchange); timed at {SHARD_MAIN} shards (ms_by_shards: "
-                   f"each of {list(SHARDS)}, and '/shard' one group per shard, "
+                   "exchange), and the mesh's planes (raft, serving, the "
+                   "sweep lanes' chaos variant with the sentinel off, the "
+                   "elastic drill) under both groupings; timed at "
+                   f"{SHARD_MAIN} shards (ms_by_shards: each of "
+                   f"{list(SHARDS)}, and '/shard' one group per shard, "
                    "mirrors exchanged between launches)",
-         "launches": b7_ticks_of(shard_res["b7_launches"]),
+         "launches": b7_ticks_of(shard_res["b7_launches"]) + mesh_launches,
          "max_abs_err": max_abs["gossip_tick_sharded"],
          "ms": b7_t[str(SHARD_MAIN)]["ms_per_tick"],
          "plain_ms": b7_t[str(SHARD_MAIN)]["plain_ms"],

@@ -24,9 +24,14 @@ signature and do not use it; ``bench_pareto`` forms in chunks of it.
 
 The reference refuses a packed simulation because its vmapped body is
 written on the dense pytree; the port's card path is the packed layout,
-and both layouts give the same counters, so both are taken here. Left
-for later items: the sharded sweep (``mesh``, A13). A sweep lane is
-warmed by ``utils/prewarm.prewarm(..., sweep=S)`` (A20); the kernel's
+and both layouts give the same counters, so both are taken here. On a
+sharded simulation every lane is a placed copy of the state
+(``parallel/shard_step.place_lanes``, the reference's ``place_sweep``)
+stepped by the sharded runner (``ShardedChunkRunner.run_lanes``, the
+reference's ``make_sharded_sweep_runner``): on the card the chaos
+variant of B7 with the sentinel off, lane by lane each tick. A
+raft-armed sweep on a mesh raises, as the reference's does. A sweep lane
+is warmed by ``utils/prewarm.prewarm(..., sweep=S)`` (A20); the kernel's
 one build, cached on disk, stands for the reference's executable cache.
 """
 
@@ -40,6 +45,7 @@ from consul_tpu_torch.config import SimConfig, clamp_view_degree
 from consul_tpu_torch.models import cluster
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.ops import raft_ops
+from consul_tpu_torch.parallel import mesh as mesh_mod
 from consul_tpu_torch.topo import spectral_gap
 
 # Estimated wire bytes for the Pareto bandwidth axis, mirroring the
@@ -109,7 +115,9 @@ def run_sweep(sim, scenarios, *, ticks=None, chunk: int = 32,
     terms/leaders/commit/committed_clients after the scenario plus the
     scenario's raft counters. The counters come back in one device ->
     host copy, the raft rows in one more. ``chunk`` is not used: the
-    lanes step tick by tick, with no executable length to choose."""
+    lanes step tick by tick, with no executable length to choose. On a
+    sharded simulation the lanes run over its mesh; raft-armed sweeps
+    are single-device only (a mesh sweep with raft armed raises)."""
     _check_sim(sim)
     scheds, ticks = compile_scenarios(sim, scenarios, ticks, settle)
     _, cnt, raft = sim._run_lanes(scheds, ticks)
@@ -269,18 +277,23 @@ def bench_pareto(*, n: int, degree: int, scenarios: int,
                  seed: int = 0, form_ticks: int = 64, chunk: int = 32,
                  settle: int = 64, mode: str = "grid",
                  sweep_seed: int = 0, serf: bool = False,
-                 device: str = "cuda", kernel: str = "cuda") -> dict:
+                 device: str = "cuda", kernel: str = "cuda",
+                 mesh=None) -> dict:
     """The reference bench's ``topology`` phase body: form one sim per
     family at equal degree, run the same S-scenario sweep against each,
-    and emit the bandwidth-vs-convergence Pareto table."""
+    and emit the bandwidth-vs-convergence Pareto table. ``mesh`` shards
+    every family's simulation, whose device is then the mesh's first."""
     cls = cluster.SerfSimulation if serf else cluster.Simulation
+    if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+        mesh = mesh_mod.make_mesh(list(mesh))
     scens = (scenario_grid(n, scenarios) if mode == "grid"
              else scenario_random(n, scenarios, seed=sweep_seed))
     per_family = {}
     for fam in families:
         cfg = SimConfig(n=n, view_degree=clamp_view_degree(n, degree),
                         topo_family=fam)
-        sim = cls(cfg, seed=seed, device=device, kernel=kernel)
+        sim = cls(cfg, seed=seed, kernel=kernel, mesh=mesh,
+                  device=device if mesh is None else mesh.devices[0])
         sim.run(form_ticks, chunk=chunk, with_metrics=False)
         per_family[fam] = family_sweep(sim, scens, chunk=chunk,
                                        settle=settle)

@@ -18,11 +18,15 @@ and nothing falls back. Each verb prints one JSON line. ``run`` and
 saves a resume point and exits 75, and rerunning the same command
 continues the trajectory bit-identically; a tripped sentinel exits 2.
 
+``run --elastic`` and ``chaos --elastic`` run over the largest mesh the
+surviving devices support and re-shard a resumed checkpoint onto it (on
+the CPU the one device); ``chaos --sweep`` runs over the default mesh.
+``gameday`` runs on one device group, as the reference's ``run_gameday``
+takes no mesh.
+
 Not here yet, each named by its ROADMAP item: ``--layout auto`` and
-``--budget`` (the memory planner, A12b), ``--elastic`` and a mesh of more
-than one device group for ``gameday`` and ``chaos --sweep`` (A13's
-remainder), and the host verbs (``agent``, ``members``, ``kv`` ...,
-A21).
+``--budget`` (the memory planner, A12b), and the host verbs (``agent``,
+``members``, ``kv`` ..., A21).
 """
 
 from __future__ import annotations
@@ -63,9 +67,28 @@ def _mesh_from_args(args, n: int):
     from consul_tpu_torch.parallel import mesh as mesh_mod
 
     on_cpu = torch.device(getattr(args, "device", "cuda")).type == "cpu"
-    return mesh_mod.default_mesh(
-        n, device_count=getattr(args, "devices", None),
-        n_dc=getattr(args, "n_dc", 1) or 1, devices=[] if on_cpu else None)
+    try:
+        return mesh_mod.default_mesh(
+            n, device_count=getattr(args, "devices", None),
+            n_dc=getattr(args, "n_dc", 1) or 1,
+            devices=[] if on_cpu else None)
+    except ValueError as e:
+        _fail("--devices / --n-dc", str(e))
+
+
+def _survivors(args) -> list:
+    """The devices an ``--elastic`` run meshes over: the visible cards
+    (``--devices`` truncates them), on the CPU the one device."""
+    import torch
+
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    device = torch.device(getattr(args, "device", "cuda"))
+    if device.type == "cpu":
+        return [device]
+    devices = mesh_mod.visible_devices()
+    count = getattr(args, "devices", None)
+    return devices[:count] if count else devices
 
 
 def _check_layout(args):
@@ -194,7 +217,8 @@ def _run_resilient_cmd(args, sim, events, ticks, extra: dict) -> int:
         report = run_resilient(
             sim, ticks, chunk=args.chunk, events=events, policy=policy,
             sentinel=args.sentinel, sentinel_dump_dir=args.sentinel_dump_dir,
-            heartbeat_s=args.heartbeat_s or None)
+            heartbeat_s=args.heartbeat_s or None, elastic=args.elastic,
+            devices=_survivors(args) if args.elastic else None)
     except Preempted as e:
         print(json.dumps(dict(extra, **e.report.to_json())))
         return 75
@@ -208,8 +232,7 @@ def _run_resilient_cmd(args, sim, events, ticks, extra: dict) -> int:
                counters=report.counters,
                resumed_from_tick=report.resumed_from_tick,
                ckpt_failures=report.ckpt_failures,
-               # No elastic resume yet (ROADMAP A13): never a reshard.
-               reshards=0, hang_status=report.hang_status)
+               reshards=report.reshards, hang_status=report.hang_status)
     if getattr(sim, "raft", None) is not None:
         sim.raft.pump()
         out["raft"] = dict(sim.raft.summary(),
@@ -225,21 +248,15 @@ def _run_resilient_cmd(args, sim, events, ticks, extra: dict) -> int:
 
 def _one_group(args, what: str):
     """Refuse a verb over a mesh of more than one device group: asked for
-    with ``--devices`` / ``--n-dc``, or the default over several cards."""
+    with ``--devices`` / ``--n-dc``, or the default over several cards
+    (the game day: the reference's ``run_gameday`` takes no mesh)."""
     devices = getattr(args, "devices", None)
     wide = (devices or 1) > 1 or (getattr(args, "n_dc", 1) or 1) > 1
     if not wide and devices is None:
         wide = _mesh_from_args(args, args.n) is not None
     if wide:
-        _fail(what, "a run over a mesh of more than one device group waits "
-              "for the rest of the multi-GPU port (ROADMAP A13); pass "
-              "--devices 1")
-
-
-def _no_elastic(args):
-    if getattr(args, "elastic", False):
-        _fail("--elastic", "elastic placement and resharded resume wait for "
-              "the rest of the multi-GPU port (ROADMAP A13)")
+        _fail(what, "it runs on one device group, as the reference's "
+              "run_gameday takes no mesh; pass --devices 1")
 
 
 def _chaos_events(args) -> list:
@@ -308,7 +325,6 @@ def cmd_chaos(args) -> int:
     instead (:func:`_cmd_chaos_sweep`)."""
     if args.sweep > 0:
         return _cmd_chaos_sweep(args)
-    _no_elastic(args)
     events = _chaos_events(args)
     sim = _build_sim(args)
     ticks = max(int(e.stop) for e in events) + args.settle
@@ -324,7 +340,6 @@ def _cmd_chaos_sweep(args) -> int:
     from consul_tpu_torch.chaos import sweep as sweep_mod
     from consul_tpu_torch.topo import FAMILIES
 
-    _no_elastic(args)
     if args.families:
         if args.families.strip() == "all":
             families = [f for f in sorted(FAMILIES)
@@ -338,7 +353,6 @@ def _cmd_chaos_sweep(args) -> int:
     if unknown:
         _fail("--families", f"unknown famil{'ies' if len(unknown) > 1 else 'y'}"
               f" {', '.join(unknown)}; registered: {', '.join(sorted(FAMILIES))}")
-    _one_group(args, "chaos --sweep")
     scens = (sweep_mod.scenario_grid(args.n, args.sweep)
              if args.sweep_mode == "grid"
              else sweep_mod.scenario_random(args.n, args.sweep,
@@ -404,7 +418,6 @@ def cmd_run(args) -> int:
     """Advance a local simulation under the resilient harness (reference
     cli.py:1113-1137; no fault schedule: ``chaos`` is the faulted verb)
     and print the run report as one JSON line."""
-    _no_elastic(args)
     sim = _build_sim(args)
     return _run_resilient_cmd(args, sim, None, args.ticks, {"n": args.n})
 
@@ -555,8 +568,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="where a sentinel trip dumps its diagnostic "
                              "checkpoint")
         sp.add_argument("--elastic", action="store_true",
-                        help="elastic placement and resharded resume "
-                             "(not ported: ROADMAP A13)")
+                        help="run over the largest mesh the surviving "
+                             "devices support, and re-shard a resumed "
+                             "checkpoint onto it")
         sp.add_argument("--heartbeat-s", type=float, default=0.0,
                         help="per-chunk heartbeat deadline in seconds "
                              "(0: off)")
@@ -793,7 +807,8 @@ def build_parser() -> argparse.ArgumentParser:
     gd.add_argument("--kernel", choices=KERNEL_CHOICES, default="cuda",
                     help="tick engine (cuda or torch)")
     gd.add_argument("--devices", type=int, default=None,
-                    help="cards to run over (more than one: ROADMAP A13)")
+                    help="cards to run over (one device group: the "
+                         "reference's run_gameday takes no mesh)")
     add_device_flag(gd)
 
     pw = sub.add_parser(

@@ -60,10 +60,18 @@ from the same generator as on one device, then split into one row block
 per shard (``parallel/shard_step.py``), and every chunk runs on the
 sharded runner, through the sharded CUDA tick (B7) or the plain tick in
 one thread per shard; counters and the one metrics row of a chunk (its
-last tick's) match the one-device run's. Kills, revives, the serf verbs
-and schedules are placed by row block; ``swim_state`` / ``serf_state``
-gather. The raft tier, a serving plane and ``sweep`` raise on a sharded
-simulation (ROADMAP A13).
+last tick's) match the one-device run's. ``groups`` picks the shards'
+device groups (default ``parallel.mesh.device_groups``;
+``parallel.mesh.shard_groups(mesh)`` runs the schedule of one card per
+shard on any mesh). Kills, revives, the serf verbs and schedules are
+placed by row block (``_place_node``); ``swim_state`` / ``serf_state``
+gather. The raft tier rides the sharded runner (group-sharded or
+replicated, ``shard_step.RaftArm``), a serving plane answers through the
+two-stage top-k (``ops/serving.execute_sharded``), ``sweep`` steps its
+lanes on the sharded runner, and ``set_mesh`` installs, changes or clears
+the mesh between chunks (``run_resilient(mesh=, elastic=)`` resumes
+through it). The lens, a raft-armed sweep and ``ReferenceSerfSimulation``
+refuse a mesh, as the reference's do.
 
 Tests can hand in an initial world, topology and state (``convert.py``
 carries the reference's across) and a draw source, a callable from the
@@ -185,6 +193,9 @@ class Simulation:
     draws: Optional[Callable[[int], swim.TickDraws]] = None
     # A node-axis mesh (parallel/mesh.Mesh or a list of devices), or None.
     mesh: object = None
+    # The mesh's device groups (parallel.mesh.check_groups; None: each run
+    # of shards on one device is a group).
+    groups: object = None
     # The invariant sentinel and the directory of its diagnostic
     # checkpoint, set with set_sentinel.
     sentinel: bool = dataclasses.field(default=False, init=False)
@@ -198,7 +209,9 @@ class Simulation:
         layout_mod.validate(self.cfg, self.layout)
         self.kernel = cuda_gossip.canonical_kernel(self.kernel)
         if self.mesh is not None:
-            self._check_mesh()
+            self.mesh, self.groups = self._check_mesh(self.mesh, self.groups)
+        else:
+            self.groups = None
         self.device = torch.device(self.device)
         cuda_gossip.validate_kernel(self.kernel, self.layout, self.device)
         self.gen = torch.Generator(device=self.device)
@@ -217,7 +230,7 @@ class Simulation:
         # Host copy of the tick: one device read here, none per tick.
         self._t = int(layout_mod.tick_of(self.state))
         if self.mesh is not None:
-            self.state = shard_step.place(self.mesh, self.state, self.cfg.n)
+            self.state = self._place(self.state)
         # The installed schedule placed by row block (mesh only).
         self._placed_chaos = None
         if self.draws is None:
@@ -265,31 +278,68 @@ class Simulation:
         return swim.draw_tick(self.cfg, self.gen, self.device,
                               chaos=self.chaos is not None)
 
-    def _check_mesh(self):
-        """Normalize ``mesh`` and hold it to the rest of the arguments: the
-        node count divides over its shards, ``device`` is its first
-        device, and every device takes the kernel."""
-        if not isinstance(self.mesh, mesh_mod.Mesh):
-            self.mesh = mesh_mod.make_mesh(list(self.mesh))
+    def _check_mesh(self, mesh=None, groups=None):
+        """``(mesh, groups)`` (default: the simulation's ``mesh``)
+        normalized and held to the simulation: the node count divides over
+        the shards, ``device`` is the mesh's first device, the layout is
+        packed, every device takes the kernel, and ``groups`` are
+        consecutive runs of shards on one device."""
+        mesh = self.mesh if mesh is None else mesh
+        if not isinstance(mesh, mesh_mod.Mesh):
+            mesh = mesh_mod.make_mesh(list(mesh))
         if self._lens_ids:
             raise ValueError("the node lens is single-device; "
                              "set_lens(0) before installing a mesh")
-        first = self.mesh.devices[0]
+        first = mesh.devices[0]
         if mesh_mod.as_device(self.device) != first:
             raise ValueError(f"device={self.device!r} disagrees with the "
                              f"mesh, whose first device is {first}")
-        mesh_mod.check_rows(self.cfg.n, self.mesh.size)
+        mesh_mod.check_rows(self.cfg.n, mesh.size)
         if self.layout != layout_mod.PACKED:
             raise ValueError("a sharded simulation keeps the packed layout")
-        for dev in self.mesh.unique_devices():
+        for dev in mesh.unique_devices():
             cuda_gossip.validate_kernel(self.kernel, self.layout, dev)
+        groups = mesh_mod.check_groups(mesh, groups)
         self.device = first
+        return mesh, groups
 
-    def _no_mesh(self, what: str):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a sharded simulation waits for the rest of the "
-                "multi-GPU port (ROADMAP A13)")
+    def _place(self, tree):
+        """A whole state placed on the mesh under ``groups``."""
+        return shard_step.place(self.mesh, tree, self.cfg.n, groups=self.groups)
+
+    def _place_node(self, value) -> object:
+        """A per-node mask (or value) onto the device, and under a mesh into
+        one block per shard under ``groups`` (the reference's
+        ``_place_node``: the one funnel for fault and verb masks)."""
+        arr = torch.as_tensor(value).to(self.device)
+        if self.mesh is None:
+            return arr
+        return self._place(arr)
+
+    def set_mesh(self, mesh, groups=None):
+        """Install, change or clear (``None``) the node-axis mesh for the
+        ticks that follow (reference cluster.py:404-424): the state is
+        gathered from the old placement and placed on the new one, the
+        installed schedule is placed anew at the next chunk, the tick, the
+        metrics and the raft tier's placement are rebound, and an attached
+        serving plane republishes. The mesh's first device must be the
+        simulation's (its generators live there). The lens refuses a
+        mesh. The trajectory does not move: a sharded run is bit-equal to
+        one device."""
+        whole = self._whole()
+        if mesh is not None:
+            mesh, groups = self._check_mesh(mesh, groups)
+        else:
+            groups = None
+        self.mesh, self.groups = mesh, groups
+        self.state = whole if mesh is None else self._place(whole)
+        self._placed_chaos = None
+        self._tick_fn = self._make_tick_fn()
+        self._metrics_fn = self._make_metrics_fn()
+        if self.raft is not None:
+            self.raft.place(mesh, groups)
+        if self.serving is not None:
+            self.serving.publish(self)
 
     def _make_metrics_fn(self):
         """``metrics(i, j, row)``: the tick's TickTrace row into ``row``, a
@@ -326,7 +376,7 @@ class Simulation:
             # The sharded chunk runner (its own metrics, once per chunk).
             return shard_step.make_sharded_chunk_runner(
                 cfg, topo, self.mesh, self.world, serf_plane=self._serf_plane,
-                sentinel=sentinel, kernel=self.kernel)
+                sentinel=sentinel, kernel=self.kernel, groups=self.groups)
         if self.kernel == cuda_gossip.CUDA:
             return cuda_gossip.make_tick_kernel(
                 cfg, topo, variant=self._variant, sentinel=sentinel)
@@ -367,8 +417,7 @@ class Simulation:
         """Replace the whole simulation state (a restored checkpoint's) and,
         when given, the draw generator's (:meth:`generator_state`)."""
         self._t = int(layout_mod.tick_of(state))
-        self.state = (state if self.mesh is None
-                      else shard_step.place(self.mesh, state, self.cfg.n))
+        self.state = state if self.mesh is None else self._place(state)
         if generator is not None:
             if generator["device"] != self.device.type:
                 raise ValueError(
@@ -382,8 +431,7 @@ class Simulation:
 
     def _from_dense(self, st):
         st = layout_mod.pack_state(st) if self.layout == layout_mod.PACKED else st
-        self.state = (st if self.mesh is None
-                      else shard_step.place(self.mesh, st, self.cfg.n))
+        self.state = st if self.mesh is None else self._place(st)
 
     def _edit(self, fn, mask):
         """Apply ``fn(dense_state, mask) -> dense_state`` (a row-local edit:
@@ -392,25 +440,21 @@ class Simulation:
         ``_place_node`` funnel), inside the shard's row context so that
         ``collective.rows`` gives global ids, the edited blocks copied back
         into their adjacent placement (``shard_step.adjoin``)."""
-        mask = self._mask(mask)
+        masks = self._place_node(torch.as_tensor(mask, dtype=torch.bool))
         if self.mesh is None:
-            self._from_dense(fn(self._to_dense(), mask))
+            self._from_dense(fn(self._to_dense(), masks))
             return
         r, n = self.mesh.size, self.cfg.n
-        masks = shard_step.place(self.mesh, mask, n)
         blocks = []
         for d, blk in enumerate(self.state):
             with coll.node_axis(r, n, d):
                 st = fn(layout_mod.unpack_state(blk), masks[d])
             blocks.append(layout_mod.pack_state(st))
-        self.state = shard_step.adjoin(self.mesh, blocks, n)
+        self.state = shard_step.adjoin(self.mesh, blocks, n, groups=self.groups)
 
     def set_swim_state(self, st: sim_state.SimState):
         """Replace the SWIM plane with a dense SimState."""
         self._from_dense(st)
-
-    def _mask(self, mask) -> torch.Tensor:
-        return torch.as_tensor(mask, dtype=torch.bool).to(self.device)
 
     # -- serving plane ---------------------------------------------------
     def attach_serving(self, plane, writes: bool = False,
@@ -420,8 +464,9 @@ class Simulation:
         revive. With ``writes=True`` the write path and the watch plane
         come up too (``plane.attach_writes``): batched catalog/KV/session
         writes apply between chunks, become visible at flips, and every
-        flip carries the monotone apply index."""
-        self._no_mesh("a serving plane")
+        flip carries the monotone apply index. Under a mesh the snapshot is
+        projected block by block and reads run the two-stage top-k
+        (``ops/serving.execute_sharded``)."""
         plane.attach(self)
         if writes:
             plane.attach_writes(kv_slots=kv_slots, **write_kw)
@@ -447,12 +492,13 @@ class Simulation:
         :class:`~consul_tpu_torch.models.raft.RaftPlane`; ``draws`` (tick
         -> [R, P] int32 timeouts) and ``timers`` (the initial [R, P]
         timeouts) replace its own draws, as ``Simulation.draws`` does the
-        gossip tick's. Returns the RaftPlane (None when cleared)."""
+        gossip tick's. Under a mesh the raft state is group-sharded when
+        the shards divide the groups and replicated on the first device
+        otherwise (``parallel/shard_step.RaftArm``). Returns the RaftPlane
+        (None when cleared)."""
         from consul_tpu_torch.config import RaftConfig
         from consul_tpu_torch.models import raft as raft_mod
 
-        if groups is not None:
-            self._no_mesh("the raft tier")
         if groups is None:
             self.raft = None
             self._restart_lens()
@@ -624,10 +670,11 @@ class Simulation:
         advance, and each lane's counters equal a solo
         :meth:`run_scenario` replay from the same state and draw
         generator. Returns one row per scenario, in input order.
-        ``chunk`` is taken for the reference's signature and not used."""
+        ``chunk`` is taken for the reference's signature and not used.
+        Under a mesh the lanes run on the sharded runner; a raft-armed sweep
+        is single-device, as the reference's is."""
         from consul_tpu_torch.chaos import sweep as sweep_mod
 
-        self._no_mesh("a sweep")
         return sweep_mod.run_sweep(self, scenarios, ticks=ticks, chunk=chunk,
                                    settle=settle)
 
@@ -640,17 +687,22 @@ class Simulation:
         ``(states, counters [S, 26] int64, raft)``, raft being None or
         ``(raft states, raft counters [S, 8] int32)``, all on the device;
         nothing is read back. The state, ``_t``, the draw generator, the
-        counters and the raft plane are as they were before."""
-        self._no_mesh("a sweep")
+        counters and the raft plane are as they were before. Under a mesh
+        each lane's state is a placed copy (``shard_step.place_lanes``)
+        stepped by the sharded runner (``ShardedChunkRunner.run_lanes``),
+        and a raft-armed sweep raises (the reference's narrowing)."""
+        raft = self.raft
+        if raft is not None and self.mesh is not None:
+            raise ValueError(
+                "raft-armed sweeps are single-device only: clear the mesh "
+                "or set_raft(None) before run_sweep")
         tick = self._make_tick_fn(sentinel=False)
         lanes = len(scheds)
-        states = [_clone(self.state) for _ in range(lanes)]
         # int64: a 1M-node lane sends more than 2**31 messages within ~1,000
         # ticks; the int32 tick counters add up exactly here, as a solo
         # replay's chunks do on the host.
         cnt = torch.zeros((lanes, len(counters_mod.FIELDS)), dtype=torch.int64,
                           device=self.device)
-        raft = self.raft
         if raft is not None:
             rsts = [_clone(raft.take_state()) for _ in range(lanes)]
             rcnt = torch.zeros((lanes, len(raft_ops.FIELDS)),
@@ -663,6 +715,16 @@ class Simulation:
         prev = self.chaos
         self.chaos = scheds[0]
         try:
+            if self.mesh is not None:
+                n = self.cfg.n
+                states = shard_step.place_lanes(self.mesh, self.state, lanes,
+                                                n, groups=self.groups)
+                placed = [shard_step.place_schedule(
+                    self.mesh, sched, n, groups=self.groups) for sched in scheds]
+                states, cnt = tick.run_lanes(states, self.draws, self._t,
+                                             ticks, placed)
+                return states, cnt, None
+            states = [_clone(self.state) for _ in range(lanes)]
             for t in range(self._t, self._t + ticks):
                 d = self.draws(t)
                 rd = raft.draws(t) if raft is not None else None
@@ -751,19 +813,35 @@ class Simulation:
             return None
         if self._placed_chaos is None or self._placed_chaos[0] is not self.chaos:
             self._placed_chaos = (self.chaos, shard_step.place_schedule(
-                self.mesh, self.chaos, self.cfg.n))
+                self.mesh, self.chaos, self.cfg.n, groups=self.groups))
         return self._placed_chaos[1]
 
     def _exec_sharded_chunk(self, c: int, with_metrics: bool):
-        """``c`` ticks on the sharded runner; metrics (one row) on the final
-        state with the pairs the one-device run's last row takes."""
+        """``c`` ticks on the sharded runner, then, with raft armed, ``c``
+        raft ticks on its placement (``RaftArm.step``, each keyed on its
+        pre-step tick; the raft tick reads no gossip state and its draws
+        depend on the tick alone, so this equals the one-device
+        interleaving), its chunk counters queued on the RaftPlane; metrics
+        (one row) on the final state with the pairs the one-device run's
+        last row takes."""
         pairs = None
         if with_metrics:
             self._metric_gen.manual_seed(metric_seed(self.seed, self._t + c - 1))
             pairs = metrics.rmse_samples(self.cfg, self._metric_gen,
                                          RMSE_SAMPLES, self.device)
+        t0, sched = self._t, self._sched_blocks()
         self.state, cnt, trace = self._tick_fn.run(
-            self.state, self.draws, self._t, c, self._sched_blocks(), pairs)
+            self.state, self.draws, t0, c, sched, pairs)
+        raft = self.raft
+        if raft is not None:
+            rst = raft.take_state()
+            rcnt = torch.zeros((len(raft_ops.FIELDS),), dtype=torch.int32,
+                               device=self.device)
+            for t in range(t0, t0 + c):
+                rst, rc = raft.arm.step(rst, t, raft.draws(t), sched)
+                rcnt = rcnt + rc
+            raft.state = rst
+            raft.absorb(rcnt)
         self._t += c
         return cnt, trace
 
@@ -962,7 +1040,9 @@ class SerfSimulation(Simulation):
         (``models/snapshot.rejoin``; a ``snapshot.Replay``)."""
         from consul_tpu_torch.models import snapshot
 
-        self._no_mesh("a snapshot rejoin")
+        if self.mesh is not None:
+            raise ValueError("a snapshot rejoin is single-device: "
+                             "set_mesh(None) first")
         self._from_dense(snapshot.rejoin(self.cfg, self.topo, self._to_dense(),
                                          node, rep))
         self.publish_serving()
@@ -973,6 +1053,9 @@ class SerfSimulation(Simulation):
         models/serf.py take this)."""
         return self._to_dense()
 
+
+_ORACLE_ONE_DEVICE = ("ReferenceSerfSimulation runs on one device (the "
+                      "sharded serf runner steps the fused tick)")
 
 # The pre-fusion tick on the packed layout (B8's plain version).
 plain_reference_serf_tick = cuda_gossip.plain_reference_serf_tick
@@ -1004,11 +1087,15 @@ class ReferenceSerfSimulation(SerfSimulation):
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise ValueError("ReferenceSerfSimulation runs on one device "
-                             "(the sharded serf runner steps the fused tick)")
+            raise ValueError(_ORACLE_ONE_DEVICE)
         self._ev_gen = torch.Generator(device=torch.device(self.device))
         self._ev_gen.manual_seed(metric_seed(self.seed, -2))
         super().__post_init__()
+
+    def set_mesh(self, mesh, groups=None):
+        if mesh is not None:
+            raise ValueError(_ORACLE_ONE_DEVICE)
+        super().set_mesh(None)
 
     def _own_draws(self, t):
         return serf.draw_reference_tick(self.cfg, self.gen, self._ev_gen,

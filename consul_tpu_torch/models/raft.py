@@ -28,6 +28,12 @@ plane's own, reseeded every tick from the simulation's seed and the
 tick number through a salt (:func:`tick_seed`), so arming raft never
 moves the gossip trajectory; tests hand in the reference's draw tables
 instead (``draws=``, ``timers=``).
+
+Under a mesh the live RaftState is placed by a
+``parallel/shard_step.RaftArm`` (group-sharded or replicated), through
+which ``Simulation`` steps it after each chunk's gossip ticks; the
+summary, the pump and the counters read the same values as on one
+device.
 """
 
 from __future__ import annotations
@@ -111,6 +117,10 @@ class RaftPlane:
             self._gen.manual_seed(init_seed(sim.seed))
             timers = raft_ops.draw_timeouts(rcfg, self._gen, self.device)
         self.state = raft_ops.init(rcfg, timers.to(self.device))
+        # The placement under a mesh (shard_step.RaftArm), None on one device.
+        self.arm = None
+        if sim.mesh is not None:
+            self.place(sim.mesh, sim.groups)
         self.draws = draws if draws is not None else self._own_draws
         self.counters = {f: 0 for f in raft_ops.FIELDS}
         self._pending_vecs: list = []
@@ -124,6 +134,21 @@ class RaftPlane:
         self._bumps = np.zeros(rcfg.groups, np.int32)
         # Each group's max term at the last pump (the storm marker's base).
         self._last_term = np.zeros(rcfg.groups, np.int64)
+
+    def whole_state(self) -> raft_ops.RaftState:
+        """The live RaftState whole on the first device (gathered from the
+        shards when group-sharded)."""
+        return self.state if self.arm is None else self.arm.whole(self.state)
+
+    def place(self, mesh, groups=None) -> None:
+        """Move the live state onto ``mesh`` (None: one device), as
+        ``Simulation.set_mesh`` moves the gossip state."""
+        from consul_tpu_torch.parallel import shard_step
+
+        whole = self.whole_state()
+        self.arm = (None if mesh is None
+                    else shard_step.RaftArm(self.rcfg, mesh, groups))
+        self.state = whole if self.arm is None else self.arm.place(whole)
 
     def _own_draws(self, t: int) -> torch.Tensor:
         self._gen.manual_seed(tick_seed(self.sim.seed, t))
@@ -147,9 +172,9 @@ class RaftPlane:
         return tk
 
     def take_state(self) -> raft_ops.RaftState:
-        """The RaftState to feed the next chunk, with any pending
-        proposal intents folded into ``next_seq`` (one [R] add). Called
-        only from the chunk-driver thread."""
+        """The RaftState to feed the next chunk (placed, under a mesh),
+        with any pending proposal intents folded into ``next_seq`` (one
+        [R] add). Called only from the thread that runs the chunks."""
         with self._lock:
             bumps = self._bumps.copy() if self._bumps.any() else None
             if bumps is not None:
@@ -157,9 +182,10 @@ class RaftPlane:
         # The host -> device copy stays outside the lock: proposers must
         # not wait behind it.
         if bumps is not None:
-            self.state = self.state._replace(
-                next_seq=self.state.next_seq
-                + torch.from_numpy(bumps).to(self.device))
+            bumps = torch.from_numpy(bumps).to(self.device)
+            self.state = (self.state._replace(
+                next_seq=self.state.next_seq + bumps) if self.arm is None
+                else self.arm.bump(self.state, bumps))
         return self.state
 
     def stage(self, batcher, ops: Sequence[tuple]) -> list:
@@ -186,7 +212,9 @@ class RaftPlane:
         are folded into ``counters`` and the sink."""
         with self._lock:
             vecs, self._pending_vecs = self._pending_vecs, []
-        parts = [torch.stack(raft_ops.summary(self.state)).flatten().long()]
+        summ = (raft_ops.summary(self.state) if self.arm is None
+                else self.arm.summary(self.state))
+        parts = [torch.stack(summ).flatten().long()]
         if vecs:
             parts.append(torch.stack(vecs).sum(dim=0, dtype=torch.int64))
         host = torch.cat(parts).cpu().numpy()

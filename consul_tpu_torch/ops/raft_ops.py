@@ -266,17 +266,22 @@ def _first_max(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def tick(rcfg: RaftConfig, rst: RaftState, t: int, draws: torch.Tensor,
-         sched=None) -> tuple:
-    """One synchronous raft tick over every group: returns
+         sched=None, group0: int = 0) -> tuple:
+    """One synchronous raft tick over every group of ``rst``: returns
     ``(RaftState, RaftCounters)``. ``t`` is the global tick (the gossip
-    plane's pre-step ``t``, a host int), ``draws`` the tick's ``[R, P]``
-    int32 election-timeout draws. Killed peers are fully frozen — they
-    neither act nor send nor receive — and every update below is a
-    masked full-array write."""
+    plane's pre-step ``t``, a host int), ``draws`` the tick's
+    ``[R_local, P]`` int32 election-timeout draws of these groups. The
+    state's rows are the global groups ``group0 + arange(R_local)`` (a
+    shard's block under a mesh, parallel/shard_step.RaftArm), so a raft
+    entry of a schedule aimed at group g hits the block that holds g.
+    Killed peers are fully frozen — they neither act nor send nor
+    receive — and every update below is a masked full-array write."""
     p, w = rcfg.peers, rcfg.window
     r_count = rst.term.shape[0]
     quorum = rcfg.quorum
     pid, wid, eye, group_ids = _consts(r_count, p, w, rst.term.device)
+    if group0:
+        group_ids = group_ids + int(group0)
     pid_row = pid[None, :]
     pid_col = pid[None, None, :]
     wid3 = wid[None, None, :]

@@ -29,6 +29,13 @@ the final state with the RMSE pairs of the one-device runner's last row
 (a length-1 ``TickTrace``): launch M reads the group's storage in place
 where one group holds every shard on the mesh's first device, and a
 gathered copy otherwise.
+
+The planes that ride the tick: the raft tier (:class:`RaftArm`, placed
+over the mesh and stepped by ``Simulation`` after the chunk's ticks, once
+per device group, or once on the first device when replicated) and the
+sweep's lanes (:func:`place_lanes`,
+``ShardedChunkRunner.run_lanes``: every lane a placed copy of the state,
+tick outer, lane inner).
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from consul_tpu_torch.config import SimConfig
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models import serf, swim
-from consul_tpu_torch.ops import cuda_gossip
+from consul_tpu_torch.ops import cuda_gossip, raft_ops
 from consul_tpu_torch.ops.topology import Topology
 from consul_tpu_torch.parallel import collective as coll
 from consul_tpu_torch.parallel import mesh as mesh_mod
@@ -73,6 +80,16 @@ def place_schedule(mesh: mesh_mod.Mesh, sched, n: int, groups=None) -> list:
     reference's shard_step.py:68-75)."""
     return mesh_mod.split(mesh, sched, n, groups=groups,
                           rows=chaos_mod.NODE_MASKS)
+
+
+def place_lanes(mesh: mesh_mod.Mesh, blocks: list, lanes: int, n: int,
+                groups=None) -> list:
+    """``lanes`` copies of a placed state (:func:`place`), each placed as
+    the state is: every lane holds its own rows of every shard's block,
+    adjacent per device group (the reference's ``place_sweep``, whose
+    ``sweep_spec`` shards the node dim of a [S, N, ...] leaf and
+    replicates the scenario axis: here the lanes are a list)."""
+    return [adjoin(mesh, blocks, n, groups=groups) for _ in range(lanes)]
 
 
 def gather(blocks: list, n: int, device):
@@ -132,6 +149,108 @@ def _shared_draw(d: int, draw, t: int):
     ctx = coll.current()
     bundle = draw(t) if d == 0 else None
     return ctx.board.exchange(d, bundle)[0]
+
+
+class RaftArm:
+    """The raft tier on a mesh (reference shard_step.py:236-244, :270-289,
+    :333-345), with the reference's two layouts of the ``[R, ...]``
+    RaftState leaves:
+
+    - **group-sharded** when the mesh's shards divide ``R``: shard d holds
+      the groups ``[d * R / S, (d + 1) * R / S)``, placed as the node
+      blocks are (``mesh.split`` over the group axis: adjacent views of
+      one storage per device group), and each device group steps its own
+      groups in one call with ``group0`` its first global group, so a raft
+      entry of a schedule hits the shard that holds its group;
+    - **replicated** otherwise: one copy on the mesh's first device,
+      stepped once (the reference steps a copy per shard and zeroes the
+      tallies off shard 0 before its psum; one copy tallies once).
+
+    Each tick's ``[R, P]`` draws are made once, whole, and sliced by global
+    group, so both layouts are bit-equal to one device."""
+
+    def __init__(self, rcfg, mesh: mesh_mod.Mesh, groups=None):
+        self.rcfg, self.mesh = rcfg, mesh
+        self.groups = mesh_mod.check_groups(mesh, groups)
+        self.sharded = rcfg.groups % mesh.size == 0
+        # Raft groups per shard (all of them when replicated).
+        self.rows = rcfg.groups // mesh.size if self.sharded else rcfg.groups
+        self.device = mesh.devices[0]
+
+    def place(self, rst) -> object:
+        """A whole RaftState placed: per-shard blocks (group-sharded) or
+        one copy on the first device (replicated). A copy."""
+        if self.sharded:
+            return mesh_mod.split(self.mesh, rst, self.rcfg.groups,
+                                  groups=self.groups)
+        return type(rst)(*(x.to(self.device, copy=True) for x in rst))
+
+    def whole(self, placed):
+        """The whole RaftState on the first device (a gather when sharded)."""
+        if self.sharded:
+            return mesh_mod.join(placed, self.rcfg.groups, self.device)
+        return placed
+
+    def parts(self, placed) -> list:
+        """``[(shard, group0, tree)]``: one RaftState per device group, a
+        view of its shards' adjacent blocks, with its first shard and first
+        global group (one part, the copy, when replicated)."""
+        if not self.sharded:
+            return [(0, 0, placed)]
+        return [(g[0], g[0] * self.rows, mesh_mod.group_tree(
+            placed, g, self.rows, self.rcfg.groups)) for g in self.groups]
+
+    def unparts(self, trees: list):
+        """The placement of the parts' trees (in :meth:`parts` order)."""
+        if not self.sharded:
+            return trees[0]
+        out = []
+        for g, tree in zip(self.groups, trees):
+            # The tick may hand back a strided leaf; the views need rows.
+            tree = type(tree)(*(x.contiguous() for x in tree))
+            out += mesh_mod.shard_views(tree, g, self.rows)
+        return out
+
+    def _step_part(self, shard: int, group0: int, tree, t: int, draws,
+                   sched_blocks):
+        """One raft tick of one part: its rows of the tick's whole draws,
+        the schedule's raft entries from its shard's block."""
+        rows = tree.term.shape[0]
+        dev = tree.term.device
+        sched = None if sched_blocks is None else sched_blocks[shard]
+        return raft_ops.tick(self.rcfg, tree, t,
+                             draws[group0:group0 + rows].to(dev), sched,
+                             group0=group0)
+
+    def step(self, placed, t: int, draws, sched_blocks=None):
+        """One raft tick of every part (tick ``t``, its whole ``[R, P]``
+        draws): the new placement and the tick's [8] int32 counters on the
+        first device."""
+        trees, total = [], None
+        for shard, group0, tree in self.parts(placed):
+            tree, rc = self._step_part(shard, group0, tree, t, draws,
+                                       sched_blocks)
+            trees.append(tree)
+            v = raft_ops.counters_stack(rc).to(self.device)
+            total = v if total is None else total + v
+        return self.unparts(trees), total
+
+    def summary(self, placed) -> tuple:
+        """``raft_ops.summary`` of the placed state: each part's rows, in
+        group order, on the first device."""
+        cols = [raft_ops.summary(tree) for _, _, tree in self.parts(placed)]
+        return tuple(torch.cat([c[i].to(self.device) for c in cols])
+                     for i in range(4))
+
+    def bump(self, placed, bumps: torch.Tensor):
+        """``next_seq += bumps`` (an [R] int32 tensor on the first
+        device), part by part."""
+        trees = []
+        for _, group0, tree in self.parts(placed):
+            rows = tree.next_seq.shape[0]
+            trees.append(tree._replace(next_seq=tree.next_seq + bumps[
+                group0:group0 + rows].to(tree.next_seq.device)))
+        return self.unparts(trees)
 
 
 def run_ticks(mesh: mesh_mod.Mesh, n: int, tick: Callable, topos: dict,
@@ -229,17 +348,21 @@ class ShardedChunkRunner:
     ``run(blocks, draw, t0, ticks, sched_blocks=None, pairs=None) ->
     (blocks, counters [26] int32, TickTrace or None)``.
 
-    ``blocks`` are the shards' packed states (placed by :func:`place`),
-    ``draw(t)`` the tick's global bundle on the mesh's first device,
-    ``pairs`` the (i, j) RMSE pairs of the chunk's last tick (metrics off
-    when None). ``kernel="cuda"`` steps through B7
-    (``cuda_gossip.ShardedTickKernel``, one launch set per device group);
-    ``kernel="torch"`` runs the plain tick SPMD in threads. The counters
-    are summed once, at the end of the chunk, on the first device."""
+    ``blocks`` are the shards' packed states (placed by :func:`place`
+    under ``groups``), ``draw(t)`` the tick's global bundle on the mesh's
+    first device, ``pairs`` the (i, j) RMSE pairs of the chunk's last tick
+    (metrics off when None). ``kernel="cuda"`` steps through B7
+    (``cuda_gossip.ShardedTickKernel``, one launch set per device group of
+    ``groups``, by default ``mesh.device_groups``); ``kernel="torch"``
+    runs the plain tick SPMD in threads. The counters are summed once, at
+    the end of the chunk, on the first device.
+
+    :meth:`run_lanes` is the sweep runner (the reference's
+    ``make_sharded_sweep_runner``)."""
 
     def __init__(self, cfg: SimConfig, topo: Topology, mesh: mesh_mod.Mesh,
                  world, *, serf_plane: bool = False, sentinel: bool = False,
-                 kernel: str = TORCH):
+                 kernel: str = TORCH, groups=None):
         n = cfg.n
         mesh_mod.check_rows(n, mesh.size)
         for dev in mesh.unique_devices():
@@ -248,37 +371,44 @@ class ShardedChunkRunner:
         self.serf, self.sentinel, self.kernel = serf_plane, sentinel, kernel
         self.device = mesh.devices[0]
         self.world = world
-        self.groups = mesh_mod.device_groups(mesh)
-        self.world_blocks = place(mesh, world, n)
+        self.groups = mesh_mod.check_groups(mesh, groups)
+        self.world_blocks = place(mesh, world, n, groups=self.groups)
         self.topos = {dev: topo_on(topo, dev) for dev in mesh.unique_devices()}
         if kernel == CUDA:
             self._tick = cuda_gossip.ShardedTickKernel(
-                cfg, topo, mesh, serf_plane=serf_plane, sentinel=sentinel)
+                cfg, topo, mesh, serf_plane=serf_plane, sentinel=sentinel,
+                groups=self.groups)
             self._tick.set_world(world)
             self._metrics = cuda_gossip.make_metrics_kernel(
                 cfg, self.topos[self.device])
 
-    def _run_plain(self, blocks, draw, t0, ticks, sched_blocks):
+    def _plain(self):
         cfg, sentinel = self.cfg, self.sentinel
         plain = cuda_gossip.plain_serf_tick if self.serf else cuda_gossip.plain_tick
 
         def tick(topo, w, s, d, sched):
             return plain(cfg, topo, w, s, d, sched, sentinel)
+        return tick
 
-        blocks, cnt = run_ticks(self.mesh, cfg.n, tick, self.topos,
-                                self.world_blocks, blocks, sched_blocks, draw,
-                                t0, ticks)
+    def _run_plain(self, blocks, draw, t0, ticks, sched_blocks):
+        blocks, cnt = run_ticks(self.mesh, self.cfg.n, self._plain(),
+                                self.topos, self.world_blocks, blocks,
+                                sched_blocks, draw, t0, ticks)
         return blocks, cnt.to(self.device)
 
+    def _sum(self, cv):
+        total = cv[0]
+        for c in cv[1:]:
+            total = total + c.to(total.device)
+        return total
+
     def _run_kernel(self, blocks, draw, t0, ticks, sched_blocks):
-        cnts = None
+        cnt = None
         for k in range(ticks):
             blocks, cv = self._tick(blocks, draw(t0 + k), sched_blocks)
-            cnts = cv if cnts is None else [a + b for a, b in zip(cnts, cv)]
-        total = cnts[0]
-        for c in cnts[1:]:
-            total = total + c.to(total.device)
-        return blocks, total
+            cv = self._sum(cv)
+            cnt = cv if cnt is None else cnt + cv
+        return blocks, cnt
 
     def metrics(self, blocks, pairs):
         """[4] float32 TickTrace row of the whole state: launch M on the
@@ -311,12 +441,57 @@ class ShardedChunkRunner:
         row = self.metrics(blocks, pairs)
         return blocks, cnt, TickTrace(*row[:, None])
 
+    def run_lanes(self, lanes: list, draw, t0: int, ticks: int,
+                  lane_scheds: list):
+        """The sweep runner: ``ticks`` ticks of S lanes, tick outer and
+        lane inner, every lane taking tick ``t``'s one bundle ``draw(t)``
+        under its own schedule (placed by :func:`place_schedule` under
+        ``groups``), each lane's blocks placed as a state is
+        (:func:`place_lanes`). On the card each lane-tick is the
+        schedule's B7 launch set; on the plain path one thread per shard
+        steps every lane. Returns the lanes' blocks and their counters,
+        [S, 26] int64 on the first device, summed exactly over the ticks
+        and the shards (a 1M-node lane sends more than 2**31 messages
+        within ~1,000 ticks)."""
+        n_lanes, fields = len(lanes), len(counters_mod.FIELDS)
+        if self.kernel == CUDA:
+            cnt = torch.zeros((n_lanes, fields), dtype=torch.int64,
+                              device=self.device)
+            for k in range(ticks):
+                d = draw(t0 + k)
+                for s in range(n_lanes):
+                    lanes[s], cv = self._tick(lanes[s], d, lane_scheds[s])
+                    cnt[s] += self._sum(cv)
+            return lanes, cnt
+        tick, r, n = self._plain(), self.mesh.size, self.cfg.n
+
+        def one(d, world_d, states, scheds):
+            dev = self.mesh.devices[d]
+            acc = torch.zeros((n_lanes, fields), dtype=torch.int64, device=dev)
+            for k in range(ticks):
+                dd = mesh_mod.block_of(_shared_draw(d, draw, t0 + k), n, d, r,
+                                       dev)
+                for s in range(n_lanes):
+                    states[s], c = tick(self.topos[dev], world_d, states[s],
+                                        dd, scheds[s])
+                    acc[s] += c
+            return states, acc
+
+        out = run_shards(self.mesh, n, one, [
+            (self.world_blocks[d], [blk[d] for blk in lanes],
+             [sb[d] for sb in lane_scheds]) for d in range(r)])
+        cnt = out[0][1].to(self.device)
+        for o in out[1:]:
+            cnt = cnt + o[1].to(self.device)
+        new = [[out[d][0][s] for d in range(r)] for s in range(n_lanes)]
+        return new, cnt
+
 
 def make_sharded_chunk_runner(cfg: SimConfig, topo: Topology,
                               mesh: mesh_mod.Mesh, world, *,
                               serf_plane: bool = False, sentinel: bool = False,
-                              kernel: str = TORCH) -> ShardedChunkRunner:
+                              kernel: str = TORCH,
+                              groups=None) -> ShardedChunkRunner:
     """The sharded chunk runner (:class:`ShardedChunkRunner`)."""
     return ShardedChunkRunner(cfg, topo, mesh, world, serf_plane=serf_plane,
-                              sentinel=sentinel, kernel=kernel)
-
+                              sentinel=sentinel, kernel=kernel, groups=groups)

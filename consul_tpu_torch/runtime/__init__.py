@@ -9,7 +9,8 @@ here as :class:`SentinelViolation`."""
 from consul_tpu_torch.models.cluster import SentinelViolation
 from consul_tpu_torch.models.counters import SENTINEL_FIELDS, violation_mask
 from consul_tpu_torch.runtime.harness import (
-    Preempted, RunReport, diagnostic_dump_path, hang_dump_path, run_resilient)
+    Preempted, RunReport, diagnostic_dump_path, hang_dump_path, restore_placed,
+    run_resilient)
 from consul_tpu_torch.runtime.policy import CheckpointPolicy, SignalTrap
 from consul_tpu_torch.runtime.watchdog import (
     FailoverRefused, HeartbeatMonitor, InitWatchdog, with_failover)
@@ -26,6 +27,7 @@ __all__ = [
     "SignalTrap",
     "diagnostic_dump_path",
     "hang_dump_path",
+    "restore_placed",
     "run_resilient",
     "violation_mask",
     "with_failover",

@@ -21,8 +21,15 @@ draw stream the port can continue: ``run_resilient`` refuses it as a
 resume point, while ``checkpoint.restore`` (or ``restore_tree`` and
 ``convert.py``) still loads it as a state.
 
-Multi-GPU placement (``mesh=``, ``elastic=``) waits for the mesh port
-(ROADMAP A13) and raises.
+Placement: ``mesh=`` runs the simulation, fresh or restored, over a
+mesh through ``Simulation.set_mesh``; ``elastic=True`` builds the
+largest mesh the surviving devices support (``parallel.mesh.elastic_mesh``).
+A checkpoint holds the whole state (gathered from the shards) and its
+meta the mesh's shard count (``mesh_devices``); a resume at another
+width counts a reshard (``RunReport.reshards``, ``sim.runtime.reshards``).
+The port's sharded trajectory is bit-equal to one device's, so a resume
+on any width continues the same run: the reference's placement-only mode
+for a single-device program is not needed.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from consul_tpu_torch.chaos import schedule as chaos_mod
 from consul_tpu_torch.models import counters as counters_mod
 from consul_tpu_torch.models import layout as layout_mod
 from consul_tpu_torch.models.cluster import SLO_KEYS
+from consul_tpu_torch.parallel import mesh as mesh_mod
 from consul_tpu_torch.runtime.policy import CheckpointPolicy, SignalTrap
 from consul_tpu_torch.runtime.watchdog import HeartbeatMonitor
 from consul_tpu_torch.utils import checkpoint as ckpt_mod
@@ -68,6 +76,8 @@ class RunReport:
     # Set when the resume point was a dense-layout checkpoint restored
     # into a packed run ({"widened_from": ..., "widened_to": ...}).
     widened: Optional[dict] = None
+    # 1 when this call resumed a checkpoint written at another mesh width.
+    reshards: int = 0
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -88,8 +98,8 @@ def _scenario_meta(sim, tag: str, ticks: int, t0: int, done: int,
         "ticks_done": done,
         "chaos_t0": t0,
         "schedule_digest": sched_digest,
-        "state_layout": state_layout_digest(sim.state, sim.cfg.n),
-        "mesh_devices": 1,
+        "state_layout": state_layout_digest(sim._whole(), sim.cfg.n),
+        "mesh_devices": mesh_width(sim),
         # The port's draw stream: what a resume needs to draw what the
         # run would have drawn.
         "generator": sim.generator_state(),
@@ -98,6 +108,23 @@ def _scenario_meta(sim, tag: str, ticks: int, t0: int, done: int,
         # log itself is not checkpointed, as in the reference.
         "raft": _raft_meta(sim),
     }
+
+
+def mesh_width(sim) -> int:
+    """The shards ``sim`` runs on: its mesh's size, 1 without a mesh."""
+    mesh = getattr(sim, "mesh", None)
+    return 1 if mesh is None else mesh.size
+
+
+def _install(sim, mesh) -> None:
+    """Run ``sim`` on ``mesh`` from the next chunk: a mesh of one shard on
+    the simulation's device is no mesh."""
+    if not isinstance(mesh, mesh_mod.Mesh):
+        mesh = mesh_mod.make_mesh(list(mesh))
+    if mesh.size == 1 and mesh.devices[0] == mesh_mod.as_device(sim.device):
+        mesh = None
+    if mesh is not None or sim.mesh is not None:
+        sim.set_mesh(mesh)
 
 
 def _raft_meta(sim):
@@ -137,13 +164,14 @@ def _resume_point(sim, policy, ident: dict, sink):
             "it as a state (utils/checkpoint.restore, or restore_tree and "
             "convert.py) and start a new run from it.")
     n = sim.cfg.n
-    layout_now = state_layout_digest(sim.state, n)
+    whole = sim._whole()
+    layout_now = state_layout_digest(whole, n)
     saved_layout = meta0.get("state_layout")
     if saved_layout == layout_now:
-        state, meta = policy.load(sim.state, match=ident)
+        state, meta = policy.load(whole, match=ident)
         return state, meta, None
-    dense_tpl = (layout_mod.unpack_state(sim.state)
-                 if layout_mod.is_packed(sim.state) else None)
+    dense_tpl = (layout_mod.unpack_state(whole)
+                 if layout_mod.is_packed(whole) else None)
     if dense_tpl is not None and saved_layout == state_layout_digest(dense_tpl, n):
         state, widened = ckpt_mod.restore_widened(
             policy.path, dense_tpl, layout_mod.pack_state, n)
@@ -165,7 +193,8 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
                   sentinel_dump_dir: Optional[str] = None,
                   heartbeat_s: Optional[float] = None,
                   hang_dump_dir: Optional[str] = None,
-                  mesh=None, elastic: bool = False) -> RunReport:
+                  mesh=None, elastic: bool = False,
+                  devices: Optional[Sequence] = None) -> RunReport:
     """Advance ``sim`` by ``ticks`` ticks (with ``events`` as a chaos
     schedule rebased onto the start tick, like ``run_scenario``): resume
     from ``policy``'s checkpoint when one of this trajectory exists, save
@@ -175,10 +204,18 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
     in ``sentinel_dump_dir``. ``heartbeat_s`` arms a per-chunk deadline
     (HeartbeatMonitor) whose hang writes the last completed state into
     ``hang_dump_dir`` (default: ``sentinel_dump_dir``, then the policy's
-    directory). The report's counters cover the ticks this call ran."""
-    if mesh is not None or elastic or getattr(sim, "mesh", None) is not None:
-        raise NotImplementedError("mesh placement and elastic resume wait "
-                                  "for the multi-GPU port (ROADMAP A13)")
+    directory). The report's counters cover the ticks this call ran.
+
+    Placement: ``mesh`` (a ``parallel.mesh.Mesh`` or a list of devices)
+    runs the simulation over it from the first chunk, through
+    ``sim.set_mesh`` (a mesh of one shard on ``sim.device`` is none);
+    ``elastic=True`` instead takes the largest mesh the surviving
+    ``devices`` support (``parallel.mesh.elastic_mesh``; default every
+    visible CUDA device). Without either the simulation keeps its own
+    placement. A resume whose checkpoint was written at another shard
+    count (its meta's ``mesh_devices``) re-shards on entry and counts
+    ``reshards`` and ``sim.runtime.reshards``; the trajectory's identity
+    leaves the width out."""
     if sentinel:
         sim.set_sentinel(True, sentinel_dump_dir)
     sched = (chaos_mod.compile_schedule(sim.cfg.n, events)
@@ -190,8 +227,14 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
         or getattr(sim, "sink", None)
     if policy is not None and policy.trap is None:
         policy.trap = SignalTrap()
+    target = mesh
+    if target is None and elastic:
+        target = mesh_mod.elastic_mesh(sim.cfg.n, devices)
+    if target is not None:
+        _install(sim, target)
 
     widened = None
+    reshards = 0
     if policy is not None:
         ident = {"tag": policy.tag, "n": sim.cfg.n, "seed": sim.seed,
                  "kind": type(sim).__name__, "ticks": ticks,
@@ -201,7 +244,17 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
             sim.load_state(state, meta["generator"])
             t0 = int(meta["t0"])
             done = int(meta["ticks_done"])
+            if int(meta.get("mesh_devices") or 1) != mesh_width(sim):
+                # The same trajectory on another device count: the
+                # checkpoint holds the whole state, so this is placement.
+                reshards = 1
+                if sink is not None:
+                    sink.incr_counter("sim.runtime.reshards", 1)
     resumed_from = done
+    if target is not None or done:
+        # A restore or a new placement replaced the state: a serving plane
+        # republishes before the first chunk, as of the state it now holds.
+        sim.publish_serving()
 
     prev_sched = sim.chaos
     if sched is not None:
@@ -241,7 +294,7 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
             slo=({SLO_KEYS[f]: deltas[f] for f in SLO_KEYS}
                  if sched is not None else None),
             hang_status=monitor.status if monitor is not None else None,
-            hang_checkpoint=hang_ckpt[0], widened=widened)
+            hang_checkpoint=hang_ckpt[0], widened=widened, reshards=reshards)
 
     def _meta():
         return _scenario_meta(sim, policy.tag if policy is not None
@@ -261,14 +314,15 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
                 if monitor is not None:
                     # The finished chunk, mirrored to the host: a wedged
                     # card cannot serve a copy after the fact.
-                    monitor.beat(done, (ckpt_mod.to_host(sim.state), _meta()))
+                    monitor.beat(done, (ckpt_mod.to_host(sim._whole()),
+                                        _meta()))
                 if policy is None:
                     continue
                 if trap.fired is not None:
-                    policy.try_save(sim.state, _meta())
+                    policy.try_save(sim._whole(), _meta())
                     raise Preempted(_report(preempted=True))
                 if done < ticks and policy.due(since_save):
-                    if policy.try_save(sim.state, _meta()):
+                    if policy.try_save(sim._whole(), _meta()):
                         since_save = 0
     finally:
         if monitor is not None:
@@ -277,3 +331,27 @@ def run_resilient(sim, ticks: int, *, chunk: int = 64,
     if policy is not None:
         policy.retire()
     return _report(preempted=False)
+
+
+def restore_placed(path: str, template, mesh=None, n: Optional[int] = None):
+    """Restore a checkpoint (``utils/checkpoint.restore`` into
+    ``template``'s structure) and place it over ``mesh`` (reference
+    harness.py:414-451): the checkpoint holds the whole state, so a
+    sharded run resumes a single-device checkpoint and back. Placement
+    is the node-axis rule (``parallel/shard_step.place``), which needs
+    ``n`` (default: the meta's). With
+    ``mesh=None`` the state stays whole."""
+    state = ckpt_mod.restore(path, template)
+    if mesh is None:
+        return state
+    from consul_tpu_torch.parallel import shard_step
+
+    if not isinstance(mesh, mesh_mod.Mesh):
+        mesh = mesh_mod.make_mesh(list(mesh))
+    if n is None:
+        meta = ckpt_mod.read_meta(path) or {}
+        if "n" not in meta:
+            raise ValueError("restore_placed(mesh=...) needs n when the "
+                             "checkpoint's meta names none")
+        n = int(meta["n"])
+    return shard_step.place(mesh, state, n)

@@ -147,7 +147,7 @@ class QueryBatcher:
         qs[2] = -1
         if b:
             qs[:, :b] = np.asarray(queries, dtype=np.int32).T
-        dq = torch.from_numpy(qs).to(snap.vec.device)
+        dq = torch.from_numpy(qs).to(kernels.device_of(snap))
         kernel = getattr(self.plane, "kernel", None)
         kernel = kernel() if kernel is not None else kernels.kernel_for(self.k)
         h_ids, h_rtts, h_count, tick = results_to_host(

@@ -21,9 +21,14 @@ Two sources can feed a plane (one per instance, never both):
   coordinate per node).
 
 The plane computes on the device of the snapshot it holds; nothing moves
-to the CPU, or from it, on its own. The multi-device batch executor
-(reference ``ops/serving._execute_sharded``) comes with the multi-GPU
-slice (ROADMAP A13); ``kernel()`` is the single-device path.
+to the CPU, or from it, on its own. Under a sharded simulation (a mesh
+of more than one shard) the snapshot is projected block by block and
+stays placed (``ops/serving.ShardedSnapshot``, one part per device
+group, the labels placed by node block), and ``kernel()`` is the
+two-stage top-k (``ops/serving.sharded_kernel_for``). The write path's
+state and the watch plane's diff stay whole on the mesh's first device,
+where the reference places their [N] leaves by block (a placement
+narrowing, ROADMAP C).
 """
 
 from __future__ import annotations
@@ -70,7 +75,11 @@ class ServingPlane:
         self._cur = -1
         self._source: Optional[str] = None  # "sim" | "host"
         self._service_labels = None  # cached synthetic labels (sim mode)
-        self._labels_key = None      # (n, device) of the cache
+        self._labels_key = None      # (n, device, mesh, groups) of the cache
+        # The attached simulation's mesh and device groups at the last
+        # publish (None: one device).
+        self._mesh = None
+        self._groups = None
         self.cache_hits = 0
         self._sim = None
         self._closed = False
@@ -120,11 +129,25 @@ class ServingPlane:
 
     def publish(self, sim) -> None:
         """Project the sim's SWIM plane, as it is stored (packed or dense),
-        into the idle buffer and swap. Called at chunk boundaries."""
+        into the idle buffer and swap: under a mesh of more than one shard
+        block by block (the shards' blocks as placed, never gathered).
+        Called at chunk boundaries."""
+        mesh = getattr(sim, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            self._mesh, self._groups = mesh, sim.groups
+            self.publish_state([sim._swim_at_rest(b) for b in sim.state])
+            return
+        self._mesh = self._groups = None
         self.publish_state(sim._swim_at_rest())
 
     def publish_state(self, state) -> None:
-        n = state.viv.height.shape[0]
+        """Project ``state`` (a SWIM plane, or under the plane's mesh the
+        list of its shards' blocks) with the current labels and flip."""
+        sharded = isinstance(state, list)
+        n = (sum(b.viv.height.shape[0] for b in state) if sharded
+             else state.viv.height.shape[0])
+        device = (self._mesh.devices[0] if sharded
+                  else state.viv.height.device)
         if self.write_state is not None:
             # Write plane attached: snapshot labels come from the write
             # state, so a write becomes visible to readers exactly here,
@@ -132,33 +155,60 @@ class ServingPlane:
             # against concurrent batches.
             with self.write_lock:
                 ws = self.write_state
-            snap = kernels.project(state, deltas.labels_of(ws))
+            labels = deltas.labels_of(ws)
+            if sharded:
+                labels = self._place_labels(labels, n)
+            snap = self._project(state, labels, n)
             self._flip(snap)
             prev = self._flip_pair
             self._flip_pair = (snap, ws)
             if self.watch is not None:
                 self.watch.on_flip(prev, self._flip_pair)
             return
-        self._flip(kernels.project(
-            state, self._synthetic_labels(n, state.viv.height.device)))
+        self._flip(self._project(
+            state, self._synthetic_labels(n, device, sharded), n))
 
-    def _synthetic_labels(self, n: int, device):
-        """Cached sim-mode service labels (node i -> i mod num_services)."""
-        key = (n, device)
+    def _project(self, state, labels, n: int):
+        if isinstance(state, list):
+            return kernels.project_sharded(self._mesh, self._groups, state,
+                                           labels, n)
+        return kernels.project(state, labels)
+
+    def _place_labels(self, labels: torch.Tensor, n: int) -> list:
+        """[N] labels placed by node block under the plane's mesh."""
+        from consul_tpu_torch.parallel import mesh as mesh_mod
+
+        return mesh_mod.split(self._mesh, labels, n, groups=self._groups)
+
+    def _synthetic_labels(self, n: int, device, sharded: bool = False):
+        """Cached sim-mode service labels (node i -> i mod num_services),
+        placed by node block under the plane's mesh."""
+        from consul_tpu_torch.parallel import mesh as mesh_mod
+
+        key = (n, device, mesh_mod.mesh_key(self._mesh) if sharded else None,
+               self._groups if sharded else None)
         if self._service_labels is None or self._labels_key != key:
             labels = torch.arange(n, dtype=torch.int32, device=device)
             if self.num_services > 1:
                 labels = labels % self.num_services
             else:
                 labels = torch.zeros_like(labels)
-            self._service_labels = labels
+            self._service_labels = (self._place_labels(labels, n) if sharded
+                                    else labels)
             self._labels_key = key
         return self._service_labels
 
     def kernel(self):
-        """The batch executor the QueryBatcher runs: the single-device
-        ``ops/serving.execute`` at the plane's k (the sharded two-stage
-        executor waits for ROADMAP A13)."""
+        """The batch executor the QueryBatcher runs: the two-stage top-k
+        (``ops/serving.sharded_kernel_for``) when the attached simulation
+        runs on a mesh of more than one shard that divides the node axis
+        (reference plane.py:175-188), else the single-device
+        ``ops/serving.execute``, both at the plane's k."""
+        snap = self.snapshot() if self._cur >= 0 else None
+        if isinstance(snap, kernels.ShardedSnapshot):
+            mesh = snap.mesh
+            if mesh.size > 1 and snap.n % mesh.size == 0:
+                return kernels.sharded_kernel_for(self.k, mesh)
         return kernels.kernel_for(self.k)
 
     # -- write path + watch plane (serving/writes.py, watch.py) ---------

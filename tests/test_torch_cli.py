@@ -13,8 +13,11 @@ torch``):
 - a SIGTERM drill in a subprocess: ``run --ckpt-dir`` killed after its
   first checkpoint exits 75, the rerun resumes and ends in the
   uninterrupted run's state (``--state-digest``);
-- ``--budget`` / ``--layout auto`` exit 2 naming A12b, ``--elastic`` and a
-  sweep over a mesh name A13, ``--kernel cuda`` without a card exits 2.
+- ``--budget`` / ``--layout auto`` exit 2 naming A12b, a sweep over a
+  (dc, nodes) mesh the CPU cannot host exits 2 with ``elastic_mesh``'s
+  "no usable mesh", ``--kernel cuda`` without a card exits 2;
+- ``run --elastic`` and ``chaos --elastic`` run and print ``reshards``
+  (on the CPU over the one device).
 """
 
 import glob
@@ -165,15 +168,23 @@ def test_sigterm_drill_exits_75_and_resumes_bit_equal(tmp_path):
     (["run", "--layout", "auto"], "A12b"),
     (["chaos", "--layout", "auto"], "A12b"),
     (["prewarm", "--layout", "auto"], "A12b"),
-    (["run", "--elastic"], "A13"),
-    (["chaos", "--elastic"], "A13"),
-    (["chaos", "--sweep", "2", "--n-dc", "2"], "A13"),
+    (["chaos", "--sweep", "2", "--n-dc", "2"], "no usable mesh"),
 ], ids=["run-budget", "run-auto", "chaos-auto", "prewarm-auto",
-        "run-elastic", "chaos-elastic", "sweep-mesh"])
+        "sweep-mesh"])
 def test_unported_flags_exit_2_naming_their_item(capsys, args, item):
     rc, out, err = _main(capsys, *args, "--n", 64, *CPU)
     assert rc == 2 and out is None
     assert item in err
+
+
+@pytest.mark.parametrize("args", [
+    ["run", "--ticks", 16, "--chunk", 8],
+    ["chaos", "--form-ticks", 8, "--settle", 4, "--chunk", 8],
+], ids=["run-elastic", "chaos-elastic"])
+def test_elastic_runs_print_reshards(capsys, args):
+    rc, out, _ = _main(capsys, *args, "--elastic", "--n", 64, *CPU)
+    assert rc == 0 and out["reshards"] == 0
+    assert out["ticks"] > 0
 
 
 def test_cuda_kernel_without_a_card_exits_2(capsys):

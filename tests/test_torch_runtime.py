@@ -384,9 +384,23 @@ def test_sentinel_dump_before_raising(tmp_path):
 
 
 def test_mesh_and_elastic_raise():
-    for kw in ({"mesh": object()}, {"elastic": True}):
-        with pytest.raises(NotImplementedError, match="A13"):
-            rt.run_resilient(_sim(n=64), 8, **kw)
+    # A mesh the run cannot take, and elastic placement with no surviving
+    # device (the default is the visible cards: none here), still raise;
+    # the mesh and elastic runs themselves end where one device does
+    # (resharded resumes: tests/test_torch_mesh_planes.py).
+    with pytest.raises(ValueError, match="must divide over 3 shards"):
+        rt.run_resilient(_sim(n=64), 8, mesh=["cpu"] * 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="no usable mesh"):
+            rt.run_resilient(_sim(n=64), 8, elastic=True)
+    one = _sim(n=64)
+    rt.run_resilient(one, 8, chunk=4)
+    for kw in ({"mesh": ["cpu"] * 2}, {"elastic": True, "devices": ["cpu"]}):
+        sim = _sim(n=64)
+        rep = rt.run_resilient(sim, 8, chunk=4, **kw)
+        assert rep.ticks_done == 8 and rep.reshards == 0
+        assert (sim.mesh.size if sim.mesh else 1) == (2 if "mesh" in kw else 1)
+        assert _identical(one.state, sim._whole())
 
 
 # -- kill -9 of a child process ---------------------------------------------

@@ -34,8 +34,11 @@ on CPU blocks raises, and so do blocks that are not adjacent.
 
 What must raise: an ``n`` that does not divide over the shards,
 ``kernel="cuda"`` on a CPU mesh, the dense layout on a mesh, a
-``device=`` that disagrees with the mesh, and the raft tier, a serving plane, a sweep and ``run_resilient``
-on a sharded simulation (ROADMAP A13).
+``device=`` that disagrees with the mesh, and what the reference refuses
+on a mesh too: the lens, ``ReferenceSerfSimulation`` and a raft-armed
+sweep. The raft tier, a serving plane, a sweep and ``run_resilient`` run
+on a sharded simulation (tests/test_torch_mesh_planes.py holds them to
+one device).
 """
 
 import jax
@@ -55,9 +58,11 @@ from consul_tpu_torch.models import counters as tcounters
 from consul_tpu_torch.models import serf as tserf
 from consul_tpu_torch.models import state as tstate
 from consul_tpu_torch.models import swim as tswim
+from consul_tpu_torch.models import cluster as tcluster
 from consul_tpu_torch.models.cluster import SerfSimulation, Simulation
 from consul_tpu_torch.models import layout as tlayout
 from consul_tpu_torch.ops import cuda_gossip as cg
+from consul_tpu_torch.ops import serving as tserving
 from consul_tpu_torch.ops import topology
 from consul_tpu_torch.parallel import mesh as tmesh
 from consul_tpu_torch.parallel import shard_step as tshard
@@ -273,15 +278,25 @@ def test_what_must_raise(tmp_path):
     with pytest.raises(ValueError, match="disagrees with the mesh"):
         Simulation(cfg, kernel="torch", device="cpu", mesh=["cuda:0"] * 2)
     sim = Simulation(cfg, kernel="torch", device="cpu", mesh=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        sim.set_raft(2, peers=3)
-    with pytest.raises(NotImplementedError, match="A13"):
-        sim.attach_serving(ServingPlane(k=4, num_services=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="lens is single-device"):
+        sim.set_lens(4)
+    with pytest.raises(ValueError, match="one device"):
+        tcluster.ReferenceSerfSimulation(cfg, kernel="torch", device="cpu",
+                                         mesh=["cpu"] * 2)
+    # What the reference runs on a mesh runs here: a sweep, a serving plane,
+    # the raft tier, run_resilient; then a raft-armed sweep raises.
+    rows = sim.sweep([[tchaos.Partition(0, 4, slice(0, 8))]], settle=2)
+    assert rows[0]["slo"]["fault_ticks"] > 0 and sim._t == 0
+    plane = ServingPlane(k=4, num_services=2, device="cpu")
+    sim.attach_serving(plane)
+    assert isinstance(plane.snapshot(), tserving.ShardedSnapshot)
+    sim.set_raft(2, peers=3, election_ticks_min=3, election_ticks_max=5)
+    rep = runtime.run_resilient(sim, 8, chunk=4)
+    assert rep.ticks_done == 8 and sim._t == 8 and plane.tick == 8
+    assert sum(sim.raft.counters_snapshot().values()) > 0
+    with pytest.raises(ValueError, match="single-device"):
         sim.sweep([[tchaos.Partition(0, 4, slice(0, 8))]])
-    with pytest.raises(NotImplementedError, match="A13"):
-        runtime.run_resilient(sim, 8, chunk=4)
-    assert sim.raft is None and sim.serving is None and sim._t == 0
+    assert sim._t == 8
 
 
 # -- the adjacent placement and the sharded CUDA tick's operands ------------
