@@ -15,7 +15,13 @@ at the main path's shape, each window under a schedule with every fault
 family overlapping and with corruption for the sentinel to find, then
 the sentinel alone at both sizes, and an SLO window at the main path's
 shape in which the game day's composed timeline starts on a whole
-cluster and lifts, so every SLO counter moves; the serf + chaos +
+cluster and lifts, so every SLO counter moves; launch P alone
+(``p_parity``: ``k_chaos_pre``'s row word and record bit-equal to
+``plain_chaos_pre`` on every tick of the composed timeline's window at
+1M, from before its first entry to after its last, through churn edges
+both ways, and of a 97-entry timeline at 65,536 nodes whose masks take
+four words a row; on the one-device kernel and on B7 at 4 shards in one
+group and in a group per shard); the serf + chaos +
 sentinel variant in such windows at 65,536, 20,000 (relays without loss)
 and 1,048,576 nodes, with events, a query across the partition and a
 leave in flight; and every variant on the dense view (the complete
@@ -158,7 +164,10 @@ one: the SLO verdict, lost writes 0, B1, B2 and B5 launched). Then
 ``serve-bench``, ``gameday``), and a SIGTERM drill: ``run --ckpt-dir``
 stopped after its first checkpoint exits 75, the rerun resumes and ends
 in an uninterrupted run's state. It prints
-one JSON line per phase, the kernel table, the card's name and power limit, and a last
+one JSON line per phase (the timing lines' ``ms_by_launch`` give P, A, B
+and C under the schedule; ``federation_wan_timing`` carries the launch
+floor, a one-element add's device time, from its child process),
+the kernel table, the card's name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It needs a CUDA H100 and the
 rest of the repository; without either it fails before printing a
 result.
@@ -277,6 +286,15 @@ SLO_FAULT = 48
 CHAOS_WINDOW = 192
 # The tick of the window whose state chaos_timing times: every entry open.
 CHAOS_TIMED_TICK = 50
+# Launch P alone (k_chaos_pre) against plain_chaos_pre, bit for bit: (name,
+# n, timeline, ticks formed, window ticks). The composed timeline's window
+# runs from before its first entry opens to after its last one closes,
+# through every churn edge both ways; the wide one (wide_events) takes its
+# masks over four bit words a row. Each window runs on the one-device
+# kernel and on B7 at P_SHARDS shards under both groupings.
+P_WINDOWS = (("composed_1m", MAIN_N, "composed", 32, CHAOS_WINDOW + 2),
+             ("wide_64k", 65536, "wide", 8, 40))
+P_SHARDS = 4
 # Serf + chaos + sentinel variant parity: (n, packet loss,
 # query_relay_factor, ticks, fault ticks). Each window opens on a whole
 # cluster with events, a query and a leave in flight under slo_events
@@ -566,19 +584,27 @@ def wan_launch_profile() -> dict:
     """Device ms of each launch of the WAN pool's tick (n = 12, K = 11),
     profiled in a fresh child process: ``launch_timing.py --states wan``
     from this checkout, the mean of its two passes (ROADMAP K1: in a whole
-    run the profiler in this process records no device event there).
-    Returns ``{"ms_by_launch": ..., "passes": ..., "rc": ...}``."""
+    run the profiler in this process records no device event there); and
+    the launch floor that child measures each pass (launch_timing.floor_ms:
+    a one-element add), the yardstick of these launch-bound launches.
+    Returns ``{"ms_by_launch": ..., "launch_floor_ms": ..., "passes": ...,
+    "rc": ...}``."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run([sys.executable, "launch_timing.py", "--states",
                            "wan"], cwd=here, capture_output=True, text=True,
                           timeout=600)
-    passes = [json.loads(ln) for ln in proc.stdout.splitlines()
-              if ln.startswith("{") and '"pass_"' in ln]
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    passes = [r for r in lines if "pass_" in r]
     got = [p["ms_by_launch"] for p in passes
            if isinstance(p.get("ms_by_launch"), dict)]
     ms = ({k: sum(g[k] for g in got if k in g) / sum(k in g for g in got)
            for k in sorted(set().union(*got))} if got else "not measured")
-    return {"ms_by_launch": ms, "passes": len(passes), "rc": proc.returncode,
+    floors = [r["launch_floor"]["ms"] for r in lines if "floor_pass" in r
+              and isinstance(r["launch_floor"]["ms"], float)]
+    return {"ms_by_launch": ms,
+            "launch_floor_ms": floors or "not measured",
+            "passes": len(passes), "rc": proc.returncode,
             "stderr_tail": proc.stderr[-400:] if proc.returncode else ""}
 
 
@@ -1071,6 +1097,101 @@ def chaos_ok(res) -> bool:
     if res["family"] == "all":
         ok = ok and (w["chaos_false_deaths"] > 0 or w["deaths_declared"] > 0)
     return ok
+
+
+def wide_events(chaos, n):
+    """A timeline past one mask word a row: 20 partitions, 20 lossy
+    links, 34 churn waves and 3 degraded blocks (97 mask bits), their
+    windows opening and closing within 32 ticks."""
+    return ([chaos.Partition(1 + i % 5, 9 + i % 7, slice(i * 7, n // 2))
+             for i in range(20)]
+            + [chaos.LinkLoss(i % 4, 10 + i % 3, slice(0, n // 4 + i),
+                              slice(n // 4, n // 2 - i), fwd=0.1 * (i % 9),
+                              rev=0.05 * (i % 5)) for i in range(20)]
+            + [chaos.ChurnWave(i % 6, 12 + i % 5,
+                               slice(n // 2 + 64 * i, n // 2 + 64 * i + 512),
+                               period=3 + i % 4, down_ticks=1 + i % 2)
+               for i in range(34)]
+            + [chaos.Degrade(1, 20, slice(n - n // 8, n), tx_loss=0.4),
+               chaos.Degrade(2, 24, slice(n - n // 4, n), tx_loss=0.3,
+                             rx_loss=0.2),
+               chaos.Degrade(3, 30, slice(n - n // 4, n), tx_loss=0.7,
+                             rx_loss=0.1)])
+
+
+def p_parity(name: str, n: int, timeline: str, form: int, window: int,
+             seed: int):
+    """Launch P alone (TickKernel.chaos_pre, and ShardedTickKernel's at
+    P_SHARDS shards in one device group and in a group per shard) against
+    cuda_gossip.plain_chaos_pre on every tick of a window under the
+    ``timeline`` schedule: the word and the record bit-equal on every
+    tick. The window's state advances through the one-device kernel (and
+    each B7 run through its own tick); the churn edges counted from the
+    plain side, both ways, must be nonzero, and the schedule's masks must
+    have been packed once for each run's placement."""
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models import layout, state as sim_state, swim
+    from consul_tpu_torch.ops import cuda_gossip, topology
+    from consul_tpu_torch.parallel import mesh as mesh_mod, shard_step
+
+    dev = torch.device("cuda")
+    cfg = SimConfig(n=n, view_degree=32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    world = topology.make_world(cfg, gen, dev)
+    topo = topology.make_topology(cfg, gen, dev)
+    st = layout.pack(sim_state.init(cfg, gen, dev))
+    tick = cuda_gossip.make_tick_kernel(cfg, topo)
+    for _ in range(form):
+        st, _ = tick(world, st, swim.draw_tick(cfg, gen, dev))
+    events = (chaos_main_events(chaos, n) if timeline == "composed"
+              else wide_events(chaos, n))
+    sched = chaos.shift_schedule(chaos.compile_schedule(n, events, dev),
+                                 int(st.t))
+    packs0 = cuda_gossip.MASK_CACHE.packs
+    mesh = mesh_mod.make_mesh(["cuda:0"] * P_SHARDS)
+    runs = {}
+    for grouping in GROUPINGS:
+        k7 = cuda_gossip.ShardedTickKernel(cfg, topo, mesh,
+                                           groups=group_of(mesh, grouping))
+        k7.set_world(world)
+        runs[grouping] = dict(
+            k7=k7, blocks=shard_step.place(mesh, st, n, groups=k7.groups),
+            sched=shard_step.place_schedule(mesh, sched, n, groups=k7.groups),
+            bad=[])
+    bad, kills, revives = [], 0, 0
+    t0 = int(st.t)
+    for k in range(window):
+        d = swim.draw_tick(cfg, gen, dev, chaos=True)
+        pw, pr = cuda_gossip.plain_chaos_pre(st, sched, t0 + k)
+        word, rec = tick.chaos_pre(world, st, d, sched)
+        if not (torch.equal(word, pw) and torch.equal(rec, pr)):
+            bad.append(k)
+        for run in runs.values():
+            parts = run["k7"].chaos_pre(run["blocks"], d, run["sched"])
+            if not (torch.equal(torch.cat([w for w, _ in parts]), pw)
+                    and torch.equal(torch.cat([r for _, r in parts]), pr)):
+                run["bad"].append(k)
+            run["blocks"], _ = run["k7"](run["blocks"], d, run["sched"])
+        up = (st.flags.to(torch.int32) & 1) == 1
+        kills += int((up & ((pw & 1) == 0)).sum())
+        revives += int(((pw & 0x80) != 0).sum())
+        st, _ = tick(world, st, d, sched)
+    torch.cuda.synchronize()
+    packs = cuda_gossip.MASK_CACHE.packs - packs0
+    res = dict(name=name, n=n, timeline=timeline, ticks=window,
+               mask_words=cuda_gossip.mask_words(sched), mismatch_ticks=bad[:8],
+               kill_edges=kills, revive_edges=revives, mask_packs=packs,
+               sharded={g: dict(groups=len(r["k7"].groups),
+                                mismatch_ticks=r["bad"][:8])
+                        for g, r in runs.items()})
+    # One pack for the one-device schedule, one for each group's rows of
+    # each placement (a placed schedule is a copy).
+    want_packs = 1 + sum(len(r["k7"].groups) for r in runs.values())
+    res["ok"] = (not bad and all(not r["bad"] for r in runs.values())
+                 and kills > 0 and revives > 0 and packs == want_packs)
+    return res
 
 
 def chaos_main_events(chaos, n):
@@ -5058,6 +5179,16 @@ def main() -> int:
         emit({"phase": "chaos_kernel_parity", **res})
         if not res["ok"]:
             failed.append(f"chaos_kernel_parity n={n} family={family}")
+    # Launch P alone against its plain version (the row word and record
+    # that every later launch reads).
+    for i, (name_w, n, timeline, form, window) in enumerate(P_WINDOWS):
+        t0 = time.perf_counter()
+        res = p_parity(name_w, n, timeline, form, window, seed=83 + i)
+        torch.cuda.empty_cache()
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "p_parity", **res})
+        if not res["ok"]:
+            failed.append(f"p_parity {name_w}")
     for n, loss, relay, ticks, fault in SERF_CHAOS_PARITY:
         t0 = time.perf_counter()
         res = serf_chaos_parity(n, loss, relay, ticks, fault, seed=23,

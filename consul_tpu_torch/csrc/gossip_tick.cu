@@ -123,15 +123,16 @@
 // non-empty ChaosSchedule (I_CHAOS = 1) and/or sentinel=True
 // (I_SENTINEL = 1), for the bare SWIM tick. All schedule evaluation of the
 // Pallas body runs here, from the schedule's tensors and the draws:
-//   (P) chaos_pre, a launch before A, one thread per row: each row's churn
+//   (P) chaos_pre, a launch before A, four rows a thread: each row's churn
 //       edges at tick t (kill rows whose wave went down this tick,
 //       warm-revive rows whose wave came back: incarnation + 1, alive, not
 //       left or leaving, own budget re-armed) and its node terms (partition
 //       color, LinkLoss side bits, Degrade survival products in slot
-//       order), into c_* scratch that no later launch writes. A, B and C
-//       read every row's flags, incarnation and terms, their own and other
-//       rows', from that scratch, so each read sees the post-churn value
-//       and the input state stays untouched.
+//       order), into one word and one 16-byte record a row (c_word,
+//       c_rec; the layout is in the note above k_chaos_pre) that no later
+//       launch writes. A, B and C read every row's flags, incarnation and
+//       terms, their own and other rows', from that scratch, so each read
+//       sees the post-churn value and the input state stays untouched.
 //   A gates the direct/TCP round trips and the three relay legs on
 //       pair_ok, counts false deaths (expiries whose subject is up and on
 //       the prober's side) and, with the sentinel, the non-finite Vivaldi
@@ -146,9 +147,9 @@
 //       the last block to finish (a ticket in slo[1]) turns them into the
 //       tick's counters on the device. With the sentinel it also counts
 //       range, monotonicity and suspicion violations on the final values.
-//       Its per-cell subject reads (flags and colour at r + off[c]) are
-//       the one read that cell phases scatter: 32 rows per warp load, from
-//       [N] arrays that stay in L2.
+//       Its per-cell subject reads (flags and colour at r + off[c], one
+//       c_word) are the one read that cell phases scatter: 32 rows per warp
+//       load, from an [N] array that stays in L2.
 // Survival products multiply in the reference's order (chaos.pair_ok):
 // a one-ulp difference in a threshold would flip a draw.
 //
@@ -232,22 +233,23 @@ enum Ptr {
   // The pre-fusion sweep only (I_SREF = 1): its gossip columns, int64
   // [fan], and its loss draws, f32 [N, fan].
   P_EVCOLS, P_EVUDROP,
-  // Chaos variant only: the schedule (ChaosSchedule field order, raft lane
-  // excluded), the push-pull draw, the per-row scratch of chaos_pre, and
-  // the SLO word and ticket.
-  P_PSTART, P_PSTOP, P_PSIDE, P_LSTART, P_LSTOP, P_LFWD, P_LREV, P_LA, P_LB,
-  P_CSTART, P_CSTOP, P_CPERIOD, P_CDOWN, P_CMASK, P_DSTART, P_DSTOP, P_DTX,
-  P_DRX, P_DMASK, P_UPP, P_CFLAGS, P_CINC, P_CCOLOR, P_CABITS, P_CBBITS,
-  P_CQTX, P_CQRX, P_SLO,
+  // Chaos variant only: the schedule's per-entry leaves (ChaosSchedule
+  // field order, node masks and raft lane excluded), its node masks packed
+  // into bit words (I_MW u32 words a row: partition sides, link A sides,
+  // link B sides, churn, degrade, from bit 0), the push-pull draw, the
+  // per-row word and record of chaos_pre, and the SLO word and ticket.
+  P_PSTART, P_PSTOP, P_LSTART, P_LSTOP, P_LFWD, P_LREV, P_CSTART, P_CSTOP,
+  P_CPERIOD, P_CDOWN, P_DSTART, P_DSTOP, P_DTX, P_DRX, P_MASKS, P_UPP,
+  P_CWORD, P_CREC, P_SLO,
   // Mirrors: full-height buffers, indexed by global row, of every leaf a
   // launch reads at rows other than its own (in one device group, the
   // leaves themselves): the input's flags and incarnation, its Vivaldi leaves,
-  // chaos_pre's scratch, view_mid, A's payloads and pokes, the push-pull
-  // draw, the serf payloads, the input's open query keys and leave ticks.
-  P_MFLAGS, P_MINC, P_MVEC, P_MVH, P_MVERR, P_MVADJ, P_MCFLAGS, P_MCINC,
-  P_MCCOLOR, P_MCABITS, P_MCBBITS, P_MCQTX, P_MCQRX, P_MVMID, P_MPFLAGS,
-  P_MPSCOL, P_MPSKEY, P_MPSBITS, P_MPOWNK, P_MPOKE, P_MUPP, P_MXFLAGS,
-  P_MXKEY, P_MXORIG, P_MQOPEN, P_MLEAVE,
+  // chaos_pre's word and record, view_mid, A's payloads and pokes, the
+  // push-pull draw, the serf payloads, the input's open query keys and
+  // leave ticks.
+  P_MFLAGS, P_MINC, P_MVEC, P_MVH, P_MVERR, P_MVADJ, P_MCWORD, P_MCREC,
+  P_MVMID, P_MPFLAGS, P_MPSCOL, P_MPSKEY, P_MPSBITS, P_MPOWNK, P_MPOKE,
+  P_MUPP, P_MXFLAGS, P_MXKEY, P_MXORIG, P_MQOPEN, P_MLEAVE,
   // D's query tally targets, [N, Q] int32 each: the output's q_acks and
   // q_resps on one device, a zeroed full-height scratch per device group.
   P_TACK, P_TRESP, N_PTR
@@ -269,6 +271,7 @@ enum Int {
   I_ROW0, I_ROWS,   // the launch's rows: [row0, row0 + rows) of n
   I_SLO_DEFER,      // 1: C leaves its SLO word for gossip_slo_fold
   I_SREF,           // 1: the pre-fusion serf tick (B8: A-C bare, then E1, E2)
+  I_MW,             // u32 words a row of the packed schedule masks
   N_INT
 };
 
@@ -308,7 +311,7 @@ constexpr float ZERO_T = 1.0e-6f;
 constexpr float F8_SCALE = 256.0f;
 constexpr float F8_CLIP = 448.0f / 256.0f;
 constexpr uint32_t MAX_INCARNATION = (1u << 30) - 1u;
-constexpr uint8_t REVIVED = 0x80;  // chaos_pre's mark in c_flags, never stored
+constexpr uint8_t REVIVED = 0x80;  // chaos_pre's mark in c_word, never stored
 
 template <typename T>
 __device__ __forceinline__ T* ptr(const TickArgs& a, int k) {
@@ -368,15 +371,39 @@ __device__ void block_flush(const int* smem, int* global) {
 // Chaos schedule (chaos/schedule.py), per row.
 // ---------------------------------------------------------------------------
 
+// chaos_pre's output (k_chaos_pre has the layout): a row's word and
+// record, any row's, from the mirrors. A lookup of a row's flags, colour,
+// incarnation and terms touches two sectors: one of c_word, one of c_rec.
+__device__ __forceinline__ uint32_t cword_at(const TickArgs& a, int x) {
+  return ptr<const uint32_t>(a, P_MCWORD)[x];
+}
+__device__ __forceinline__ uint4 crec_at(const TickArgs& a, int x) {
+  return ptr<const uint4>(a, P_MCREC)[x];
+}
+__device__ __forceinline__ uint8_t cword_flags(uint32_t w) {
+  return static_cast<uint8_t>(w & 0xFFu);
+}
+__device__ __forceinline__ int cword_color(uint32_t w) {
+  return static_cast<int>(w >> 8);
+}
+
 // A row's flags and incarnation as the tick sees them: after chaos_pre's
 // churn edges when a schedule is installed, else the input's.
 // Any row's, from the mirrors.
 __device__ __forceinline__ uint8_t flags_at(const TickArgs& a, int x) {
-  return a.i[I_CHAOS] ? ptr<const uint8_t>(a, P_MCFLAGS)[x]
+  return a.i[I_CHAOS] ? cword_flags(cword_at(a, x))
                       : ptr<const uint8_t>(a, P_MFLAGS)[x];
 }
+// flags_at as one byte load either way (the word's flags are its low
+// byte, at a 4-byte stride): D's form. On the H100 D ran 1 % slower with
+// flags_at's branch, and C 1.3 % slower with this form (PERF.md §6).
+__device__ __forceinline__ uint8_t flags_sel(const TickArgs& a, int x) {
+  const bool c = a.i[I_CHAOS];
+  return ptr<const uint8_t>(a, c ? P_MCWORD : P_MFLAGS)[static_cast<size_t>(x)
+                                                       << (c ? 2 : 0)];
+}
 __device__ __forceinline__ uint32_t inc_at(const TickArgs& a, int x) {
-  return a.i[I_CHAOS] ? ptr<const uint32_t>(a, P_MCINC)[x]
+  return a.i[I_CHAOS] ? crec_at(a, x).x & 0x1FFFFu
                       : static_cast<uint32_t>(ptr<const uint16_t>(a, P_MINC)[x]);
 }
 
@@ -386,9 +413,12 @@ struct Terms {
 };
 
 __device__ __forceinline__ Terms terms_at(const TickArgs& a, int x) {
-  return Terms{ptr<const int32_t>(a, P_MCCOLOR)[x], ptr<const int32_t>(a, P_MCABITS)[x],
-               ptr<const int32_t>(a, P_MCBBITS)[x], ptr<const float>(a, P_MCQTX)[x],
-               ptr<const float>(a, P_MCQRX)[x]};
+  const uint32_t w = cword_at(a, x);
+  const uint4 r = crec_at(a, x);
+  const uint64_t lo = static_cast<uint64_t>(r.x) | (static_cast<uint64_t>(r.y) << 32);
+  return Terms{cword_color(w), static_cast<int>((lo >> 17) & 0xFFFFFu),
+               static_cast<int>((lo >> 37) & 0xFFFFFu), __uint_as_float(r.z),
+               __uint_as_float(r.w)};
 }
 
 // chaos._link_survival: slot by slot, forward then reverse.
@@ -693,71 +723,155 @@ struct Bucket {
 };
 
 // ---------------------------------------------------------------------------
-// (P) chaos_pre: churn edges and node terms at tick t, one row per thread
+// (P) chaos_pre: churn edges and node terms at tick t, PROWS rows a thread
 //     (swim.py:240-251, chaos.node_terms / down_at).
+//
+// Input. The schedule's five node masks ([N, P] sides, [N, L] link A and B
+// sides, [N, C] churn, [N, D] degrade; bool) are packed by the wrapper
+// once per installed schedule into I_MW u32 words a row, the families
+// concatenated from bit 0 in that order (P + 2L + C + D bits; one word for
+// up to 32 entries in all, 4 B a row where the bools took a byte an
+// entry). Which entries are open at t (a churn entry: down at t, and at
+// t - 1) does not depend on the row, so each block first forms those bits
+// in the same layout in shared memory, one entry a thread and a ballot a
+// word; a row then ANDs its words with them. The Degrade products walk the
+// set bits in ascending order, which is the reference's slot order, and
+// multiply by 1 - rate as it does (skipping a factor of exactly 1.0).
+//
+// Output, read by A-E at any row through the mirrors (cword_at, crec_at):
+//   c_word [N] u32:  post-churn flags (bits 0-7, REVIVED included) | the
+//                    partition colour << 8 (bits 8-27: MAX_PARTITIONS = 20);
+//   c_rec  [N] 16 B: bits 0-63 as one u64: the incarnation (bits 0-16: a
+//                    u16 own_inc, saturated at 65535, plus a warm revive's
+//                    1) | LinkLoss A sides << 17 | B sides << 37 (20 bits
+//                    each: MAX_LINKS = 20); then qtx and qrx as f32 bits.
+// A lookup of another row's flags, colour, incarnation and terms so reads
+// one 32-byte sector of each array (the seven [N] arrays this replaced
+// took up to seven), and the coalesced per-cell subject reads of A and C
+// (flags and colour) read 4 B a row where they read 5. Both stores are
+// coalesced: a warp writes 128 B of words and 512 B of records. What
+// bounds it: bytes, 7 B/node read and 20 written (launch_hbm_bytes_per_node
+// ("chaos_pre")), and at 1M a launch of ~0.013 ms is ten launch floors.
 // ---------------------------------------------------------------------------
 
-__device__ bool churn_down(const TickArgs& a, int i, int t) {
-  const int NC = a.i[I_NC];
-  const int32_t* cs = ptr<const int32_t>(a, P_CSTART);
-  const int32_t* ce = ptr<const int32_t>(a, P_CSTOP);
-  const int32_t* cp = ptr<const int32_t>(a, P_CPERIOD);
-  const int32_t* cd = ptr<const int32_t>(a, P_CDOWN);
-  const bool* cm = ptr<const bool>(a, P_CMASK) + static_cast<size_t>(i) * NC;
-  bool down = false;
-  for (int c = 0; c < NC; ++c)
-    down = down || (cm[c] && in_window(t, cs[c], ce[c]) &&
-                    floor_mod(t - cs[c], max(cp[c], 1)) < cd[c]);
-  return down;
+// The entry bits of mask word q at tick t, a ballot per word: s_on the
+// partition and link entries open at t, s_dn / s_dp the churn entries down
+// at t / t - 1, s_dg the degrade entries open at t. One warp a word.
+__device__ void chaos_open_bits(const TickArgs& a, int t, uint32_t* s_on,
+                                uint32_t* s_dn, uint32_t* s_dp, uint32_t* s_dg) {
+  const int W = a.i[I_MW];
+  const int NP = a.i[I_NP], NL = a.i[I_NL], NC = a.i[I_NC], ND = a.i[I_ND];
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < W; q += blockDim.x >> 5) {
+    int e = q * 32 + lane;
+    bool on = false, dn = false, dp = false, dg = false;
+    if (e < NP) {
+      on = in_window(t, ptr<const int32_t>(a, P_PSTART)[e],
+                     ptr<const int32_t>(a, P_PSTOP)[e]);
+    } else if ((e -= NP) < 2 * NL) {
+      const int l = e < NL ? e : e - NL;
+      on = in_window(t, ptr<const int32_t>(a, P_LSTART)[l],
+                     ptr<const int32_t>(a, P_LSTOP)[l]);
+    } else if ((e -= 2 * NL) < NC) {
+      const int cs = ptr<const int32_t>(a, P_CSTART)[e];
+      const int ce = ptr<const int32_t>(a, P_CSTOP)[e];
+      const int cp = max(ptr<const int32_t>(a, P_CPERIOD)[e], 1);
+      const int cd = ptr<const int32_t>(a, P_CDOWN)[e];
+      dn = in_window(t, cs, ce) && floor_mod(t - cs, cp) < cd;
+      dp = in_window(t - 1, cs, ce) && floor_mod(t - 1 - cs, cp) < cd;
+    } else if ((e -= NC) < ND) {
+      dg = in_window(t, ptr<const int32_t>(a, P_DSTART)[e],
+                     ptr<const int32_t>(a, P_DSTOP)[e]);
+    }
+    const uint32_t all = 0xFFFFFFFFu;
+    const uint32_t b_on = __ballot_sync(all, on), b_dn = __ballot_sync(all, dn);
+    const uint32_t b_dp = __ballot_sync(all, dp), b_dg = __ballot_sync(all, dg);
+    if (lane == 0) {
+      s_on[q] = b_on;
+      s_dn[q] = b_dn;
+      s_dp[q] = b_dp;
+      s_dg[q] = b_dg;
+    }
+  }
 }
 
-__global__ void k_chaos_pre(TickArgs a) {
-  const int i = a.i[I_ROW0] + blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.i[I_ROW0] + a.i[I_ROWS]) return;
-  const int t = *ptr<const int32_t>(a, P_IN + L_T);
-  const int NP = a.i[I_NP], NL = a.i[I_NL], ND = a.i[I_ND];
-  const size_t row = static_cast<size_t>(i);
+#define PTHREADS 256  // threads a block of chaos_pre
+#define PROWS 4       // rows a thread of chaos_pre, a grid's threads apart
 
-  uint8_t fl = ptr<const uint8_t>(a, P_IN + L_FLAGS)[i];
-  uint32_t inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC)[i];
-  const bool down_now = churn_down(a, i, t), down_prev = churn_down(a, i, t - 1);
+// One row's churn edges and terms from its input flags, incarnation and
+// first mask word (the rest, when a row has more, read here), written as
+// its word and record.
+__device__ __forceinline__ void chaos_row(const TickArgs& a, int i, uint32_t fl,
+                                          uint32_t inc, uint32_t m0,
+                                          const uint32_t* s_bits) {
+  const int W = a.i[I_MW];
+  const uint32_t *s_on = s_bits, *s_dn = s_bits + W, *s_dp = s_bits + 2 * W,
+                 *s_dg = s_bits + 3 * W;
+  const int NP = a.i[I_NP], NL = a.i[I_NL];
+  const int d0 = NP + 2 * NL + a.i[I_NC];  // the first degrade bit
+  const uint32_t* m = ptr<const uint32_t>(a, P_MASKS) + static_cast<size_t>(i) * W;
+  const float* dtx = ptr<const float>(a, P_DTX);
+  const float* drx = ptr<const float>(a, P_DRX);
+  bool down_now = false, down_prev = false;
+  uint64_t pl = 0;  // the row's open partition and link bits (bits 0-59)
+  float qtx = 1.0f, qrx = 1.0f;
+  for (int q = 0; q < W; ++q) {
+    const uint32_t w = q ? m[q] : m0;
+    down_now = down_now || (w & s_dn[q]);
+    down_prev = down_prev || (w & s_dp[q]);
+    if (q < 2) pl |= static_cast<uint64_t>(w & s_on[q]) << (32 * q);
+    for (uint32_t g = w & s_dg[q]; g; g &= g - 1) {
+      const int d = q * 32 + __ffs(g) - 1 - d0;
+      qtx = qtx * (1.0f - dtx[d]);
+      qrx = qrx * (1.0f - drx[d]);
+    }
+  }
   if (down_now && !down_prev) fl &= ~1u;           // kill
   if (down_prev && !down_now) {                    // warm revive
-    fl = static_cast<uint8_t>(((fl | 1u) & ~6u) | REVIVED);
+    fl = ((fl | 1u) & ~6u) | REVIVED;
     inc += 1u;
   }
-  ptr<uint8_t>(a, P_CFLAGS)[i] = fl;
-  ptr<uint32_t>(a, P_CINC)[i] = inc;
+  const uint64_t lmask = (1ull << NL) - 1ull;
+  const uint64_t color = pl & ((1ull << NP) - 1ull);
+  const uint64_t abits = (pl >> NP) & lmask, bbits = (pl >> (NP + NL)) & lmask;
+  const uint64_t lo = inc | (abits << 17) | (bbits << 37);
+  ptr<uint32_t>(a, P_CWORD)[i] = fl | static_cast<uint32_t>(color << 8);
+  ptr<uint4>(a, P_CREC)[i] = make_uint4(static_cast<uint32_t>(lo),
+                                        static_cast<uint32_t>(lo >> 32),
+                                        __float_as_uint(qtx), __float_as_uint(qrx));
+}
 
-  int color = 0, abits = 0, bbits = 0;
-  const bool* side = ptr<const bool>(a, P_PSIDE) + row * NP;
-  for (int p = 0; p < NP; ++p)
-    if (side[p] && in_window(t, ptr<const int32_t>(a, P_PSTART)[p],
-                             ptr<const int32_t>(a, P_PSTOP)[p]))
-      color |= 1 << p;
-  const bool* la = ptr<const bool>(a, P_LA) + row * NL;
-  const bool* lb = ptr<const bool>(a, P_LB) + row * NL;
-  for (int l = 0; l < NL; ++l) {
-    if (!in_window(t, ptr<const int32_t>(a, P_LSTART)[l],
-                   ptr<const int32_t>(a, P_LSTOP)[l]))
-      continue;
-    if (la[l]) abits |= 1 << l;
-    if (lb[l]) bbits |= 1 << l;
+// A thread takes PROWS rows, the grid's thread count apart (so each of its
+// loads and stores is one of a warp's coalesced 32 consecutive rows), and
+// issues their loads before the block forms its open bits, so the two
+// overlap; the grid covers the launch's rows in one pass.
+__global__ void k_chaos_pre(TickArgs a) {
+  extern __shared__ uint32_t s_bits[];  // [4][W]: on, dn, dp, dg
+  const int W = a.i[I_MW];
+  const int t = *ptr<const int32_t>(a, P_IN + L_T);
+  const int end = a.i[I_ROW0] + a.i[I_ROWS];
+  const int stride = gridDim.x * blockDim.x;
+  const int first = a.i[I_ROW0] + blockIdx.x * blockDim.x + threadIdx.x;
+  const uint8_t* in_flags = ptr<const uint8_t>(a, P_IN + L_FLAGS);
+  const uint16_t* in_inc = ptr<const uint16_t>(a, P_IN + L_OWN_INC);
+  const uint32_t* masks = ptr<const uint32_t>(a, P_MASKS);
+  uint32_t fl[PROWS], inc[PROWS], m0[PROWS];
+#pragma unroll
+  for (int u = 0; u < PROWS; ++u) {
+    const int i = first + u * stride;
+    if (i < end) {
+      fl[u] = in_flags[i];
+      inc[u] = in_inc[i];
+      m0[u] = masks[static_cast<size_t>(i) * W];
+    }
   }
-  float qtx = 1.0f, qrx = 1.0f;
-  const bool* dm = ptr<const bool>(a, P_DMASK) + row * ND;
-  for (int d = 0; d < ND; ++d) {
-    if (!(dm[d] && in_window(t, ptr<const int32_t>(a, P_DSTART)[d],
-                             ptr<const int32_t>(a, P_DSTOP)[d])))
-      continue;
-    qtx = qtx * (1.0f - ptr<const float>(a, P_DTX)[d]);
-    qrx = qrx * (1.0f - ptr<const float>(a, P_DRX)[d]);
+  chaos_open_bits(a, t, s_bits, s_bits + W, s_bits + 2 * W, s_bits + 3 * W);
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < PROWS; ++u) {
+    const int i = first + u * stride;
+    if (i < end) chaos_row(a, i, fl[u], inc[u], m0[u], s_bits);
   }
-  ptr<int32_t>(a, P_CCOLOR)[i] = color;
-  ptr<int32_t>(a, P_CABITS)[i] = abits;
-  ptr<int32_t>(a, P_CBBITS)[i] = bbits;
-  ptr<float>(a, P_CQTX)[i] = qtx;
-  ptr<float>(a, P_CQRX)[i] = qrx;
 }
 
 // ---------------------------------------------------------------------------
@@ -1010,10 +1124,10 @@ __global__ void __launch_bounds__(WARPS * 32, 2) k_probe_send(TickArgs a, int ti
             key = mk(vi[u], DEAD);
             tl.add(C_DEATHS, 1);
             if (chaos) {  // a false death: the subject is up and reachable
-              const int sr = (base + j + off[c]) % n;
-              const uint8_t sf = flags_at(a, sr);
-              tl.add(C_FALSE_DEATHS, (sf & 1) && !(sf & 2) &&
-                                         ptr<const int32_t>(a, P_MCCOLOR)[sr] == color);
+              const uint32_t sw = cword_at(a, (base + j + off[c]) % n);
+              const uint8_t sf = cword_flags(sw);
+              tl.add(C_FALSE_DEATHS,
+                     (sf & 1) && !(sf & 2) && cword_color(sw) == color);
             }
           }
         }
@@ -1746,10 +1860,10 @@ __global__ void __launch_bounds__(WARPS * 32) k_pushpull(TickArgs a, int tile_ro
         if (chaos) {
           // Subject truth at row + off[c]: unreachable when cut off by a
           // partition or held down; suspected/confirmed from the final view.
-          const int sr = (row + off[c]) % n;
-          const uint8_t sf = flags_at(a, sr);
+          const uint32_t sw = cword_at(a, (row + off[c]) % n);
+          const uint8_t sf = cword_flags(sw);
           const bool s_alive = sf & 1, s_left = sf & 2;
-          const bool cross = ptr<const int32_t>(a, P_MCCOLOR)[sr] != color[u];
+          const bool cross = cword_color(sw) != color[u];
           const bool suspected = st1 == SUSPECT || st1 == DEAD;
           const bool unreach = act && (cross || (!s_alive && !s_left));
           if (unreach) row_bits |= 1;
@@ -1870,7 +1984,7 @@ __device__ __forceinline__ SerfStage serf_stage(uint32_t* s_dyn, int wib, int ti
 // Post-quiet liveness of row x (alive_truth & ~left after the tick's churn
 // edges and quiet leaves), from its post-churn flags and leave_at.
 __device__ __forceinline__ bool serf_up(const TickArgs& a, int x, int t1) {
-  const uint8_t f = flags_at(a, x);
+  const uint8_t f = flags_sel(a, x);
   const int la = ptr<const int32_t>(a, P_MLEAVE)[x];
   return (f & 1) && !(f & 2) && !(la >= 0 && t1 >= la);
 }
@@ -2128,7 +2242,7 @@ __device__ void serf_intake(const TickArgs& a, int r, int lane, const int* goff,
 // Returns the post-churn flags without the quiet bit; quiet in *quiet.
 __device__ __forceinline__ uint8_t quiet_leave(const TickArgs& a, int r, int t1,
                                                bool* quiet) {
-  const uint8_t fl = static_cast<uint8_t>(flags_at(a, r) & ~REVIVED);
+  const uint8_t fl = static_cast<uint8_t>(flags_sel(a, r) & ~REVIVED);
   const int leave_in = ptr<const int32_t>(a, P_SIN + S_LEAVE)[r];
   *quiet = leave_in >= 0 && t1 >= leave_in;
   ptr<uint8_t>(a, P_OUT + L_FLAGS)[r] = static_cast<uint8_t>(fl | (*quiet ? 2 : 0));
@@ -2971,8 +3085,13 @@ static dim3 grid_for(const TickArgs* a, int threads) {
   return dim3((a->i[I_ROWS] + threads - 1) / threads);
 }
 
+// P: PROWS rows a thread over one pass of the grid; each block's
+// open-entry bits in 4 * I_MW words of dynamic shared memory (the wrapper
+// bounds I_MW).
 extern "C" int gossip_chaos_pre(const TickArgs* a, void* stream) {
-  k_chaos_pre<<<grid_for(a, 128), 128, 0, (cudaStream_t)stream>>>(*a);
+  const size_t smem = 4 * sizeof(uint32_t) * static_cast<size_t>(a->i[I_MW]);
+  k_chaos_pre<<<grid_for(a, PTHREADS * PROWS), PTHREADS, smem,
+                (cudaStream_t)stream>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 

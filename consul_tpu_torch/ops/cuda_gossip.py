@@ -19,8 +19,10 @@ chaos_pre runs on a persistent grid of warp tiles: a warp owns up to 32
 consecutive rows, takes their cells with consecutive lanes (every warp
 load of a row-major leaf a full line; serf_post stages its queue and
 dedup buckets in shared memory) and their per-row scalar work one row
-per lane; chaos_pre takes one row per thread. See the note at the top of
-that file. :func:`launch_hbm_bytes_per_node` counts each
+per lane; chaos_pre takes four rows a thread, reads the schedule's node
+masks bit-packed once per installed schedule (:func:`pack_masks`) and
+hands the later launches one word and one 16-byte record a row. See the
+note at the top of that file. :func:`launch_hbm_bytes_per_node` counts each
 launch's least traffic, the yardstick of its time on the card.
 
 One more launch of that file, M (:class:`MetricsKernel`), is not a TPU
@@ -120,9 +122,15 @@ MAX_RELAY_FACTOR = 8
 _LEAVES = 23
 _SERF_LEAVES = len(serf.SerfState._fields) - 1
 # The schedule leaves the kernel reads: every family but the raft lane,
-# which the SWIM tick does not read.
+# which the SWIM tick does not read. The node masks go in packed into bit
+# words (:func:`pack_masks`, in MASK_FIELDS order), the rest as they are.
 _SCHED_LEAVES = chaos_mod.ChaosSchedule._fields[:19]
 assert _SCHED_LEAVES[-1] == "dg_mask"
+MASK_FIELDS = ("part_side", "ll_a", "ll_b", "cw_mask", "dg_mask")
+_SCHED_SCALARS = tuple(f for f in _SCHED_LEAVES if f not in MASK_FIELDS)
+# The most u32 mask words a row that launch P stages (4 per word of
+# shared memory a block).
+MAX_MASK_WORDS = 1024
 _PTRS = (
     ["in_" + str(k) for k in range(_LEAVES)]
     + ["out_" + str(k) for k in range(_LEAVES)]
@@ -135,9 +143,8 @@ _PTRS = (
     + ["sout_" + str(k) for k in range(_SERF_LEAVES)]
     + ["u_resp", "relay_u1", "relay_u2", "relay_cols", "x_flags", "x_key",
        "x_orig", "ev_cols", "ev_u_drop"]
-    + list(_SCHED_LEAVES)
-    + ["u_pp", "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx",
-       "c_qrx", "slo"]
+    + list(_SCHED_SCALARS)
+    + ["masks", "u_pp", "c_word", "c_rec", "slo"]
 )
 # The mirrors (full-height copies of what a launch reads at other rows) and
 # where each comes from in a tick: a SWIM-plane leaf of the input, a
@@ -145,9 +152,8 @@ _PTRS = (
 MIRRORS = {
     "m_flags": "flags", "m_inc": "own_inc", "m_vec": "viv.vec",
     "m_vh": "viv.height", "m_verr": "viv.error", "m_vadj": "viv.adjustment",
-    "m_cflags": "c_flags", "m_cinc": "c_inc", "m_ccolor": "c_color",
-    "m_cabits": "c_abits", "m_cbbits": "c_bbits", "m_cqtx": "c_qtx",
-    "m_cqrx": "c_qrx", "m_vmid": "view_mid", "m_pflags": "pay_flags",
+    "m_cword": "c_word", "m_crec": "c_rec", "m_vmid": "view_mid",
+    "m_pflags": "pay_flags",
     "m_pscol": "pay_scol", "m_pskey": "pay_skey", "m_psbits": "pay_sbits",
     "m_pownk": "pay_ownk", "m_poke": "poke", "m_upp": "u_pp",
     "m_xflags": "x_flags", "m_xkey": "x_key", "m_xorig": "x_orig",
@@ -167,9 +173,8 @@ _SERF_FULL = frozenset(v for v in MIRRORS.values()
 # The rest are the tick's scratch buffers (TickKernel._buffers makes each
 # of them full height under several groups) and the push-pull draw.
 assert frozenset(MIRRORS.values()) - _SWIM_FULL - _SERF_FULL == {
-    "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx", "c_qrx",
-    "view_mid", "pay_flags", "pay_scol", "pay_skey", "pay_sbits", "pay_ownk",
-    "poke", "x_flags", "x_key", "x_orig", "u_pp"}
+    "c_word", "c_rec", "view_mid", "pay_flags", "pay_scol", "pay_skey",
+    "pay_sbits", "pay_ownk", "poke", "x_flags", "x_key", "x_orig", "u_pp"}
 
 
 def full_height_leaves(tree) -> frozenset:
@@ -206,7 +211,7 @@ _INTS = ("n", "k", "s", "d", "w", "wd", "ic", "fan", "p", "tx_limit",
          "susp_k", "pp_period", "own_limit", "probe_period", "awareness_max",
          "serf", "e", "r", "o", "q", "pe", "rf", "orig16", "exact_sig",
          "chaos", "sentinel", "np", "nl", "nc", "nd", "dense", "row0", "rows",
-         "slo_defer", "sref")
+         "slo_defer", "sref", "mw")
 # Pointers to a shard's own [rows, ...] tensors, passed as row origins
 # (gossip_tick.cu, the sharded call): every leaf of the state but t, the
 # per-row draws, the per-row scratch and the schedule's node masks.
@@ -218,18 +223,16 @@ _ROW_PTRS = frozenset(
     + [f"sin_{k}" for k in range(_SERF_LEAVES)]
     + [f"sout_{k}" for k in range(_SERF_LEAVES)]
     + ["u_resp", "relay_u1", "relay_u2", "x_flags", "x_key", "x_orig",
-       "ev_u_drop", "part_side", "ll_a", "ll_b", "cw_mask", "dg_mask", "u_pp",
-       "c_flags", "c_inc", "c_color", "c_abits", "c_bbits", "c_qtx", "c_qrx"])
+       "ev_u_drop", "masks", "u_pp", "c_word", "c_rec"])
 assert _ROW_PTRS <= set(_PTRS)
 _ROW_COLS = tuple(sorted(_PTRS.index(p) for p in _ROW_PTRS))
 # The mirrors each launch needs filled before it runs under a mesh (with a
-# schedule, chaos_pre's scratch takes the place of the input's flags and
-# incarnation; u_pp is the tick's draw, whole on every device).
+# schedule, chaos_pre's word and record take the place of the input's
+# flags and incarnation; u_pp is the tick's draw, whole on every device).
 EXCHANGES = {
     "probe_send": ("m_flags", "m_inc", "m_vec", "m_vh", "m_verr", "m_vadj"),
-    "probe_send_chaos": ("m_cflags", "m_cinc", "m_ccolor", "m_cabits",
-                         "m_cbbits", "m_cqtx", "m_cqrx", "m_vec", "m_vh",
-                         "m_verr", "m_vadj"),
+    "probe_send_chaos": ("m_cword", "m_crec", "m_vec", "m_vh", "m_verr",
+                         "m_vadj"),
     "receive": ("m_pflags", "m_pscol", "m_pskey", "m_psbits", "m_pownk",
                 "m_poke"),
     "pushpull": ("m_vmid",),
@@ -314,6 +317,71 @@ def sweep_payload_bytes_per_node(cfg: SimConfig) -> float:
 
 # The tick's launch stages (every launch but M and L).
 STAGES = tuple(k for k in LAUNCHES if k not in ("metrics", "lens"))
+# Bytes a row of chaos_pre's output: the word (flags, colour) and the
+# record (incarnation and side bits, qtx, qrx); gossip_tick.cu, above
+# k_chaos_pre, has the layout.
+_CHAOS_ROW = 4 + 16
+
+
+def mask_words(sched) -> int:
+    """u32 words a row of a schedule's packed node masks: one bit an
+    entry of every family in MASK_FIELDS, at least one word."""
+    bits = sum(getattr(sched, f).shape[1] for f in MASK_FIELDS)
+    return max(1, -(-bits // 32))
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as int32 tensors of the same bits."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def pack_masks(sched) -> torch.Tensor:
+    """A schedule's node masks as launch P reads them: [N, W] int32 (u32
+    bit patterns, W = :func:`mask_words`), row i's bit e the e-th column
+    of the MASK_FIELDS masks of row i concatenated (partition sides, link
+    A sides, link B sides, churn, degrade), bit e in word e // 32 at bit
+    e % 32. On the masks' device."""
+    cols = torch.cat([getattr(sched, f) for f in MASK_FIELDS], dim=1)
+    words = torch.zeros((cols.shape[0], mask_words(sched)), dtype=torch.int64,
+                        device=cols.device)
+    for e in range(cols.shape[1]):
+        words[:, e // 32] |= cols[:, e].to(torch.int64) << (e % 32)
+    return _as_i32(words)
+
+
+class _MaskCache:
+    """The packed node masks (:func:`pack_masks`) of the schedules the
+    kernel runs under, packed once per installed schedule: keyed by each
+    mask's address, shape, strides and version counter, so a shifted
+    schedule (``chaos.shift_schedule`` keeps the masks) or a sweep's lane
+    reuses its words and an edited mask is packed again. An entry holds
+    its masks, so no other tensor takes their addresses while it lives;
+    the SIZE most recently used stay (a sweep's lanes, each group's rows
+    of a placed schedule)."""
+
+    SIZE = 64
+
+    def __init__(self):
+        self.packs = 0
+        self._entries = {}
+        self._lock = threading.Lock()
+
+    def get(self, sched) -> torch.Tensor:
+        masks = tuple(getattr(sched, f) for f in MASK_FIELDS)
+        key = tuple((x.device, x.data_ptr(), tuple(x.shape), x.stride(),
+                     x._version) for x in masks)
+        with self._lock:
+            hit = self._entries.pop(key, None)
+            if hit is None:
+                hit = (masks, pack_masks(sched))
+                self.packs += 1
+            self._entries[key] = hit
+            while len(self._entries) > self.SIZE:
+                self._entries.pop(next(iter(self._entries)))
+            return hit[1]
+
+
+MASK_CACHE = _MaskCache()
 
 
 def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
@@ -351,19 +419,19 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
         return b(x) / float(n)
 
     # A row's own scalars as every launch reads them: the input's flags and
-    # incarnation, or chaos_pre's post-churn flags, incarnation and node
-    # terms (color, side bits, two survival products) under a schedule.
-    own = 1 + 4 + 20 if chaos else 1 + 2
+    # incarnation, or under a schedule chaos_pre's word (post-churn flags,
+    # colour) and record (incarnation, side bits, two survival products).
+    own = _CHAOS_ROW if chaos else 1 + 2
     view_in = sum(row_bytes(x) for x in (sw.view_inc, sw.meta, sw.susp_delta,
                                          sw.susp_seen))
     u16, u32 = 2 * k, 4 * k     # one [K] row of uint16 / uint32
     if stage == "chaos_pre":
         if not chaos:
             return 0.0
-        # The input's flags and incarnation and the schedule the kernel
-        # reads; the post-churn flags, incarnation and terms written.
-        masks = sum(row_bytes(getattr(sched, f)) for f in _SCHED_LEAVES)
-        return 1 + 2 + masks + 1 + 4 + 4 * 5
+        # The input's flags and incarnation, the packed node masks and the
+        # per-entry leaves read; the word and the record written.
+        scalars = sum(row_bytes(getattr(sched, f)) for f in _SCHED_SCALARS)
+        return 1 + 2 + 4 * mask_words(sched) + scalars + _CHAOS_ROW
 
     if stage == "probe_send":
         flags = sw.flags
@@ -424,7 +492,7 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
             rw = sum(row_bytes(getattr(state, f)) for f in queue + buckets + (
                 "clock", "event_clock", "query_clock", "ev_delivered",
                 "q_responder", "leave_at"))
-            rd = (rw + (1 + 20 if chaos else 1) + 2 * fan + 4 + 8 * rf
+            rd = (rw + (_CHAOS_ROW if chaos else 1) + 2 * fan + 4 + 8 * rf
                   + (8 * fan + 8 * rf) / n)
             return rd + rw + 1 + 2 + 4 * pe + 4 * pe
         # E2: the queue read and written; E1's buckets and floors, the
@@ -434,7 +502,7 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
         rw = sum(row_bytes(getattr(state, f)) for f in queue + (
             "q_open_key", "q_deadline", "down_since"))
         rd = (rw + sum(row_bytes(getattr(state, f)) for f in buckets)
-              + (1 + 20 if chaos else 1) + 4 + 2 + 4 * pe + 4 * pe + 4 * fan
+              + (_CHAOS_ROW if chaos else 1) + 4 + 2 + 4 * pe + 4 * pe + 4 * fan
               + u16 + 8 * fan / n)
         return rd + rw
 
@@ -449,7 +517,7 @@ def launch_hbm_bytes_per_node(stage: str, state, world, draws, sched=None, *,
             "q_responder", "q_open_key", "q_deadline", "down_since")
     rw = sum(row_bytes(getattr(state, f)) for f in keep)
     rf = draws.relay_u1.shape[1]
-    rd = (rw + (1 + 20 if chaos else 1) + 2 + 4 * pe + 4 * pe + 4 * fan + 4
+    rd = (rw + (_CHAOS_ROW if chaos else 1) + 2 + 4 * pe + 4 * pe + 4 * fan + 4
           + 8 * rf + u16 + 8 * rf / n)
     return rd + rw + 1
 
@@ -578,6 +646,33 @@ def plain_reference_serf_tick(cfg: SimConfig, topo: Topology, world, packed,
     return layout_mod.pack_state(state), counters_mod.stack(cnt)
 
 
+def plain_chaos_pre(state, sched, t):
+    """The plain PyTorch version of launch P alone: ``(word, record)``,
+    [N] and [N, 4] int32 holding the kernel's u32 bits (the layout is in
+    gossip_tick.cu, above k_chaos_pre), for a packed state (or a SerfState
+    with a packed SWIM plane) at tick ``t`` under ``sched``: the churn
+    edges of ``chaos.down_at`` at t - 1 and t (a kill on a falling edge; a
+    warm revive on a rising one: alive, not left or leaving, the REVIVED
+    mark, incarnation + 1) and ``chaos.node_terms`` at t. For the tests
+    and the card's check of P; the tick's plain versions take the
+    schedule whole."""
+    sw = state.swim if isinstance(state, serf.SerfState) else state
+    i64 = torch.int64
+    terms = chaos_mod.node_terms(sched, t)
+    down_now, down_prev = chaos_mod.down_at(sched, t), chaos_mod.down_at(sched, t - 1)
+    fl, inc = sw.flags.to(i64), sw.own_inc.to(i64)
+    kill, revive = down_now & ~down_prev, down_prev & ~down_now
+    fl = torch.where(kill, fl & ~1, fl)
+    fl = torch.where(revive, ((fl | 1) & ~6) | 0x80, fl)
+    inc = torch.where(revive, inc + 1, inc)
+    word = fl | (terms.color.to(i64) << 8)
+    lo = inc | (terms.a_bits.to(i64) << 17) | (terms.b_bits.to(i64) << 37)
+    rec = torch.stack([lo & 0xFFFFFFFF, lo >> 32,
+                       chaos_mod._f32_bits(terms.q_tx),
+                       chaos_mod._f32_bits(terms.q_rx)], dim=1)
+    return _as_i32(word), _as_i32(rec)
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
@@ -704,13 +799,18 @@ class TickKernel:
         """Every leaf the kernel reads, by its name's suffix: slot ticks
         int32 [m], loss rates float32 [m], node masks bool [n, m] (``n``
         the launch's rows)."""
-        for fam in ("part", "ll"):
+        for fam, most in (("part", chaos_mod.MAX_PARTITIONS),
+                          ("ll", chaos_mod.MAX_LINKS)):
             m = getattr(sched, fam + "_start").shape[0]
-            # Partition colors and link sides are int32 bitfields.
-            if m > chaos_mod.MAX_PARTITIONS:
+            # Partition colours and link sides are 20-bit fields of chaos_pre's
+            # word and record.
+            if m > most:
                 raise ValueError(f"the CUDA tick kernel takes at most "
-                                 f"{chaos_mod.MAX_PARTITIONS} {fam} slots, "
-                                 f"got {m}")
+                                 f"{most} {fam} slots, got {m}")
+        if mask_words(sched) > MAX_MASK_WORDS:
+            raise ValueError(f"the CUDA tick kernel takes at most "
+                             f"{32 * MAX_MASK_WORDS} schedule entries in all, "
+                             f"got {32 * mask_words(sched)}")
         for name in _SCHED_LEAVES:
             fam, leaf = name.split("_", 1)
             m = getattr(sched, fam + "_start").shape[0]
@@ -873,21 +973,18 @@ class TickKernel:
                         + ([draws.ev_cols, draws.ev_u_drop] if self.reference
                            else [None, None]))
         if sched is None:
-            tensors += [None] * (len(_SCHED_LEAVES) + 9)
+            tensors += [None] * (len(_SCHED_SCALARS) + 5)
         else:
-            i32, f32 = torch.int32, torch.float32
+            i32 = torch.int32
+            # chaos_pre's word and 16-byte record a row, u32 bit patterns.
             cs = dict(
-                c_flags=tall((n,), torch.uint8),
-                c_inc=tall((n,), u32),
-                c_color=tall((n,), i32),
-                c_abits=tall((n,), i32),
-                c_bbits=tall((n,), i32),
-                c_qtx=tall((n,), f32),
-                c_qrx=tall((n,), f32),
+                c_word=tall((n,), i32),
+                c_rec=tall((n, 4), i32),
                 slo=torch.zeros((2,), dtype=i32, device=device))
             scratch.update(cs)
-            tensors += ([getattr(sched, f) for f in _SCHED_LEAVES]
-                        + [sw_draws.u_pp] + list(cs.values()))
+            tensors += ([getattr(sched, f) for f in _SCHED_SCALARS]
+                        + [MASK_CACHE.get(sched), sw_draws.u_pp]
+                        + list(cs.values()))
         tensors += [tensors[c] for c in _ALIASES]
         assert len(tensors) == len(_PTRS)
         return out, scratch, tensors
@@ -910,7 +1007,8 @@ class TickKernel:
                 sched.part_start.shape[0], sched.ll_start.shape[0],
                 sched.cw_start.shape[0], sched.dg_start.shape[0])),
             int(self.topo.dense), row0, self.cfg.n if rows is None else rows,
-            int(slo_defer), int(self.reference)]
+            int(slo_defer), int(self.reference),
+            0 if sched is None else mask_words(sched)]
         ints[_INTS.index("rf")] = self._relay_factor(sched)
         args.i[:] = [int(x) for x in ints]
         args.f[:] = [float(x) for x in self._flts]
@@ -971,6 +1069,27 @@ class TickKernel:
             for stage, fn in self._stages(sched):
                 self._launch(stage, fn, args, stream)
         return out, scratch["counters"]
+
+    def chaos_pre(self, world, packed, draws, sched):
+        """Launch P alone on the tick's inputs: its ``(word, record)``
+        ([N] and [N, 4] int32 of u32 bits), which the tick's later launches
+        would read; the inputs are untouched. CUDA tensors only: the plain
+        version is :func:`plain_chaos_pre`."""
+        device = layout_mod.tick_of(packed).device
+        sched = chaos_mod.or_none(sched)
+        if device.type != "cuda":
+            raise ValueError(f"launch P takes CUDA tensors, got {device}; use "
+                             "plain_chaos_pre for the plain version")
+        if sched is None:
+            raise ValueError("launch P runs under a non-empty schedule")
+        self._check_inputs(world, packed, draws, device, sched)
+        build()
+        _, scratch, tensors = self._buffers(world, packed, draws, device, sched)
+        with torch.cuda.device(device):
+            self._launch("chaos_pre", _LIB.gossip_chaos_pre,
+                         self._args(tensors, sched),
+                         torch.cuda.current_stream(device).cuda_stream)
+        return scratch["c_word"], scratch["c_rec"]
 
 
 def make_tick_kernel(cfg: SimConfig, topo: Topology, *,
@@ -1139,6 +1258,26 @@ class ShardedTickKernel:
             out += mesh_mod.shard_views(part.out, g, b)
         return out, [part.scratch["counters"] for part in parts]
 
+    def chaos_pre(self, blocks, draws, sched_blocks):
+        """Launch P alone, once per group, on one tick's inputs: each
+        group's ``(word, record)`` over its rows (as
+        :meth:`TickKernel.chaos_pre`), in group order."""
+        if sched_blocks is None or chaos_mod.or_none(sched_blocks[0]) is None:
+            raise ValueError("launch P runs under a non-empty schedule")
+        for dev in self.mesh.devices:
+            if dev.type != "cuda":
+                raise ValueError(f"launch P takes CUDA tensors, got {dev}")
+        build()
+        parts, args = self._operands(blocks, draws, sched_blocks)
+        for part, a in zip(parts, args):
+            with torch.cuda.device(part.device):
+                self.kernel._launch(
+                    "chaos_pre", _LIB.gossip_chaos_pre, a,
+                    torch.cuda.current_stream(part.device).cuda_stream)
+            SHARDED_LAUNCHES["chaos_pre"] += 1
+            self.launches += 1
+        return [(p.scratch["c_word"], p.scratch["c_rec"]) for p in parts]
+
     def _operands(self, blocks, draws, sched_blocks):
         """Each group's operands (:class:`_Group`) and TickArgs for one
         tick: the group's blocks as one tree of its rows (views, checked
@@ -1243,8 +1382,8 @@ def exchange_bytes_per_node(stage: str, state, sched=None, *, cfg: SimConfig,
     if stage == "probe_send":
         viv = sum(layout_mod.np_size_bytes(x) for x in (
             sw.viv.vec, sw.viv.height, sw.viv.error, sw.viv.adjustment)) / n
-        # flags and incarnation, or chaos_pre's flags, incarnation and terms.
-        per = viv + (1 + 4 + 4 * 5 if sched is not None else 1 + 2)
+        # flags and incarnation, or chaos_pre's word and record.
+        per = viv + (_CHAOS_ROW if sched is not None else 1 + 2)
     elif stage == "receive":
         per = 2 + p + 4 * p + 4 * p + 4 + 4
     elif stage == "pushpull":

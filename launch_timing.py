@@ -23,6 +23,8 @@ rows, a query and a leave then), then 64 ticks on:
 - ``serf``: the serf tick;
 - ``serf_chaos``: the serf tick with the sentinel under a partition, a
   churn wave, a lossy link and a degraded block opened at the kill;
+- ``chaos``: the SWIM tick with the sentinel under that schedule (launch
+  P, then A, B and C reading its row word and record);
 - ``dense_serf``: the serf tick on the dense view, n = 256 (K = 255);
 - ``dense_chaos``, ``dense_serf_chaos``: the SWIM and the serf tick on the
   dense view at n = 256 with the sentinel under that schedule;
@@ -33,6 +35,9 @@ rows, a query and a leave then), then 64 ticks on:
 The first four are timed unless ``--states`` names others. The ticks
 on the dense view and at n = 12 are bound by the wrapper's host work, so
 their CUDA-event time over back-to-back ticks is that work's.
+
+Each pass also times a launch that does no work (a one-element add,
+its profiler device time): the floor of the launch-bound launches.
 
 Prints one JSON line per state and pass, the card's name and power limit
 as ``nvidia-smi`` gives them, and a last JSON line with every reading.
@@ -55,7 +60,7 @@ MAIN_N = 1_048_576
 DENSE_N = 256
 WARM, AFTER = 32, 64
 STATES = ("bare", "serf", "serf_chaos", "dense_serf", "dense_chaos",
-          "dense_serf_chaos", "wan", "lan_250k")
+          "dense_serf_chaos", "wan", "lan_250k", "chaos")
 DEFAULT_STATES = STATES[:4]
 
 
@@ -155,6 +160,27 @@ def _device_ms(fn, reps: int) -> dict:
     return out
 
 
+def floor_ms(reps: int = 200) -> dict:
+    """Device ms of a launch that does no work: the profiler's mean over
+    ``reps`` one-element adds in one session."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1, device="cuda")
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA]
+    if not us:
+        return {"ms": "not measured", "launches": 0}
+    return {"ms": sum(us) / len(us) / 1000.0, "launches": len(us),
+            "ms_min": min(us) / 1000.0}
+
+
 def time_state(tick, world, st, d, sched, reps):
     """ms per launch (profiler device time, by kernel name) and ms per
     tick (CUDA events over 20 ticks) of the tick on one state; and launch
@@ -208,6 +234,9 @@ def main() -> int:
     states = {name: make_state(name) for name in names}
     readings = []
     for pass_ in (1, 2):
+        floor = dict(tree=tree, floor_pass=pass_, launch_floor=floor_ms())
+        readings.append(floor)
+        print(json.dumps(floor), flush=True)
         for name, (tick, world, st, d, sched) in states.items():
             res = dict(tree=tree, state=name, pass_=pass_,
                        **time_state(tick, world, st, d, sched, args.reps))

@@ -125,11 +125,21 @@ def test_gameday_prints_run_gamedays_verdict(capsys):
         assert out[f] == json.loads(json.dumps(verdict[f])), f
 
 
+# A child CLI process runs with one intra-op thread, as the test process
+# does (torch_parity.py): PyTorch's default of one thread per core, in each
+# of the drill's three children beside the other test workers, took many
+# times the CPU of the work at n = 256.
+CHILD_ENV = dict(os.environ, OMP_NUM_THREADS="1")
+# How long the drill waits for a child to reach a checkpoint, or to end:
+# a bound for a stuck child on a loaded host, not a measure of progress.
+STUCK_S = 900
+
+
 def _cli(args, **kw):
     return subprocess.Popen(
         [sys.executable, "-m", "consul_tpu_torch.cli"] + [str(a) for a in args],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        **kw)
+        env=CHILD_ENV, **kw)
 
 
 def _last_json(stdout):
@@ -143,22 +153,31 @@ def test_sigterm_drill_exits_75_and_resumes_bit_equal(tmp_path):
                    "--ckpt-interval-s", 0]
     whole = _cli(base)
     proc = _cli(args)
+    # SIGTERM goes out as soon as the first checkpoint (tick 64) is on
+    # disk: the 704 ticks still to run are what keep the run from ending
+    # first, whatever the load. A run that ends, or makes no checkpoint,
+    # before then fails here with its own output.
     t0 = time.monotonic()
-    while proc.poll() is None and time.monotonic() - t0 < 120:
-        if glob.glob(str(tmp_path / "*.ckpt")):
-            proc.send_signal(signal.SIGTERM)
-            break
+    while not glob.glob(str(tmp_path / "*.ckpt")):
+        if proc.poll() is not None or time.monotonic() - t0 > STUCK_S:
+            whole.kill()
+            proc.kill()
+            out, err = proc.communicate()
+            pytest.fail(f"no checkpoint before the run ended (rc "
+                        f"{proc.returncode}, {time.monotonic() - t0:.0f} s): "
+                        f"{out[-500:]} {err[-2000:]}")
         time.sleep(0.02)
-    stdout, stderr = proc.communicate(timeout=120)
+    proc.send_signal(signal.SIGTERM)
+    stdout, stderr = proc.communicate(timeout=STUCK_S)
     assert proc.returncode == 75, stderr[-2000:]
     stopped = _last_json(stdout)
     assert stopped["preempted"] and 0 < stopped["ticks_done"] < 768
     again = _cli(args)
-    out, err = again.communicate(timeout=120)
+    out, err = again.communicate(timeout=STUCK_S)
     assert again.returncode == 0, err[-2000:]
     resumed = _last_json(out)
     assert resumed["resumed_from_tick"] > 0
-    wout, werr = whole.communicate(timeout=120)
+    wout, werr = whole.communicate(timeout=STUCK_S)
     assert whole.returncode == 0, werr[-2000:]
     assert resumed["state_digest"] == _last_json(wout)["state_digest"]
 

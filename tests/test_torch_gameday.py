@@ -256,7 +256,7 @@ def test_swarm_imports_no_torch():
             "import consul_tpu_torch.gameday as g; "
             "assert 'torch' not in sys.modules, 'torch'; "
             "assert g.PHASES[0] == 'warmup'")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr

@@ -349,13 +349,19 @@ def test_launch_bytes_serf_and_schedule_hand_counts():
     serf_rw = (4 + 8 * 4 + 8 * 2 + 8 + 8 + 16 * 4 + 16 * 4 * 4 + 16 * 4
                + 16 * 4 * 4 + 4 + 4 + 3 * 4 + 4 + 1 + 4 * 4 + 4 * 4 + 32 * 4)
     assert serf_rw == 893
-    d_read = serf_rw + 1 + 20 + 2 + 2 * 4 + 2 * 4 + 3 * 4 + 4 + 2 * 32
+    # The row's flags and terms under a schedule: chaos_pre's 4-byte word
+    # and 16-byte record.
+    d_read = serf_rw + 4 + 16 + 2 + 2 * 4 + 2 * 4 + 3 * 4 + 4 + 2 * 32
     assert got["serf_post"] == pytest.approx(d_read + serf_rw + 1, rel=1e-12)
-    # One partition slot and one degrade slot: a byte per node and slot of
-    # each mask family the kernel reads, plus the per-slot ticks and rates.
-    masks = sum(tlayout.np_size_bytes(getattr(sched, f))
-                for f in cuda_gossip._SCHED_LEAVES) / 1024
-    assert got["chaos_pre"] == pytest.approx(1 + 2 + masks + 1 + 4 + 20)
+    # One partition slot and one degrade slot: their node masks packed into
+    # one u32 word a node, plus the per-slot ticks and rates; the word and
+    # the record written.
+    scalars = sum(tlayout.np_size_bytes(getattr(sched, f))
+                  for f in cuda_gossip._SCHED_SCALARS) / 1024
+    assert cuda_gossip.mask_words(sched) == 1
+    assert got["chaos_pre"] == pytest.approx(1 + 2 + 4 + scalars + 4 + 16)
     bare = _launch_bytes(cfg)
-    assert got["pushpull"] - bare["pushpull"] == pytest.approx(22 + 4)
-    assert got["receive"] - bare["receive"] == pytest.approx(22)
+    # The word and the record in place of the input's flags and
+    # incarnation (3 B), and the push-pull draw.
+    assert got["pushpull"] - bare["pushpull"] == pytest.approx(17 + 4)
+    assert got["receive"] - bare["receive"] == pytest.approx(17)

@@ -445,7 +445,8 @@ def test_init_watchdog_writes_blackbox(tmp_path):
     ttrace.get_tracer().instant("launch.child")
     proc = subprocess.Popen(
         [sys.executable, "-c", "import time; time.sleep(60)"],
-        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     try:
         watchdog = twd.InitWatchdog(init_window_s=0.2, poll_s=0.05,
                                     blackbox_dir=str(tmp_path / "bb"))

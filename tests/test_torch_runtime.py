@@ -432,12 +432,16 @@ _CHILD = textwrap.dedent("""
 """)
 
 
+# The children run with one intra-op thread, as the test process does.
+_CHILD_ENV = dict(os.environ, OMP_NUM_THREADS="1")
+
+
 def test_kill9_then_rerun_is_bit_identical(tmp_path):
     ck, end = str(tmp_path / "ck"), str(tmp_path / "end.ckpt")
     proc = subprocess.Popen(
         [sys.executable, "-c", _CHILD.format(repo=REPO, ck=ck, end=end,
                                              hang=True)],
-        stdout=subprocess.PIPE, text=True)
+        stdout=subprocess.PIPE, text=True, env=_CHILD_ENV)
     try:
         line = proc.stdout.readline()
     finally:
@@ -449,7 +453,7 @@ def test_kill9_then_rerun_is_bit_identical(tmp_path):
     rerun = subprocess.run(
         [sys.executable, "-c", _CHILD.format(repo=REPO, ck=ck, end=end,
                                              hang=False)],
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=300, env=_CHILD_ENV)
     assert rerun.returncode == 0, rerun.stderr[-2000:]
     assert rerun.stdout.strip().splitlines()[-1] == "DONE 16"
     assert not os.path.exists(os.path.join(ck, "k9.ckpt"))
