@@ -163,7 +163,21 @@ one: the SLO verdict, lost writes 0, B1, B2 and B5 launched). Then
 (``prewarm``, ``run --prewarm``, ``trace``, ``chaos --sweep``,
 ``serve-bench``, ``gameday``), and a SIGTERM drill: ``run --ckpt-dir``
 stopped after its first checkpoint exits 75, the rerun resumes and ends
-in an uninterrupted run's state. It prints
+in an uninterrupted run's state. Then the federation on a mesh and the
+beyond-memory tier (ROADMAP A13 item 4, A12b): ``federation_mesh``
+(``Federation(mesh=)`` at 4 x 250,000 on ``["cuda:0"] * 8`` as a (2, 4)
+(dc, nodes) mesh, every DC through a sharded tick of its own: the main
+path's flow in one group a row and the parity window in a group per
+shard, each bit-equal to the one-device federation at every chunk
+boundary), ``dcn_meshes`` (``DcnFederation(meshes=)``, 4 x 250,000 on
+two islands of (2, 2) meshes, under both groupings and bench.py's drill
+faults, bit-equal to the meshless run with the same envelope) and
+``streamed`` (``StreamedSimulation`` at 8,388,608 SWIM nodes under an
+8 GB budget in two passes of 64 ticks, and ``StreamedSerfSimulation`` at
+2,097,152 under 16 GB in one pass of 16: the plan equal to the
+reference planner's, checked cohorts bit-equal to a resident simulation
+fed the cohort's state, world and draws, the device peak within the
+plan's resident bytes, the copies' overlap with the ticks). It prints
 one JSON line per phase (the timing lines' ``ms_by_launch`` give P, A, B
 and C under the schedule; ``federation_wan_timing`` carries the launch
 floor, a one-element add's device time, from its child process),
@@ -452,6 +466,23 @@ DCN_ROUNDS = 12
 DCN_SYNC = 16
 DCN_COUNTERS = ("retries", "link_down_ticks", "send_timeouts", "retx_dropped",
                 "heals", "link_degraded")
+# The federation on a (dc, nodes) mesh of the card (ROADMAP A13 item 4):
+# FED_MAIN over ["cuda:0"] * 8 as a (2, 4) mesh (2 DCs a row, 4 shards of
+# 62,500 rows a DC); the DCN tier's islands each a (2, 2) mesh of the card,
+# 4 DCs x 250,000 (3 servers), under bench.py's drill faults.
+FED_MESH_DEVICES, FED_MESH_ROWS = 8, 2
+DCN_MESH = dict(n_dc=4, nodes_per_dc=250_000, servers_per_dc=3)
+DCN_MESH_DEVICES, DCN_MESH_ROWS = 4, 2
+# Cohort streaming (ROADMAP A12b): SWIM at 8,388,608 nodes (K = 32, packed)
+# under an 8 GB budget (the reference's planner: 8 cohorts of 1,048,576,
+# chunk 64, 5,276,434,434 resident bytes), two passes of 64 ticks; serf at
+# 2,097,152 under 16 GB (2 cohorts, 10,209,984,522 bytes), one pass of 16.
+STREAM_SWIM = dict(n=8_388_608, budget="8GB", cohort_n=1_048_576, chunk=64,
+                   resident_bytes=5_276_434_434, passes=2, ticks=64,
+                   check=(0, 7))
+STREAM_SERF = dict(n=2_097_152, budget="16GB", cohort_n=1_048_576, chunk=64,
+                   resident_bytes=10_209_984_522, passes=1, ticks=16,
+                   check=(1,))
 
 # The observability plane (obs/): the node lens's sampled rows on the main
 # path (normalize_ids(n, LENS_S)) and, for launch L against its plain
@@ -3521,17 +3552,19 @@ def _dcn_view(d):
                for (a, b), ls in d._links.items()})
 
 
-def dcn_run(kw, view, device, kernel):
+def dcn_run(kw, view, device, kernel, meshes=None, groups=None):
     """DcnFederation.run over DCN_ROUNDS rounds of DCN_SYNC ticks under
-    bench.py's link faults, with each sync timed (host clock, after the
-    islands' work has finished) and replicas_agree read after it."""
+    bench.py's link faults (each island on ``meshes[k]`` when given), with
+    each sync timed (host clock, after the islands' work has finished)
+    and replicas_agree read after it."""
     from consul_tpu_torch.parallel import dcn
     from consul_tpu_torch.utils.telemetry import Sink
 
     cfg = _fed_cfg(kw, view)
     d = dcn.DcnFederation(cfg, n_islands=2, seed=0, sink=Sink(),
                           link_policy=dcn.LinkPolicy(retry_max=3, queue_bound=4),
-                          device=device, kernel=kernel)
+                          meshes=meshes, groups=groups, device=device,
+                          kernel=kernel)
     d.inject_link_faults([
         dcn.LinkFault(src=0, dst=1, start=1, stop=4, kind="timeout"),
         dcn.LinkFault(src=1, dst=0, start=1, stop=4)])
@@ -3628,6 +3661,347 @@ def dcn_drill():
     res["ok"] = ok(res) and res["envelope_equals_cpu"] and not bad
     big["ok"] = ok(big) and big["envelope_equals_plain"] and not big_bad
     return res, big
+
+
+def fed_diff(a, b) -> list:
+    """Leaves of two whole FederationStates that differ in any bit, by
+    pool."""
+    bad = [] if a.wan_accum_ms == b.wan_accum_ms else ["wan_accum_ms"]
+    for i, (x, y) in enumerate(zip(_fed_pools(a), _fed_pools(b))):
+        where = "wan" if i == len(a.lan) else f"lan{i}"
+        bad += [f"{where}.{leaf}" for leaf in tree_diff(x, y)]
+    return bad
+
+
+def _fed_mesh_launches(fed) -> dict:
+    """A meshed federation's launches: B7 (its DCs' sharded ticks, the
+    exchange copies apart) and the WAN pool's (B1 on the dense view)."""
+    return {"b7": sum(k.launches for k in fed._lan_ticks),
+            "copies": sum(k.copies for k in fed._lan_ticks),
+            "wan": fed._wan_tick.launches}
+
+
+def _fed_tick_ms(fed, ticks: int) -> dict:
+    """ms per LAN tick of ``fed.run(ticks)``: the host clock (from a
+    synchronized start to the end of the enqueue, and to the card's end)
+    and CUDA events around it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fed.run(ticks, chunk=ticks)
+    enqueue = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"ms_host": wall / ticks * 1e3, "ms_enqueue": enqueue / ticks * 1e3,
+            "ms_events": start.elapsed_time(end) / ticks}
+
+
+def host_profile(fn, per: int, top: int = 12) -> dict:
+    """``cProfile`` of ``fn`` (synchronized at its end): the ``top``
+    functions by cumulative host time, in ms per ``per`` (cProfile's own
+    cost on every Python call included, so shares, not times, carry)."""
+    import cProfile
+    import pstats
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][3])[:top]
+    return {f"{os.path.basename(f)}:{line}({name})": v[3] / per * 1e3
+            for (f, line, name), v in rows}
+
+
+def federation_mesh():
+    """Federation(mesh=) at FED_MAIN's width on ["cuda:0"] * 8 as a (2, 4)
+    (dc, nodes) mesh: each DC's 250,000 rows in 4 shards of its row,
+    every LAN tick through the DC's sharded tick (B7), the WAN pool whole
+    on the card. Under the row's device groups (one group: one launch set
+    a DC a LAN tick) federation_main_path's flow (FED_FORM ticks, a
+    non-server kill in dc0, dc3 killed whole, FED_AFTER ticks in
+    FED_CHUNK chunks); under one group per shard (the exchanges of a mesh
+    of one card per shard) federation_parity's window (FED_PARITY_FORM
+    ticks, a 5 % kill in dc0 and dc1's server 0, FED_PARITY_SETTLE +
+    FED_PARITY_TICKS ticks). Each against the one-device Federation of
+    the same seed at every chunk boundary: every pool's leaves bit for
+    bit and counters() equal. ms a LAN tick on the host clock and by CUDA
+    events beside the one-device federation's, launches and exchange
+    copies a LAN tick, peak bytes above the phase's baseline, host syncs
+    in each run (none after the first), and a host profile of a LAN tick,
+    meshed and on one device."""
+    from consul_tpu_torch.models import federation
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = _fed_cfg(FED_MAIN, FED_VIEW)
+    n, s = cfg.nodes_per_dc, cfg.servers_per_dc
+    mesh = mesh_mod.make_mesh(["cuda:0"] * FED_MESH_DEVICES, n_dc=FED_MESH_ROWS)
+    row = mesh_mod.row_mesh(mesh, 0)
+    out = {"n_dc": cfg.n_dc, "nodes_per_dc": n, "k": cfg.lan.degree,
+           "n_wan": cfg.n_wan, "mesh": list(mesh.shape),
+           "rows_per_shard": n // row.size, "runs": {}}
+    rows = torch.arange(n)
+    flows = {
+        "device": (None, [(FED_FORM, lambda f: (f.kill(0, rows == 10),
+                                                f.kill_dc(3)))]
+                   + [(FED_CHUNK, None)] * (FED_AFTER // FED_CHUNK)
+                   + [(FED_AFTER % FED_CHUNK, None)]),
+        "shard": (mesh_mod.shard_groups(row),
+                  [(FED_PARITY_FORM, lambda f: (
+                      f.kill(0, (rows >= s) & (rows < s + n // 20)),
+                      f.kill(1, rows == 0))),
+                   (FED_PARITY_SETTLE, None), (FED_PARITY_TICKS, None)]),
+    }
+    ok = True
+    for grouping, (groups, steps) in flows.items():
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        fed = federation.Federation(cfg, seed=0, mesh=mesh, groups=groups)
+        one = federation.Federation(cfg, seed=0)
+        bad, syncs, ticks = [], [], 0
+        for c, (ticks_c, edit) in enumerate(steps):
+            if not ticks_c:
+                continue
+            syncs.append(sync_count(lambda: fed.run(ticks_c, chunk=ticks_c)))
+            one.run(ticks_c, chunk=ticks_c)
+            ticks += ticks_c
+            if edit is not None:
+                edit(fed)
+                edit(one)
+            diff = fed_diff(fed.whole_state(), one.state)
+            if fed.counters() != one.counters():
+                diff.append("counters")
+            bad += [f"chunk {c}: {d}" for d in diff]
+            if bad:
+                break
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = _fed_mesh_launches(fed)
+        global_counts = {"launches": dict(cuda_gossip_counts()[0]),
+                         "sharded_launches": dict(cuda_gossip_counts()[1])}
+        timed = _fed_tick_ms(fed, FED_TIMED_TICKS)
+        one_timed = _fed_tick_ms(one, FED_TIMED_TICKS)
+        # Where a LAN tick's host time goes, meshed and on one device.
+        profiles = {"mesh": host_profile(
+            lambda: fed.run(FED_TIMED_TICKS), FED_TIMED_TICKS),
+            "one_device": host_profile(
+            lambda: one.run(FED_TIMED_TICKS), FED_TIMED_TICKS)}
+        lan = fed.lan_health(0)
+        res = dict(groups=[list(g) for g in fed.groups], ticks=ticks,
+                   mismatches=bad[:10], host_syncs_by_run=syncs,
+                   peak_bytes=peak,
+                   b7_launches=launches["b7"],
+                   b7_launches_per_lan_tick=launches["b7"] / ticks,
+                   exchange_copies_per_lan_tick=launches["copies"] / ticks,
+                   wan_launches=launches["wan"], counts=global_counts,
+                   ms_per_lan_tick=timed, ms_per_lan_tick_one_device=one_timed,
+                   host_ms_per_lan_tick_cprofile=profiles,
+                   dc0_live_nodes=float(lan.live_nodes),
+                   counters_dc0=fed.counters()["lan"][0])
+        # The first run holds the kernels' one-time set-up (the WAN
+        # kernel's dense tables read the topology once); later runs sync
+        # nothing.
+        res["ok"] = (not bad and sum(syncs[1:]) == 0 and launches["b7"] > 0
+                     and launches["wan"] > 0
+                     and global_counts["sharded_launches"]["probe_send"] > 0
+                     and (launches["copies"] > 0) == (grouping == "shard"))
+        out["runs"][grouping] = res
+        ok = ok and res["ok"]
+        del fed, one
+        torch.cuda.empty_cache()
+    out["ok"] = ok
+    return out
+
+
+def cuda_gossip_counts():
+    from consul_tpu_torch.ops import cuda_gossip
+
+    return cuda_gossip.LAUNCHES, cuda_gossip.SHARDED_LAUNCHES
+
+
+def dcn_meshes():
+    """DcnFederation(meshes=) at DCN_MESH's width (4 DCs x 250,000, 3
+    servers, 2 islands), each island a (2, 2) mesh of the card, under
+    bench.py's drill faults (DCN_ROUNDS rounds of DCN_SYNC ticks) and
+    both groupings, against the meshless run of the same seed and faults:
+    every island's pools bit for bit and counters equal, the link
+    envelope and replicas_agree round by round equal, and the replicas
+    agree after the heal. The sync's ms a round of each."""
+    from consul_tpu_torch.parallel import mesh as mesh_mod
+
+    reset_launches()
+    flat_d, flat = dcn_run(DCN_MESH, FED_VIEW, "cuda", "cuda")
+    out = {"n_dc": DCN_MESH["n_dc"], "nodes_per_dc": DCN_MESH["nodes_per_dc"],
+           "k": FED_VIEW, "islands": 2, "rounds": DCN_ROUNDS,
+           "sync_every": DCN_SYNC, "meshless_sync_ms": flat["sync_ms"],
+           "runs": {}}
+    ok = True
+    for grouping in GROUPINGS:
+        meshes = [mesh_mod.make_mesh(["cuda:0"] * DCN_MESH_DEVICES,
+                                     n_dc=DCN_MESH_ROWS) for _ in range(2)]
+        row = mesh_mod.row_mesh(meshes[0], 0)
+        groups = None if grouping == "device" else mesh_mod.shard_groups(row)
+        d, res = dcn_run(DCN_MESH, FED_VIEW, "cuda", "cuda", meshes=meshes,
+                         groups=groups)
+        bad = []
+        for k, (a, b) in enumerate(zip(d.islands, flat_d.islands)):
+            bad += [f"island {k} {x}" for x in fed_diff(a.whole_state(),
+                                                        b.state)]
+            if a.counters() != b.counters():
+                bad.append(f"island {k} counters")
+        launches = [_fed_mesh_launches(i) for i in d.islands]
+        res.update(mismatches=bad[:10],
+                   envelope_equal=((res["counters"], res["links"],
+                                    res["agree_by_round"])
+                                   == (flat["counters"], flat["links"],
+                                       flat["agree_by_round"])),
+                   b7_launches=sum(x["b7"] for x in launches),
+                   exchange_copies=sum(x["copies"] for x in launches),
+                   wan_launches=sum(x["wan"] for x in launches))
+        res["ok"] = (not bad and res["envelope_equal"] and res["replicas_agree"]
+                     and res["counters"]["heals"] == 2
+                     and not res["agree_by_round"][2]
+                     and res["b7_launches"] > 0 and res["wan_launches"] > 0)
+        out["runs"][grouping] = res
+        ok = ok and res["ok"]
+        del d
+        torch.cuda.empty_cache()
+    out["counts"] = {"launches": dict(cuda_gossip_counts()[0]),
+                     "sharded_launches": dict(cuda_gossip_counts()[1])}
+    del flat_d
+    torch.cuda.empty_cache()
+    out["ok"] = ok and out["counts"]["sharded_launches"]["probe_send"] > 0
+    return out
+
+
+def _interval(ev, base, a, b):
+    return (base.elapsed_time(ev[a]), base.elapsed_time(ev[b]))
+
+
+def _overlap(x, y) -> float:
+    return max(0.0, min(x[1], y[1]) - max(x[0], y[0]))
+
+
+def stream_timeline(events) -> dict:
+    """Upload, compute and drain of each cohort (ms, from its CUDA events
+    on the copy and compute streams) and how much of each copy overlaps a
+    cohort's ticks."""
+    base = events[0]["upload_start"]
+    up, comp, down = [], [], []
+    for ev in events:
+        up.append(_interval(ev, base, "upload_start", "upload_end"))
+        comp.append(_interval(ev, base, "compute_start", "compute_end"))
+        down.append(_interval(ev, base, "drain_start", "drain_end"))
+    over_up = [sum(_overlap(u, c) for c in comp) for u in up]
+    over_down = [sum(_overlap(d, c) for c in comp) for d in down]
+    return {"upload_ms": [b - a for a, b in up],
+            "compute_ms": [b - a for a, b in comp],
+            "drain_ms": [b - a for a, b in down],
+            "upload_overlapping_compute_ms": over_up,
+            "drain_overlapping_compute_ms": over_down,
+            "pass_ms_events": comp[-1][1] if comp else 0.0}
+
+
+def streamed_case(kind: str, spec: dict):
+    """StreamedSimulation (or StreamedSerfSimulation) at ``spec['n']``
+    nodes under its budget: the port's plan must equal the reference
+    planner's numbers; ``passes`` passes of ``ticks`` ticks, cohorts
+    through the CUDA tick; the cohorts in ``check`` bit-equal (state and
+    counters) to a resident Simulation (SerfSimulation) of the cohort's
+    size fed the cohort's initial state, world and draw generator; the
+    device peak above the phase's baseline within the plan's resident
+    bytes; the pass wall against cohorts x ticks x the resident tick."""
+    from consul_tpu_torch.config import SimConfig
+    from consul_tpu_torch.models import cluster, serf, swim
+    from consul_tpu_torch.runtime import membudget
+
+    cfg = SimConfig(n=spec["n"], view_degree=FED_VIEW)
+    plan = membudget.plan(cfg, kind, layout="packed", budget=spec["budget"])
+    res = {"kind": kind, "n": cfg.n, "k": cfg.degree, "budget": spec["budget"],
+           "plan": plan.to_dict()}
+    plan_ok = (plan.streamed and plan.cohort_n == spec["cohort_n"]
+               and plan.chunk == spec["chunk"]
+               and plan.resident_bytes == spec["resident_bytes"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    scls = (cluster.StreamedSerfSimulation if kind == "serf"
+            else cluster.StreamedSimulation)
+    t0 = time.perf_counter()
+    sim = scls(cfg, cohort_n=plan.cohort_n, seed=0, layout=plan.layout,
+               chunk=plan.chunk)
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0
+    start = {i: (cluster._map(torch.clone, sim.cohort_state(i)),
+                 sim.gens[i].get_state()) for i in spec["check"]}
+    passes = []
+    per_cohort = [{f: 0 for f in sim.counters} for _ in range(sim.cohorts)]
+    for p in range(spec["passes"]):
+        sim.events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = sim.run(spec["ticks"])
+        wall = time.perf_counter() - t0
+        line = dict(wall_s=wall, summary_wall_s=summary["wall_s"],
+                    **stream_timeline(sim.events))
+        passes.append(line)
+        for i, row in enumerate(sim.cohort_counters):
+            for f, v in row.items():
+                per_cohort[i][f] += v
+    sim.events = None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(cuda_gossip_counts()[0])
+    kernel_launches = sim._tick_fn.launches
+    res.update(cohorts=sim.cohorts, cohort_n=sim.cohort_n,
+               passes=passes, peak_bytes=peak,
+               resident_bytes_model=sim.resident_bytes(),
+               pinned_host_bytes=sim.archive_bytes(),
+               launches=launches, kernel_launches=kernel_launches)
+    # The resident twins: each checked cohort as one resident simulation.
+    rcls = cluster.SerfSimulation if kind == "serf" else cluster.Simulation
+    draw = serf.draw_serf_tick if kind == "serf" else swim.draw_tick
+    bad, tick_ms = [], None
+    total = spec["passes"] * spec["ticks"]
+    for i, (st, gstate) in start.items():
+        g = torch.Generator(device="cuda")
+        g.set_state(gstate)
+        ccfg = sim.cohort_cfg
+        twin = rcls(ccfg, seed=0, topo=sim.topo, world=sim._world_of(i),
+                    state=cluster._map(lambda x: x.to("cuda"), st),
+                    draws=lambda _t, g=g, ccfg=ccfg: draw(ccfg, g, "cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin.run(total, chunk=plan.chunk, with_metrics=False)
+        torch.cuda.synchronize()
+        if tick_ms is None:
+            tick_ms = (time.perf_counter() - t0) / total * 1e3
+        got = cluster._map(lambda x: x.to("cuda"), sim.cohort_state(i))
+        diff = tree_diff(got, twin._whole())
+        bad += [f"cohort {i}: {x}" for x in diff]
+        if twin.counters != per_cohort[i]:
+            bad.append(f"cohort {i}: counters")
+        del twin, got
+    res["mismatches"] = bad[:10]
+    res["resident_ms_per_tick"] = tick_ms
+    res["pass_wall_predicted_s"] = sim.cohorts * spec["ticks"] * tick_ms / 1e3
+    res["plan_ok"] = plan_ok
+    res["ok"] = (plan_ok and not bad and peak <= plan.resident_bytes
+                 and kernel_launches > 0 and tick_launches(launches) > 0
+                 and all(c["probes_sent"] > 0 for c in per_cohort))
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def sharded_timing(cfg, world, topo, state, draws, rate):
@@ -5769,6 +6143,40 @@ def main() -> int:
         emit({"phase": "failed", "failed": ["blackbox_live"]})
         return 1
 
+    # The federation on a (dc, nodes) mesh of the card and the DCN tier on
+    # meshes (ROADMAP A13 item 4), then cohort streaming (A12b). Each
+    # phase zeroes the counts before it drives its path.
+    new_launches = {"b7": 0, "wan": 0, "swim": 0, "serf": 0}
+    t0 = time.perf_counter()
+    res = federation_mesh()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "federation_mesh", "nvidia_smi": nvidia_smi(), **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["federation_mesh"]})
+        return 1
+    for r in res["runs"].values():
+        new_launches["b7"] += r["b7_launches"]
+        new_launches["wan"] += r["wan_launches"]
+    t0 = time.perf_counter()
+    res = dcn_meshes()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "dcn_meshes", "nvidia_smi": nvidia_smi(), **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["dcn_meshes"]})
+        return 1
+    for r in res["runs"].values():
+        new_launches["b7"] += r["b7_launches"]
+        new_launches["wan"] += r["wan_launches"]
+    for kind, spec in (("swim", STREAM_SWIM), ("serf", STREAM_SERF)):
+        t0 = time.perf_counter()
+        res = streamed_case(kind, spec)
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "streamed", "nvidia_smi": nvidia_smi(), **res})
+        if not res["ok"]:
+            emit({"phase": "failed", "failed": [f"streamed {kind}"]})
+            return 1
+        new_launches[kind] += res["kernel_launches"]
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -5792,14 +6200,18 @@ def main() -> int:
         row("gossip_tick", "step_fn=swim.step_counted, sched=None, "
             "sentinel=False, sparse, packed (SWIM path, the raft paths, "
             "the sweeps' forming, every DC's LAN pool of the federation "
-            "and the DCN islands, the front end's planes, and the game "
-            "day's warmup, steady and drain and its DCN islands)",
+            "and the DCN islands, the front end's planes, the game "
+            "day's warmup, steady and drain and its DCN islands, and the "
+            "streamed SWIM cohorts)",
             swim_launches + raft_launches["bare"] + sweep_launches["bare"]
-            + fed_launches["lan"] + gd_launches["bare"], swim_t),
+            + fed_launches["lan"] + gd_launches["bare"]
+            + new_launches["swim"], swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed (serf path; the "
-            "oracle's fused twin and the snapshot rejoin)",
-            serf_launches + gd_launches["serf"], serf_t),
+            "oracle's fused twin, the snapshot rejoin and the streamed "
+            "serf cohorts)",
+            serf_launches + gd_launches["serf"] + new_launches["serf"],
+            serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
             "sentinel=True (chaos path); sched=<raft-only>, sentinel=False "
             "(raft paths); sched=<sweep lane>, sentinel=False, families "
@@ -5829,8 +6241,10 @@ def main() -> int:
             f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc']}, K = "
             f"{FED_MAIN['n_dc'] * FED_MAIN['servers_per_dc'] - 1}, timed) and "
             "the DCN islands' (n = 4, K = 3); one partly filled warp tile, "
-            "so launch-bound (the game day's DCN islands too)",
-            fed_launches["wan"] + gd_launches["wan"], wan_t)] + [
+            "so launch-bound (the game day's DCN islands, and the meshed "
+            "federation's and the DCN meshes' WAN pools too)",
+            fed_launches["wan"] + gd_launches["wan"] + new_launches["wan"],
+            wan_t)] + [
         {"name": "gossip_metrics", "route": "cuda",
          "source": "consul_tpu_torch/csrc/gossip_tick.cu",
          "replaces": "consul_tpu/models/cluster.py:263",
@@ -5863,11 +6277,14 @@ def main() -> int:
                    "in one device group (one launch set a stage, no "
                    "exchange), and the mesh's planes (raft, serving, the "
                    "sweep lanes' chaos variant with the sentinel off, the "
-                   "elastic drill) under both groupings; timed at "
+                   "elastic drill) under both groupings; the LAN pools of "
+                   "the federation on a (2, 4) mesh and of the DCN islands "
+                   "on (2, 2) meshes, one kernel a DC; timed at "
                    f"{SHARD_MAIN} shards (ms_by_shards: each of "
                    f"{list(SHARDS)}, and '/shard' one group per shard, "
                    "mirrors exchanged between launches)",
-         "launches": b7_ticks_of(shard_res["b7_launches"]) + mesh_launches,
+         "launches": b7_ticks_of(shard_res["b7_launches"]) + mesh_launches
+         + new_launches["b7"],
          "max_abs_err": max_abs["gossip_tick_sharded"],
          "ms": b7_t[str(SHARD_MAIN)]["ms_per_tick"],
          "plain_ms": b7_t[str(SHARD_MAIN)]["plain_ms"],

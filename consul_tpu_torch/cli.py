@@ -24,9 +24,17 @@ the CPU the one device); ``chaos --sweep`` runs over the default mesh.
 ``gameday`` runs on one device group, as the reference's ``run_gameday``
 takes no mesh.
 
-Not here yet, each named by its ROADMAP item: ``--layout auto`` and
-``--budget`` (the memory planner, A12b), and the host verbs (``agent``,
-``members``, ``kv`` ..., A21).
+``--layout auto`` and ``--budget`` ask the memory planner
+(``runtime/membudget.py``) for the layout, the chunk and the cohort plan;
+a population beyond the device's budget runs cohort-streamed
+(``models/cluster.StreamedSimulation``), and ``run`` and ``chaos`` print
+``memory_plan`` and ``streamed: true``. The CUDA tick takes only the
+packed layout, so under ``--kernel cuda`` the planner is asked for it
+(``--layout auto`` plans packed); under ``--kernel torch`` ``auto`` is
+passed through as the reference passes it.
+
+Not here yet: the host verbs (``agent``, ``members``, ``kv`` ..., ROADMAP
+A21).
 """
 
 from __future__ import annotations
@@ -91,18 +99,48 @@ def _survivors(args) -> list:
     return devices[:count] if count else devices
 
 
-def _check_layout(args):
-    """``--layout auto`` and ``--budget`` need the memory planner."""
-    if getattr(args, "layout", None) == "auto" or getattr(args, "budget", None):
-        _fail("--layout auto / --budget",
-              "the memory-budget planner (runtime/membudget.py) is not "
-              "ported yet (ROADMAP A12b); pass --layout packed or dense")
+def _plan_layout(args, kernel: str) -> str:
+    """The layout the planner is asked for: ``--layout``, with ``auto``
+    narrowed to packed under the CUDA tick (it takes no other)."""
+    from consul_tpu_torch.ops import cuda_gossip
+
+    layout = getattr(args, "layout", None) or "packed"
+    if layout == "auto" and kernel == cuda_gossip.CUDA:
+        return "packed"
+    return layout
+
+
+def _plan_from_args(args, cfg, kind: str, mesh, kernel: str, device):
+    """The memory plan of a local run (reference cli.py:722-746), or None
+    when neither ``--layout auto`` nor ``--budget`` asks for one. A
+    population beyond the budget over a mesh replans on one device: the
+    cohort-streamed regime."""
+    budget = getattr(args, "budget", None)
+    if getattr(args, "layout", None) != "auto" and budget is None:
+        return None
+    from consul_tpu_torch.runtime import membudget
+
+    kw = dict(layout=_plan_layout(args, kernel), budget=budget or "auto",
+              chunk=getattr(args, "chunk", None), device=device)
+    try:
+        if mesh is not None and mesh.size > 1:
+            try:
+                return membudget.plan(cfg, kind, mesh=mesh, **kw)
+            except ValueError:
+                pass  # beyond the budget over the mesh: stream on one device
+        return membudget.plan(cfg, kind, **kw)
+    except ValueError as e:
+        _fail("--layout / --budget", str(e))
 
 
 def _build_sim(args):
     """Build the simulation a local-run verb drives (reference cli.py:
-    748-829): the compile cache, the view degree, the engine, the mesh,
-    the lens, the raft tier and the prewarm."""
+    748-829): the compile cache, the view degree, the engine, the memory
+    plan, the mesh, the lens, the raft tier and the prewarm. Returns
+    ``(sim, plan)``: ``plan`` is None unless ``--layout auto`` or
+    ``--budget`` asked for one, and ``plan.streamed`` means ``sim`` is a
+    ``StreamedSimulation`` (cohorts through one device: no mesh, lens,
+    raft tier or prewarm)."""
     from consul_tpu_torch.config import SimConfig, clamp_view_degree
     from consul_tpu_torch.models import cluster
     from consul_tpu_torch.ops import cuda_gossip
@@ -116,18 +154,31 @@ def _build_sim(args):
         vd = clamp_view_degree(args.n, args.view_degree)
     except ValueError as e:
         _fail("--view-degree", str(e))
-    _check_layout(args)
     cfg = SimConfig(n=args.n, view_degree=vd,
                     topo_family=getattr(args, "family", "circulant"),
                     topo_param=getattr(args, "family_param", 0.0))
-    layout = getattr(args, "layout", None) or "packed"
     kernel = cuda_gossip.canonical_kernel(getattr(args, "kernel", "cuda"))
     device = _device_of(args)
+    mesh = _mesh_from_args(args, args.n)
+    plan = _plan_from_args(args, cfg, "serf" if args.serf else "swim", mesh,
+                           kernel, device)
+    layout = plan.layout if plan is not None else _plan_layout(args, kernel)
     try:
         cuda_gossip.validate_kernel(kernel, layout, device)
     except ValueError as e:
         _fail("--kernel", str(e))
-    mesh = _mesh_from_args(args, args.n)
+    if plan is not None and plan.streamed:
+        if int(getattr(args, "lens", 0) or 0):
+            _fail("--lens", "the node lens needs a resident population; "
+                  "cohort-streamed runs cannot record it")
+        if int(getattr(args, "raft_groups", 0) or 0):
+            _fail("--raft-groups", "the raft tier rides the resident run; "
+                  "cohort-streamed runs cannot arm it")
+        scls = (cluster.StreamedSerfSimulation if args.serf
+                else cluster.StreamedSimulation)
+        return scls(cfg, cohort_n=plan.cohort_n, seed=args.seed,
+                    layout=plan.layout, chunk=plan.chunk, device=device,
+                    kernel=kernel), plan
     cls = cluster.SerfSimulation if args.serf else cluster.Simulation
     sim = cls(cfg, seed=args.seed, mesh=mesh, layout=layout, kernel=kernel,
               device=mesh.devices[0] if mesh is not None else device)
@@ -146,7 +197,20 @@ def _build_sim(args):
         chunk = getattr(args, "chunk", 32)
         for with_metrics in (False, True):
             prewarm_mod.prewarm_simulation(sim, chunk, with_metrics)
-    return sim
+    return sim, plan
+
+
+def _streamed_report(args, sim, extra: dict, summary: dict) -> int:
+    """Print a cohort-streamed run's JSON line (reference cli.py:
+    1128-1135): the plan, the pass summary, ``streamed: true`` and the
+    counters."""
+    out = dict(extra, **summary, streamed=True,
+               counters=sim.counters_snapshot())
+    trace_path = _export_trace(args, sim)
+    if trace_path:
+        out["trace"] = trace_path
+    print(json.dumps(out))
+    return 0
 
 
 def _export_trace(args, sim=None):
@@ -326,10 +390,23 @@ def cmd_chaos(args) -> int:
     if args.sweep > 0:
         return _cmd_chaos_sweep(args)
     events = _chaos_events(args)
-    sim = _build_sim(args)
+    sim, plan = _build_sim(args)
     ticks = max(int(e.stop) for e in events) + args.settle
+    extra = {"n": args.n}
+    if plan is not None:
+        extra["memory_plan"] = plan.to_dict()
+    if plan is not None and plan.streamed:
+        # Form, then replay the schedule inside every cohort, shifted past
+        # the forming (a streamed simulation has no harness to rebase it).
+        import dataclasses
+
+        sim.run(args.form_ticks)
+        sim.set_chaos([dataclasses.replace(e, start=e.start + args.form_ticks,
+                                           stop=e.stop + args.form_ticks)
+                       for e in events])
+        return _streamed_report(args, sim, extra, sim.run(ticks))
     sim.run(args.form_ticks, chunk=args.chunk, with_metrics=False)
-    return _run_resilient_cmd(args, sim, events, ticks, {"n": args.n})
+    return _run_resilient_cmd(args, sim, events, ticks, extra)
 
 
 def _cmd_chaos_sweep(args) -> int:
@@ -361,7 +438,7 @@ def _cmd_chaos_sweep(args) -> int:
     for fam in families:
         fam_args = argparse.Namespace(**vars(args))
         fam_args.family = fam
-        sim = _build_sim(fam_args)
+        sim, _ = _build_sim(fam_args)
         sim.run(args.form_ticks, chunk=args.chunk, with_metrics=False)
         per_family[fam] = sweep_mod.family_sweep(
             sim, scens, chunk=args.chunk, settle=args.settle)
@@ -417,21 +494,31 @@ def cmd_gameday(args) -> int:
 def cmd_run(args) -> int:
     """Advance a local simulation under the resilient harness (reference
     cli.py:1113-1137; no fault schedule: ``chaos`` is the faulted verb)
-    and print the run report as one JSON line."""
-    sim = _build_sim(args)
-    return _run_resilient_cmd(args, sim, None, args.ticks, {"n": args.n})
+    and print the run report as one JSON line. With ``--layout auto`` /
+    ``--budget`` the JSON carries the plan under ``memory_plan``; a
+    population beyond the budget runs cohort-streamed and prints
+    ``streamed: true``."""
+    sim, plan = _build_sim(args)
+    extra = {"n": args.n}
+    if plan is not None:
+        extra["memory_plan"] = plan.to_dict()
+    if plan is not None and plan.streamed:
+        return _streamed_report(args, sim, extra, sim.run(args.ticks))
+    return _run_resilient_cmd(args, sim, None, args.ticks, extra)
 
 
 def cmd_prewarm(args) -> int:
     """Build the kernels' library into the compile cache and warm every
     requested (n, kind, chunk, schedule) signature (utils/prewarm.py;
-    reference cli.py:1140-1178); prints the summary as one JSON line."""
+    reference cli.py:1140-1178); prints the summary as one JSON line.
+    ``--layout auto`` warms each (n, kind)'s memory plan's signature
+    (``MemoryPlan.prewarm_args``) and adds the plans as ``memory_plans``."""
     import torch
 
+    from consul_tpu_torch.ops import cuda_gossip
     from consul_tpu_torch.parallel import mesh as mesh_mod
     from consul_tpu_torch.utils import prewarm as prewarm_mod
 
-    _check_layout(args)
     device = _device_of(args)
     mesh = None
     if args.mesh:
@@ -444,20 +531,53 @@ def cmd_prewarm(args) -> int:
         if len(devices) < n_dc * per_dc:
             _fail(f"--mesh {args.mesh}", f"{len(devices)} device(s) visible")
         mesh = mesh_mod.make_mesh(devices[:n_dc * per_dc], n_dc=n_dc)
+    ns = [int(x) for x in args.n.split(",") if x]
+    kinds = tuple(x.strip() for x in args.kinds.split(",") if x.strip())
+    calls = [dict(ns=ns, kinds=kinds,
+                  chunks=[int(x) for x in args.chunks.split(",") if x],
+                  layout=args.layout)]
+    plans = None
+    if args.layout == "auto":
+        # One plan per (n, kind); each warms its plan's signature.
+        from consul_tpu_torch.config import SimConfig, clamp_view_degree
+        from consul_tpu_torch.runtime import membudget
+
+        kernel = cuda_gossip.canonical_kernel(args.kernel)
+        try:
+            plans = [membudget.plan(
+                SimConfig(n=n, view_degree=clamp_view_degree(n, args.view_degree),
+                          topo_family=args.family,
+                          topo_param=args.family_param),
+                kind, layout=_plan_layout(args, kernel), device=device)
+                for n in ns for kind in kinds]
+        except ValueError as e:
+            _fail("--layout auto", str(e))
+        calls = [p.prewarm_args() for p in plans]
     try:
-        summary = prewarm_mod.prewarm(
-            ns=[int(x) for x in args.n.split(",") if x],
-            kinds=tuple(x.strip() for x in args.kinds.split(",") if x.strip()),
-            chunks=[int(x) for x in args.chunks.split(",") if x],
-            mesh=mesh, device_count=args.devices, n_dc=args.n_dc,
+        summaries = [prewarm_mod.prewarm(
+            **call, mesh=mesh, device_count=args.devices, n_dc=args.n_dc,
             chaos=args.chaos, seed=args.seed, view_degree=args.view_degree,
             sentinel=args.sentinel, cache_dir=args.compile_cache,
-            layout=args.layout, family=args.family,
-            family_param=args.family_param, sweep=args.sweep,
-            sweep_chunk=args.sweep_chunk, raft_groups=args.raft_groups,
-            raft_peers=args.raft_peers, kernel=args.kernel, device=device)
+            family=args.family, family_param=args.family_param,
+            sweep=args.sweep, sweep_chunk=args.sweep_chunk,
+            raft_groups=args.raft_groups, raft_peers=args.raft_peers,
+            kernel=args.kernel, device=device) for call in calls]
     except ValueError as e:
         _fail("prewarm", str(e))
+    summary = summaries[0]
+    if len(summaries) > 1:
+        cache = {}
+        for sm in summaries:
+            for k, v in sm["cache"].items():
+                counted = isinstance(v, int) and not isinstance(v, bool)
+                cache[k] = cache.get(k, 0) + v if counted else v
+        summary = {"signatures": [x for sm in summaries
+                                  for x in sm["signatures"]],
+                   "compiled": sum(sm["compiled"] for sm in summaries),
+                   "cache": cache,
+                   "wall_s": round(sum(sm["wall_s"] for sm in summaries), 3)}
+    if plans is not None:
+        summary["memory_plans"] = [p.to_dict() for p in plans]
     print(json.dumps(summary))
     return 0
 
@@ -473,7 +593,7 @@ def cmd_serve_bench(args) -> int:
 
     from consul_tpu_torch.serving import MODE_NEAREST, ServingPlane
 
-    sim = _build_sim(args)
+    sim, _ = _build_sim(args)
     sim.run(args.form_ticks, chunk=args.chunk, with_metrics=False)
     # Plain serve-bench keeps the unlabeled plane; --mixed wants a
     # service space for register churn and watch fan-out.
@@ -522,7 +642,7 @@ def cmd_trace(args) -> int:
     """Flight-record a short local run (reference cli.py:1247-1266): arm
     the node lens, advance the simulation and write the trace artifact;
     one JSON line with its path."""
-    sim = _build_sim(args)
+    sim, _ = _build_sim(args)
     trace = sim.run(args.ticks, chunk=args.chunk)
     path = _export_trace(args, sim)
     print(json.dumps({
@@ -609,10 +729,12 @@ def build_parser() -> argparse.ArgumentParser:
                         default="packed",
                         help="per-node state layout: packed (default; the "
                              "kernel's), dense (with --kernel torch), or "
-                             "auto (the planner: ROADMAP A12b)")
+                             "auto (the memory planner picks; packed under "
+                             "--kernel cuda)")
         sp.add_argument("--budget", default=None, metavar="BYTES",
-                        help="per-device memory budget (the planner: "
-                             "ROADMAP A12b)")
+                        help="per-device memory budget, e.g. 8GB or 512MiB "
+                             "(the memory planner; a population beyond it "
+                             "runs cohort-streamed)")
         sp.add_argument("--kernel", choices=KERNEL_CHOICES, default="cuda",
                         help="tick engine: cuda (the CUDA tick kernel, "
                              "default) or torch (its plain version); pallas "

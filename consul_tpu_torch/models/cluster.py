@@ -78,6 +78,13 @@ carries the reference's across) and a draw source, a callable from the
 tick number to its :class:`swim.TickDraws`; by default the simulation
 draws from its own ``torch.Generator``, seeded from ``seed``. A tick with
 a fault schedule installed needs ``TickDraws.u_pp``.
+
+``StreamedSimulation`` and ``StreamedSerfSimulation`` (the reference's
+beyond-device-memory tier, cluster.py:974-1158) stream a population
+larger than the card's memory through it as cohorts, double-buffered
+between pinned host archives and two device slots on copy streams of
+their own, each cohort's ticks through the CUDA tick; the memory planner
+(``runtime/membudget.py``) picks their cohort size, chunk and layout.
 """
 
 from __future__ import annotations
@@ -1131,3 +1138,346 @@ class ReferenceSerfSimulation(SerfSimulation):
             return super()._run_lanes(scheds, ticks)
         finally:
             self._ev_gen.set_state(ev_state)
+
+
+def _map(fn, tree):
+    """``tree`` (nested NamedTuples of tensors) with ``fn`` on every leaf."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(_map(fn, x) for x in tree))
+
+
+# Seed streams of a streamed run's generators (federation.stream_seed).
+_S_TOPO, _S_WORLD, _S_INIT, _S_DRAWS = 1, 2, 3, 4
+
+
+@dataclasses.dataclass
+class StreamedSimulation:
+    """Beyond-device-memory simulation (reference cluster.py:974-1158): the
+    population streams through the device as independent node cohorts,
+    double-buffered between host and device.
+
+    ``cfg.n / cohort_n`` cohorts of ``cohort_n`` nodes each; every cohort
+    is a gossip island of its own with the one shared topology, its own
+    world (made from its own generator when it is swapped in) and its own
+    draw generator, whose state carries from pass to pass: a federation
+    of same-shaped DCs, not one flat gossip domain (the reference's
+    documented divergence). At rest the cohorts live in host memory as
+    (packed) archives, pinned on the card's host; the device holds two
+    cohort slots, the one computing and the one being staged.
+
+    ``run(ticks)`` is one pass, cohorts outer and ticks inner: each cohort
+    runs all its ticks in one residency, so a pass costs one upload and
+    one drain per cohort. On the card cohort ``i + 1``'s upload is issued
+    on a copy stream before cohort ``i``'s drain (reference
+    cluster.py:1099-1106) into a device slot allocated once; the compute
+    stream waits on the upload's event; the drain is a non-blocking copy
+    into the pinned archive on a second copy stream, and a slot is
+    refilled only after the drain of the cohort that read it. ``run``
+    synchronises the drains before it returns, so the archives and the
+    counters read on the host are whole.
+
+    The ticks run through the CUDA tick (``TickKernel``: B1/B2, or B4/B6
+    for ``StreamedSerfSimulation``) under ``kernel="cuda"``, and through
+    its plain version under ``kernel="torch"``. The reference refuses its
+    Pallas kernel for a streamed run because its streamed body is the XLA
+    scan; in the port the CUDA tick is the counterpart of both, and its
+    plain twin is the reference's step. Nothing falls back: ``kernel=
+    "cuda"`` without a card, or on the dense layout, raises.
+
+    Scope as the reference's: one device a cohort (a mesh shards a
+    resident population instead), no serving plane, no sentinel, no lens,
+    no raft tier. A fault schedule is compiled at cohort shape and
+    replayed in every cohort. ``chunk`` is the plan's; ticks launch one by
+    one. Tests can hand in the topology, a world function ``world_of(i)``,
+    the cohorts' initial states (``archives``) and a draw source
+    ``draws(cohort, t)``. Setting ``events`` to a list records, per
+    cohort, CUDA events around its upload, its ticks and its drain."""
+
+    cfg: SimConfig            # the whole population: cfg.n = total nodes
+    cohort_n: int             # resident nodes a cohort (divides cfg.n)
+    seed: int = 0
+    layout: str = layout_mod.PACKED
+    chunk: int = 64
+    device: str = "cuda"
+    kernel: str = cuda_gossip.CUDA
+    topo: Optional[topology.Topology] = None
+    world_of: Optional[Callable] = None
+    archives: Optional[list] = None
+    draws: Optional[Callable] = None
+
+    _serf_plane = False
+    _variant = cuda_gossip.SWIM
+    _step = staticmethod(swim.step_counted)
+    _plain_tick = staticmethod(cuda_gossip.plain_tick)
+
+    def _init_state(self, cfg, gen):
+        return sim_state.init(cfg, gen, self.device)
+
+    def _draw(self, gen):
+        return swim.draw_tick(self.cohort_cfg, gen, self.device,
+                              chaos=self.chaos is not None)
+
+    def __post_init__(self):
+        from consul_tpu_torch.models.federation import stream_seed
+
+        if self.cfg.n % self.cohort_n != 0:
+            raise ValueError(
+                f"cohort_n={self.cohort_n} must divide n={self.cfg.n}")
+        if not self.cfg.view_degree:
+            raise ValueError(
+                "streamed cohorts need the sparse view (view_degree>0): "
+                "the dense view's topology is population-shaped")
+        self.cohorts = self.cfg.n // self.cohort_n
+        self.cohort_cfg = dataclasses.replace(self.cfg, n=self.cohort_n)
+        layout_mod.validate(self.cohort_cfg, self.layout)
+        self.kernel = cuda_gossip.canonical_kernel(self.kernel)
+        self.device = torch.device(self.device)
+        cuda_gossip.validate_kernel(self.kernel, self.layout, self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise ValueError("a streamed run on the card needs a CUDA device, "
+                             "and none is visible; pass device='cpu', "
+                             "kernel='torch' for the plain version")
+        dev = self.device
+
+        def gen(stream, i=0):
+            g = torch.Generator(device=dev)
+            g.manual_seed(stream_seed(self.seed, stream, i))
+            return g
+
+        self._gen = gen
+        if self.topo is None:
+            # One topology: every cohort steps the same tables.
+            self.topo = topology.make_topology(self.cohort_cfg, gen(_S_TOPO),
+                                               dev)
+        self.chaos = None
+        self._counters = {f: 0 for f in counters_mod.FIELDS}
+        self.sink = telemetry.Sink()
+        obs_trace.get_tracer().attach_sink(self.sink)
+        # One draw generator a cohort, the same object pass after pass.
+        self.gens = [gen(_S_DRAWS, i) for i in range(self.cohorts)]
+        self._tick_fn = self._make_tick_fn()
+        self._cuda = dev.type == "cuda"
+        archives = self.archives
+        if archives is None:
+            archives = (self._init_state(self.cohort_cfg, gen(_S_INIT, i))
+                        for i in range(self.cohorts))
+        pack = (layout_mod.pack_state if self.layout == layout_mod.PACKED
+                else layout_mod.unpack_state)
+        self._archive = [self._to_host(pack(st)) for st in archives]
+        if len(self._archive) != self.cohorts:
+            raise ValueError(f"{len(self._archive)} archives for "
+                             f"{self.cohorts} cohorts")
+        self.archives = None
+        self._t = int(layout_mod.tick_of(self._archive[0]))
+        self._slots = None
+        self.events = None
+        # The last pass's counters, one dict a cohort.
+        self.cohort_counters = []
+
+    def _make_tick_fn(self):
+        cfg, topo = self.cohort_cfg, self.topo
+        if self.kernel == cuda_gossip.CUDA:
+            return cuda_gossip.make_tick_kernel(cfg, topo,
+                                                variant=self._variant)
+        plain, step = self._plain_tick, self._step
+        if self.layout == layout_mod.PACKED:
+            return lambda w, s, d, sched: plain(cfg, topo, w, s, d, sched)
+
+        def dense_tick(w, s, d, sched):
+            s, c = step(cfg, topo, w, s, d, sched=sched)
+            return s, counters_mod.stack(c)
+        return dense_tick
+
+    def _to_host(self, st):
+        """A cohort's state as its archive: pinned host tensors on the card's
+        host (one device -> host copy), the state itself on the CPU."""
+        if not self._cuda:
+            return st
+        return _map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          pin_memory=True).copy_(x), st)
+
+    # -- cohort staging ---------------------------------------------------
+    def _world_of(self, i: int) -> topology.World:
+        """Cohort ``i``'s world, made anew on the device (worlds are not
+        archived: the cohort's generator makes it again at swap-in)."""
+        if self.world_of is not None:
+            return topology.World(*(x.to(self.device)
+                                    for x in self.world_of(i)))
+        return topology.make_world(self.cohort_cfg, self._gen(_S_WORLD, i),
+                                   self.device)
+
+    def _mark(self, i: int, what: str, stream):
+        if self.events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            self.events[i][what] = ev
+
+    def _stage(self, i: int):
+        """Cohort ``i`` onto the device: ``(world, state, upload event)``.
+        On the card the archive is copied into slot ``i % 2`` on the upload
+        stream, once the drain that last read the slot has finished."""
+        with obs_trace.span("stream.upload", cat="stream",
+                            args={"cohort": i}):
+            if not self._cuda:
+                return self._world_of(i), self._archive[i], None
+            slot = self._slots[i % 2]
+            up = self._up
+            if self._slot_free[i % 2] is not None:
+                up.wait_event(self._slot_free[i % 2])
+            self._mark(i, "upload_start", up)
+            with torch.cuda.stream(up):
+                for dst, src in zip(layout_mod.leaves(slot),
+                                    layout_mod.leaves(self._archive[i])):
+                    dst.copy_(src, non_blocking=True)
+            self._mark(i, "upload_end", up)
+            ev = torch.cuda.Event()
+            ev.record(up)
+            return self._world_of(i), slot, ev
+
+    def _drain(self, i: int, state):
+        """Cohort ``i``'s final state into its archive: on the card a
+        non-blocking copy on the drain stream after the cohort's ticks,
+        its source blocks held for that stream (``record_stream``)."""
+        with obs_trace.span("stream.drain", cat="stream",
+                            args={"cohort": i}):
+            if not self._cuda:
+                self._archive[i] = state
+                return
+            down = self._down
+            down.wait_stream(torch.cuda.current_stream(self.device))
+            self._mark(i, "drain_start", down)
+            with torch.cuda.stream(down):
+                for dst, src in zip(layout_mod.leaves(self._archive[i]),
+                                    layout_mod.leaves(state)):
+                    dst.copy_(src, non_blocking=True)
+                    src.record_stream(down)
+            self._mark(i, "drain_end", down)
+            ev = torch.cuda.Event()
+            ev.record(down)
+            self._slot_free[i % 2] = ev
+
+    def _streams(self):
+        """The copy streams and the two device slots, made once."""
+        if self._slots is None:
+            dev = self.device
+            self._up = torch.cuda.Stream(dev)
+            self._down = torch.cuda.Stream(dev)
+            self._slots = [_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                      device=dev),
+                                self._archive[0]) for _ in range(2)]
+            self._slot_free = [None, None]
+
+    def set_chaos(self, events):
+        """Install a fault schedule, compiled at cohort shape and replayed
+        identically inside every cohort (None clears)."""
+        sched = events
+        if sched is not None and not isinstance(sched, chaos_mod.ChaosSchedule):
+            sched = chaos_mod.compile_schedule(self.cohort_n, sched)
+        sched = chaos_mod.or_none(sched)
+        self.chaos = (None if sched is None
+                      else chaos_mod.to_device(sched, self.device))
+
+    # -- execution --------------------------------------------------------
+    def run(self, ticks: int):
+        """Advance every cohort ``ticks`` ticks (one streaming pass).
+        Returns the reference's summary dict; the counters fold into
+        :attr:`counters`, summed over the cohorts."""
+        t0 = time.perf_counter()
+        dev = self.device
+        cnt = torch.zeros((self.cohorts, len(counters_mod.FIELDS)),
+                          dtype=torch.int64, device=dev)
+        if self._cuda:
+            self._streams()
+            compute = torch.cuda.current_stream(dev)
+            if self.events is not None:
+                self.events[:] = [{} for _ in range(self.cohorts)]
+        staged = self._stage(0)
+        for i in range(self.cohorts):
+            world, state, ev = staged
+            if ev is not None:
+                compute.wait_event(ev)
+                self._mark(i, "compute_start", compute)
+            for t in range(self._t, self._t + ticks):
+                d = (self.draws(i, t) if self.draws is not None
+                     else self._draw(self.gens[i]))
+                state, c = self._tick_fn(world, state, d, self.chaos)
+                cnt[i] += c
+            if ev is not None:
+                self._mark(i, "compute_end", compute)
+            if i + 1 < self.cohorts:
+                # Double buffer: the next upload goes out before this drain.
+                staged = self._stage(i + 1)
+            self._drain(i, state)
+        rows = cnt.tolist()
+        if self._cuda:
+            self._down.synchronize()
+        self.cohort_counters = [dict(zip(counters_mod.FIELDS, row))
+                                for row in rows]
+        for row in rows:
+            for f, v in zip(counters_mod.FIELDS, row):
+                self._counters[f] += int(v)
+        self._t += ticks
+        wall_s = time.perf_counter() - t0
+        self.sink.incr_counter("sim.stream.passes", 1)
+        return {
+            "cohorts": self.cohorts,
+            "cohort_n": self.cohort_n,
+            "n": self.cfg.n,
+            "ticks": ticks,
+            "layout": self.layout,
+            "wall_s": wall_s,
+        }
+
+    # -- inspection -------------------------------------------------------
+    @property
+    def counters(self):
+        return self._counters
+
+    def counters_snapshot(self) -> dict:
+        return dict(self._counters)
+
+    def _tick(self) -> int:
+        """Every cohort advances in lockstep: cohort 0's clock."""
+        return int(layout_mod.tick_of(self._archive[0]))
+
+    def cohort_state(self, i: int):
+        """Cohort ``i``'s archived state as stored (packed or dense)."""
+        return self._archive[i]
+
+    def cohort_swim_state(self, i: int) -> sim_state.SimState:
+        """Cohort ``i``'s SWIM plane, dense, on the host (inspection)."""
+        return layout_mod.swim_plane(self._archive[i])
+
+    def archive_bytes(self) -> int:
+        """Host bytes of every cohort's archive (pinned on the card's
+        host)."""
+        return sum(layout_mod.np_size_bytes(x) for a in self._archive
+                   for x in layout_mod.leaves(a))
+
+    def resident_bytes(self) -> int:
+        """Peak device bytes the streaming schedule holds: two cohort
+        states (the double buffer) and one world."""
+        state_b = sum(layout_mod.np_size_bytes(x)
+                      for x in layout_mod.leaves(self._archive[0]))
+        world = topology.make_world(self.cohort_cfg, None, "meta")
+        world_b = sum(layout_mod.np_size_bytes(x) for x in world)
+        return 2 * state_b + world_b
+
+
+@dataclasses.dataclass
+class StreamedSerfSimulation(StreamedSimulation):
+    """Streamed cohorts over the full serf stack (the fused tick: B4 on
+    the card)."""
+
+    _serf_plane = True
+    _variant = cuda_gossip.SERF
+    _step = staticmethod(serf.step_counted)
+    _plain_tick = staticmethod(cuda_gossip.plain_serf_tick)
+
+    def _init_state(self, cfg, gen):
+        return serf.init(cfg, gen, self.device)
+
+    def _draw(self, gen):
+        return serf.draw_serf_tick(self.cohort_cfg, gen, self.device,
+                                   chaos=self.chaos is not None)

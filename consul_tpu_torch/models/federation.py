@@ -36,9 +36,25 @@ generators seeded by ``(seed, global dc)``, so an island of a DCN
 federation (``parallel/dcn.py``) plants exactly the DCs the single
 federation has in those slots.
 
+``mesh=`` places the federation over a 2-D (dc, nodes) mesh
+(``parallel.mesh.make_mesh(devices, n_dc=D)``, the reference's
+``federation_sharding``): mesh row ``r`` holds the DCs ``[r * n_dc / D,
+(r + 1) * n_dc / D)``, each node-sharded over the row's R devices
+(``parallel.mesh.federation_rows`` / ``row_mesh``). Everything is planted
+on the mesh's first device exactly as on one device, then each DC's LAN
+state and world are placed on its row (``shard_step.place`` under
+``groups``, a grouping of one row's shards applied to every row), and
+each DC steps through a sharded CUDA tick of its own
+(``cuda_gossip.ShardedTickKernel``, B7: one world per kernel) or, with
+``kernel="torch"``, through the plain sharded step
+(``shard_step.run_ticks``). The WAN pool stays whole on the mesh's first
+device (the port's narrowing: the reference shards WAN rows by node
+where ``n_wan`` divides R). A meshed federation is bit-equal to the
+one-device federation of the same seed.
+
 Pass ``device="cpu", kernel="torch"`` for the plain PyTorch path on the
 CPU. Nothing falls back: ``kernel="cuda"`` without a CUDA device raises,
-and so does ``mesh=`` (multi-GPU placement is ROADMAP A13).
+on every device of a mesh.
 """
 
 from __future__ import annotations
@@ -55,6 +71,8 @@ from consul_tpu_torch.models import state as sim_state
 from consul_tpu_torch.models import swim
 from consul_tpu_torch.ops import cuda_gossip, topology
 from consul_tpu_torch.ops.topology import World
+from consul_tpu_torch.parallel import mesh as mesh_mod
+from consul_tpu_torch.parallel import shard_step
 from consul_tpu_torch.utils import metrics
 
 # Flag bits the LAN pool writes into the WAN rows: alive_truth | left << 1.
@@ -104,7 +122,9 @@ class FederationConfig:
 
 
 class FederationState(NamedTuple):
-    lan: tuple             # n_dc PackedSimStates, one per owned DC
+    # n_dc PackedSimStates, one per owned DC (under a mesh, each a list of
+    # its row's shard blocks, placed by shard_step.place)
+    lan: tuple
     wan: object            # PackedSimState [n_wan]
     wan_accum_ms: int      # Bresenham accumulator (host int)
 
@@ -131,6 +151,11 @@ def _gen(device, seed: int, stream: int, index: int = 0) -> torch.Generator:
     return g
 
 
+def _on(tree, device):
+    """A draw bundle (a NamedTuple of tensors) on ``device``."""
+    return type(tree)(*(x.to(device) for x in tree))
+
+
 class Federation:
     """Driver for one federated simulation (LAN pools + WAN pool).
 
@@ -140,21 +165,22 @@ class Federation:
     LAN tick ``t``'s n_dc :class:`swim.TickDraws` and the WAN pool's
     bundle, which is read only when :meth:`next_wan_fires` (it may be None
     otherwise). By default the federation draws from its own generator,
-    the WAN bundle only on ticks where the WAN tick fires."""
+    the WAN bundle only on ticks where the WAN tick fires.
+
+    ``mesh`` is a 2-D (dc, nodes) ``parallel.mesh.Mesh`` (module
+    docstring) whose first device ``device`` must name; ``groups`` groups
+    one row's shards as on ``Simulation`` (default ``mesh.device_groups``
+    of the row; ``mesh.shard_groups`` runs one group per shard), the same
+    grouping on every row."""
 
     def __init__(self, cfg: FederationConfig, seed: int = 0, mesh=None, *,
-                 device="cuda", kernel: str = cuda_gossip.CUDA,
+                 groups=None, device="cuda", kernel: str = cuda_gossip.CUDA,
                  lan_topo: Optional[topology.Topology] = None,
                  wan_topo: Optional[topology.Topology] = None,
                  lan_world: Optional[list] = None,
                  wan_world: Optional[World] = None,
                  state: Optional[FederationState] = None,
                  draws: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Federation(mesh=...) places the federation over a device "
-                "mesh, which is multi-GPU work (ROADMAP A13); the port runs "
-                "it on one device")
         if cfg.dc_offset < 0 or cfg.dc_offset + cfg.n_dc > cfg.dc_total:
             raise ValueError(f"DCs [{cfg.dc_offset}, {cfg.dc_offset + cfg.n_dc})"
                              f" lie outside the federation's {cfg.dc_total}")
@@ -165,7 +191,10 @@ class Federation:
         lan, wan = cfg.lan, cfg.wan
         for c in (lan, wan):
             layout_mod.validate(c, layout_mod.PACKED)
-        cuda_gossip.validate_kernel(kernel, layout_mod.PACKED, self.device)
+        self.mesh, self.groups = self._check_mesh(mesh, groups)
+        for dev in ([self.device] if self.mesh is None
+                    else self.mesh.unique_devices()):
+            cuda_gossip.validate_kernel(kernel, layout_mod.PACKED, dev)
         dev = self.device
         if lan_topo is None:
             lan_topo = topology.make_topology(lan, _gen(dev, seed, _LAN_TOPO), dev)
@@ -202,6 +231,8 @@ class Federation:
                              f"{cfg.n_dc} DCs")
         self.state = state._replace(lan=tuple(state.lan),
                                     wan_accum_ms=int(state.wan_accum_ms))
+        # The host copy of the LAN tick (every LAN pool steps together).
+        self._t = int(layout_mod.tick_of(self.state.lan[0]))
         self._wan_off = cfg.dc_offset * cfg.servers_per_dc
         self.gen = _gen(dev, seed, _DRAWS)
         self.draws = draws if draws is not None else self._own_draws
@@ -211,12 +242,62 @@ class Federation:
         else:
             self._lan_tick = self._plain(lan, lan_topo)
             self._wan_tick = self._plain(wan, wan_topo)
-        # The host copy of the LAN tick (every LAN pool steps together).
-        self._t = int(layout_mod.tick_of(self.state.lan[0]))
-        # Cumulative GossipCounters on the device: [n_dc, 26] and [26].
+        # Cumulative GossipCounters on the device: [n_dc, 26] (under a mesh
+        # [n_dc, groups, 26], summed over the groups when read) and [26].
         nf = len(counters_mod.FIELDS)
-        self._lan_cnt = torch.zeros((cfg.n_dc, nf), dtype=torch.int64, device=dev)
+        per_dc = (nf,) if self.mesh is None else (len(self.groups), nf)
+        self._lan_cnt = torch.zeros((cfg.n_dc,) + per_dc, dtype=torch.int64,
+                                    device=dev)
         self._wan_cnt = torch.zeros((nf,), dtype=torch.int64, device=dev)
+        if self.mesh is not None:
+            self._place_lan()
+
+    def _check_mesh(self, mesh, groups):
+        """``(mesh, groups)`` held to the federation: a 2-D (dc, nodes) mesh
+        whose rows divide the DCs and whose row width divides each DC's
+        nodes (``mesh.federation_rows``), ``device`` its first device, and
+        ``groups`` a grouping of one row's shards that fits every row.
+        ``(None, None)`` without a mesh."""
+        if mesh is None:
+            return None, None
+        if not isinstance(mesh, mesh_mod.Mesh):
+            mesh = mesh_mod.make_mesh(list(mesh))
+        cfg = self.cfg
+        self._rows = mesh_mod.federation_rows(mesh, cfg.n_dc, cfg.nodes_per_dc)
+        first = mesh.devices[0]
+        if mesh_mod.as_device(self.device) != first:
+            raise ValueError(f"device={self.device!r} disagrees with the "
+                             f"mesh, whose first device is {first}")
+        self.device = first
+        rows = [mesh_mod.row_mesh(mesh, r) for r in range(mesh.shape[0])]
+        groups = mesh_mod.check_groups(rows[0], groups)
+        for m in rows[1:]:
+            mesh_mod.check_groups(m, groups)
+        # Each owned DC's row, as a 1-D node mesh.
+        self._lan_meshes = [rows[r] for r in self._rows]
+        return mesh, groups
+
+    def _place_lan(self):
+        """Each DC's LAN state placed on its row and its stepping bound:
+        one sharded CUDA tick per DC (B7 keeps one world), or the DC's
+        world placed for the plain sharded step."""
+        cfg, n = self.cfg, self.cfg.nodes_per_dc
+        self.state = self.state._replace(lan=tuple(
+            shard_step.place(m, st, n, groups=self.groups)
+            for m, st in zip(self._lan_meshes, self.state.lan)))
+        if self.kernel == cuda_gossip.CUDA:
+            self._lan_ticks = []
+            for m, w in zip(self._lan_meshes, self.lan_world):
+                k = cuda_gossip.ShardedTickKernel(cfg.lan, self.lan_topo, m,
+                                                  groups=self.groups)
+                k.set_world(w)
+                self._lan_ticks.append(k)
+        else:
+            self._world_blocks = [shard_step.place(m, w, n, groups=self.groups)
+                                  for m, w in zip(self._lan_meshes,
+                                                  self.lan_world)]
+            self._topos = {dev: shard_step.topo_on(self.lan_topo, dev)
+                           for dev in self.mesh.unique_devices()}
 
     @staticmethod
     def _plain(cfg, topo):
@@ -237,13 +318,25 @@ class Federation:
                if self.next_wan_fires() else None)
         return lan, wan
 
+    def _server_flags(self, st):
+        """A DC's server rows ``[0, servers_per_dc)`` of ``flags``, on the
+        federation's device: under a mesh read from the blocks that hold
+        them, with no gather of the DC."""
+        s = self.cfg.servers_per_dc
+        if self.mesh is None:
+            return st.flags[:s]
+        b = self.cfg.nodes_per_dc // self.mesh.shape[1]
+        parts = [blk.flags[:min(b, s - d * b)].to(self.device)
+                 for d, blk in enumerate(st) if d * b < s]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     def _wan_liveness(self, lan, wan):
         """The WAN state with the owned rows' flag bits 0 and 1 taken from
         each owned DC's servers (their LAN ``alive_truth`` / ``left``)."""
         s = self.cfg.servers_per_dc
         lo = self._wan_off
         hi = lo + self.cfg.n_dc * s
-        srv = torch.cat([st.flags[:s] for st in lan])
+        srv = torch.cat([self._server_flags(st) for st in lan])
         f = wan.flags
         owned = (f[lo:hi] & (0xFF ^ _LIVENESS)) | (srv & _LIVENESS)
         return wan._replace(flags=torch.cat([f[:lo], owned, f[hi:]]))
@@ -252,11 +345,8 @@ class Federation:
         fire = self.next_wan_fires()
         lan_d, wan_d = self.draws(self._t)
         st = self.state
-        lan = []
-        for i in range(self.cfg.n_dc):
-            s, c = self._lan_tick(self.lan_world[i], st.lan[i], lan_d[i], None)
-            self._lan_cnt[i] += c
-            lan.append(s)
+        lan = [self._lan_step(i, st.lan[i], lan_d[i])
+               for i in range(self.cfg.n_dc)]
         wan = self._wan_liveness(lan, st.wan)
         accum = st.wan_accum_ms + self.cfg.lan.gossip.tick_ms
         if fire:
@@ -268,6 +358,31 @@ class Federation:
             accum -= self.cfg.wan.gossip.tick_ms
         self.state = FederationState(lan=tuple(lan), wan=wan, wan_accum_ms=accum)
         self._t += 1
+
+    def _lan_step(self, i: int, st, d):
+        """One LAN tick of DC ``i`` (its state, its bundle), its counters
+        added: through the CUDA tick (B1, or under a mesh the DC's sharded
+        tick, B7, handed the bundle on its row's first device) or the plain
+        tick (under a mesh the plain sharded step)."""
+        if self.mesh is None:
+            s, c = self._lan_tick(self.lan_world[i], st, d, None)
+            self._lan_cnt[i] += c
+            return s
+        m = self._lan_meshes[i]
+        if self.kernel == cuda_gossip.CUDA:
+            blocks, cv = self._lan_ticks[i](st, _on(d, m.devices[0]))
+            for g, c in enumerate(cv):
+                self._lan_cnt[i, g] += c.to(self.device)
+            return blocks
+        lan = self.cfg.lan
+
+        def tick(topo, w, s, dd, sched):
+            return cuda_gossip.plain_tick(lan, topo, w, s, dd, sched)
+        blocks, c = shard_step.run_ticks(m, lan.n, tick, self._topos,
+                                         self._world_blocks[i], st, None,
+                                         lambda _t: d, self._t, 1)
+        self._lan_cnt[i, 0] += c.to(self.device)
+        return blocks
 
     def run(self, lan_ticks: int, chunk: int = 32):
         """Advance ``lan_ticks`` LAN ticks. Nothing is read back from the
@@ -287,8 +402,16 @@ class Federation:
         mask = torch.as_tensor(mask, dtype=torch.bool).to(self.device)
         st = self.state
         lan = list(st.lan)
-        f = lan[dc].flags
-        lan[dc] = lan[dc]._replace(flags=torch.where(mask, f & 0xFE, f))
+        if self.mesh is None:
+            f = lan[dc].flags
+            lan[dc] = lan[dc]._replace(flags=torch.where(mask, f & 0xFE, f))
+        else:
+            # The mask placed by block; the edited blocks placed anew.
+            m, n = self._lan_meshes[dc], self.cfg.nodes_per_dc
+            masks = mesh_mod.split(m, mask, n, groups=self.groups)
+            lan[dc] = shard_step.adjoin(m, [
+                blk._replace(flags=torch.where(mk, blk.flags & 0xFE, blk.flags))
+                for blk, mk in zip(lan[dc], masks)], n, groups=self.groups)
         s = self.cfg.servers_per_dc
         g = (self.cfg.dc_offset + dc) * s
         wf = st.wan.flags
@@ -307,13 +430,37 @@ class Federation:
         """Cumulative GossipCounters (one host read): ``{"lan": [n_dc dicts],
         "wan": dict}``, Python ints by field name."""
         fields = counters_mod.FIELDS
-        rows = torch.cat([self._lan_cnt, self._wan_cnt[None]]).tolist()
+        lan = self._lan_cnt if self.mesh is None else self._lan_cnt.sum(1)
+        rows = torch.cat([lan, self._wan_cnt[None]]).tolist()
         return {"lan": [dict(zip(fields, r)) for r in rows[:-1]],
                 "wan": dict(zip(fields, rows[-1]))}
 
+    def _lan_whole(self, dc: int):
+        """DC ``dc``'s LAN state whole: under a mesh the view of its one
+        group's storage where the kernel steps one group on the
+        federation's device, a gathered copy otherwise."""
+        st = self.state.lan[dc]
+        if self.mesh is None:
+            return st
+        m, n = self._lan_meshes[dc], self.cfg.nodes_per_dc
+        if (self.kernel == cuda_gossip.CUDA and len(self.groups) == 1
+                and m.devices[0] == self.device):
+            return mesh_mod.group_tree(st, self.groups[0], n // m.size, n)
+        return shard_step.gather(st, n, self.device)
+
+    def whole_state(self) -> FederationState:
+        """The whole FederationState on the federation's device: each DC's
+        LAN state gathered from its blocks under a mesh (a copy), the
+        state itself on one device."""
+        if self.mesh is None:
+            return self.state
+        n = self.cfg.nodes_per_dc
+        return self.state._replace(lan=tuple(
+            shard_step.gather(st, n, self.device) for st in self.state.lan))
+
     def lan_health(self, dc: int) -> metrics.HealthMetrics:
         return metrics.health_packed(self.cfg.lan, self.lan_topo,
-                                     self.state.lan[dc])
+                                     self._lan_whole(dc))
 
     def wan_health(self) -> metrics.HealthMetrics:
         return metrics.health_packed(self.cfg.wan, self.wan_topo, self.state.wan)

@@ -37,10 +37,13 @@ event is counted into the telemetry sink (``utils/telemetry.Sink``):
 ``sim.dcn.send_timeouts``, ``sim.dcn.retx_dropped``, ``sim.dcn.heals``,
 ``sim.dcn.link_degraded``.
 
-All islands of the port live on one device (``meshes=`` raises: that is
-multi-GPU work, ROADMAP A13); a sync still takes one device -> host pull
-and one host -> device push per island, each one flat byte buffer of the
-island's WAN state.
+Every island runs on the one device given, or with ``meshes=`` each on
+its own 2-D (dc, nodes) mesh (``Federation(mesh=)``: its DCs node-sharded
+over the mesh's rows, its WAN replica whole on the mesh's first device,
+which is the island's device). A sync takes one device -> host pull and
+one host -> device push per island, each one flat byte buffer of the
+island's WAN state, pushed onto the island's device; a meshed run is
+bit-equal to the meshless run of the same seed and faults.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from consul_tpu_torch.models.federation import (_DRAWS, Federation,
                                                 FederationConfig, stream_seed)
 from consul_tpu_torch.obs import trace as obs_trace
 from consul_tpu_torch.ops import cuda_gossip
+from consul_tpu_torch.parallel import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,17 +171,20 @@ class DcnFederation:
     ``cfg`` describes the WHOLE federation (its ``n_dc`` is the global DC
     count); DCs are partitioned contiguously across islands. Every island
     runs on the one device given (``device``, ``kernel`` as
-    :class:`Federation`)."""
+    :class:`Federation`), or with ``meshes`` (one 2-D (dc, nodes) mesh per
+    island) island ``k`` is ``Federation(mesh=meshes[k], groups=groups)``
+    on its mesh's first device."""
 
     def __init__(self, cfg: FederationConfig, n_islands: int = 2,
                  seed: int = 0, meshes: Optional[Sequence] = None,
                  link_policy: Optional[LinkPolicy] = None, sink=None, *,
-                 device="cuda", kernel: str = cuda_gossip.CUDA):
+                 groups=None, device="cuda", kernel: str = cuda_gossip.CUDA):
         if meshes is not None:
-            raise NotImplementedError(
-                "DcnFederation(meshes=...) places each island on a device "
-                "subset, which is multi-GPU work (ROADMAP A13); the port runs "
-                "every island on one device")
+            meshes = [m if isinstance(m, mesh_mod.Mesh)
+                      else mesh_mod.make_mesh(list(m)) for m in meshes]
+            if len(meshes) != n_islands:
+                raise ValueError(f"{len(meshes)} meshes for {n_islands} islands")
+        self.meshes = meshes
         if cfg.n_dc % n_islands != 0:
             raise ValueError(
                 f"n_dc={cfg.n_dc} must divide into {n_islands} islands"
@@ -194,7 +201,10 @@ class DcnFederation:
             # Same seed everywhere: the WAN plant (sites, topology) must be
             # identical across replicas; LAN worlds differ because they are
             # planted per global DC (federation.py).
-            isl = Federation(icfg, seed=seed, device=device, kernel=kernel)
+            mesh = None if meshes is None else meshes[k]
+            isl = Federation(icfg, seed=seed, mesh=mesh, groups=groups,
+                             device=device if mesh is None else mesh.devices[0],
+                             kernel=kernel)
             # De-correlate per-tick protocol randomness between islands
             # (each replica is its own gossip universe between syncs).
             isl.gen.manual_seed(stream_seed(seed, _DRAWS, 1 + k))

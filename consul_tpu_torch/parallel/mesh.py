@@ -154,6 +154,32 @@ def check_rows(n: int, n_shards: int) -> int:
     return n // n_shards
 
 
+def federation_rows(mesh: Mesh, n_dc: int, nodes_per_dc: int) -> tuple:
+    """The mesh row of each of ``n_dc`` datacenters over a 2-D (dc, nodes)
+    mesh of D rows of R devices (the reference's ``federation_sharding``,
+    parallel/mesh.py:174-197): row ``r`` holds the DCs ``[r * n_dc / D,
+    (r + 1) * n_dc / D)``, each one node-sharded over the row's R devices
+    (:func:`row_mesh`). Raises where the mesh has no dc axis, D does not
+    divide ``n_dc`` or R does not divide ``nodes_per_dc``."""
+    if DC_AXIS not in mesh.axis_names or len(mesh.shape) != 2:
+        raise ValueError(f"a federation is placed over a 2-D ({DC_AXIS}, "
+                         f"{NODE_AXIS}) mesh (make_mesh(devices, n_dc=D)); "
+                         f"this mesh's axes are {mesh.axis_names}")
+    rows, _ = mesh.shape
+    if n_dc % rows != 0:
+        raise ValueError(f"n_dc={n_dc} must divide over the mesh's {rows} "
+                         f"{DC_AXIS} rows")
+    check_rows(nodes_per_dc, mesh.shape[1])
+    per = n_dc // rows
+    return tuple(dc // per for dc in range(n_dc))
+
+
+def row_mesh(mesh: Mesh, r: int) -> Mesh:
+    """Row ``r`` of a 2-D (dc, nodes) mesh as a 1-D node mesh."""
+    width = mesh.shape[1]
+    return Mesh(mesh.devices[r * width:(r + 1) * width])
+
+
 def is_row_leaf(leaf, n: int) -> bool:
     """The one node-axis rule: a leaf whose leading dim is the node count
     splits by row block; every other leaf replicates."""

@@ -13,9 +13,11 @@ torch``):
 - a SIGTERM drill in a subprocess: ``run --ckpt-dir`` killed after its
   first checkpoint exits 75, the rerun resumes and ends in the
   uninterrupted run's state (``--state-digest``);
-- ``--budget`` / ``--layout auto`` exit 2 naming A12b, a sweep over a
-  (dc, nodes) mesh the CPU cannot host exits 2 with ``elastic_mesh``'s
-  "no usable mesh", ``--kernel cuda`` without a card exits 2;
+- ``run --budget``, ``run`` / ``chaos`` / ``prewarm --layout auto`` plan
+  their run and print the plan, and ``run --n 4096 --budget 4MB`` streams
+  its cohorts (``streamed: true``); a sweep over a (dc, nodes) mesh the
+  CPU cannot host exits 2 with ``elastic_mesh``'s "no usable mesh",
+  ``--kernel cuda`` without a card exits 2;
 - ``run --elastic`` and ``chaos --elastic`` run and print ``reshards``
   (on the CPU over the one device).
 """
@@ -183,17 +185,41 @@ def test_sigterm_drill_exits_75_and_resumes_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("args, item", [
-    (["run", "--budget", "2GB"], "A12b"),
-    (["run", "--layout", "auto"], "A12b"),
-    (["chaos", "--layout", "auto"], "A12b"),
-    (["prewarm", "--layout", "auto"], "A12b"),
     (["chaos", "--sweep", "2", "--n-dc", "2"], "no usable mesh"),
-], ids=["run-budget", "run-auto", "chaos-auto", "prewarm-auto",
-        "sweep-mesh"])
+], ids=["sweep-mesh"])
 def test_unported_flags_exit_2_naming_their_item(capsys, args, item):
     rc, out, err = _main(capsys, *args, "--n", 64, *CPU)
     assert rc == 2 and out is None
     assert item in err
+
+
+@pytest.mark.parametrize("args, layout, streamed", [
+    (["run", "--n", 64, "--budget", "2GB", "--ticks", 16], "packed", False),
+    (["run", "--n", 64, "--layout", "auto", "--ticks", 16], "dense", False),
+    (["chaos", "--n", 64, "--layout", "auto", "--form-ticks", 8,
+      "--settle", 4], "dense", False),
+    (["prewarm", "--n", 64, "--layout", "auto", "--chunks", 8], "dense", False),
+    (["run", "--n", 4096, "--view-degree", 8, "--budget", "4MB",
+      "--ticks", 8], "packed", True),
+], ids=["run-budget", "run-auto", "chaos-auto", "prewarm-auto",
+        "run-streamed"])
+def test_memory_planner_flags(capsys, args, layout, streamed):
+    """``--budget`` and ``--layout auto`` plan the run (the CPU's budget is
+    host RAM, so ``auto`` keeps a small population dense); a population
+    beyond its budget runs cohort-streamed."""
+    rc, out, err = _main(capsys, *args, *CPU)
+    assert rc == 0, err[-2000:]
+    plans = out["memory_plans"] if args[0] == "prewarm" else [out["memory_plan"]]
+    assert [p["layout"] for p in plans] == [layout]
+    assert plans[0]["streamed"] is streamed
+    if args[0] == "prewarm":
+        assert out["compiled"] > 0 and all(
+            s["layout"] == layout for s in out["signatures"])
+    elif streamed:
+        assert out["streamed"] is True and out["cohorts"] == 4
+        assert out["counters"]["probes_sent"] > 0
+    else:
+        assert out["ticks"] > 0 and "streamed" not in out
 
 
 @pytest.mark.parametrize("args", [

@@ -23,8 +23,9 @@ reconciled through the host under the link fault envelope.
   equal the reference's.
 - Port only: island worlds and initial states equal the single
   federation's slices, and the WAN plant is one across replicas; a bad
-  partition raises; ``meshes=`` raises naming ROADMAP A13; a WAN leaf
-  that is not per row raises in ``sync``.
+  partition raises; a count of ``meshes=`` other than the islands'
+  raises (tests/test_torch_fed_mesh.py holds ``meshes=`` to the meshless
+  run); a WAN leaf that is not per row raises in ``sync``.
 """
 
 import dataclasses
@@ -161,9 +162,10 @@ def test_bad_partition_and_meshes_raise():
     with pytest.raises(ValueError, match="divide"):
         tdcn.DcnFederation(_small(n_dc=3), n_islands=2, device="cpu",
                            kernel="torch")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tdcn.DcnFederation(_small(), n_islands=2, meshes=[None, None],
-                           device="cpu", kernel="torch")
+    with pytest.raises(ValueError, match="3 meshes for 2 islands"):
+        tdcn.DcnFederation(_small(), n_islands=2,
+                           meshes=[["cpu"] * 2] * 3, device="cpu",
+                           kernel="torch")
 
 
 def test_sync_merges_owned_rows_and_rejects_a_leaf_not_per_row():

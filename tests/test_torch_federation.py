@@ -18,8 +18,9 @@ WAN pool (``consul_tpu_torch/models/federation.py``), with the port's
   ``wan_members_seen_by`` and ``true_dc_distance_order`` equal the
   reference's.
 - Port only: a run split into calls at other ticks (``chunk`` is the
-  reference's signature only) leaves the trajectory as it is; ``mesh=``
-  raises naming ROADMAP A13; ``kernel="cuda"`` without a card raises; the
+  reference's signature only) leaves the trajectory as it is; a mesh
+  without a ``dc`` axis raises (tests/test_torch_fed_mesh.py holds
+  ``mesh=`` to one device); ``kernel="cuda"`` without a card raises; the
   port's ``Router`` orders DCs as the reference's on the same coordinates;
   ``swim.step`` is ``step_counted`` without its counters; ``nbrs_table``
   equals the reference's.
@@ -207,8 +208,8 @@ def test_chunk_length_leaves_the_trajectory():
 
 def test_mesh_and_cuda_without_a_card_raise():
     cfg = tfed_mod.FederationConfig(n_dc=2, nodes_per_dc=16, servers_per_dc=2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tfed_mod.Federation(cfg, mesh=object(), device="cpu", kernel="torch")
+    with pytest.raises(ValueError, match="dc"):
+        tfed_mod.Federation(cfg, mesh=["cpu"] * 2, device="cpu", kernel="torch")
     with pytest.raises(ValueError, match="CUDA device"):
         tfed_mod.Federation(cfg, device="cpu", kernel="cuda")
 
