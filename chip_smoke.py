@@ -177,8 +177,29 @@ faults, bit-equal to the meshless run with the same envelope) and
 2,097,152 under 16 GB in one pass of 16: the plan equal to the
 reference planner's, checked cohorts bit-equal to a resident simulation
 fed the cohort's state, world and draws, the device peak within the
-plan's resident bytes, the copies' overlap with the ticks). It prints
-one JSON line per phase (the timing lines' ``ms_by_launch`` give P, A, B
+plan's resident bytes, the copies' overlap with the ticks). Then the
+transport seam and the server core (ROADMAP A21's first part):
+``wire_host`` (the native LZW library built under the kernels' build
+directory and equal to the pure-Python codec past the 4,095-code reset;
+the port's codec writing the reference's golden frames, one a message
+family; whether ``cryptography`` is there), ``bridge_main_path`` (one
+scripted agent on a 1M ``Simulation`` through B1: it takes a dead
+holder's seat by the trackers' vote, joins by push-pull, learns its
+neighbours, its coordinate converges against the planted RTTs, and when
+it stops answering its trackers hold it suspect and then dead; 32 agents
+on adjacent seats of a 1M ``SerfSimulation`` through B4: all stay alive,
+an agent's event reaches every live sim node and the other agents, a sim
+query collects the fleet's acks and answers; each run's first 16
+bridged ticks beside a plain-tick twin on the card, the packed state
+bit-equal and every agent's packets byte-equal at every tick, the first
+run of the kernel's external-seat branches; ms a bridged tick split into
+the tick, the row gathers and write-backs, the bridge's host step and the
+agents, device-to-host bytes a step, peak bytes) and
+``raft_lockstep_oracle`` (raft 16 x 5 on a 1M ``Simulation`` under
+``raft_events``, so its gossip ticks run B2: every RaftState field and
+the cumulative counters equal to the port's ``LockstepRaftOracle``, fed
+the recorded draws, at every chunk boundary; the oracle's ms a tick
+beside the card's). It prints one JSON line per phase (the timing lines' ``ms_by_launch`` give P, A, B
 and C under the schedule; ``federation_wan_timing`` carries the launch
 floor, a one-element add's device time, from its child process),
 the kernel table, the card's name and power limit, and a last
@@ -5430,6 +5451,685 @@ def cli_main_path():
     return res
 
 
+# ----------------------------------------------------------------------
+# The transport seam and the server core (ROADMAP A21, first part)
+# ----------------------------------------------------------------------
+
+# Golden frames, one per message family, as the reference's codec
+# (consul_tpu/wire/codec.py) writes them.
+WIRE_GOLDEN = {
+    "ping": "0082a44e6f6465a573696d2d33a55365714e6f01",
+    "ack": "0282a75061796c6f6164ac000102030405060708090a0ba55365714e6fcd012c",
+    "alive": "0486a441646472a573696d2d37ab496e6361726e6174696f6e02a44d657461a0"
+             "a44e6f6465a573696d2d37a4506f7274cd1f0aa356736ea6010501020504",
+    "suspect": "0383a446726f6da573696d2d31ab496e6361726e6174696f6ece00011170a4"
+               "4e6f6465a573696d2d39",
+    "dead": "0583a446726f6da573696d2d32ab496e6361726e6174696f6e03a44e6f6465a5"
+            "73696d2d39",
+    "compound_crc": "0c9a2f414a0702001400290082a44e6f6465a573696d2d33a5536571"
+                    "4e6f010383a446726f6da573696d2d31ab496e6361726e6174696f6e"
+                    "ce00011170a44e6f6465a573696d2d39",
+    "compressed": "0982a4416c676f00a3427566da0077070600a000c007801200049172f286"
+                  "4c995273d2b46931a3d49432711a0620608854103264e4449cd8e2c6aa24"
+                  "6ec68491e3260c9d346fdc0820d5a40c9d30a0183a842891e20d5250dec8"
+                  "a1d3ec83825156e6b83115a04000010508141844ca889c376d4852948152"
+                  "254b9730650ed8f9706b8b1c0101",
+    "push_pull": "0683a44a6f696ec3a54e6f64657301ac5573657253746174654c656e0287"
+                 "a441646472a573696d2d34ab496e6361726e6174696f6e01a44d657461a0"
+                 "a44e616d65a573696d2d34a4506f7274cd1f0aa5537461746500a356736e"
+                 "a60105010205047573",
+    "serf_event": "080384a24343c3a54c54696d6509a44e616d65a66465706c6f79a7506179"
+                  "6c6f6164a27633",
+    "serf_query": "08048aa441646472a573696d2d30a746696c7465727390a5466c616773"
+                  "01a24944cd080ba54c54696d6504a44e616d65a777686f2d686173a750"
+                  "61796c6f6164a16ba4506f7274cd1f0aab52656c6179466163746f7200"
+                  "a754696d656f7574cf000000012a05f200",
+    "serf_response": "080585a5466c61677300a446726f6da673696d2d3634a24944cd080b"
+                     "a54c54696d6504a75061796c6f6164a6616e73776572",
+}
+VSN = [1, 5, 1, 2, 5, 4]
+LZW_SIZES = ((0, 2), (1, 2), (300, 3), (9000, 4), (30000, 256), (60000, 16))
+
+
+def golden_frames(codec, M):
+    """The port's codec writing WIRE_GOLDEN's frames."""
+    ping = codec.encode_message(M.PING, {"SeqNo": 1, "Node": "sim-3"})
+    alive = codec.encode_message(M.ALIVE, {
+        "Incarnation": 2, "Node": "sim-7", "Addr": b"sim-7", "Port": 7946,
+        "Meta": b"", "Vsn": bytes(VSN)})
+    suspect = codec.encode_message(M.SUSPECT, {
+        "Incarnation": 70000, "Node": "sim-9", "From": "sim-1"})
+    dead = codec.encode_message(M.DEAD, {"Incarnation": 3, "Node": "sim-9",
+                                         "From": "sim-2"})
+    q = {"LTime": 4, "ID": 2059}
+    return {
+        "ping": ping,
+        "ack": codec.encode_message(M.ACK_RESP, {
+            "SeqNo": 300, "Payload": bytes(range(12))}),
+        "alive": alive, "suspect": suspect, "dead": dead,
+        "compound_crc": codec.encode_packet([ping, suspect], crc=True),
+        "compressed": codec.encode_packet([ping, alive, dead], compress=True),
+        "push_pull": codec.encode_push_pull([{
+            "Name": "sim-4", "Addr": b"sim-4", "Port": 7946, "Meta": b"",
+            "Incarnation": 1, "State": 0, "Vsn": bytes(VSN)}],
+            user_state=b"us", join=True),
+        "serf_event": codec.encode_serf_message(codec.SERF_USER_EVENT, {
+            "LTime": 9, "Name": "deploy", "Payload": b"v3", "CC": True}),
+        "serf_query": codec.encode_serf_message(codec.SERF_QUERY, dict(
+            q, Addr=b"sim-0", Port=7946, Filters=[], Flags=1, RelayFactor=0,
+            Timeout=5_000_000_000, Name="who-has", Payload=b"k")),
+        "serf_response": codec.encode_serf_message(
+            codec.SERF_QUERY_RESPONSE, dict(q, From="sim-64", Flags=0,
+                                            Payload=b"answer")),
+    }
+
+
+def wire_host():
+    """The host codec on the card's machine: the native LZW library built
+    under the kernels' build directory and equal to the pure-Python codec
+    on seeded inputs past the 4,095-code reset; the port's codec
+    reproducing WIRE_GOLDEN and decoding each frame; whether the
+    ``cryptography`` package is there (gossip encryption needs it)."""
+    import numpy as np
+
+    from consul_tpu_torch.utils import compile_cache
+    from consul_tpu_torch.wire import codec, keyring, lzw
+    from consul_tpu_torch.wire.codec import MessageType as M
+
+    t0 = time.perf_counter()
+    native = lzw.native_available()
+    built_s = time.perf_counter() - t0
+    path = lzw.library_path()
+    rng = np.random.default_rng(11)
+    lzw_bad = []
+    for n, alphabet in LZW_SIZES:
+        data = bytes(rng.integers(0, alphabet, n).astype(np.uint8))
+        packed = lzw.compress_py(data)
+        if not (native and lzw.compress(data) == packed
+                and lzw.decompress(packed) == data):
+            lzw_bad.append(n)
+    frames = golden_frames(codec, M)
+    bad = [k for k, v in frames.items() if v.hex() != WIRE_GOLDEN[k]]
+    decoded = 0
+    for k, v in frames.items():
+        if k == "push_pull":
+            codec.decode_push_pull(v)
+        elif k.startswith("serf_"):
+            codec.decode_serf_message(codec.decode_message(v)[1]["Raw"])
+        else:
+            codec.decode_packet(v)
+        decoded += 1
+    res = dict(native=native, library=os.path.relpath(path),
+               library_in_build_dir=(os.path.dirname(path)
+                                     == compile_cache.build_dir()
+                                     and os.path.exists(path)),
+               native_load_s=round(built_s, 3), lzw_sizes=[n for n, _ in
+                                                           LZW_SIZES],
+               lzw_mismatch=lzw_bad, golden=len(frames), golden_mismatch=bad,
+               decoded=decoded, cryptography=keyring.HAVE_CRYPTOGRAPHY)
+    res["ok"] = (native and res["library_in_build_dir"] and not lzw_bad
+                 and not bad and decoded == len(WIRE_GOLDEN))
+    return res
+
+
+class BridgeAgent:
+    """A scripted memberlist/serf client on a bridge transport (numpy
+    only): joins by push-pull, probes one random alive member every
+    ``probe_every`` ticks and updates a scalar Vivaldi coordinate from the
+    RTT, answers pings while ``answer`` is set, gossips its own aliveness,
+    and acks and answers serf queries. Every packet it gets is logged."""
+
+    def __init__(self, transport, cfg, incarnation=1, seed=0, probe_every=1):
+        import numpy as np
+
+        self.t, self.cfg = transport, cfg
+        self.name, _ = transport.final_advertise_addr()
+        self.inc = incarnation
+        self.members = {}
+        v = cfg.vivaldi
+        self.vec = np.zeros(v.dimensionality)
+        self.height, self.error = v.height_min, v.vivaldi_error_max
+        self.pending, self.seq = {}, 0
+        self.rng = np.random.default_rng(seed)
+        self.probe_every, self.ticks = probe_every, 0
+        self.answer = True
+        self.rtt_log, self.log = [], []
+        self.events_seen, self.queries_answered = [], []
+
+    def alive_members(self):
+        from consul_tpu_torch.wire import bridge
+
+        return sorted(n for n, (_, s) in self.members.items()
+                      if s == bridge.WIRE_ALIVE)
+
+    def _merge(self, name, inc, state):
+        from consul_tpu_torch.wire import bridge
+
+        if name == self.name:
+            if state != bridge.WIRE_ALIVE and inc >= self.inc:
+                self.inc = inc + 1
+            return
+        cur = self.members.get(name)
+        if cur is None or (inc, state) > cur:
+            self.members[name] = (inc, state)
+
+    def start_join(self, addr):
+        from consul_tpu_torch.wire import bridge, codec
+
+        self._join = self.t.dial_timeout(addr)
+        me = {"Name": self.name, "Addr": self.name.encode(), "Port": 7946,
+              "Meta": b"", "Incarnation": self.inc,
+              "State": bridge.WIRE_ALIVE, "Vsn": VSN}
+        self._join.send(codec.encode_stream_frame(
+            codec.encode_push_pull([me], join=True), None))
+
+    def finish_join(self):
+        from consul_tpu_torch.wire import codec
+
+        _, states, _ = codec.decode_push_pull(
+            codec.decode_stream_frame(self._join.recv(timeout=1.0), None))
+        for s in states:
+            self._merge(s["Name"], s["Incarnation"], s["State"])
+
+    def _viv(self, other, rtt):
+        import numpy as np
+
+        v = self.cfg.vivaldi
+        diff = self.vec - np.asarray(other["Vec"], np.float64)
+        norm = float(np.sqrt(diff @ diff))
+        dist = norm + self.height + other["Height"]
+        weight = self.error / max(self.error + other["Error"], 1e-6)
+        wrong = abs(dist - rtt) / rtt
+        self.error = min(v.vivaldi_error_max, v.vivaldi_ce * weight * wrong
+                         + self.error * (1 - v.vivaldi_ce * weight))
+        force = v.vivaldi_cc * weight * (rtt - dist)
+        if norm > 1e-9:
+            unit = diff / norm
+            self.height = max(v.height_min, self.height
+                              + (self.height + other["Height"]) * force / dist)
+        else:
+            unit = self.rng.uniform(-0.5, 0.5, diff.shape)
+            unit /= np.sqrt(unit @ unit)
+        self.vec = self.vec + unit * force
+
+    def estimate(self, other) -> float:
+        import numpy as np
+
+        d = self.vec - np.asarray(other["Vec"], np.float64)
+        return float(np.sqrt(d @ d)) + self.height + other["Height"]
+
+    def tick(self):
+        from consul_tpu_torch.wire import codec
+        from consul_tpu_torch.wire.codec import MessageType as M
+
+        while not self.t.packet_ch.empty():
+            pkt = self.t.packet_ch.get()
+            self.log.append((pkt.buf, pkt.from_addr, pkt.timestamp))
+            try:
+                msgs = codec.decode_packet(pkt.buf)
+            except ValueError:
+                continue
+            for mtype, body in msgs:
+                self._handle(mtype, body, pkt)
+        self.ticks += 1
+        alive = self.alive_members()
+        if self.ticks % self.probe_every or not alive or not self.answer:
+            return
+        peer = alive[self.rng.integers(len(alive))]
+        self.seq += 1
+        ping = codec.encode_message(M.PING, {"SeqNo": self.seq, "Node": peer})
+        self.pending[self.seq] = (self.t.write_to(
+            codec.encode_packet([ping]), peer + ":7946"), peer)
+        for _ in range(self.cfg.gossip.gossip_nodes):
+            tgt = alive[self.rng.integers(len(alive))]
+            msg = codec.encode_message(M.ALIVE, {
+                "Incarnation": self.inc, "Node": self.name,
+                "Addr": self.name.encode(), "Port": 7946, "Meta": b"",
+                "Vsn": VSN})
+            self.t.write_to(codec.encode_packet([msg]), tgt + ":7946")
+
+    def _handle(self, mtype, body, pkt):
+        from consul_tpu_torch.wire import bridge, codec
+        from consul_tpu_torch.wire.codec import MessageType as M
+
+        if mtype == M.PING and self.answer:
+            ack = codec.encode_message(M.ACK_RESP, {
+                "SeqNo": body["SeqNo"], "Payload": bridge.encode_coordinate(
+                    self.vec, self.height, self.error, 0.0)})
+            self.t.write_to(codec.encode_packet([ack]), pkt.from_addr)
+        elif mtype == M.ACK_RESP:
+            pend = self.pending.pop(body["SeqNo"], None)
+            coord = bridge.decode_coordinate(body.get("Payload", b""))
+            if pend is not None and coord is not None \
+                    and pkt.timestamp > pend[0]:
+                rtt = pkt.timestamp - pend[0]
+                self.rtt_log.append((pend[1], rtt, coord))
+                self._viv(coord, rtt)
+        elif mtype in (M.ALIVE, M.SUSPECT, M.DEAD):
+            self._merge(body["Node"], body["Incarnation"],
+                        {M.ALIVE: bridge.WIRE_ALIVE,
+                         M.SUSPECT: bridge.WIRE_SUSPECT,
+                         M.DEAD: bridge.WIRE_DEAD}[mtype])
+        elif mtype == M.USER and self.answer:
+            stype, sbody = codec.decode_serf_message(body["Raw"])
+            if stype == codec.SERF_USER_EVENT:
+                self.events_seen.append(str(sbody["Name"]))
+            elif stype == codec.SERF_QUERY:
+                qid = int(sbody["ID"])
+                if qid in self.queries_answered:
+                    return
+                self.queries_answered.append(qid)
+                origin = codec.as_bytes(sbody["Addr"]).decode()
+                for flags, payload in ((1, b""), (0, self.name.encode())):
+                    self.t.write_to(codec.encode_packet([
+                        codec.encode_serf_message(codec.SERF_QUERY_RESPONSE, {
+                            "LTime": sbody["LTime"], "ID": qid,
+                            "From": self.name, "Flags": flags,
+                            "Payload": payload})]), origin + ":7946")
+
+
+BRIDGE_SEED = 21
+BRIDGE_SEAT = 500_000
+BRIDGE_FORM = 512          # ticks before the agent attaches
+BRIDGE_JOIN = 256          # bridged ticks with the agent answering
+BRIDGE_DOWN_MAX = 2048     # bridged ticks to wait for the majority's DEAD
+BRIDGE_WINDOW = 16         # kernel against plain, seats attached
+BRIDGE_TIMED = 32
+BRIDGE_RMSE_S = 0.015      # tests/test_bridge.py's bound
+FLEET_SEATS = tuple(range(64, 96))
+FLEET_FORM = 64
+FLEET_TICKS = 256
+
+
+class BridgeSide:
+    """A simulation with its bridge and agents, stepped tick by tick, with
+    the host-clock split of the steps in ``split``: the tick, the bridge's
+    host step, the agents' own work, and (out of the last two) the row
+    gathers and write-backs (``unpack_s``)."""
+
+    def __init__(self, sim):
+        from consul_tpu_torch.wire.bridge import PacketBridge
+
+        self.sim = sim
+        self.br = PacketBridge(sim)
+        self.agents = {}
+        self.split = {"tick_s": 0.0, "step_s": 0.0, "agents_s": 0.0,
+                      "unpack_s": 0.0, "ticks": 0}
+
+    def _rows_s(self):
+        return self.br.stats["fetch_s"] + self.br.stats["write_s"]
+
+    def step(self, sync=False):
+        t0 = time.perf_counter()
+        self.sim.run(1, chunk=1, with_metrics=False)
+        if sync:
+            _sync(self.sim.device)
+        t1 = time.perf_counter()
+        u0 = self._rows_s()
+        self.br.step()
+        if sync:
+            _sync(self.sim.device)
+        t2 = time.perf_counter()
+        u1 = self._rows_s()
+        for a in self.agents.values():
+            a.tick()
+        t3 = time.perf_counter()
+        u2 = self._rows_s()
+        sp = self.split
+        sp["tick_s"] += t1 - t0
+        sp["step_s"] += t2 - t1 - (u1 - u0)
+        sp["agents_s"] += t3 - t2 - (u2 - u1)
+        sp["unpack_s"] += u2 - u0
+        sp["ticks"] += 1
+
+    def timed(self, ticks: int) -> dict:
+        """``ticks`` synchronized steps: ms a bridged tick by host clock and
+        its split, and the device-to-host bytes a step."""
+        split0, d2h0 = dict(self.split), self.br.stats["d2h_bytes"]
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            self.step(sync=True)
+        wall = time.perf_counter() - t0
+        ms = {k: (self.split[k + "_s"] - split0[k + "_s"]) / ticks * 1e3
+              for k in ("tick", "step", "agents", "unpack")}
+        return {"ms_per_bridged_tick": wall / ticks * 1e3,
+                "ms_tick": ms["tick"], "ms_unpack_repack": ms["unpack"],
+                "ms_bridge_host_step": ms["step"],
+                "ms_agents": ms["agents"],
+                "d2h_bytes_per_step": (self.br.stats["d2h_bytes"] - d2h0)
+                / ticks, "timed_ticks": ticks}
+
+
+def plain_twin(sim, cls):
+    """A simulation on the same device stepping the plain tick from a copy
+    of ``sim``'s world, topology, state and generator."""
+    from consul_tpu_torch.models import cluster
+
+    twin = cls(sim.cfg, seed=sim.seed, kernel="torch", device=sim.device,
+               world=sim.world, topo=sim.topo, state=cluster._clone(sim.state))
+    twin.gen.set_state(sim.gen.get_state())
+    return twin
+
+
+def _swim_rest(sim):
+    return sim.state.swim if hasattr(sim.state, "swim") else sim.state
+
+
+def seat_up(sim, seat) -> bool:
+    """``seat``'s ground truth, read off the state at rest."""
+    sw = _swim_rest(sim)
+    if hasattr(sw, "flags"):
+        return bool(sw.flags[seat] & 1)
+    return bool(sw.alive_truth[seat])
+
+
+def seat_beliefs(sim, seat):
+    """(incarnation, status) of ``seat`` held by each live tracker (seat at
+    column j of row seat - off[j]), read from the packed rows."""
+    from consul_tpu_torch.models import layout
+
+    n, off = sim.cfg.n, sim.topo.off_host
+    rows = torch.tensor([(seat - o) % n for o in off], device=sim.device)
+    cols = torch.arange(len(off), device=sim.device)
+    sw = _swim_rest(sim)
+    if isinstance(sw, layout.PackedSimState):
+        inc = sw.view_inc.view(torch.int16)[rows, cols].to(torch.int64) & 0xFFFF
+        st = sw.meta.view(torch.int16)[rows, cols].to(torch.int64) & 3
+        alive = (sw.flags[rows] & 1) != 0
+    else:
+        key = sw.view_key[rows, cols]
+        inc, st, alive = key >> 2, key & 3, sw.alive_truth[rows]
+    inc, st, alive = inc.tolist(), st.tolist(), alive.tolist()
+    return [(i, s) for i, s, a in zip(inc, st, alive) if a]
+
+
+def _majority(b, pred) -> bool:
+    return bool(b) and 2 * sum(1 for x in b if pred(*x)) > len(b)
+
+
+def lockstep_window(pair, ticks):
+    """Step both sides ``ticks`` times: after every tick the packed state of
+    the plain side bit-equal to the kernel side's, and every agent's packet
+    log byte-equal. Returns (mismatches, packets compared)."""
+    kern, plain = pair
+    bad, packets = [], 0
+    for i in range(ticks):
+        for side in pair:
+            side.step()
+        diff = tree_diff(kern.sim.state, plain.sim.state)
+        if diff:
+            bad.append(f"tick +{i + 1}: {diff[:4]}")
+        for seat, a in kern.agents.items():
+            b = plain.agents[seat]
+            if a.log != b.log:
+                bad.append(f"tick +{i + 1}: packets of seat {seat}")
+            packets += len(a.log)
+    return bad, packets
+
+
+def bridge_swim(cfg, device="cuda", kernel="cuda", seat=BRIDGE_SEAT,
+                form=BRIDGE_FORM, join=BRIDGE_JOIN, down_max=BRIDGE_DOWN_MAX,
+                window=BRIDGE_WINDOW):
+    """(a) One scripted agent on a Simulation through B1: the seat's holder
+    killed before forming, the agent takes the seat over by the trackers'
+    vote, joins by push-pull to seat + 1, learns its neighbours, its
+    coordinate converges against the planted RTTs (RMSE of its estimates
+    to the peers it probed last), the seat's trackers hold it alive at its
+    new incarnation; then it stops answering and the trackers mark it
+    suspect and then dead. The first ``window`` bridged ticks run beside a
+    plain-tick twin (kernel against plain with a seat attached)."""
+    import numpy as np
+
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip, merge, topology
+    from consul_tpu_torch.wire import bridge
+
+    n = cfg.n
+    sim = cluster.Simulation(cfg, seed=BRIDGE_SEED, device=device,
+                             kernel=kernel)
+    sim.kill(_rows(n, [seat], device))
+    reset_launches()
+    t0 = time.perf_counter()
+    sim.run(form, chunk=64, with_metrics=False)
+    while not _majority(seat_beliefs(sim, seat),
+                        lambda inc, st: st != merge.ALIVE):
+        sim.run(64, chunk=64, with_metrics=False)
+    form_s = time.perf_counter() - t0
+    pair = [BridgeSide(sim), BridgeSide(plain_twin(sim, cluster.Simulation))]
+    for side in pair:
+        side.agents[seat] = BridgeAgent(side.br.attach(seat), cfg,
+                                        incarnation=2, seed=3)
+        side.agents[seat].start_join(bridge.seat_addr((seat + 1) % n))
+    wbad, packets = lockstep_window(pair, 1)
+    for side in pair:
+        side.agents[seat].finish_join()
+    more, p2 = lockstep_window(pair, window - 1)
+    wbad += more
+    side = pair[0]
+    del pair[1]
+    agent = side.agents[seat]
+    side.step(sync=True)
+    timing = side.timed(BRIDGE_TIMED)
+    for _ in range(join - window - BRIDGE_TIMED - 1):
+        side.step()
+    joined = seat_beliefs(sim, seat)
+    # The agent's RTT estimates to the peers it probed last, against the
+    # planted world (the reference test's RMSE, at one node's scale).
+    errs = [agent.estimate(c) - float(topology.true_rtt(sim.world, seat,
+                                                          bridge.addr_to_seat(p)))
+            for p, _, c in agent.rtt_log[-64:]]
+    rmse = float(np.sqrt(np.mean(np.square(errs)))) if errs else float("inf")
+    mirror = float(torch.linalg.norm(_swim_rest(sim).viv.vec[seat].float()))
+    members = len(agent.alive_members())
+    agent.answer = False
+    t_quiet, t_down, t_suspect, t_dead = sim._t, None, None, None
+    while sim._t - t_quiet < down_max:
+        side.step()
+        if (sim._t - t_quiet) % 8:
+            continue
+        if t_down is None and not seat_up(sim, seat):
+            t_down = sim._t - t_quiet
+        b = seat_beliefs(sim, seat)
+        if t_suspect is None and any(st != merge.ALIVE for _, st in b):
+            t_suspect = sim._t - t_quiet
+        if _majority(b, lambda inc, st: st == merge.DEAD):
+            t_dead = sim._t - t_quiet
+            break
+    _sync(sim.device)
+    launches = dict(cuda_gossip.LAUNCHES)
+    res = dict(n=n, k=cfg.degree, seat=seat, form_ticks=form, form_s=round(
+        form_s, 3), window=window, window_mismatches=wbad[:20],
+        window_packets=packets + p2, members_learned=members,
+        joined_alive_inc2=_majority(joined, lambda inc, st: (
+            st == merge.ALIVE and inc >= 2)),
+        rtts=len(agent.rtt_log), rmse_ms=rmse * 1e3,
+        seat_coordinate_norm=mirror,
+        ticks_to_ground_truth_down=t_down, ticks_to_first_suspect=t_suspect,
+        ticks_to_majority_dead=t_dead, ticks_total=sim._t,
+        tick_launches=tick_launches(launches), **timing)
+    res["ok"] = (not wbad and members >= cfg.degree
+                 and res["joined_alive_inc2"] and rmse < BRIDGE_RMSE_S
+                 and mirror > 0
+                 and t_down is not None and t_suspect is not None
+                 and t_dead is not None and t_suspect <= t_dead
+                 and (kernel != "cuda" or res["tick_launches"] > 0))
+    return res
+
+
+def bridge_fleet(cfg, device="cuda", kernel="cuda", seats=FLEET_SEATS,
+                 form=FLEET_FORM, ticks=FLEET_TICKS, window=BRIDGE_WINDOW):
+    """(b) 32 scripted agents on adjacent seats of a SerfSimulation through
+    B4 (tests/test_bridge_scale.py's fleet at the main path's width): an
+    agent's event and a sim query from row 0 fired together; the first
+    ``window`` bridged ticks beside a plain-tick twin (kernel against
+    plain with seats attached), then the kernel run alone. Every agent
+    stays alive under organic probing (ground truth up, no tracker holds
+    it dead), the event reaches every live sim node and the other agents,
+    and the query collects the fleet's acks and answers."""
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip, merge
+    from consul_tpu_torch.wire import bridge, codec
+
+    n = cfg.n
+    sim = cluster.SerfSimulation(cfg, seed=BRIDGE_SEED + 1, device=device,
+                                 kernel=kernel)
+    reset_launches()
+    sim.run(form, chunk=form, with_metrics=False)
+    pair = [BridgeSide(sim),
+            BridgeSide(plain_twin(sim, cluster.SerfSimulation))]
+    for side in pair:
+        for i, s in enumerate(seats):
+            side.agents[s] = BridgeAgent(side.br.attach(s, replace=True), cfg,
+                                         seed=100 + i, probe_every=5)
+        ev = codec.encode_serf_message(codec.SERF_USER_EVENT, {
+            "LTime": 50, "Name": "fleet-deploy", "Payload": b"x", "CC": True})
+        side.agents[seats[0]].t.write_to(codec.encode_packet([ev]),
+                                         bridge.seat_addr(0))
+        side.sim.query(_rows(n, [0], device), 31)
+    d0 = sim.state.ev_delivered.clone()
+    qid = int(sim.state.q_open_key[0].to(torch.int64)[0])
+    wbad, packets = lockstep_window(pair, window)
+    del pair[1]
+    side = pair[0]
+    side.step(sync=True)
+    timing = side.timed(BRIDGE_TIMED)
+    for _ in range(ticks - window - BRIDGE_TIMED - 1):
+        side.step()
+    _sync(sim.device)
+    launches = dict(cuda_gossip.LAUNCHES)
+    st = sim.state
+    seat_mask = _rows(n, list(seats), device)
+    sw = st.swim
+    if hasattr(sw, "flags"):
+        up, left = (sw.flags & 1) != 0, (sw.flags & 2) != 0
+    else:
+        up, left = sw.alive_truth, sw.left
+    active = up & ~left & ~seat_mask
+    gained = (st.ev_delivered - d0)[active]
+    dead_held = sum(1 for s in seats for _, b in seat_beliefs(sim, s)
+                    if b == merge.DEAD)
+    heard = sum("fleet-deploy" in a.events_seen
+                for s, a in side.agents.items() if s != seats[0])
+    q = side.br.query_status(0, qid)
+    summary = None if q is None else dict(
+        open=q["open"], acks_total=q["acks_total"],
+        responses_total=q["responses_total"],
+        agent_acks=len(q["agent_acks"]),
+        agent_responses=len(q["agent_responses"]),
+        payloads_are_names=all(v == k.encode() for k, v in
+                               q["agent_responses"].items()))
+    res = dict(n=n, k=cfg.degree, agents=len(seats), window=window,
+               window_mismatches=wbad[:20], window_packets=packets,
+               seats_up=bool(up[seat_mask].all()), trackers_holding_dead=
+               dead_held, event_min_gain=int(gained.min()),
+               event_reached=int((gained > 0).sum()),
+               live_sim_nodes=int(active.sum()), agents_heard=heard,
+               query=summary, answered=sum(qid in a.queries_answered
+                                     for a in side.agents.values()),
+               ticks_total=sim._t, tick_launches=tick_launches(launches),
+               **timing)
+    res["ok"] = (not wbad and res["seats_up"] and dead_held == 0
+                 and res["event_min_gain"] >= 1
+                 and heard >= (len(seats) - 1) * 3 // 4 and q is not None
+                 and summary["agent_acks"] >= len(seats) * 3 // 4
+                 and summary["agent_responses"] >= len(seats) * 3 // 4
+                 and summary["payloads_are_names"]
+                 and q["responses_total"] >= n - len(seats) - 2
+                 and (kernel != "cuda" or res["tick_launches"] > 0))
+    return res
+
+
+def bridge_main_path(n=MAIN_N, device="cuda", kernel="cuda", **kw):
+    """The transport seam at the main path's width: ``bridge_swim`` (B1)
+    and ``bridge_fleet`` (B4), each with its kernel-against-plain window;
+    the peak device memory of each."""
+    from consul_tpu_torch.config import SimConfig
+
+    cfg = SimConfig(n=n, view_degree=32)
+    out = {}
+    for name, fn in (("swim", bridge_swim), ("serf", bridge_fleet)):
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn(cfg, device=device, kernel=kernel, **kw.get(name, {}))
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        if device != "cpu":
+            res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out[name] = res
+    return out
+
+
+def raft_lockstep_oracle(cfg, groups=16, peers=5, seed=5, device="cuda",
+                         kernel="cuda"):
+    """The card's raft tier against the port's own LockstepRaftOracle
+    (server/raft.py: the six sub-phases as scalar loops, sharing no
+    tensor code): a 1M Simulation with set_raft(groups, peers) under
+    raft_events (so the gossip ticks run the chaos variant, B2), the
+    draw tensors recorded as the plane consumes them, proposals at
+    RAFT_PARITY_PROPOSALS' chunk boundaries mirrored as the oracle's
+    bumps. Every RaftState field and the cumulative counters equal at
+    every chunk boundary; the oracle's seconds a tick beside the card's."""
+    import numpy as np
+
+    from consul_tpu_torch import chaos
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip, raft_ops
+    from consul_tpu_torch.server.raft import LockstepRaftOracle
+
+    events = raft_events(chaos)
+    sim = cluster.Simulation(cfg, seed=seed, device=device, kernel=kernel)
+    plane = sim.set_raft(groups, peers=peers, window=RAFT_WINDOW)
+    sim.set_chaos(events)
+    own, draws = plane.draws, {}
+
+    def record(t):
+        draws[t] = own(t)
+        return draws[t]
+    plane.draws = record
+    oracle = LockstepRaftOracle(plane.rcfg, plane.state.timer, draws.
+                                __getitem__, events=events)
+    reset_launches()
+    card_s = oracle_s = 0.0
+    bad = []
+    for c in range(RAFT_PARITY_TICKS // RAFT_PARITY_CHUNK):
+        for g in range(groups):
+            if c in RAFT_PARITY_PROPOSALS:
+                plane.propose([(0, 0, 0)] * RAFT_PARITY_PROPOSALS[c], group=g)
+                oracle.bump(g, RAFT_PARITY_PROPOSALS[c])
+        t0 = time.perf_counter()
+        sim.run(RAFT_PARITY_CHUNK, chunk=RAFT_PARITY_CHUNK, with_metrics=False)
+        _sync(sim.device)
+        t1 = time.perf_counter()
+        oracle.run(range(c * RAFT_PARITY_CHUNK, (c + 1) * RAFT_PARITY_CHUNK))
+        t2 = time.perf_counter()
+        card_s += t1 - t0
+        oracle_s += t2 - t1
+        want = oracle.snapshot()
+        for f in raft_ops.RaftState._fields:
+            got = getattr(plane.state, f).cpu().numpy().astype(np.int64)
+            if not np.array_equal(got, want[f].astype(np.int64)):
+                bad.append(f"tick {sim._t} {f}")
+        cnt = plane.counters_snapshot()
+        if cnt != oracle.cnt:
+            bad.append(f"tick {sim._t} counters {cnt} != {oracle.cnt}")
+    launches = dict(cuda_gossip.LAUNCHES)
+    s = plane.summary()
+    ticks = RAFT_PARITY_TICKS
+    res = dict(groups=groups, peers=peers, window=RAFT_WINDOW, n=cfg.n,
+               ticks=ticks, chunk=RAFT_PARITY_CHUNK, mismatches=bad[:20],
+               boundaries=ticks // RAFT_PARITY_CHUNK,
+               counters=plane.counters_snapshot(), summary=s,
+               card_ms_per_tick=card_s / ticks * 1e3,
+               oracle_ms_per_tick=oracle_s / ticks * 1e3,
+               tick_launches=tick_launches(launches))
+    res["ok"] = (not bad and res["counters"]["elections_won"] > groups
+                 and res["counters"]["term_changes"] > 0
+                 and all(x >= 0 for x in s["leaders"])
+                 and (kernel != "cuda" or res["tick_launches"] > 0))
+    return res
+
+
 def reset_launches():
     from consul_tpu_torch.ops import cuda_gossip
 
@@ -6146,7 +6846,7 @@ def main() -> int:
     # The federation on a (dc, nodes) mesh of the card and the DCN tier on
     # meshes (ROADMAP A13 item 4), then cohort streaming (A12b). Each
     # phase zeroes the counts before it drives its path.
-    new_launches = {"b7": 0, "wan": 0, "swim": 0, "serf": 0}
+    new_launches = {"b7": 0, "wan": 0, "swim": 0, "serf": 0, "chaos": 0}
     t0 = time.perf_counter()
     res = federation_mesh()
     res["seconds"] = round(time.perf_counter() - t0, 3)
@@ -6177,6 +6877,33 @@ def main() -> int:
             return 1
         new_launches[kind] += res["kernel_launches"]
 
+    # The transport seam with agents attached (B1, B4) and the card's raft
+    # tier against the port's own lockstep oracle (B2) (ROADMAP A21, first
+    # part). Each phase zeroes the counts before it drives its path.
+    t0 = time.perf_counter()
+    res = wire_host()
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "wire_host", **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["wire_host"]})
+        return 1
+    runs = bridge_main_path()
+    for kind, r in runs.items():
+        emit({"phase": "bridge_main_path", "plane": kind,
+              "nvidia_smi": nvidia_smi(), **r})
+        new_launches[kind] += r["tick_launches"]
+    if not all(r["ok"] for r in runs.values()):
+        emit({"phase": "failed", "failed": ["bridge_main_path"]})
+        return 1
+    t0 = time.perf_counter()
+    res = raft_lockstep_oracle(SimConfig(n=MAIN_N, view_degree=32))
+    res["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "raft_lockstep_oracle", "nvidia_smi": nvidia_smi(), **res})
+    if not res["ok"]:
+        emit({"phase": "failed", "failed": ["raft_lockstep_oracle"]})
+        return 1
+    new_launches["chaos"] += res["tick_launches"]
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -6201,25 +6928,28 @@ def main() -> int:
             "sentinel=False, sparse, packed (SWIM path, the raft paths, "
             "the sweeps' forming, every DC's LAN pool of the federation "
             "and the DCN islands, the front end's planes, the game "
-            "day's warmup, steady and drain and its DCN islands, and the "
-            "streamed SWIM cohorts)",
+            "day's warmup, steady and drain and its DCN islands, the "
+            "streamed SWIM cohorts, and the bridged Simulation with an "
+            "agent attached)",
             swim_launches + raft_launches["bare"] + sweep_launches["bare"]
             + fed_launches["lan"] + gd_launches["bare"]
             + new_launches["swim"], swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed (serf path; the "
-            "oracle's fused twin, the snapshot rejoin and the streamed "
-            "serf cohorts)",
+            "oracle's fused twin, the snapshot rejoin, the streamed "
+            "serf cohorts and the bridged fleet of 32 agents)",
             serf_launches + gd_launches["serf"] + new_launches["serf"],
             serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "
             "sentinel=True (chaos path); sched=<raft-only>, sentinel=False "
-            "(raft paths); sched=<sweep lane>, sentinel=False, families "
+            "(raft paths and the raft lockstep oracle's run); "
+            "sched=<sweep lane>, sentinel=False, families "
             "circulant, expander, smallworld, hier (sweeps); "
             "sched=<composed with RaftKill>, sentinel=False (the game day's "
             "fault and heal), sparse, packed",
             chaos_launches + raft_launches["raft_schedule"]
-            + sweep_launches["chaos"] + gd_launches["chaos"], chaos_t),
+            + sweep_launches["chaos"] + gd_launches["chaos"]
+            + new_launches["chaos"], chaos_t),
         row("gossip_tick_sentinel", "step_fn=swim.step_counted, sched=None, "
             "sentinel=True, sparse, packed", sentinel_launches, sentinel_t),
         row("gossip_tick_serf_chaos", "step_fn=serf.step_counted (extra_tx), "

@@ -199,8 +199,9 @@ class SerfConfig:
     # Dynamic queue-depth limit knobs (reference serf/serf.go:1612-1648
     # getQueueMax/checkQueueDepth; Consul raises MinQueueDepth to 4096,
     # reference lib/serf.go:26-28). The scaled limit max(2N, min) bounds
-    # *host-side* queues (wire/bridge.py seam buffers); the warning
-    # threshold feeds the serf.queue.* telemetry samples.
+    # *host-side* queues (the seam buffers of
+    # consul_tpu_torch/wire/bridge.py); the warning threshold feeds the
+    # serf.queue.* telemetry samples.
     min_queue_depth: int = 4096
     max_queue_depth: int = 0
     # The reference warns when one node's queue holds 128 messages; the

@@ -36,6 +36,14 @@ def make_key_int(incarnation: int, status: int) -> int:
     return (int(incarnation) << _STATUS_BITS) | int(status)
 
 
+def key_incarnation_int(key: int) -> int:
+    return int(key) >> _STATUS_BITS
+
+
+def key_status_int(key: int) -> int:
+    return int(key) & (N_STATUS - 1)
+
+
 def key_incarnation(key):
     return key >> _STATUS_BITS
 

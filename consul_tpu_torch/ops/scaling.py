@@ -57,3 +57,19 @@ def suspicion_k(suspicion_mult, n):
     n = torch.as_tensor(n).to(torch.int32)
     k = torch.as_tensor(suspicion_mult - 2).to(torch.int32)
     return torch.where(n - 2 < k, torch.zeros_like(k), k)
+
+
+def queue_max_depth(max_queue_depth, min_queue_depth, n_members):
+    """Dynamic serf broadcast-queue depth limit.
+
+    Mirrors getQueueMax (reference serf/serf.go:1612-1624): the static
+    ``MaxQueueDepth`` unless ``MinQueueDepth`` is set, in which case the
+    limit scales with the cluster — ``max(2 * n_members,
+    min_queue_depth)`` (Consul sets MinQueueDepth=4096, reference
+    lib/serf.go:26-28). Host-side helper (plain ints): the limit guards
+    host-side queues (wire/bridge.py seam buffers).
+    """
+    m = int(max_queue_depth)
+    if min_queue_depth > 0:
+        m = max(2 * int(n_members), int(min_queue_depth))
+    return m

@@ -16,8 +16,10 @@ port's package rules.
 - ``kernel="cuda"`` raises without a CUDA device and with the dense
   layout.
 - No module of ``consul_tpu_torch`` (its ``chaos``, ``obs``, ``runtime``,
-  ``server`` and ``serving`` subpackages included) and no line of
-  ``chip_smoke.py`` imports ``jax`` or ``consul_tpu``.
+  ``server``, ``serving`` and ``wire`` subpackages included) and no line
+  of ``chip_smoke.py`` imports ``jax`` or ``consul_tpu``; none imports
+  ``msgpack``, and ``cryptography`` only in ``wire/keyring.py``'s guarded
+  import.
 """
 
 import ast
@@ -176,10 +178,30 @@ def test_port_imports_no_jax_and_no_reference():
         ("gameday", "goldens.py"), ("gameday", "harness.py"),
         ("gameday", "swarm.py"), ("cli.py",),
         ("utils", "prewarm.py"), ("utils", "compile_cache.py"),
-        ("analysis", "__init__.py"), ("analysis", "guards.py"))} <= rel
+        ("analysis", "__init__.py"), ("analysis", "guards.py"),
+        ("wire", "__init__.py"), ("wire", "_msgpack.py"),
+        ("wire", "keyring.py"), ("wire", "lzw.py"), ("wire", "codec.py"),
+        ("wire", "keymanager.py"), ("wire", "bridge.py"),
+        ("server", "state_store.py"), ("server", "fsm.py"),
+        ("server", "raft_store.py"), ("server", "raft.py"))} <= rel
     # The asyncio front end landed with the game day (ROADMAP A19).
     assert os.path.join("consul_tpu_torch", "serving", "frontend.py") in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "consul_tpu"), (path, mod)
+            # The machine with the card has neither package: the codec
+            # carries its own msgpack, and only the keyring's guarded
+            # import may name cryptography.
+            assert top != "msgpack", (path, mod)
+            if top == "cryptography":
+                assert path.endswith(os.path.join("wire", "keyring.py")), path
+    keyring_src = ast.parse(open(os.path.join(
+        REPO, "consul_tpu_torch", "wire", "keyring.py")).read())
+    guarded = [n for n in keyring_src.body if isinstance(n, ast.Try)]
+    assert len(guarded) == 1 and {
+        a.module.split(".")[0] for a in ast.walk(guarded[0])
+        if isinstance(a, ast.ImportFrom)} == {"cryptography"}
+    assert not [n for n in keyring_src.body
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                and "cryptography" in ast.dump(n)]
