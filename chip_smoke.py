@@ -5800,6 +5800,17 @@ class BridgeSide:
                 / ticks, "timed_ticks": ticks}
 
 
+def no_agent_timing(sim, ticks=BRIDGE_TIMED) -> dict:
+    """A bridged tick with no agent attached (the reference's overhead
+    yardstick, tests/test_bridge_scale.py:140-165): ``ticks`` synchronized
+    steps of ``sim`` under a bridge holding no seat. Reported, not gated."""
+    side = BridgeSide(sim)
+    side.step(sync=True)
+    t = side.timed(ticks)
+    return {"no_agent_ms_per_bridged_tick": t["ms_per_bridged_tick"],
+            "no_agent_ms_tick": t["ms_tick"]}
+
+
 def plain_twin(sim, cls):
     """A simulation on the same device stepping the plain tick from a copy
     of ``sim``'s world, topology, state and generator."""
@@ -5895,6 +5906,7 @@ def bridge_swim(cfg, device="cuda", kernel="cuda", seat=BRIDGE_SEAT,
                         lambda inc, st: st != merge.ALIVE):
         sim.run(64, chunk=64, with_metrics=False)
     form_s = time.perf_counter() - t0
+    bare = no_agent_timing(sim)
     pair = [BridgeSide(sim), BridgeSide(plain_twin(sim, cluster.Simulation))]
     for side in pair:
         side.agents[seat] = BridgeAgent(side.br.attach(seat), cfg,
@@ -5946,7 +5958,9 @@ def bridge_swim(cfg, device="cuda", kernel="cuda", seat=BRIDGE_SEAT,
         seat_coordinate_norm=mirror,
         ticks_to_ground_truth_down=t_down, ticks_to_first_suspect=t_suspect,
         ticks_to_majority_dead=t_dead, ticks_total=sim._t,
-        tick_launches=tick_launches(launches), **timing)
+        tick_launches=tick_launches(launches), **timing, **bare,
+        agent_over_no_agent=timing["ms_per_bridged_tick"]
+        / bare["no_agent_ms_per_bridged_tick"])
     res["ok"] = (not wbad and members >= cfg.degree
                  and res["joined_alive_inc2"] and rmse < BRIDGE_RMSE_S
                  and mirror > 0
@@ -5975,6 +5989,7 @@ def bridge_fleet(cfg, device="cuda", kernel="cuda", seats=FLEET_SEATS,
                                  kernel=kernel)
     reset_launches()
     sim.run(form, chunk=form, with_metrics=False)
+    bare = no_agent_timing(sim)
     pair = [BridgeSide(sim),
             BridgeSide(plain_twin(sim, cluster.SerfSimulation))]
     for side in pair:
@@ -6027,7 +6042,8 @@ def bridge_fleet(cfg, device="cuda", kernel="cuda", seats=FLEET_SEATS,
                query=summary, answered=sum(qid in a.queries_answered
                                      for a in side.agents.values()),
                ticks_total=sim._t, tick_launches=tick_launches(launches),
-               **timing)
+               **timing, **bare, agents_over_no_agent=timing[
+                   "ms_per_bridged_tick"] / bare["no_agent_ms_per_bridged_tick"])
     res["ok"] = (not wbad and res["seats_up"] and dead_held == 0
                  and res["event_min_gain"] >= 1
                  and heard >= (len(seats) - 1) * 3 // 4 and q is not None
@@ -6128,6 +6144,249 @@ def raft_lockstep_oracle(cfg, groups=16, peers=5, seed=5, device="cuda",
                  and all(x >= 0 for x in s["leaders"])
                  and (kernel != "cuda" or res["tick_launches"] > 0))
     return res
+
+
+# The server tier on the tick (ROADMAP A21 item 1): the observer seats the
+# three servers stand on, the view columns of seat 0 whose rows die, the
+# mass kill elsewhere, and the coordinate seats.
+SERVER_SEATS = (0, 1, 2)
+SERVER_VICTIM_COLS = (3, 11, 19)
+SERVER_KILL_FRAC = 20          # 1/20 = 5 %
+SERVER_FORM = 64
+SERVER_WINDOW = 16             # kernel against plain, member lists
+SERVER_DETECT_MAX = 8192
+SERVER_COORD_SEATS = 1024
+SERVER_REL = 1e-6
+
+
+def _merged_members(lists):
+    """The servers' serf member lists merged by status precedence (a
+    member any observer holds failed, left or reaped is no longer alive)."""
+    rank = {"alive": 0, "failed": 1, "left": 2, "reap": 3}
+    out = {}
+    for members in lists:
+        for m in members:
+            cur = out.get(m["name"])
+            if cur is None or rank[m["status"]] > rank[cur["status"]]:
+                out[m["name"]] = m
+    return [out[k] for k in sorted(out)]
+
+
+def _timed_ms(fn, device):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def server_membership(cfg, device="cuda", kernel="cuda", seed=31,
+                      form=SERVER_FORM, window=SERVER_WINDOW,
+                      detect_max=SERVER_DETECT_MAX):
+    """(a) and (b): a packed SerfSimulation through B4 formed for ``form``
+    ticks; three of seat 0's view neighbours and a 5 % mass kill away from
+    the servers' views; ``window`` ticks beside a plain-tick twin with
+    ``members_from_sim`` of the three server seats equal every tick; then
+    the kernel alone until seat 0 holds the three dead. The three lists
+    feed LanEventHandler on the leader of a 3-server ServerCluster
+    (members join first, then the observed states, as
+    tests/test_serf_plumbing.py:108-133), and the catalog holds serfHealth
+    critical for the three and passing for every member seen alive."""
+    import numpy as np
+
+    from consul_tpu_torch.models import cluster, coalesce
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.server import endpoints, serf_plumbing
+
+    n = cfg.n
+    sim = cluster.SerfSimulation(cfg, seed=seed, layout="packed",
+                                 device=device, kernel=kernel)
+    reset_launches()
+    sim.run(form, chunk=form, with_metrics=False)
+    off = sim.topo.off_host
+    victims = sorted((0 + off[c]) % n for c in SERVER_VICTIM_COLS)
+    seen = {(s + o) % n for s in SERVER_SEATS for o in off} | set(SERVER_SEATS)
+    rng = np.random.default_rng(seed)
+    mass = rng.choice(n, n // SERVER_KILL_FRAC, replace=False)
+    mass = sorted(set(mass.tolist()) - seen)
+    sim.kill(_rows(n, victims + mass, sim.device))
+    def lists(s):
+        return [serf_plumbing.members_from_sim(cfg, s.topo, s.state, o)
+                for o in SERVER_SEATS]
+
+    def raw(s):
+        return [serf_plumbing._observer_row(s.state, o) for o in SERVER_SEATS]
+
+    twin = plain_twin(sim, cluster.SerfSimulation)
+    wbad = []
+    for i in range(window):
+        for s in (sim, twin):
+            s.run(1, chunk=1, with_metrics=False)
+        # The lists map SUSPECT to alive, so the gathered rows (view_key,
+        # down_since, t) are held equal too.
+        rows_equal = all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            and a[2] == b[2] for a, b in zip(raw(sim), raw(twin)))
+        if not rows_equal or lists(sim) != lists(twin):
+            wbad.append(f"tick +{i + 1}")
+    del twin
+    d0 = serf_plumbing.STATS["d2h_bytes"]
+    _, mfs_ms = _timed_ms(lambda: serf_plumbing.members_from_sim(
+        cfg, sim.topo, sim.state, 0), sim.device)
+    row_bytes = serf_plumbing.STATS["d2h_bytes"] - d0
+    detect_t0 = sim._t
+    while True:
+        by = {m["name"]: m["status"] for m in lists(sim)[0]}
+        if all(by.get(f"sim-{v}") == "failed" for v in victims):
+            break
+        if sim._t - detect_t0 >= detect_max:
+            break
+        sim.run(64, chunk=64, with_metrics=False)
+    _sync(sim.device)
+    detect_ticks = sim._t - detect_t0
+    launches = tick_launches(cuda_gossip.LAUNCHES)
+    merged = _merged_members(lists(sim))
+    c = endpoints.ServerCluster(3, seed=43)
+    leader = c.wait_converged()
+    h = serf_plumbing.LanEventHandler(leader, c)
+    h.handle_events([coalesce.Event(coalesce.MEMBER_JOIN, name=m["name"])
+                     for m in merged])
+    c.step(120)
+    events = [coalesce.Event(coalesce.MEMBER_JOIN if m["status"] == "alive"
+                             else coalesce.MEMBER_FAILED, name=m["name"])
+              for m in merged]
+    _, reconcile_ms = _timed_ms(lambda: h.handle_events(events), "cpu")
+    c.step(120)
+    h.handle_events([])
+    c.step(120)
+    checks = {ch["node"]: ch["status"] for ch in leader.store.checks()
+              if ch["check_id"] == "serfHealth"}
+    alive = [m["name"] for m in merged if m["status"] == "alive"]
+    res = dict(n=n, k=cfg.degree, observers=list(SERVER_SEATS),
+               victims=victims, mass_killed=len(mass), window=window,
+               window_mismatches=wbad[:20], detect_ticks=detect_ticks,
+               members=len(merged), members_alive=len(alive),
+               victims_critical=[checks.get(f"sim-{v}") == "critical"
+                                 for v in victims],
+               alive_passing=sum(checks.get(a) == "passing" for a in alive),
+               members_from_sim_ms=mfs_ms,
+               members_from_sim_d2h_bytes=row_bytes,
+               reconcile_ms=reconcile_ms, tick_launches=launches,
+               ticks_total=sim._t)
+    res["ok"] = (not wbad and all(res["victims_critical"])
+                 and res["alive_passing"] == len(alive) and len(alive) > 0
+                 and row_bytes < 1024
+                 and (kernel != "cuda" or launches > 0))
+    return res
+
+
+def server_coordinates(cfg, device="cuda", kernel="cuda", seed=0,
+                       seats=SERVER_COORD_SEATS):
+    """(c): the SWIM north star (64 ticks, a 5 % kill,
+    run_until_converged) through B1, then ``sync_coordinates`` of
+    ``seats`` rows spread over the state into a 3-server ServerCluster
+    (each registered with a service first) and ``flush_coordinates``;
+    every coordinate lands. ``Catalog.ListNodes near=`` and
+    ``Health.ServiceNodes near=`` through ``leader.attach_serving(plane)``
+    return the host sort's order (``server/rtt.sort_nodes_by_distance``),
+    position by position within SERVER_REL relative in rtt, and the
+    plane's batcher served them."""
+    from consul_tpu_torch.models import cluster
+    from consul_tpu_torch.ops import cuda_gossip
+    from consul_tpu_torch.server import endpoints, rtt, serf_plumbing
+    from consul_tpu_torch.serving import ServingPlane
+
+    n = cfg.n
+    sim = cluster.Simulation(cfg, seed=seed, layout="packed", device=device,
+                             kernel=kernel)
+    reset_launches()
+    sim.run(64, chunk=64)
+    sim.kill(_rows(n, list(range(n // SERVER_KILL_FRAC)), sim.device))
+    converged, used, _ = sim.run_until_converged(max_ticks=4096, chunk=128)
+    _sync(sim.device)
+    launches = tick_launches(cuda_gossip.LAUNCHES)
+    rows = [i * (n // seats) + (n // seats) // 2 for i in range(seats)]
+    c = endpoints.ServerCluster(3, seed=44)
+    leader = c.wait_converged()
+    for r in rows:
+        leader.rpc("Catalog.Register", node=f"sim-{r}", address=f"sim-{r}",
+                   service={"id": "web", "service": "web"})
+    c.step(200)
+    d0 = serf_plumbing.STATS["d2h_bytes"]
+    staged, sync_ms = _timed_ms(lambda: serf_plumbing.sync_coordinates(
+        sim, leader, rows), sim.device)
+    sync_bytes = serf_plumbing.STATS["d2h_bytes"] - d0
+    leader.flush_coordinates()
+    c.step(200)
+    stored = {r["node"] for r in leader.store.coordinates()}
+    plane = ServingPlane(k=16, device=sim.device)
+    src = f"sim-{rows[0]}"
+    calls = (("Catalog.ListNodes", {}), ("Health.ServiceNodes",
+                                         {"service": "web"}))
+    sets = rtt.coord_sets_from_store(leader.store.coordinates())
+    reads = {}
+    for method, kw in calls:
+        leader.serving = None
+        host = leader.rpc(method, near=src, **kw)["value"]
+        leader.attach_serving(plane)
+        leader.rpc(method, near=src, **kw)   # publishes the snapshot
+        q0 = plane.batcher.queries
+        card, ms = _timed_ms(lambda: leader.rpc(method, near=src, **kw)
+                             ["value"], sim.device)
+        h_rtt = [rtt.compute_distance(sets[src][""], sets[r["node"]][""])
+                 for r in host]
+        c_rtt = [rtt.compute_distance(sets[src][""], sets[r["node"]][""])
+                 for r in card]
+        gap = max((abs(a - b) / max(abs(a), 1e-12)
+                   for a, b in zip(h_rtt, c_rtt)), default=0.0)
+        h_names = [r["node"] for r in host]
+        c_names = [r["node"] for r in card]
+        # Two nodes may change places only where their host rtts are
+        # bit-equal (a tie the host sort breaks by its own order).
+        ties_only = sorted(h_names) == sorted(c_names) and all(
+            a == b or ha == ca
+            for a, b, ha, ca in zip(h_names, c_names, h_rtt, c_rtt))
+        reads[method] = dict(rows=len(card), ms=ms,
+                             order_equal=c_names == h_names,
+                             order_equal_but_ties=ties_only,
+                             max_rel_rtt_gap=gap,
+                             batcher_queries=plane.batcher.queries - q0)
+    leader.serving = None
+    res = dict(n=n, k=cfg.degree, converged=converged, ticks_after_kill=used,
+               seats=seats, staged=staged, stored=len(stored),
+               sync_coordinates_ms=sync_ms, sync_d2h_bytes=sync_bytes,
+               reads=reads, batcher_queries=plane.batcher.queries,
+               tick_launches=launches, ticks_total=sim._t)
+    res["ok"] = (converged and staged == seats and len(stored) == seats
+                 and all(r["rows"] == seats and r["max_rel_rtt_gap"]
+                         <= SERVER_REL and r["batcher_queries"] > 0
+                         and r["order_equal_but_ties"]
+                         for r in reads.values())
+                 and plane.batcher.queries > 0
+                 and (kernel != "cuda" or launches > 0))
+    return res
+
+
+def server_main_path(n=MAIN_N, device="cuda", kernel="cuda", **kw):
+    """The servers' control plane fed by the tick at the main path's width
+    (ROADMAP A21 item 1): ``server_membership`` (B4) and
+    ``server_coordinates`` (B1), each with its peak device memory."""
+    from consul_tpu_torch.config import SimConfig
+
+    cfg = SimConfig(n=n, view_degree=32)
+    out = {}
+    for name, fn in (("membership", server_membership),
+                     ("coordinates", server_coordinates)):
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn(cfg, device=device, kernel=kernel, **kw.get(name, {}))
+        res["seconds"] = round(time.perf_counter() - t0, 3)
+        if device != "cpu":
+            res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out[name] = res
+    return out
 
 
 def reset_launches():
@@ -6904,6 +7163,20 @@ def main() -> int:
         return 1
     new_launches["chaos"] += res["tick_launches"]
 
+    # The servers' control plane on the tick (ROADMAP A21 item 1): member
+    # rows of the serf plane (B4) into the raft-backed catalog, Vivaldi
+    # rows of the SWIM plane (B1) into Coordinate.Update and ?near= reads
+    # on the card. Each part zeroes the counts before it drives its path.
+    runs = server_main_path()
+    for kind, r in runs.items():
+        emit({"phase": "server_main_path", "part": kind,
+              "nvidia_smi": nvidia_smi(), **r})
+    new_launches["serf"] += runs["membership"]["tick_launches"]
+    new_launches["swim"] += runs["coordinates"]["tick_launches"]
+    if not all(r["ok"] for r in runs.values()):
+        emit({"phase": "failed", "failed": ["server_main_path"]})
+        return 1
+
     def row(name, config, launches, t):
         return {"name": name, "route": "cuda",
                 "source": "consul_tpu_torch/csrc/gossip_tick.cu",
@@ -6929,15 +7202,16 @@ def main() -> int:
             "the sweeps' forming, every DC's LAN pool of the federation "
             "and the DCN islands, the front end's planes, the game "
             "day's warmup, steady and drain and its DCN islands, the "
-            "streamed SWIM cohorts, and the bridged Simulation with an "
-            "agent attached)",
+            "streamed SWIM cohorts, the bridged Simulation with an "
+            "agent attached, and the server tier's coordinate run)",
             swim_launches + raft_launches["bare"] + sweep_launches["bare"]
             + fed_launches["lan"] + gd_launches["bare"]
             + new_launches["swim"], swim_t),
         row("gossip_tick_serf", "step_fn=serf.step_counted (extra_tx), "
             "sched=None, sentinel=False, sparse, packed (serf path; the "
             "oracle's fused twin, the snapshot rejoin, the streamed "
-            "serf cohorts and the bridged fleet of 32 agents)",
+            "serf cohorts, the bridged fleet of 32 agents and the server "
+            "tier's membership run)",
             serf_launches + gd_launches["serf"] + new_launches["serf"],
             serf_t),
         row("gossip_tick_chaos", "step_fn=swim.step_counted, sched=<composed>, "

@@ -256,6 +256,28 @@ def tick_of(state):
     return sw.t
 
 
+# Row gathers and scatters run on a same-width view of the leaves whose
+# dtypes have no index kernels (unsigned ints, float8).
+ROW_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+             torch.float8_e4m3fn: torch.uint8}
+
+
+def take_rows(tree, idx):
+    """The rows ``idx`` of every per-node leaf of a (packed or dense)
+    SWIM plane; the scalar ``t`` as it is."""
+    out = []
+    for x in tree:
+        if not isinstance(x, torch.Tensor):
+            out.append(take_rows(x, idx))
+        elif x.dim() == 0:
+            out.append(x)
+        else:
+            v = ROW_VIEWS.get(x.dtype)
+            out.append(x.index_select(0, idx) if v is None
+                       else x.view(v).index_select(0, idx).view(x.dtype))
+    return type(tree)(*out)
+
+
 def float_gap(a: torch.Tensor, b: torch.Tensor):
     """Element-wise gap between two packed float leaves of one dtype
     (bfloat16, or float8 under the x256 codec): (steps apart in the

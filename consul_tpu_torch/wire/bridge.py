@@ -330,7 +330,7 @@ class PacketBridge:
             at_rest = self._swim_at_rest()
             idx = torch.tensor(missing, dtype=torch.int64,
                                device=at_rest.t.device)
-            st = _unpacked(_take_rows(at_rest, idx))
+            st = _unpacked(layout_mod.take_rows(at_rest, idx))
             i64 = torch.int64
             ints = torch.cat([
                 st.alive_truth.to(i64)[:, None], st.left.to(i64)[:, None],
@@ -380,7 +380,7 @@ class PacketBridge:
         local = {r: i for i, r in enumerate(rows)}
         at_rest = self._swim_at_rest()
         idx = torch.tensor(rows, dtype=torch.int64, device=at_rest.t.device)
-        sub = fn(_unpacked(_take_rows(at_rest, idx)), local)
+        sub = fn(_unpacked(layout_mod.take_rows(at_rest, idx)), local)
         if layout_mod.is_packed(at_rest):
             sub = layout_mod.pack(sub)
         whole = _put_rows(at_rest, idx, sub)
@@ -1169,28 +1169,6 @@ class PacketBridge:
             self.step()
 
 
-# Row gathers and scatters run on a same-width view of the leaves whose
-# dtypes have no index kernels (unsigned ints, float8).
-_ROW_VIEWS = {torch.uint16: torch.int16, torch.uint32: torch.int32,
-              torch.float8_e4m3fn: torch.uint8}
-
-
-def _take_rows(tree, idx):
-    """The rows ``idx`` of every per-node leaf of a (packed or dense)
-    SWIM plane; the scalar ``t`` as it is."""
-    out = []
-    for x in tree:
-        if not isinstance(x, torch.Tensor):
-            out.append(_take_rows(x, idx))
-        elif x.dim() == 0:
-            out.append(x)
-        else:
-            v = _ROW_VIEWS.get(x.dtype)
-            out.append(x.index_select(0, idx) if v is None
-                       else x.view(v).index_select(0, idx).view(x.dtype))
-    return type(tree)(*out)
-
-
 # The leaves a bridge edit can change (packed and dense names); the others
 # are never written back.
 _EDITED = frozenset((
@@ -1208,7 +1186,7 @@ def _put_rows(tree, idx, sub):
         elif x.dim() == 0 or name not in _EDITED:
             out.append(x)
         else:
-            v = _ROW_VIEWS.get(x.dtype)
+            v = layout_mod.ROW_VIEWS.get(x.dtype)
             out.append(x.index_copy(0, idx, y) if v is None
                        else x.view(v).index_copy(0, idx, y.view(v))
                        .view(x.dtype))

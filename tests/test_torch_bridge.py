@@ -35,6 +35,26 @@ eviction, a malformed envelope dropped. Tick counts are cut from the
 reference's tests (400 bridged ticks at n = 1,024 there) to keep the
 file's budget: most of its cost is the reference compiling its two
 simulation runners. Each flow's counts are the constants below.
+
+Two more flows run on the port's side only, with the reference tests'
+timeouts and tick counts, and assert the reference tests' own outcomes
+there (tests/test_bridge.py:206-267, tests/test_bridge_scale.py:88-139).
+The agent flow (a packed ``Simulation`` at this file's n = 128, K = 16,
+where the reference runs n = 1,024, K = 32; the default timeouts, 400
+bridged ticks as there): SEAT killed and detected; an agent at incarnation 2
+rejoins through the bridge and runs 400 bridged ticks; every live
+in-neighbour then believes it alive at incarnation >= 2, ``metrics.health``
+counts no false positive and nothing undetected, the agent's coordinate
+RMSE to its probed peers is under 15 ms over at least 30 RTTs, and the
+seat's mirrored row is non-zero and within 5 ms of the agent's
+coordinate; after the agent's shutdown and ``run_until_converged`` every
+live in-neighbour holds it dead or left. The fleet flow (a packed
+``SerfSimulation``, n = 256, K = 16, 32 agents): the agents stay alive
+under probing and no sampled observer sees one dead; an agent's event
+reaches every live simulated node and 3/4 of the other agents; a
+simulated query collects ``responses_total >= N - 32 - 2`` with 3/4 of the
+agents answering. (The reference's timing ratio, tests/test_bridge_scale.py:
+140-165, is measured on the card: ``chip_smoke.py``'s ``bridge_main_path``.)
 """
 
 import jax
@@ -55,6 +75,10 @@ from consul_tpu_torch.wire import codec
 from consul_tpu_torch.wire.codec import MessageType
 
 import torch_parity as tp
+from consul_tpu_torch.config import SimConfig as TSimConfig
+from consul_tpu_torch.ops import topology as ttopology
+from consul_tpu_torch.ops import vivaldi as tvivaldi
+from consul_tpu_torch.utils import metrics as tmetrics
 from torch_parity import quick_reference_compiles  # noqa: F401
 
 GOSSIP = dict(suspicion_mult=2, suspicion_max_timeout_mult=2)
@@ -388,7 +412,11 @@ def majority(b, pred) -> bool:
 # ----------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def swim_flow():
+def swim_flow(tmp_path_factory):
+    return tp.shared(tmp_path_factory, "bridge/swim_flow", _swim_flow)
+
+
+def _swim_flow():
     jcfg, tcfg = tp.configs(n=N, view_degree=16, gossip=GOSSIP)
     jsim = JSimulation(jcfg, seed=5)
     sides = make_sides(jsim, tcfg, TSimulation, tp.make_draws_fn(jcfg),
@@ -488,7 +516,11 @@ def test_attach_twice_refused(swim_flow):
 # ----------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def serf_flow():
+def serf_flow(tmp_path_factory):
+    return tp.shared(tmp_path_factory, "bridge/serf_flow", _serf_flow)
+
+
+def _serf_flow():
     jcfg, tcfg = tp.configs(n=SERF_N, view_degree=16, gossip=GOSSIP)
     jsim = JSerfSimulation(jcfg, seed=6)
     sides = make_sides(jsim, tcfg, TSerfSimulation, tp.make_serf_draws_fn(jcfg),
@@ -592,3 +624,232 @@ def test_bridge_refuses_a_mesh():
                       mesh=["cpu"] * 2)
     with pytest.raises(ValueError, match="one device"):
         tbridge.PacketBridge(sim)
+
+
+# ----------------------------------------------------------------------
+# The reference tests' outcomes, on the port's side at their sizes
+# ----------------------------------------------------------------------
+
+REF_BRIDGED = 400               # tests/test_bridge.py:195
+
+
+def in_neighbour_beliefs(st, topo, seat):
+    """(row, incarnation, status) of every live in-neighbour of ``seat``
+    (tests/test_bridge.py:166-178), from a dense SWIM plane."""
+    out = []
+    n = st.alive_truth.shape[0]
+    for j, o in enumerate(topo.off_host):
+        r = (seat - o) % n
+        if bool(st.alive_truth[r]):
+            key = int(st.view_key[r, j])
+            out.append((r, key >> 2, key & 3))
+    return out
+
+
+@pytest.fixture(scope="module")
+def agent_outcomes(tmp_path_factory):
+    return tp.shared(tmp_path_factory, "bridge/agent_outcomes", _agent_outcomes)
+
+
+def _agent_outcomes():
+    """tests/test_bridge.py's joined_world on the port (packed, plain
+    tick, default timeouts): the cluster detects the seat's death; an agent at
+    incarnation 2 rejoins there and runs 400 bridged ticks; then it shuts
+    down and the cluster converges again."""
+    cfg = TSimConfig(n=N, view_degree=16)
+    sim = TSimulation(cfg, seed=5, layout="packed", kernel="torch",
+                      device="cpu")
+    sim.run(64, with_metrics=False)
+    sim.kill(np.arange(N) == SEAT)
+    ok, _, _ = sim.run_until_converged(max_ticks=1024, chunk=128)
+    assert ok, "cluster failed to detect the seat's death"
+    side = Side(sim, tbridge)
+    tr = side.br.attach(SEAT)
+    agent = ScriptedAgent(tr, cfg, incarnation=2, seed=3)
+    side.agents[SEAT] = agent
+    agent.start_join(tbridge.seat_addr((SEAT + 1) % N))
+    sim.run(1, chunk=1, with_metrics=False)
+    side.br.step()
+    agent.finish_join()
+    side.step(REF_BRIDGED)
+    st = sim.swim_state
+    h = tmetrics.health(cfg, sim.topo, st)
+    rec = dict(joined=in_neighbour_beliefs(st, sim.topo, SEAT),
+               false_positive=float(h.false_positive),
+               undetected=float(h.undetected),
+               mirror=st.viv.vec[SEAT].numpy().copy(),
+               agent_vec=agent.vec.copy(), rtts=len(agent.rtt_log))
+    errs = []
+    for peer, _ in agent.rtt_log[-40:]:
+        j = int(peer.split("-")[1])
+        est = float(tvivaldi.distance(
+            torch.tensor(agent.vec, dtype=torch.float32),
+            torch.tensor(agent.height, dtype=torch.float32),
+            torch.tensor(0.0), st.viv.vec[j], st.viv.height[j],
+            st.viv.adjustment[j]))
+        errs.append(est - float(ttopology.true_rtt(sim.world, SEAT, j)))
+    rec["rmse"] = float(np.sqrt(np.mean(np.square(errs))))
+    tr.shutdown()
+    side.agents.clear()
+    side.step(8)
+    rec["alive_after"] = bool(sim.swim_state.alive_truth[SEAT])
+    rec["reconverged"], _, _ = sim.run_until_converged(max_ticks=1024,
+                                                       chunk=128)
+    rec["down"] = in_neighbour_beliefs(sim.swim_state, sim.topo, SEAT)
+    return rec
+
+
+def test_agent_believed_alive_by_every_live_in_neighbour(agent_outcomes):
+    """tests/test_bridge.py:212-218."""
+    live = agent_outcomes["joined"]
+    assert live, "no live in-neighbours"
+    assert all(st == merge.ALIVE and inc >= 2 for _, inc, st in live), live
+
+
+def test_cluster_health_with_the_external_seat(agent_outcomes):
+    """tests/test_bridge.py:220-224."""
+    assert agent_outcomes["false_positive"] == 0.0
+    assert agent_outcomes["undetected"] == 0.0
+
+
+def test_agent_vivaldi_converges(agent_outcomes):
+    """tests/test_bridge.py:226-242."""
+    assert agent_outcomes["rtts"] >= 30, "agent observed too few RTTs"
+    assert agent_outcomes["rmse"] < 0.015, \
+        f"agent coordinate RMSE {agent_outcomes['rmse'] * 1000:.1f} ms"
+
+
+def test_agent_coordinate_mirrored_within_5ms(agent_outcomes):
+    """tests/test_bridge.py:244-254."""
+    mirror, mine = agent_outcomes["mirror"], agent_outcomes["agent_vec"]
+    assert np.linalg.norm(mine) > 0, "agent never moved its coordinate"
+    assert np.linalg.norm(mirror) > 0, "coordinate never mirrored"
+    assert np.linalg.norm(mirror - mine) < 0.005
+
+
+def test_shutdown_held_dead_by_every_live_in_neighbour(agent_outcomes):
+    """tests/test_bridge.py:256-267."""
+    assert agent_outcomes["alive_after"] is False
+    assert agent_outcomes["reconverged"]
+    assert agent_outcomes["down"]
+    assert all(st in (merge.DEAD, merge.LEFT)
+               for _, _, st in agent_outcomes["down"])
+
+
+FLEET_N, FLEET_AGENTS = 256, 32                      # test_bridge_scale.py:20-21
+FLEET_SEATS = list(range(64, 64 + FLEET_AGENTS))
+
+
+class FleetAgent:
+    """tests/test_bridge_scale.py's MiniAgent on the port's codec: acks
+    its probes, acks and answers queries, remembers the events it saw."""
+
+    def __init__(self, name, transport):
+        self.name = name
+        self.tr = transport
+        self.events_seen = []
+        self.queries_answered = []
+
+    def pump(self):
+        while not self.tr.packet_ch.empty():
+            pkt = self.tr.packet_ch.get()
+            try:
+                msgs = codec.decode_packet(pkt.buf)
+            except Exception:  # noqa: BLE001 — hostile bytes: drop
+                continue
+            for mtype, body in msgs:
+                if mtype == MessageType.PING:
+                    ack = codec.encode_message(
+                        MessageType.ACK_RESP,
+                        {"SeqNo": body["SeqNo"], "Payload": b""})
+                    self.tr.write_to(codec.encode_packet([ack]),
+                                     pkt.from_addr)
+                elif mtype == MessageType.USER and "Raw" in body:
+                    self._serf(*codec.decode_serf_message(body["Raw"]))
+
+    def _serf(self, stype, sbody):
+        if stype == codec.SERF_USER_EVENT:
+            self.events_seen.append(str(sbody.get("Name")))
+        elif stype == codec.SERF_QUERY:
+            qid = int(sbody.get("ID", 0))
+            if qid in self.queries_answered:
+                return
+            self.queries_answered.append(qid)
+            origin = codec.as_bytes(sbody.get("Addr", b"")).decode()
+            for flags, payload in ((1, b""), (0, self.name.encode())):
+                resp = codec.encode_serf_message(
+                    codec.SERF_QUERY_RESPONSE,
+                    {"LTime": sbody.get("LTime", 0), "ID": qid,
+                     "From": self.name, "Flags": flags, "Payload": payload})
+                self.tr.write_to(codec.encode_packet([resp]), origin)
+
+
+def _run_fleet(sim, br, agents, ticks):
+    for _ in range(ticks):
+        sim.run(1, chunk=1, with_metrics=False)
+        br.step()
+        for a in agents:
+            a.pump()
+
+
+@pytest.fixture(scope="module")
+def fleet_outcomes(tmp_path_factory):
+    return tp.shared(tmp_path_factory, "bridge/fleet_outcomes", _fleet_outcomes)
+
+
+def _fleet_outcomes():
+    """tests/test_bridge_scale.py's fleet and its three flows, in order, on
+    the port (packed serf plane, plain tick)."""
+    sim = TSerfSimulation(TSimConfig(n=FLEET_N, view_degree=16), seed=9,
+                          layout="packed", kernel="torch", device="cpu")
+    sim.run(8, chunk=8, with_metrics=False)
+    br = tbridge.PacketBridge(sim)
+    agents = [FleetAgent(f"agent-{s}", br.attach(s, replace=True))
+              for s in FLEET_SEATS]
+    rec = {}
+    _run_fleet(sim, br, agents, 120)
+    st = sim.serf_state.swim
+    statuses = merge.key_status(st.view_key).numpy()
+    alive = st.alive_truth.numpy()
+    nbrs = ttopology.nbrs_table(sim.topo).numpy()
+    rec["seats_alive"] = bool(alive[FLEET_SEATS].all())
+    rec["seen_dead"] = sum(
+        int(j in FLEET_SEATS and statuses[i, c] == merge.DEAD)
+        for i in np.nonzero(alive)[0][:64] for c, j in enumerate(nbrs[i]))
+    ev = codec.encode_serf_message(codec.SERF_USER_EVENT, {
+        "LTime": 50, "Name": "fleet-deploy", "Payload": b"x", "CC": True})
+    agents[0].tr.write_to(codec.encode_packet([ev]), tbridge.seat_addr(0))
+    delivered0 = sim.state.ev_delivered.numpy().copy()
+    _run_fleet(sim, br, agents, 60)
+    active = sim.serf_state.swim.alive_truth.numpy().copy()
+    active[FLEET_SEATS] = False  # external seats deliver agent-side
+    rec["gained_min"] = int(
+        (sim.state.ev_delivered.numpy() - delivered0)[active].min())
+    rec["heard"] = sum("fleet-deploy" in a.events_seen
+                       or any("fleet" in e for e in a.events_seen)
+                       for a in agents[1:])
+    sim.query(np.arange(FLEET_N) == 0, name=31)
+    _run_fleet(sim, br, agents, 80)
+    rec["query"] = br.query_status(0)
+    return rec
+
+
+def test_fleet_agents_stay_alive_under_probing(fleet_outcomes):
+    """tests/test_bridge_scale.py:89-107."""
+    assert fleet_outcomes["seats_alive"]
+    assert fleet_outcomes["seen_dead"] == 0
+
+
+def test_fleet_event_reaches_sim_and_other_agents(fleet_outcomes):
+    """tests/test_bridge_scale.py:109-127."""
+    assert fleet_outcomes["gained_min"] >= 1
+    assert fleet_outcomes["heard"] >= (FLEET_AGENTS - 1) * 3 // 4, \
+        fleet_outcomes["heard"]
+
+
+def test_fleet_query_collects_answers(fleet_outcomes):
+    """tests/test_bridge_scale.py:129-139."""
+    st = fleet_outcomes["query"]
+    assert st is not None
+    assert st["responses_total"] >= FLEET_N - FLEET_AGENTS - 2
+    assert len(st["agent_responses"]) >= FLEET_AGENTS * 3 // 4

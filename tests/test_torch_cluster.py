@@ -183,7 +183,12 @@ def test_port_imports_no_jax_and_no_reference():
         ("wire", "keyring.py"), ("wire", "lzw.py"), ("wire", "codec.py"),
         ("wire", "keymanager.py"), ("wire", "bridge.py"),
         ("server", "state_store.py"), ("server", "fsm.py"),
-        ("server", "raft_store.py"), ("server", "raft.py"))} <= rel
+        ("server", "raft_store.py"), ("server", "raft.py"),
+        ("utils", "hcl.py"), ("utils", "health.py"), ("server", "acl.py"),
+        ("server", "connect_ca.py"), ("server", "discovery_chain.py"),
+        ("server", "prepared_query.py"), ("server", "autopilot.py"),
+        ("server", "endpoints.py"), ("server", "leader.py"),
+        ("server", "serf_plumbing.py"))} <= rel
     # The asyncio front end landed with the game day (ROADMAP A19).
     assert os.path.join("consul_tpu_torch", "serving", "frontend.py") in rel
     for path in files:
@@ -191,17 +196,20 @@ def test_port_imports_no_jax_and_no_reference():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "consul_tpu"), (path, mod)
             # The machine with the card has neither package: the codec
-            # carries its own msgpack, and only the keyring's guarded
-            # import may name cryptography.
+            # carries its own msgpack, and only the keyring's and the
+            # Connect CA's guarded imports may name cryptography.
             assert top != "msgpack", (path, mod)
             if top == "cryptography":
-                assert path.endswith(os.path.join("wire", "keyring.py")), path
-    keyring_src = ast.parse(open(os.path.join(
-        REPO, "consul_tpu_torch", "wire", "keyring.py")).read())
-    guarded = [n for n in keyring_src.body if isinstance(n, ast.Try)]
-    assert len(guarded) == 1 and {
-        a.module.split(".")[0] for a in ast.walk(guarded[0])
-        if isinstance(a, ast.ImportFrom)} == {"cryptography"}
-    assert not [n for n in keyring_src.body
-                if isinstance(n, (ast.Import, ast.ImportFrom))
-                and "cryptography" in ast.dump(n)]
+                assert path.endswith((os.path.join("wire", "keyring.py"),
+                                      os.path.join("server", "connect_ca.py"))
+                                     ), path
+    for guarded_mod in (("wire", "keyring.py"), ("server", "connect_ca.py")):
+        src = ast.parse(open(os.path.join(
+            REPO, "consul_tpu_torch", *guarded_mod)).read())
+        guarded = [n for n in src.body if isinstance(n, ast.Try)]
+        assert len(guarded) == 1 and {
+            a.module.split(".")[0] for a in ast.walk(guarded[0])
+            if isinstance(a, ast.ImportFrom)} == {"cryptography"}, guarded_mod
+        assert not [n for n in src.body
+                    if isinstance(n, (ast.Import, ast.ImportFrom))
+                    and "cryptography" in ast.dump(n)], guarded_mod

@@ -58,9 +58,14 @@ def _faults(mod):
 
 
 @pytest.fixture(scope="module")
-def drill():
+def drill(tmp_path_factory):
     """The reference's and the port's drill, round by round; after every
-    sync the numpy trees, counters, link states and read-outs of both."""
+    sync the numpy trees, counters, link states and read-outs of both.
+    Run once per session (``torch_parity.shared``)."""
+    return tp.shared(tmp_path_factory, "dcn/drill", _drill)
+
+
+def _drill():
     jcfg, tcfg = tp.fed_configs(**dict(KW, lan=dict(KW["lan"])))
     jd = jdcn.DcnFederation(jcfg, n_islands=2, seed=0, sink=JSink(),
                             link_policy=jdcn.LinkPolicy(retry_max=3,
@@ -103,18 +108,20 @@ def drill():
         rounds.append(([tp.np_tree(i.state) for i in jd.islands],
                        [i.state for i in td.islands],
                        view(jd, jd.sink), view(td, td.sink)))
-    return jd, td, rounds
+    peaks = dict(bound=td.link_policy.queue_bound, port=td.queue_peak(),
+                 reference=jd.queue_peak())
+    return peaks, rounds
 
 
 def test_islands_match_reference_after_every_sync(drill):
-    _, _, rounds = drill
+    _, rounds = drill
     for r, (ref, got, _, _) in enumerate(rounds):
         for k, (rs, gs) in enumerate(zip(ref, got)):
             tp.assert_fed_close(rs, gs, f"round {r} island {k}")
 
 
 def test_link_envelope_matches_reference(drill):
-    jd, td, rounds = drill
+    peaks, rounds = drill
     for r, (_, _, want, got) in enumerate(rounds):
         assert got == want, f"round {r}"
     final = rounds[-1][3]
@@ -122,9 +129,9 @@ def test_link_envelope_matches_reference(drill):
     # healed, and the replicas agree again within the queue bound.
     assert final["counters"]["heals"] == 2 and final["counters"]["retries"] > 0
     assert final["counters"]["send_timeouts"] > 0
-    assert final["agree"] and final["peak"] <= td.link_policy.queue_bound
+    assert final["agree"] and final["peak"] <= peaks["bound"]
     assert not rounds[2][3]["agree"]
-    assert td.queue_peak() == jd.queue_peak()
+    assert peaks["port"] == peaks["reference"]
 
 
 def _small(n_dc=4):

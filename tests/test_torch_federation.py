@@ -71,11 +71,46 @@ def kill_dense(jcfg, st, dc, mask):
 
 
 @pytest.fixture(scope="module")
-def federation_run():
+def federation_run(tmp_path_factory):
     """The reference's Federation and the port side by side in chunks, and
     the reference's tick rounded through the packed codec with its
     counters (torch_parity.fed_oracle) tick by tick; snapshots of all
-    three at every chunk boundary."""
+    three at every chunk boundary, and both sides' read-outs at the end.
+    Run once per session (``torch_parity.shared``)."""
+    jcfg, tcfg = tp.fed_configs(**KW)
+    points, reads = tp.shared(tmp_path_factory, "federation/run", _run)
+    return jcfg, tcfg, reads["reference"], reads["port"], points
+
+
+class Readouts:
+    """A federation's read-outs after the run, as the tests read them."""
+
+    def __init__(self, fed, cfg, np_tree=lambda x: x):
+        n_dc, spd = cfg.n_dc, cfg.servers_per_dc
+        self._lan = [np_tree(fed.lan_health(dc)) for dc in range(n_dc)]
+        self._wan = np_tree(fed.wan_health())
+        self._coord = {(dc, s): fed.wan_server_coord(dc, s)
+                       for dc in range(n_dc) for s in range(spd)}
+        self._seen = [fed.wan_members_seen_by(o) for o in range(n_dc)]
+        self._order = [fed.true_dc_distance_order(dc) for dc in range(n_dc)]
+
+    def lan_health(self, dc):
+        return self._lan[dc]
+
+    def wan_health(self):
+        return self._wan
+
+    def wan_server_coord(self, dc, s):
+        return self._coord[(dc, s)]
+
+    def wan_members_seen_by(self, obs):
+        return self._seen[obs]
+
+    def true_dc_distance_order(self, dc):
+        return self._order[dc]
+
+
+def _run():
     jcfg, tcfg = tp.fed_configs(**KW)
     jfed = jfed_mod.Federation(jcfg, seed=SEED)
     tfed = tp.port_federation(jcfg, tcfg, jfed)
@@ -107,7 +142,8 @@ def federation_run():
         side.kill_dc(2)
     ost = kill_dense(jcfg, kill_dense(jcfg, ost, 0, victim), 2, everyone)
     advance(AFTER)
-    return jcfg, tcfg, jfed, tfed, points
+    return points, {"reference": Readouts(jfed, jcfg, tp.np_tree),
+                    "port": Readouts(tfed, tcfg)}
 
 
 def test_federation_matches_reference_at_every_chunk_boundary(federation_run):

@@ -41,28 +41,7 @@ N, K, SAMPLES = 256, 16, 2048
 RMSE_RTOL = 1e-6
 
 
-@pytest.fixture(scope="module")
-def states():
-    """Reference packed states (numpy) by case, with the reference's
-    config, world and topology."""
-    jcfg, _ = tp.configs(n=N, view_degree=K, packet_loss=0.01)
-    jsim = JSimulation(jcfg, seed=9, layout="packed")
-    jsim.run(8, chunk=8, with_metrics=False)
-    out = {"formed": (jsim, tp.np_tree(jsim.state))}
-    jsim.kill(np.arange(N) < N // 20)
-    jsim.run(24, chunk=8, with_metrics=False)
-    killed = tp.np_tree(jsim.state)
-    out["after_kill"] = (jsim, killed)
-    jsim.run_scenario([jchaos.Partition(1, 12, side_a=slice(0, N // 4))],
-                      ticks=16, chunk=8)
-    out["schedule"] = (jsim, tp.np_tree(jsim.state))
-    dcfg, _ = tp.configs(n=64)
-    dsim = JSimulation(dcfg, seed=9, layout="packed")
-    dsim.kill(np.arange(64) < 4)
-    dsim.run(16, chunk=8, with_metrics=False)
-    out["dense"] = (dsim, tp.np_tree(dsim.state))
-    out["nan"] = (jsim, killed)
-    return out
+CASES = ["formed", "after_kill", "schedule", "dense", "nan"]
 
 
 def _pairs(key, n):
@@ -71,23 +50,67 @@ def _pairs(key, n):
             np.asarray(jax.random.randint(k2, (SAMPLES,), 0, n)))
 
 
-@pytest.mark.parametrize("case", ["formed", "after_kill", "schedule", "dense",
-                                  "nan"])
-def test_packed_metrics_equal_unpacked_and_reference(states, case):
-    jsim, packed = states[case]
-    jcfg, n = jsim.cfg, jsim.cfg.n
+def _reference_cases():
+    """Per case: the reference's config, world and topology (numpy), its
+    packed state (numpy; the NaN case with a NaN coordinate on a sampled
+    live row), the sampled pairs, and the reference's own health and RMSE
+    on its unpacked view of that state. Once per session
+    (``torch_parity.shared``)."""
+    jcfg, _ = tp.configs(n=N, view_degree=K, packet_loss=0.01)
+    jsim = JSimulation(jcfg, seed=9, layout="packed")
+    jsim.run(8, chunk=8, with_metrics=False)
+    states = {"formed": (jsim, tp.np_tree(jsim.state))}
+    jsim.kill(np.arange(N) < N // 20)
+    jsim.run(24, chunk=8, with_metrics=False)
+    killed = tp.np_tree(jsim.state)
+    states["after_kill"] = (jsim, killed)
+    jsim.run_scenario([jchaos.Partition(1, 12, side_a=slice(0, N // 4))],
+                      ticks=16, chunk=8)
+    states["schedule"] = (jsim, tp.np_tree(jsim.state))
+    dcfg, _ = tp.configs(n=64)
+    dsim = JSimulation(dcfg, seed=9, layout="packed")
+    dsim.kill(np.arange(64) < 4)
+    dsim.run(16, chunk=8, with_metrics=False)
+    states["dense"] = (dsim, tp.np_tree(dsim.state))
+    states["nan"] = (jsim, killed)
+    out = {}
     key = jax.random.PRNGKey(17)
-    i_np, j_np = _pairs(key, n)
-    if case == "nan":
-        alive = np.asarray(packed.flags) & 1
-        s = next(s for s in range(SAMPLES) if i_np[s] != j_np[s]
-                 and alive[i_np[s]] and alive[j_np[s]])
-        vec = np.array(packed.viv.vec, copy=True)
-        vec[i_np[s], 0] = np.nan
-        packed = packed._replace(viv=packed.viv._replace(vec=vec))
-    tcfg = tp.configs(n=n, view_degree=jcfg.view_degree)[1]
-    world = convert.world_from(tp.np_tree(jsim.world))
-    topo = convert.topology_from(tp.np_tree(jsim.topo))
+    for case in CASES:
+        sim, packed = states[case]
+        jc, n = sim.cfg, sim.cfg.n
+        i_np, j_np = _pairs(key, n)
+        if case == "nan":
+            alive = np.asarray(packed.flags) & 1
+            s = next(s for s in range(SAMPLES) if i_np[s] != j_np[s]
+                     and alive[i_np[s]] and alive[j_np[s]])
+            vec = np.array(packed.viv.vec, copy=True)
+            vec[i_np[s], 0] = np.nan
+            packed = packed._replace(viv=packed.viv._replace(vec=vec))
+        # The reference, on its own unpacked view of the same packed state.
+        jdense = jlayout.unpack(jax.tree.map(jnp.asarray, packed))
+        ref_h = tp.np_tree(jmetrics.health(jc, sim.topo, jdense))
+        ref_r = float(jmetrics.vivaldi_rmse(jc, sim.world, jdense, key,
+                                            samples=SAMPLES))
+        out[case] = dict(n=n, view_degree=jc.view_degree, packed=packed,
+                         world=tp.np_tree(sim.world), topo=tp.np_tree(sim.topo),
+                         pairs=(i_np, j_np), health=ref_h, rmse=ref_r)
+    return out
+
+
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    return tp.shared(tmp_path_factory, "metrics/reference_cases",
+                     _reference_cases)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_packed_metrics_equal_unpacked_and_reference(cases, case):
+    c = cases[case]
+    n, packed = c["n"], c["packed"]
+    i_np, j_np = c["pairs"]
+    tcfg = tp.configs(n=n, view_degree=c["view_degree"])[1]
+    world = convert.world_from(c["world"])
+    topo = convert.topology_from(c["topo"])
     tst = convert.packed_state_from(packed)
     i, j = torch.tensor(i_np), torch.tensor(j_np)
 
@@ -107,10 +130,7 @@ def test_packed_metrics_equal_unpacked_and_reference(states, case):
     assert torch.equal(row[:3], torch.stack(list(got_h[:3])))
 
     # The reference, on its own unpacked view of the same packed state.
-    jdense = jlayout.unpack(jax.tree.map(jnp.asarray, packed))
-    ref_h = jmetrics.health(jcfg, jsim.topo, jdense)
-    ref_r = float(jmetrics.vivaldi_rmse(jcfg, jsim.world, jdense, key,
-                                        samples=SAMPLES))
+    ref_h, ref_r = c["health"], c["rmse"]
     for name in ("agreement", "false_positive", "undetected"):
         assert np.float32(getattr(got_h, name)) == np.asarray(getattr(ref_h, name))
     assert int(got_h.live_nodes) == int(ref_h.live_nodes)

@@ -142,21 +142,73 @@ def _assert_rows_equal(got, want):
         assert g["ticks"] == w["ticks"], i
 
 
-@pytest.fixture(scope="module")
-def formed():
-    """family -> (reference sim, port sim), formed once for the module."""
-    return {fam: _formed_pair(jcluster.Simulation, fam) for fam in FAMILIES}
+def _reference_run(fam):
+    """The reference's side of the module for one family, once per
+    session (``torch_parity.shared``): its simulation's world, topology,
+    initial state and key, both sides' ``run_sweep`` rows for each mode
+    from the formed state, its ``family_sweep`` row, and (on the circulant
+    family) its refusal messages."""
+    jsim, tsim = _formed_pair(jcluster.Simulation, fam)
+    rec = dict(rows={}, family=jsweep.family_sweep(
+        jsim, _ref_scens("grid"), ticks=CHUNK, chunk=CHUNK))
+    for mode, make in MODES.items():
+        rec["rows"][mode] = (
+            tsweep.run_sweep(tsim, make(tsweep), ticks=TICKS, chunk=CHUNK),
+            jsweep.run_sweep(jsim, _ref_scens(mode), ticks=TICKS,
+                             chunk=CHUNK))
+    if fam == "circulant":
+        rec["refusals"] = {k: _refusal(jsweep, jchaos, jsim, k)
+                           for k in ("empty", "mixed")}
+    rec["formed_state"] = tp.np_tree(jsim.state)
+    rec["sim"] = dict(world=tp.np_tree(jsim.world),
+                      topo=tp.np_tree(jsim.topo),
+                      base_key=np.asarray(jsim.base_key))
+    return rec
+
+
+class _OnFirstUse(dict):
+    """A mapping whose values are built when first looked up, so a worker
+    builds (or waits for) only the families its tests read, and two
+    workers can build two families at once."""
+
+    def __init__(self, build):
+        super().__init__()
+        self._build = build
+
+    def __missing__(self, key):
+        self[key] = value = self._build(key)
+        return value
 
 
 @pytest.fixture(scope="module")
-def rows(formed):
+def reference_runs(tmp_path_factory):
+    """family -> :func:`_reference_run`'s record."""
+    return _OnFirstUse(lambda fam: tp.shared(
+        tmp_path_factory, f"sweep/reference_run {fam}",
+        functools.partial(_reference_run, fam)))
+
+
+@pytest.fixture(scope="module")
+def formed(reference_runs):
+    """family -> (the reference simulation's formed inputs, the port sim
+    formed from them): the first a stand-in with the reference's config,
+    world, topology, formed state and key ladder."""
+    def build(fam):
+        rec = reference_runs[fam]
+        jcfg, _ = tp.configs(n=N, view_degree=VD, topo_family=fam)
+        ref = types.SimpleNamespace(
+            cfg=jcfg, world=rec["sim"]["world"], topo=rec["sim"]["topo"],
+            state=rec["formed_state"],
+            base_key=jnp.asarray(rec["sim"]["base_key"]))
+        return ref, _port_sim(ref)
+
+    return _OnFirstUse(build)
+
+
+@pytest.fixture(scope="module")
+def rows(reference_runs):
     """(family, mode) -> (the port's run_sweep rows, the reference's)."""
-    return {(fam, mode): (tsweep.run_sweep(tsim, make(tsweep), ticks=TICKS,
-                                           chunk=CHUNK),
-                          jsweep.run_sweep(jsim, _ref_scens(mode),
-                                           ticks=TICKS, chunk=CHUNK))
-            for fam, (jsim, tsim) in formed.items()
-            for mode, make in MODES.items()}
+    return _OnFirstUse(lambda key: reference_runs[key[0]]["rows"][key[1]])
 
 
 def _own_sim(cls=tcluster.Simulation):
@@ -181,11 +233,10 @@ def test_sweep_matches_reference(rows, family, mode):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-def test_family_sweep_matches_reference(formed, family):
+def test_family_sweep_matches_reference(formed, reference_runs, family):
     """One chunk of CHUNK ticks: the reference's executable again."""
-    jsim, tsim = formed[family]
-    want = jsweep.family_sweep(jsim, _ref_scens("grid"), ticks=CHUNK,
-                               chunk=CHUNK)
+    _, tsim = formed[family]
+    want = reference_runs[family]["family"]
     got = tsweep.family_sweep(tsim, tsweep.scenario_grid(N, 3),
                               ticks=CHUNK, chunk=CHUNK)
     assert got == want
@@ -278,8 +329,9 @@ def _refusal(mod, C, sim, kind):
 @pytest.mark.parametrize("kind,match", [("empty", "empty"),
                                         ("dense", "view_degree"),
                                         ("mixed", "pad the short ones")])
-def test_refusals_carry_the_reference_messages(formed, kind, match):
-    jsim, tsim = formed["circulant"]
+def test_refusals_carry_the_reference_messages(formed, reference_runs, kind,
+                                               match):
+    _, tsim = formed["circulant"]
     if kind == "dense":
         # The reference refuses on its simulation's topology alone, so its
         # dense topology stands in for a whole dense simulation.
@@ -287,9 +339,12 @@ def test_refusals_carry_the_reference_messages(formed, kind, match):
         jsim = types.SimpleNamespace(
             cfg=jcfg, topo=jtopology.make_topology(jcfg, jax.random.PRNGKey(0)))
         tsim = tcluster.Simulation(tcfg, seed=0, kernel="torch", device="cpu")
+        want = _refusal(jsweep, jchaos, jsim, kind)
+    else:
+        want = reference_runs["circulant"]["refusals"][kind]
     got = _refusal(tsweep, tchaos, tsim, kind)
     assert match in got
-    assert got == _refusal(jsweep, jchaos, jsim, kind)
+    assert got == want
 
 
 def test_sink_counts_runs_and_scenarios():

@@ -9,6 +9,8 @@ random numbers.
 from __future__ import annotations
 
 import functools
+import hashlib
+import os
 
 import jax
 import numpy as np
@@ -51,6 +53,62 @@ def quick_reference_compiles():
     jax.config.update("jax_disable_most_optimizations", True)
     yield
     jax.config.update("jax_disable_most_optimizations", prev)
+
+
+_SHARED = {}
+
+
+def _own_storage(x):
+    """``x`` with every tensor in it cloned into storage of its own
+    (``torch.save`` refuses tensors that view one storage as two dtypes,
+    as the packed leaves' same-width views do)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_own_storage(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_own_storage(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _own_storage(v) for k, v in x.items()}
+    if hasattr(x, "__dict__") and not isinstance(x, type):
+        x.__dict__.update(_own_storage(vars(x)))
+    return x
+
+
+def shared(tmp_path_factory, key: str, build):
+    """``build()``'s value, built once per test session and shared by
+    every xdist worker: the first worker to ask builds it under a file
+    lock in the session's common temporary directory
+    (``getbasetemp().parent``) and saves it there with ``torch.save``; the
+    others load it. Within one process the value is kept in memory.
+    ``key`` names the run by its inputs (config, seed, ticks); the value
+    must pickle (numpy arrays, tensors, plain containers, module-level
+    classes). A run outside xdist builds in process.
+
+    The reference's runs are what the port's tests spend most of their
+    time on (compiling its programs on the CPU); under ``--dist load`` a
+    module's tests land on several workers, and each would otherwise build
+    the same reference run again."""
+    if key in _SHARED:
+        return _SHARED[key]
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        value = build()
+    else:
+        from filelock import FileLock
+
+        root = tmp_path_factory.getbasetemp().parent / "torch_parity_shared"
+        root.mkdir(exist_ok=True)
+        path = root / hashlib.sha256(key.encode()).hexdigest()[:24]
+        with FileLock(str(path) + ".lock"):
+            if path.exists():
+                value = torch.load(path, weights_only=False)
+            else:
+                value = build()
+                tmp = path.with_suffix(".tmp")
+                torch.save(_own_storage(value), tmp)
+                os.replace(tmp, path)
+    _SHARED[key] = value
+    return value
 
 
 # Vivaldi floats of the plain step against the reference, both in f32 on
@@ -98,6 +156,23 @@ def setup(n, view_degree, seed=3, **kw):
     return jcfg, tcfg, world, topo, j_state.init(jcfg, ks)
 
 
+def _per_config(make):
+    """``make(jcfg, chaos)`` built once per equal config in a process: the
+    jitted function keeps its compiled program, so the tests of a worker
+    that draw for the same config compile it once."""
+    made = {}
+
+    @functools.wraps(make)
+    def cached(jcfg, chaos=False):
+        key = (jcfg, bool(chaos))
+        if key not in made:
+            made[key] = make(jcfg, chaos=chaos)
+        return made[key]
+
+    return cached
+
+
+@_per_config
 def make_draws_fn(jcfg, chaos=False):
     """A jitted function: tick key -> the tick's draws as numpy arrays,
     split exactly as swim.step_counted and its helpers split the key.
@@ -154,6 +229,7 @@ def _response_draws(jcfg, chaos, k_resp):
     return out
 
 
+@_per_config
 def make_serf_draws_fn(jcfg, chaos=False):
     """A jitted function: tick key -> the serf tick's draws as numpy
     arrays: ``k_swim, k_ev = split(key)``, the SWIM ladder on ``k_swim``,
@@ -169,6 +245,7 @@ def make_serf_draws_fn(jcfg, chaos=False):
     return draws
 
 
+@_per_config
 def make_reference_serf_draws_fn(jcfg, chaos=False):
     """A jitted function: tick key -> the pre-fusion serf tick's draws
     (``serf.step_reference_counted``) as numpy arrays: ``k_swim, k_ev =
